@@ -1,0 +1,60 @@
+// Shared helpers for the port's hand-written kernels: dtype conversion,
+// paired loads and warp reductions. Every kernel accumulates in float32;
+// the element type T is float or __nv_bfloat16.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace vita {
+
+// dtype codes shared with the Python wrappers (vita_tpu_torch/kernels.py)
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Two consecutive elements as floats; p must be aligned to two elements.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// exp(s - m) for a masked score s = -inf gives 0 without evaluating
+// exp(-inf - -inf) on rows that have seen no valid key yet.
+__device__ __forceinline__ float masked_exp(float s, float m) {
+  return s == -INFINITY ? 0.f : expf(s - m);
+}
+
+// Rescale factor of an online softmax when the running max moves from
+// m_old to m_new; a row with no valid key so far has nothing to rescale.
+__device__ __forceinline__ float rescale(float m_old, float m_new) {
+  return m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+}
+
+}  // namespace vita
