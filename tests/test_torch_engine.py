@@ -1,13 +1,18 @@
 """PyTorch port: the serving Engine as a whole against the JAX Engine, same
-weights, greedy decoding, selected-expert decode; the streamed tokens must
-be identical. The JAX side keeps attn_backend='xla', the flash kernel's
-exact twin on the CPU."""
+weights, greedy decoding, selected-expert decode (bf16 experts, or int8 /
+int4 experts with int8 KV pages); the streamed tokens must be identical.
+The JAX side keeps attn_backend='xla', the flash kernel's exact twin on
+the CPU, and runs the quantized modes in Pallas interpret mode, so its
+expert FFN computes what the TPU kernels compute."""
 
+import contextlib
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from torch_port_util import normal
 from vita_tpu import generate as j_gen
@@ -17,6 +22,7 @@ from vita_tpu.serve import engine as j_engine
 from vita_tpu_torch import generate, tokenization
 from vita_tpu_torch.convert import from_jax_params
 from vita_tpu_torch.models import vita
+from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.serve import engine
 
 
@@ -29,20 +35,24 @@ def models():
     return jcfg, jp, tcfg, from_jax_params(jax.device_get(jp), tcfg)
 
 
-def _serve(models, req_kws, **engine_kw):
+def _serve(models, req_kws, decode_moe_mode="gather", **engine_kw):
     """Run the same requests through both engines, checking that each
     stream's callbacks saw its tokens; returns (jax streams, port streams,
-    jax engine, port engine)."""
+    jax engine, port engine). Quantized decode modes run the JAX engine in
+    Pallas interpret mode."""
     jcfg, jp, tcfg, tp = models
     out = []
     for mod, params, cfg in ((j_engine, jp, jcfg), (engine, tp, tcfg)):
-        eng = mod.Engine(params, cfg, decode_moe_mode="gather", **engine_kw)
-        streamed = [[] for _ in req_kws]
-        reqs = [mod.Request(eos_id=-1, on_token=streamed[i].append, **kw)
-                for i, kw in enumerate(req_kws)]
-        for r in reqs:
-            eng.submit(r)
-        eng.run_until_idle()
+        ctx = (pltpu.force_tpu_interpret_mode()
+               if mod is j_engine and decode_moe_mode != "gather" else contextlib.nullcontext())
+        with ctx:
+            eng = mod.Engine(params, cfg, decode_moe_mode=decode_moe_mode, **engine_kw)
+            streamed = [[] for _ in req_kws]
+            reqs = [mod.Request(eos_id=-1, on_token=streamed[i].append, **kw)
+                    for i, kw in enumerate(req_kws)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
         assert streamed == [r.tokens for r in reqs]
         out.append(([r.tokens for r in reqs], eng))
     (jt, je), (tt, te) = out
@@ -154,13 +164,53 @@ def test_eos_and_capacity_guard(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(kv_int8=True), dict(decode_moe_mode="gather_q4"),
+    dict(mesh=object()), dict(decode_moe_mode="sort"), dict(prefill_moe_mode="capacity"),
     dict(decode_moe_mode="capacity"), dict(prefill_moe_mode="gmm"),
 ])
 def test_unported_options_raise(models, kw):
     _, _, tcfg, tp = models
     with pytest.raises(NotImplementedError):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
+
+
+@pytest.mark.parametrize("mode", ["gather_q", "gather_q4"])
+def test_quantized_engine_one_text_request(models, mode):
+    """int8 / int4 experts with int8 KV pages: the reference's production
+    serving pair."""
+    rng = np.random.default_rng(6)
+    jt, tt, je, te = _serve(models, [_text(rng, 9, 12)], decode_moe_mode=mode, kv_int8=True,
+                            n_slots=2, max_len=64)
+    assert tt == jt and len(tt[0]) == 12
+    assert te.cache["k_pages"].dtype == torch.int8 and "k_scale" in te.cache
+    moe = te._decode_llm["layers"]["moe"]
+    assert moe["w_gate"].dtype == torch.int8 and "w_gate_scale" in moe
+
+
+@pytest.mark.parametrize("mode", ["gather_q", "gather_q4"])
+def test_quantized_engine_batch_of_eight(models, mode, monkeypatch):
+    """Eight concurrent requests on eight slots: decode batches reach 8, so
+    the masked schedule runs for int8 (T >= 4) and for int4 (T >= 8)."""
+    batches, masked = [], []
+    real_chunk, real_masked = engine.decode_chunk, moe_decode.masked_expert_ffn_q_plain
+
+    def spy_chunk(params, cache, tok, *a, **kw):
+        batches.append(tok.shape[0])
+        return real_chunk(params, cache, tok, *a, **kw)
+
+    def spy_masked(x, act, m, qparams, bits):
+        masked.append((x.shape[0], bits))
+        return real_masked(x, act, m, qparams, bits)
+
+    monkeypatch.setattr(engine, "decode_chunk", spy_chunk)
+    monkeypatch.setattr(moe_decode, "masked_expert_ffn_q_plain", spy_masked)
+    rng = np.random.default_rng(7)
+    reqs = [_text(rng, n, 16) for n in (9, 14, 5, 20, 11, 7, 16, 3)]
+    jt, tt, _, _ = _serve(models, reqs, decode_moe_mode=mode, kv_int8=True, n_slots=8,
+                          max_len=64, page_size=8, prompt_buckets=(16, 32),
+                          decode_chunk_len=2, max_concurrent_prefills=4)
+    assert tt == jt and all(len(x) == 16 for x in tt)
+    assert max(batches) == 8
+    assert (8, 4 if mode == "gather_q4" else 8) in masked
 
 
 def test_session_key_and_bad_modes_raise(models):

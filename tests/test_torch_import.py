@@ -71,6 +71,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         moe_decode.gather_expert_ffn_cuda(torch.zeros(1, 8), torch.zeros(1, 2, dtype=torch.int32),
                                           w, w, w.transpose(1, 2).contiguous())
+    qpool = paged_attention.init_page_pool(1, 2, 2, 8, 128, quantized=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention_cuda(torch.zeros(1, 2, 128), qpool["k_pages"],
+                                             qpool["v_pages"], torch.zeros(1, 2, dtype=torch.int32),
+                                             lens, 0, 1.0, qpool["k_scale"], qpool["v_scale"])
+    p = {"router": torch.zeros(8, 2), "w_gate": w, "w_up": w, "w_down": w.transpose(1, 2).contiguous()}
+    idx = torch.zeros(4, 2, dtype=torch.int32)
+    for q, bits in ((moe_decode.quantize_expert_weights(p), 8),
+                    (moe_decode.quantize_expert_weights_int4(p), 4)):
+        with pytest.raises(ValueError, match="CUDA"):
+            moe_decode.gather_expert_ffn_q_cuda(torch.zeros(4, 8), idx, q, bits)
+        act, m = moe_decode._active_expert_plan(torch.ones(4, 2), idx, 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            moe_decode.masked_expert_ffn_q_cuda(torch.zeros(4, 8), act, m, q, bits)
     with pytest.raises(ValueError, match="no kernel"):
         kernels.on_cuda(torch.zeros(1, device="meta"))
     assert kernels.launches == before
@@ -80,4 +94,6 @@ def test_library_path_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert json.dumps(sorted(kernels.launches)) == json.dumps(
-        ["flash_fwd", "gather_expert_ffn", "masked_expert_ffn", "paged_attention"])
+        ["flash_fwd", "gather_expert_ffn", "gather_expert_ffn_q", "gather_expert_ffn_q4",
+         "masked_expert_ffn", "masked_expert_ffn_q", "masked_expert_ffn_q4", "paged_attention",
+         "paged_attention_q"])

@@ -122,6 +122,63 @@ def test_mixtral_paged_decode(tiny, moe_mode):
     np.testing.assert_array_equal(nc["pos"].numpy(), pos + 1)
 
 
+@pytest.mark.parametrize("moe_mode", ["gather_q", "gather_q4"])
+def test_mixtral_paged_decode_quantized(tiny, moe_mode):
+    """One decode step over an int8 page pool with int8/int4 experts. Both
+    sides run JAX's own quantized weights (carried over by
+    from_jax_params); slot 2 is inactive. The pool's pages and scales are
+    updated in place. The new k/v rows come from float32 matmuls whose last
+    bits differ between the frameworks, so scales agree to float32
+    tolerance and int8 values within one step (bit identity on equal
+    inputs is test_torch_paged_attention_q.py's)."""
+    jcfg, jp, tcfg, _ = tiny
+    jc, tc = _llm_cfgs(tiny, moe_mode=moe_mode)
+    jq = j_mix.quantize_moe_for_decode(jp["llm"], bits=4 if moe_mode == "gather_q4" else 8)
+    tq = from_jax_params(jax.device_get(jq), tcfg.llm)
+    assert tq["layers"]["moe"]["w_gate"].dtype == torch.int8
+    rng = np.random.default_rng(3)
+    n_pool, page = 6, 8
+    shape = (jc.n_layers, jc.n_kv_heads, n_pool, page, jc.head_dim)
+    sshape = (jc.n_layers, jc.n_kv_heads, n_pool, 1, page)
+    pool = {"k_pages": rng.integers(-127, 128, shape).astype(np.int8),
+            "v_pages": rng.integers(-127, 128, shape).astype(np.int8),
+            "k_scale": (rng.random(sshape) * 0.02).astype(np.float32),
+            "v_scale": (rng.random(sshape) * 0.02).astype(np.float32)}
+    table = np.array([[0, 1, n_pool], [2, 3, n_pool], [4, n_pool, n_pool]], np.int32)
+    pos = np.array([11, 8, 3], np.int32)
+    active = np.array([True, True, False])
+    ids = rng.integers(0, 512, (3, 1)).astype(np.int32)
+    tpool = {k: t(v) for k, v in pool.items()}
+    got, nc, _ = mixtral.forward(
+        tq, tc, input_ids=t(ids), positions=t(pos[:, None]),
+        cache={**tpool, "table": t(table), "pos": t(pos), "active": t(active)})
+    with pltpu.force_tpu_interpret_mode():
+        want, jnc, _ = j_mix.forward(
+            jq, jc, input_ids=jnp.asarray(ids), positions=jnp.asarray(pos[:, None]),
+            cache={**{k: jnp.asarray(v) for k, v in pool.items()}, "table": jnp.asarray(table),
+                   "pos": jnp.asarray(pos), "active": jnp.asarray(active)})
+    close(got, want)
+    for name in pool:
+        assert nc[name] is tpool[name]
+        got_p, want_p = tpool[name].numpy(), np.asarray(jnc[name])
+        if name.endswith("scale"):
+            close(got_p, want_p, atol=1e-9, rtol=1e-6)
+        else:
+            assert np.abs(got_p.astype(np.int32) - want_p).max() <= 1
+        assert (got_p != pool[name]).sum() == (want_p != pool[name]).sum() > 0
+
+
+def test_convert_quantized_params_checks_shapes(tiny):
+    _, jp, tcfg, _ = tiny
+    jq = jax.device_get(j_mix.quantize_moe_for_decode(jp["llm"], bits=4))
+    tq = from_jax_params(jq, tcfg.llm)
+    assert tq["layers"]["moe"]["w_down"].shape == (2, 4, 128, 32)
+    moe_bad = dict(jq["layers"]["moe"], w_up_scale=jq["layers"]["moe"]["w_up_scale"][..., :5])
+    bad = dict(jq, layers=dict(jq["layers"], moe=moe_bad))
+    with pytest.raises(ValueError, match="w_up_scale"):
+        from_jax_params(bad, tcfg.llm)
+
+
 def test_mixtral_unported_moe_mode_raises(tiny):
     _, tc = _llm_cfgs(tiny, moe_mode="gmm")
     with pytest.raises(NotImplementedError, match="gmm"):

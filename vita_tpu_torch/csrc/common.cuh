@@ -15,6 +15,12 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// x rounded to the nearest bfloat16 (ties to even), as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

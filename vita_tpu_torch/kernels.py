@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in ``vita_tpu_torch/csrc/*.cu`` expose a plain C interface.
-At first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/kernels/`` at the repository root (named by a hash
-of the sources, so an edited source rebuilds), and loaded with ``ctypes``.
+At first use each is compiled by its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library under
+``build/kernels/`` at the repository root (named by a hash of the sources,
+so an edited source rebuilds), which is loaded with ``ctypes``.
 Nothing is built or loaded at import time: the CPU-only test runs import
 every module of the package.
 
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -30,17 +31,24 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# expert weight formats of csrc/expert_ffn.cu
+WFMT_PLAIN, WFMT_INT8, WFMT_INT4 = 0, 1, 2
 
 launches: Dict[str, int] = {
     "flash_fwd": 0,
     "paged_attention": 0,
+    "paged_attention_q": 0,
     "gather_expert_ffn": 0,
     "masked_expert_ffn": 0,
+    "gather_expert_ffn_q": 0,
+    "gather_expert_ffn_q4": 0,
+    "masked_expert_ffn_q": 0,
+    "masked_expert_ffn_q4": 0,
 }
 
 _lib = None
@@ -55,8 +63,12 @@ _SIGNATURES = {
     # q, k_pages, v_pages, o, tables, lengths, B, layer, Hq, Hkv, n_pool,
     # page, max_pages, scale, dtype, stream
     "vita_paged_attn": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    # x, eids, toks, w_gate, w_up, w_down, h, y, R, nt, D, F, dtype, stream
-    "vita_expert_ffn": [_P] * 8 + [_I] * 5 + [_P],
+    # q, k_pages, v_pages, k_scale, v_scale, o, tables, lengths, B, layer,
+    # Hq, Hkv, n_pool, page, max_pages, scale, dtype, stream
+    "vita_paged_attn_q": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, n_sg, n_sd,
+    # h, y, R, nt, D, F, dtype, wfmt, stream
+    "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
 }
 
 
@@ -82,24 +94,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvita_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> List[str]:
+    """Run the commands at once and return their output; raise with the
+    first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed with exit code "
+                               f"{p.returncode}:\n{text}")
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists.
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
     kernel) and prints the compiler's output."""
     out = library_path()
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    ptxas = ("-Xptxas", "-v") if verbose else ()
+    logs = _run_all([[_nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(sources, objs)])
+    tmp = out.with_name(f"{tag}.tmp")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+        print("".join(logs), flush=True)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

@@ -10,10 +10,13 @@ lm_head [D, V]. The layer loop is a Python loop.
   - cacheless (whole sequence, causal + validity mask);
   - linear scratch {'k','v','pos'} [L, B, S_max, Hkv, hd]: a prefill chunk
     writes its rows into the scratch IN PLACE and attends over it;
-  - paged pool {'k_pages','v_pages','table','pos'[,'active']}: single-token
-    decode against ops.paged_attention, pool updated IN PLACE.
-MoE runs ``dense`` (every expert, exact) or ``gather`` (selected experts
-only, ops.moe_decode over flat layer*E+e ids into the stacked weights).
+  - paged pool {'k_pages','v_pages','table','pos'[,'active']} (an int8
+    pool adds 'k_scale','v_scale'): single-token decode against
+    ops.paged_attention, pool updated IN PLACE.
+MoE runs ``dense`` (every expert, exact) or a selected-expert decode mode
+through ops.moe_decode over flat layer*E+e ids into the stacked weights:
+``gather`` (weights as they are), ``gather_q`` / ``gather_q4`` (expert
+weights from ``quantize_moe_for_decode``, int8 / int4).
 
 Shapes follow the deployed VITA config
 (web_demo/vllm_tools/model_weight_file/config.json:17-44): 32L, 4096d,
@@ -29,15 +32,13 @@ import torch
 
 from vita_tpu_torch.ops.attention import NEG_INF, mha_xla
 from vita_tpu_torch.ops.flash_attention import flash_mha
-from vita_tpu_torch.ops.moe import load_balancing_loss, moe_ffn, route_topk
-from vita_tpu_torch.ops.moe_decode import masked_expert_ffn
+from vita_tpu_torch.ops.moe import GATHER_MODES, MODES, load_balancing_loss, moe_ffn, route_topk
+from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.ops.norms import rms_norm
 from vita_tpu_torch.ops.paged_attention import paged_attention, write_kv_rows
 from vita_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, Any]
-
-MOE_MODES = ("dense", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +53,7 @@ class MixtralConfig:
     top_k: int = 2
     rope_theta: float = 1e6
     rms_eps: float = 1e-5
-    moe_mode: str = "dense"  # 'dense' | 'gather'
+    moe_mode: str = "dense"  # 'dense' | 'gather' | 'gather_q' | 'gather_q4'
     attn_backend: str = "xla"  # 'xla' | 'flash'
     dtype: torch.dtype = torch.float32
 
@@ -107,6 +108,19 @@ def init_params(cfg: MixtralConfig, generator: torch.Generator, device=None) -> 
         "ln_final": ones(d),
         "lm_head": nrm((d, cfg.vocab_size), s),
     }
+
+
+def quantize_moe_for_decode(params: Params, bits: int = 8) -> Params:
+    """Weight-only quantization of every layer's expert weights for the
+    'gather_q' (bits 8) or 'gather_q4' (bits 4, per-channel scales) decode
+    modes. Every other tensor is shared with ``params``, not copied."""
+    if bits == 8:
+        qmoe = moe_decode.quantize_expert_weights(params["layers"]["moe"])
+    elif bits == 4:
+        qmoe = moe_decode.quantize_expert_weights_int4(params["layers"]["moe"])
+    else:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    return {**params, "layers": {**params["layers"], "moe": qmoe}}
 
 
 def _qkv(lp: Params, cfg: MixtralConfig, x, positions):
@@ -172,20 +186,24 @@ def _attention_block_paged(
     layer_idx: int,
 ) -> torch.Tensor:
     """Decode attention against the paged pool; writes this token's kv row
-    first (inactive slots are dropped and attend nothing)."""
+    first (inactive slots are dropped and attend nothing). An int8 pool
+    (scales in the cache) quantizes the row on the way in and keeps q in
+    x's dtype."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError("paged cache supports single-token decode only")
     q, k, v = _qkv(lp, cfg, x, positions)
     pos, active = cache["pos"], cache.get("active")
+    ks, vs = cache.get("k_scale"), cache.get("v_scale")
     write_kv_rows(cache["k_pages"], cache["v_pages"], layer_idx, cache["table"],
-                  pos, k[:, 0], v[:, 0], active)
+                  pos, k[:, 0], v[:, 0], active, k_scale=ks, v_scale=vs)
     lengths = pos + 1
     if active is not None:
         lengths = torch.where(active, lengths, 0)
+    q_dt = x.dtype if ks is not None else cache["k_pages"].dtype
     out = paged_attention(
-        q[:, 0].to(cache["k_pages"].dtype), cache["k_pages"], cache["v_pages"],
-        cache["table"], lengths, layer_idx,
+        q[:, 0].to(q_dt), cache["k_pages"], cache["v_pages"],
+        cache["table"], lengths, layer_idx, k_scale=ks, v_scale=vs,
     ).to(x.dtype)
     return out.reshape(b, s, -1) @ lp["wo"]
 
@@ -194,10 +212,9 @@ def _moe_gather_layer(h2d, router, flat_w, layer_idx: int, cfg: MixtralConfig, t
     router_logits = h2d.float() @ router.float()
     topk_w, topk_i, probs = route_topk(router_logits, cfg.top_k)
     aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat)
-    out = masked_expert_ffn(
-        h2d, topk_w, topk_i + layer_idx * cfg.n_experts,
-        flat_w["w_gate"], flat_w["w_up"], flat_w["w_down"], n_experts=cfg.n_experts,
-    )
+    idx = topk_i + layer_idx * cfg.n_experts
+    out = moe_decode.selected_expert_ffn(cfg.moe_mode, h2d, topk_w, idx, flat_w,
+                                         n_experts=cfg.n_experts)
     return out.to(h2d.dtype), aux
 
 
@@ -217,9 +234,9 @@ def forward(
     cache with the advanced ``pos`` or None, moe_aux_loss scalar).
 
     Cache tensors are updated in place and returned in the new cache."""
-    if cfg.moe_mode not in MOE_MODES:
+    if cfg.moe_mode not in MODES:
         raise NotImplementedError(
-            f"moe_mode {cfg.moe_mode!r} is not ported; use one of {MOE_MODES}"
+            f"moe_mode {cfg.moe_mode!r} is not ported; use one of {MODES}"
         )
     paged = cache is not None and "k_pages" in cache
     if inputs_embeds is None:
@@ -235,7 +252,8 @@ def forward(
     tm_flat = None if token_mask is None else token_mask.reshape(-1)
 
     layers = params["layers"]
-    gather = cfg.moe_mode == "gather"
+    gather = cfg.moe_mode in GATHER_MODES
+    # expert weights (and quantization scales) as flat [L*E, ...] views
     flat_w = ({k: v.flatten(0, 1) for k, v in layers["moe"].items() if k != "router"}
               if gather else None)
     x = inputs_embeds

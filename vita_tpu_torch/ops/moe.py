@@ -4,10 +4,12 @@ Routing follows Mixtral: softmax over all experts in float32, top-k, then
 the k weights renormalised to sum to 1. Expert weights keep the JAX
 layout: router [D, E], w_gate/w_up [E, D, F], w_down [E, F, D].
 
-Only ``mode="dense"`` is here (every expert on every token, weighted by the
-zeroed router weights; exact, used for prefill). The decode path with
-selected experts is ops.moe_decode; the capacity/sort/gmm training modes
-are not ported yet.
+``mode="dense"`` runs every expert on every token, weighted by the zeroed
+router weights (exact, used for prefill). The decode modes ``gather``,
+``gather_q`` and ``gather_q4`` run only the selected experts through
+ops.moe_decode (``gather_q``/``gather_q4`` take params quantized by
+moe_decode.quantize_expert_weights / quantize_expert_weights_int4). The
+capacity/sort/gmm training modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# selected-expert decode modes (ops.moe_decode.selected_expert_ffn)
+GATHER_MODES = ("gather", "gather_q", "gather_q4")
+MODES = ("dense",) + GATHER_MODES
 
 
 def route_topk(
@@ -63,16 +69,18 @@ def moe_ffn(
     token_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, D], aux_loss scalar)."""
-    if mode != "dense":
-        raise NotImplementedError(
-            f"moe_ffn mode {mode!r} is not ported; only 'dense' is (the "
-            "selected-expert decode path is ops.moe_decode)"
-        )
+    if mode not in MODES:
+        raise NotImplementedError(f"moe_ffn mode {mode!r} is not ported; ported: {MODES}")
     t, d = x.shape
     e = params["w_gate"].shape[0]
     router_logits = x.float() @ params["router"].float()
     topk_w, topk_i, probs = route_topk(router_logits, top_k)
     aux = load_balancing_loss(probs, topk_i, e, token_mask)
+    if mode != "dense":
+        from vita_tpu_torch.ops import moe_decode as md
+
+        out = md.selected_expert_ffn(mode, x, topk_w, topk_i, params, n_experts=e)
+        return out.to(x.dtype), aux
     w_full = torch.zeros(t, e, dtype=torch.float32, device=x.device)
     w_full.scatter_add_(1, topk_i.long(), topk_w)
     out_e = _expert_ffn(params, x.expand(e, t, d))  # [E, T, D]

@@ -76,7 +76,7 @@ def sample_tokens(
 @torch.no_grad()
 def decode_chunk(
     llm_params: Dict[str, Any],
-    cache: Dict[str, Any],  # {'k_pages','v_pages','table','pos'}
+    cache: Dict[str, Any],  # {'k_pages','v_pages'[,'k_scale','v_scale'],'table','pos'}
     tok: torch.Tensor,  # [B] int32 — last sampled, kv not yet written
     pos: torch.Tensor,  # [B] int32 — cache row each slot writes next
     active: torch.Tensor,  # [B] bool
@@ -93,7 +93,9 @@ def decode_chunk(
     pool in place.
 
     Emits the *fed* token at each step (the last step's sample is returned
-    as the new ``tok``). Inactive slots neither write kv nor attend.
+    as the new ``tok``). Inactive slots neither write kv nor attend. An
+    int8 pool's scale tensors ride in the cache and are updated in place
+    with the pages.
     Returns (cache with the advanced ``pos``, tokens [B, chunk_len],
     next_tok [B])."""
     if "k_pages" not in cache:

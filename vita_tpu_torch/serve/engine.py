@@ -18,12 +18,17 @@ prefill (vita_tpu.serve.engine, single-device path).
   host reads the tokens back (one ``.cpu()`` per tick).
 - Prompts, image tiles and audio frames pad to fixed buckets, as in the
   JAX package.
+- Quantized serving: ``decode_moe_mode='gather_q'`` / ``'gather_q4'``
+  decode from an int8 / int4 copy of the expert weights
+  (mixtral.quantize_moe_for_decode) while prefill keeps the bf16 weights,
+  so both copies are resident; ``kv_int8=True`` keeps the page pool in
+  int8 with per-(row, head) scales.
 
 Requests stream tokens to callbacks and can be cancelled mid-decode.
 Options of the JAX engine that are not ported raise NotImplementedError:
-a mesh (tensor, expert or pipeline parallel serving), ``kv_int8``, the
-quantized decode modes, the capacity/sort/gmm prefill modes and
-``session_key`` prefix reuse.
+a mesh (tensor, expert or pipeline parallel serving), the capacity/sort
+decode modes, the capacity/sort/gmm prefill modes and ``session_key``
+prefix reuse.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from vita_tpu_torch.generate import (
     stack_speech_clips,
 )
 from vita_tpu_torch.models import mixtral, vita
+from vita_tpu_torch.ops.moe import MODES
 from vita_tpu_torch.ops.paged_attention import (
     PagePool,
     init_page_pool,
@@ -56,9 +62,9 @@ from vita_tpu_torch.ops.paged_attention import (
 from vita_tpu_torch.sampling import choose_sampling_mode, decode_chunk, sample_tokens
 from vita_tpu_torch.tokenization import audio_select_arrays, pad_to_bucket
 
-DECODE_MOE_MODES = ("dense", "gather")
+DECODE_MOE_MODES = MODES
 PREFILL_MOE_MODES = ("dense",)
-_JAX_ONLY_DECODE = ("capacity", "sort", "gather_q", "gather_q4")
+_JAX_ONLY_DECODE = ("capacity", "sort")
 _JAX_ONLY_PREFILL = ("capacity", "sort", "gmm")
 
 
@@ -178,8 +184,6 @@ class Engine:
                 "mesh serving (tensor/expert/pipeline parallel) is not ported; "
                 "the engine runs on one device"
             )
-        if kv_int8:
-            raise NotImplementedError("kv_int8 (int8 KV pages) is not ported")
         if decode_moe_mode is None:
             decode_moe_mode = "gather" if cfg.llm.moe_mode == "gmm" else cfg.llm.moe_mode
         if prefill_moe_mode is None:
@@ -215,6 +219,11 @@ class Engine:
         self.frame_buckets = tuple(sorted(frame_buckets))
         self._decode_cfg = dataclasses.replace(cfg.llm, moe_mode=decode_moe_mode)
         self._prefill_cfg = dataclasses.replace(cfg.llm, moe_mode=prefill_moe_mode)
+        if decode_moe_mode in ("gather_q", "gather_q4"):
+            self._decode_llm = mixtral.quantize_moe_for_decode(
+                params["llm"], bits=4 if decode_moe_mode == "gather_q4" else 8)
+        else:
+            self._decode_llm = params["llm"]
 
         llm = cfg.llm
         self.max_pages_per_slot = pages_needed(max_len, page_size)
@@ -225,7 +234,7 @@ class Engine:
         self._table_np = np.zeros((n_slots, self.max_pages_per_slot), np.int32)
         self.cache = init_page_pool(
             llm.n_layers, llm.n_kv_heads, total_pages, page_size, llm.head_dim,
-            dtype=llm.dtype, device=self.device,
+            dtype=llm.dtype, device=self.device, quantized=kv_int8,
         )
 
         # host-side slot state
@@ -434,7 +443,8 @@ class Engine:
         use = min(n_pp, len(job.pages))
         ids[:use] = job.pages[:use]
         install_prefill_pages(self.cache["k_pages"], self.cache["v_pages"],
-                              job.sk, job.sv, self._tensor(ids))
+                              job.sk, job.sv, self._tensor(ids),
+                              self.cache.get("k_scale"), self.cache.get("v_scale"))
         slot, req = job.slot, job.req
         # unused table entries hold an out-of-range page id: decode writes
         # past the allocation must drop, not land in another request's page
@@ -539,7 +549,7 @@ class Engine:
         active[:na] = True
         mode = choose_sampling_mode(self._temps[idx[:na]], self._topk[idx[:na]],
                                     self._topp[idx[:na]])
-        cache = dict(self.cache)
+        cache = dict(self.cache)  # pool (+ scales when kv_int8)
         cache["table"] = self._tensor(self._table_np[idx])
         pos = self._tensor(self.pos[idx])
         args = (self._tensor(active), self._tensor(self._temps[idx]),
@@ -548,7 +558,7 @@ class Engine:
         parts = []
         for _ in range(ticks):
             cache, toks, tok = decode_chunk(
-                self.params["llm"], cache, tok, pos, *args, self._generator,
+                self._decode_llm, cache, tok, pos, *args, self._generator,
                 llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
                 sampling_mode=mode,
             )
