@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_probe.py profile   # where served decode's time goes
     python3 chip_probe.py warps     # warps per block of csrc/expert_ffn.cu
+    python3 chip_probe.py gmm       # where the Generator's gmm prefill goes
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -20,6 +21,10 @@ against the plain versions, then timed on the same inputs (CUDA events,
 median of 25 after 3 warm-ups, two passes in opposite orders): the gather
 schedule at T 1 and the masked one at T 4 (int4: 8), in bf16, int8 and
 int4, at the serving width (D 4096, F 14336, 8 experts).
+
+gmm: chip_smoke.py's slice through Generator (max_len 12288, gmm prefill)
+on a prompt of 8500 tokens with one new token, under torch.profiler after
+a warm-up, summarised as profile summarises.
 
 Each prints the card's name and power limit first.
 """
@@ -62,7 +67,6 @@ WARP_CHOICES = {
 
 def profile(card: str) -> None:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -86,28 +90,35 @@ def profile(card: str) -> None:
                 smoke.serve(engine, traffic())
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            events = prof.events()
-            on_dev = collections.defaultdict(lambda: [0.0, 0])
-            launches = [0, 0.0]
-            for e in events:
-                us = e.time_range.elapsed_us()
-                if e.device_type == DeviceType.CUDA:
-                    on_dev[e.name][0] += us / 1e3
-                    on_dev[e.name][1] += 1
-                elif e.name in LAUNCH_CALLS:
-                    launches[0] += 1
-                    launches[1] += us / 1e3
-            dev_ms = sum(ms for ms, _ in on_dev.values())
-            if dev_ms == 0:
-                raise RuntimeError("the profiler recorded no device time")
-            print(f"  {label}, {run}: wall {wall:.1f} ms, device {dev_ms:.1f} ms, busy "
-                  f"{dev_ms / wall:.3f}, host launches {launches[0]} ({launches[1]:.2f} ms)"
-                  f"  [{card}]", flush=True)
-            for name, (ms, n) in sorted(on_dev.items(), key=lambda kv: -kv[1][0])[:6]:
-                print(f"      {ms:9.2f} ms {n:6d} calls  {_short(name)}", flush=True)
+            _summarize(prof, wall, f"{label}, {run}", card)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _summarize(prof, wall: float, label: str, card: str, top: int = 6) -> None:
+    """Device time, busy share, host launches and the largest device
+    entries of a profiled window of ``wall`` ms."""
+    from torch.autograd import DeviceType
+
+    on_dev = collections.defaultdict(lambda: [0.0, 0])
+    launches = [0, 0.0]
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == DeviceType.CUDA:
+            on_dev[e.name][0] += us / 1e3
+            on_dev[e.name][1] += 1
+        elif e.name in LAUNCH_CALLS:
+            launches[0] += 1
+            launches[1] += us / 1e3
+    dev_ms = sum(ms for ms, _ in on_dev.values())
+    if dev_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"  {label}: wall {wall:.1f} ms, device {dev_ms:.1f} ms, busy "
+          f"{dev_ms / wall:.3f}, host launches {launches[0]} ({launches[1]:.2f} ms)"
+          f"  [{card}]", flush=True)
+    for name, (ms, n) in sorted(on_dev.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"      {ms:9.2f} ms {n:6d} calls  {_short(name)}", flush=True)
 
 
 def _short(name: str) -> str:
@@ -218,10 +229,37 @@ def warps(card: str) -> None:
             print(f"      {n:36s} {a:.4f}  {b:.4f}", flush=True)
 
 
+def gmm(card: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch.generate import GenerationConfig, Generator
+    from vita_tpu_torch.models import vita
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(smoke.SEED)
+    cfg = smoke.slice_config()
+    params = vita.init_params(cfg, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
+    gen = Generator(params, cfg, max_len=12288, prefill_moe_mode="gmm",
+                    decode_moe_mode="gather", device=dev)
+    ids = rng.integers(3, cfg.llm.vocab_size, 8500).astype(np.int32)
+    one = GenerationConfig(max_new_tokens=1, eos_id=-1)
+    gen.generate(ids, gen=one)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen.generate(ids, gen=one)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _summarize(prof, wall, "Generator, 8500-token prompt, gmm prefill + one decode chunk",
+               card, top=10)
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "warps"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "warps", "gmm"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -233,7 +271,7 @@ def main() -> int:
     card = smoke.card_line()
     print(card, flush=True)
     kernels.lib()
-    {"profile": profile, "warps": warps}[sys.argv[1]](card)
+    {"profile": profile, "warps": warps, "gmm": gmm}[sys.argv[1]](card)
     return 0
 
 

@@ -8,26 +8,35 @@ Phases, each of which raises on failure:
      (sm_90a, one nvcc per source, all at once) into build/kernels/;
   2. hold every kernel against its plain PyTorch version at the serving
      path's shapes in bf16 and at a small shape in fp32, and time both with
-     CUDA events (median of 25 runs after warm-up): B1-B4, the quantized
-     expert FFNs B6/B7 (int8/int4, per-channel and grouped) and B8a/B8b,
-     and B9 over int8 pages;
+     CUDA events (median of 25 runs after warm-up): B1-B4, the grouped
+     matmuls B5a/B5b of the gmm prefill, the quantized expert FFNs B6/B7
+     (int8/int4, per-channel and grouped) and B8a/B8b, and B9 over int8
+     pages;
   3. serve the full-width VITA-8x7B slice (Mixtral cut to 4 of 32 layers,
      InternViT-300M at 448px, Whale 24x1024; random weights from a seed)
-     through Engine, three times on the same weights: bf16 experts (one
+     through Engine, four times on the same weights: bf16 experts (one
      text request alone, then one image+audio request with three text
      requests); int4 experts with int8 KV pages on 8 slots (alone, then
      image+audio with seven text requests); int8 experts with int8 KV
-     pages (alone, then a wave of four). Launch counts are zeroed before
-     each run and read after it; every kernel of a run's path must have
-     launched in it;
-  4. the same Engine on the card and on the CPU, narrow fp32 config, same
-     weights and prompts, float experts and then int4 experts with int8 KV
-     pages: greedy streams must be identical (for the quantized run, a
-     request may split only at a step where the CPU's own top two logits
-     were the two tokens, within NEAR_TIE below).
+     pages (alone, then a wave of four); bf16 experts with gmm prefill
+     (as the first). Launch counts are zeroed before each run and read
+     after it; every kernel of a run's path must have launched in it;
+  4. the same slice through Generator (max_len 12288, gmm prefill, gather
+     decode): an image+audio request (bucket 512, B5b) and a text request
+     of about 8500 tokens (bucket 12288, T*k 24576, B5a), each first token
+     held against the cacheless dense forward; then the CLI in process
+     (python -m vita_tpu_torch.cli --model tiny-random --prefill-moe-mode
+     gmm);
+  5. the same Engine on the card and on the CPU, narrow fp32 config, same
+     weights and prompts: float experts with dense and with gmm prefill,
+     then int4 experts with int8 KV pages: greedy streams must be
+     identical (for the quantized run, a request may split only at a step
+     where the CPU's own top two logits were the two tokens, within
+     NEAR_TIE below).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results before the last, and as the last line
+results (launches summed over the serving phases 3-5) before the last,
+and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -171,6 +180,26 @@ def _routing(rng, t, k, n_experts, layer, dtype, dev):
             torch.from_numpy((idx + layer * n_experts).astype(np.int32)).to(dev))
 
 
+def _gmm_case(rng, t, d, f, e, dtype, dev, down):
+    """x in the sorted layout of T tokens routed top-2 over e experts (the
+    shapes moe_ffn_gmm gives gmm), its gids and tile_m, and the gate-shaped
+    [e, d, f] or (``down``) down-shaped [e, f, d] weight."""
+    import torch
+
+    from vita_tpu_torch.ops import moe_gmm as mg
+
+    _, idx = _routing(rng, t, 2, e, 0, dtype, dev)
+    tile_m = mg.SMALL_TILE_M if 2 * t <= mg.SMALL_R_MAX else mg.TILE_M
+    dest, _, _, gids, r = mg.sorted_layout(idx, e, tile_m)
+    k_dim, n_dim = (f, d) if down else (d, f)
+    x = torch.zeros(r, k_dim, dtype=dtype, device=dev)
+    x[dest.long()] = torch.from_numpy(
+        rng.standard_normal((2 * t, k_dim), np.float32)).to(dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    w = torch.empty(e, k_dim, n_dim, dtype=dtype, device=dev).normal_(generator=gen)
+    return x, w.mul_(k_dim ** -0.5), gids, tile_m
+
+
 def kernel_phase(card: str):
     """Every kernel against its plain version; returns per-kernel rows for
     the result line (times at the serving path's main shape)."""
@@ -178,6 +207,7 @@ def kernel_phase(card: str):
 
     from vita_tpu_torch.ops import flash_attention as fa
     from vita_tpu_torch.ops import moe_decode as md
+    from vita_tpu_torch.ops import moe_gmm as mg
     from vita_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -299,6 +329,32 @@ def kernel_phase(card: str):
             del qp
         del wg, wu, wd, stack
         torch.cuda.empty_cache()
+
+    # B5b: an Engine prefill chunk of 256 tokens (R 1536, tile 128); B5a:
+    # a Generator prompt bucket of 12288 tokens (R 28672, tile 512); the
+    # gate/up and the down projection each; then small fp32 cases with
+    # transpose_rhs (B5a at a small R through a lowered SMALL_R_MAX)
+    for t, name in ((256, "gmm_small"), (12288, "gmm")):
+        for down in (False, True):
+            x, w, gids, tile_m = _gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
+            check(name, f"bf16 T={t} R={x.shape[0]} tile {tile_m} "
+                        f"{'down' if down else 'gate/up'} [{'x'.join(map(str, w.shape))}]",
+                  lambda a=(x, w, gids, False, tile_m): mg.gmm_cuda(*a),
+                  lambda a=(x, w, gids, False, tile_m): mg.gmm_plain(*a), bf16, True)
+            del x, w
+            torch.cuda.empty_cache()
+    real_max = mg.SMALL_R_MAX
+    for name, r_max in (("gmm_small", real_max), ("gmm", 0)):
+        mg.SMALL_R_MAX = r_max
+        try:
+            x, w, gids, tile_m = _gmm_case(rng, 300 if r_max else 600, 200, 136, 4, f32, dev,
+                                           False)
+            w = w.transpose(1, 2).contiguous()  # [E, N, K]
+            check(name, f"fp32 R={x.shape[0]} tile {tile_m} transpose_rhs, ragged K/N",
+                  lambda a=(x, w, gids, True, tile_m): mg.gmm_cuda(*a),
+                  lambda a=(x, w, gids, True, tile_m): mg.gmm_plain(*a), f32, False)
+        finally:
+            mg.SMALL_R_MAX = real_max
     return rows
 
 
@@ -363,6 +419,10 @@ SERVED_RUNS = (
     ("int8 experts, int8 KV pages",
      dict(n_slots=4, page_size=128, decode_moe_mode="gather_q", kv_int8=True), (20, 150, 60),
      ("flash_fwd", "paged_attention_q", "gather_expert_ffn_q", "masked_expert_ffn_q")),
+    ("bf16 experts, gmm prefill",
+     dict(n_slots=4, page_size=64, decode_moe_mode="gather", prefill_moe_mode="gmm"),
+     (20, 150, 60),
+     ("flash_fwd", "gmm_small", "paged_attention", "gather_expert_ffn", "masked_expert_ffn")),
 )
 
 
@@ -398,13 +458,31 @@ def served_run(card: str, engine, cfg, wave_texts, max_new_tokens: int):
     return counts, solo[0]
 
 
-def slice_phase(card: str, cfg, device, max_new_tokens: int = 32):
-    """Serve the slice through the Engine once per SERVED_RUNS entry, on
-    the same weights; returns the launch counts summed over the runs."""
+def first_token_gap(params, cfg, ids, token, embeds=None) -> float:
+    """How far ``token`` lies below the top logit of the last row of the
+    cacheless forward (dense MoE) over the prompt; raises on a wrong shape
+    or a non-finite row."""
+    from vita_tpu_torch.models import mixtral
+
+    kw = (dict(inputs_embeds=embeds) if embeds is not None
+          else dict(input_ids=ids))
+    logits, _, _ = mixtral.forward(params["llm"], cfg.llm, **kw)
+    last = logits[0, -1].float()
+    if logits.shape != (1, ids.shape[1], cfg.llm.vocab_size) or not bool(
+            last.isfinite().all()):
+        raise AssertionError(f"cacheless logits {tuple(logits.shape)} not finite")
+    gap = float(last.max() - last[token])
+    print(f"  cacheless forward: logits {tuple(logits.shape)} finite; first token is "
+          f"{gap:.4f} below the top logit", flush=True)
+    if gap > 0.1:
+        raise AssertionError(f"first token {gap:.4f} below the reference's top logit")
+    return gap
+
+
+def slice_params(cfg, device):
     import torch
 
-    from vita_tpu_torch.models import mixtral, vita
-    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.models import vita
 
     t0 = time.time()
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -413,6 +491,16 @@ def slice_phase(card: str, cfg, device, max_new_tokens: int = 32):
     _sync(device)
     print(f"  init {n_bytes / 2**30:.2f} GiB of weights on {device}: "
           f"{time.time() - t0:.1f} s", flush=True)
+    return params
+
+
+def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
+    """Serve the slice through the Engine once per SERVED_RUNS entry, on
+    the same weights; returns the launch counts summed over the runs."""
+    import torch
+
+    from vita_tpu_torch.serve.engine import Engine
+
     total = {}
     for label, options, wave_texts, path in SERVED_RUNS:
         print(f"  -- {label}: Engine({options})", flush=True)
@@ -431,20 +519,85 @@ def slice_phase(card: str, cfg, device, max_new_tokens: int = 32):
         # last row must be finite and rank the engine's first token (from
         # the bf16 prefill in every run) at or within bf16 rounding of the top
         ids = torch.as_tensor(solo.input_ids, dtype=torch.int64, device=device)[None]
-        logits, _, _ = mixtral.forward(params["llm"], cfg.llm, input_ids=ids)
-        last = logits[0, -1].float()
-        if logits.shape != (1, ids.shape[1], cfg.llm.vocab_size) or not bool(
-                last.isfinite().all()):
-            raise AssertionError(f"cacheless logits {tuple(logits.shape)} not finite")
-        gap = float(last.max() - last[solo.tokens[0]])
-        print(f"  cacheless forward: logits {tuple(logits.shape)} finite; engine's first "
-              f"token is {gap:.4f} below the top logit", flush=True)
-        if gap > 0.1:
-            raise AssertionError(f"first token {gap:.4f} below the reference's top logit")
-        del engine, logits
+        first_token_gap(params, cfg, ids, solo.tokens[0])
+        del engine
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+# the kernels the Generator phase must launch
+GENERATOR_PATH = ("flash_fwd", "gmm", "gmm_small", "gather_expert_ffn")
+
+
+def generator_phase(card: str, cfg, params, device, max_new_tokens: int = 32,
+                    max_len: int = 12288, text_len: int = 8500):
+    """The slice through Generator(max_len=12288, gmm prefill, gather
+    decode): an image+audio request (bucket 512: B5b) and a text request of
+    8500 tokens (bucket 12288: T*k 24576 > SMALL_R_MAX, so B5a). Returns
+    the launch counts of the two requests."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.generate import GenerationConfig, Generator, embed_prompt
+
+    gen = Generator(params, cfg, max_len=max_len, prefill_moe_mode="gmm",
+                    decode_moe_mode="gather", device=device)
+    print(f"  Generator prompt buckets {gen.prompt_buckets}", flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    media = media_request(cfg, rng, max_new_tokens)
+    text_ids = rng.integers(3, cfg.llm.vocab_size, text_len).astype(np.int32)
+    prompts = [("image+audio", dict(
+        input_ids=media.input_ids, image_mask=media.image_mask, audio_mask=media.audio_mask,
+        images=media.images, speech=media.speech, speech_length=media.speech_length)),
+        (f"text {text_len}", dict(input_ids=text_ids))]
+    gcfg = GenerationConfig(max_new_tokens=max_new_tokens, eos_id=-1)
+    kernels.reset_launches()
+    outs = []
+    for name, prompt in prompts:
+        stamps = []
+        t0 = time.time()
+        toks = gen.generate(gen=gcfg, on_token=lambda _: stamps.append(time.time()), **prompt)
+        t1 = time.time()
+        if len(toks) != max_new_tokens or not all(0 <= x < cfg.llm.vocab_size for x in toks):
+            raise AssertionError(f"{name}: {len(toks)} tokens {toks[:8]}...")
+        ttft = stamps[0] - t0
+        rate = (len(toks) - 1) / (t1 - stamps[0])
+        print(f"  {name:12s} prompt {len(prompt['input_ids']):5d}  TTFT {ttft * 1e3:9.2f} ms  "
+              f"decode {rate:8.2f} tok/s  [{card}]", flush=True)
+        outs.append((prompt, toks))
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in the Generator run: {counts}", flush=True)
+    missing = [k for k in GENERATOR_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"Generator: kernels never launched on its path: {missing}")
+    for prompt, toks in outs:
+        ids = np.asarray(prompt["input_ids"], np.int64)
+        embeds = embed_prompt(params, cfg, ids, device, gen.tile_buckets, gen.frame_buckets,
+                              **{k: v for k, v in prompt.items() if k != "input_ids"})
+        first_token_gap(params, cfg, torch.as_tensor(ids[None], device=device), toks[0],
+                        embeds=embeds)
+        del embeds
+        torch.cuda.empty_cache()
+    return counts
+
+
+def cli_phase():
+    """python -m vita_tpu_torch.cli --model tiny-random --prefill-moe-mode
+    gmm, in process; returns its launch counts (B5b must be among them)."""
+    from vita_tpu_torch import cli, kernels
+
+    kernels.reset_launches()
+    rc = cli.main(["--model", "tiny-random", "--question", "Hello", "--prefill-moe-mode", "gmm",
+                   "--max-new-tokens", "16"])
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in the CLI run: {counts}", flush=True)
+    if rc != 0 or counts["gmm_small"] == 0:
+        raise AssertionError(f"CLI: exit code {rc}, gmm_small launches {counts['gmm_small']}")
+    ref = [m for m in sys.modules if m == "vita_tpu" or m.startswith("vita_tpu.")]
+    if ref or "jax" in sys.modules:
+        raise AssertionError(f"the CLI loaded the reference package: {ref}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -620,16 +773,30 @@ def main() -> int:
     print("phase 3: full-width VITA-8x7B slice (4 of 32 LLM layers) through Engine",
           flush=True)
     t0 = time.time()
-    counts = slice_phase(card, slice_config(), torch.device("cuda"))
+    cfg, dev = slice_config(), torch.device("cuda")
+    params = slice_params(cfg, dev)
+    parts = [slice_phase(card, cfg, params, dev)]
     print(f"  phase 3 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
-    torch.cuda.empty_cache()
 
-    print("phase 4: Engine on cuda vs cpu, narrow fp32 config", flush=True)
+    print("phase 4: the slice through Generator (gmm prefill), then the CLI", flush=True)
+    t0 = time.time()
+    parts.append(generator_phase(card, cfg, params, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(cli_phase())
+    print(f"  phase 4 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+    print("phase 5: Engine on cuda vs cpu, narrow fp32 config", flush=True)
     t0 = time.time()
     pair = [torch.device("cuda"), torch.device("cpu")]
+    kernels.reset_launches()
     equivalence_phase(pair, decode_moe_mode="gather")
+    equivalence_phase(pair, decode_moe_mode="gather", prefill_moe_mode="gmm")
     equivalence_phase(pair, NEAR_TIE, decode_moe_mode="gather_q4", kv_int8=True)
-    print(f"  phase 4 wall {time.time() - t0:.1f} s", flush=True)
+    parts.append(dict(kernels.launches))
+    print(f"  phase 5 wall {time.time() - t0:.1f} s", flush=True)
+    counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {
         "flash_fwd": ("csrc/flash_fwd.cu", "vita_tpu/ops/flash_attention.py:54"),
@@ -641,6 +808,8 @@ def main() -> int:
         "masked_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:627"),
         "masked_expert_ffn_q4": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:720"),
         "paged_attention_q": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:335"),
+        "gmm": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:72"),
+        "gmm_small": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:96"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"vita_tpu_torch/{src}",

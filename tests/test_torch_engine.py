@@ -1,12 +1,15 @@
 """PyTorch port: the serving Engine as a whole against the JAX Engine, same
 weights, greedy decoding, selected-expert decode (bf16 experts, or int8 /
-int4 experts with int8 KV pages); the streamed tokens must be identical.
-The JAX side keeps attn_backend='xla', the flash kernel's exact twin on
-the CPU, and runs the quantized modes in Pallas interpret mode, so its
-expert FFN computes what the TPU kernels compute."""
+int4 experts with int8 KV pages) and the other MoE modes (prefill gmm,
+sort, capacity; decode sort, capacity); the streamed tokens must be
+identical. The JAX side keeps attn_backend='xla', the flash kernel's exact
+twin on the CPU, and runs the quantized modes in Pallas interpret mode, so
+its expert FFN computes what the TPU kernels compute. Also warmup and the
+EngineThread loop."""
 
 import contextlib
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -44,7 +47,8 @@ def _serve(models, req_kws, decode_moe_mode="gather", **engine_kw):
     out = []
     for mod, params, cfg in ((j_engine, jp, jcfg), (engine, tp, tcfg)):
         ctx = (pltpu.force_tpu_interpret_mode()
-               if mod is j_engine and decode_moe_mode != "gather" else contextlib.nullcontext())
+               if mod is j_engine and decode_moe_mode in ("gather_q", "gather_q4")
+               else contextlib.nullcontext())
         with ctx:
             eng = mod.Engine(params, cfg, decode_moe_mode=decode_moe_mode, **engine_kw)
             streamed = [[] for _ in req_kws]
@@ -163,14 +167,53 @@ def test_eos_and_capacity_guard(models):
     assert req.tokens == probe.tokens[:3]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(decode_moe_mode="sort"), dict(prefill_moe_mode="capacity"),
-    dict(decode_moe_mode="capacity"), dict(prefill_moe_mode="gmm"),
-])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_options_raise(models, kw):
     _, _, tcfg, tp = models
     with pytest.raises(NotImplementedError):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
+
+
+@pytest.mark.parametrize("prefill,decode", [
+    ("gmm", "gather"), ("sort", "gather"), ("capacity", "gather"), ("gmm", "capacity"),
+    ("dense", "sort"),
+])
+def test_moe_modes_match_jax_engine(models, prefill, decode):
+    """Chunked prefill (bucket 32 in chunks of 16) in each prefill MoE mode,
+    decode batches of 1-2 in each decode mode."""
+    rng = np.random.default_rng(8)
+    reqs = [_text(rng, n, m) for n, m in ((20, 10), (7, 9))]
+    jt, tt, _, _ = _serve(models, reqs, decode_moe_mode=decode, prefill_moe_mode=prefill,
+                          n_slots=2, max_len=64, page_size=8, prefill_chunk=16,
+                          prompt_buckets=(16, 32, 64), decode_chunk_len=4)
+    assert tt == jt and [len(x) for x in tt] == [10, 9]
+
+
+def test_warmup_leaves_the_engine_idle(models):
+    _, _, tcfg, tp = models
+    eng = engine.Engine(tp, tcfg, n_slots=2, max_len=256, page_size=8,
+                        prompt_buckets=(16, 32, 256), prefill_moe_mode="gmm")
+    assert eng.warmup(media=True, max_new_tokens=2) > 0
+    stats = eng.stats()
+    assert stats["completed"] == 3.0 and stats["active"] == 0 and stats["queued"] == 0
+    assert stats["free_pages"] == stats["total_pages"] and not eng._prefill_jobs
+
+
+def test_engine_thread_serves_and_stops(models):
+    _, _, tcfg, tp = models
+    eng = engine.Engine(tp, tcfg, n_slots=1, max_len=64)
+    done = threading.Event()
+    finished = []
+    req = engine.Request(input_ids=np.array([1, 5, 9], np.int32), max_new_tokens=6, eos_id=-1,
+                         on_finish=lambda toks, why: (finished.append(why), done.set()))
+    thread = engine.EngineThread(eng, tick_idle_s=0.001)
+    thread.start()
+    eng.submit(req)
+    assert done.wait(120)
+    thread.stop()
+    thread.join(10)
+    assert not thread.is_alive()
+    assert finished == ["length"] and len(req.tokens) == 6
 
 
 @pytest.mark.parametrize("mode", ["gather_q", "gather_q4"])

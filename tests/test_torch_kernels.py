@@ -13,7 +13,9 @@ import torch
 from torch_port_util import close, cuda_or_skip, normal, t
 from vita_tpu_torch import kernels
 from vita_tpu_torch.ops import flash_attention as fa
+from vita_tpu_torch.ops import moe
 from vita_tpu_torch.ops import moe_decode as md
+from vita_tpu_torch.ops import moe_gmm as mg
 from vita_tpu_torch.ops import paged_attention as pa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -226,3 +228,60 @@ def test_quantized_public_functions_launch_on_cuda_tensors():
         t(normal(rng, 1, 4, 128)).to(dev), pool, pool,
         torch.zeros(1, 2, dtype=torch.int32, device=dev),
         torch.full((1,), 5, dtype=torch.int32, device=dev), 0, k_scale=scales, v_scale=scales))
+
+
+# (R, K, N, tile_m, gids, large): K and N ragged against the 128 x 128
+# block and its K tile; group 1 is padding only (zero rows) where R has a
+# second tile; "unaligned" rows take the element-by-element loads
+GMM_CASES = {
+    "small_ragged": (384, 200, 72, 128, [0, 1, 2], False),
+    "small_unaligned": (384, 201, 75, 128, [0, 1, 2], False),
+    "small_one_tile": (40, 64, 128, 128, [2], False),
+    "large_ragged": (1536, 200, 136, 512, [0, 1, 2], True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_kernels_match_plain(case, dtype, transpose_rhs, monkeypatch):
+    """B5b (gmm_small) and B5a (gmm; SMALL_R_MAX lowered so that it runs
+    at a small R) against gmm_plain."""
+    dev = cuda_or_skip()
+    r, k, n, tile_m, gids, large = GMM_CASES[case]
+    if large:
+        monkeypatch.setattr(mg, "SMALL_R_MAX", 0)
+    rng = np.random.default_rng(7)
+    x = normal(rng, r, k)
+    if r >= 2 * tile_m:
+        x[tile_m:2 * tile_m] = 0.0
+    w = normal(rng, 3, *((n, k) if transpose_rhs else (k, n)), scale=k ** -0.5)
+    x, w = t(x).to(dev, dtype), t(w).to(dev, dtype)
+    g = t(gids, torch.int32).to(dev)
+    got = _launched("gmm" if large else "gmm_small",
+                    lambda: mg.gmm_cuda(x, w, g, transpose_rhs, tile_m))
+    want = mg.gmm_plain(x, w, g, transpose_rhs, tile_m)
+    assert got.dtype == dtype and got.shape == (r, n)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
+    if r >= 2 * tile_m:
+        assert not got[tile_m:2 * tile_m].any()
+
+
+@pytest.mark.gpu
+def test_gmm_moe_ffn_launches_on_cuda_tensors():
+    """moe_ffn in gmm mode runs its three matmuls through B5b on the card
+    and matches the same call on the CPU."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(8)
+    p = {"router": normal(rng, 64, 4), "w_gate": normal(rng, 4, 64, 128, scale=0.125),
+         "w_up": normal(rng, 4, 64, 128, scale=0.125),
+         "w_down": normal(rng, 4, 128, 64, scale=128 ** -0.5)}
+    x = normal(rng, 37, 64)
+    before = kernels.launches["gmm_small"]
+    got, _ = moe.moe_ffn({k: t(v).to(dev) for k, v in p.items()}, t(x).to(dev), 2, "gmm")
+    torch.cuda.synchronize()
+    assert kernels.launches["gmm_small"] == before + 3
+    want, _ = moe.moe_ffn({k: t(v) for k, v in p.items()}, t(x), 2, "gmm")
+    close(got.cpu(), want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+

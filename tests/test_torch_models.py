@@ -91,7 +91,7 @@ def test_mixtral_linear_scratch_prefill_chunk(tiny, backend):
     assert int(nc["pos"][0]) == off + 8
 
 
-@pytest.mark.parametrize("moe_mode", ["dense", "gather"])
+@pytest.mark.parametrize("moe_mode", ["dense", "gather", "sort", "capacity"])
 def test_mixtral_paged_decode(tiny, moe_mode):
     """One decode step over a page pool; slot 2 is inactive, slot 1 sits on
     a fresh page whose table entry follows the sentinel layout."""
@@ -180,9 +180,43 @@ def test_convert_quantized_params_checks_shapes(tiny):
 
 
 def test_mixtral_unported_moe_mode_raises(tiny):
-    _, tc = _llm_cfgs(tiny, moe_mode="gmm")
-    with pytest.raises(NotImplementedError, match="gmm"):
+    """Every MoE mode of the JAX package is ported; anything else raises."""
+    _, tc = _llm_cfgs(tiny, moe_mode="nope")
+    with pytest.raises(ValueError, match="nope"):
         mixtral.forward(tiny[3]["llm"], tc, input_ids=torch.zeros(1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("moe_mode", ["gmm", "sort", "capacity"])
+def test_mixtral_prefill_moe_modes(tiny, moe_mode):
+    """The prefill MoE modes on the cacheless path (with a token mask for
+    the aux loss) and on a linear-scratch chunk; capacity factor 1.0, so
+    sort and capacity drop pairs."""
+    jcfg, jp, _, tp = tiny
+    jc, tc = _llm_cfgs(tiny, moe_mode=moe_mode, moe_capacity_factor=1.0)
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    tm = np.ones((2, 12), np.float32)
+    tm[1, 9:] = 0
+    got, _, aux = mixtral.forward(tp["llm"], tc, input_ids=t(ids), token_mask=t(tm))
+    want, _, jaux = j_mix.forward(jp["llm"], jc, input_ids=jnp.asarray(ids),
+                                  token_mask=jnp.asarray(tm))
+    close(got, want)
+    close(aux, jaux, atol=1e-6, rtol=0)
+    shape = (jc.n_layers, 1, 24, jc.n_kv_heads, jc.head_dim)
+    sk, sv = normal(rng, *shape), normal(rng, *shape)
+    x, pos = normal(rng, 1, 8, jc.d_model), 8 + np.arange(8)[None]
+    valid = np.arange(24)[None] < 16
+    ck, cv = t(sk), t(sv)
+    got, _, _ = mixtral.forward(
+        tp["llm"], tc, inputs_embeds=t(x), positions=t(pos), attn_valid=t(valid),
+        cache={"k": ck, "v": cv, "pos": t([8], torch.int32)}, return_hidden=True)
+    want, jnc, _ = j_mix.forward(
+        jp["llm"], jc, inputs_embeds=jnp.asarray(x), positions=jnp.asarray(pos),
+        attn_valid=jnp.asarray(valid),
+        cache={"k": jnp.asarray(sk), "v": jnp.asarray(sv), "pos": jnp.asarray([8], jnp.int32)},
+        return_hidden=True)
+    close(got, want)
+    close(ck, jnc["k"])
 
 
 @pytest.mark.parametrize("side", [56, 84])

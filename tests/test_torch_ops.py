@@ -89,15 +89,18 @@ def test_moe_ffn_dense_matches_jax():
     x = normal(np.random.default_rng(5), 12, 32)
     mask = np.ones(12, np.float32)
     mask[9:] = 0
-    out, aux = moe.moe_ffn({k: t(v) for k, v in params.items()}, t(x), 2, "dense", t(mask))
+    out, aux = moe.moe_ffn({k: t(v) for k, v in params.items()}, t(x), 2, "dense",
+                           token_mask=t(mask))
     jout, jaux = j_moe.moe_ffn(params, jnp.asarray(x), 2, "dense", token_mask=jnp.asarray(mask))
     close(out, jout)
     close(aux, jaux)
 
 
 def test_moe_ffn_other_modes_not_ported():
-    with pytest.raises(NotImplementedError, match="sort"):
-        moe.moe_ffn({"w_gate": torch.zeros(2, 4, 4)}, torch.zeros(3, 4), 2, "sort")
+    """Every mode of the JAX package runs; a mode it does not have raises."""
+    p = {"router": torch.zeros(4, 2), "w_gate": torch.zeros(2, 4, 4)}
+    with pytest.raises(ValueError, match="unknown moe mode"):
+        moe.moe_ffn(p, torch.zeros(4, 4), 2, "chunked")
 
 
 def test_sampling_modes_and_greedy_tokens():

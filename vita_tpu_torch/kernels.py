@@ -49,6 +49,8 @@ launches: Dict[str, int] = {
     "gather_expert_ffn_q4": 0,
     "masked_expert_ffn_q": 0,
     "masked_expert_ffn_q4": 0,
+    "gmm": 0,
+    "gmm_small": 0,
 }
 
 _lib = None
@@ -69,6 +71,8 @@ _SIGNATURES = {
     # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, n_sg, n_sd,
     # h, y, R, nt, D, F, dtype, wfmt, stream
     "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+    # x, w, gids, out, R, K, N, E, tile_m, trans, dtype, stream
+    "vita_gmm": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

@@ -13,10 +13,13 @@ lm_head [D, V]. The layer loop is a Python loop.
   - paged pool {'k_pages','v_pages','table','pos'[,'active']} (an int8
     pool adds 'k_scale','v_scale'): single-token decode against
     ops.paged_attention, pool updated IN PLACE.
-MoE runs ``dense`` (every expert, exact) or a selected-expert decode mode
-through ops.moe_decode over flat layer*E+e ids into the stacked weights:
-``gather`` (weights as they are), ``gather_q`` / ``gather_q4`` (expert
-weights from ``quantize_moe_for_decode``, int8 / int4).
+MoE runs a selected-expert decode mode through ops.moe_decode over flat
+layer*E+e ids into the stacked weights: ``gather`` (weights as they are),
+``gather_q`` / ``gather_q4`` (expert weights from
+``quantize_moe_for_decode``, int8 / int4); or ops.moe.moe_ffn on each
+layer's views of the stacked weights: ``dense`` (every expert, exact),
+``gmm`` (grouped matmul, exact), ``sort`` / ``capacity`` (capacity
+dropping with ``moe_capacity_factor``). Every mode runs on every path.
 
 Shapes follow the deployed VITA config
 (web_demo/vllm_tools/model_weight_file/config.json:17-44): 32L, 4096d,
@@ -53,7 +56,8 @@ class MixtralConfig:
     top_k: int = 2
     rope_theta: float = 1e6
     rms_eps: float = 1e-5
-    moe_mode: str = "dense"  # 'dense' | 'gather' | 'gather_q' | 'gather_q4'
+    moe_mode: str = "dense"  # ops.moe.MODES
+    moe_capacity_factor: float = 1.25
     attn_backend: str = "xla"  # 'xla' | 'flash'
     dtype: torch.dtype = torch.float32
 
@@ -121,6 +125,17 @@ def quantize_moe_for_decode(params: Params, bits: int = 8) -> Params:
     else:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     return {**params, "layers": {**params["layers"], "moe": qmoe}}
+
+
+def init_kv_cache(cfg: MixtralConfig, batch: int, max_len: int, dtype=None,
+                  device=None) -> Params:
+    """Linear KV cache {'k','v'} [L, B, max_len, Hkv, hd] and per-slot
+    'pos' [B] int32, all zero."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
 def _qkv(lp: Params, cfg: MixtralConfig, x, positions):
@@ -235,9 +250,7 @@ def forward(
 
     Cache tensors are updated in place and returned in the new cache."""
     if cfg.moe_mode not in MODES:
-        raise NotImplementedError(
-            f"moe_mode {cfg.moe_mode!r} is not ported; use one of {MODES}"
-        )
+        raise ValueError(f"unknown moe_mode {cfg.moe_mode!r}; modes: {MODES}")
     paged = cache is not None and "k_pages" in cache
     if inputs_embeds is None:
         inputs_embeds = params["embed"][input_ids.long()]
@@ -277,7 +290,8 @@ def forward(
                                              i, cfg, tm_flat)
         else:
             moe_out, aux = moe_ffn({k: v[i] for k, v in layers["moe"].items()}, h,
-                                   cfg.top_k, mode="dense", token_mask=tm_flat)
+                                   cfg.top_k, mode=cfg.moe_mode,
+                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat)
         x = x + moe_out.reshape(b, s, d)
         aux_total = aux_total + aux
 

@@ -1,9 +1,9 @@
 """Token sampling and multi-token decode chunks (vita_tpu.sampling).
 
 ``decode_chunk`` advances every slot ``chunk_len`` tokens over the paged KV
-pool (a Python loop over steps; the JAX package scans on device), with
-sampling on the device, so the host reads back one small [B, chunk_len]
-int32 array per chunk. Random draws come from a ``torch.Generator``; they
+pool or the linear cache (a Python loop over steps; the JAX package scans
+on device), with sampling on the device, so the host reads back one small
+[B, chunk_len] int32 array per chunk. Random draws come from a ``torch.Generator``; they
 are not the JAX package's bits, so only greedy decoding is comparable
 token for token.
 """
@@ -76,7 +76,7 @@ def sample_tokens(
 @torch.no_grad()
 def decode_chunk(
     llm_params: Dict[str, Any],
-    cache: Dict[str, Any],  # {'k_pages','v_pages'[,'k_scale','v_scale'],'table','pos'}
+    cache: Dict[str, Any],  # paged pool or linear {'k','v','pos'} cache
     tok: torch.Tensor,  # [B] int32 — last sampled, kv not yet written
     pos: torch.Tensor,  # [B] int32 — cache row each slot writes next
     active: torch.Tensor,  # [B] bool
@@ -89,24 +89,32 @@ def decode_chunk(
     chunk_len: int,
     sampling_mode: str = "filtered",
 ) -> Tuple[Dict[str, Any], torch.Tensor, torch.Tensor]:
-    """Run ``chunk_len`` decode steps over the paged pool, updating the
-    pool in place.
+    """Run ``chunk_len`` decode steps over the paged pool or the linear
+    cache, updating it in place.
 
     Emits the *fed* token at each step (the last step's sample is returned
-    as the new ``tok``). Inactive slots neither write kv nor attend. An
-    int8 pool's scale tensors ride in the cache and are updated in place
-    with the pages.
+    as the new ``tok``). Inactive slots neither write kv nor attend: on the
+    linear cache they write at row ``max_len``, which is dropped. An int8
+    pool's scale tensors ride in the cache and are updated in place with
+    the pages.
     Returns (cache with the advanced ``pos``, tokens [B, chunk_len],
     next_tok [B])."""
-    if "k_pages" not in cache:
-        raise NotImplementedError("decode_chunk is ported for the paged cache only")
+    paged = "k_pages" in cache
+    if not paged:
+        max_len = cache["k"].shape[2]
+        rows = torch.arange(max_len, device=pos.device)[None, :]
     fed = []
     for _ in range(chunk_len):
         c = dict(cache)
-        c.update({"pos": pos, "active": active})
+        valid = None
+        if paged:
+            c.update({"pos": pos, "active": active})
+        else:
+            c["pos"] = torch.where(active, pos, max_len)
+            valid = (rows <= pos[:, None]) & active[:, None]
         logits, _, _ = mixtral.forward(
             llm_params, llm_cfg, input_ids=tok[:, None],
-            positions=pos[:, None], cache=c,
+            positions=pos[:, None], attn_valid=valid, cache=c,
         )
         nxt = sample_tokens(logits[:, -1], generator, temperature, top_k, top_p,
                             mode=sampling_mode)

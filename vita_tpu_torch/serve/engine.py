@@ -18,17 +18,18 @@ prefill (vita_tpu.serve.engine, single-device path).
   host reads the tokens back (one ``.cpu()`` per tick).
 - Prompts, image tiles and audio frames pad to fixed buckets, as in the
   JAX package.
-- Quantized serving: ``decode_moe_mode='gather_q'`` / ``'gather_q4'``
-  decode from an int8 / int4 copy of the expert weights
-  (mixtral.quantize_moe_for_decode) while prefill keeps the bf16 weights,
-  so both copies are resident; ``kv_int8=True`` keeps the page pool in
-  int8 with per-(row, head) scales.
+- MoE modes: prefill runs ``prefill_moe_mode`` (dense, gmm, sort or
+  capacity) over each chunk, decode ``decode_moe_mode`` (the gather modes,
+  dense, sort or capacity). Quantized serving: ``decode_moe_mode=
+  'gather_q'`` / ``'gather_q4'`` decode from an int8 / int4 copy of the
+  expert weights (mixtral.quantize_moe_for_decode) while prefill keeps the
+  bf16 weights, so both copies are resident; ``kv_int8=True`` keeps the
+  page pool in int8 with per-(row, head) scales.
 
-Requests stream tokens to callbacks and can be cancelled mid-decode.
-Options of the JAX engine that are not ported raise NotImplementedError:
-a mesh (tensor, expert or pipeline parallel serving), the capacity/sort
-decode modes, the capacity/sort/gmm prefill modes and ``session_key``
-prefix reuse.
+Requests stream tokens to callbacks and can be cancelled mid-decode;
+``EngineThread`` drives ``step`` in the background. Options of the JAX
+engine that are not ported raise NotImplementedError: a mesh (tensor,
+expert or pipeline parallel serving) and ``session_key`` prefix reuse.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ import collections
 import dataclasses
 import itertools
 import queue
+import threading
 import time
+import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -47,12 +50,13 @@ from vita_tpu_torch.generate import (
     DEFAULT_FRAME_BUCKETS,
     DEFAULT_PROMPT_BUCKETS,
     DEFAULT_TILE_BUCKETS,
-    pad_axis0,
-    stack_encoded_clips,
-    stack_speech_clips,
+    decode_params,
+    embed_prompt,
+    moe_modes,
+    prompt_buckets_for,
+    tile_buckets_for,
 )
 from vita_tpu_torch.models import mixtral, vita
-from vita_tpu_torch.ops.moe import MODES
 from vita_tpu_torch.ops.paged_attention import (
     PagePool,
     init_page_pool,
@@ -60,12 +64,7 @@ from vita_tpu_torch.ops.paged_attention import (
     pages_needed,
 )
 from vita_tpu_torch.sampling import choose_sampling_mode, decode_chunk, sample_tokens
-from vita_tpu_torch.tokenization import audio_select_arrays, pad_to_bucket
-
-DECODE_MOE_MODES = MODES
-PREFILL_MOE_MODES = ("dense",)
-_JAX_ONLY_DECODE = ("capacity", "sort")
-_JAX_ONLY_PREFILL = ("capacity", "sort", "gmm")
+from vita_tpu_torch.tokenization import audio_token_count, pad_to_bucket
 
 
 @dataclasses.dataclass
@@ -184,19 +183,7 @@ class Engine:
                 "mesh serving (tensor/expert/pipeline parallel) is not ported; "
                 "the engine runs on one device"
             )
-        if decode_moe_mode is None:
-            decode_moe_mode = "gather" if cfg.llm.moe_mode == "gmm" else cfg.llm.moe_mode
-        if prefill_moe_mode is None:
-            prefill_moe_mode = cfg.llm.moe_mode
-        for name, mode, ported, jax_only in (
-            ("decode_moe_mode", decode_moe_mode, DECODE_MOE_MODES, _JAX_ONLY_DECODE),
-            ("prefill_moe_mode", prefill_moe_mode, PREFILL_MOE_MODES, _JAX_ONLY_PREFILL),
-        ):
-            if mode in jax_only:
-                raise NotImplementedError(
-                    f"{name} {mode!r} is not ported; ported: {ported}")
-            if mode not in ported:
-                raise ValueError(f"bad {name} {mode!r}")
+        decode_moe_mode, prefill_moe_mode = moe_modes(cfg, decode_moe_mode, prefill_moe_mode)
         self.params = params
         self.cfg = cfg
         self.device = torch.device(
@@ -208,22 +195,14 @@ class Engine:
         self.decode_chunk_len = decode_chunk_len
         self.decode_ticks = max(1, decode_ticks)
         self.prefill_chunk = prefill_chunk
-        buckets = sorted(b for b in prompt_buckets if b <= max_len)
-        if not buckets or buckets[-1] < max_len:
-            buckets.append(-(-max_len // page_size) * page_size)
-        if any(b % page_size for b in buckets):
+        self.prompt_buckets = prompt_buckets_for(prompt_buckets, max_len, page_size)
+        if any(b % page_size for b in self.prompt_buckets):
             raise ValueError("prompt buckets must be multiples of page_size")
-        self.prompt_buckets = tuple(buckets)
-        g = cfg.image_group_tiles  # framecat tiles come in 5-tuples
-        self.tile_buckets = tuple(sorted({-(-b // g) * g for b in tile_buckets}))
+        self.tile_buckets = tile_buckets_for(cfg, tile_buckets)
         self.frame_buckets = tuple(sorted(frame_buckets))
         self._decode_cfg = dataclasses.replace(cfg.llm, moe_mode=decode_moe_mode)
         self._prefill_cfg = dataclasses.replace(cfg.llm, moe_mode=prefill_moe_mode)
-        if decode_moe_mode in ("gather_q", "gather_q4"):
-            self._decode_llm = mixtral.quantize_moe_for_decode(
-                params["llm"], bits=4 if decode_moe_mode == "gather_q4" else 8)
-        else:
-            self._decode_llm = params["llm"]
+        self._decode_llm = decode_params(params, decode_moe_mode)
 
         llm = cfg.llm
         self.max_pages_per_slot = pages_needed(max_len, page_size)
@@ -304,6 +283,44 @@ class Engine:
                 out["decode_tokens_per_s_mean"] = sum(tps) / len(tps)
         return out
 
+    def warmup(
+        self,
+        prompt_lens: Optional[Sequence[int]] = None,
+        media: bool = False,
+        max_new_tokens: int = 4,
+    ) -> float:
+        """Run dummy requests through each prompt bucket (and, with
+        ``media``, one image+audio request), so the first real request does
+        not pay first-use costs (kernel build and load, library
+        initialisation). Returns the wall seconds spent."""
+        t0 = time.time()
+        lens = list(prompt_lens) if prompt_lens is not None else [
+            b for b in self.prompt_buckets if b + max_new_tokens <= self.max_len
+        ]
+        for n in lens:
+            s = max(min(n - 8, n - 1), 1)
+            self.submit(Request(input_ids=np.full(s, 9, np.int32),
+                                max_new_tokens=max_new_tokens, eos_id=-1))
+            self.run_until_idle()
+        if media:
+            g = self.cfg.image_group_tiles
+            n_img = self.cfg.image_tokens_per_group
+            frames = self.frame_buckets[0]
+            n_aud = audio_token_count(frames)
+            vs = self.cfg.vision.image_size
+            s = n_img + n_aud + 16
+            im, am = np.zeros(s, bool), np.zeros(s, bool)
+            im[8:8 + n_img] = True
+            am[8 + n_img:8 + n_img + n_aud] = True
+            self.submit(Request(
+                input_ids=np.full(s, 9, np.int32), image_mask=im, audio_mask=am,
+                images=np.zeros((g, vs, vs, 3), np.float32),
+                speech=np.zeros((frames, self.cfg.audio.input_dim), np.float32),
+                speech_length=frames, max_new_tokens=max_new_tokens, eos_id=-1,
+            ))
+            self.run_until_idle()
+        return time.time() - t0
+
     def active_count(self) -> int:
         return sum(r is not None for r in self.slot_req)
 
@@ -366,39 +383,13 @@ class Engine:
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def _embed(self, req: Request, ids: np.ndarray, bucket: int) -> torch.Tensor:
-        ids_d = self._tensor(ids, torch.int64)[None]
-        if req.images is None and req.speech is None and req.audio_encoded is None:
-            return self.params["llm"]["embed"][ids_d]
-
-        def padmask(m):
-            out = np.zeros(bucket, bool)
-            if m is not None:
-                mm = np.asarray(m, bool)  # shorter than the prompt on resume
-                out[: len(mm)] = mm
-            return out
-
-        am = padmask(req.audio_mask)
-        kw: Dict[str, Any] = {}
-        if req.images is not None:
-            kw["images"] = self._tensor(
-                pad_axis0(np.asarray(req.images, np.float32), self.tile_buckets))
-        if req.speech is not None or req.audio_encoded is not None:
-            if req.speech is not None:
-                clips, lens, counts = stack_speech_clips(
-                    req.speech, req.speech_length, self.frame_buckets)
-                kw["speech"], kw["speech_lengths"] = self._tensor(clips), self._tensor(lens)
-            else:
-                clips, lens, counts = stack_encoded_clips(
-                    req.audio_encoded, req.audio_encoded_length, self.frame_buckets)
-                kw["audio_encoded"] = self._tensor(clips)
-                kw["audio_encoded_lengths"] = self._tensor(lens)
-            ci, ri = audio_select_arrays(am, counts)
-            kw["audio_select"] = (self._tensor(ci)[None], self._tensor(ri)[None])
-        return vita.fuse_embeddings(
-            self.params, self.cfg, ids_d,
-            image_mask=self._tensor(padmask(req.image_mask))[None],
-            audio_mask=self._tensor(am)[None], **kw,
+    def _embed(self, req: Request, ids: np.ndarray) -> torch.Tensor:
+        # on resume the masks are shorter than the prompt; they pad with False
+        return embed_prompt(
+            self.params, self.cfg, ids, self.device, self.tile_buckets, self.frame_buckets,
+            image_mask=req.image_mask, audio_mask=req.audio_mask, images=req.images,
+            speech=req.speech, speech_length=req.speech_length,
+            audio_encoded=req.audio_encoded, audio_encoded_length=req.audio_encoded_length,
         )
 
     def _start_prefill(self, slot: int, req: Request, pages: List[int]) -> None:
@@ -414,7 +405,7 @@ class Engine:
         chunk = self.prefill_chunk if bucket % self.prefill_chunk == 0 else bucket
         self._prefill_jobs.append(_PrefillJob(
             req=req, slot=slot, pages=pages, true_len=s, bucket=bucket,
-            chunk=min(chunk, bucket), embeds=self._embed(req, np.asarray(padded), bucket),
+            chunk=min(chunk, bucket), embeds=self._embed(req, np.asarray(padded)),
             sk=torch.zeros(shape, dtype=llm.dtype, device=self.device),
             sv=torch.zeros(shape, dtype=llm.dtype, device=self.device),
             mode=choose_sampling_mode(req.temperature, req.top_k, req.top_p),
@@ -619,3 +610,30 @@ class Engine:
             self._finished = self._finished[-500:]
         if req.on_finish is not None:
             req.on_finish(req.tokens, reason)
+
+
+class EngineThread(threading.Thread):
+    """Background loop driving Engine.step (the demo's engine process)."""
+
+    def __init__(self, engine: Engine, tick_idle_s: float = 0.005):
+        super().__init__(daemon=True)
+        self.engine = engine
+        self.tick_idle_s = tick_idle_s
+        # not ``_stop``: Thread.join() calls self._stop()
+        self._stop_evt = threading.Event()
+
+    def run(self) -> None:
+        while not self._stop_evt.is_set():
+            try:
+                n = self.engine.step()
+            except Exception:  # noqa: BLE001 - the serving loop must survive
+                # one bad request (or a raising callback) must not stop the
+                # loop, or every other admitted request would wait forever
+                traceback.print_exc()
+                time.sleep(self.tick_idle_s)
+                continue
+            if n == 0:
+                time.sleep(self.tick_idle_s)
+
+    def stop(self) -> None:
+        self._stop_evt.set()
