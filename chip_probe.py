@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_probe.py profile   # where served decode's time goes
     python3 chip_probe.py warps     # warps per block of csrc/expert_ffn.cu
     python3 chip_probe.py gmm       # where the Generator's gmm prefill goes
+    python3 chip_probe.py train     # where a training step's time goes
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -25,6 +26,12 @@ int4, at the serving width (D 4096, F 14336, 8 experts).
 gmm: chip_smoke.py's slice through Generator (max_len 12288, gmm prefill)
 on a prompt of 8500 tokens with one new token, under torch.profiler after
 a warm-up, summarised as profile summarises.
+
+train: chip_smoke.py's training slice (2 of 32 LLM layers, stage 2, gmm,
+flash, remat, bf16) through make_train_step: after a warm-up step on each
+batch, one step on the 9216-token text batch and one on the image+audio
+batch of chip_smoke.SmokeData, each under torch.profiler, summarised as
+profile summarises.
 
 Each prints the card's name and power limit first.
 """
@@ -256,10 +263,44 @@ def gmm(card: str) -> None:
                card, top=10)
 
 
+def train(card: str) -> None:
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch.data.dataset import Collator
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.train import step
+
+    dev = torch.device("cuda")
+    cfg = smoke.train_slice_config()
+    params = vita.init_params(cfg, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
+    data = smoke.SmokeData(cfg, smoke.TRAIN_DIR)
+    tc = dataclasses.replace(step.TrainConfig.stage2_finetune(), warmup_steps=1)
+    opt = step.make_optimizer(tc, params)
+    state = opt.init(params)
+    fn = step.make_train_step(cfg, tc, opt)
+    collate = Collator(pad_id=0)
+    longest = max(range(len(data) - 1), key=lambda j: len(data[j]["input_ids"]))
+    for label, i in (("longest text batch", longest), ("image+audio batch", len(data) - 1)):
+        batch = collate([data[i]])
+        fn(params, state, batch)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _summarize(prof, wall, f"train step, {label} (bucket {batch['input_ids'].shape[1]})",
+                   card, top=14)
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "warps", "gmm"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "warps", "gmm", "train"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -271,7 +312,7 @@ def main() -> int:
     card = smoke.card_line()
     print(card, flush=True)
     kernels.lib()
-    {"profile": profile, "warps": warps, "gmm": gmm}[sys.argv[1]](card)
+    {"profile": profile, "warps": warps, "gmm": gmm, "train": train}[sys.argv[1]](card)
     return 0
 
 

@@ -6,12 +6,14 @@
 Phases, each of which raises on failure:
   1. build the hand-written CUDA kernels from vita_tpu_torch/csrc with nvcc
      (sm_90a, one nvcc per source, all at once) into build/kernels/;
-  2. hold every kernel against its plain PyTorch version at the serving
-     path's shapes in bf16 and at a small shape in fp32, and time both with
-     CUDA events (median of 25 runs after warm-up): B1-B4, the grouped
-     matmuls B5a/B5b of the gmm prefill, the quantized expert FFNs B6/B7
-     (int8/int4, per-channel and grouped) and B8a/B8b, and B9 over int8
-     pages;
+  2. hold every kernel against its plain PyTorch version at the main
+     paths' shapes in bf16 and at a small shape in fp32, and time both with
+     CUDA events (median of 25 runs after warm-up), beside the least time
+     the card could take (bound) and, where one PyTorch call computes the
+     same function, that call's time: B1 (with its lse), B2-B4, the grouped
+     matmuls B5a/B5b, the quantized expert FFNs B6/B7 and B8a/B8b, B9 over
+     int8 pages, and the training backward: B10/B11 at a causal 4096-token
+     sequence and B12 at a 9216-token step's R (tile 512);
   3. serve the full-width VITA-8x7B slice (Mixtral cut to 4 of 32 layers,
      InternViT-300M at 448px, Whale 24x1024; random weights from a seed)
      through Engine, four times on the same weights: bf16 experts (one
@@ -32,12 +34,22 @@ Phases, each of which raises on failure:
      then int4 experts with int8 KV pages: greedy streams must be
      identical (for the quantized run, a request may split only at a step
      where the CPU's own top two logits were the two tokens, within
-     NEAR_TIE below).
+     NEAR_TIE below);
+  6. train the full-width slice with the LLM cut to 2 of 32 layers
+     (stage 2, gmm MoE, flash attention, per-layer remat, bf16) through
+     Trainer for one step per sample: two text samples past 4096 tokens
+     (bucket 9216: B5a), shorter ones (B5b) and an image+audio sample;
+     B1, B5a, B5b, B10, B11 and B12 must launch, the losses be finite,
+     the trainable components change and the frozen towers not;
+  7. the train CLI in process (python -m vita_tpu_torch.train.cli --model
+     tiny-random --moe-mode gmm), then three train steps of the narrow
+     fp32 config (gmm, flash) on the card and on the CPU: losses and the
+     first step's gradients must agree (GRAD_TOL, LOSS_RTOL below), up to
+     the first step where the CPU's router had a near tie.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over the serving phases 3-5) before the last,
-and as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+results (launches summed over phases 3-7) before the last, and as the last
+line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
 """
@@ -84,6 +96,39 @@ def cuda_ms(fn, n: int = N_TIMED, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+# H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data sheet);
+# every timed case of phase 2 is bf16
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the bf16 peak and the bytes over the memory rate."""
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops > t_mem else "bytes"
+
+
+def library_ms(name, make):
+    """CUDA-event ms of the one PyTorch call ``make()`` returns, or None
+    (with the reason printed) where that call does not run here. Timed as a
+    yardstick only: the port never calls it."""
+    try:
+        fn = make()
+        fn()
+    except Exception as e:  # a private or backend-specific call may be missing
+        print(f"  {name}: library call unavailable ({type(e).__name__}: {e})", flush=True)
+        return None
+    return cuda_ms(fn)
+
+
+def attn_pairs(sq, kv_len, q_off, causal) -> int:
+    """(q row, key) pairs that attention computes for these masks."""
+    r = np.arange(sq)
+    return int(sum(np.clip(np.minimum(kl, qo + r + 1) if causal else np.full(sq, kl), 0, None)
+                   .sum() for kl, qo in zip(kv_len, q_off)))
 
 
 def compare(name, got, want, atol, rtol):
@@ -221,18 +266,33 @@ def kernel_phase(card: str):
     tol_q = {bf16: (2e-2, 2e-2), f32: (5e-4, 5e-4)}
     rows = {}
 
-    def check(kernel, case, run_kernel, run_plain, dtype, timed, tols=tol):
+    def check(kernel, case, run_kernel, run_plain, dtype, timed, tols=tol, work=None,
+              library=None):
+        """Kernel against plain (each output of a tuple); a timed case also
+        gives the row of the result line: times, the bound of ``work``
+        (flops, bytes) and the ``library`` call's time (None: there is none)."""
         want = run_plain()
         got = run_kernel()
         torch.cuda.synchronize()
-        err = compare(f"{kernel} {case}", got, want, *tols[dtype])
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(compare(f"{kernel} {case}", g, w, *tols[dtype]) for g, w in pairs)
+        del got, want
         line = f"  {kernel:20s} {case:44s} max_abs_err {err:.3e} (tol {tols[dtype]})"
         if timed:
             ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
-            line += f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]"
+            lib_ms = library_ms(kernel, library) if library is not None else None
+            bound_ms, bound_by = bound(*work)
+            line += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                     f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+                     f"{bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} FLOP, {work[1]:.4g} B)"
+                     f"  [{card}]")
             if kernel not in rows:
-                rows[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                rows[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=lib_ms)
         print(line, flush=True)
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     # B1: prefill chunk 256 over bucket 512 (both chunks), 384 as one chunk
     for case, sq, skv, kv_len, q_off, dt, timed in (
@@ -244,8 +304,12 @@ def kernel_phase(card: str):
         b = len(kv_len)
         hq, hkv = (32, 8) if dt == bf16 else (4, 2)
         args = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dt, dev)
-        check("flash_fwd", case, lambda a=args: fa.flash_mha_cuda(*a),
-              lambda a=args: fa.flash_mha_plain(*a), dt, timed)
+        q, k, v = args[:3]
+        work = (4 * attn_pairs(sq, kv_len, q_off, True) * 128 * hq,
+                2 * nbytes(q) + nbytes(k, v) + 4 * b * hq * sq)  # q, k, v, o, lse
+        check("flash_fwd", case, lambda a=args: fa.flash_fwd_cuda(*a),
+              lambda a=args: fa.flash_fwd_plain(*a), dt, timed, work=work,
+              library=lambda a=args: _sdpa_fwd(*a))
 
     # B2: decode over the serving pool (4 layers, 128 pages of 64)
     for case, lengths, dt, timed in (
@@ -257,8 +321,13 @@ def kernel_phase(card: str):
             args = _paged_case(rng, lengths, 32, 8, 4, 128, 64, 32, dt, dev)
         else:
             args = _paged_case(rng, lengths, 4, 2, 2, 16, 16, 6, dt, dev)
+        n = sum(lengths)
+        hq = args[0].shape[1]
+        hkv = args[1].shape[1]
+        work = (4 * n * hq * 128, (2 * n * hkv * 128 + 2 * len(lengths) * hq * 128)
+                * args[0].element_size())  # the used k/v rows, q, o
         check("paged_attention", case, lambda a=args: pa.paged_attention_cuda(*a),
-              lambda a=args: pa.paged_attention_plain(*a), dt, timed)
+              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work)
 
     # B9: decode over an int8 pool (4 layers, 64 pages of 128, the
     # quantized engine's page size), and page 64
@@ -272,20 +341,30 @@ def kernel_phase(card: str):
                                  2048 // page, dt, dev)
         else:
             args = _paged_q_case(rng, lengths, 4, 2, 2, 12, page, 3, dt, dev)
+        n = sum(lengths)
+        hq, hkv = args[0].shape[1], args[1].shape[1]
+        work = (4 * n * hq * 128,  # int8 k/v rows with a float32 scale each, q, o
+                2 * n * hkv * (128 + 4) + 2 * len(lengths) * hq * 128 * args[0].element_size())
         check("paged_attention_q", case, lambda a=args: pa.paged_attention_cuda(*a),
-              lambda a=args: pa.paged_attention_plain(*a), dt, timed)
+              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work)
 
     # B3/B4: the selected experts of layer 3 of 4 (flat ids into [L*E, ...])
     for dt, d, f, n_layers in ((bf16, 4096, 14336, 4), (f32, 256, 512, 2)):
         layer = n_layers - 1
         wg, wu, wd = _expert_weights(rng, n_layers * 8, d, f, dt, dev)
+        def ffn_work(t, idx, weight_bytes):
+            """Top-k FLOPs of T tokens; each distinct expert's weights read
+            once (weight_bytes per gate/up/down element, scales included)."""
+            n_exp = len(torch.unique(idx))
+            return 2 * 3 * t * idx.shape[1] * d * f, n_exp * 3 * d * f * weight_bytes
+
         for t in (1, 3):
             x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
             _, idx = _routing(rng, t, 2, 8, layer, dt, dev)
             check("gather_expert_ffn", f"{dt} T={t}",
                   lambda x=x, i=idx: md.gather_expert_ffn_cuda(x, i, wg, wu, wd),
                   lambda x=x, i=idx: md.gather_expert_ffn_plain(x, i, wg, wu, wd),
-                  dt, t == 1 and dt == bf16)
+                  dt, t == 1 and dt == bf16, work=ffn_work(t, idx, wg.element_size()))
         for t in (4, 16):
             x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
             w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
@@ -293,7 +372,7 @@ def kernel_phase(card: str):
             check("masked_expert_ffn", f"{dt} T={t}",
                   lambda x=x, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd),
                   lambda x=x, a=act, m=m: md.masked_expert_ffn_plain(x, a, m, wg, wu, wd),
-                  dt, t == 4 and dt == bf16)
+                  dt, t == 4 and dt == bf16, work=ffn_work(t, idx, wg.element_size()))
 
         # B6/B7 (gather) and B8a/B8b (masked) over the same experts,
         # quantized layer by layer; grouped int4 only has the gather schedule
@@ -309,13 +388,16 @@ def kernel_phase(card: str):
             qp = {k: v.flatten(0, 1) for k, v in qp.items() if k != "router"}
             sfx = "_q4" if bits == 4 else "_q"
             main = kind in ("int8", "int4")
+            # bytes per weight element: the packed value plus its share of the
+            # float32 scales (one per output column, or per group of rows)
+            qbytes = bits / 8 + (4 / group if "group" in kind else 4 * (2 / d + 1 / f) / 3)
             for t in (1, 3):
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
                 _, idx = _routing(rng, t, 2, 8, layer, dt, dev)
                 check("gather_expert_ffn" + sfx, f"{kind} {dt} T={t}",
                       lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_cuda(x, i, q, b),
                       lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_plain(x, i, q, b),
-                      dt, t == 1 and dt == bf16, tol_q)
+                      dt, t == 1 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes))
             for t in ((4, 16) if bits == 8 else (8, 16)) if main else ():
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
                 w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
@@ -325,7 +407,7 @@ def kernel_phase(card: str):
                           md.masked_expert_ffn_q_cuda(x, a, m, q, b),
                       lambda x=x, a=act, m=m, q=qp, b=bits:
                           md.masked_expert_ffn_q_plain(x, a, m, q, b),
-                      dt, t < 16 and dt == bf16, tol_q)
+                      dt, t < 16 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes))
             del qp
         del wg, wu, wd, stack
         torch.cuda.empty_cache()
@@ -337,10 +419,13 @@ def kernel_phase(card: str):
     for t, name in ((256, "gmm_small"), (12288, "gmm")):
         for down in (False, True):
             x, w, gids, tile_m = _gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
-            check(name, f"bf16 T={t} R={x.shape[0]} tile {tile_m} "
+            r, k_dim, n_dim = x.shape[0], *w.shape[1:]
+            check(name, f"bf16 T={t} R={r} tile {tile_m} "
                         f"{'down' if down else 'gate/up'} [{'x'.join(map(str, w.shape))}]",
                   lambda a=(x, w, gids, False, tile_m): mg.gmm_cuda(*a),
-                  lambda a=(x, w, gids, False, tile_m): mg.gmm_plain(*a), bf16, True)
+                  lambda a=(x, w, gids, False, tile_m): mg.gmm_plain(*a), bf16, True,
+                  work=(2 * r * k_dim * n_dim, nbytes(x, w) + 2 * r * n_dim),
+                  library=lambda a=(x, w, gids, tile_m): _grouped_mm(*a))
             del x, w
             torch.cuda.empty_cache()
     real_max = mg.SMALL_R_MAX
@@ -355,7 +440,131 @@ def kernel_phase(card: str):
                   lambda a=(x, w, gids, True, tile_m): mg.gmm_plain(*a), f32, False)
         finally:
             mg.SMALL_R_MAX = real_max
+
+    # B10/B11: the backward of a causal training sequence of 4096 tokens (32/8
+    # heads of 128) in bf16, on the plain forward's o and lse; a ragged fp32
+    # case with GQA, kv_len padding and per-row offsets
+    for case, sq, skv, kv_len, q_off, dt, timed in (
+        ("bf16 B=1 S=4096 causal", 4096, 4096, [4096], [0], bf16, True),
+        ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, [150, 77], [50, 0], f32, False),
+    ):
+        b = len(kv_len)
+        hq, hkv = (32, 8) if dt == bf16 else (4, 2)
+        q, k, v, kl, qo, causal, scale = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off,
+                                                     dt, dev)
+        do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(dev, dt)
+        o, lse = fa.flash_fwd_plain(q, k, v, kl, qo, causal, scale)
+        args = (q, k, v, do, lse, fa.flash_delta(do, o), kl, qo, causal, scale)
+        pairs = attn_pairs(sq, kv_len, q_off, causal)
+        stats = 2 * 4 * b * hq * sq  # lse and delta
+        check("flash_bwd_dq", case, lambda a=args: fa.flash_bwd_dq_cuda(*a),
+              lambda a=args: fa.flash_bwd_dq_plain(*a), dt, timed,
+              work=(2 * 3 * pairs * 128 * hq, 3 * nbytes(q) + 2 * nbytes(k) + stats),
+              library=lambda: _sdpa_bwd(q, k, v, do, scale))
+        check("flash_bwd_dkv", case, lambda a=args: fa.flash_bwd_dkv_cuda(*a),
+              lambda a=args: fa.flash_bwd_dkv_plain(*a), dt, timed,
+              work=(2 * 4 * pairs * 128 * hq, 2 * nbytes(q) + 4 * nbytes(k) + stats),
+              library=lambda: _sdpa_bwd(q, k, v, do, scale))
+        del q, k, v, do, o, lse, args
+        torch.cuda.empty_cache()
+
+    # B12: the weight gradients of a training step of 9216 tokens (T*k 18432 >
+    # 16384: tile 512, R 22528), gate/up and down shapes, bf16; fp32 at tile
+    # 128 with an expert that has no token (its tile is padding: dw exactly 0)
+    for t, d, f, e, dt, timed, unused in ((9216, 4096, 14336, 8, bf16, True, ()),
+                                          (300, 200, 136, 4, f32, False, (2,))):
+        for down in (False, True):
+            a, bmat, gids, tile_m = _wgrad_case(rng, t, d, f, e, dt, dev, down, unused)
+            r, k_dim, n_dim = a.shape[0], a.shape[1], bmat.shape[1]
+            check("gmm_wgrad", f"{dt} T={t} R={r} tile {tile_m} {'down' if down else 'gate/up'} "
+                               f"[{e}x{k_dim}x{n_dim}]",
+                  lambda z=(a, bmat, gids, e, tile_m): mg.gmm_wgrad_cuda(*z),
+                  lambda z=(a, bmat, gids, e, tile_m): mg.gmm_wgrad_plain(*z), dt, timed,
+                  work=(2 * r * k_dim * n_dim, nbytes(a, bmat) + e * k_dim * n_dim * a.element_size()),
+                  library=lambda z=(a, bmat, gids, tile_m): _grouped_mm_wgrad(*z))
+            if unused:
+                dw = mg.gmm_wgrad_cuda(a, bmat, gids, e, tile_m)
+                if bool(dw[list(unused)].any()):
+                    raise AssertionError("gmm_wgrad: an expert without tokens got a nonzero dw")
+            del a, bmat
+            torch.cuda.empty_cache()
     return rows
+
+
+def _sdpa_fwd(q, k, v, kv_len, q_off, causal, scale):
+    """scaled_dot_product_attention with flash_mha's masks (B = 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    sq, skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kpos = torch.arange(skv, device=q.device)
+    mask = kpos[None, :] < kv_len[0]
+    if causal:
+        mask = mask & (kpos[None, :] <= torch.arange(sq, device=q.device)[:, None] + q_off[0])
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+
+def _sdpa_bwd(q, k, v, do, scale):
+    """The backward of causal scaled_dot_product_attention: one call giving
+    dq, dk and dv together."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def _group_ends(gids, n_groups, tile_m):
+    import torch
+
+    return (torch.bincount(gids.long(), minlength=n_groups) * tile_m).cumsum(0).to(torch.int32)
+
+
+def _grouped_mm(x, w, gids, tile_m):
+    """PyTorch's grouped matmul over the same row groups."""
+    import torch
+
+    offs = _group_ends(gids, w.shape[0], tile_m)
+    return lambda: torch._grouped_mm(x, w, offs=offs)
+
+
+def _grouped_mm_wgrad(a, b, gids, tile_m):
+    """PyTorch's grouped matmul with the groups along the contraction:
+    a^T b per group."""
+    import torch
+
+    offs = _group_ends(gids, int(gids.max()) + 1, tile_m)
+    at = a.t()
+    return lambda: torch._grouped_mm(at, b, offs=offs)
+
+
+def _wgrad_case(rng, t, d, f, e, dtype, dev, down, unused=()):
+    """B12's operands in the sorted layout of T tokens routed top-2 over e
+    experts (never any of ``unused``): a = the matmul's input rows, b = its
+    output gradient rows (zero on padding rows, as in training), gids,
+    tile_m. Gate/up shapes a [R, d], b [R, f]; down a [R, f], b [R, d]."""
+    import torch
+
+    from vita_tpu_torch.ops import moe_gmm as mg
+
+    pool = [x for x in range(e) if x not in unused]
+    idx = torch.from_numpy(np.stack([rng.choice(pool, 2, replace=False) for _ in range(t)])
+                           .astype(np.int32)).to(dev)
+    tile_m = mg.SMALL_TILE_M if 2 * t <= mg.SMALL_R_MAX else mg.TILE_M
+    dest, _, _, gids, r = mg.sorted_layout(idx, e, tile_m)
+    k_dim, n_dim = (f, d) if down else (d, f)
+
+    def rows(n):
+        x = torch.zeros(r, n, dtype=dtype, device=dev)
+        x[dest.long()] = torch.from_numpy(rng.standard_normal((2 * t, n), np.float32)).to(dev, dtype)
+        return x
+
+    return rows(k_dim), rows(n_dim), gids, tile_m
 
 
 # --------------------------------------------------------------------------
@@ -721,6 +930,304 @@ def equivalence_phase(devices, near_tie: float = 0.0, **engine_kw):
           f"{compared} of {sum(map(len, ref))} tokens compared", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 6-7: training
+# --------------------------------------------------------------------------
+TRAIN_DIR = os.path.join(ROOT, "build", "smoke_train")
+# the kernels the training phase must launch, and the largest Collator
+# bucket its longest sample reaches
+TRAIN_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gmm", "gmm_small", "gmm_wgrad")
+TRAIN_TOP_BUCKET = 9216
+
+
+def train_slice_config():
+    """VITA-8x7B at full width with the LLM cut to 2 of 32 layers, gmm MoE,
+    flash attention and per-layer remat (the 8x7B preset's), bf16. A layer
+    is about 1.45 B parameters at 8 bytes per trainable parameter (weight,
+    gradient, two Adam moments): 2 layers and embed/lm_head come to about
+    27 GB before a 9216-token step's activations."""
+    from vita_tpu_torch.models import vita
+
+    cfg = vita.VITAConfig.vita_8x7b()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=2, moe_mode="gmm"))
+
+
+def write_wav(path, seconds, seed):
+    """A 16 kHz mono PCM wav of noise, written with the stdlib."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((rng.standard_normal(int(16000 * seconds)) * 3000).astype(np.int16).tobytes())
+    return path
+
+
+def _turns(rng, n_words):
+    words = ["alpha", "beta", "gamma", "delta", "omega", "sigma", "kappa"]
+    text = " ".join(rng.choice(words, n_words))
+    return [{"from": "human", "value": text[: len(text) // 2]},
+            {"from": "gpt", "value": text[len(text) // 2:]}]
+
+
+class SmokeData:
+    """Conversation samples for the training phase, through the port's data
+    pipeline with the byte tokenizer: text samples from a JSON file via
+    ConversationDataset (two long ones past 4096 tokens, which the Collator
+    pads to its 9216 bucket, and short ones), and one image+audio sample
+    built the way ConversationDataset builds one, with its tiles from a
+    numpy array (the card's host has no PIL) and its audio from a wav."""
+
+    def __init__(self, cfg, directory, seed=SEED, text_words=(900, 60, 300, 900)):
+        from vita_tpu_torch.cli import ByteTokenizer
+        from vita_tpu_torch.data import dataset as ds
+        from vita_tpu_torch.data import image, preprocess
+        from vita_tpu_torch.data.audio import wav_to_features
+        from vita_tpu_torch.tokenization import audio_token_count
+
+        os.makedirs(directory, exist_ok=True)
+        rng = np.random.default_rng(seed)
+        tok = ByteTokenizer()
+        chat = os.path.join(directory, "chat.json")
+        with open(chat, "w") as f:
+            json.dump([{"conversations": _turns(rng, n)} for n in text_words], f)
+        args = ds.DataArgs(image_size=cfg.vision.image_size, max_patches=1, use_thumbnail=False,
+                           image_tokens_per_group=cfg.image_tokens_per_group)
+        text = ds.ConversationDataset([ds.DatasetSpec(chat)], tok.encode, tok.bos_id, tok.eos_id,
+                                      pad_id=0, args=args)
+        self.samples = [text[i] for i in range(len(text))]
+
+        feats, _ = wav_to_features(write_wav(os.path.join(directory, "q.wav"), 2.0, seed))
+        turns = [{"from": "human", "value": "<image>\n<audio>\n"},
+                 {"from": "gpt", "value": "a picture and a sound"}]
+        ids, labels = preprocess.build_training_sample(
+            preprocess.normalize_media_tokens(turns, patch_nums=[1]), tok.encode, "image", True,
+            tok.bos_id, tok.eos_id, pad_id=0)
+        ids, labels = ds.expand_sample(ids, labels, cfg.image_tokens_per_group,
+                                       [audio_token_count(len(feats))])
+        sz = cfg.vision.image_size
+        tile = rng.integers(0, 256, (sz, sz, 3), dtype=np.uint8)
+        self.samples.append({"modality": "image", "images": image.normalize([tile]),
+                             "audio": feats, "input_ids": ids, "labels": labels})
+        self.lengths = [-len(s["input_ids"]) for s in self.samples[:-1]] + [
+            len(self.samples[-1]["input_ids"])]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def modality_lengths(self):
+        return self.lengths
+
+
+def train_phase(card: str, device):
+    """Trainer over SmokeData on the full-width slice, stage 2 (the LLM and
+    both projectors train, the towers are frozen) with a warm-up of one
+    step, batch size 1: one step per sample. Checks the path's kernels
+    launched, a batch reached TRAIN_TOP_BUCKET, the losses are finite,
+    every trainable component changed and the frozen towers did not
+    (bitwise). Returns the launch counts."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.data.dataset import Collator
+    from vita_tpu_torch.train.step import TrainConfig, tree_leaves
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    cfg = train_slice_config()
+    on_card = device.type == "cuda"
+    params = slice_params(cfg, device)
+    before = {p: w.detach().to("cpu", copy=True) for p, w in tree_leaves(params)}
+    data = SmokeData(cfg, TRAIN_DIR)
+    seqs = []
+    collate = Collator(pad_id=0)
+
+    def collator(samples):
+        batch = collate(samples)
+        seqs.append((batch["input_ids"].shape[1], int(batch["attn_valid"].sum())))
+        return batch
+
+    tc = dataclasses.replace(TrainConfig.stage2_finetune(), warmup_steps=1)
+    run = RunConfig(output_dir=os.path.join(TRAIN_DIR, "run"), batch_size=1,
+                    save_every_steps=10 ** 9, loader_workers=2, resume=False)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer = Trainer(cfg, tc, run, params)
+    log = trainer.train(data, collator)
+    _sync(device)
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in the training run: {counts}", flush=True)
+    # one timed run per step; a step's time includes the first launches at
+    # its bucket's shapes, so the second step at the top bucket is the warm one
+    for m, (seq, real) in zip(log, seqs):
+        print(f"  step {m['step']}: bucket {seq:5d} ({real:5d} real tokens), loss {m['loss']:.4f}"
+              f" (ce {m['ce']:.4f}, aux {m['aux']:.4f}), step {m['step_time'] * 1e3:9.2f} ms, "
+              f"{real / m['step_time']:9.1f} real tokens/s ({seq / m['step_time']:9.1f} bucket "
+              f"positions/s)  [{card}]", flush=True)
+    if on_card:
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+              f"[{card}]", flush=True)
+    missing = [k for k in TRAIN_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"training: kernels never launched on its path: {missing}")
+    if len(log) != len(data) or not all(np.isfinite(m["loss"]) for m in log):
+        raise AssertionError(f"training: {len(log)} steps, losses {[m['loss'] for m in log]}")
+    if max(seq for seq, _ in seqs) != TRAIN_TOP_BUCKET:
+        raise AssertionError(f"training: no batch reached the {TRAIN_TOP_BUCKET} bucket: {seqs}")
+    changed = {}
+    for p, w in tree_leaves(params):
+        n = int((w.detach().cpu() != before[p]).sum())
+        changed[p[0]] = changed.get(p[0], 0) + n
+        if not w.requires_grad and n:
+            raise AssertionError(f"training: frozen {'/'.join(p)} changed in {n} elements")
+    print(f"  elements changed per component: {changed}", flush=True)
+    for comp in ("llm", "vision_proj", "audio_proj"):
+        if changed[comp] == 0:
+            raise AssertionError(f"training: trainable {comp} did not change")
+    del trainer, params, before
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
+
+
+def train_cli_phase():
+    """python -m vita_tpu_torch.train.cli --model tiny-random --moe-mode gmm
+    on the card, in process, over a text sample and an audio sample."""
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.train import cli
+
+    directory = os.path.join(TRAIN_DIR, "cli")
+    os.makedirs(directory, exist_ok=True)
+    wav = write_wav(os.path.join(directory, "q.wav"), 1.0, SEED + 1)
+    chat = os.path.join(directory, "chat.json")
+    with open(chat, "w") as f:
+        json.dump([{"conversations": [{"from": "human", "value": "<audio>\n"},
+                                      {"from": "gpt", "value": "a sound"}], "audio": wav},
+                   {"conversations": _turns(np.random.default_rng(SEED), 40)}] * 2, f)
+    kernels.reset_launches()
+    rc = cli.main(["--model", "tiny-random", "--data", chat, "--output-dir",
+                   os.path.join(directory, "run"), "--batch-size", "2", "--no-resume",
+                   "--moe-mode", "gmm"])
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in the train CLI run: {counts}", flush=True)
+    if rc != 0 or min(counts["gmm_wgrad"], counts["gmm_small"]) == 0:
+        raise AssertionError(f"train CLI: exit code {rc}, launches {counts}")
+    return counts
+
+
+# Router near ties: the card's and the CPU's float32 router probabilities
+# differ by about 1e-7; a token whose k-th and (k+1)-th expert
+# probabilities lie within ROUTE_NEAR_TIE may pick another expert on the
+# other device, which changes its gradients by O(1).
+ROUTE_NEAR_TIE = 1e-5
+# per leaf, max |g_cuda - g_cpu| <= GRAD_TOL * max |g_cpu|: float32 sums in
+# another order (kernels, cuBLAS and the CPU's BLAS) differ by about 1e-6
+# relative per op, which a 2-layer forward and backward compound to about
+# 1e-5; a wrong kernel is off by O(1)
+GRAD_TOL = 1e-3
+# per step, |loss_cuda - loss_cpu| <= LOSS_RTOL * |loss_cpu|: the loss is a
+# mean over a few hundred tokens; after an update Adam may move a weight
+# whose gradient is at rounding level by up to 2 lr differently on the two
+# devices, which moves that mean far less than this
+LOSS_RTOL = 1e-4
+
+
+def train_equivalence_phase(devices, steps=3):
+    """Three train steps (stage 2, gmm MoE, flash attention) of the narrow
+    fp32 config on each device from the same weights and batches; the last
+    device is the reference. Compares each step's loss and the first
+    step's gradient of every trainable leaf. A router near tie
+    (ROUTE_NEAR_TIE) in the reference's step i excuses step i and the
+    steps after it, whose weights it moved; never an earlier step."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.train import step
+    from vita_tpu_torch.tokenization import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
+
+    base = narrow_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, moe_mode="gmm"))
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    rng = np.random.default_rng(SEED + 3)
+    sz, n_img = cfg.vision.image_size, cfg.image_tokens_per_group
+    batches = []
+    for _ in range(steps):
+        ids = rng.integers(3, cfg.llm.vocab_size, (2, 256)).astype(np.int32)
+        ids[0, 4:4 + n_img] = IMAGE_TOKEN_INDEX
+        ids[0, 6 + n_img:13 + n_img] = AUDIO_TOKEN_INDEX  # 7 slots: 60 fbank frames
+        im, am = ids == IMAGE_TOKEN_INDEX, ids == AUDIO_TOKEN_INDEX
+        valid = np.ones((2, 256), bool)
+        valid[1, 200:] = False
+        batches.append({
+            "input_ids": np.where(im | am, 0, ids), "labels": np.where(im | am | ~valid, -100, ids),
+            "image_mask": im, "audio_mask": am, "attn_valid": valid,
+            "images": rng.standard_normal((2, sz, sz, 3)).astype(np.float32),
+            "speech": rng.standard_normal((2, 60, 80)).astype(np.float32),
+            "speech_lengths": np.array([60, 60], np.int32)})
+    tc = step.TrainConfig(learning_rate=1e-3, projector_lr=1e-2, warmup_steps=1, total_steps=10)
+    gaps, runs = [], []  # gaps: per reference step, its router gaps
+    real_route = moe.route_topk
+
+    def recording_route(logits, k):
+        out = real_route(logits, k)
+        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
+        gaps[-1].append(float((top[:, k - 1] - top[:, k]).min()))
+        return out
+
+    for dev in devices:
+        p = _to(params, dev)
+        opt = step.make_optimizer(tc, p)
+        state = opt.init(p)
+        grads, real_update = [], opt.update
+
+        def recording_update(params, g, state, real_update=real_update, grads=grads):
+            if not grads:
+                grads.append({k: v.detach().cpu() for k, v in g.items()})
+            return real_update(params, g, state)
+
+        opt.update = recording_update
+        fn = step.make_train_step(cfg, tc, opt)
+        reference = dev is devices[-1]
+        if reference:
+            moe.route_topk = recording_route
+        try:
+            losses = []
+            for b in batches:
+                if reference:
+                    gaps.append([])
+                losses.append(float(fn(p, state, b)[2]["loss"]))
+        finally:
+            moe.route_topk = real_route
+        runs.append((losses, grads[0]))
+    (losses, grads), (ref_losses, ref_grads) = runs
+    step_gaps = [min(g) for g in gaps]
+    tied = [i for i, g in enumerate(step_gaps) if g <= ROUTE_NEAR_TIE]
+    first_tie = tied[0] if tied else steps
+    worst = max((float((grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)), "/".join(k))
+                for k, g in ref_grads.items())
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"  losses {devices[0]} {losses} vs {devices[-1]} {ref_losses}: rel errs "
+          f"{[f'{e:.3e}' for e in loss_errs]} (tol {LOSS_RTOL}); first step's worst leaf "
+          f"gradient rel err {worst[0]:.3e} ({worst[1]}, tol {GRAD_TOL}); reference's smallest "
+          f"router gap per step {[f'{g:.3e}' for g in step_gaps]} (near tie <= {ROUTE_NEAR_TIE})",
+          flush=True)
+    bad = [f"step {i + 1} loss" for i, e in enumerate(loss_errs[:first_tie]) if e > LOSS_RTOL]
+    if first_tie > 0 and worst[0] > GRAD_TOL:
+        bad.append("step 1 gradients")
+    if bad:
+        raise AssertionError(f"training steps differ on {devices}: {bad}")
+    if first_tie < steps:
+        print(f"  steps {first_tie + 1}-{steps} not compared: the reference's router had a near "
+              f"tie in step {first_tie + 1}", flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -737,9 +1244,10 @@ def _sync(device):
 
 
 def _to(tree, device):
+    """A copy of the tree on ``device`` (a copy on the CPU too)."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def main() -> int:
@@ -796,6 +1304,20 @@ def main() -> int:
     equivalence_phase(pair, NEAR_TIE, decode_moe_mode="gather_q4", kv_int8=True)
     parts.append(dict(kernels.launches))
     print(f"  phase 5 wall {time.time() - t0:.1f} s", flush=True)
+
+    print("phase 6: full-width VITA-8x7B slice (2 of 32 LLM layers) through Trainer", flush=True)
+    t0 = time.time()
+    parts.append(train_phase(card, dev))
+    print(f"  phase 6 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+    print("phase 7: the train CLI, then train steps on cuda vs cpu, narrow fp32 config",
+          flush=True)
+    t0 = time.time()
+    parts.append(train_cli_phase())
+    kernels.reset_launches()
+    train_equivalence_phase(pair)
+    parts.append(dict(kernels.launches))
+    print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {
@@ -810,6 +1332,9 @@ def main() -> int:
         "paged_attention_q": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:335"),
         "gmm": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:72"),
         "gmm_small": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:96"),
+        "flash_bwd_dq": ("csrc/flash_bwd.cu", "vita_tpu/ops/flash_attention.py:195"),
+        "flash_bwd_dkv": ("csrc/flash_bwd.cu", "vita_tpu/ops/flash_attention.py:247"),
+        "gmm_wgrad": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:201"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"vita_tpu_torch/{src}",

@@ -1,9 +1,11 @@
-"""PyTorch port: imports without jax or the reference package, launches a
+"""PyTorch port: imports without jax or the reference package (no module,
+the CLIs with media files included, and not chip_smoke.py), launches a
 kernel or raises (never the plain version) for non-CPU tensors, and
 chip_smoke.py refuses to run without a CUDA card."""
 
 import json
 import os
+import wave
 import pathlib
 import re
 import subprocess
@@ -12,14 +14,17 @@ import sys
 import pytest
 import torch
 
+import numpy as np
 import torch_port_util  # noqa: F401  (pins torch threads)
 from vita_tpu_torch import kernels
 from vita_tpu_torch.ops import flash_attention, moe_decode, moe_gmm, paged_attention
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-# the CLI reads a media file with the reference's numpy loaders, imported
-# inside main() only when a file is given
-CLI_MEDIA_LOADERS = re.compile(r"^[ ]+from vita_tpu\.data\.(image|video|audio) import .*$", re.M)
+NO_REFERENCE = (
+    "assert 'jax' not in sys.modules, 'jax imported'\n"
+    "ref = [m for m in sys.modules if m == 'vita_tpu' or m.startswith('vita_tpu.')]\n"
+    "assert not ref, ref\n"
+)
 
 
 def _run(code_or_args, env_extra=None):
@@ -35,24 +40,54 @@ def test_package_imports_without_jax():
         "import importlib, json, pkgutil, sys, vita_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vita_tpu_torch.__path__, 'vita_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "ref = [m for m in sys.modules if m == 'vita_tpu' or m.startswith('vita_tpu.')]\n"
-        "assert not ref, ref\n"
+        + NO_REFERENCE +
         "print(json.dumps(names))\n"
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     names = json.loads(proc.stdout)
-    assert len(names) >= 20 and "vita_tpu_torch.cli" in names
+    assert len(names) >= 30 and "vita_tpu_torch.cli" in names
+    assert "vita_tpu_torch.train.cli" in names and "vita_tpu_torch.data.dataset" in names
+
+
+def _wav(path):
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.random.default_rng(0).standard_normal(8000) * 3000)
+                      .astype(np.int16).tobytes())
+    return str(path)
+
+
+def test_clis_with_media_files_load_no_reference_module(tmp_path):
+    """The inference CLI given an audio file, and the train CLI given a
+    dataset with audio, on the CPU: neither loads jax or vita_tpu."""
+    wav = _wav(tmp_path / "q.wav")
+    chat = tmp_path / "chat.json"
+    chat.write_text(json.dumps([{"conversations": [{"from": "human", "value": "<audio>\n"},
+                                                   {"from": "gpt", "value": "ok"}],
+                                 "audio": wav}] * 2))
+    code = (
+        "import sys\n"
+        "from vita_tpu_torch import cli\n"
+        "from vita_tpu_torch.train import cli as train_cli\n"
+        f"assert cli.main(['--model', 'tiny-random', '--audio', {wav!r}, '--device', 'cpu',"
+        " '--max-new-tokens', '2']) == 0\n"
+        f"assert train_cli.main(['--model', 'tiny-random', '--data', {str(chat)!r},"
+        f" '--output-dir', {str(tmp_path / 'run')!r}, '--batch-size', '2', '--device', 'cpu'])"
+        " == 0\n"
+        + NO_REFERENCE
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "[done] 1 steps" in proc.stdout
 
 
 def test_no_jax_import_in_port_sources():
     files = sorted((ROOT / "vita_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     pat = re.compile(r"^\s*(import jax|from jax|import vita_tpu\b|from vita_tpu[ .])", re.M)
-    cli = ROOT / "vita_tpu_torch" / "cli.py"
-    offenders = [str(f.relative_to(ROOT)) for f in files
-                 if pat.search(CLI_MEDIA_LOADERS.sub("", f.read_text()) if f == cli
-                               else f.read_text())]
+    offenders = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not offenders
 
 
@@ -69,7 +104,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 4, 2, 128)
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention.flash_mha_cuda(x, x, x, lens, lens, True, 1.0)
+        flash_attention.flash_fwd_cuda(x, x, x, lens, lens, True, 1.0)
     pool = torch.zeros(1, 2, 2, 8, 128)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.paged_attention_cuda(torch.zeros(1, 2, 128), pool, pool,
@@ -96,6 +131,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for trans in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             moe_gmm.gmm_cuda(torch.zeros(256, 8), w, gids, trans, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm.gmm_wgrad_cuda(torch.zeros(256, 8), torch.zeros(256, 4), gids, 2, 128)
+    stats = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_bwd_dq_cuda(x, x, x, x, stats, stats, lens, lens, True, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_bwd_dkv_cuda(x, x, x, x, stats, stats, lens, lens, True, 1.0)
     with pytest.raises(ValueError, match="no kernel"):
         kernels.on_cuda(torch.zeros(1, device="meta"))
     assert kernels.launches == before
@@ -105,6 +147,7 @@ def test_library_path_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert json.dumps(sorted(kernels.launches)) == json.dumps(
-        ["flash_fwd", "gather_expert_ffn", "gather_expert_ffn_q", "gather_expert_ffn_q4",
-         "gmm", "gmm_small", "masked_expert_ffn", "masked_expert_ffn_q", "masked_expert_ffn_q4",
+        ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "gather_expert_ffn",
+         "gather_expert_ffn_q", "gather_expert_ffn_q4", "gmm", "gmm_small", "gmm_wgrad",
+         "masked_expert_ffn", "masked_expert_ffn_q", "masked_expert_ffn_q4",
          "paged_attention", "paged_attention_q"])

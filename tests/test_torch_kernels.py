@@ -45,20 +45,38 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_kernel_matches_plain(case, dtype):
-    dev = cuda_or_skip()
+def _flash_fwd_args(case, dtype, dev):
     b, sq, skv, hq, hkv, kv_len, q_off, causal = FLASH_CASES[case]
     rng = np.random.default_rng(0)
     q, k, v = (t(normal(rng, b, s, h, 128)).to(dev, dtype)
                for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
-    args = (q, k, v, t(kv_len, torch.int32).to(dev), t(q_off, torch.int32).to(dev),
+    return (q, k, v, t(kv_len, torch.int32).to(dev), t(q_off, torch.int32).to(dev),
             causal, 128 ** -0.5)
-    got = _launched("flash_fwd", lambda: fa.flash_mha_cuda(*args))
-    want = fa.flash_mha_plain(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(case, dtype):
+    args = _flash_fwd_args(case, dtype, cuda_or_skip())
+    got, _ = _launched("flash_fwd", lambda: fa.flash_fwd_cuda(*args))
+    want, _ = fa.flash_fwd_plain(*args)
     close(got.float().cpu(), want.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_lse_matches_plain(case, dtype):
+    """B1's log-sum-exp, which the backward reads: float32 whatever q's
+    dtype, -inf exactly on rows without keys."""
+    args = _flash_fwd_args(case, dtype, cuda_or_skip())
+    _, lse = _launched("flash_fwd", lambda: fa.flash_fwd_cuda(*args))
+    _, want_lse = fa.flash_fwd_plain(*args)
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert torch.equal(torch.isinf(lse).cpu(), torch.isinf(want_lse).cpu())
+    fin = torch.isfinite(want_lse)
+    close(lse[fin].cpu(), want_lse[fin].cpu(), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu
@@ -285,3 +303,107 @@ def test_gmm_moe_ffn_launches_on_cuda_tensors():
     want, _ = moe.moe_ffn({k: t(v) for k, v in p.items()}, t(x), 2, "gmm")
     close(got.cpu(), want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
 
+
+def _flash_grad_args(case, dtype, dev, seed=9):
+    b, sq, skv, hq, hkv, kv_len, q_off, causal = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (t(normal(rng, b, s, h, 128)).to(dev, dtype)
+                   for s, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq)))
+    lens, offs = t(kv_len, torch.int32).to(dev), t(q_off, torch.int32).to(dev)
+    return q, k, v, do, lens, offs, causal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_kernels_match_plain(case, dtype):
+    """B10 (dq) and B11 (dk, dv) against the plain backward on the same
+    lse and delta; GQA, kv_len padding, per-row offsets, ragged tiles and
+    rows without keys (zero gradient)."""
+    dev = cuda_or_skip()
+    q, k, v, do, lens, offs, causal = _flash_grad_args(case, dtype, dev)
+    scale = 128 ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, lens, offs, causal, scale)
+    args = (q, k, v, do, lse, fa.flash_delta(do, o), lens, offs, causal, scale)
+    dq = _launched("flash_bwd_dq", lambda: fa.flash_bwd_dq_cuda(*args))
+    dk, dv = _launched("flash_bwd_dkv", lambda: fa.flash_bwd_dkv_cuda(*args))
+    want = (fa.flash_bwd_dq_plain(*args),) + fa.flash_bwd_dkv_plain(*args)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        close(got.float().cpu(), ref.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_autograd_runs_the_kernels():
+    """flash_mha's backward on CUDA tensors launches B10 and B11 and gives
+    the CPU Function's gradients."""
+    dev = cuda_or_skip()
+    q, k, v, do, lens, offs, _ = _flash_grad_args("causal_gqa_per_row_offset", torch.float32,
+                                                  "cpu")
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [x.to(d).requires_grad_() for x in (q, k, v)]
+        before = dict(kernels.launches)
+        o = fa.flash_mha(*leaves, kv_len=lens.to(d), q_offset=offs.to(d), causal=True)
+        (o * do.to(d)).sum().backward()
+        on_card = d.type == "cuda"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert kernels.launches[name] == before[name] + on_card
+        grads.append([x.grad.cpu() for x in leaves])
+    for got, want in zip(*grads):
+        close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+# (R, K, N, E, tile_m, gids): expert 1 owns no row tile in "empty_expert"
+WGRAD_CASES = {
+    "tile_128": (512, 200, 136, 3, 128, [0, 0, 1, 2]),
+    "tile_512": (1536, 136, 200, 3, 512, [0, 1, 2]),
+    "empty_expert": (384, 128, 64, 3, 128, [0, 2, 2]),
+    "one_tile": (40, 64, 72, 2, 128, [1]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_gmm_wgrad_kernel_matches_plain(case, dtype):
+    """B12: per-expert a^T b, exactly 0 for an expert without rows."""
+    dev = cuda_or_skip()
+    r, k, n, e, tile_m, gids = WGRAD_CASES[case]
+    rng = np.random.default_rng(10)
+    a, b = t(normal(rng, r, k)).to(dev, dtype), t(normal(rng, r, n)).to(dev, dtype)
+    g = t(gids, torch.int32).to(dev)
+    got = _launched("gmm_wgrad", lambda: mg.gmm_wgrad_cuda(a, b, g, e, tile_m))
+    want = mg.gmm_wgrad_plain(a, b, g, e, tile_m)
+    assert got.dtype == dtype and got.shape == (e, k, n)
+    tol = TOL[dtype] * (1 if dtype == torch.bfloat16 else 10)  # sums of up to 1024 rows
+    close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=TOL[dtype])
+    for x in set(range(e)) - set(gids):
+        assert not got[x].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_gmm_autograd_runs_the_kernels(transpose_rhs):
+    """gmm's backward on CUDA tensors: dx through B5b with transpose_rhs
+    flipped, dw through B12; equal to the CPU Function's gradients."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(11)
+    x = normal(rng, 384, 64)
+    w = normal(rng, 3, 64, 96, scale=0.125)
+    if transpose_rhs:
+        w = np.ascontiguousarray(w.transpose(0, 2, 1))
+    dy = normal(rng, 384, 96)
+    gids = t([0, 1, 1], torch.int32)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs, ws = t(x).to(d).requires_grad_(), t(w).to(d).requires_grad_()
+        before = dict(kernels.launches)
+        (mg.gmm(xs, ws, gids.to(d), transpose_rhs, 128) * t(dy).to(d)).sum().backward()
+        on_card = d.type == "cuda"
+        assert kernels.launches["gmm_small"] == before["gmm_small"] + 2 * on_card
+        assert kernels.launches["gmm_wgrad"] == before["gmm_wgrad"] + on_card
+        grads.append((xs.grad.cpu(), ws.grad.cpu()))
+    for got, want in zip(*grads):
+        close(got, want, atol=1e-3, rtol=1e-4)
+    assert not grads[0][1][2].any()  # expert 2 owns no tile

@@ -12,14 +12,13 @@ The flags are those of ``python -m vita_tpu.cli`` plus ``--device``
 CPU). ``--model tiny-random`` runs ``VITAConfig.tiny()`` with weights drawn
 from a seeded generator and a byte tokenizer: the full pipeline without
 downloaded weights (the output is gibberish by construction). Prompts are
-built as the reference builds them (the mixtral_two conversation, then
-vita_tpu_torch.tokenization); media files are read by the reference's
-numpy loaders (``vita_tpu.data.image`` / ``video`` / ``audio``), imported
-only when a file is given. Serving goes through ``Generator``, or through
-the ``Engine`` for ``--kv-int8``.
+built as the reference builds them (the mixtral_two template of
+vita_tpu_torch.constants, then vita_tpu_torch.tokenization); media files
+are read by the port's copies of the reference's numpy loaders
+(``vita_tpu_torch.data.image`` / ``video`` / ``audio``). Serving goes
+through ``Generator``, or through the ``Engine`` for ``--kv-int8``.
 
-Not ported yet: checkpoint directories (``vita_tpu.checkpoint`` imports
-jax) and ``--mesh`` (sharded serving).
+Not ported yet: checkpoint directories and ``--mesh`` (sharded serving).
 """
 
 from __future__ import annotations
@@ -31,32 +30,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vita_tpu_torch.constants import MIXTRAL_TWO
 from vita_tpu_torch.tokenization import (
     audio_token_count,
     expand_media_sentinels,
     media_masks,
     tokenize_multimodal,
 )
-
-_SYSTEM_LANG = (
-    "You are an AI robot and your name is VITA. \n"
-    "- You are a multimodal large language model developed by the open source"
-    " community. Your aim is to be helpful, honest and harmless. \n"
-    "- You support the ability to communicate fluently and answer user"
-    " questions in multiple languages of the user's choice. \n"
-    "- If the user corrects the wrong answer you generated, you will apologize"
-    " and discuss the correct answer with the user."
-)
-_SYSTEM = {
-    "lang": _SYSTEM_LANG,
-    **{m: _SYSTEM_LANG + (
-        " \n- You must answer the question strictly according to the content of"
-        f" the {m} given by the user, and it is strictly forbidden to answer the"
-        f" question without the content of the {m}. Please note that you are"
-        f" seeing the {m}, not the {other}.")
-       for m, other in (("image", "video"), ("video", "image"))},
-}
-
 
 class ByteTokenizer:
     """Fallback tokenizer: bytes + offset, BOS=1, EOS=2."""
@@ -72,15 +52,10 @@ class ByteTokenizer:
 
 
 def build_prompt(question: str, modality: str, has_audio: bool) -> str:
-    """One user turn in the mixtral_two conversation (system prompt by
-    modality, ``</s>`` after each filled turn), cueing the bot."""
+    """One user turn in the mixtral_two conversation, cueing the bot."""
     parts = ["<image>"] if modality in ("image", "video") else []
     parts.append("<audio>" if has_audio else question)
-    text = "\n".join(parts)
-    if ("<image>" in text) != (modality in ("image", "video")):
-        raise ValueError(f"modality {modality!r} does not match the prompt's <image> placeholders")
-    user = f"\nuser:{text}</s>" if text else "\nuser:"
-    return f"system:{_SYSTEM[modality]}</s>{user}\nbot:"
+    return MIXTRAL_TWO.render([("user", "\n".join(parts)), ("bot", "")], modality)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -149,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.image:
         from PIL import Image
 
-        from vita_tpu.data.image import dynamic_tile_framecat, normalize
+        from vita_tpu_torch.data.image import dynamic_tile_framecat, normalize
 
         arr = np.asarray(Image.open(args.image).convert("RGB"))
         if framecat:
@@ -159,8 +134,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         images = normalize(tiles)
         n_groups = len(tiles) // group
     elif args.video:
-        from vita_tpu.data.image import normalize
-        from vita_tpu.data.video import decode_video_frames, decode_video_frames_framecat
+        from vita_tpu_torch.data.image import normalize
+        from vita_tpu_torch.data.video import decode_video_frames, decode_video_frames_framecat
 
         if framecat:
             frames = decode_video_frames_framecat(args.video, size=cfg.vision.image_size)
@@ -171,7 +146,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     speech = speech_len = None
     if has_audio:
-        from vita_tpu.data.audio import wav_to_features
+        from vita_tpu_torch.data.audio import wav_to_features
 
         speech, speech_len = wav_to_features(args.audio)
 

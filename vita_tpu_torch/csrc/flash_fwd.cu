@@ -16,8 +16,10 @@
 // kv_len, or past q_offset + row when causal), online softmax with running
 // max and sum per row, then O += P V. GQA reads kv head h / (Hq / Hkv)
 // directly from the [B, S, H, D] layout, so repeat_kv is never built.
-// Rows that see no valid key write zeros. Tensor cores (wgmma) and TMA
-// pipelining are later work.
+// Rows that see no valid key write zeros. Each row's log-sum-exp of its
+// scaled scores (m + log l, -inf for a row that sees no key) goes to lse
+// [B, Hq, Sq], which the backward kernels (flash_bwd.cu) read. Tensor cores
+// (wgmma) and TMA pipelining are later work.
 #include "common.cuh"
 
 namespace vita {
@@ -36,7 +38,7 @@ constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ kv_len, const int* __restrict__ q_off,
                  int Sq, int Skv, int Hq, int Hkv, float scale, int causal) {
   extern __shared__ float smem[];
@@ -171,6 +173,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
+  if (tid < kBQ && q0 + tid < Sq) {
+    const float l = row_l[tid];
+    lse[(int64_t)bh * Sq + q0 + tid] = l > 0.f ? row_m[tid] + logf(l) : -INFINITY;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -184,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int* kv_len, const int* q_off, int B, int Sq, int Skv,
            int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T>;
@@ -193,7 +199,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_len, q_off, Sq, Skv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_len, q_off, Sq, Skv,
       Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -201,17 +207,18 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace vita
 
-// q [B, Sq, Hq, 128], k/v [B, Skv, Hkv, 128], o like q; kv_len/q_off [B]
-// int32 on the device. Returns the CUDA error code of the launch.
+// q [B, Sq, Hq, 128], k/v [B, Skv, Hkv, 128], o like q; lse [B, Hq, Sq]
+// float32; kv_len/q_off [B] int32 on the device. Returns the CUDA error code
+// of the launch.
 extern "C" int vita_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, const int* kv_len, const int* q_off,
+                              void* o, float* lse, const int* kv_len, const int* q_off,
                               int B, int Sq, int Skv, int Hq, int Hkv,
                               float scale, int causal, int dtype,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vita::kBFloat16)
-    return vita::launch<__nv_bfloat16>(q, k, v, o, kv_len, q_off, B, Sq, Skv,
-                                       Hq, Hkv, scale, causal, s);
-  return vita::launch<float>(q, k, v, o, kv_len, q_off, B, Sq, Skv, Hq, Hkv,
-                             scale, causal, s);
+    return vita::launch<__nv_bfloat16>(q, k, v, o, lse, kv_len, q_off, B, Sq,
+                                       Skv, Hq, Hkv, scale, causal, s);
+  return vita::launch<float>(q, k, v, o, lse, kv_len, q_off, B, Sq, Skv, Hq,
+                             Hkv, scale, causal, s);
 }

@@ -142,6 +142,7 @@ def tile_buckets_for(cfg: vita.VITAConfig, tile_buckets: Sequence[int]):
     return tuple(sorted({-(-b // g) * g for b in tile_buckets}))
 
 
+@torch.no_grad()
 def embed_prompt(
     params,
     cfg: vita.VITAConfig,

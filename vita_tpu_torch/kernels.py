@@ -51,6 +51,9 @@ launches: Dict[str, int] = {
     "masked_expert_ffn_q4": 0,
     "gmm": 0,
     "gmm_small": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
+    "gmm_wgrad": 0,
 }
 
 _lib = None
@@ -60,8 +63,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, kv_len, q_off, B, Sq, Skv, Hq, Hkv, scale, causal, dtype, stream
-    "vita_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, kv_len, q_off, B, Sq, Skv, Hq, Hkv, scale, causal, dtype, stream
+    "vita_flash_fwd": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dq, kv_len, q_off, B, Sq, Skv, Hq, Hkv, scale,
+    # causal, dtype, stream
+    "vita_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, kv_len, q_off, B, Sq, Skv, Hq, Hkv,
+    # scale, causal, dtype, stream
+    "vita_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     # q, k_pages, v_pages, o, tables, lengths, B, layer, Hq, Hkv, n_pool,
     # page, max_pages, scale, dtype, stream
     "vita_paged_attn": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
@@ -73,6 +82,8 @@ _SIGNATURES = {
     "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
     # x, w, gids, out, R, K, N, E, tile_m, trans, dtype, stream
     "vita_gmm": [_P] * 4 + [_I] * 7 + [_P],
+    # a, b, gids, out, R, K, N, E, tile_m, dtype, stream
+    "vita_gmm_wgrad": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -147,7 +147,6 @@ def interpolate_pos_embed(pos: torch.Tensor, src_grid: int, dst_grid: int) -> to
     return torch.cat([cls, grid.reshape(1, dst_grid * dst_grid, d).to(pos.dtype)], dim=1)
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: InternViTConfig, images: torch.Tensor) -> torch.Tensor:
     """images [B, H, W, 3] (preprocessed pixels) -> features [B, T, out_dim]."""
     b, ih, iw = images.shape[:3]

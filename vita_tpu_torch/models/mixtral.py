@@ -7,7 +7,10 @@ stacked on a leading L axis: attn wq [L, D, Hq*hd] (used as x @ w), wk/wv
 lm_head [D, V]. The layer loop is a Python loop.
 
 ``forward`` serves three paths:
-  - cacheless (whole sequence, causal + validity mask);
+  - cacheless (whole sequence, causal + validity mask), the training path:
+    gradients pass through it, and with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` on the
+    layer scan body) when autograd records;
   - linear scratch {'k','v','pos'} [L, B, S_max, Hkv, hd]: a prefill chunk
     writes its rows into the scratch IN PLACE and attends over it;
   - paged pool {'k_pages','v_pages','table','pos'[,'active']} (an int8
@@ -19,7 +22,10 @@ layer*E+e ids into the stacked weights: ``gather`` (weights as they are),
 ``quantize_moe_for_decode``, int8 / int4); or ops.moe.moe_ffn on each
 layer's views of the stacked weights: ``dense`` (every expert, exact),
 ``gmm`` (grouped matmul, exact), ``sort`` / ``capacity`` (capacity
-dropping with ``moe_capacity_factor``). Every mode runs on every path.
+dropping with ``moe_capacity_factor``). Every mode runs on every path;
+``moe_chunk`` > 0 runs the training modes over token chunks (ops.moe).
+The serving callers (Engine, Generator, decode_chunk) run it under
+``torch.no_grad()``.
 
 Shapes follow the deployed VITA config
 (web_demo/vllm_tools/model_weight_file/config.json:17-44): 32L, 4096d,
@@ -32,6 +38,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vita_tpu_torch.ops.attention import NEG_INF, mha_xla
 from vita_tpu_torch.ops.flash_attention import flash_mha
@@ -58,7 +65,11 @@ class MixtralConfig:
     rms_eps: float = 1e-5
     moe_mode: str = "dense"  # ops.moe.MODES
     moe_capacity_factor: float = 1.25
+    # >0: each layer's MoE over token chunks of this size, each
+    # rematerialized in the backward (chunk-local aux; ops.moe.moe_ffn)
+    moe_chunk: int = 0
     attn_backend: str = "xla"  # 'xla' | 'flash'
+    remat: bool = False  # checkpoint each layer when training
     dtype: torch.dtype = torch.float32
 
     @property
@@ -67,7 +78,8 @@ class MixtralConfig:
 
     @staticmethod
     def vita_8x7b(**kw) -> "MixtralConfig":
-        return MixtralConfig(**{**dict(dtype=torch.bfloat16, attn_backend="flash"), **kw})
+        return MixtralConfig(
+            **{**dict(dtype=torch.bfloat16, attn_backend="flash", remat=True), **kw})
 
     @staticmethod
     def tiny(**kw) -> "MixtralConfig":
@@ -233,7 +245,6 @@ def _moe_gather_layer(h2d, router, flat_w, layer_idx: int, cfg: MixtralConfig, t
     return out.to(h2d.dtype), aux
 
 
-@torch.no_grad()
 def forward(
     params: Params,
     cfg: MixtralConfig,
@@ -269,9 +280,8 @@ def forward(
     # expert weights (and quantization scales) as flat [L*E, ...] views
     flat_w = ({k: v.flatten(0, 1) for k, v in layers["moe"].items() if k != "router"}
               if gather else None)
-    x = inputs_embeds
-    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.n_layers):
+
+    def layer(x, i: int):
         lp = {k: v[i] for k, v in layers["attn"].items()}
         h = rms_norm(x, layers["ln_attn"][i], cfg.rms_eps)
         if paged:
@@ -291,8 +301,18 @@ def forward(
         else:
             moe_out, aux = moe_ffn({k: v[i] for k, v in layers["moe"].items()}, h,
                                    cfg.top_k, mode=cfg.moe_mode,
-                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat)
-        x = x + moe_out.reshape(b, s, d)
+                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
+                                   chunk=cfg.moe_chunk)
+        return x + moe_out.reshape(b, s, d), aux
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    x = inputs_embeds
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(cfg.n_layers):
+        if remat:
+            x, aux = checkpoint(layer, x, i, use_reentrant=False)
+        else:
+            x, aux = layer(x, i)
         aux_total = aux_total + aux
 
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)

@@ -4,7 +4,9 @@
 The host expands every media placeholder to its exact feature count, so
 fusing is a cumsum-gather: the k-th True position of a mask takes the k-th
 feature row. Only the InternViT tower and the mlp2x_gelu projector are
-ported; 'patch' and 'framecat' fusion both are.
+ported; 'patch' and 'framecat' fusion both are. ``forward`` (fusion, then
+the cacheless LLM) is the training forward; gradients reach a tower or a
+projector whose parameters require them.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from vita_tpu_torch.constants import IGNORE_INDEX
 from vita_tpu_torch.models import internvit, mixtral, projectors, whale
 
 _TOWER_MODULES = {"internvit": internvit}
@@ -152,7 +155,6 @@ def merge_embeddings(
     return out
 
 
-@torch.no_grad()
 def fuse_embeddings(
     params: Params,
     cfg: VITAConfig,
@@ -189,4 +191,39 @@ def fuse_embeddings(
         none if image_mask is None else image_mask,
         none if audio_mask is None else audio_mask,
         image_feats, audio_feats, audio_select=audio_select,
+    )
+
+
+def build_labels(
+    input_ids: torch.Tensor,
+    media_mask: torch.Tensor,
+    answer_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Next-token labels: IGNORE_INDEX at media slots and non-answer
+    positions (prompt, padding), else the token id."""
+    return torch.where(answer_mask & ~media_mask, input_ids, IGNORE_INDEX)
+
+
+def forward(
+    params: Params,
+    cfg: VITAConfig,
+    input_ids: torch.Tensor,  # [B, S] sentinel-free ids (0 at media slots)
+    image_mask: Optional[torch.Tensor] = None,
+    audio_mask: Optional[torch.Tensor] = None,
+    images: Optional[torch.Tensor] = None,  # [N_tiles_total, H, W, 3], batch-major
+    speech: Optional[torch.Tensor] = None,  # [B, T, 80]
+    speech_lengths: Optional[torch.Tensor] = None,
+    attn_valid: Optional[torch.Tensor] = None,  # [B, S]
+    cache: Optional[Params] = None,
+    token_mask: Optional[torch.Tensor] = None,
+    audio_select: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Full multimodal forward. Returns (logits, new_cache, moe_aux)."""
+    embeds = fuse_embeddings(
+        params, cfg, input_ids, image_mask, audio_mask, images=images, speech=speech,
+        speech_lengths=speech_lengths, audio_select=audio_select,
+    )
+    return mixtral.forward(
+        params["llm"], cfg.llm, inputs_embeds=embeds, attn_valid=attn_valid, cache=cache,
+        token_mask=token_mask,
     )

@@ -125,7 +125,6 @@ def _conv_subsample(sub: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ sub["out_w"] + sub["out_b"]
 
 
-@torch.no_grad()
 def forward(
     params: Params,
     cfg: WhaleConfig,

@@ -1,14 +1,19 @@
-"""Flash attention forward (vita_tpu.ops.flash_attention.flash_mha).
+"""Flash attention, forward and backward (vita_tpu.ops.flash_attention.flash_mha).
 
 ``flash_mha`` keeps the JAX signature and layout: q [B, Sq, Hq, D], k/v
 [B, Skv, Hkv, D], per-batch ``kv_len`` (keys at or past it are masked) and
 ``q_offset`` (absolute position of q row 0, for causal masking against a
 longer key range). GQA maps q head h to kv head h // (Hq / Hkv).
 
-On a CUDA tensor it launches the hand-written kernel (csrc/flash_fwd.cu,
-head dim 128, float32 or bfloat16); on a CPU tensor it runs
-``flash_mha_plain``, the masked-softmax version of the same function.
-Rows with no valid key give zeros in both.
+It is a ``torch.autograd.Function``. The forward saves q, k, v, o and the
+per-row log-sum-exp lse [B, Hq, Sq] (float32, -inf for a row that sees no
+key); the backward computes delta = rowsum(dO o) in PyTorch, as the JAX
+package computes it outside Pallas, then dq and dk/dv by the flash-2
+recurrence from lse. On CUDA tensors the three steps launch the
+hand-written kernels (csrc/flash_fwd.cu, B1; csrc/flash_bwd.cu, B10 and
+B11; head dim 128, float32 or bfloat16); on CPU tensors the same Function
+runs their plain versions. Rows with no valid key give zeros and no
+gradient in both.
 """
 
 from __future__ import annotations
@@ -32,66 +37,178 @@ def _normalize(q, k, kv_len, q_offset) -> Tuple[torch.Tensor, torch.Tensor]:
     return kv_len.expand(b).contiguous(), q_offset.contiguous()
 
 
-def flash_mha_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_len: torch.Tensor,  # [B] int32
-    q_offset: torch.Tensor,  # [B] int32
-    causal: bool,
-    scale: float,
-) -> torch.Tensor:
-    """Masked softmax attention in float32 with GQA by head grouping."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    qg = q.float().reshape(b, sq, hkv, rep, d)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+def _mask(q, k, kv_len, q_offset, causal: bool) -> torch.Tensor:
+    """[B, 1, 1, Sq|1, Skv] bool: the keys each q row attends."""
+    sq, skv = q.shape[1], k.shape[1]
     k_pos = torch.arange(skv, device=q.device)
     mask = k_pos[None, None, :] < kv_len[:, None, None]  # [B, 1, Skv]
     if causal:
         q_pos = torch.arange(sq, device=q.device)[None, :] + q_offset[:, None]
         mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])  # [B, Sq, Skv]
-    mask = mask[:, None, None]  # [B, 1, 1, Sq|1, Skv]
-    s = s.masked_fill(~mask, float("-inf"))
+    return mask[:, None, None]
+
+
+def _scores(q, k, kv_len, q_offset, causal, scale):
+    """Scaled masked scores [B, Hkv, rep, Sq, Skv] in float32 (-inf where
+    masked) and the mask."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    mask = _mask(q, k, kv_len, q_offset, causal)
+    return s.masked_fill(~mask, float("-inf")), mask
+
+
+def flash_fwd_plain(q, k, v, kv_len, q_offset, causal: bool, scale: float):
+    """Masked softmax attention in float32 with GQA by head grouping:
+    (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] float32)."""
+    b, sq, hq, d = q.shape
+    s, _ = _scores(q, k, kv_len, q_offset, causal, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))  # masked -> exp(-inf) = 0
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p / torch.where(l > 0, l, 1.0), v.float())
-    return o.reshape(b, sq, hq, d).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), float("-inf"))
+    return o.reshape(b, sq, hq, d).to(q.dtype), lse[..., 0].reshape(b, hq, sq)
 
 
-def flash_mha_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_len: torch.Tensor,
-    q_offset: torch.Tensor,
-    causal: bool,
-    scale: float,
-) -> torch.Tensor:
-    """Launch csrc/flash_fwd.cu (see its header for the design)."""
+def _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
+    """p = exp(s - lse) and ds = p (dp - delta) scale, [B, Hkv, rep, Sq, Skv]
+    float32; 0 where masked or where the row saw no key."""
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    kernels.require_cuda(q, k, v, kv_len, q_offset)
+    hkv = k.shape[2]
+    s, mask = _scores(q, k, kv_len, q_offset, causal, scale)
+    lse_g = lse.reshape(b, hkv, hq // hkv, sq, 1)
+    keep = mask & torch.isfinite(lse_g)
+    p = torch.where(keep, torch.exp(s - torch.where(keep, lse_g, 0.0)), 0.0)
+    dog = do.float().reshape(b, sq, hkv, hq // hkv, d)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    ds = p * (dp - delta.reshape(b, hkv, hq // hkv, sq, 1)) * scale
+    return p, ds, dog
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
+    """dq = ds k, in q's dtype."""
+    b, sq, hq, d = q.shape
+    _, ds, _ = _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
+    return torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float()).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
+    """(dk = ds^T q, dv = p^T dO), each summed over the q heads of its GQA
+    group, in k's dtype."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    p, ds, dog = _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q, k, v, kv_len, q_offset, *others):
+    b, sq, hq, d = q.shape
+    kernels.require_cuda(q, k, v, kv_len, q_offset, *others)
     kernels.require(d == 128, f"flash kernel takes head dim 128, got {d}")
     kernels.require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
                     f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not match q {tuple(q.shape)}")
     kernels.require(kv_len.dtype == torch.int32 and q_offset.dtype == torch.int32
                     and kv_len.shape == (b,) and q_offset.shape == (b,),
                     "kv_len and q_offset must be int32 [B]")
+
+
+def flash_fwd_cuda(q, k, v, kv_len, q_offset, causal: bool, scale: float):
+    """B1 (csrc/flash_fwd.cu): (o, lse)."""
+    b, sq, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _check(q, k, v, kv_len, q_offset)
     dt = kernels.dtype_code(q, k, v)
     o = torch.empty_like(q)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     if sq == 0 or b * hq == 0:
-        return o
+        return o, lse
     err = kernels.lib().vita_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_len.data_ptr(), q_offset.data_ptr(),
         b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q),
     )
     kernels.check_launch(err, "flash_fwd")
     kernels.launches["flash_fwd"] += 1
-    return o
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset):
+    _check(q, k, v, kv_len, q_offset, do, lse, delta)
+    b, sq, hq, _ = q.shape
+    kernels.require(do.shape == q.shape, f"dO shape {tuple(do.shape)} is not q's {tuple(q.shape)}")
+    kernels.require(lse.shape == (b, hq, sq) == delta.shape
+                    and lse.dtype == delta.dtype == torch.float32,
+                    "lse and delta must be float32 [B, Hq, Sq]")
+    return kernels.dtype_code(q, k, v, do)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
+    """B10 (csrc/flash_bwd.cu)."""
+    dt = _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset)
+    b, sq, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    if sq == 0 or b * hq == 0:
+        return dq
+    err = kernels.lib().vita_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
+        b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q))
+    kernels.check_launch(err, "flash_bwd_dq")
+    kernels.launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
+    """B11 (csrc/flash_bwd.cu): (dk, dv)."""
+    dt = _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset)
+    b, sq, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if skv == 0 or b * hkv == 0:
+        return dk, dv
+    err = kernels.lib().vita_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kv_len.data_ptr(),
+        q_offset.data_ptr(), b, sq, skv, hq, hkv, float(scale), int(causal), dt,
+        kernels.stream_of(q))
+    kernels.check_launch(err, "flash_bwd_dkv")
+    kernels.launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO o) [B, Hq, Sq] float32."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class _Flash(torch.autograd.Function):
+    """flash_mha with the flash-2 backward: kernels on CUDA tensors, their
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_offset, causal, scale):
+        fwd = flash_fwd_cuda if kernels.on_cuda(q) else flash_fwd_plain
+        o, lse = fwd(q, k, v, kv_len, q_offset, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, kv_len, q_offset)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_len, q_offset = ctx.saved_tensors
+        do = do.contiguous()
+        args = (q, k, v, do, lse, flash_delta(do, o), kv_len, q_offset, ctx.causal, ctx.scale)
+        if kernels.on_cuda(q):
+            dq, (dk, dv) = flash_bwd_dq_cuda(*args), flash_bwd_dkv_cuda(*args)
+        else:
+            dq, (dk, dv) = flash_bwd_dq_plain(*args), flash_bwd_dkv_plain(*args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_mha(
@@ -103,13 +220,12 @@ def flash_mha(
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention with native GQA. Returns [B, Sq, Hq, D]."""
+    """Flash attention with native GQA, differentiable in q, k and v.
+    Returns [B, Sq, Hq, D]."""
     hq, hkv = q.shape[2], k.shape[2]
     if hq % hkv:
         raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hkv})")
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     kv_len, q_offset = _normalize(q, k, kv_len, q_offset)
-    if kernels.on_cuda(q):
-        return flash_mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                              kv_len, q_offset, causal, scale)
-    return flash_mha_plain(q, k, v, kv_len, q_offset, causal, scale)
+    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, q_offset,
+                        causal, scale)

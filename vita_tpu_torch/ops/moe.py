@@ -14,6 +14,12 @@ combines with one-hot einsums. The decode modes ``gather``, ``gather_q``
 and ``gather_q4`` run only the selected experts through ops.moe_decode
 (``gather_q``/``gather_q4`` take params quantized by
 moe_decode.quantize_expert_weights / quantize_expert_weights_int4).
+
+``chunk`` runs a training mode over token chunks of that size, each under
+``torch.utils.checkpoint``, so that the backward holds one chunk's expert
+intermediates at a time. As in the JAX package, aux is then the mean of
+the chunk-local aux losses weighted by each chunk's valid tokens, and the
+capacity of sort/capacity modes is per chunk.
 """
 
 from __future__ import annotations
@@ -22,12 +28,14 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vita_tpu_torch.ops.moe_gmm import moe_ffn_gmm, sorted_pairs
 
 # selected-expert decode modes (ops.moe_decode.selected_expert_ffn)
 GATHER_MODES = ("gather", "gather_q", "gather_q4")
-MODES = ("dense", "capacity", "sort", "gmm") + GATHER_MODES
+TRAIN_MODES = ("dense", "capacity", "sort", "gmm")
+MODES = TRAIN_MODES + GATHER_MODES
 
 
 def route_topk(
@@ -118,11 +126,24 @@ def moe_ffn(
     mode: str = "dense",
     capacity_factor: float = 1.25,
     token_mask: Optional[torch.Tensor] = None,
+    chunk: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [T, D], aux_loss scalar)."""
+    """Returns (output [T, D], aux_loss scalar). ``chunk`` is ignored when
+    T <= chunk, when chunk does not divide T, or in a gather mode."""
     if mode not in MODES:
         raise ValueError(f"unknown moe mode {mode!r}")
     t, d = x.shape
+    if chunk and 0 < chunk < t and t % chunk == 0 and mode in TRAIN_MODES:
+        tms = (torch.ones(t // chunk, chunk, device=x.device) if token_mask is None
+               else token_mask.reshape(-1, chunk))
+        outs, auxs = [], []
+        for xc, tc in zip(x.split(chunk), tms):
+            out, aux = checkpoint(moe_ffn, params, xc, top_k, mode, capacity_factor, tc,
+                                  use_reentrant=False)
+            outs.append(out)
+            auxs.append(aux)
+        ns = tms.float().sum(1)
+        return torch.cat(outs), (torch.stack(auxs) * ns).sum() / ns.sum().clamp_min(1.0)
     e = params["w_gate"].shape[0]
     router_logits = x.float() @ params["router"].float()
     topk_w, topk_i, probs = route_topk(router_logits, top_k)

@@ -14,8 +14,13 @@ they decide the layout and the schedule.
 
 On CUDA tensors ``gmm`` launches the hand-written kernel of csrc/gmm.cu,
 one kernel for both schedules (float32 or bfloat16); on CPU tensors it
-runs ``gmm_plain``. Forward only: the backward (dx through the same kernels
-with ``transpose_rhs`` flipped, dw through B12) comes with training.
+runs ``gmm_plain``. ``gmm`` is a ``torch.autograd.Function`` with the JAX
+package's custom VJP: dx is ``gmm`` itself with ``transpose_rhs`` flipped
+(B5a/B5b by the same rule), and dw is ``gmm_wgrad`` (kernel B12 in
+csrc/gmm.cu, counter ``gmm_wgrad``; ``gmm_wgrad_plain`` on the CPU), the
+per-group a^T b in float32 cast to a's dtype. Every expert owns at least
+one row tile (``sorted_layout``), so an expert without tokens gets a dw of
+exactly 0.
 """
 
 from __future__ import annotations
@@ -94,7 +99,7 @@ def gmm_plain(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> 
     """Each expert's rows times its weight with ``torch.matmul`` (float32
     accumulation, output in x's dtype)."""
     r, _, n_dim = _shapes(x, w, gids, transpose_rhs, tile_m)
-    row_g = gids.repeat_interleave(tile_m)[:r] if r >= tile_m else gids[:1].expand(r)
+    row_g = _row_groups(gids, r, tile_m)
     out = torch.zeros(r, n_dim, dtype=x.dtype, device=x.device)
     for e in range(w.shape[0]):
         rows = row_g == e
@@ -123,6 +128,79 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
     return out
 
 
+def _gmm_raw(x, w, gids, transpose_rhs: bool, tile_m: int) -> torch.Tensor:
+    if kernels.on_cuda(x):
+        return gmm_cuda(x, w, gids, transpose_rhs, tile_m)
+    return gmm_plain(x, w, gids, transpose_rhs, tile_m)
+
+
+def _row_groups(gids, r: int, tile_m: int) -> torch.Tensor:
+    """The group of every row [R]."""
+    return gids.repeat_interleave(tile_m)[:r] if r >= tile_m else gids[:1].expand(r)
+
+
+def gmm_wgrad_plain(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Tensor:
+    """dw [E, K, N] = each group's a^T b in float32, cast to a's dtype."""
+    r, k_dim = a.shape
+    out = torch.zeros(n_groups, k_dim, b.shape[1], dtype=torch.float32, device=a.device)
+    row_g = _row_groups(gids, r, tile_m)
+    for e in range(n_groups):
+        rows = row_g == e
+        out[e] = a[rows].float().T @ b[rows].float()
+    return out.to(a.dtype)
+
+
+def gmm_wgrad_cuda(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Tensor:
+    """csrc/gmm.cu's B12: float32 dw from the kernel, cast to a's dtype."""
+    kernels.require_cuda(a, b, gids)
+    r, k_dim = a.shape
+    n_dim = b.shape[1]
+    kernels.require(b.shape[0] == r, f"a has {r} rows, b {b.shape[0]}")
+    kernels.require(gids.dtype == torch.int32 and gids.dim() == 1
+                    and gids.shape[0] >= (r // tile_m if r >= tile_m else 1),
+                    "gids must be int32, one per row tile")
+    dt = kernels.dtype_code(a, b)
+    out = torch.empty(n_groups, k_dim, n_dim, dtype=torch.float32, device=a.device)
+    if n_groups and k_dim and n_dim:
+        err = kernels.lib().vita_gmm_wgrad(
+            a.data_ptr(), b.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
+            n_groups, tile_m, dt, kernels.stream_of(a))
+        kernels.check_launch(err, "gmm_wgrad")
+        kernels.launches["gmm_wgrad"] += 1
+    return out.to(a.dtype)
+
+
+def gmm_wgrad(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Tensor:
+    """dw [E, K, N] = per-group a^T b over the sorted row tiles."""
+    if kernels.on_cuda(a):
+        return gmm_wgrad_cuda(a, b, gids, n_groups, tile_m)
+    return gmm_wgrad_plain(a, b, gids, n_groups, tile_m)
+
+
+class _Gmm(torch.autograd.Function):
+    """gmm with the JAX package's VJP (vita_tpu.ops.moe_gmm._gmm_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gids, transpose_rhs, tile_m):
+        ctx.save_for_backward(x, w, gids)
+        ctx.transpose_rhs, ctx.tile_m = transpose_rhs, tile_m
+        return _gmm_raw(x, w, gids, transpose_rhs, tile_m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, gids = ctx.saved_tensors
+        trans, tile_m = ctx.transpose_rhs, ctx.tile_m
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_raw(dy, w, gids, not trans, tile_m).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # y = x w^T -> dw[e] = dy^T x, [E, N, K]; else dw[e] = x^T dy, [E, K, N]
+            a, b = (dy, x) if trans else (x, dy)
+            dw = gmm_wgrad(a, b, gids, w.shape[0], tile_m).to(w.dtype)
+        return dx, dw, None, None, None
+
+
 def gmm(
     x: torch.Tensor,  # [R, K]
     w: torch.Tensor,  # [E, K, N], or [E, N, K] with transpose_rhs
@@ -130,10 +208,9 @@ def gmm(
     transpose_rhs: bool = False,
     tile_m: int = TILE_M,
 ) -> torch.Tensor:
-    """Grouped matmul: row tile i of ``x`` times ``w[gids[i]]`` -> [R, N]."""
-    if kernels.on_cuda(x):
-        return gmm_cuda(x, w, gids, transpose_rhs, tile_m)
-    return gmm_plain(x, w, gids, transpose_rhs, tile_m)
+    """Grouped matmul: row tile i of ``x`` times ``w[gids[i]]`` -> [R, N];
+    differentiable in x and w."""
+    return _Gmm.apply(x, w, gids, transpose_rhs, tile_m)
 
 
 def moe_ffn_gmm(params, x, topk_w, topk_idx) -> torch.Tensor:

@@ -14,9 +14,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# sentinel ids spliced in at media placeholders (vita_tpu.constants)
-IMAGE_TOKEN_INDEX = -200
-AUDIO_TOKEN_INDEX = -500
+from vita_tpu_torch.constants import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
 
 _MEDIA_SPLIT = re.compile(r"(<audio>|<image>)")
 
