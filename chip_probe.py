@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_probe.py warps     # warps per block of csrc/expert_ffn.cu
     python3 chip_probe.py gmm       # where the Generator's gmm prefill goes
     python3 chip_probe.py train     # where a training step's time goes
+    python3 chip_probe.py flash     # B10 and B11 at the training shapes
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -32,6 +33,14 @@ flash, remat, bf16) through make_train_step: after a warm-up step on each
 batch, one step on the 9216-token text batch and one on the image+audio
 batch of chip_smoke.SmokeData, each under torch.profiler, summarised as
 profile summarises.
+
+flash: B10 and B11 in bf16 (B 1, 32/8 heads of 128, causal) at S 4096 and
+at the training step's 9216 bucket with 5735 real tokens, on B1's o and
+lse: CUDA events, median of 25 after 3 warm-ups, and the rate of the
+FLOPs the masks leave (3 products per (q, key) pair for dq, 4 for dk/dv).
+It reads only the flash wrappers that every version of the port has, so
+a copy of this file beside an older checkout times that checkout's
+kernels in the same call.
 
 Each prints the card's name and power limit first.
 """
@@ -294,13 +303,38 @@ def train(card: str) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         _summarize(prof, wall, f"train step, {label} (bucket {batch['input_ids'].shape[1]})",
-                   card, top=14)
+                   card, top=20)
+
+
+def flash(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch.ops import flash_attention as fa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(smoke.SEED)
+    for label, s, kv_len in (("S 4096", 4096, 4096), ("S 9216 kv_len 5735", 9216, 5735)):
+        q, k, v, kl, qo, causal, scale = smoke._flash_case(rng, 1, s, s, 32, 8, [kv_len], [0],
+                                                           bf16, dev)
+        do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(dev, bf16)
+        o, lse = fa.flash_fwd_cuda(q, k, v, kl, qo, causal, scale)
+        args = (q, k, v, do, lse, fa.flash_delta(do, o), kl, qo, causal, scale)
+        pairs = smoke.attn_pairs(s, [kv_len], [0], causal)
+        for name, fn, products in (("B10 dq", fa.flash_bwd_dq_cuda, 3),
+                                   ("B11 dk/dv", fa.flash_bwd_dkv_cuda, 4)):
+            ms = smoke.cuda_ms(lambda f=fn: f(*args))
+            flops = 2 * products * pairs * 128 * q.shape[2]
+            print(f"  {name:9s} bf16 B=1 {label:18s} causal: {ms:.4f} ms, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s  [{card}]", flush=True)
+        del q, k, v, do, o, lse, args
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "warps", "gmm", "train"):
+    modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash}
+    if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -312,7 +346,7 @@ def main() -> int:
     card = smoke.card_line()
     print(card, flush=True)
     kernels.lib()
-    {"profile": profile, "warps": warps, "gmm": gmm, "train": train}[sys.argv[1]](card)
+    modes[sys.argv[1]](card)
     return 0
 
 

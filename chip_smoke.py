@@ -13,7 +13,9 @@ Phases, each of which raises on failure:
      same function, that call's time: B1 (with its lse), B2-B4, the grouped
      matmuls B5a/B5b, the quantized expert FFNs B6/B7 and B8a/B8b, B9 over
      int8 pages, and the training backward: B10/B11 at a causal 4096-token
-     sequence and B12 at a 9216-token step's R (tile 512);
+     sequence and at the 9216 training bucket (5735 real tokens), each
+     bf16 kernel run twice for equal bits, and B12 at a 9216-token step's
+     R (tile 512);
   3. serve the full-width VITA-8x7B slice (Mixtral cut to 4 of 32 layers,
      InternViT-300M at 448px, Whale 24x1024; random weights from a seed)
      through Engine, four times on the same weights: bf16 experts (one
@@ -282,7 +284,8 @@ def kernel_phase(card: str):
             ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
             lib_ms = library_ms(kernel, library) if library is not None else None
             bound_ms, bound_by = bound(*work)
-            line += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            line += (f"  kernel {ms:.4f} ms ({work[0] / ms / 1e9:.1f} TFLOP/s)  "
+                     f"plain {plain_ms:.4f} ms  library "
                      f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
                      f"{bound_ms:.4f} ms ({bound_by}: {work[0]:.4g} FLOP, {work[1]:.4g} B)"
                      f"  [{card}]")
@@ -441,32 +444,51 @@ def kernel_phase(card: str):
         finally:
             mg.SMALL_R_MAX = real_max
 
-    # B10/B11: the backward of a causal training sequence of 4096 tokens (32/8
-    # heads of 128) in bf16, on the plain forward's o and lse; a ragged fp32
-    # case with GQA, kv_len padding and per-row offsets
-    for case, sq, skv, kv_len, q_off, dt, timed in (
-        ("bf16 B=1 S=4096 causal", 4096, 4096, [4096], [0], bf16, True),
-        ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, [150, 77], [50, 0], f32, False),
+    # B10/B11 (bf16: tensor cores, fp32: FMA): the backward of a causal
+    # training sequence of 4096 tokens and of the training step's 9216
+    # bucket with 5735 real tokens (32/8 heads of 128) in bf16, on the plain
+    # forward's o and lse; a ragged bf16 case (200 q rows over 333 keys, GQA
+    # 4, a row with kv_len 0, a negative q_offset) and a ragged fp32 case.
+    # At 9216 the plain versions run one GQA group at a time: the same
+    # function, where all 32 heads' [9216, 9216] float32 temporaries would
+    # not fit the card. Each bf16 kernel must give the same bits twice.
+    for case, sq, skv, hq, hkv, kv_len, q_off, dt, timed in (
+        ("bf16 B=1 S=4096 causal", 4096, 4096, 32, 8, [4096], [0], bf16, True),
+        ("bf16 B=1 S=9216 kv_len 5735 causal", 9216, 9216, 32, 8, [5735], [0], bf16, True),
+        ("bf16 B=3 ragged 200/333, GQA 4, kv_len 0, q_offset<0", 200, 333, 16, 4,
+         [333, 0, 150], [133, 0, -20], bf16, False),
+        ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, 4, 2, [150, 77], [50, 0], f32, False),
     ):
         b = len(kv_len)
-        hq, hkv = (32, 8) if dt == bf16 else (4, 2)
+        by_group = sq > 4096
         q, k, v, kl, qo, causal, scale = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off,
                                                      dt, dev)
         do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(dev, dt)
-        o, lse = fa.flash_fwd_plain(q, k, v, kl, qo, causal, scale)
+        fwd = _by_group(fa.flash_fwd_plain, (2, 1)) if by_group else fa.flash_fwd_plain
+        o, lse = fwd(q, k, v, kl, qo, causal, scale)
         args = (q, k, v, do, lse, fa.flash_delta(do, o), kl, qo, causal, scale)
+        del o
         pairs = attn_pairs(sq, kv_len, q_off, causal)
         stats = 2 * 4 * b * hq * sq  # lse and delta
-        check("flash_bwd_dq", case, lambda a=args: fa.flash_bwd_dq_cuda(*a),
-              lambda a=args: fa.flash_bwd_dq_plain(*a), dt, timed,
-              work=(2 * 3 * pairs * 128 * hq, 3 * nbytes(q) + 2 * nbytes(k) + stats),
-              library=lambda: _sdpa_bwd(q, k, v, do, scale))
-        check("flash_bwd_dkv", case, lambda a=args: fa.flash_bwd_dkv_cuda(*a),
-              lambda a=args: fa.flash_bwd_dkv_plain(*a), dt, timed,
-              work=(2 * 4 * pairs * 128 * hq, 2 * nbytes(q) + 4 * nbytes(k) + stats),
-              library=lambda: _sdpa_bwd(q, k, v, do, scale))
-        del q, k, v, do, o, lse, args
+        sdpa = (lambda: _sdpa_bwd(q, k, v, do, scale)) if not by_group else None
+        for name, run, plain, work in (
+            ("flash_bwd_dq", fa.flash_bwd_dq_cuda,
+             _by_group(fa.flash_bwd_dq_plain, (2,)) if by_group else fa.flash_bwd_dq_plain,
+             (2 * 3 * pairs * 128 * hq, 3 * nbytes(q) + 2 * nbytes(k) + stats)),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda,
+             _by_group(fa.flash_bwd_dkv_plain, (2, 2)) if by_group else fa.flash_bwd_dkv_plain,
+             (2 * 4 * pairs * 128 * hq, 2 * nbytes(q) + 4 * nbytes(k) + stats)),
+        ):
+            check(name, case, lambda f=run: f(*args), lambda f=plain: f(*args), dt, timed,
+                  work=work, library=sdpa)
+            if dt == bf16 and not _same_bits(run(*args), run(*args)):
+                raise AssertionError(f"{name} {case}: two launches differ")
+        del q, k, v, do, lse, args
         torch.cuda.empty_cache()
+    for name, r in fa.flash_bwd_mma_info().items():
+        print(f"  {name} bf16 kernel: {r['registers']} registers, {r['spill_bytes']} spilled "
+              f"bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} blocks "
+              f"per SM  [{card}]", flush=True)
 
     # B12: the weight gradients of a training step of 9216 tokens (T*k 18432 >
     # 16384: tile 512, R 22528), gate/up and down shapes, bf16; fp32 at tile
@@ -504,6 +526,37 @@ def _sdpa_fwd(q, k, v, kv_len, q_off, causal, scale):
         mask = mask & (kpos[None, :] <= torch.arange(sq, device=q.device)[:, None] + q_off[0])
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
                                                   enable_gqa=True)
+
+
+def _by_group(fn, cat_dims):
+    """``fn`` over q, k, v, dO, lse, delta (the first six arguments that
+    are given) one GQA group at a time, its outputs joined along
+    ``cat_dims`` (one per output): the same function in 1/Hkv of the
+    plain version's memory."""
+    import torch
+
+    def run(q, k, v, *rest):
+        hkv = k.shape[2]
+        rep = q.shape[2] // hkv
+        outs = []
+        for h in range(hkv):
+            qh, kh = slice(h * rep, (h + 1) * rep), slice(h, h + 1)
+            extra = list(rest)
+            if len(rest) > 4:  # the backward's dO, lse and delta
+                extra[:3] = rest[0][:, :, qh], rest[1][:, qh], rest[2][:, qh]
+            outs.append(fn(q[:, :, qh], k[:, :, kh], v[:, :, kh], *extra))
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        joined = tuple(torch.cat(parts, d) for parts, d in zip(zip(*outs), cat_dims))
+        return joined if len(joined) > 1 else joined[0]
+
+    return run
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _sdpa_bwd(q, k, v, do, scale):

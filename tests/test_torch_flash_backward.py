@@ -8,7 +8,11 @@ Every q row sees at least one key: JAX masks with a finite -1e30, so on a
 row without keys its gradient differs by design (ROADMAP section C); the
 port gives such rows zero gradient, checked here on its own.
 
-Tolerance: float32, atol = rtol = 1e-4 (the sums run in another order)."""
+Tolerance: float32, atol = rtol = 1e-4 (the sums run in another order);
+bfloat16, atol = rtol = 2e-2, the bf16 tolerance of the kernel tests. In
+bf16 both sides round p and ds to bf16 before the second products, as the
+Pallas kernels do; the largest error over these cases is 1.56e-2 (dk),
+one bf16 step at gradients of 2-4."""
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +35,16 @@ CASES = {
 }
 
 
-def _grads_jax(q, k, v, do, kv_len, q_off, causal):
+DTYPES = {"float32": (torch.float32, jnp.float32, 1e-4),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+# the float32 cases keep their plain ids
+GRAD_PARAMS = ([pytest.param(c, "float32", id=c) for c in sorted(CASES)]
+               + [pytest.param(c, "bfloat16", id=f"bf16_{c}") for c in sorted(CASES)])
+
+
+def _grads_jax(q, k, v, do, kv_len, q_off, causal, dtype=jnp.float32):
+    do = jnp.asarray(do, dtype)
+
     def f(q, k, v):
         o = j_flash.flash_mha(q, k, v, kv_len=jnp.asarray(kv_len, jnp.int32),
                               q_offset=jnp.asarray(q_off, jnp.int32), causal=causal,
@@ -39,28 +52,29 @@ def _grads_jax(q, k, v, do, kv_len, q_off, causal):
         return jnp.sum(o * do)
 
     with pltpu.force_tpu_interpret_mode():
-        return jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x, dtype) for x in (q, k, v)))
 
 
-def _grads_torch(q, k, v, do, kv_len, q_off, causal):
-    leaves = [t(x).requires_grad_() for x in (q, k, v)]
+def _grads_torch(q, k, v, do, kv_len, q_off, causal, dtype=torch.float32):
+    leaves = [t(x).to(dtype).requires_grad_() for x in (q, k, v)]
     o = flash.flash_mha(*leaves, kv_len=t(kv_len, torch.int32), q_offset=t(q_off, torch.int32),
                         causal=causal)
-    (o * t(do)).sum().backward()
+    (o * t(do).to(dtype)).sum().backward()
     return [x.grad for x in leaves]
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_flash_grads_match_jax_kernels(case):
+@pytest.mark.parametrize("case,dtype", GRAD_PARAMS)
+def test_flash_grads_match_jax_kernels(case, dtype):
     b, sq, skv, hq, hkv, kv_len, q_off, causal = CASES[case]
+    t_dtype, j_dtype, tol = DTYPES[dtype]
     rng = np.random.default_rng(0)
     q, do = normal(rng, b, sq, hq, 128), normal(rng, b, sq, hq, 128)
     k, v = normal(rng, b, skv, hkv, 128), normal(rng, b, skv, hkv, 128)
-    got = _grads_torch(q, k, v, do, kv_len, q_off, causal)
-    want = _grads_jax(q, k, v, do, kv_len, q_off, causal)
+    got = _grads_torch(q, k, v, do, kv_len, q_off, causal, t_dtype)
+    want = _grads_jax(q, k, v, do, kv_len, q_off, causal, j_dtype)
     for g, w in zip(got, want):
-        assert g.dtype == torch.float32
-        close(g, w)
+        assert g.dtype == t_dtype
+        close(g.float(), np.asarray(w, np.float32), atol=tol, rtol=tol)
 
 
 def test_flash_backward_runs_plain_versions_and_no_autograd_graph():

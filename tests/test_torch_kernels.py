@@ -304,8 +304,18 @@ def test_gmm_moe_ffn_launches_on_cuda_tensors():
     close(got.cpu(), want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
 
 
+# the backward's cases: the forward's, plus ragged edges at the bf16
+# kernels' tiles (64/32 q rows, 32/64 keys) with GQA rep 4, and a batch row
+# with kv_len 0 beside a negative q_offset
+BWD_CASES = {
+    **FLASH_CASES,
+    "ragged_200_over_333_gqa4": (1, 200, 333, 16, 4, [333], [133], True),
+    "kv_len_0_row": (3, 70, 96, 8, 2, [96, 0, 50], [26, 0, -9], True),
+}
+
+
 def _flash_grad_args(case, dtype, dev, seed=9):
-    b, sq, skv, hq, hkv, kv_len, q_off, causal = FLASH_CASES[case]
+    b, sq, skv, hq, hkv, kv_len, q_off, causal = BWD_CASES[case]
     rng = np.random.default_rng(seed)
     q, k, v, do = (t(normal(rng, b, s, h, 128)).to(dev, dtype)
                    for s, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq)))
@@ -313,24 +323,44 @@ def _flash_grad_args(case, dtype, dev, seed=9):
     return q, k, v, do, lens, offs, causal
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_bwd_kernels_match_plain(case, dtype):
-    """B10 (dq) and B11 (dk, dv) against the plain backward on the same
-    lse and delta; GQA, kv_len padding, per-row offsets, ragged tiles and
-    rows without keys (zero gradient)."""
-    dev = cuda_or_skip()
+def _flash_bwd_args(case, dtype, dev):
     q, k, v, do, lens, offs, causal = _flash_grad_args(case, dtype, dev)
     scale = 128 ** -0.5
     o, lse = fa.flash_fwd_plain(q, k, v, lens, offs, causal, scale)
-    args = (q, k, v, do, lse, fa.flash_delta(do, o), lens, offs, causal, scale)
+    return q, k, v, do, lse, fa.flash_delta(do, o), lens, offs, causal, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernels_match_plain(case, dtype):
+    """B10 (dq) and B11 (dk, dv) against the plain backward on the same
+    lse and delta; GQA, kv_len padding (0 included), per-row offsets,
+    ragged tiles and rows without keys (zero gradient)."""
+    args = _flash_bwd_args(case, dtype, cuda_or_skip())
     dq = _launched("flash_bwd_dq", lambda: fa.flash_bwd_dq_cuda(*args))
     dk, dv = _launched("flash_bwd_dkv", lambda: fa.flash_bwd_dkv_cuda(*args))
     want = (fa.flash_bwd_dq_plain(*args),) + fa.flash_bwd_dkv_plain(*args)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == ref.shape
         close(got.float().cpu(), ref.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
+    lens = args[6].cpu()
+    for i in torch.nonzero(lens == 0).flatten().tolist():  # a row without keys
+        assert not dq[i].any() and not dk[i].any() and not dv[i].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["serving_chunk_256_over_512", "kv_len_0_row"])
+def test_flash_bwd_kernels_are_deterministic(case, dtype):
+    """One write per output and no atomics: two launches of B10 and of B11
+    give the same bits."""
+    args = _flash_bwd_args(case, dtype, cuda_or_skip())
+    for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written kernels: dtype conversion,
-// paired loads and warp reductions. Every kernel accumulates in float32;
-// the element type T is float or __nv_bfloat16.
+// paired loads, warp reductions, and the tensor-core pieces (mma.sync,
+// ldmatrix, cp.async). Every kernel accumulates in float32; the element
+// type T is float or __nv_bfloat16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,66 @@ __device__ __forceinline__ float masked_exp(float s, float m) {
 // m_old to m_new; a row with no valid key so far has nothing to rescale.
 __device__ __forceinline__ float rescale(float m_old, float m_new) {
   return m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+}
+
+// Tensor cores: d += a b for one m16n8k16 tile, bf16 operands, float32
+// accumulation. Fragments (g = lane / 4, t = lane % 4): A holds rows g, g+8
+// at k 2t, 2t+1 and 2t+8, 2t+9; B holds k 2t, 2t+1 and 2t+8, 2t+9 at column
+// g; C holds rows g, g+8 at columns 2t, 2t+1. Two neighbouring C tiles of 8
+// columns are therefore one A tile of 16 k once rounded to bf16 pairs.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16 pair, lo in the low half (the lower k index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] holds row g, columns 2t, 2t+1 of it
+// (.trans: column g, rows 2t, 2t+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Asynchronous copies global -> shared: 16 bytes (through L2 only) or 4,
+// of which the first `src_bytes` are read and the rest zero-filled (0: a
+// zero chunk, src not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace vita

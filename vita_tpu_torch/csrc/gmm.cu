@@ -141,20 +141,9 @@ struct Stage {
   }
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // bf16 products of one staged K tile: warp (wm, wn) owns rows wm..wm+63 and
-// columns wn..wn+31 of the block, as 4 x 4 m16n8 accumulator fragments.
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
-// rows g, g+8 at k 2t, 2t+1 and 2t+8, 2t+9; B holds k 2t, 2t+1 and 2t+8,
-// 2t+9 at column g; C holds rows g, g+8 at columns 2t, 2t+1.
+// columns wn..wn+31 of the block, as 4 x 4 m16n8 accumulator fragments
+// (mma_bf16 in common.cuh gives the fragment layouts).
 template <bool Trans>
 __device__ __forceinline__ void mma_tile(const __nv_bfloat16* sA, const __nv_bfloat16* sB,
                                          float (&acc)[4][4][4], int wm, int wn, int lane) {

@@ -84,6 +84,8 @@ _SIGNATURES = {
     "vita_gmm": [_P] * 4 + [_I] * 7 + [_P],
     # a, b, gids, out, R, K, N, E, tile_m, dtype, stream
     "vita_gmm_wgrad": [_P] * 4 + [_I] * 6 + [_P],
+    # which (0: B10, 1: B11), out int[4]
+    "vita_flash_bwd_mma_info": [_I, _P],
 }
 
 

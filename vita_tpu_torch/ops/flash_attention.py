@@ -11,14 +11,16 @@ key); the backward computes delta = rowsum(dO o) in PyTorch, as the JAX
 package computes it outside Pallas, then dq and dk/dv by the flash-2
 recurrence from lse. On CUDA tensors the three steps launch the
 hand-written kernels (csrc/flash_fwd.cu, B1; csrc/flash_bwd.cu, B10 and
-B11; head dim 128, float32 or bfloat16); on CPU tensors the same Function
-runs their plain versions. Rows with no valid key give zeros and no
-gradient in both.
+B11; head dim 128, float32 or bfloat16: the backward runs tensor-core
+kernels in bfloat16 and FMA kernels in float32); on CPU tensors the same
+Function runs their plain versions. Rows with no valid key give zeros and
+no gradient in both.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -88,21 +90,24 @@ def _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
-    """dq = ds k, in q's dtype."""
+    """dq = ds k, in q's dtype; ds rounded to k's dtype before the product,
+    as the Pallas kernel rounds it."""
     b, sq, hq, d = q.shape
     _, ds, _ = _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
+    ds = ds.to(k.dtype).float()
     return torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float()).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
     """(dk = ds^T q, dv = p^T dO), each summed over the q heads of its GQA
-    group, in k's dtype."""
+    group, in k's dtype; ds rounded to q's dtype and p to dO's before the
+    products, as the Pallas kernel rounds them."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     p, ds, dog = _probs_and_dscores(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
     qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
-    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
-    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds.to(q.dtype).float(), qg)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p.to(do.dtype).float(), dog)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -180,6 +185,19 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
     kernels.check_launch(err, "flash_bwd_dkv")
     kernels.launches["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def flash_bwd_mma_info() -> Dict[str, Dict[str, int]]:
+    """Resources of B10's and B11's bfloat16 tensor-core kernels on the
+    current card: registers and spilled (local) bytes a thread, shared
+    bytes a block, and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    info = {}
+    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
+        out = (ctypes.c_int * 4)()
+        kernels.check_launch(kernels.lib().vita_flash_bwd_mma_info(which, out), name)
+        info[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
+    return info
 
 
 def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
