@@ -7,6 +7,8 @@ NVIDIA GPU.
     python3 chip_probe.py gmm       # where the Generator's gmm prefill goes
     python3 chip_probe.py train     # where a training step's time goes
     python3 chip_probe.py flash     # B10 and B11 at the training shapes
+    python3 chip_probe.py gmm-kernels  # B5a and B12 at the main paths' shapes
+    python3 chip_probe.py gmm-tiles    # stages, wgmma groups in flight, group of B5a/B12
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -41,6 +43,21 @@ FLOPs the masks leave (3 products per (q, key) pair for dq, 4 for dk/dv).
 It reads only the flash wrappers that every version of the port has, so
 a copy of this file beside an older checkout times that checkout's
 kernels in the same call.
+
+gmm-kernels: B5a in bf16 at a 12288-token prompt bucket (R 28672, tile
+512), gate/up and down, and as dx in a 9216-token training step (R 22528,
+transpose_rhs), and B12 at that step's gate/up and down shapes: CUDA
+events, median of 25 after 3 warm-ups, and the rate of 2 R K N FLOPs.
+B12's line also gives the experts' rows and how evenly its persistent
+walk deals their stages to 132 blocks. Like flash, it reads only wrappers
+and chip_smoke helpers that every version since the training slice has,
+so it times an older checkout's kernels from beside it.
+
+gmm-tiles: copies of csrc/gmm.cu under build/gmm_tiles/, one per
+GMM_TILE_CHOICES entry (ring stages, wgmma groups a consumer keeps in
+flight, M tiles per group of the tile order of the bf16 wgmma + TMA
+kernel), built together, held against the plain versions and timed as
+warps times its choices, on gmm-kernels' five cases.
 
 Each prints the card's name and power limit first.
 """
@@ -143,37 +160,40 @@ def _short(name: str) -> str:
     return name.replace("void ", "").replace("vita::", "")[:110]
 
 
-def _build_choices(root):
-    """One library per WARP_CHOICES entry under ``root``: the other
-    sources compiled once, expert_ffn.cu once per choice, all at once."""
+def _build_choices(root, source: str, choices):
+    """One library per choice under ``root``: the other sources compiled
+    once, ``source`` once per choice, all at once. A choice maps names to
+    values: each `constexpr int name() { return ...; }` or `constexpr int
+    name = ...;` of the source gets that value."""
     from vita_tpu_torch import kernels
 
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     nvcc = kernels._nvcc()
-    text = (kernels.CSRC / "expert_ffn.cu").read_text()
-    others = [s for s in sorted(kernels.CSRC.glob("*.cu")) if s.name != "expert_ffn.cu"]
+    stem = source.rsplit(".", 1)[0]
+    text = (kernels.CSRC / source).read_text()
+    others = [s for s in sorted(kernels.CSRC.glob("*.cu")) if s.name != source]
     cmds = [[nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(root / f"{s.stem}.o"), str(s)]
             for s in others]
     dirs = []
-    for i, (up, down) in enumerate(WARP_CHOICES.values()):
+    for i, choice in enumerate(choices):
         d = root / f"choice{i}"
         d.mkdir()
         for h in kernels.CSRC.glob("*.cuh"):
             shutil.copy(h, d)
         src = text
-        for fn, expr in (("up_warps", up), ("down_warps", down)):
-            src, n = re.subn(rf"(constexpr int {fn}\(\) {{ return )[^;]*(; }})",
-                             rf"\g<1>{expr}\g<2>", src)
+        for name, value in choice.items():
+            src, n = re.subn(rf"(constexpr int {name}(?:\(\) {{ return | = ))[^;]*(;)",
+                             rf"\g<1>{value}\g<2>", src)
             if n != 1:
-                raise RuntimeError(f"expert_ffn.cu has no single {fn}() to replace")
-        (d / "expert_ffn.cu").write_text(src)
-        cmds.append([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(d / "expert_ffn.o"),
-                     str(d / "expert_ffn.cu")])
+                raise RuntimeError(f"{source} has no single constexpr {name} to replace")
+        (d / source).write_text(src)
+        cmds.append([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(d / f"{stem}.o"),
+                     str(d / source)])
         dirs.append(d)
     kernels._run_all(cmds)
     kernels._run_all([[nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-                       str(d / "expert_ffn.o"), *(str(root / f"{s.stem}.o") for s in others)]
+                       str(d / f"{stem}.o"), *(str(root / f"{s.stem}.o") for s in others)]
                       for d in dirs])
     libs = []
     for d in dirs:
@@ -192,7 +212,9 @@ def warps(card: str) -> None:
     from vita_tpu_torch.ops import moe_decode as md
 
     t0 = time.time()
-    libs = _build_choices(kernels.BUILD_DIR.parent / "warps")
+    libs = _build_choices(kernels.BUILD_DIR.parent / "warps", "expert_ffn.cu",
+                          [{"up_warps": up, "down_warps": down}
+                           for up, down in WARP_CHOICES.values()])
     print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(smoke.SEED)
@@ -224,25 +246,79 @@ def warps(card: str) -> None:
                 (f"{fmt} masked T={t_masked}",
                  lambda x=xm, a=act, m=m, q=qp, b=b: md.masked_expert_ffn_q_cuda(x, a, m, q, b),
                  lambda x=xm, a=act, m=m, q=qp, b=b: md.masked_expert_ffn_q_plain(x, a, m, q, b))]
-    names = list(WARP_CHOICES)
+    _sweep(card, list(WARP_CHOICES), libs, cases, "up/down warps")
+
+
+def _sweep(card: str, names, libs, cases, what: str) -> None:
+    """Each case (label, kernel, plain) with each library against its plain
+    version (bf16 tolerance), then timed with each library in two passes
+    of opposite orders."""
+    from vita_tpu_torch import kernels
+
     ms = {(c, n): [] for c, _, _ in cases for n in names}
     for label, run, plain in cases:
         want = plain()
         for n, lib in zip(names, libs):
             kernels._lib = lib
             smoke.compare(f"{label} with {n}", run(), want, 2e-2, 2e-2)
+        del want
     for order in (range(len(names)), reversed(range(len(names)))):
         for k in order:
             kernels._lib = libs[k]
             for label, run, _ in cases:
                 ms[(label, names[k])].append(smoke.cuda_ms(run))
     kernels._lib = None
-    print(f"  kernel ms per choice (up/down warps), passes in opposite orders  [{card}]")
+    print(f"  kernel ms per choice ({what}), passes in opposite orders  [{card}]")
     for label, _, _ in cases:
         print(f"    {label}", flush=True)
         for n in names:
             a, b = ms[(label, n)]
-            print(f"      {n:36s} {a:.4f}  {b:.4f}", flush=True)
+            print(f"      {n:44s} {a:.4f}  {b:.4f}", flush=True)
+
+
+# name: csrc/gmm.cu's (kWgStages, kWgInFlight, kWgGroupM) of the bf16
+# wgmma + TMA kernel: ring stages, wgmma groups a consumer keeps in flight,
+# M tiles per group of the tile order
+GMM_TILE_CHOICES = {
+    "4 stages, 0 in flight, group 16 (shipped)": (4, 0, 16),
+    "3 stages, 0 in flight, group 16": (3, 0, 16),
+    "4 stages, 1 in flight, group 16": (4, 1, 16),
+    "3 stages, 1 in flight, group 16": (3, 1, 16),
+    "4 stages, 0 in flight, group 8": (4, 0, 8),
+    "4 stages, 0 in flight, group 32": (4, 0, 32),
+    "4 stages, 1 in flight, group 8": (4, 1, 8),
+    "4 stages, 1 in flight, group 32": (4, 1, 32),
+}
+
+
+def gmm_tiles(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.ops import moe_gmm as mg
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "gmm_tiles", "gmm.cu",
+                          [dict(zip(("kWgStages", "kWgInFlight", "kWgGroupM"), v))
+                           for v in GMM_TILE_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(smoke.SEED)
+    cases = []
+    for label, t, down, trans in (("B5a gate/up R 28672", 12288, False, False),
+                                  ("B5a down R 28672", 12288, True, False),
+                                  ("B5a dx R 22528", 9216, True, True)):
+        x, w, gids, tile_m = smoke._gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
+        if trans:
+            w = w.transpose(1, 2).contiguous()
+        args = (x, w, gids, trans, tile_m)
+        cases.append((label, lambda a=args: mg.gmm_cuda(*a), lambda a=args: mg.gmm_plain(*a)))
+    for label, down in (("B12 gate/up R 22528", False), ("B12 down R 22528", True)):
+        a, b, gids, tile_m = smoke._wgrad_case(rng, 9216, 4096, 14336, 8, bf16, dev, down)
+        args = (a, b, gids, 8, tile_m)
+        cases.append((label, lambda a=args: mg.gmm_wgrad_cuda(*a),
+                      lambda a=args: mg.gmm_wgrad_plain(*a)))
+    _sweep(card, list(GMM_TILE_CHOICES), libs, cases, "stages, wgmma groups in flight, group")
 
 
 def gmm(card: str) -> None:
@@ -330,10 +406,58 @@ def flash(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def gmm_kernels(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch.ops import moe_gmm as mg
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(smoke.SEED)
+    for label, t, down, trans in (("B5a gate/up", 12288, False, False),
+                                  ("B5a down", 12288, True, False),
+                                  ("B5a dx (transpose_rhs)", 9216, True, True)):
+        x, w, gids, tile_m = smoke._gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
+        if trans:  # the down-shaped [E, F, D] as the gate/up weight [E, D, F]
+            w = w.transpose(1, 2).contiguous()
+        n = w.shape[1 if trans else 2]
+        ms = smoke.cuda_ms(lambda: mg.gmm_cuda(x, w, gids, trans, tile_m))
+        flops = 2 * x.shape[0] * x.shape[1] * n
+        print(f"  {label:24s} R {x.shape[0]:5d} K {x.shape[1]:5d} N {n:5d}: {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s  [{card}]", flush=True)
+        del x, w
+        torch.cuda.empty_cache()
+    for label, down in (("B12 gate/up", False), ("B12 down", True)):
+        a, b, gids, tile_m = smoke._wgrad_case(rng, 9216, 4096, 14336, 8, bf16, dev, down)
+        ms = smoke.cuda_ms(lambda: mg.gmm_wgrad_cuda(a, b, gids, 8, tile_m))
+        r, k, n = a.shape[0], a.shape[1], b.shape[1]
+        print(f"  {label:24s} R {r:5d} K {k:5d} N {n:5d}: {ms:.4f} ms, "
+              f"{2 * r * k * n / ms / 1e9:.1f} TFLOP/s; {_wgrad_walk(gids, tile_m, k, n)}"
+              f"  [{card}]", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def _wgrad_walk(gids, tile_m: int, k: int, n: int, e: int = 8) -> str:
+    """Expert rows and the balance of B12's persistent walk as csrc/gmm.cu
+    deals it (tiles of 128 K rows x 256 columns, expert outermost; block b
+    of one per SM takes tiles b, b + SMs, ...; a tile's work is its
+    expert's 64-row stages): the most stages a block walks over the mean."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = np.bincount(gids.cpu().numpy(), minlength=e) * tile_m
+    per_expert = -(-k // 128) * -(-n // 256)
+    stages = np.repeat(-(-rows // 64), per_expert)
+    per_block = np.bincount(np.arange(len(stages)) % sms, weights=stages, minlength=sms)
+    return (f"expert rows {rows.tolist()}, walk max/mean stages per block "
+            f"{per_block.max() / per_block.mean():.4f}")
+
+
 def main() -> int:
     import torch
 
-    modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash}
+    modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
+             "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -11,11 +11,14 @@ Phases, each of which raises on failure:
      CUDA events (median of 25 runs after warm-up), beside the least time
      the card could take (bound) and, where one PyTorch call computes the
      same function, that call's time: B1 (with its lse), B2-B4, the grouped
-     matmuls B5a/B5b, the quantized expert FFNs B6/B7 and B8a/B8b, B9 over
-     int8 pages, and the training backward: B10/B11 at a causal 4096-token
-     sequence and at the 9216 training bucket (5735 real tokens), each
-     bf16 kernel run twice for equal bits, and B12 at a 9216-token step's
-     R (tile 512);
+     matmuls B5a/B5b (B5a also as dx at a 9216-token step's R, and on
+     rows that are no TMA tensor), the quantized expert FFNs B6/B7 and
+     B8a/B8b, B9 over int8 pages, and the training backward: B10/B11 at a
+     causal 4096-token sequence and at the 9216 training bucket (5735 real
+     tokens), and B12 at a 9216-token step's R (tile 512); each bf16
+     B5a, B10, B11 and B12 kernel is run twice for equal bits, and the
+     resources (registers, spills, shared memory, blocks per SM) of the
+     tensor-core kernels B10/B11 and B5a/B12 are printed;
   3. serve the full-width VITA-8x7B slice (Mixtral cut to 4 of 32 layers,
      InternViT-300M at 448px, Whale 24x1024; random weights from a seed)
      through Engine, four times on the same weights: bf16 experts (one
@@ -417,21 +420,42 @@ def kernel_phase(card: str):
 
     # B5b: an Engine prefill chunk of 256 tokens (R 1536, tile 128); B5a:
     # a Generator prompt bucket of 12288 tokens (R 28672, tile 512); the
-    # gate/up and the down projection each; then small fp32 cases with
-    # transpose_rhs (B5a at a small R through a lowered SMALL_R_MAX)
-    for t, name in ((256, "gmm_small"), (12288, "gmm")):
-        for down in (False, True):
-            x, w, gids, tile_m = _gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
-            r, k_dim, n_dim = x.shape[0], *w.shape[1:]
-            check(name, f"bf16 T={t} R={r} tile {tile_m} "
-                        f"{'down' if down else 'gate/up'} [{'x'.join(map(str, w.shape))}]",
-                  lambda a=(x, w, gids, False, tile_m): mg.gmm_cuda(*a),
-                  lambda a=(x, w, gids, False, tile_m): mg.gmm_plain(*a), bf16, True,
-                  work=(2 * r * k_dim * n_dim, nbytes(x, w) + 2 * r * n_dim),
-                  library=lambda a=(x, w, gids, tile_m): _grouped_mm(*a))
-            del x, w
-            torch.cuda.empty_cache()
+    # gate/up and the down projection each; then B5a's dx in a training step
+    # of 9216 tokens (R 22528): dy [R, F] times the gate/up weight [E, D, F]
+    # with transpose_rhs. bf16 B5a (wgmma + TMA) must give equal bits twice.
+    # Then small cases off the main path: fp32 with transpose_rhs (B5a at a
+    # small R through a lowered SMALL_R_MAX), bf16 B5a on rows that are no
+    # TMA tensor (K 201, N 75) and on ragged TMA tiles, both operand majors
+    for t, name, down, trans in ((256, "gmm_small", False, False),
+                                 (256, "gmm_small", True, False),
+                                 (12288, "gmm", False, False), (12288, "gmm", True, False),
+                                 (9216, "gmm", True, True)):
+        x, w, gids, tile_m = _gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
+        if trans:  # the down-shaped [E, F, D] as the gate/up weight [E, D, F]
+            w = w.transpose(1, 2).contiguous()
+        r, k_dim, n_dim = x.shape[0], x.shape[1], w.shape[1 if trans else 2]
+        args = (x, w, gids, trans, tile_m)
+        label = "dx, transpose_rhs" if trans else "down" if down else "gate/up"
+        check(name, f"bf16 T={t} R={r} tile {tile_m} {label} [{'x'.join(map(str, w.shape))}]",
+              lambda a=args: mg.gmm_cuda(*a), lambda a=args: mg.gmm_plain(*a), bf16, True,
+              work=(2 * r * k_dim * n_dim, nbytes(x, w) + 2 * r * n_dim),
+              library=lambda a=args: _grouped_mm(*a))
+        if name == "gmm" and not _same_bits(mg.gmm_cuda(*args), mg.gmm_cuda(*args)):
+            raise AssertionError(f"gmm {label}: two launches differ")
+        del x, w, args
+        torch.cuda.empty_cache()
     real_max = mg.SMALL_R_MAX
+    mg.SMALL_R_MAX = 0
+    try:
+        for d, f in ((201, 75), (200, 136)):
+            x, w, gids, tile_m = _gmm_case(rng, 600, d, f, 4, bf16, dev, False)
+            for trans, wt in ((False, w), (True, w.transpose(1, 2).contiguous())):
+                check("gmm", f"bf16 R={x.shape[0]} tile {tile_m} K {d} N {f}"
+                             f"{', transpose_rhs' if trans else ''}",
+                      lambda a=(x, wt, gids, trans, tile_m): mg.gmm_cuda(*a),
+                      lambda a=(x, wt, gids, trans, tile_m): mg.gmm_plain(*a), bf16, False)
+    finally:
+        mg.SMALL_R_MAX = real_max
     for name, r_max in (("gmm_small", real_max), ("gmm", 0)):
         mg.SMALL_R_MAX = r_max
         try:
@@ -491,25 +515,34 @@ def kernel_phase(card: str):
               f"per SM  [{card}]", flush=True)
 
     # B12: the weight gradients of a training step of 9216 tokens (T*k 18432 >
-    # 16384: tile 512, R 22528), gate/up and down shapes, bf16; fp32 at tile
-    # 128 with an expert that has no token (its tile is padding: dw exactly 0)
+    # 16384: tile 512, R 22528), gate/up and down shapes, bf16 (wgmma + TMA:
+    # equal bits twice); at tile 128 with an expert that has no token (its
+    # tile is padding: dw exactly 0) in fp32 and in bf16 on rows that are no
+    # TMA tensor (K 201, N 75)
     for t, d, f, e, dt, timed, unused in ((9216, 4096, 14336, 8, bf16, True, ()),
-                                          (300, 200, 136, 4, f32, False, (2,))):
+                                          (300, 200, 136, 4, f32, False, (2,)),
+                                          (300, 201, 75, 4, bf16, False, (2,))):
         for down in (False, True):
             a, bmat, gids, tile_m = _wgrad_case(rng, t, d, f, e, dt, dev, down, unused)
             r, k_dim, n_dim = a.shape[0], a.shape[1], bmat.shape[1]
+            z = (a, bmat, gids, e, tile_m)
             check("gmm_wgrad", f"{dt} T={t} R={r} tile {tile_m} {'down' if down else 'gate/up'} "
                                f"[{e}x{k_dim}x{n_dim}]",
-                  lambda z=(a, bmat, gids, e, tile_m): mg.gmm_wgrad_cuda(*z),
-                  lambda z=(a, bmat, gids, e, tile_m): mg.gmm_wgrad_plain(*z), dt, timed,
+                  lambda z=z: mg.gmm_wgrad_cuda(*z), lambda z=z: mg.gmm_wgrad_plain(*z), dt, timed,
                   work=(2 * r * k_dim * n_dim, nbytes(a, bmat) + e * k_dim * n_dim * a.element_size()),
                   library=lambda z=(a, bmat, gids, tile_m): _grouped_mm_wgrad(*z))
+            if timed and not _same_bits(mg.gmm_wgrad_cuda(*z), mg.gmm_wgrad_cuda(*z)):
+                raise AssertionError("gmm_wgrad: two launches differ")
             if unused:
-                dw = mg.gmm_wgrad_cuda(a, bmat, gids, e, tile_m)
+                dw = mg.gmm_wgrad_cuda(*z)
                 if bool(dw[list(unused)].any()):
                     raise AssertionError("gmm_wgrad: an expert without tokens got a nonzero dw")
-            del a, bmat
+            del a, bmat, z
             torch.cuda.empty_cache()
+    for name, r in mg.gmm_wgmma_info().items():
+        print(f"  {name} bf16 wgmma kernel: {r['registers']} registers, {r['spill_bytes']} spilled "
+              f"bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} blocks "
+              f"per SM  [{card}]", flush=True)
     return rows
 
 
@@ -578,12 +611,14 @@ def _group_ends(gids, n_groups, tile_m):
     return (torch.bincount(gids.long(), minlength=n_groups) * tile_m).cumsum(0).to(torch.int32)
 
 
-def _grouped_mm(x, w, gids, tile_m):
-    """PyTorch's grouped matmul over the same row groups."""
+def _grouped_mm(x, w, gids, transpose_rhs, tile_m):
+    """PyTorch's grouped matmul over the same row groups (w [E, N, K] with
+    transpose_rhs, read as its transposed view)."""
     import torch
 
     offs = _group_ends(gids, w.shape[0], tile_m)
-    return lambda: torch._grouped_mm(x, w, offs=offs)
+    rhs = w.transpose(1, 2) if transpose_rhs else w
+    return lambda: torch._grouped_mm(x, rhs, offs=offs)
 
 
 def _grouped_mm_wgrad(a, b, gids, tile_m):

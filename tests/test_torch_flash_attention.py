@@ -1,6 +1,13 @@
 """PyTorch port: flash_mha (plain version on the CPU) against the JAX Pallas
 flash kernel in interpret mode. The CUDA kernel against the plain version
-is in test_torch_kernels.py."""
+is in test_torch_kernels.py.
+
+Tolerance: float32, atol = rtol = 1e-4 (sums in another order); bfloat16,
+atol = rtol = 2e-2, the bf16 tolerance of the kernel tests. In bf16 both
+sides round p to bf16 before the PV product. The JAX side then runs one
+key block of 1024, so that Pallas rounds p against the row's max over all
+its keys, as the plain version does (with smaller blocks it rounds against
+each block's running max, which moves p by up to one bf16 step)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,20 +30,29 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_flash_plain_matches_jax_kernel(case):
+DTYPES = {"float32": (torch.float32, jnp.float32, 1e-4, 16),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2, 1024)}
+# the float32 cases keep their plain ids
+FWD_PARAMS = ([pytest.param(c, "float32", id=c) for c in sorted(CASES)]
+              + [pytest.param(c, "bfloat16", id=f"bf16_{c}") for c in sorted(CASES)])
+
+
+@pytest.mark.parametrize("case,dtype", FWD_PARAMS)
+def test_flash_plain_matches_jax_kernel(case, dtype):
     b, sq, skv, hq, hkv, kv_len, q_off, causal = CASES[case]
+    tdt, jdt, tol, block = DTYPES[dtype]
     rng = np.random.default_rng(0)
     q, k, v = normal(rng, b, sq, hq, 128), normal(rng, b, skv, hkv, 128), normal(rng, b, skv, hkv, 128)
-    got = flash.flash_mha(t(q), t(k), t(v), kv_len=t(kv_len, torch.int32),
+    got = flash.flash_mha(t(q).to(tdt), t(k).to(tdt), t(v).to(tdt), kv_len=t(kv_len, torch.int32),
                           q_offset=t(q_off, torch.int32), causal=causal)
     with pltpu.force_tpu_interpret_mode():
         want = j_flash.flash_mha(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
             kv_len=jnp.asarray(kv_len, jnp.int32), q_offset=jnp.asarray(q_off, jnp.int32),
-            causal=causal, block_q=16, block_k=16,
+            causal=causal, block_q=block, block_k=block,
         )
-    close(got, want)
+    assert got.dtype == tdt
+    close(got.float(), np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
 def test_flash_scalar_offset_and_defaults():

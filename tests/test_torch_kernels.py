@@ -248,14 +248,19 @@ def test_quantized_public_functions_launch_on_cuda_tensors():
         torch.full((1,), 5, dtype=torch.int32, device=dev), 0, k_scale=scales, v_scale=scales))
 
 
-# (R, K, N, tile_m, gids, large): K and N ragged against the 128 x 128
-# block and its K tile; group 1 is padding only (zero rows) where R has a
-# second tile; "unaligned" rows take the element-by-element loads
+# (R, K, N, tile_m, gids, large): K and N ragged against the blocks (128 x
+# 128, or bf16 B5a's 128 x 256) and their K tiles; group 1 is padding only
+# (zero rows) where R has a second tile; "unaligned" rows take the
+# element-by-element loads (bf16 B5a: rows whose stride is no multiple of
+# 16 bytes cannot be TMA tensors, so its producer fills the ring with plain
+# loads; with N 75 only, transpose_rhs keeps TMA for w [E, N, K])
 GMM_CASES = {
     "small_ragged": (384, 200, 72, 128, [0, 1, 2], False),
     "small_unaligned": (384, 201, 75, 128, [0, 1, 2], False),
     "small_one_tile": (40, 64, 128, 128, [2], False),
     "large_ragged": (1536, 200, 136, 512, [0, 1, 2], True),
+    "large_unaligned": (1536, 201, 75, 512, [0, 1, 2], True),
+    "large_unaligned_n": (1536, 200, 75, 512, [0, 1, 2], True),
 }
 
 
@@ -284,6 +289,59 @@ def test_gmm_kernels_match_plain(case, dtype, transpose_rhs, monkeypatch):
     close(got.float().cpu(), want.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
     if r >= 2 * tile_m:
         assert not got[tile_m:2 * tile_m].any()
+
+
+# B5a at the model's widths (D 4096, F 14336): (K, N, transpose_rhs) of
+# the gate/up and down projections and of the gate/up dx (dy [R, F] times
+# w_gate [E, D, F] transposed); R 1024 in two groups with SMALL_R_MAX
+# lowered, so full 128 x 256 tiles and walks of 64-224 stages through the
+# 4-stage ring run
+GMM_WIDTH_CASES = {
+    "gate_up": (4096, 14336, False),
+    "down": (14336, 4096, False),
+    "dx": (14336, 4096, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GMM_WIDTH_CASES))
+def test_gmm_large_kernel_at_model_widths(case, monkeypatch):
+    dev = cuda_or_skip()
+    k, n, trans = GMM_WIDTH_CASES[case]
+    monkeypatch.setattr(mg, "SMALL_R_MAX", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(1024, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(2, *((n, k) if trans else (k, n)), generator=gen, device=dev)
+    w = (w * k ** -0.5).to(torch.bfloat16)
+    g = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    got = _launched("gmm", lambda: mg.gmm_cuda(x, w, g, trans, 512))
+    want = mg.gmm_plain(x, w, g, trans, 512)
+    assert got.dtype == torch.bfloat16 and got.shape == (1024, n)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL[torch.bfloat16],
+          rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_gmm_wgmma_kernels_are_deterministic(monkeypatch):
+    """One write per output and no atomics: two launches of bf16 B5a (w
+    N-major and, with transpose_rhs, K-major) and of bf16 B12 give the same
+    bits."""
+    dev = cuda_or_skip()
+    monkeypatch.setattr(mg, "SMALL_R_MAX", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    x, b = bf(1536, 520), bf(1536, 264)
+    g = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    for trans, w in ((False, bf(3, 520, 264)), (True, bf(3, 264, 520))):
+        first, second = (mg.gmm_cuda(x, w, g, trans, 512) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+    first, second = (mg.gmm_wgrad_cuda(x, b, g, 3, 512) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -384,12 +442,17 @@ def test_flash_autograd_runs_the_kernels():
         close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
 
 
-# (R, K, N, E, tile_m, gids): expert 1 owns no row tile in "empty_expert"
+# (R, K, N, E, tile_m, gids): expert 1 owns no row tile in "empty_expert";
+# "unaligned" rows (K, N no multiple of 8) cannot be TMA tensors, so bf16
+# B12's producer fills its ring with plain loads; with tile_m 32, experts'
+# runs start and end inside the 64-row stages (96, 128 and 96 rows)
 WGRAD_CASES = {
     "tile_128": (512, 200, 136, 3, 128, [0, 0, 1, 2]),
     "tile_512": (1536, 136, 200, 3, 512, [0, 1, 2]),
     "empty_expert": (384, 128, 64, 3, 128, [0, 2, 2]),
     "one_tile": (40, 64, 72, 2, 128, [1]),
+    "unaligned": (1536, 201, 75, 3, 512, [0, 1, 2]),
+    "tile_32": (320, 136, 200, 3, 32, [0, 0, 0, 1, 1, 1, 1, 2, 2, 2]),
 }
 
 
@@ -410,6 +473,23 @@ def test_gmm_wgrad_kernel_matches_plain(case, dtype):
     close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=TOL[dtype])
     for x in set(range(e)) - set(gids):
         assert not got[x].any()
+
+
+@pytest.mark.gpu
+def test_gmm_wgrad_bf16_written_by_the_kernel():
+    """bf16 B12 writes dw in a's dtype itself: the call allocates its bf16
+    output and no float32 [E, K, N] temporary."""
+    dev = cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    a, b = (torch.randn(1024, n, generator=gen, device=dev).to(torch.bfloat16)
+            for n in (1024, 2048))
+    g = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dw = _launched("gmm_wgrad", lambda: mg.gmm_wgrad_cuda(a, b, g, 2, 512))
+    assert dw.dtype == torch.bfloat16 and dw.shape == (2, 1024, 2048)
+    assert torch.cuda.max_memory_allocated() - base <= dw.numel() * dw.element_size() + (1 << 20)
 
 
 @pytest.mark.gpu

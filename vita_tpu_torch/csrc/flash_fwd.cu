@@ -14,7 +14,8 @@
 // shared memory (pre-scaled, float32) while the block walks 64-row key tiles
 // up to the causal limit of its last row: S = Q K^T, mask (key index past
 // kv_len, or past q_offset + row when causal), online softmax with running
-// max and sum per row, then O += P V. GQA reads kv head h / (Hq / Hkv)
+// max and sum per row, then O += P V with P rounded to V's type (the sum
+// keeps P unrounded), as the Pallas kernel rounds it. GQA reads kv head h / (Hq / Hkv)
 // directly from the [B, S, H, D] layout, so repeat_kv is never built.
 // Rows that see no valid key write zeros. Each row's log-sum-exp of its
 // scaled scores (m + log l, -inf for a row that sees no key) goes to lse
@@ -141,8 +142,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p0 = masked_exp(a0, m_new);
       const float p1 = masked_exp(a1, m_new);
       const float sum = warp_sum(p0 + p1);
-      Ps[r * kBK + lane] = p0;
-      Ps[r * kBK + lane + 32] = p1;
+      // PV reads p rounded to V's type, as the Pallas kernel's
+      // p.astype(v.dtype); the row sum keeps the unrounded p
+      Ps[r * kBK + lane] = to_f32(from_f32<T>(p0));
+      Ps[r * kBK + lane + 32] = to_f32(from_f32<T>(p1));
       if (lane == 0) {
         const float alpha = rescale(m_old, m_new);
         row_l[r] = row_l[r] * alpha + sum;

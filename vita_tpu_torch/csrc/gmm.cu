@@ -1,75 +1,463 @@
-// Grouped matmul forward of the prefill MoE: out[r, :] = x[r, :] @ w[g],
-// g = gids[r / tile_m], over rows sorted by expert and padded per expert to
-// a tile_m multiple (vita_tpu_torch/ops/moe_gmm.py::sorted_layout).
+// Grouped matmul of the prefill MoE and of its backward, over rows sorted by
+// expert and padded per expert to a tile_m multiple
+// (vita_tpu_torch/ops/moe_gmm.py::sorted_layout):
+//   forward / dx:  out[r, :] = x[r, :] @ w[g],  g = gids[r / tile_m];
+//   weight grad:   dw[e] = a[rows of e]^T b[rows of e].
 //
-// Replaces the two TPU schedules of vita_tpu/ops/moe_gmm.py:
-//   _gmm_kernel (B5a, through _gmm_raw: R > SMALL_R_MAX, tile_m 512): k-
-//     blocked, the f32 accumulator carried in VMEM scratch across the
-//     sequential k axis of the grid;
-//   _small_gmm_kernel (B5b, through _gmm_small: every other R, tile_m 128):
-//     "weights-once", grid (n, m) with m fastest, so consecutive row tiles of
-//     one expert reuse the fetched weight block.
+// Replaces the three TPU kernels of vita_tpu/ops/moe_gmm.py:
+//   _gmm_kernel (B5a, through _gmm_raw: R > SMALL_R_MAX and tile_m >
+//     SMALL_TILE_M): k-blocked, the f32 accumulator carried in VMEM scratch
+//     across the sequential k axis of the grid;
+//   _small_gmm_kernel (B5b, through _gmm_small: every other R): "weights-
+//     once", grid (n, m) with m fastest, so consecutive row tiles of one
+//     expert reuse the fetched weight block;
+//   _wgrad_kernel (B12, _gmm_wgrad): grid (k, n, m) with m fastest, so each
+//     (e, k, n) output block accumulates over e's row tiles in VMEM.
 //
-// What bounds it on the H100. At B5a's R (28672 rows: a 12288-token prompt
-// bucket, top-2, 8 experts) each of gate/up/down is 2 * 28672 * 4096 * 14336
-// = 3.4 TFLOP against 235 MB of x and 940 MB of weights: FLOPs. At B5b's R
-// (1536 rows: a 256-token prefill chunk) it is 180 GFLOP against the same
-// 940 MB of weights, which must be read at least once: about 190 FLOP per
-// weight byte, under the card's balance point (~295 in bf16), so the weight
-// bytes.
+// What bounds them on the H100. At the main paths' shapes (D 4096, F 14336,
+// 8 experts) B5a at R 28672 (a 12288-token prompt bucket, top-2) is 2 * R *
+// 4096 * 14336 = 3.4 TFLOP per projection against 2.0 GB (x, w, out), and
+// B12 at R 22528 (a 9216-token training step) 2.6 TFLOP against 1.8 GB
+// (a, b, dw in bf16): about 1700 FLOP per byte, far above the card's
+// balance point (~295 in bf16), so the tensor cores' rate: 3.4 and 2.7 ms
+// at 989 TFLOP/s. B5b at R 1536 (a 256-token prefill chunk) is 180 GFLOP
+// against the same 940 MB of weights, which must be read at least once:
+// under the balance point, so the weight bytes.
 //
-// Design: one kernel for both schedules.
-//   - A block computes a 128 x 128 output tile. 128 divides tile_m, so a block
-//     never crosses a group boundary and reads its one group id from gids
-//     itself. The TPU's sequential k axis becomes a loop inside the block:
-//     x and w tiles of BK along K are staged through two shared-memory
-//     buffers (the next tile's global loads go to registers before the
-//     current tile's products, and to shared memory after them), and the
-//     accumulator stays in registers.
-//   - bf16: tensor-core mma.sync m16n8k16 with f32 accumulation, 8 warps of
-//     64 x 32 outputs. f32: an FMA loop, 8 x 8 outputs per thread, so the f32
-//     comparison with the plain version stays tight.
-//   - A 1-D grid in groups of kGroupM M tiles, M fastest within a group,
-//     then N, then the next group. At B5b's R (16 M tiles or fewer) that is
-//     the TPU's weights-once order: the blocks resident at one time read the
-//     same [K, 128] weight strips (1 MB at K 4096 in bf16, against 50 MB of
-//     L2), which therefore stream from HBM about once. At larger R the
-//     resident blocks share about 16 x panels and 16 weight strips, so
-//     neither is read from HBM much more than once. (An M-fastest order over
-//     all of R was up to 5% slower from R 9216 up on the H100, and no faster
-//     below.)
-//   - Ragged edges: rows past R, columns past N and K past its end load as
-//     zeros and are not stored. A thread loads 16 bytes at once where the
-//     chunk lies inside the matrix and is aligned, element by element
-//     otherwise.
-// wgmma, TMA and a deeper pipeline are later work.
+// bf16 B5a and B12: Hopper's warp-specialised wgmma + TMA design.
+//   - A persistent grid of one block per SM walks 128 x 256 output tiles
+//     (tile t, t + gridDim, ...) in groups of kWgGroupM M tiles, M fastest
+//     within a group: the resident blocks share ~16 row panels and ~8 weight
+//     strips (about 32 MB at K 4096), which L2 (50 MB) keeps, so neither is
+//     read from HBM much more than once. B12's tiles are (expert, 128 rows of
+//     dw's K, 256 columns), expert outermost.
+//   - Warpgroup 0 produces: one thread issues TMA loads (128-byte swizzle,
+//     out-of-bounds boxes zero-filled) of 64-deep contraction stages into a
+//     ring of kWgStages 48 KB stages with full/empty mbarriers; setmaxnreg
+//     gives its registers to the consumers. Warpgroups 1 and 2 consume: each
+//     runs wgmma m64n256k16 (bf16 -> f32 in registers, both operands read
+//     from the swizzled ring) on its 64 rows of the tile, four per stage,
+//     and releases the stage. The producer runs ahead into the next tile
+//     while the consumers store this one.
+//   - Operand majors are taken by wgmma's transpose bits, never by a copy:
+//     x is K-major; w [E, K, N] is N-major (transpose-B), w [E, N, K] (dx)
+//     K-major. B12's A is a^T read from the staged [r][k] rows (M-major,
+//     transpose-A), its B the staged [r][n] rows (transpose-B).
+//   - A 128-row tile never crosses a group (tile_m is a multiple of 128), so
+//     the forward block reads its group id from gids. A B12 block first
+//     finds every expert's run of rows by binary search over the sorted gids
+//     (into shared memory), and a tile walks its expert's run 64 rows a
+//     stage; rows past e's end inside the last stage are zeroed in shared
+//     memory before the product, an expert without rows gets exact zeros.
+//     One block owns each output tile and there are no atomics, so two
+//     launches give the same bits.
+//   - Ragged edges: TMA fills zeros past R, K and N; stores are clipped.
+//     A row stride that is not a multiple of 16 bytes (K or N not a multiple
+//     of 8), or an operand not 16-byte aligned, cannot be a TMA tensor: then
+//     all 128 producer threads fill the same swizzled ring with plain loads,
+//     for the same consumers.
+//   - The epilogue rounds to bf16 (nearest even, as torch's .to()), so B12
+//     writes dw in a's dtype with no float32 temporary.
 //
-// The same file holds B12, the weight gradient of the grouped matmul:
-// dw[e] = a[rows of e]^T b[rows of e], out [E, K, N] in float32.
-//
-// Replaces vita_tpu/ops/moe_gmm.py::_wgrad_kernel (_gmm_wgrad), the TPU's
-// grid (k, n, m) with m fastest, so each (e, k, n) output block accumulates
-// over e's consecutive row tiles in VMEM.
-//
-// What bounds it on the H100. At a training step of 9216 tokens (R 22528,
-// tile 512) each of the three projections' dw is 2 * 22528 * 4096 * 14336 =
-// 2.6 TFLOP against 0.7 GB of a and b and 1.9 GB of float32 dw: operations,
-// far above the balance point.
-//
-// Design: one block per (expert e, 128-row K tile, 128-column N tile). The
-// block finds e's run of row tiles by binary search over the sorted gids
-// (no host sync, no offsets array) and walks it BK rows at a time, staging
-// the a and b rows through the same two register-staged shared-memory
-// buffers as the forward; the accumulator stays in registers, so no block
-// ever adds into another's output and there are no atomics. bf16 uses
-// mma.sync with a's tile read transposed (a K-row of the product is a
-// column of the staged a tile: each A fragment packs two 16-bit loads, as
-// the forward's B fragment does); f32 an FMA loop. An expert with no rows
-// writes exact zeros.
+// B5b (bf16 and f32) and float32 B5a: one 128 x 128 tile routine; x and w
+// tiles of BK along K staged through two register-staged shared-memory
+// buffers; bf16 mma.sync m16n8k16 with 8 warps of 64 x 32, f32 an FMA loop
+// of 8 x 8 outputs per thread. A 1-D grid in the same groups of kGroupM M
+// tiles: at B5b's R (16 M tiles or fewer) that is the TPU's weights-once
+// order. float32 B12: the same staging and FMA loop, one block per (e, 128
+// K rows, 128 columns). Their redesign is later work.
+#include <cuda.h>  // CUtensorMap and its enums; no -lcuda (see encode_tiled)
+
 #include "common.cuh"
 
 namespace vita {
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// The output tile t of an nm x nn grid walked in groups of G M tiles, M
+// fastest within a group, then N, then the next group.
+template <int G>
+__device__ __forceinline__ void grouped_tile(int t, int nm, int nn, int& mb, int& nb) {
+  const int per_group = G * nn;
+  const int first = (t / per_group) * G;
+  const int rows = min(nm - first, G);
+  mb = first + (t % per_group) % rows;
+  nb = (t % per_group) / rows;
+}
+
+// First index of sorted gids[0, n) that is >= e.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ gids, int n, int e) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (gids[mid] < e) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 B5a and B12: wgmma + TMA.
+
+enum WgMode : int { kFwd = 0, kFwdT = 1, kWgrad = 2 };
+
+constexpr int kWgBM = 128;          // output rows of a tile: two consumers of 64
+constexpr int kWgBN = 256;          // output columns: one m64n256 wgmma
+constexpr int kWgBK = 64;           // contraction depth of a stage: one 128-byte bf16 row
+// Chosen on the H100 by chip_probe.py gmm-tiles: ring stages (4 x 48 KB is
+// the most that fits), wgmma groups a consumer keeps in flight when it
+// waits (0: it releases each stage as soon as its products are done), M
+// tiles per group of the tile order.
+constexpr int kWgStages = 4;
+constexpr int kWgInFlight = 0;
+constexpr int kWgGroupM = 16;
+constexpr int kWgThreads = 384;     // warpgroup 0 produces, 1 and 2 consume
+constexpr int kChunk = 64 * 128;    // a [64 rows][128 bytes] swizzled box: 8 KB
+// A stage is six chunks: A (2: [128][64] x rows, or B12's [64 r][64 k] x 2)
+// then B (4: [64 k][64 n] x 4, or dx's [256 n][64 k]).
+constexpr int kStageBytes = 6 * kChunk;
+// the ring, its alignment slack and its barriers; B12 adds E + 1 row bounds
+constexpr int kWgSmem = kWgStages * kStageBytes + 1024 + 2 * kWgStages * 8;
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 64K
+
+int wg_smem(int mode, int E) { return kWgSmem + (mode == kWgrad ? 4 * (E + 1) : 0); }
+
+struct WgTile {
+  int e, m0, n0;  // expert, first output row (B12: of dw's K), first output column
+  int c0, c_end;  // contraction range: [0, K), or B12's rows of e
+  int stages;
+};
+
+// Tile t's expert, corner and contraction walk; producer and consumers
+// compute the same sequence. bounds: B12's row bounds of the experts.
+template <int Mode>
+__device__ __forceinline__ WgTile wg_tile(int t, const int* __restrict__ gids,
+                                          const int* bounds, int R, int K, int N, int E,
+                                          int tile_m) {
+  WgTile w;
+  const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
+  const int nn = (N + kWgBN - 1) / kWgBN;
+  int mb, nb;
+  if (Mode == kWgrad) {
+    w.e = t / (nm * nn);
+    grouped_tile<kWgGroupM>(t % (nm * nn), nm, nn, mb, nb);
+    w.c0 = bounds[w.e];
+    w.c_end = bounds[w.e + 1];
+  } else {
+    grouped_tile<kWgGroupM>(t, nm, nn, mb, nb);
+    w.e = min(max(gids[mb * kWgBM / tile_m], 0), E - 1);
+    w.c0 = 0;
+    w.c_end = K;
+  }
+  w.m0 = mb * kWgBM;
+  w.n0 = nb * kWgBN;
+  w.stages = w.c_end > w.c0 ? (w.c_end - w.c0 + kWgBK - 1) / kWgBK : 0;
+  return w;
+}
+
+// The plain-load producer: the box [row0, row0 + nrows) x [col0, col0 + 64)
+// of a row-major [rows, cols] matrix (zeros outside it) into dst as TMA's
+// 128-byte swizzle lays it out (the 16-byte chunk j of row i at j ^ (i % 8)).
+__device__ __forceinline__ void fill_box(uint8_t* dst, const bf16* __restrict__ src, int64_t ld,
+                                         int rows, int cols, int row0, int col0, int nrows,
+                                         int ptid) {
+  for (int idx = ptid; idx < nrows * 8; idx += 128) {
+    const int i = idx >> 3, j = idx & 7;
+    const int r = row0 + i, c = col0 + 8 * j;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      bf16* e = reinterpret_cast<bf16*>(&v);
+      const bf16* p = src + (int64_t)r * ld;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (c + q < cols) e[q] = p[c + q];
+    }
+    *reinterpret_cast<uint4*>(dst + i * 128 + ((j ^ (i & 7)) << 4)) = v;
+  }
+}
+
+// Stage `st` of tile w at contraction index c: TMA boxes (one thread), or
+// plain loads by the producer warpgroup's 128 threads.
+template <int Mode, bool Tma>
+__device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap& mb,
+                                        const bf16* __restrict__ a, const bf16* __restrict__ b,
+                                        int R, int K, int N, const WgTile& w, int c, uint8_t* st,
+                                        uint64_t* full, int ptid) {
+  uint8_t* sa = st;
+  uint8_t* sb = st + 2 * kChunk;
+  if constexpr (Tma) {
+    mbar_arrive_expect_tx(full, kStageBytes);
+    if constexpr (Mode == kWgrad) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) tma_load_2d(sa + j * kChunk, &ma, full, w.m0 + 64 * j, c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tma_load_2d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c);
+    } else {
+      tma_load_2d(sa, &ma, full, c, w.m0);  // x [R, K]: a 64 x 128 box
+      if constexpr (Mode == kFwd) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // w [E, K, N]: four 64 x 64 boxes
+          tma_load_3d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c, w.e);
+      } else {
+        tma_load_3d(sb, &mb, full, c, w.n0, w.e);  // w [E, N, K]: a 64 x 256 box
+      }
+    }
+  } else {
+    if constexpr (Mode == kWgrad) {  // rows past e's end load as zeros
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        fill_box(sa + j * kChunk, a, K, w.c_end, K, c, w.m0 + 64 * j, 64, ptid);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fill_box(sb + j * kChunk, b, N, w.c_end, N, c, w.n0 + 64 * j, 64, ptid);
+    } else {
+      fill_box(sa, a, K, R, K, w.m0, c, 128, ptid);
+      const bf16* we = b + (int64_t)w.e * K * N;
+      if constexpr (Mode == kFwd) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fill_box(sb + j * kChunk, we, N, K, N, c, w.n0 + 64 * j, 64, ptid);
+      } else {
+        fill_box(sb, we, K, N, K, w.n0, c, 256, ptid);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1, 128);
+    if (ptid == 0) mbar_arrive(full);
+  }
+}
+
+// The consumer's 64 x 256 accumulator (wgmma fragment layout) to rows
+// [r0, r0 + 64) and columns [c0, c0 + 256) of a row-major bf16 matrix,
+// clipped at rows x cols.
+__device__ __forceinline__ void wg_store(bf16* __restrict__ out, int64_t ld, int rows, int cols,
+                                         int r0, int c0, const float (&d)[128], int ctid) {
+  const int lane = ctid & 31;
+  const int r = r0 + (ctid >> 5) * 16 + (lane >> 2);
+  const int cb = c0 + 2 * (lane & 3);
+  const bool pairs = (cols & 1) == 0;  // then (row, even column) is 4-byte aligned
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = cb + 8 * j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r + 8 * h;
+      if (rr >= rows || c >= cols) continue;
+      bf16* p = out + (int64_t)rr * ld + c;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        p[0] = __float2bfloat16(v0);
+        if (c + 1 < cols) p[1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// kFwd: a = x [R, K], b = w [E, K, N], out [R, N]; kFwdT: b = w [E, N, K];
+// kWgrad: a [R, K], b [R, N], out = dw [E, K, N]. The maps are the TMA
+// tensors of a and b (unused without Tma).
+template <int Mode, bool Tma>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b, const bf16* __restrict__ a,
+                 const bf16* __restrict__ b, const int* __restrict__ gids, bf16* __restrict__ out,
+                 int R, int K, int N, int E, int tile_m) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kStageBytes);
+  uint64_t* empty = full + kWgStages;
+  int* bounds = reinterpret_cast<int*>(empty + kWgStages);  // B12: e's rows [bounds[e], bounds[e + 1])
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  if constexpr (Mode == kWgrad) {
+    const int ng = R >= tile_m ? R / tile_m : 1;
+    for (int e = threadIdx.x; e <= E; e += kWgThreads)
+      bounds[e] = min(lower_bound(gids, ng, e) * tile_m, R);
+  }
+  __syncthreads();
+
+  const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
+  const int n_tiles = (Mode == kWgrad ? E : 1) * nm * ((N + kWgBN - 1) / kWgBN);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    const int ptid = threadIdx.x;
+    if (Tma && ptid != 0) return;
+    int stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
+      for (int i = 0; i < w.stages; ++i) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        wg_load<Mode, Tma>(map_a, map_b, a, b, R, K, N, w, w.c0 + i * kWgBK,
+                           ring + stage * kStageBytes, &full[stage], ptid);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1, ctid = threadIdx.x - 128 * wg;
+    float d[128];
+    int stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.f;
+      wgmma_fence_regs(d);
+      int held = -1;  // kWgInFlight: a stage whose products may still be in flight
+      for (int i = 0; i < w.stages; ++i) {
+        uint8_t* st = ring + stage * kStageBytes;
+        mbar_wait(&full[stage], phase);
+        if constexpr (Mode == kWgrad) {
+          // rows past e's end (the next expert's) out of all six chunks
+          const int valid = w.c_end - (w.c0 + i * kWgBK);
+          if (valid < kWgBK) {
+            const int n = 6 * (kWgBK - valid) * 8;
+            for (int idx = c * 128 + ctid; idx < n; idx += 256) {
+              const int q = idx / ((kWgBK - valid) * 8), rem = idx % ((kWgBK - valid) * 8);
+              *reinterpret_cast<uint4*>(st + q * kChunk + (valid + rem / 8) * 128 +
+                                        (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+            }
+            fence_proxy_async();
+            named_bar_sync(2, 256);
+          }
+        }
+        const uint32_t sa = smem_addr(st) + c * kChunk, sb = smem_addr(st + 2 * kChunk);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kWgBK / 16; ++s) {
+          // K-major steps 16 elements (32 bytes) along the swizzled row;
+          // MN-major 16 rows of 128 bytes
+          const uint64_t da = Mode == kWgrad ? wgmma_desc(sa + 2048 * s, 8192, 1024)
+                                             : wgmma_desc(sa + 32 * s, 16, 1024);
+          const uint64_t db = Mode == kFwdT ? wgmma_desc(sb + 32 * s, 16, 1024)
+                                            : wgmma_desc(sb + 2048 * s, 8192, 1024);
+          wgmma_m64n256k16<Mode == kWgrad, Mode != kFwdT>(d, da, db);
+        }
+        wgmma_commit();
+        wgmma_wait<kWgInFlight>();
+        if constexpr (kWgInFlight == 0) {
+          if ((ctid & 31) == 0) mbar_arrive(&empty[stage]);
+        } else {  // the stage before this one is done
+          if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
+          held = stage;
+        }
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      wgmma_fence_regs(d);
+      if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
+      if constexpr (Mode == kWgrad)
+        wg_store(out + (int64_t)w.e * K * N, N, K, N, w.m0 + 64 * c, w.n0, d, ctid);
+      else
+        wg_store(out, N, R, N, w.m0 + 64 * c, w.n0, d, ctid);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so
+// the library links against nothing new.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous bf16 tensor as a TMA map: `rank` dims innermost first,
+// boxes of `box`, 128-byte swizzle, zeros out of bounds.
+bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+              const cuuint32_t* box) {
+  cuuint64_t strides[2];  // bytes, of dims 1 .. rank - 1
+  cuuint64_t s = sizeof(bf16);
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  const cuuint32_t unit[3] = {1, 1, 1};
+  EncodeTiled fn = encode_tiled();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int Mode, bool Tma>
+const void* wgmma_fn() {
+  return reinterpret_cast<const void*>(gmm_wgmma_kernel<Mode, Tma>);
+}
+
+template <int Mode, bool Tma>
+int launch_wgmma(const CUtensorMap& ma, const CUtensorMap& mb, const void* a, const void* b,
+                 const int* gids, void* out, int R, int K, int N, int E, int tile_m,
+                 cudaStream_t stream) {
+  static int sized = 0;  // the dynamic shared memory the kernel may use so far
+  const int smem = wg_smem(Mode, E);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgmma_fn<Mode, Tma>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
+  }
+  const int64_t tiles = (int64_t)(Mode == kWgrad ? E : 1) *
+                        (((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM) *
+                        ((N + kWgBN - 1) / kWgBN);
+  if (tiles == 0) return 0;
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  gmm_wgmma_kernel<Mode, Tma><<<grid, kWgThreads, smem, stream>>>(
+      ma, mb, static_cast<const bf16*>(a), static_cast<const bf16*>(b), gids,
+      static_cast<bf16*>(out), R, K, N, E, tile_m);
+  return (int)cudaGetLastError();
+}
+
+template <int Mode>
+int launch_wgmma_any(bool tma, const CUtensorMap& ma, const CUtensorMap& mb, const void* a,
+                     const void* b, const int* gids, void* out, int R, int K, int N, int E,
+                     int tile_m, cudaStream_t stream) {
+  return tma ? launch_wgmma<Mode, true>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream)
+             : launch_wgmma<Mode, false>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream);
+}
+
+// ---------------------------------------------------------------------------
+// B5b (bf16 and f32) and float32 B5a: the 128 x 128 tile routine.
 
 constexpr int kBM = 128;     // rows per block
 constexpr int kBN = 128;     // columns per block
@@ -145,9 +533,9 @@ struct Stage {
 // columns wn..wn+31 of the block, as 4 x 4 m16n8 accumulator fragments
 // (mma_bf16 in common.cuh gives the fragment layouts).
 template <bool Trans>
-__device__ __forceinline__ void mma_tile(const __nv_bfloat16* sA, const __nv_bfloat16* sB,
-                                         float (&acc)[4][4][4], int wm, int wn, int lane) {
-  using C = Cfg<__nv_bfloat16>;
+__device__ __forceinline__ void mma_tile(const bf16* sA, const bf16* sB, float (&acc)[4][4][4],
+                                         int wm, int wn, int lane) {
+  using C = Cfg<bf16>;
   constexpr int LDA = C::LDA, LDB = C::ldb<Trans>();
   const int g = lane >> 2, t = lane & 3;
   const uint16_t* a16 = reinterpret_cast<const uint16_t*>(sA);
@@ -294,20 +682,13 @@ __device__ __forceinline__ void gmm_tile(const T* __restrict__ x, const T* __res
   }
 }
 
-// 1-D grid: groups of kGroupM M tiles, M fastest within a group, then N,
-// then the next group.
 template <typename T, bool Trans>
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ gids,
            T* __restrict__ out, int R, int K, int N, int E, int tile_m) {
   __shared__ __align__(16) unsigned char smem[Cfg<T>::template smem_bytes<Trans>()];
-  const int nm = (R + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
-  const int per_group = kGroupM * nn;
-  const int pid = blockIdx.x;
-  const int first = (pid / per_group) * kGroupM;
-  const int rows = min(nm - first, kGroupM);
-  const int mb = first + (pid % per_group) % rows;
-  const int nb = (pid % per_group) / rows;
+  int mb, nb;
+  grouped_tile<kGroupM>(blockIdx.x, (R + kBM - 1) / kBM, (N + kBN - 1) / kBN, mb, nb);
   gmm_tile<T, Trans>(x, w, gids, out, R, K, N, E, tile_m, mb, nb, reinterpret_cast<T*>(smem));
 }
 
@@ -328,118 +709,36 @@ int launch_t(int trans, const void* x, const void* w, const int* gids, void* out
                : launch<T, false>(x, w, gids, out, R, K, N, E, tile_m, stream);
 }
 
-// First index of sorted gids[0, n) that is >= e.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ gids, int n, int e) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (gids[mid] < e) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// bf16 products of one staged R tile of dw: sA holds a's rows [BK][kBM + V]
-// (r, k), sB b's rows [BK][kBN + V] (r, n); the product's M index is k, so
-// an A fragment packs the two r-adjacent 16-bit values of column m, as the
-// B fragment does for column n.
-__device__ __forceinline__ void wgrad_mma_tile(const __nv_bfloat16* sA, const __nv_bfloat16* sB,
-                                               float (&acc)[4][4][4], int wm, int wn, int lane) {
-  using C = Cfg<__nv_bfloat16>;
-  constexpr int LD = kBN + C::V;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* a16 = reinterpret_cast<const uint16_t*>(sA);
-  const uint16_t* b16 = reinterpret_cast<const uint16_t*>(sB);
-  auto pair = [](const uint16_t* p) { return (uint32_t)p[0] | ((uint32_t)p[LD] << 16); };
-#pragma unroll
-  for (int ks = 0; ks < C::BK; ks += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const uint16_t* p = a16 + (ks + 2 * t) * LD + wm + mi * 16 + g;
-      a[mi][0] = pair(p);
-      a[mi][1] = pair(p + 8);
-      a[mi][2] = pair(p + 8 * LD);
-      a[mi][3] = pair(p + 8 * LD + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const uint16_t* p = b16 + (ks + 2 * t) * LD + wn + ni * 8 + g;
-      b[ni][0] = pair(p);
-      b[ni][1] = pair(p + 8 * LD);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// f32 products of one staged R tile: thread (tx, ty) owns k rows ty + 16 i
-// and n columns tx + 16 j.
-__device__ __forceinline__ void wgrad_fma_tile(const float* sA, const float* sB,
-                                               float (&acc)[8][8], int tx, int ty) {
-  using C = Cfg<float>;
-  constexpr int LD = kBN + C::V;
-#pragma unroll 4
-  for (int r = 0; r < C::BK; ++r) {
-    float a[8], b[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = sA[r * LD + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = sB[r * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Grid: expert, then K tile, then N tile fastest.
-template <typename T>
+// float32 B12: one block per (expert e, 128-row K tile, 128-column N tile)
+// walks e's rows BK at a time; thread (tx, ty) owns k rows ty + 16 i and n
+// columns tx + 16 j. Grid: expert, then K tile, then N tile fastest.
 __global__ void __launch_bounds__(kThreads)
-gmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ gids,
-                 float* __restrict__ out, int R, int K, int N, int n_tiles, int tile_m) {
-  using C = Cfg<T>;
-  constexpr int BK = C::BK, LD = kBN + C::V, ELEMS = BK * LD;
-  static_assert(kBM == kBN, "a and b tiles share one layout");
-  constexpr bool kMma = sizeof(T) == 2;
-  __shared__ __align__(16) T smem[4 * ELEMS];
-  T* sA[2] = {smem, smem + ELEMS};
-  T* sB[2] = {smem + 2 * ELEMS, smem + 3 * ELEMS};
+gmm_wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     const int* __restrict__ gids, float* __restrict__ out, int R, int K, int N,
+                     int n_tiles, int tile_m) {
+  constexpr int BK = Cfg<float>::BK, LD = kBN + Cfg<float>::V, ELEMS = BK * LD;
+  __shared__ __align__(16) float smem[4 * ELEMS];
+  float* sA[2] = {smem, smem + ELEMS};
+  float* sB[2] = {smem + 2 * ELEMS, smem + 3 * ELEMS};
 
   const int nk = (K + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
   const int e = blockIdx.x / (nk * nn);
   const int k0 = (blockIdx.x / nn) % nk * kBM, n0 = blockIdx.x % nn * kBN;
-  // e's consecutive row tiles [lo, hi) of the sorted gids
   const int r_begin = lower_bound(gids, n_tiles, e) * tile_m;
   const int r_end = min(lower_bound(gids, n_tiles, e + 1) * tile_m, R);
 
-  Stage<T, BK, kBM> ga;
-  Stage<T, BK, kBN> gb;
+  Stage<float, BK, kBM> ga;
+  Stage<float, BK, kBN> gb;
   auto load = [&](int r0) {
     ga.load(a, K, r_end, K, r0, k0);
     gb.load(b, N, r_end, N, r0, n0);
   };
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc_m[kMma ? 4 : 1][4][4];
-  float acc_f[kMma ? 1 : 8][8];
-  if constexpr (kMma) {
+  float acc[8][8];
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc_m[mi][ni][c] = 0.f;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc_f[i][j] = 0.f;
-  }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   if (r_begin < r_end) {
     load(r_begin);
@@ -450,10 +749,18 @@ gmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
     for (int r0 = r_begin; r0 < r_end; r0 += BK) {
       const bool more = r0 + BK < r_end;
       if (more) load(r0 + BK);
-      if constexpr (kMma)
-        wgrad_mma_tile(sA[cur], sB[cur], acc_m, wm, wn, lane);
-      else
-        wgrad_fma_tile(sA[cur], sB[cur], acc_f, tx, ty);
+#pragma unroll 4
+      for (int r = 0; r < BK; ++r) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = sA[cur][r * LD + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = sB[cur][r * LD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
       if (more) {
         ga.store(sA[cur ^ 1], LD);
         gb.store(sB[cur ^ 1], LD);
@@ -464,62 +771,96 @@ gmm_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
   }
 
   float* oe = out + (int64_t)e * K * N;
-  if constexpr (kMma) {
-    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int row = k0 + wm + mi * 16 + g + (c >> 1) * 8;
-          const int col = n0 + wn + ni * 8 + 2 * t + (c & 1);
-          if (row < K && col < N) oe[(int64_t)row * N + col] = acc_m[mi][ni][c];
-        }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = k0 + ty + 16 * i, col = n0 + tx + 16 * j;
-        if (row < K && col < N) oe[(int64_t)row * N + col] = acc_f[i][j];
-      }
-  }
-}
-
-template <typename T>
-int launch_wgrad(const void* a, const void* b, const int* gids, float* out, int R, int K, int N,
-                 int E, int tile_m, cudaStream_t stream) {
-  const int nk = (K + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
-  const int n_tiles = R >= tile_m ? R / tile_m : 1;
-  gmm_wgrad_kernel<T><<<E * nk * nn, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), gids, out, R, K, N, n_tiles, tile_m);
-  return (int)cudaGetLastError();
+    for (int j = 0; j < 8; ++j) {
+      const int row = k0 + ty + 16 * i, col = n0 + tx + 16 * j;
+      if (row < K && col < N) oe[(int64_t)row * N + col] = acc[i][j];
+    }
 }
 
 }  // namespace
 }  // namespace vita
 
 // a [R, K], b [R, N] in one dtype, rows sorted by group as gids [ceil(R /
-// tile_m)] int32 (non-decreasing) says; out [E, K, N] float32, every element
-// written. tile_m is a multiple of the R tile (32 rows in bf16, 16 in f32)
-// unless R < tile_m. Returns the CUDA error code of the launch.
-extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, float* out, int R,
+// tile_m)] int32 (non-decreasing) says; out [E, K, N] in that dtype, every
+// element written. float32: tile_m is a multiple of 16 unless R < tile_m.
+// Returns the CUDA error code of the launch.
+extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, void* out, int R,
                               int K, int N, int E, int tile_m, int dtype, void* stream) {
+  using namespace vita;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vita::kBFloat16)
-    return vita::launch_wgrad<__nv_bfloat16>(a, b, gids, out, R, K, N, E, tile_m, s);
-  return vita::launch_wgrad<float>(a, b, gids, out, R, K, N, E, tile_m, s);
+  if (dtype == kBFloat16) {
+    const bool tma = R > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(b);
+    CUtensorMap ma{}, mb{};
+    if (tma) {
+      const cuuint64_t da[2] = {(cuuint64_t)K, (cuuint64_t)R}, db[2] = {(cuuint64_t)N, (cuuint64_t)R};
+      const cuuint32_t box[2] = {64, 64};
+      if (!make_map(&ma, a, 2, da, box) || !make_map(&mb, b, 2, db, box))
+        return (int)cudaErrorInvalidValue;
+    }
+    return launch_wgmma_any<kWgrad>(tma, ma, mb, a, b, gids, out, R, K, N, E, tile_m, s);
+  }
+  const int n_tiles = R >= tile_m ? R / tile_m : 1;
+  gmm_wgrad_f32_kernel<<<E * ((K + kBM - 1) / kBM) * ((N + kBN - 1) / kBN), kThreads, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), gids, static_cast<float*>(out),
+      R, K, N, n_tiles, tile_m);
+  return (int)cudaGetLastError();
 }
 
 // x [R, K]; w [E, K, N], or [E, N, K] with trans; gids [ceil(R / tile_m)]
 // int32 group per row tile; out [R, N] in x's dtype. tile_m is a multiple
-// of 128 unless R < tile_m (one group). Returns the CUDA error code of the
-// launch.
+// of 128 unless R < tile_m (one group). vita_gmm is the 128 x 128 tile
+// routine (B5b; float32 B5a), vita_gmm_wgmma the bf16 wgmma + TMA kernel
+// (B5a). Each returns the CUDA error code of the launch.
 extern "C" int vita_gmm(const void* x, const void* w, const int* gids, void* out, int R, int K,
                         int N, int E, int tile_m, int trans, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vita::kBFloat16)
     return vita::launch_t<__nv_bfloat16>(trans, x, w, gids, out, R, K, N, E, tile_m, s);
   return vita::launch_t<float>(trans, x, w, gids, out, R, K, N, E, tile_m, s);
+}
+
+extern "C" int vita_gmm_wgmma(const void* x, const void* w, const int* gids, void* out, int R,
+                              int K, int N, int E, int tile_m, int trans, void* stream) {
+  using namespace vita;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tma =
+      R > 0 && K > 0 && K % 8 == 0 && (trans || N % 8 == 0) && aligned16(x) && aligned16(w);
+  CUtensorMap mx{}, mw{};
+  if (tma) {
+    const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)R};
+    const cuuint32_t bx[2] = {64, 128};
+    const cuuint64_t dw[3] = {(cuuint64_t)(trans ? K : N), (cuuint64_t)(trans ? N : K),
+                              (cuuint64_t)E};
+    const cuuint32_t bw[3] = {64, trans ? 256u : 64u, 1};
+    if (!make_map(&mx, x, 2, dx, bx) || !make_map(&mw, w, 3, dw, bw))
+      return (int)cudaErrorInvalidValue;
+  }
+  return trans ? launch_wgmma_any<kFwdT>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s)
+               : launch_wgmma_any<kFwd>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s);
+}
+
+// Resources of a wgmma kernel on the current card (which: 0 B5a, 1 B5a with
+// trans (dx), 2 B12; the TMA instantiations): out = registers and local
+// (spilled) bytes a thread, shared bytes a block, resident blocks per SM.
+extern "C" int vita_gmm_wgmma_info(int which, int* out) {
+  using namespace vita;
+  const void* fn = which == 0   ? wgmma_fn<kFwd, true>()
+                   : which == 1 ? wgmma_fn<kFwdT, true>()
+                                : wgmma_fn<kWgrad, true>();
+  const int smem = wg_smem(which == 2 ? kWgrad : kFwd, 8);  // B12 at the model's 8 experts
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kWgThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(attr.sharedSizeBytes + smem);
+  out[3] = blocks;
+  return 0;
 }

@@ -63,14 +63,18 @@ def _scores(q, k, kv_len, q_offset, causal, scale):
 
 def flash_fwd_plain(q, k, v, kv_len, q_offset, causal: bool, scale: float):
     """Masked softmax attention in float32 with GQA by head grouping:
-    (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] float32)."""
+    (o [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] float32). The PV
+    product takes p = exp(s - m) rounded to v's dtype, as the Pallas
+    kernel's ``p.astype(v.dtype)``; l sums the unrounded p."""
     b, sq, hq, d = q.shape
     s, _ = _scores(q, k, kv_len, q_offset, causal, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))  # masked -> exp(-inf) = 0
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", p / torch.where(l > 0, l, 1.0), v.float())
-    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), float("-inf"))
+    l_safe = torch.where(l > 0, l, 1.0)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), v.float())
+    o = o / l_safe.permute(0, 3, 1, 2, 4)  # [B, Hkv, rep, Sq, 1] -> [B, Sq, Hkv, rep, 1]
+    lse = torch.where(l > 0, m + torch.log(l_safe), float("-inf"))
     return o.reshape(b, sq, hq, d).to(q.dtype), lse[..., 0].reshape(b, hq, sq)
 
 

@@ -12,18 +12,23 @@ schedule (kernel B5b, counter ``gmm_small``), larger R the k-blocked one
 (B5a, counter ``gmm``). The tile constants keep the JAX values, since
 they decide the layout and the schedule.
 
-On CUDA tensors ``gmm`` launches the hand-written kernel of csrc/gmm.cu,
-one kernel for both schedules (float32 or bfloat16); on CPU tensors it
-runs ``gmm_plain``. ``gmm`` is a ``torch.autograd.Function`` with the JAX
-package's custom VJP: dx is ``gmm`` itself with ``transpose_rhs`` flipped
-(B5a/B5b by the same rule), and dw is ``gmm_wgrad`` (kernel B12 in
-csrc/gmm.cu, counter ``gmm_wgrad``; ``gmm_wgrad_plain`` on the CPU), the
-per-group a^T b in float32 cast to a's dtype. Every expert owns at least
-one row tile (``sorted_layout``), so an expert without tokens gets a dw of
-exactly 0.
+On CUDA tensors ``gmm`` launches a hand-written kernel of csrc/gmm.cu:
+bfloat16 B5a runs the wgmma + TMA kernel, B5b and float32 B5a the 128 x
+128 tile routine (``mma.sync`` in bfloat16, FMA in float32); on CPU
+tensors it runs ``gmm_plain``. ``gmm`` is a ``torch.autograd.Function``
+with the JAX package's custom VJP: dx is ``gmm`` itself with
+``transpose_rhs`` flipped (B5a/B5b by the same rule), and dw is
+``gmm_wgrad`` (kernel B12 in csrc/gmm.cu, counter ``gmm_wgrad``: wgmma +
+TMA in bfloat16, FMA in float32; ``gmm_wgrad_plain`` on the CPU), the
+per-group a^T b summed in float32 and written in a's dtype. Every expert
+owns at least one row tile (``sorted_layout``), so an expert without
+tokens gets a dw of exactly 0.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -109,8 +114,9 @@ def gmm_plain(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> 
 
 
 def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> torch.Tensor:
-    """csrc/gmm.cu, counted as B5b (small R) or B5a (large R) as
-    ``_gmm_raw`` chooses; both schedules run one kernel."""
+    """csrc/gmm.cu, B5b (small R) or B5a (large R) as ``_gmm_raw``
+    chooses: bfloat16 B5a is the wgmma + TMA kernel, the rest the 128 x
+    128 tile routine."""
     kernels.require_cuda(x, w, gids)
     r, k_dim, n_dim = _shapes(x, w, gids, transpose_rhs, tile_m)
     kernels.require(r < tile_m or tile_m % BLOCK_M == 0,
@@ -119,13 +125,29 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
     dt = kernels.dtype_code(x, w)
     out = torch.empty(r, n_dim, dtype=x.dtype, device=x.device)
     if r and n_dim:
-        err = kernels.lib().vita_gmm(
-            x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
-            w.shape[0], tile_m, int(transpose_rhs), dt, kernels.stream_of(x))
-        kernels.check_launch(err, "gmm")
         large = not (r <= SMALL_R_MAX or tile_m <= SMALL_TILE_M)
+        args = (x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
+                w.shape[0], tile_m, int(transpose_rhs))
+        if large and x.dtype == torch.bfloat16:
+            err = kernels.lib().vita_gmm_wgmma(*args, kernels.stream_of(x))
+        else:
+            err = kernels.lib().vita_gmm(*args, dt, kernels.stream_of(x))
+        kernels.check_launch(err, "gmm")
         kernels.launches["gmm" if large else "gmm_small"] += 1
     return out
+
+
+def gmm_wgmma_info() -> Dict[str, Dict[str, int]]:
+    """Resources of the bfloat16 wgmma + TMA kernels on the current card
+    (B5a, B5a with transpose_rhs as dx runs it, B12): registers and spilled
+    (local) bytes a thread, shared bytes a block, and resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    info = {}
+    for which, name in enumerate(("gmm", "gmm dx", "gmm_wgrad")):
+        out = (ctypes.c_int * 4)()
+        kernels.check_launch(kernels.lib().vita_gmm_wgmma_info(which, out), name)
+        info[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
+    return info
 
 
 def _gmm_raw(x, w, gids, transpose_rhs: bool, tile_m: int) -> torch.Tensor:
@@ -151,7 +173,7 @@ def gmm_wgrad_plain(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Te
 
 
 def gmm_wgrad_cuda(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Tensor:
-    """csrc/gmm.cu's B12: float32 dw from the kernel, cast to a's dtype."""
+    """csrc/gmm.cu's B12: dw in a's dtype, written by the kernel."""
     kernels.require_cuda(a, b, gids)
     r, k_dim = a.shape
     n_dim = b.shape[1]
@@ -160,14 +182,14 @@ def gmm_wgrad_cuda(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Ten
                     and gids.shape[0] >= (r // tile_m if r >= tile_m else 1),
                     "gids must be int32, one per row tile")
     dt = kernels.dtype_code(a, b)
-    out = torch.empty(n_groups, k_dim, n_dim, dtype=torch.float32, device=a.device)
+    out = torch.empty(n_groups, k_dim, n_dim, dtype=a.dtype, device=a.device)
     if n_groups and k_dim and n_dim:
         err = kernels.lib().vita_gmm_wgrad(
             a.data_ptr(), b.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
             n_groups, tile_m, dt, kernels.stream_of(a))
         kernels.check_launch(err, "gmm_wgrad")
         kernels.launches["gmm_wgrad"] += 1
-    return out.to(a.dtype)
+    return out
 
 
 def gmm_wgrad(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Tensor:
