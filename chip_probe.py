@@ -9,6 +9,10 @@ NVIDIA GPU.
     python3 chip_probe.py flash     # B10 and B11 at the training shapes
     python3 chip_probe.py gmm-kernels  # B5a and B12 at the main paths' shapes
     python3 chip_probe.py gmm-tiles    # stages, wgmma groups in flight, group of B5a/B12
+    python3 chip_probe.py flash-fwd    # B1 at the serving, training and Generator shapes
+    python3 chip_probe.py flash-fwd-tiles  # q heads per block and K/V stages of bf16 B1
+    python3 chip_probe.py gmm-small    # B5b at the serving and training steps' R
+    python3 chip_probe.py gmm-small-tiles  # tile width and tile order of bf16 B5b
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -58,6 +62,31 @@ GMM_TILE_CHOICES entry (ring stages, wgmma groups a consumer keeps in
 flight, M tiles per group of the tile order of the bf16 wgmma + TMA
 kernel), built together, held against the plain versions and timed as
 warps times its choices, on gmm-kernels' five cases.
+
+flash-fwd: B1 in bf16 (32/8 heads of 128, causal) at FLASH_FWD_CASES: an
+Engine prefill chunk (256 rows over 512 keys), the training step's 9216
+bucket with 5735 real tokens, the Generator's 12288-row prefill over 8500
+keys and its decode row over them: CUDA events, median of 25 after 3
+warm-ups, and the rate of the FLOPs the masks leave (2 products of 2 x
+128 FLOP per (q row, key) pair). Like flash, it reads only wrappers that
+every version has, so it times an older checkout's B1 from beside it.
+
+flash-fwd-tiles: copies of csrc/flash_fwd.cu under build/flash_fwd_tiles/,
+one per FLASH_FWD_CHOICES entry (the grid size from which a block takes
+a pair of q heads, K/V ring stages), held against the plain version and
+timed as warps times its choices, on flash-fwd's cases.
+
+gmm-small: B5b in bf16 at GMM_SMALL_CASES: the Engine's 256-token chunk
+(R 1536, tile 128), gate/up and down, and the training steps of 1024 and
+4096 tokens (R 3072 and 9216), gate/up, down and dx: CUDA events, median
+of 25 after 3 warm-ups, the rate of 2 R K N FLOPs and the weight stream
+(the distinct experts' weights over the kernel time). Reads only wrappers
+every version has, as flash does.
+
+gmm-small-tiles: copies of csrc/gmm.cu under build/gmm_small_tiles/, one
+per GMM_SMALL_CHOICES entry (B5b's tile width, M tiles per group of its
+tile order; 0: all of R's, the weights-once order), held against the plain
+versions and timed as warps times its choices, on gmm-small's cases.
 
 Each prints the card's name and power limit first.
 """
@@ -131,7 +160,8 @@ def profile(card: str) -> None:
 
 def _summarize(prof, wall: float, label: str, card: str, top: int = 6) -> None:
     """Device time, busy share, host launches and the largest device
-    entries of a profiled window of ``wall`` ms."""
+    entries of a profiled window of ``wall`` ms, then the port's own
+    kernels (namespace vita) that are not among them."""
     from torch.autograd import DeviceType
 
     on_dev = collections.defaultdict(lambda: [0.0, 0])
@@ -150,8 +180,10 @@ def _summarize(prof, wall: float, label: str, card: str, top: int = 6) -> None:
     print(f"  {label}: wall {wall:.1f} ms, device {dev_ms:.1f} ms, busy "
           f"{dev_ms / wall:.3f}, host launches {launches[0]} ({launches[1]:.2f} ms)"
           f"  [{card}]", flush=True)
-    for name, (ms, n) in sorted(on_dev.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"      {ms:9.2f} ms {n:6d} calls  {_short(name)}", flush=True)
+    ranked = sorted(on_dev.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (ms, n)) in enumerate(ranked):
+        if i < top or "vita::" in name:
+            print(f"      {ms:9.2f} ms {n:6d} calls  {_short(name)}", flush=True)
 
 
 def _short(name: str) -> str:
@@ -321,6 +353,130 @@ def gmm_tiles(card: str) -> None:
     _sweep(card, list(GMM_TILE_CHOICES), libs, cases, "stages, wgmma groups in flight, group")
 
 
+# (label, Sq, Skv, kv_len, q_offset) of B1 in bf16, 32/8 heads, causal
+FLASH_FWD_CASES = (
+    ("chunk 256 over 512, offset 256", 256, 512, 512, 256),
+    ("train bucket 9216, kv_len 5735", 9216, 9216, 5735, 0),
+    ("prefill 12288 over kv_len 8500", 12288, 12288, 8500, 0),
+    ("decode row over kv_len 8500", 1, 12288, 8500, 8499),
+)
+# name: csrc/flash_fwd.cu's (kPairMinBlocks, kKvStages)
+FLASH_FWD_CHOICES = {
+    "pairs from 132 blocks, 2 stages (shipped)": (132, 2),
+    "always pairs, 2 stages": (0, 2),
+    "never pairs, 2 stages": (1 << 30, 2),
+    "pairs from 132 blocks, 3 stages": (132, 3),
+}
+# (label, tokens, down, transpose_rhs) of B5b in bf16 at D 4096, F 14336,
+# 8 experts, top-2, tile 128
+GMM_SMALL_CASES = (
+    ("R 1536 gate/up", 256, False, False),
+    ("R 1536 down", 256, True, False),
+    ("R 3072 gate/up", 1024, False, False),
+    ("R 3072 down", 1024, True, False),
+    ("R 3072 dx", 1024, True, True),
+    ("R 9216 gate/up", 4096, False, False),
+    ("R 9216 down", 4096, True, False),
+    ("R 9216 dx", 4096, True, True),
+)
+# name: csrc/gmm.cu's (kWgSmallBN, kWgSmallGroupM)
+GMM_SMALL_CHOICES = {
+    "BN 256, weights-once order (shipped)": (256, 0),
+    "BN 256, groups of 16 M tiles": (256, 16),
+    "BN 128, weights-once order": (128, 0),
+    "BN 128, groups of 16 M tiles": (128, 16),
+}
+
+
+def _flash_fwd_cases(rng, dev):
+    """(label, kernel, plain, FLOPs) per FLASH_FWD_CASES entry; the plain
+    version runs one GQA group at a time past 4096 rows."""
+    import torch
+
+    from vita_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    for label, sq, skv, kv_len, q_off in FLASH_FWD_CASES:
+        args = smoke._flash_case(rng, 1, sq, skv, 32, 8, [kv_len], [q_off], torch.bfloat16,
+                                 dev)
+        plain = smoke._by_group(fa.flash_fwd_plain, (2, 1)) if sq > 4096 else fa.flash_fwd_plain
+        flops = 4 * smoke.attn_pairs(sq, [kv_len], [q_off], True) * 128 * 32
+        out.append((label, lambda a=args: fa.flash_fwd_cuda(*a)[0],
+                    lambda a=args, f=plain: f(*a)[0], flops))
+    return out
+
+
+def flash_fwd(card: str) -> None:
+    import torch
+
+    dev = torch.device("cuda")
+    for label, run, _, flops in _flash_fwd_cases(np.random.default_rng(smoke.SEED), dev):
+        ms = smoke.cuda_ms(run)
+        print(f"  B1 bf16 B=1 32/8 heads {label:32s}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s  [{card}]", flush=True)
+
+
+def flash_fwd_tiles(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "flash_fwd_tiles", "flash_fwd.cu",
+                          [dict(zip(("kPairMinBlocks", "kKvStages"), v))
+                           for v in FLASH_FWD_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    cases = [c[:3] for c in _flash_fwd_cases(np.random.default_rng(smoke.SEED),
+                                            torch.device("cuda"))]
+    _sweep(card, list(FLASH_FWD_CHOICES), libs, cases, "q-head pairs from, K/V stages")
+
+
+def _gmm_small_cases(rng, dev):
+    """(label, kernel, plain, FLOPs, weight bytes the call must read) per
+    GMM_SMALL_CASES entry."""
+    import torch
+
+    from vita_tpu_torch.ops import moe_gmm as mg
+
+    out = []
+    for label, t, down, trans in GMM_SMALL_CASES:
+        x, w, gids, tile_m = smoke._gmm_case(rng, t, 4096, 14336, 8, torch.bfloat16, dev, down)
+        if trans:  # the down-shaped [E, F, D] as the gate/up weight [E, D, F]
+            w = w.transpose(1, 2).contiguous()
+        r, k = x.shape
+        n = w.shape[1 if trans else 2]
+        used = len(torch.unique(gids))
+        out.append((label, lambda a=(x, w, gids, trans, tile_m): mg.gmm_cuda(*a),
+                    lambda a=(x, w, gids, trans, tile_m): mg.gmm_plain(*a),
+                    2 * r * k * n, used * k * n * w.element_size()))
+    return out
+
+
+def gmm_small(card: str) -> None:
+    import torch
+
+    dev = torch.device("cuda")
+    for label, run, _, flops, wbytes in _gmm_small_cases(np.random.default_rng(smoke.SEED), dev):
+        ms = smoke.cuda_ms(run)
+        print(f"  B5b bf16 {label:16s}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, weights "
+              f"{wbytes / ms / 1e9:.3f} TB/s  [{card}]", flush=True)
+
+
+def gmm_small_tiles(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "gmm_small_tiles", "gmm.cu",
+                          [dict(zip(("kWgSmallBN", "kWgSmallGroupM"), v))
+                           for v in GMM_SMALL_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    cases = [c[:3] for c in _gmm_small_cases(np.random.default_rng(smoke.SEED),
+                                            torch.device("cuda"))]
+    _sweep(card, list(GMM_SMALL_CHOICES), libs, cases, "B5b tile width, tile order")
+
+
 def gmm(card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity
@@ -457,7 +613,9 @@ def main() -> int:
     import torch
 
     modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
-             "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles}
+             "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
+             "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
+             "gmm-small-tiles": gmm_small_tiles}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

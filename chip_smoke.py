@@ -10,15 +10,18 @@ Phases, each of which raises on failure:
      paths' shapes in bf16 and at a small shape in fp32, and time both with
      CUDA events (median of 25 runs after warm-up), beside the least time
      the card could take (bound) and, where one PyTorch call computes the
-     same function, that call's time: B1 (with its lse), B2-B4, the grouped
-     matmuls B5a/B5b (B5a also as dx at a 9216-token step's R, and on
-     rows that are no TMA tensor), the quantized expert FFNs B6/B7 and
-     B8a/B8b, B9 over int8 pages, and the training backward: B10/B11 at a
-     causal 4096-token sequence and at the 9216 training bucket (5735 real
-     tokens), and B12 at a 9216-token step's R (tile 512); each bf16
-     B5a, B10, B11 and B12 kernel is run twice for equal bits, and the
-     resources (registers, spills, shared memory, blocks per SM) of the
-     tensor-core kernels B10/B11 and B5a/B12 are printed;
+     same function, that call's time: B1 (with its lse; also at the 9216
+     training bucket with 5735 real tokens, over the Generator's 12288-row
+     prefill with 8500 keys, and one decode row over those keys), B2-B4,
+     the grouped matmuls B5a/B5b (B5a also as dx at a 9216-token step's R,
+     and on rows that are no TMA tensor; B5b as dx at a 1024-token step's
+     R), the quantized expert FFNs B6/B7 and B8a/B8b, B9 over int8 pages,
+     and the training backward: B10/B11 at a causal 4096-token sequence
+     and at the 9216 training bucket, and B12 at a 9216-token step's R
+     (tile 512); each bf16 B1, B5a, B5b, B10, B11 and B12 kernel is run
+     twice for equal bits, and the resources (registers, spills, shared
+     memory, blocks per SM) of the tensor-core kernels B1, B10/B11 and
+     B5a/B5b/B12 are printed;
   3. serve the full-width VITA-8x7B slice (Mixtral cut to 4 of 32 layers,
      InternViT-300M at 448px, Whale 24x1024; random weights from a seed)
      through Engine, four times on the same weights: bf16 experts (one
@@ -300,11 +303,19 @@ def kernel_phase(card: str):
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    # B1: prefill chunk 256 over bucket 512 (both chunks), 384 as one chunk
+    # B1: prefill chunk 256 over bucket 512 (both chunks), 384 as one chunk;
+    # then the long paths: the training bucket of 9216 with 5735 real
+    # tokens, the Generator's 12288-row prefill over 8500 keys and its
+    # decode row over them. At those lengths the plain version runs one GQA
+    # group at a time (its float32 scores would not fit otherwise). bf16
+    # must give equal bits twice.
     for case, sq, skv, kv_len, q_off, dt, timed in (
         ("bf16 chunk 256/512, offset 256", 256, 512, [512], [256], bf16, True),
         ("bf16 chunk 256/512, offset 0", 256, 512, [256], [0], bf16, False),
         ("bf16 whole bucket 384", 384, 384, [384], [0], bf16, False),
+        ("bf16 train bucket 9216, kv_len 5735", 9216, 9216, [5735], [0], bf16, True),
+        ("bf16 prefill 12288 over kv_len 8500", 12288, 12288, [8500], [0], bf16, True),
+        ("bf16 decode row over kv_len 8500", 1, 12288, [8500], [8499], bf16, True),
         ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, [150, 77], [50, 0], f32, False),
     ):
         b = len(kv_len)
@@ -313,9 +324,18 @@ def kernel_phase(card: str):
         q, k, v = args[:3]
         work = (4 * attn_pairs(sq, kv_len, q_off, True) * 128 * hq,
                 2 * nbytes(q) + nbytes(k, v) + 4 * b * hq * sq)  # q, k, v, o, lse
+        plain = _by_group(fa.flash_fwd_plain, (2, 1)) if sq > 4096 else fa.flash_fwd_plain
         check("flash_fwd", case, lambda a=args: fa.flash_fwd_cuda(*a),
-              lambda a=args: fa.flash_fwd_plain(*a), dt, timed, work=work,
+              lambda a=args, f=plain: f(*a), dt, timed, work=work,
               library=lambda a=args: _sdpa_fwd(*a))
+        if dt == bf16 and not _same_bits(fa.flash_fwd_cuda(*args), fa.flash_fwd_cuda(*args)):
+            raise AssertionError(f"flash_fwd {case}: two launches differ")
+        del q, k, v, args
+        torch.cuda.empty_cache()
+    for name, r in fa.flash_fwd_info().items():
+        print(f"  {name} bf16 wgmma kernel: {r['registers']} registers, {r['spill_bytes']} "
+              f"spilled bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} "
+              f"blocks per SM  [{card}]", flush=True)
 
     # B2: decode over the serving pool (4 layers, 128 pages of 64)
     for case, lengths, dt, timed in (
@@ -420,14 +440,16 @@ def kernel_phase(card: str):
 
     # B5b: an Engine prefill chunk of 256 tokens (R 1536, tile 128); B5a:
     # a Generator prompt bucket of 12288 tokens (R 28672, tile 512); the
-    # gate/up and the down projection each; then B5a's dx in a training step
-    # of 9216 tokens (R 22528): dy [R, F] times the gate/up weight [E, D, F]
-    # with transpose_rhs. bf16 B5a (wgmma + TMA) must give equal bits twice.
+    # gate/up and the down projection each; then the dx of a training step
+    # (dy [R, F] times the gate/up weight [E, D, F] with transpose_rhs): B5b
+    # at 1024 tokens (R 3072), B5a at 9216 (R 22528). bf16 B5a and B5b
+    # (wgmma + TMA) must give equal bits twice.
     # Then small cases off the main path: fp32 with transpose_rhs (B5a at a
     # small R through a lowered SMALL_R_MAX), bf16 B5a on rows that are no
     # TMA tensor (K 201, N 75) and on ragged TMA tiles, both operand majors
     for t, name, down, trans in ((256, "gmm_small", False, False),
                                  (256, "gmm_small", True, False),
+                                 (1024, "gmm_small", True, True),
                                  (12288, "gmm", False, False), (12288, "gmm", True, False),
                                  (9216, "gmm", True, True)):
         x, w, gids, tile_m = _gmm_case(rng, t, 4096, 14336, 8, bf16, dev, down)
@@ -440,8 +462,8 @@ def kernel_phase(card: str):
               lambda a=args: mg.gmm_cuda(*a), lambda a=args: mg.gmm_plain(*a), bf16, True,
               work=(2 * r * k_dim * n_dim, nbytes(x, w) + 2 * r * n_dim),
               library=lambda a=args: _grouped_mm(*a))
-        if name == "gmm" and not _same_bits(mg.gmm_cuda(*args), mg.gmm_cuda(*args)):
-            raise AssertionError(f"gmm {label}: two launches differ")
+        if not _same_bits(mg.gmm_cuda(*args), mg.gmm_cuda(*args)):
+            raise AssertionError(f"{name} {label}: two launches differ")
         del x, w, args
         torch.cuda.empty_cache()
     real_max = mg.SMALL_R_MAX

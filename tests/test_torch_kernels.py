@@ -79,6 +79,55 @@ def test_flash_lse_matches_plain(case, dtype):
     close(lse[fin].cpu(), want_lse[fin].cpu(), atol=1e-4, rtol=1e-4)
 
 
+# bf16 B1 (wgmma + TMA) where its design has edges: a causal sequence
+# whose walk wraps the K/V ring many times and crosses kv_len inside a tile
+# (a pair of q heads a block); the Generator's decode call (one q row over
+# 1000+ keys at a q_offset, one q head a block); batch rows whose kv_len and
+# q_offset differ, so masks cross tiles at other columns in each row and a
+# p scattered to the wrong columns cannot pass
+FLASH_BF16_CASES = {
+    "long_causal_2048_kv_len_1500": (1, 2048, 2048, 32, 8, [1500], [0], True),
+    "decode_one_row_over_1200_keys": (2, 1, 1536, 32, 8, [1200, 1037], [1199, 1036], True),
+    "per_row_kv_len_and_offset": (3, 300, 700, 32, 8, [700, 333, 517], [400, 33, -20], True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FLASH_BF16_CASES))
+def test_flash_bf16_kernel_matches_plain(case):
+    dev = cuda_or_skip()
+    b, sq, skv, hq, hkv, kv_len, q_off, causal = FLASH_BF16_CASES[case]
+    rng = np.random.default_rng(15)
+    q, k, v = (t(normal(rng, b, s, h, 128)).to(dev, torch.bfloat16)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    args = (q, k, v, t(kv_len, torch.int32).to(dev), t(q_off, torch.int32).to(dev), causal,
+            128 ** -0.5)
+    got, lse = _launched("flash_fwd", lambda: fa.flash_fwd_cuda(*args))
+    want, want_lse = fa.flash_fwd_plain(*args)
+    tol = TOL[torch.bfloat16]
+    close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
+    assert torch.equal(torch.isinf(lse).cpu(), torch.isinf(want_lse).cpu())
+    fin = torch.isfinite(want_lse)
+    close(lse[fin].cpu(), want_lse[fin].cpu(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_kernel_is_deterministic():
+    """One write per output and no atomics: two launches of bf16 B1 (both
+    block shapes) give the same bits."""
+    dev = cuda_or_skip()
+    for case in ("long_causal_2048_kv_len_1500", "decode_one_row_over_1200_keys"):
+        b, sq, skv, hq, hkv, kv_len, q_off, causal = FLASH_BF16_CASES[case]
+        gen = torch.Generator(device=dev).manual_seed(16)
+        q, k, v = (torch.randn(b, s, h, 128, generator=gen, device=dev).to(torch.bfloat16)
+                   for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+        args = (q, k, v, torch.tensor(kv_len, dtype=torch.int32, device=dev),
+                torch.tensor(q_off, dtype=torch.int32, device=dev), causal, 128 ** -0.5)
+        (o1, l1), (o2, l2) = fa.flash_fwd_cuda(*args), fa.flash_fwd_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lengths,page", [([5, 1], 8), ([17, 0, 64], 16), ([300, 2, 129], 64)])
@@ -248,12 +297,13 @@ def test_quantized_public_functions_launch_on_cuda_tensors():
         torch.full((1,), 5, dtype=torch.int32, device=dev), 0, k_scale=scales, v_scale=scales))
 
 
-# (R, K, N, tile_m, gids, large): K and N ragged against the blocks (128 x
-# 128, or bf16 B5a's 128 x 256) and their K tiles; group 1 is padding only
-# (zero rows) where R has a second tile; "unaligned" rows take the
-# element-by-element loads (bf16 B5a: rows whose stride is no multiple of
-# 16 bytes cannot be TMA tensors, so its producer fills the ring with plain
-# loads; with N 75 only, transpose_rhs keeps TMA for w [E, N, K])
+# (R, K, N, tile_m, gids, large): K and N ragged against the blocks (float32
+# 128 x 128, bf16 128 x 256) and their K tiles; group 1 is padding only
+# (zero rows) where R has a second tile; "one_tile" has fewer rows than a
+# tile (TMA zero-fills past R); "unaligned" rows take the element-by-element
+# loads (bf16: rows whose stride is no multiple of 16 bytes cannot be TMA
+# tensors, so the producer fills the ring with plain loads; with N 75 only,
+# transpose_rhs keeps TMA for w [E, N, K])
 GMM_CASES = {
     "small_ragged": (384, 200, 72, 128, [0, 1, 2], False),
     "small_unaligned": (384, 201, 75, 128, [0, 1, 2], False),
@@ -319,6 +369,45 @@ def test_gmm_large_kernel_at_model_widths(case, monkeypatch):
     assert got.dtype == torch.bfloat16 and got.shape == (1024, n)
     close(got.float().cpu(), want.float().cpu(), atol=TOL[torch.bfloat16],
           rtol=TOL[torch.bfloat16])
+
+
+# B5b at the model's widths: an Engine prefill chunk of 256 tokens routed
+# top-2 over 8 experts (R 1536, tile 128: 12 row tiles, 5 experts with one
+# tile, 7 with padding), gate/up, down and the gate/up dx
+GMM_SMALL_GIDS = [0, 0, 1, 2, 3, 3, 4, 5, 6, 7, 7, 7]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GMM_WIDTH_CASES))
+def test_gmm_small_kernel_at_model_widths(case):
+    dev = cuda_or_skip()
+    k, n, trans = GMM_WIDTH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(1536, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(8, *((n, k) if trans else (k, n)), generator=gen, device=dev)
+    w = (w * k ** -0.5).to(torch.bfloat16)
+    g = torch.tensor(GMM_SMALL_GIDS, dtype=torch.int32, device=dev)
+    got = _launched("gmm_small", lambda: mg.gmm_cuda(x, w, g, trans, 128))
+    want = mg.gmm_plain(x, w, g, trans, 128)
+    assert got.dtype == torch.bfloat16 and got.shape == (1536, n)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL[torch.bfloat16],
+          rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_gmm_small_kernel_is_deterministic():
+    """Two launches of bf16 B5b (w N-major and, with transpose_rhs,
+    K-major) give the same bits."""
+    dev = cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(1536, 520, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.tensor(GMM_SMALL_GIDS, dtype=torch.int32, device=dev)
+    for trans in (False, True):
+        w = torch.randn(8, *((264, 520) if trans else (520, 264)), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        first, second = (mg.gmm_cuda(x, w, g, trans, 128) for _ in range(2))
+        torch.cuda.synchronize()
+        assert kernels.launches["gmm_small"] > 0 and torch.equal(first, second)
 
 
 @pytest.mark.gpu

@@ -684,15 +684,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// cp.async moves 16-byte chunks of q, k, v and dO, and the outputs are
-// stored as bf16 pairs
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, const int* kv_len, const int* q_off, int B, int Sq,
               int Skv, int Hq, int Hkv, float scale, int causal, int dtype,
               cudaStream_t stream) {
-  if (dtype == kBFloat16) {
+  if (dtype == kBFloat16) {  // cp.async moves 16-byte chunks, outputs go as bf16 pairs
     if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq)))
       return (int)cudaErrorMisalignedAddress;
     cudaFuncSetAttribute(flash_bwd_dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -774,18 +770,6 @@ extern "C" int vita_flash_bwd_dkv(const void* q, const void* k, const void* v, c
 extern "C" int vita_flash_bwd_mma_info(int which, int* out) {
   const void* fn = which == 0 ? reinterpret_cast<const void*>(vita::flash_bwd_dq_mma_kernel)
                               : reinterpret_cast<const void*>(vita::flash_bwd_dkv_mma_kernel);
-  const size_t smem = which == 0 ? vita::kDqMmaSmem : vita::kDkvMmaSmem;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, vita::kMmaThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)(attr.sharedSizeBytes + smem);
-  out[3] = blocks;
-  return 0;
+  return vita::kernel_info(fn, vita::kMmaThreads,
+                           (int)(which == 0 ? vita::kDqMmaSmem : vita::kDkvMmaSmem), out);
 }

@@ -21,24 +21,29 @@
 // (a, b, dw in bf16): about 1700 FLOP per byte, far above the card's
 // balance point (~295 in bf16), so the tensor cores' rate: 3.4 and 2.7 ms
 // at 989 TFLOP/s. B5b at R 1536 (a 256-token prefill chunk) is 180 GFLOP
-// against the same 940 MB of weights, which must be read at least once:
-// under the balance point, so the weight bytes.
+// against the same 996 MB of weights, which must be read at least once:
+// under the balance point, so the weight bytes (0.30 ms at 3.35 TB/s).
 //
-// bf16 B5a and B12: Hopper's warp-specialised wgmma + TMA design.
-//   - A persistent grid of one block per SM walks 128 x 256 output tiles
-//     (tile t, t + gridDim, ...) in groups of kWgGroupM M tiles, M fastest
-//     within a group: the resident blocks share ~16 row panels and ~8 weight
-//     strips (about 32 MB at K 4096), which L2 (50 MB) keeps, so neither is
-//     read from HBM much more than once. B12's tiles are (expert, 128 rows of
-//     dw's K, 256 columns), expert outermost.
+// bf16 B5a, B5b and B12: Hopper's warp-specialised wgmma + TMA design.
+//   - A persistent grid of one block per SM walks 128 x BN output tiles
+//     (tile t, t + gridDim, ...) in groups of G M tiles, M fastest within a
+//     group. B5a and B12 take BN 256 and G = kWgGroupM 16: the resident
+//     blocks share ~16 row panels and ~8 weight strips (about 32 MB at K
+//     4096), which L2 (50 MB) keeps, so neither is read from HBM much more
+//     than once. B5b takes BN kWgSmallBN in the TPU kernel's weights-once
+//     order, G = all of R's M tiles (kWgSmallGroupM 0): the row tiles of a
+//     weight strip run side by side on neighbouring blocks, so each strip
+//     crosses HBM once while x stays in L2. B12's tiles are (expert, 128
+//     rows of dw's K, 256 columns), expert outermost.
 //   - Warpgroup 0 produces: one thread issues TMA loads (128-byte swizzle,
 //     out-of-bounds boxes zero-filled) of 64-deep contraction stages into a
-//     ring of kWgStages 48 KB stages with full/empty mbarriers; setmaxnreg
-//     gives its registers to the consumers. Warpgroups 1 and 2 consume: each
-//     runs wgmma m64n256k16 (bf16 -> f32 in registers, both operands read
-//     from the swizzled ring) on its 64 rows of the tile, four per stage,
-//     and releases the stage. The producer runs ahead into the next tile
-//     while the consumers store this one.
+//     192 KB ring (kWgStages stages of 48 KB at BN 256, 1.5x as many at
+//     BN 128) with full/empty mbarriers; setmaxnreg gives its registers to
+//     the consumers. Warpgroups 1 and 2 consume: each runs wgmma m64nBNk16
+//     (bf16 -> f32 in registers, both operands read from the swizzled ring)
+//     on its 64 rows of the tile, four per stage, and releases the stage.
+//     The producer runs ahead into the next tile while the consumers store
+//     this one.
 //   - Operand majors are taken by wgmma's transpose bits, never by a copy:
 //     x is K-major; w [E, K, N] is N-major (transpose-B), w [E, N, K] (dx)
 //     K-major. B12's A is a^T read from the staged [r][k] rows (M-major,
@@ -59,15 +64,12 @@
 //   - The epilogue rounds to bf16 (nearest even, as torch's .to()), so B12
 //     writes dw in a's dtype with no float32 temporary.
 //
-// B5b (bf16 and f32) and float32 B5a: one 128 x 128 tile routine; x and w
-// tiles of BK along K staged through two register-staged shared-memory
-// buffers; bf16 mma.sync m16n8k16 with 8 warps of 64 x 32, f32 an FMA loop
-// of 8 x 8 outputs per thread. A 1-D grid in the same groups of kGroupM M
-// tiles: at B5b's R (16 M tiles or fewer) that is the TPU's weights-once
-// order. float32 B12: the same staging and FMA loop, one block per (e, 128
-// K rows, 128 columns). Their redesign is later work.
-#include <cuda.h>  // CUtensorMap and its enums; no -lcuda (see encode_tiled)
-
+// float32 B5a and B5b: one 128 x 128 tile routine; x and w tiles of BK
+// along K staged through two register-staged shared-memory buffers, an FMA
+// loop of 8 x 8 outputs per thread, a 1-D grid in groups of kGroupM M tiles.
+// float32 B12: the same staging and FMA loop, one block per (e, 128 K rows,
+// 128 columns). They carry the narrow float32 paths, whose comparisons with
+// the CPU stay at float32 tolerance.
 #include "common.cuh"
 
 namespace vita {
@@ -75,13 +77,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// The output tile t of an nm x nn grid walked in groups of G M tiles, M
+// The output tile t of an nm x nn grid walked in groups of g M tiles, M
 // fastest within a group, then N, then the next group.
-template <int G>
-__device__ __forceinline__ void grouped_tile(int t, int nm, int nn, int& mb, int& nb) {
-  const int per_group = G * nn;
-  const int first = (t / per_group) * G;
-  const int rows = min(nm - first, G);
+__device__ __forceinline__ void grouped_tile(int t, int nm, int nn, int g, int& mb, int& nb) {
+  const int per_group = g * nn;
+  const int first = (t / per_group) * g;
+  const int rows = min(nm - first, g);
   mb = first + (t % per_group) % rows;
   nb = (t % per_group) / rows;
 }
@@ -98,31 +99,43 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ gids, int n, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 B5a and B12: wgmma + TMA.
+// bf16 B5a, B5b and B12: wgmma + TMA.
 
 enum WgMode : int { kFwd = 0, kFwdT = 1, kWgrad = 2 };
 
 constexpr int kWgBM = 128;          // output rows of a tile: two consumers of 64
-constexpr int kWgBN = 256;          // output columns: one m64n256 wgmma
+constexpr int kWgBN = 256;          // B5a's and B12's output columns: one m64n256 wgmma
 constexpr int kWgBK = 64;           // contraction depth of a stage: one 128-byte bf16 row
-// Chosen on the H100 by chip_probe.py gmm-tiles: ring stages (4 x 48 KB is
-// the most that fits), wgmma groups a consumer keeps in flight when it
-// waits (0: it releases each stage as soon as its products are done), M
-// tiles per group of the tile order.
+// Chosen on the H100 by chip_probe.py gmm-tiles: ring stages at BN 256 (4 x
+// 48 KB is the most that fits), wgmma groups a consumer keeps in flight when
+// it waits (0: it releases each stage as soon as its products are done), M
+// tiles per group of B5a's and B12's tile order.
 constexpr int kWgStages = 4;
 constexpr int kWgInFlight = 0;
 constexpr int kWgGroupM = 16;
+// Chosen on the H100 by chip_probe.py gmm-small-tiles: B5b's output columns
+// (256 or 128) and M tiles per group (0: all of R's, the weights-once order).
+constexpr int kWgSmallBN = 256;
+constexpr int kWgSmallGroupM = 0;
 constexpr int kWgThreads = 384;     // warpgroup 0 produces, 1 and 2 consume
 constexpr int kChunk = 64 * 128;    // a [64 rows][128 bytes] swizzled box: 8 KB
-// A stage is six chunks: A (2: [128][64] x rows, or B12's [64 r][64 k] x 2)
-// then B (4: [64 k][64 n] x 4, or dx's [256 n][64 k]).
-constexpr int kStageBytes = 6 * kChunk;
-// the ring, its alignment slack and its barriers; B12 adds E + 1 row bounds
-constexpr int kWgSmem = kWgStages * kStageBytes + 1024 + 2 * kWgStages * 8;
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 64K
 
-int wg_smem(int mode, int E) { return kWgSmem + (mode == kWgrad ? 4 * (E + 1) : 0); }
+// A stage is 2 + BN / 64 chunks: A (2: [128][64] x rows, or B12's [64 r][64
+// k] x 2) then B (BN / 64: [64 k][64 n] each, or dx's [BN n][64 k]); the
+// ring keeps kWgStages stages' worth of bytes at any BN.
+template <int BN>
+struct Ring {
+  static constexpr int kStageBytes = (2 + BN / 64) * kChunk;
+  static constexpr int kStages = kWgStages * (2 + kWgBN / 64) / (2 + BN / 64);
+  // the ring, its alignment slack and its barriers; B12 adds E + 1 row bounds
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+};
+
+int wg_smem(int mode, int bn, int E) {
+  return (bn == 128 ? Ring<128>::kSmem : Ring<256>::kSmem) + (mode == kWgrad ? 4 * (E + 1) : 0);
+}
 
 struct WgTile {
   int e, m0, n0;  // expert, first output row (B12: of dw's K), first output column
@@ -132,27 +145,27 @@ struct WgTile {
 
 // Tile t's expert, corner and contraction walk; producer and consumers
 // compute the same sequence. bounds: B12's row bounds of the experts.
-template <int Mode>
+template <int Mode, int BN>
 __device__ __forceinline__ WgTile wg_tile(int t, const int* __restrict__ gids,
                                           const int* bounds, int R, int K, int N, int E,
-                                          int tile_m) {
+                                          int tile_m, int group_m) {
   WgTile w;
   const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
-  const int nn = (N + kWgBN - 1) / kWgBN;
+  const int nn = (N + BN - 1) / BN;
   int mb, nb;
   if (Mode == kWgrad) {
     w.e = t / (nm * nn);
-    grouped_tile<kWgGroupM>(t % (nm * nn), nm, nn, mb, nb);
+    grouped_tile(t % (nm * nn), nm, nn, group_m, mb, nb);
     w.c0 = bounds[w.e];
     w.c_end = bounds[w.e + 1];
   } else {
-    grouped_tile<kWgGroupM>(t, nm, nn, mb, nb);
+    grouped_tile(t, nm, nn, group_m, mb, nb);
     w.e = min(max(gids[mb * kWgBM / tile_m], 0), E - 1);
     w.c0 = 0;
     w.c_end = K;
   }
   w.m0 = mb * kWgBM;
-  w.n0 = nb * kWgBN;
+  w.n0 = nb * BN;
   w.stages = w.c_end > w.c0 ? (w.c_end - w.c0 + kWgBK - 1) / kWgBK : 0;
   return w;
 }
@@ -180,7 +193,7 @@ __device__ __forceinline__ void fill_box(uint8_t* dst, const bf16* __restrict__ 
 
 // Stage `st` of tile w at contraction index c: TMA boxes (one thread), or
 // plain loads by the producer warpgroup's 128 threads.
-template <int Mode, bool Tma>
+template <int Mode, bool Tma, int BN>
 __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap& mb,
                                         const bf16* __restrict__ a, const bf16* __restrict__ b,
                                         int R, int K, int N, const WgTile& w, int c, uint8_t* st,
@@ -188,20 +201,20 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
   uint8_t* sa = st;
   uint8_t* sb = st + 2 * kChunk;
   if constexpr (Tma) {
-    mbar_arrive_expect_tx(full, kStageBytes);
+    mbar_arrive_expect_tx(full, Ring<BN>::kStageBytes);
     if constexpr (Mode == kWgrad) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) tma_load_2d(sa + j * kChunk, &ma, full, w.m0 + 64 * j, c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) tma_load_2d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c);
+      for (int j = 0; j < BN / 64; ++j) tma_load_2d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c);
     } else {
       tma_load_2d(sa, &ma, full, c, w.m0);  // x [R, K]: a 64 x 128 box
       if constexpr (Mode == kFwd) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)  // w [E, K, N]: four 64 x 64 boxes
+        for (int j = 0; j < BN / 64; ++j)  // w [E, K, N]: 64 x 64 boxes
           tma_load_3d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c, w.e);
       } else {
-        tma_load_3d(sb, &mb, full, c, w.n0, w.e);  // w [E, N, K]: a 64 x 256 box
+        tma_load_3d(sb, &mb, full, c, w.n0, w.e);  // w [E, N, K]: a 64 x BN box
       }
     }
   } else {
@@ -210,16 +223,17 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
       for (int j = 0; j < 2; ++j)
         fill_box(sa + j * kChunk, a, K, w.c_end, K, c, w.m0 + 64 * j, 64, ptid);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < BN / 64; ++j)
         fill_box(sb + j * kChunk, b, N, w.c_end, N, c, w.n0 + 64 * j, 64, ptid);
     } else {
       fill_box(sa, a, K, R, K, w.m0, c, 128, ptid);
       const bf16* we = b + (int64_t)w.e * K * N;
       if constexpr (Mode == kFwd) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) fill_box(sb + j * kChunk, we, N, K, N, c, w.n0 + 64 * j, 64, ptid);
+        for (int j = 0; j < BN / 64; ++j)
+          fill_box(sb + j * kChunk, we, N, K, N, c, w.n0 + 64 * j, 64, ptid);
       } else {
-        fill_box(sb, we, K, N, K, w.n0, c, 256, ptid);
+        fill_box(sb, we, K, N, K, w.n0, c, BN, ptid);
       }
     }
     fence_proxy_async();
@@ -228,17 +242,18 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
   }
 }
 
-// The consumer's 64 x 256 accumulator (wgmma fragment layout) to rows
-// [r0, r0 + 64) and columns [c0, c0 + 256) of a row-major bf16 matrix,
+// The consumer's 64 x BN accumulator (wgmma fragment layout) to rows
+// [r0, r0 + 64) and columns [c0, c0 + BN) of a row-major bf16 matrix,
 // clipped at rows x cols.
+template <int BN>
 __device__ __forceinline__ void wg_store(bf16* __restrict__ out, int64_t ld, int rows, int cols,
-                                         int r0, int c0, const float (&d)[128], int ctid) {
+                                         int r0, int c0, const float (&d)[BN / 2], int ctid) {
   const int lane = ctid & 31;
   const int r = r0 + (ctid >> 5) * 16 + (lane >> 2);
   const int cb = c0 + 2 * (lane & 3);
   const bool pairs = (cols & 1) == 0;  // then (row, even column) is 4-byte aligned
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < BN / 8; ++j) {
     const int c = cb + 8 * j;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -258,20 +273,22 @@ __device__ __forceinline__ void wg_store(bf16* __restrict__ out, int64_t ld, int
 
 // kFwd: a = x [R, K], b = w [E, K, N], out [R, N]; kFwdT: b = w [E, N, K];
 // kWgrad: a [R, K], b [R, N], out = dw [E, K, N]. The maps are the TMA
-// tensors of a and b (unused without Tma).
-template <int Mode, bool Tma>
+// tensors of a and b (unused without Tma). group_m: M tiles per group of
+// the tile order.
+template <int Mode, bool Tma, int BN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const bf16* __restrict__ a,
                  const bf16* __restrict__ b, const int* __restrict__ gids, bf16* __restrict__ out,
-                 int R, int K, int N, int E, int tile_m) {
+                 int R, int K, int N, int E, int tile_m, int group_m) {
+  using Rg = Ring<BN>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kStageBytes);
-  uint64_t* empty = full + kWgStages;
-  int* bounds = reinterpret_cast<int*>(empty + kWgStages);  // B12: e's rows [bounds[e], bounds[e + 1])
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Rg::kStages * Rg::kStageBytes);
+  uint64_t* empty = full + Rg::kStages;
+  int* bounds = reinterpret_cast<int*>(empty + Rg::kStages);  // B12: e's rows [bounds[e], bounds[e + 1])
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < Rg::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
@@ -285,7 +302,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
-  const int n_tiles = (Mode == kWgrad ? E : 1) * nm * ((N + kWgBN - 1) / kWgBN);
+  const int n_tiles = (Mode == kWgrad ? E : 1) * nm * ((N + BN - 1) / BN);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     setmaxnreg_dec<kProducerRegs>();
@@ -293,12 +310,12 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     if (Tma && ptid != 0) return;
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
+      const WgTile w = wg_tile<Mode, BN>(t, gids, bounds, R, K, N, E, tile_m, group_m);
       for (int i = 0; i < w.stages; ++i) {
         mbar_wait(&empty[stage], phase ^ 1);
-        wg_load<Mode, Tma>(map_a, map_b, a, b, R, K, N, w, w.c0 + i * kWgBK,
-                           ring + stage * kStageBytes, &full[stage], ptid);
-        if (++stage == kWgStages) {
+        wg_load<Mode, Tma, BN>(map_a, map_b, a, b, R, K, N, w, w.c0 + i * kWgBK,
+                               ring + stage * Rg::kStageBytes, &full[stage], ptid);
+        if (++stage == Rg::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -307,22 +324,22 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     const int c = wg - 1, ctid = threadIdx.x - 128 * wg;
-    float d[128];
+    float d[BN / 2];
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
+      const WgTile w = wg_tile<Mode, BN>(t, gids, bounds, R, K, N, E, tile_m, group_m);
 #pragma unroll
-      for (int i = 0; i < 128; ++i) d[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
       wgmma_fence_regs(d);
       int held = -1;  // kWgInFlight: a stage whose products may still be in flight
       for (int i = 0; i < w.stages; ++i) {
-        uint8_t* st = ring + stage * kStageBytes;
+        uint8_t* st = ring + stage * Rg::kStageBytes;
         mbar_wait(&full[stage], phase);
         if constexpr (Mode == kWgrad) {
-          // rows past e's end (the next expert's) out of all six chunks
+          // rows past e's end (the next expert's) out of all the stage's chunks
           const int valid = w.c_end - (w.c0 + i * kWgBK);
           if (valid < kWgBK) {
-            const int n = 6 * (kWgBK - valid) * 8;
+            const int n = (2 + BN / 64) * (kWgBK - valid) * 8;
             for (int idx = c * 128 + ctid; idx < n; idx += 256) {
               const int q = idx / ((kWgBK - valid) * 8), rem = idx % ((kWgBK - valid) * 8);
               *reinterpret_cast<uint4*>(st + q * kChunk + (valid + rem / 8) * 128 +
@@ -342,7 +359,10 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                              : wgmma_desc(sa + 32 * s, 16, 1024);
           const uint64_t db = Mode == kFwdT ? wgmma_desc(sb + 32 * s, 16, 1024)
                                             : wgmma_desc(sb + 2048 * s, 8192, 1024);
-          wgmma_m64n256k16<Mode == kWgrad, Mode != kFwdT>(d, da, db);
+          if constexpr (BN == 256)
+            wgmma_m64n256k16<Mode == kWgrad, Mode != kFwdT>(d, da, db);
+          else
+            wgmma_m64n128k16<Mode == kWgrad, Mode != kFwdT>(d, da, db, 1);
         }
         wgmma_commit();
         wgmma_wait<kWgInFlight>();
@@ -352,7 +372,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
           held = stage;
         }
-        if (++stage == kWgStages) {
+        if (++stage == Rg::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -361,228 +381,153 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       wgmma_fence_regs(d);
       if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
       if constexpr (Mode == kWgrad)
-        wg_store(out + (int64_t)w.e * K * N, N, K, N, w.m0 + 64 * c, w.n0, d, ctid);
+        wg_store<BN>(out + (int64_t)w.e * K * N, N, K, N, w.m0 + 64 * c, w.n0, d, ctid);
       else
-        wg_store(out, N, R, N, w.m0 + 64 * c, w.n0, d, ctid);
+        wg_store<BN>(out, N, R, N, w.m0 + 64 * c, w.n0, d, ctid);
     }
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so
-// the library links against nothing new.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A contiguous bf16 tensor as a TMA map: `rank` dims innermost first,
-// boxes of `box`, 128-byte swizzle, zeros out of bounds.
-bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint32_t* box) {
-  cuuint64_t strides[2];  // bytes, of dims 1 .. rank - 1
-  cuuint64_t s = sizeof(bf16);
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
-  const cuuint32_t unit[3] = {1, 1, 1};
-  EncodeTiled fn = encode_tiled();
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-template <int Mode, bool Tma>
+template <int Mode, bool Tma, int BN>
 const void* wgmma_fn() {
-  return reinterpret_cast<const void*>(gmm_wgmma_kernel<Mode, Tma>);
+  return reinterpret_cast<const void*>(gmm_wgmma_kernel<Mode, Tma, BN>);
 }
 
-template <int Mode, bool Tma>
+template <int Mode, bool Tma, int BN>
 int launch_wgmma(const CUtensorMap& ma, const CUtensorMap& mb, const void* a, const void* b,
                  const int* gids, void* out, int R, int K, int N, int E, int tile_m,
-                 cudaStream_t stream) {
+                 int group_m, cudaStream_t stream) {
   static int sized = 0;  // the dynamic shared memory the kernel may use so far
-  const int smem = wg_smem(Mode, E);
+  const int smem = wg_smem(Mode, BN, E);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgmma_fn<Mode, Tma>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        wgmma_fn<Mode, Tma, BN>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     sized = smem;
   }
   const int64_t tiles = (int64_t)(Mode == kWgrad ? E : 1) *
                         (((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM) *
-                        ((N + kWgBN - 1) / kWgBN);
+                        ((N + BN - 1) / BN);
   if (tiles == 0) return 0;
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  gmm_wgmma_kernel<Mode, Tma><<<grid, kWgThreads, smem, stream>>>(
+  gmm_wgmma_kernel<Mode, Tma, BN><<<grid, kWgThreads, smem, stream>>>(
       ma, mb, static_cast<const bf16*>(a), static_cast<const bf16*>(b), gids,
-      static_cast<bf16*>(out), R, K, N, E, tile_m);
+      static_cast<bf16*>(out), R, K, N, E, tile_m, group_m);
   return (int)cudaGetLastError();
 }
 
-template <int Mode>
+template <int Mode, int BN>
 int launch_wgmma_any(bool tma, const CUtensorMap& ma, const CUtensorMap& mb, const void* a,
                      const void* b, const int* gids, void* out, int R, int K, int N, int E,
-                     int tile_m, cudaStream_t stream) {
-  return tma ? launch_wgmma<Mode, true>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream)
-             : launch_wgmma<Mode, false>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream);
+                     int tile_m, int group_m, cudaStream_t stream) {
+  return tma ? launch_wgmma<Mode, true, BN>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, group_m,
+                                            stream)
+             : launch_wgmma<Mode, false, BN>(ma, mb, a, b, gids, out, R, K, N, E, tile_m,
+                                             group_m, stream);
+}
+
+// The forward (B5a, B5b) at tile width BN: TMA maps of x and w (boxes of
+// 64 x 128 and 64 x 64 or, with trans, 64 x BN) unless a row stride or an
+// operand's alignment rules TMA out.
+template <int BN>
+int launch_fwd(const void* x, const void* w, const int* gids, void* out, int R, int K, int N,
+               int E, int tile_m, int trans, int group_m, cudaStream_t s) {
+  const bool tma =
+      R > 0 && K > 0 && K % 8 == 0 && (trans || N % 8 == 0) && aligned16(x) && aligned16(w);
+  CUtensorMap mx{}, mw{};
+  if (tma) {
+    const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)R};
+    const cuuint32_t bx[2] = {64, 128};
+    const cuuint64_t dw[3] = {(cuuint64_t)(trans ? K : N), (cuuint64_t)(trans ? N : K),
+                              (cuuint64_t)E};
+    const cuuint32_t bw[3] = {64, trans ? (cuuint32_t)BN : 64u, 1};
+    if (!make_map(&mx, x, 2, dx, bx) || !make_map(&mw, w, 3, dw, bw))
+      return (int)cudaErrorInvalidValue;
+  }
+  return trans ? launch_wgmma_any<kFwdT, BN>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m,
+                                             group_m, s)
+               : launch_wgmma_any<kFwd, BN>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m,
+                                            group_m, s);
 }
 
 // ---------------------------------------------------------------------------
-// B5b (bf16 and f32) and float32 B5a: the 128 x 128 tile routine.
+// float32 B5a and B5b: the 128 x 128 tile routine.
 
 constexpr int kBM = 128;     // rows per block
 constexpr int kBN = 128;     // columns per block
 constexpr int kThreads = 256;
 constexpr int kGroupM = 16;  // M tiles per group of the block order
+constexpr int kV = 4;        // floats per 16-byte chunk
+constexpr int kBK = 16;      // a K tile row is 64 bytes
+constexpr int kLdA = kBK + kV;  // x tile [kBM][kLdA], padded
 
-template <typename T>
-struct Cfg {
-  static constexpr int V = 16 / sizeof(T);   // elements per 16-byte chunk
-  static constexpr int BK = 64 / sizeof(T);  // a K tile row is 64 bytes
-  static constexpr int LDA = BK + V;         // x tile [kBM][LDA], padded
-  static constexpr int A_ELEMS = kBM * LDA;
-  // w tile: [BK][kBN + V] (n contiguous), or [kBN][BK + V] with trans
-  template <bool Trans>
-  __host__ __device__ static constexpr int ldb() {
-    return Trans ? BK + V : kBN + V;
-  }
-  template <bool Trans>
-  __host__ __device__ static constexpr int b_elems() {
-    return Trans ? kBN * (BK + V) : BK * (kBN + V);
-  }
-  template <bool Trans>
-  __host__ __device__ static constexpr int smem_bytes() {
-    return 2 * (A_ELEMS + b_elems<Trans>()) * sizeof(T);
-  }
-};
+// w tile: [kBK][kBN + kV] (n contiguous), or [kBN][kBK + kV] with trans
+template <bool Trans>
+__host__ __device__ constexpr int ldb() {
+  return Trans ? kBK + kV : kBN + kV;
+}
+template <bool Trans>
+__host__ __device__ constexpr int b_elems() {
+  return Trans ? kBN * (kBK + kV) : kBK * (kBN + kV);
+}
+template <bool Trans>
+__host__ __device__ constexpr int smem_floats() {
+  return 2 * (kBM * kLdA + b_elems<Trans>());
+}
 
-// V consecutive elements of row `row` of a row-major [rows, cols] matrix
+// kV consecutive floats of row `row` of a row-major [rows, cols] matrix
 // from column `col`, zero past its edges.
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ src, int64_t ld,
-                                            int rows, int cols, int row, int col) {
-  constexpr int V = Cfg<T>::V;
+__device__ __forceinline__ uint4 load_chunk(const float* __restrict__ src, int64_t ld, int rows,
+                                            int cols, int row, int col) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
   if (row >= rows || col >= cols) return v;
-  const T* p = src + (int64_t)row * ld + col;
-  if (col + V <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+  const float* p = src + (int64_t)row * ld + col;
+  if (col + kV <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
     return __ldg(reinterpret_cast<const uint4*>(p));
-  T* e = reinterpret_cast<T*>(&v);
-  for (int i = 0; i < V && col + i < cols; ++i) e[i] = p[i];
+  float* e = reinterpret_cast<float*>(&v);
+  for (int i = 0; i < kV && col + i < cols; ++i) e[i] = p[i];
   return v;
 }
 
 // The tile [r0, r0 + RT) x [c0, c0 + CT) of a row-major matrix in 16-byte
 // chunks, NCH per thread, held in registers between the global load and
 // the shared-memory store.
-template <typename T, int RT, int CT>
+template <int RT, int CT>
 struct Stage {
-  static constexpr int V = Cfg<T>::V;
-  static constexpr int PER_ROW = CT / V;
+  static constexpr int PER_ROW = CT / kV;
   static constexpr int NCH = RT * PER_ROW / kThreads;
   static_assert(NCH * kThreads == RT * PER_ROW, "tile must split evenly into chunks");
   uint4 r[NCH];
 
-  __device__ __forceinline__ void load(const T* __restrict__ src, int64_t ld, int rows,
+  __device__ __forceinline__ void load(const float* __restrict__ src, int64_t ld, int rows,
                                        int cols, int r0, int c0) {
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
       const int c = threadIdx.x + i * kThreads;
-      r[i] = load_chunk(src, ld, rows, cols, r0 + c / PER_ROW, c0 + (c % PER_ROW) * V);
+      r[i] = load_chunk(src, ld, rows, cols, r0 + c / PER_ROW, c0 + (c % PER_ROW) * kV);
     }
   }
-  __device__ __forceinline__ void store(T* dst, int ldd) const {
+  __device__ __forceinline__ void store(float* dst, int ldd) const {
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
       const int c = threadIdx.x + i * kThreads;
-      *reinterpret_cast<uint4*>(dst + (c / PER_ROW) * ldd + (c % PER_ROW) * V) = r[i];
+      *reinterpret_cast<uint4*>(dst + (c / PER_ROW) * ldd + (c % PER_ROW) * kV) = r[i];
     }
   }
 };
 
-// bf16 products of one staged K tile: warp (wm, wn) owns rows wm..wm+63 and
-// columns wn..wn+31 of the block, as 4 x 4 m16n8 accumulator fragments
-// (mma_bf16 in common.cuh gives the fragment layouts).
-template <bool Trans>
-__device__ __forceinline__ void mma_tile(const bf16* sA, const bf16* sB, float (&acc)[4][4][4],
-                                         int wm, int wn, int lane) {
-  using C = Cfg<bf16>;
-  constexpr int LDA = C::LDA, LDB = C::ldb<Trans>();
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* a16 = reinterpret_cast<const uint16_t*>(sA);
-  const uint16_t* b16 = reinterpret_cast<const uint16_t*>(sB);
-#pragma unroll
-  for (int ks = 0; ks < C::BK; ks += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const uint16_t* p = a16 + (wm + mi * 16 + g) * LDA + ks + 2 * t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDA);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDA + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = wn + ni * 8 + g;
-      if constexpr (Trans) {  // [n][k]: k pairs are adjacent
-        const uint16_t* p = b16 + n * LDB + ks + 2 * t;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      } else {  // [k][n]: pack the two k rows of column n
-        const uint16_t* p = b16 + (ks + 2 * t) * LDB + n;
-        b[ni][0] = (uint32_t)p[0] | ((uint32_t)p[LDB] << 16);
-        b[ni][1] = (uint32_t)p[8 * LDB] | ((uint32_t)p[9 * LDB] << 16);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// f32 products of one staged K tile: thread (tx, ty) owns rows ty + 16 i
-// and columns tx + 16 j of the block.
+// Products of one staged K tile: thread (tx, ty) owns rows ty + 16 i and
+// columns tx + 16 j of the block.
 template <bool Trans>
 __device__ __forceinline__ void fma_tile(const float* sA, const float* sB, float (&acc)[8][8],
                                          int tx, int ty) {
-  using C = Cfg<float>;
-  constexpr int LDA = C::LDA, LDB = C::ldb<Trans>();
+  constexpr int LDB = ldb<Trans>();
 #pragma unroll 4
-  for (int k = 0; k < C::BK; ++k) {
+  for (int k = 0; k < kBK; ++k) {
     float a[8], b[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = sA[(ty + 16 * i) * LDA + k];
+    for (int i = 0; i < 8; ++i) a[i] = sA[(ty + 16 * i) * kLdA + k];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       b[j] = Trans ? sB[(tx + 16 * j) * LDB + k] : sB[k * LDB + tx + 16 * j];
@@ -593,25 +538,25 @@ __device__ __forceinline__ void fma_tile(const float* sA, const float* sB, float
   }
 }
 
-// The output tile (mb, nb): its group's weight, the K loop over staged
-// tiles, then the store of the rows below R and the columns below N.
-template <typename T, bool Trans>
-__device__ __forceinline__ void gmm_tile(const T* __restrict__ x, const T* __restrict__ w,
-                                         const int* __restrict__ gids, T* __restrict__ out,
-                                         int R, int K, int N, int E, int tile_m, int mb,
-                                         int nb, T* smem) {
-  using C = Cfg<T>;
-  constexpr int BK = C::BK, LDA = C::LDA, LDB = C::template ldb<Trans>();
-  constexpr int B_ELEMS = C::template b_elems<Trans>();
-  constexpr bool kMma = sizeof(T) == 2;
-  T* sA[2] = {smem, smem + C::A_ELEMS};
-  T* sB[2] = {smem + 2 * C::A_ELEMS, smem + 2 * C::A_ELEMS + B_ELEMS};
+// The output tile (mb, nb) of a 1-D grid in groups of kGroupM M tiles: its
+// group's weight, the K loop over staged tiles, then the store of the rows
+// below R and the columns below N.
+template <bool Trans>
+__global__ void __launch_bounds__(kThreads)
+gmm_kernel(const float* __restrict__ x, const float* __restrict__ w, const int* __restrict__ gids,
+           float* __restrict__ out, int R, int K, int N, int E, int tile_m) {
+  __shared__ __align__(16) float smem[smem_floats<Trans>()];
+  constexpr int LDB = ldb<Trans>(), B_ELEMS = b_elems<Trans>();
+  float* sA[2] = {smem, smem + kBM * kLdA};
+  float* sB[2] = {smem + 2 * kBM * kLdA, smem + 2 * kBM * kLdA + B_ELEMS};
+  int mb, nb;
+  grouped_tile(blockIdx.x, (R + kBM - 1) / kBM, (N + kBN - 1) / kBN, kGroupM, mb, nb);
   const int m0 = mb * kBM, n0 = nb * kBN;
   const int grp = min(max(gids[m0 / tile_m], 0), E - 1);
-  const T* we = w + (int64_t)grp * K * N;
+  const float* we = w + (int64_t)grp * K * N;
 
-  Stage<T, kBM, BK> ga;
-  Stage<T, Trans ? kBN : BK, Trans ? BK : kBN> gb;
+  Stage<kBM, kBK> ga;
+  Stage<Trans ? kBN : kBK, Trans ? kBK : kBN> gb;
   auto load = [&](int k0) {
     ga.load(x, K, R, K, m0, k0);
     if constexpr (Trans)
@@ -620,103 +565,57 @@ __device__ __forceinline__ void gmm_tile(const T* __restrict__ x, const T* __res
       gb.load(we, N, K, N, k0, n0);  // w[g] is [K, N]
   };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc_m[kMma ? 4 : 1][4][4];
-  float acc_f[kMma ? 1 : 8][8];
-  if constexpr (kMma) {
+  float acc[8][8];
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc_m[mi][ni][c] = 0.f;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc_f[i][j] = 0.f;
-  }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int nk = (K + BK - 1) / BK;
+  const int nk = (K + kBK - 1) / kBK;
   load(0);
-  ga.store(sA[0], LDA);
+  ga.store(sA[0], kLdA);
   gb.store(sB[0], LDB);
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     const bool more = kt + 1 < nk;
-    if (more) load((kt + 1) * BK);
-    if constexpr (kMma)
-      mma_tile<Trans>(sA[cur], sB[cur], acc_m, wm, wn, lane);
-    else
-      fma_tile<Trans>(sA[cur], sB[cur], acc_f, tx, ty);
+    if (more) load((kt + 1) * kBK);
+    fma_tile<Trans>(sA[cur], sB[cur], acc, tx, ty);
     if (more) {
-      ga.store(sA[cur ^ 1], LDA);
+      ga.store(sA[cur ^ 1], kLdA);
       gb.store(sB[cur ^ 1], LDB);
     }
     __syncthreads();
   }
 
-  if constexpr (kMma) {
-    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int row = m0 + wm + mi * 16 + g + (c >> 1) * 8;
-          const int col = n0 + wn + ni * 8 + 2 * t + (c & 1);
-          if (row < R && col < N) out[(int64_t)row * N + col] = from_f32<T>(acc_m[mi][ni][c]);
-        }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
-        if (row < R && col < N) out[(int64_t)row * N + col] = from_f32<T>(acc_f[i][j]);
-      }
-  }
+    for (int j = 0; j < 8; ++j) {
+      const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
+      if (row < R && col < N) out[(int64_t)row * N + col] = acc[i][j];
+    }
 }
 
-template <typename T, bool Trans>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ gids,
-           T* __restrict__ out, int R, int K, int N, int E, int tile_m) {
-  __shared__ __align__(16) unsigned char smem[Cfg<T>::template smem_bytes<Trans>()];
-  int mb, nb;
-  grouped_tile<kGroupM>(blockIdx.x, (R + kBM - 1) / kBM, (N + kBN - 1) / kBN, mb, nb);
-  gmm_tile<T, Trans>(x, w, gids, out, R, K, N, E, tile_m, mb, nb, reinterpret_cast<T*>(smem));
-}
-
-template <typename T, bool Trans>
-int launch(const void* x, const void* w, const int* gids, void* out, int R, int K, int N,
-           int E, int tile_m, cudaStream_t stream) {
+template <bool Trans>
+int launch(const void* x, const void* w, const int* gids, void* out, int R, int K, int N, int E,
+           int tile_m, cudaStream_t stream) {
   const int nm = (R + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
-  gmm_kernel<T, Trans><<<nm * nn, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), gids, static_cast<T*>(out), R, K, N, E,
-      tile_m);
+  gmm_kernel<Trans><<<nm * nn, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), gids, static_cast<float*>(out),
+      R, K, N, E, tile_m);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_t(int trans, const void* x, const void* w, const int* gids, void* out, int R, int K,
-             int N, int E, int tile_m, cudaStream_t stream) {
-  return trans ? launch<T, true>(x, w, gids, out, R, K, N, E, tile_m, stream)
-               : launch<T, false>(x, w, gids, out, R, K, N, E, tile_m, stream);
-}
-
 // float32 B12: one block per (expert e, 128-row K tile, 128-column N tile)
-// walks e's rows BK at a time; thread (tx, ty) owns k rows ty + 16 i and n
+// walks e's rows kBK at a time; thread (tx, ty) owns k rows ty + 16 i and n
 // columns tx + 16 j. Grid: expert, then K tile, then N tile fastest.
 __global__ void __launch_bounds__(kThreads)
 gmm_wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                      const int* __restrict__ gids, float* __restrict__ out, int R, int K, int N,
                      int n_tiles, int tile_m) {
-  constexpr int BK = Cfg<float>::BK, LD = kBN + Cfg<float>::V, ELEMS = BK * LD;
+  constexpr int LD = kBN + kV, ELEMS = kBK * LD;
   __shared__ __align__(16) float smem[4 * ELEMS];
   float* sA[2] = {smem, smem + ELEMS};
   float* sB[2] = {smem + 2 * ELEMS, smem + 3 * ELEMS};
@@ -727,8 +626,8 @@ gmm_wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int r_begin = lower_bound(gids, n_tiles, e) * tile_m;
   const int r_end = min(lower_bound(gids, n_tiles, e + 1) * tile_m, R);
 
-  Stage<float, BK, kBM> ga;
-  Stage<float, BK, kBN> gb;
+  Stage<kBK, kBM> ga;
+  Stage<kBK, kBN> gb;
   auto load = [&](int r0) {
     ga.load(a, K, r_end, K, r0, k0);
     gb.load(b, N, r_end, N, r0, n0);
@@ -746,11 +645,11 @@ gmm_wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
     gb.store(sB[0], LD);
     __syncthreads();
     int cur = 0;
-    for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-      const bool more = r0 + BK < r_end;
-      if (more) load(r0 + BK);
+    for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
+      const bool more = r0 + kBK < r_end;
+      if (more) load(r0 + kBK);
 #pragma unroll 4
-      for (int r = 0; r < BK; ++r) {
+      for (int r = 0; r < kBK; ++r) {
         float av[8], bv[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) av[i] = sA[cur][r * LD + ty + 16 * i];
@@ -800,7 +699,8 @@ extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, voi
       if (!make_map(&ma, a, 2, da, box) || !make_map(&mb, b, 2, db, box))
         return (int)cudaErrorInvalidValue;
     }
-    return launch_wgmma_any<kWgrad>(tma, ma, mb, a, b, gids, out, R, K, N, E, tile_m, s);
+    return launch_wgmma_any<kWgrad, kWgBN>(tma, ma, mb, a, b, gids, out, R, K, N, E, tile_m,
+                                           kWgGroupM, s);
   }
   const int n_tiles = R >= tile_m ? R / tile_m : 1;
   gmm_wgrad_f32_kernel<<<E * ((K + kBM - 1) / kBM) * ((N + kBN - 1) / kBN), kThreads, 0, s>>>(
@@ -811,56 +711,42 @@ extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, voi
 
 // x [R, K]; w [E, K, N], or [E, N, K] with trans; gids [ceil(R / tile_m)]
 // int32 group per row tile; out [R, N] in x's dtype. tile_m is a multiple
-// of 128 unless R < tile_m (one group). vita_gmm is the 128 x 128 tile
-// routine (B5b; float32 B5a), vita_gmm_wgmma the bf16 wgmma + TMA kernel
-// (B5a). Each returns the CUDA error code of the launch.
+// of 128 unless R < tile_m (one group). vita_gmm is the float32 tile
+// routine (B5a and B5b), vita_gmm_wgmma the bf16 wgmma + TMA kernel: B5a's
+// schedule (128 x 256 tiles in groups of 16 M tiles), or with `small`
+// B5b's (128 x kWgSmallBN tiles, weights-once). Each returns the CUDA error
+// code of the launch.
 extern "C" int vita_gmm(const void* x, const void* w, const int* gids, void* out, int R, int K,
-                        int N, int E, int tile_m, int trans, int dtype, void* stream) {
+                        int N, int E, int tile_m, int trans, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vita::kBFloat16)
-    return vita::launch_t<__nv_bfloat16>(trans, x, w, gids, out, R, K, N, E, tile_m, s);
-  return vita::launch_t<float>(trans, x, w, gids, out, R, K, N, E, tile_m, s);
+  return trans ? vita::launch<true>(x, w, gids, out, R, K, N, E, tile_m, s)
+               : vita::launch<false>(x, w, gids, out, R, K, N, E, tile_m, s);
 }
 
 extern "C" int vita_gmm_wgmma(const void* x, const void* w, const int* gids, void* out, int R,
-                              int K, int N, int E, int tile_m, int trans, void* stream) {
+                              int K, int N, int E, int tile_m, int trans, int small,
+                              void* stream) {
   using namespace vita;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tma =
-      R > 0 && K > 0 && K % 8 == 0 && (trans || N % 8 == 0) && aligned16(x) && aligned16(w);
-  CUtensorMap mx{}, mw{};
-  if (tma) {
-    const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)R};
-    const cuuint32_t bx[2] = {64, 128};
-    const cuuint64_t dw[3] = {(cuuint64_t)(trans ? K : N), (cuuint64_t)(trans ? N : K),
-                              (cuuint64_t)E};
-    const cuuint32_t bw[3] = {64, trans ? 256u : 64u, 1};
-    if (!make_map(&mx, x, 2, dx, bx) || !make_map(&mw, w, 3, dw, bw))
-      return (int)cudaErrorInvalidValue;
-  }
-  return trans ? launch_wgmma_any<kFwdT>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s)
-               : launch_wgmma_any<kFwd>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s);
+  if (!small)
+    return launch_fwd<kWgBN>(x, w, gids, out, R, K, N, E, tile_m, trans, kWgGroupM, s);
+  const int nm = (R + kWgBM - 1) / kWgBM;
+  const int group_m = kWgSmallGroupM > 0 ? kWgSmallGroupM : nm > 0 ? nm : 1;
+  return launch_fwd<kWgSmallBN>(x, w, gids, out, R, K, N, E, tile_m, trans, group_m, s);
 }
 
 // Resources of a wgmma kernel on the current card (which: 0 B5a, 1 B5a with
-// trans (dx), 2 B12; the TMA instantiations): out = registers and local
-// (spilled) bytes a thread, shared bytes a block, resident blocks per SM.
+// trans (dx), 2 B12, 3 B5b, 4 B5b with trans; the TMA instantiations): out
+// = registers and local (spilled) bytes a thread, shared bytes a block,
+// resident blocks per SM.
 extern "C" int vita_gmm_wgmma_info(int which, int* out) {
   using namespace vita;
-  const void* fn = which == 0   ? wgmma_fn<kFwd, true>()
-                   : which == 1 ? wgmma_fn<kFwdT, true>()
-                                : wgmma_fn<kWgrad, true>();
-  const int smem = wg_smem(which == 2 ? kWgrad : kFwd, 8);  // B12 at the model's 8 experts
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kWgThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)(attr.sharedSizeBytes + smem);
-  out[3] = blocks;
-  return 0;
+  const void* fn = which == 0   ? wgmma_fn<kFwd, true, kWgBN>()
+                   : which == 1 ? wgmma_fn<kFwdT, true, kWgBN>()
+                   : which == 2 ? wgmma_fn<kWgrad, true, kWgBN>()
+                   : which == 3 ? wgmma_fn<kFwd, true, kWgSmallBN>()
+                                : wgmma_fn<kFwdT, true, kWgSmallBN>();
+  // B12 at the model's 8 experts
+  const int smem = wg_smem(which == 2 ? kWgrad : kFwd, which >= 3 ? kWgSmallBN : kWgBN, 8);
+  return kernel_info(fn, kWgThreads, smem, out);
 }

@@ -80,14 +80,16 @@ _SIGNATURES = {
     # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, n_sg, n_sd,
     # h, y, R, nt, D, F, dtype, wfmt, stream
     "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
-    # x, w, gids, out, R, K, N, E, tile_m, trans, dtype, stream
-    "vita_gmm": [_P] * 4 + [_I] * 7 + [_P],
-    # x, w, gids, out, R, K, N, E, tile_m, trans, stream (bf16)
-    "vita_gmm_wgmma": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, gids, out, R, K, N, E, tile_m, trans, stream (float32)
+    "vita_gmm": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, gids, out, R, K, N, E, tile_m, trans, small, stream (bf16)
+    "vita_gmm_wgmma": [_P] * 4 + [_I] * 7 + [_P],
     # a, b, gids, out, R, K, N, E, tile_m, dtype, stream
     "vita_gmm_wgrad": [_P] * 4 + [_I] * 6 + [_P],
-    # which (0: B5a, 1: B5a dx, 2: B12), out int[4]
+    # which (0: B5a, 1: B5a dx, 2: B12, 3: B5b, 4: B5b dx), out int[4]
     "vita_gmm_wgmma_info": [_I, _P],
+    # which (0: a pair of q heads a block, 1: one), out int[4]
+    "vita_flash_fwd_info": [_I, _P],
     # which (0: B10, 1: B11), out int[4]
     "vita_flash_bwd_mma_info": [_I, _P],
 }
@@ -165,6 +167,19 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def resources(info_fn, names) -> Dict[str, Dict[str, int]]:
+    """What ``info_fn(which, out)`` (a ``vita_*_info`` of the library)
+    reports for kernel ``which`` = 0, 1, ... on the current card, under
+    ``names``: registers and spilled (local) bytes a thread, shared bytes a
+    block, resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    info = {}
+    for which, name in enumerate(names):
+        out = (ctypes.c_int * 4)()
+        check_launch(info_fn(which, out), name)
+        info[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
+    return info
 
 
 def check_launch(err: int, name: str) -> None:

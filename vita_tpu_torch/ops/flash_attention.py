@@ -11,15 +11,14 @@ key); the backward computes delta = rowsum(dO o) in PyTorch, as the JAX
 package computes it outside Pallas, then dq and dk/dv by the flash-2
 recurrence from lse. On CUDA tensors the three steps launch the
 hand-written kernels (csrc/flash_fwd.cu, B1; csrc/flash_bwd.cu, B10 and
-B11; head dim 128, float32 or bfloat16: the backward runs tensor-core
-kernels in bfloat16 and FMA kernels in float32); on CPU tensors the same
-Function runs their plain versions. Rows with no valid key give zeros and
+B11; head dim 128, float32 or bfloat16: each runs tensor-core kernels in
+bfloat16, B1 on wgmma + TMA and the backward on mma.sync, and FMA kernels
+in float32); on CPU tensors the same Function runs their plain versions. Rows with no valid key give zeros and
 no gradient in both.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -127,7 +126,8 @@ def _check(q, k, v, kv_len, q_offset, *others):
 
 
 def flash_fwd_cuda(q, k, v, kv_len, q_offset, causal: bool, scale: float):
-    """B1 (csrc/flash_fwd.cu): (o, lse)."""
+    """B1 (csrc/flash_fwd.cu): (o, lse); bfloat16 runs the wgmma + TMA
+    kernel, float32 the FMA kernel."""
     b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _check(q, k, v, kv_len, q_offset)
@@ -191,17 +191,18 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
     return dk, dv
 
 
+def flash_fwd_info() -> Dict[str, Dict[str, int]]:
+    """Resources of B1's bfloat16 wgmma + TMA kernel on the current card,
+    with a pair of q heads a block and with one (``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_flash_fwd_info,
+                             ("flash_fwd q-head pair", "flash_fwd one q head"))
+
+
 def flash_bwd_mma_info() -> Dict[str, Dict[str, int]]:
     """Resources of B10's and B11's bfloat16 tensor-core kernels on the
-    current card: registers and spilled (local) bytes a thread, shared
-    bytes a block, and resident blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    info = {}
-    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
-        out = (ctypes.c_int * 4)()
-        kernels.check_launch(kernels.lib().vita_flash_bwd_mma_info(which, out), name)
-        info[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
-    return info
+    current card (``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_flash_bwd_mma_info,
+                             ("flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:

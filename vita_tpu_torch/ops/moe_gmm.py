@@ -13,8 +13,9 @@ schedule (kernel B5b, counter ``gmm_small``), larger R the k-blocked one
 they decide the layout and the schedule.
 
 On CUDA tensors ``gmm`` launches a hand-written kernel of csrc/gmm.cu:
-bfloat16 B5a runs the wgmma + TMA kernel, B5b and float32 B5a the 128 x
-128 tile routine (``mma.sync`` in bfloat16, FMA in float32); on CPU
+bfloat16 B5a and B5b run the wgmma + TMA kernel (B5a in 128 x 256 tiles
+grouped 16 M tiles at a time, B5b in the TPU kernel's weights-once order,
+M fastest over all of R), float32 the 128 x 128 FMA tile routine; on CPU
 tensors it runs ``gmm_plain``. ``gmm`` is a ``torch.autograd.Function``
 with the JAX package's custom VJP: dx is ``gmm`` itself with
 ``transpose_rhs`` flipped (B5a/B5b by the same rule), and dw is
@@ -27,7 +28,6 @@ tokens gets a dw of exactly 0.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
@@ -115,23 +115,23 @@ def gmm_plain(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> 
 
 def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> torch.Tensor:
     """csrc/gmm.cu, B5b (small R) or B5a (large R) as ``_gmm_raw``
-    chooses: bfloat16 B5a is the wgmma + TMA kernel, the rest the 128 x
-    128 tile routine."""
+    chooses: the wgmma + TMA kernel in bfloat16 (at the schedule's tile
+    order), the 128 x 128 FMA tile routine in float32."""
     kernels.require_cuda(x, w, gids)
     r, k_dim, n_dim = _shapes(x, w, gids, transpose_rhs, tile_m)
     kernels.require(r < tile_m or tile_m % BLOCK_M == 0,
                     f"gmm kernel blocks of {BLOCK_M} rows must not cross a tile_m {tile_m} tile")
     kernels.require(gids.dtype == torch.int32, "gids must be int32")
-    dt = kernels.dtype_code(x, w)
+    kernels.dtype_code(x, w)  # float32 or bfloat16, one dtype
     out = torch.empty(r, n_dim, dtype=x.dtype, device=x.device)
     if r and n_dim:
         large = not (r <= SMALL_R_MAX or tile_m <= SMALL_TILE_M)
         args = (x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
                 w.shape[0], tile_m, int(transpose_rhs))
-        if large and x.dtype == torch.bfloat16:
-            err = kernels.lib().vita_gmm_wgmma(*args, kernels.stream_of(x))
+        if x.dtype == torch.bfloat16:
+            err = kernels.lib().vita_gmm_wgmma(*args, int(not large), kernels.stream_of(x))
         else:
-            err = kernels.lib().vita_gmm(*args, dt, kernels.stream_of(x))
+            err = kernels.lib().vita_gmm(*args, kernels.stream_of(x))
         kernels.check_launch(err, "gmm")
         kernels.launches["gmm" if large else "gmm_small"] += 1
     return out
@@ -139,15 +139,10 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
 
 def gmm_wgmma_info() -> Dict[str, Dict[str, int]]:
     """Resources of the bfloat16 wgmma + TMA kernels on the current card
-    (B5a, B5a with transpose_rhs as dx runs it, B12): registers and spilled
-    (local) bytes a thread, shared bytes a block, and resident blocks per
-    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    info = {}
-    for which, name in enumerate(("gmm", "gmm dx", "gmm_wgrad")):
-        out = (ctypes.c_int * 4)()
-        kernels.check_launch(kernels.lib().vita_gmm_wgmma_info(which, out), name)
-        info[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
-    return info
+    (B5a and B5b, each also with transpose_rhs as dx runs it, and B12;
+    ``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_gmm_wgmma_info,
+                             ("gmm", "gmm dx", "gmm_wgrad", "gmm_small", "gmm_small dx"))
 
 
 def _gmm_raw(x, w, gids, transpose_rhs: bool, tile_m: int) -> torch.Tensor:
