@@ -10,9 +10,9 @@ NVIDIA GPU.
     python3 chip_probe.py gmm-kernels  # B5a and B12 at the main paths' shapes
     python3 chip_probe.py gmm-tiles    # stages, wgmma groups in flight, group of B5a/B12
     python3 chip_probe.py flash-fwd    # B1 at the serving, training and Generator shapes
-    python3 chip_probe.py flash-fwd-tiles  # q heads per block and K/V stages of bf16 B1
+    python3 chip_probe.py flash-fwd-tiles  # K/V ring stages of bf16 B1
     python3 chip_probe.py gmm-small    # B5b at the serving and training steps' R
-    python3 chip_probe.py gmm-small-tiles  # tile width and tile order of bf16 B5b
+    python3 chip_probe.py gmm-small-order  # bf16 B5b's tile order: weights-once vs groups of 16
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -72,9 +72,8 @@ warm-ups, and the rate of the FLOPs the masks leave (2 products of 2 x
 every version has, so it times an older checkout's B1 from beside it.
 
 flash-fwd-tiles: copies of csrc/flash_fwd.cu under build/flash_fwd_tiles/,
-one per FLASH_FWD_CHOICES entry (the grid size from which a block takes
-a pair of q heads, K/V ring stages), held against the plain version and
-timed as warps times its choices, on flash-fwd's cases.
+one per FLASH_FWD_CHOICES entry (K/V ring stages), held against the plain
+version and timed as warps times its choices, on flash-fwd's cases.
 
 gmm-small: B5b in bf16 at GMM_SMALL_CASES: the Engine's 256-token chunk
 (R 1536, tile 128), gate/up and down, and the training steps of 1024 and
@@ -83,10 +82,15 @@ of 25 after 3 warm-ups, the rate of 2 R K N FLOPs and the weight stream
 (the distinct experts' weights over the kernel time). Reads only wrappers
 every version has, as flash does.
 
-gmm-small-tiles: copies of csrc/gmm.cu under build/gmm_small_tiles/, one
-per GMM_SMALL_CHOICES entry (B5b's tile width, M tiles per group of its
-tile order; 0: all of R's, the weights-once order), held against the plain
-versions and timed as warps times its choices, on gmm-small's cases.
+gmm-small-order: copies of csrc/gmm.cu under build/gmm_small_order/, one
+per ORDER_CHOICES entry: the bf16 kernel's tile order in the TPU kernel's
+weights-once order (one group of all of R's M tiles) and in the shipped
+groups of 16 M tiles. On gmm-small's cases both are held against the
+plain version and against each other's bits, then timed in ORDER_ROUNDS
+alternating rounds of one process (CUDA events, median of 25 after 3
+warm-ups each; which goes first alternates): per case the median of each
+and the median, least and largest of the paired ratios. At R 1536 (12 M
+tiles) the two are the same walk, so its ratios show a pair's spread.
 
 Each prints the card's name and power limit first.
 """
@@ -360,13 +364,8 @@ FLASH_FWD_CASES = (
     ("prefill 12288 over kv_len 8500", 12288, 12288, 8500, 0),
     ("decode row over kv_len 8500", 1, 12288, 8500, 8499),
 )
-# name: csrc/flash_fwd.cu's (kPairMinBlocks, kKvStages)
-FLASH_FWD_CHOICES = {
-    "pairs from 132 blocks, 2 stages (shipped)": (132, 2),
-    "always pairs, 2 stages": (0, 2),
-    "never pairs, 2 stages": (1 << 30, 2),
-    "pairs from 132 blocks, 3 stages": (132, 3),
-}
+# name: csrc/flash_fwd.cu's kKvStages
+FLASH_FWD_CHOICES = {"2 stages (shipped)": 2, "3 stages": 3}
 # (label, tokens, down, transpose_rhs) of B5b in bf16 at D 4096, F 14336,
 # 8 experts, top-2, tile 128
 GMM_SMALL_CASES = (
@@ -379,13 +378,10 @@ GMM_SMALL_CASES = (
     ("R 9216 down", 4096, True, False),
     ("R 9216 dx", 4096, True, True),
 )
-# name: csrc/gmm.cu's (kWgSmallBN, kWgSmallGroupM)
-GMM_SMALL_CHOICES = {
-    "BN 256, weights-once order (shipped)": (256, 0),
-    "BN 256, groups of 16 M tiles": (256, 16),
-    "BN 128, weights-once order": (128, 0),
-    "BN 128, groups of 16 M tiles": (128, 16),
-}
+# name: csrc/gmm.cu's kWgGroupM, M tiles per group of the bf16 kernel's
+# tile order (more than any R has: one group, the weights-once order)
+ORDER_CHOICES = {"weights-once": 1 << 20, "groups of 16 (shipped)": 16}
+ORDER_ROUNDS = 10
 
 
 def _flash_fwd_cases(rng, dev):
@@ -423,12 +419,11 @@ def flash_fwd_tiles(card: str) -> None:
 
     t0 = time.time()
     libs = _build_choices(kernels.BUILD_DIR.parent / "flash_fwd_tiles", "flash_fwd.cu",
-                          [dict(zip(("kPairMinBlocks", "kKvStages"), v))
-                           for v in FLASH_FWD_CHOICES.values()])
+                          [{"kKvStages": v} for v in FLASH_FWD_CHOICES.values()])
     print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
     cases = [c[:3] for c in _flash_fwd_cases(np.random.default_rng(smoke.SEED),
                                             torch.device("cuda"))]
-    _sweep(card, list(FLASH_FWD_CHOICES), libs, cases, "q-head pairs from, K/V stages")
+    _sweep(card, list(FLASH_FWD_CHOICES), libs, cases, "K/V stages")
 
 
 def _gmm_small_cases(rng, dev):
@@ -462,19 +457,39 @@ def gmm_small(card: str) -> None:
               f"{wbytes / ms / 1e9:.3f} TB/s  [{card}]", flush=True)
 
 
-def gmm_small_tiles(card: str) -> None:
+def gmm_small_order(card: str) -> None:
     import torch
 
     from vita_tpu_torch import kernels
 
     t0 = time.time()
-    libs = _build_choices(kernels.BUILD_DIR.parent / "gmm_small_tiles", "gmm.cu",
-                          [dict(zip(("kWgSmallBN", "kWgSmallGroupM"), v))
-                           for v in GMM_SMALL_CHOICES.values()])
+    libs = _build_choices(kernels.BUILD_DIR.parent / "gmm_small_order", "gmm.cu",
+                          [{"kWgGroupM": g} for g in ORDER_CHOICES.values()])
     print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
-    cases = [c[:3] for c in _gmm_small_cases(np.random.default_rng(smoke.SEED),
-                                            torch.device("cuda"))]
-    _sweep(card, list(GMM_SMALL_CHOICES), libs, cases, "B5b tile width, tile order")
+    once, g16 = libs
+    print(f"  B5b bf16 ms, weights-once order vs groups of 16 M tiles, {ORDER_ROUNDS} "
+          f"alternating rounds  [{card}]", flush=True)
+    for label, run, plain, _, _ in _gmm_small_cases(np.random.default_rng(smoke.SEED),
+                                                    torch.device("cuda")):
+        want = plain()
+        outs = []
+        for name, lib in zip(ORDER_CHOICES, libs):
+            kernels._lib = lib
+            outs.append(run())
+            smoke.compare(f"{label} {name}", outs[-1], want, 2e-2, 2e-2)
+        if not smoke._same_bits(*outs):
+            raise AssertionError(f"{label}: the two tile orders differ in bits")
+        del want, outs
+        ms = {once: [], g16: []}
+        for i in range(ORDER_ROUNDS):
+            for lib in ((once, g16) if i % 2 == 0 else (g16, once)):
+                kernels._lib = lib
+                ms[lib].append(smoke.cuda_ms(run))
+        kernels._lib = None
+        ratio = np.array(ms[once]) / np.array(ms[g16])
+        print(f"    {label:16s}: weights-once {np.median(ms[once]):.4f}, groups of 16 "
+              f"{np.median(ms[g16]):.4f}; ratio median {np.median(ratio):.4f}, range "
+              f"{ratio.min():.4f}-{ratio.max():.4f}", flush=True)
 
 
 def gmm(card: str) -> None:
@@ -615,7 +630,7 @@ def main() -> int:
     modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
-             "gmm-small-tiles": gmm_small_tiles}
+             "gmm-small-order": gmm_small_order}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

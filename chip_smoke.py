@@ -140,7 +140,8 @@ def attn_pairs(sq, kv_len, q_off, causal) -> int:
 
 
 def compare(name, got, want, atol, rtol):
-    """Max abs error of got vs want; raises past atol + rtol * |want|."""
+    """Max abs error of got vs want; raises past atol + rtol * |want| (atol
+    a number, or a tensor that broadcasts against want)."""
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -149,10 +150,30 @@ def compare(name, got, want, atol, rtol):
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     if bool(bad.any()):
+        lim = f"atol {atol}" if isinstance(atol, float) else "the element's atol"
         raise AssertionError(
-            f"{name}: {int(bad.sum())} elements past atol {atol} + rtol {rtol}; "
+            f"{name}: {int(bad.sum())} elements past {lim} + rtol {rtol}; "
             f"max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def flash_fwd_tols(sq, kv_len, q_off, dev):
+    """bf16 B1's tolerances, (atol, rtol) for o [B, Sq, Hq, 128] and for
+    lse: o's atol 2e-3 on rows that see 1024 keys or more, else 2e-2; lse
+    (float32, about log of the keys) 1e-3. On a row of n >= 1024 keys with
+    N(0, 1) scores a bf16 rounding step of one p moves o by at most 2^-8
+    |v| p / l, under 5e-4, while o itself is about sqrt(e / n), near 0.02:
+    2e-2 would let a kernel that drops a tile of 128 keys pass (it moves o
+    by about 3e-3, lse by about 0.02). Rows of few keys keep 2e-2, where
+    one rounding step of p can move an o that cancels near zero by a few
+    1e-3."""
+    import torch
+
+    r = torch.arange(sq, device=dev)
+    seen = torch.stack([torch.clamp(torch.minimum(torch.tensor(kl, device=dev), qo + r + 1), min=0)
+                        for kl, qo in zip(kv_len, q_off)])  # causal: keys each row sees
+    atol_o = torch.where(seen >= 1024, 2e-3, 2e-2)[:, :, None, None]
+    return (atol_o, 2e-2), (1e-3, 0.0)
 
 
 # --------------------------------------------------------------------------
@@ -275,17 +296,38 @@ def kernel_phase(card: str):
     rows = {}
 
     def check(kernel, case, run_kernel, run_plain, dtype, timed, tols=tol, work=None,
-              library=None):
-        """Kernel against plain (each output of a tuple); a timed case also
-        gives the row of the result line: times, the bound of ``work``
-        (flops, bytes) and the ``library`` call's time (None: there is none)."""
+              library=None, out_tols=None, fault=None):
+        """Kernel against plain (each output of a tuple, at tols[dtype], or
+        ``out_tols``: (text, one (atol, rtol) per output)); ``fault`` runs a
+        deliberately wrong kernel whose output must fail that tolerance. A
+        timed case also gives the row of the result line: times, the bound
+        of ``work`` (flops, bytes) and the ``library`` call's time (None:
+        there is none)."""
         want = run_plain()
         got = run_kernel()
         torch.cuda.synchronize()
-        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        err = max(compare(f"{kernel} {case}", g, w, *tols[dtype]) for g, w in pairs)
-        del got, want
-        line = f"  {kernel:20s} {case:44s} max_abs_err {err:.3e} (tol {tols[dtype]})"
+        tol_text, per_out = out_tols or (str(tols[dtype]), None)
+
+        def outputs(got):  # (got, want, atol, rtol) per output
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            return [(g, w, *(per_out[i] if per_out else tols[dtype]))
+                    for i, (g, w) in enumerate(pairs)]
+
+        err = max(compare(f"{kernel} {case}", *o) for o in outputs(got))
+        del got
+        line = f"  {kernel:20s} {case:44s} max_abs_err {err:.3e} (tol {tol_text})"
+        if fault is not None:
+            what, run_fault = fault
+            readings, caught = [], False
+            for g, w, atol, rtol in outputs(run_fault()):
+                e = (g.float() - w.float()).abs()
+                past = int((~(e <= atol + rtol * w.float().abs())).sum())  # NaN is past
+                readings.append(f"max abs err {float(e.max()):.3e}, {past} elements past")
+                caught |= past > 0
+            if not caught:
+                raise AssertionError(f"{kernel} {case}: the tolerance passes a kernel with {what}")
+            line += f"\n  {'':20s} planted fault, {what}: {'; '.join(readings)}"
+        del want
         if timed:
             ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
             lib_ms = library_ms(kernel, library) if library is not None else None
@@ -308,7 +350,9 @@ def kernel_phase(card: str):
     # tokens, the Generator's 12288-row prefill over 8500 keys and its
     # decode row over them. At those lengths the plain version runs one GQA
     # group at a time (its float32 scores would not fit otherwise). bf16
-    # must give equal bits twice.
+    # must give equal bits twice, is held at flash_fwd_tols, and the kernel
+    # with the last 128 keys of each batch row dropped (kv_len - 128) must
+    # fail them.
     for case, sq, skv, kv_len, q_off, dt, timed in (
         ("bf16 chunk 256/512, offset 256", 256, 512, [512], [256], bf16, True),
         ("bf16 chunk 256/512, offset 0", 256, 512, [256], [0], bf16, False),
@@ -322,12 +366,23 @@ def kernel_phase(card: str):
         hq, hkv = (32, 8) if dt == bf16 else (4, 2)
         args = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dt, dev)
         q, k, v = args[:3]
+        # bytes: the q rows that see a key and the key rows some row sees,
+        # read once; o and lse written
+        row = q.shape[2] * 128 * q.element_size()
+        seen = [np.clip(np.minimum(kl, qo + np.arange(sq) + 1), 0, skv)
+                for kl, qo in zip(kv_len, q_off)]
         work = (4 * attn_pairs(sq, kv_len, q_off, True) * 128 * hq,
-                2 * nbytes(q) + nbytes(k, v) + 4 * b * hq * sq)  # q, k, v, o, lse
+                sum(int((n > 0).sum()) * row + 2 * int(n.max()) * row // (hq // hkv)
+                    for n in seen) + nbytes(q) + 4 * b * hq * sq)
         plain = _by_group(fa.flash_fwd_plain, (2, 1)) if sq > 4096 else fa.flash_fwd_plain
+        bf = dt == bf16
         check("flash_fwd", case, lambda a=args: fa.flash_fwd_cuda(*a),
               lambda a=args, f=plain: f(*a), dt, timed, work=work,
-              library=lambda a=args: _sdpa_fwd(*a))
+              library=lambda a=args: _sdpa_fwd(*a),
+              out_tols=("o 2e-3/2e-2 by keys seen + rtol 2e-2, lse 1e-3",
+                        flash_fwd_tols(sq, kv_len, q_off, dev)) if bf else None,
+              fault=("the last 128 keys dropped",
+                     lambda a=args: fa.flash_fwd_cuda(*a[:3], a[3] - 128, *a[4:])) if bf else None)
         if dt == bf16 and not _same_bits(fa.flash_fwd_cuda(*args), fa.flash_fwd_cuda(*args)):
             raise AssertionError(f"flash_fwd {case}: two launches differ")
         del q, k, v, args

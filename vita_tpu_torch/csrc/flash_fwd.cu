@@ -20,8 +20,8 @@
 // hundred MB of q/k/v/o: far above the card's balance point, so the tensor
 // cores' rate bounds it (0.60 and 1.13 ms at 989 TFLOP/s). The design is
 // FlashAttention-3's, simplified:
-//   - A block owns 64 q rows of NC q heads of one GQA group (NC 2, or 1 on
-//     grids too small to fill the card: kPairMinBlocks), the longest causal
+//   - A block owns 64 q rows of NC q heads of one GQA group (NC 2, or 1
+//     when a grid of pairs would not fill the card's SMs), the longest causal
 //     walks launched first. Warpgroup 0 produces: one thread loads the q
 //     tiles once and then the K and V tiles of 128 keys by TMA into a ring
 //     of kKvStages stages with full (K and V apart) and empty mbarriers;
@@ -236,11 +236,8 @@ constexpr int kKeys = 128;                    // keys per K/V tile: one wgmma N
 constexpr int kQChunk = kRows * 128;          // [64 rows][64 d] swizzled: 8 KB
 constexpr int kKvChunk = kKeys * 128;         // [128 keys][64 d]: 16 KB
 constexpr int kKvTile = 2 * kKvChunk;         // d 0-63 and 64-127: 32 KB
-// Chosen on the H100 by chip_probe.py flash-fwd-tiles: K/V ring stages, and
-// the fewest blocks a grid of q-head pairs must have to be launched as
-// pairs (smaller grids take one q head a block, twice the blocks).
+// Chosen on the H100 by chip_probe.py flash-fwd-tiles: K/V ring stages.
 constexpr int kKvStages = 2;
-constexpr int kPairMinBlocks = 132;
 // With a pair of consumers (384 threads, 168 registers each at entry),
 // setmaxnreg moves registers to them: 128 x 24 + 256 x 240 <= 64K. With
 // one consumer (256 threads) every thread may hold 255 and none is moved.
@@ -487,8 +484,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   if (!make_map(&mq, q, 4, dq, bq) || !make_map(&mk, k, 4, dkv, bkv) ||
       !make_map(&mv, v, 4, dkv, bkv))
     return (int)cudaErrorInvalidValue;
+  // a pair of q heads a block when that grid fills the card, else one
+  // head a block (twice the blocks)
   const int q_tiles = (Sq + kRows - 1) / kRows;
-  if ((Hq / Hkv) % 2 == 0 && (int64_t)B * Hq / 2 * q_tiles >= kPairMinBlocks)
+  if ((Hq / Hkv) % 2 == 0 && (int64_t)B * Hq / 2 * q_tiles >= sm_count())
     return launch_wgmma<2>(mq, mk, mv, o, lse, kv_len, q_off, B, Sq, Skv, Hq, Hkv, scale, causal,
                            stream);
   return launch_wgmma<1>(mq, mk, mv, o, lse, kv_len, q_off, B, Sq, Skv, Hq, Hkv, scale, causal,

@@ -25,21 +25,21 @@
 // under the balance point, so the weight bytes (0.30 ms at 3.35 TB/s).
 //
 // bf16 B5a, B5b and B12: Hopper's warp-specialised wgmma + TMA design.
-//   - A persistent grid of one block per SM walks 128 x BN output tiles
-//     (tile t, t + gridDim, ...) in groups of G M tiles, M fastest within a
-//     group. B5a and B12 take BN 256 and G = kWgGroupM 16: the resident
-//     blocks share ~16 row panels and ~8 weight strips (about 32 MB at K
-//     4096), which L2 (50 MB) keeps, so neither is read from HBM much more
-//     than once. B5b takes BN kWgSmallBN in the TPU kernel's weights-once
-//     order, G = all of R's M tiles (kWgSmallGroupM 0): the row tiles of a
-//     weight strip run side by side on neighbouring blocks, so each strip
-//     crosses HBM once while x stays in L2. B12's tiles are (expert, 128
-//     rows of dw's K, 256 columns), expert outermost.
+//   - A persistent grid of one block per SM walks 128 x 256 output tiles
+//     (tile t, t + gridDim, ...) in groups of kWgGroupM (16) M tiles, M
+//     fastest within a group: the resident blocks share ~16 row panels and
+//     ~8 weight strips (about 32 MB at K 4096), which L2 (50 MB) keeps, so
+//     neither is read from HBM much more than once. Up to 16 M tiles (R <=
+//     2048, the serving chunk's 1536 included) that is B5b's weights-once
+//     order, M fastest over all of R; at the training steps' R 3072 and
+//     9216 the weights-once order measured no faster (chip_probe.py
+//     gmm-small-order), so B5b walks B5a's order. B12's tiles are (expert,
+//     128 rows of dw's K, 256 columns), expert outermost.
 //   - Warpgroup 0 produces: one thread issues TMA loads (128-byte swizzle,
 //     out-of-bounds boxes zero-filled) of 64-deep contraction stages into a
-//     192 KB ring (kWgStages stages of 48 KB at BN 256, 1.5x as many at
-//     BN 128) with full/empty mbarriers; setmaxnreg gives its registers to
-//     the consumers. Warpgroups 1 and 2 consume: each runs wgmma m64nBNk16
+//     192 KB ring (kWgStages stages of 48 KB) with full/empty mbarriers;
+//     setmaxnreg gives its registers to the consumers. Warpgroups 1 and 2
+//     consume: each runs wgmma m64n256k16
 //     (bf16 -> f32 in registers, both operands read from the swizzled ring)
 //     on its 64 rows of the tile, four per stage, and releases the stage.
 //     The producer runs ahead into the next tile while the consumers store
@@ -104,37 +104,27 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ gids, int n, 
 enum WgMode : int { kFwd = 0, kFwdT = 1, kWgrad = 2 };
 
 constexpr int kWgBM = 128;          // output rows of a tile: two consumers of 64
-constexpr int kWgBN = 256;          // B5a's and B12's output columns: one m64n256 wgmma
+constexpr int kWgBN = 256;          // output columns of a tile: one m64n256 wgmma
 constexpr int kWgBK = 64;           // contraction depth of a stage: one 128-byte bf16 row
-// Chosen on the H100 by chip_probe.py gmm-tiles: ring stages at BN 256 (4 x
-// 48 KB is the most that fits), wgmma groups a consumer keeps in flight when
+// Chosen on the H100 by chip_probe.py gmm-tiles: ring stages (4 x 48 KB is
+// the most that fits), wgmma groups a consumer keeps in flight when
 // it waits (0: it releases each stage as soon as its products are done), M
-// tiles per group of B5a's and B12's tile order.
+// tiles per group of the tile order.
 constexpr int kWgStages = 4;
 constexpr int kWgInFlight = 0;
 constexpr int kWgGroupM = 16;
-// Chosen on the H100 by chip_probe.py gmm-small-tiles: B5b's output columns
-// (256 or 128) and M tiles per group (0: all of R's, the weights-once order).
-constexpr int kWgSmallBN = 256;
-constexpr int kWgSmallGroupM = 0;
 constexpr int kWgThreads = 384;     // warpgroup 0 produces, 1 and 2 consume
 constexpr int kChunk = 64 * 128;    // a [64 rows][128 bytes] swizzled box: 8 KB
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 64K
 
-// A stage is 2 + BN / 64 chunks: A (2: [128][64] x rows, or B12's [64 r][64
-// k] x 2) then B (BN / 64: [64 k][64 n] each, or dx's [BN n][64 k]); the
-// ring keeps kWgStages stages' worth of bytes at any BN.
-template <int BN>
-struct Ring {
-  static constexpr int kStageBytes = (2 + BN / 64) * kChunk;
-  static constexpr int kStages = kWgStages * (2 + kWgBN / 64) / (2 + BN / 64);
-  // the ring, its alignment slack and its barriers; B12 adds E + 1 row bounds
-  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
-};
+// A stage is 6 chunks: A (2: [128][64] x rows, or B12's [64 r][64 k] x 2)
+// then B (4: [64 k][64 n] each, or dx's [256 n][64 k]).
+constexpr int kWgStageBytes = (2 + kWgBN / 64) * kChunk;
 
-int wg_smem(int mode, int bn, int E) {
-  return (bn == 128 ? Ring<128>::kSmem : Ring<256>::kSmem) + (mode == kWgrad ? 4 * (E + 1) : 0);
+// The ring, its alignment slack and its barriers; B12 adds E + 1 row bounds.
+int wg_smem(int mode, int E) {
+  return kWgStages * kWgStageBytes + 1024 + 2 * kWgStages * 8 + (mode == kWgrad ? 4 * (E + 1) : 0);
 }
 
 struct WgTile {
@@ -145,27 +135,27 @@ struct WgTile {
 
 // Tile t's expert, corner and contraction walk; producer and consumers
 // compute the same sequence. bounds: B12's row bounds of the experts.
-template <int Mode, int BN>
+template <int Mode>
 __device__ __forceinline__ WgTile wg_tile(int t, const int* __restrict__ gids,
                                           const int* bounds, int R, int K, int N, int E,
-                                          int tile_m, int group_m) {
+                                          int tile_m) {
   WgTile w;
   const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
-  const int nn = (N + BN - 1) / BN;
+  const int nn = (N + kWgBN - 1) / kWgBN;
   int mb, nb;
   if (Mode == kWgrad) {
     w.e = t / (nm * nn);
-    grouped_tile(t % (nm * nn), nm, nn, group_m, mb, nb);
+    grouped_tile(t % (nm * nn), nm, nn, kWgGroupM, mb, nb);
     w.c0 = bounds[w.e];
     w.c_end = bounds[w.e + 1];
   } else {
-    grouped_tile(t, nm, nn, group_m, mb, nb);
+    grouped_tile(t, nm, nn, kWgGroupM, mb, nb);
     w.e = min(max(gids[mb * kWgBM / tile_m], 0), E - 1);
     w.c0 = 0;
     w.c_end = K;
   }
   w.m0 = mb * kWgBM;
-  w.n0 = nb * BN;
+  w.n0 = nb * kWgBN;
   w.stages = w.c_end > w.c0 ? (w.c_end - w.c0 + kWgBK - 1) / kWgBK : 0;
   return w;
 }
@@ -193,7 +183,7 @@ __device__ __forceinline__ void fill_box(uint8_t* dst, const bf16* __restrict__ 
 
 // Stage `st` of tile w at contraction index c: TMA boxes (one thread), or
 // plain loads by the producer warpgroup's 128 threads.
-template <int Mode, bool Tma, int BN>
+template <int Mode, bool Tma>
 __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap& mb,
                                         const bf16* __restrict__ a, const bf16* __restrict__ b,
                                         int R, int K, int N, const WgTile& w, int c, uint8_t* st,
@@ -201,20 +191,21 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
   uint8_t* sa = st;
   uint8_t* sb = st + 2 * kChunk;
   if constexpr (Tma) {
-    mbar_arrive_expect_tx(full, Ring<BN>::kStageBytes);
+    mbar_arrive_expect_tx(full, kWgStageBytes);
     if constexpr (Mode == kWgrad) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) tma_load_2d(sa + j * kChunk, &ma, full, w.m0 + 64 * j, c);
 #pragma unroll
-      for (int j = 0; j < BN / 64; ++j) tma_load_2d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c);
+      for (int j = 0; j < kWgBN / 64; ++j)
+        tma_load_2d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c);
     } else {
       tma_load_2d(sa, &ma, full, c, w.m0);  // x [R, K]: a 64 x 128 box
       if constexpr (Mode == kFwd) {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)  // w [E, K, N]: 64 x 64 boxes
+        for (int j = 0; j < kWgBN / 64; ++j)  // w [E, K, N]: 64 x 64 boxes
           tma_load_3d(sb + j * kChunk, &mb, full, w.n0 + 64 * j, c, w.e);
       } else {
-        tma_load_3d(sb, &mb, full, c, w.n0, w.e);  // w [E, N, K]: a 64 x BN box
+        tma_load_3d(sb, &mb, full, c, w.n0, w.e);  // w [E, N, K]: a 64 x 256 box
       }
     }
   } else {
@@ -223,17 +214,17 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
       for (int j = 0; j < 2; ++j)
         fill_box(sa + j * kChunk, a, K, w.c_end, K, c, w.m0 + 64 * j, 64, ptid);
 #pragma unroll
-      for (int j = 0; j < BN / 64; ++j)
+      for (int j = 0; j < kWgBN / 64; ++j)
         fill_box(sb + j * kChunk, b, N, w.c_end, N, c, w.n0 + 64 * j, 64, ptid);
     } else {
       fill_box(sa, a, K, R, K, w.m0, c, 128, ptid);
       const bf16* we = b + (int64_t)w.e * K * N;
       if constexpr (Mode == kFwd) {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
+        for (int j = 0; j < kWgBN / 64; ++j)
           fill_box(sb + j * kChunk, we, N, K, N, c, w.n0 + 64 * j, 64, ptid);
       } else {
-        fill_box(sb, we, K, N, K, w.n0, c, BN, ptid);
+        fill_box(sb, we, K, N, K, w.n0, c, kWgBN, ptid);
       }
     }
     fence_proxy_async();
@@ -242,18 +233,17 @@ __device__ __forceinline__ void wg_load(const CUtensorMap& ma, const CUtensorMap
   }
 }
 
-// The consumer's 64 x BN accumulator (wgmma fragment layout) to rows
-// [r0, r0 + 64) and columns [c0, c0 + BN) of a row-major bf16 matrix,
+// The consumer's 64 x 256 accumulator (wgmma fragment layout) to rows
+// [r0, r0 + 64) and columns [c0, c0 + 256) of a row-major bf16 matrix,
 // clipped at rows x cols.
-template <int BN>
 __device__ __forceinline__ void wg_store(bf16* __restrict__ out, int64_t ld, int rows, int cols,
-                                         int r0, int c0, const float (&d)[BN / 2], int ctid) {
+                                         int r0, int c0, const float (&d)[kWgBN / 2], int ctid) {
   const int lane = ctid & 31;
   const int r = r0 + (ctid >> 5) * 16 + (lane >> 2);
   const int cb = c0 + 2 * (lane & 3);
   const bool pairs = (cols & 1) == 0;  // then (row, even column) is 4-byte aligned
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < kWgBN / 8; ++j) {
     const int c = cb + 8 * j;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -273,22 +263,20 @@ __device__ __forceinline__ void wg_store(bf16* __restrict__ out, int64_t ld, int
 
 // kFwd: a = x [R, K], b = w [E, K, N], out [R, N]; kFwdT: b = w [E, N, K];
 // kWgrad: a [R, K], b [R, N], out = dw [E, K, N]. The maps are the TMA
-// tensors of a and b (unused without Tma). group_m: M tiles per group of
-// the tile order.
-template <int Mode, bool Tma, int BN>
+// tensors of a and b (unused without Tma).
+template <int Mode, bool Tma>
 __global__ void __launch_bounds__(kWgThreads, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const bf16* __restrict__ a,
                  const bf16* __restrict__ b, const int* __restrict__ gids, bf16* __restrict__ out,
-                 int R, int K, int N, int E, int tile_m, int group_m) {
-  using Rg = Ring<BN>;
+                 int R, int K, int N, int E, int tile_m) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Rg::kStages * Rg::kStageBytes);
-  uint64_t* empty = full + Rg::kStages;
-  int* bounds = reinterpret_cast<int*>(empty + Rg::kStages);  // B12: e's rows [bounds[e], bounds[e + 1])
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+  int* bounds = reinterpret_cast<int*>(empty + kWgStages);  // B12: e's rows [bounds[e], bounds[e + 1])
   if (threadIdx.x == 0) {
-    for (int s = 0; s < Rg::kStages; ++s) {
+    for (int s = 0; s < kWgStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
@@ -302,7 +290,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   const int nm = ((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM;
-  const int n_tiles = (Mode == kWgrad ? E : 1) * nm * ((N + BN - 1) / BN);
+  const int n_tiles = (Mode == kWgrad ? E : 1) * nm * ((N + kWgBN - 1) / kWgBN);
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     setmaxnreg_dec<kProducerRegs>();
@@ -310,12 +298,12 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     if (Tma && ptid != 0) return;
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const WgTile w = wg_tile<Mode, BN>(t, gids, bounds, R, K, N, E, tile_m, group_m);
+      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
       for (int i = 0; i < w.stages; ++i) {
         mbar_wait(&empty[stage], phase ^ 1);
-        wg_load<Mode, Tma, BN>(map_a, map_b, a, b, R, K, N, w, w.c0 + i * kWgBK,
-                               ring + stage * Rg::kStageBytes, &full[stage], ptid);
-        if (++stage == Rg::kStages) {
+        wg_load<Mode, Tma>(map_a, map_b, a, b, R, K, N, w, w.c0 + i * kWgBK,
+                           ring + stage * kWgStageBytes, &full[stage], ptid);
+        if (++stage == kWgStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -324,22 +312,22 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     const int c = wg - 1, ctid = threadIdx.x - 128 * wg;
-    float d[BN / 2];
+    float d[kWgBN / 2];
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const WgTile w = wg_tile<Mode, BN>(t, gids, bounds, R, K, N, E, tile_m, group_m);
+      const WgTile w = wg_tile<Mode>(t, gids, bounds, R, K, N, E, tile_m);
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+      for (int i = 0; i < kWgBN / 2; ++i) d[i] = 0.f;
       wgmma_fence_regs(d);
       int held = -1;  // kWgInFlight: a stage whose products may still be in flight
       for (int i = 0; i < w.stages; ++i) {
-        uint8_t* st = ring + stage * Rg::kStageBytes;
+        uint8_t* st = ring + stage * kWgStageBytes;
         mbar_wait(&full[stage], phase);
         if constexpr (Mode == kWgrad) {
           // rows past e's end (the next expert's) out of all the stage's chunks
           const int valid = w.c_end - (w.c0 + i * kWgBK);
           if (valid < kWgBK) {
-            const int n = (2 + BN / 64) * (kWgBK - valid) * 8;
+            const int n = (2 + kWgBN / 64) * (kWgBK - valid) * 8;
             for (int idx = c * 128 + ctid; idx < n; idx += 256) {
               const int q = idx / ((kWgBK - valid) * 8), rem = idx % ((kWgBK - valid) * 8);
               *reinterpret_cast<uint4*>(st + q * kChunk + (valid + rem / 8) * 128 +
@@ -359,10 +347,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                              : wgmma_desc(sa + 32 * s, 16, 1024);
           const uint64_t db = Mode == kFwdT ? wgmma_desc(sb + 32 * s, 16, 1024)
                                             : wgmma_desc(sb + 2048 * s, 8192, 1024);
-          if constexpr (BN == 256)
-            wgmma_m64n256k16<Mode == kWgrad, Mode != kFwdT>(d, da, db);
-          else
-            wgmma_m64n128k16<Mode == kWgrad, Mode != kFwdT>(d, da, db, 1);
+          wgmma_m64n256k16<Mode == kWgrad, Mode != kFwdT>(d, da, db);
         }
         wgmma_commit();
         wgmma_wait<kWgInFlight>();
@@ -372,7 +357,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
           held = stage;
         }
-        if (++stage == Rg::kStages) {
+        if (++stage == kWgStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -381,58 +366,55 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       wgmma_fence_regs(d);
       if (held >= 0 && (ctid & 31) == 0) mbar_arrive(&empty[held]);
       if constexpr (Mode == kWgrad)
-        wg_store<BN>(out + (int64_t)w.e * K * N, N, K, N, w.m0 + 64 * c, w.n0, d, ctid);
+        wg_store(out + (int64_t)w.e * K * N, N, K, N, w.m0 + 64 * c, w.n0, d, ctid);
       else
-        wg_store<BN>(out, N, R, N, w.m0 + 64 * c, w.n0, d, ctid);
+        wg_store(out, N, R, N, w.m0 + 64 * c, w.n0, d, ctid);
     }
   }
 }
 
-template <int Mode, bool Tma, int BN>
+template <int Mode, bool Tma>
 const void* wgmma_fn() {
-  return reinterpret_cast<const void*>(gmm_wgmma_kernel<Mode, Tma, BN>);
+  return reinterpret_cast<const void*>(gmm_wgmma_kernel<Mode, Tma>);
 }
 
-template <int Mode, bool Tma, int BN>
+template <int Mode, bool Tma>
 int launch_wgmma(const CUtensorMap& ma, const CUtensorMap& mb, const void* a, const void* b,
                  const int* gids, void* out, int R, int K, int N, int E, int tile_m,
-                 int group_m, cudaStream_t stream) {
+                 cudaStream_t stream) {
   static int sized = 0;  // the dynamic shared memory the kernel may use so far
-  const int smem = wg_smem(Mode, BN, E);
+  const int smem = wg_smem(Mode, E);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgmma_fn<Mode, Tma, BN>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        wgmma_fn<Mode, Tma>(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     sized = smem;
   }
   const int64_t tiles = (int64_t)(Mode == kWgrad ? E : 1) *
                         (((Mode == kWgrad ? K : R) + kWgBM - 1) / kWgBM) *
-                        ((N + BN - 1) / BN);
+                        ((N + kWgBN - 1) / kWgBN);
   if (tiles == 0) return 0;
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  gmm_wgmma_kernel<Mode, Tma, BN><<<grid, kWgThreads, smem, stream>>>(
+  gmm_wgmma_kernel<Mode, Tma><<<grid, kWgThreads, smem, stream>>>(
       ma, mb, static_cast<const bf16*>(a), static_cast<const bf16*>(b), gids,
-      static_cast<bf16*>(out), R, K, N, E, tile_m, group_m);
+      static_cast<bf16*>(out), R, K, N, E, tile_m);
   return (int)cudaGetLastError();
 }
 
-template <int Mode, int BN>
+template <int Mode>
 int launch_wgmma_any(bool tma, const CUtensorMap& ma, const CUtensorMap& mb, const void* a,
                      const void* b, const int* gids, void* out, int R, int K, int N, int E,
-                     int tile_m, int group_m, cudaStream_t stream) {
-  return tma ? launch_wgmma<Mode, true, BN>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, group_m,
-                                            stream)
-             : launch_wgmma<Mode, false, BN>(ma, mb, a, b, gids, out, R, K, N, E, tile_m,
-                                             group_m, stream);
+                     int tile_m, cudaStream_t stream) {
+  return tma ? launch_wgmma<Mode, true>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream)
+             : launch_wgmma<Mode, false>(ma, mb, a, b, gids, out, R, K, N, E, tile_m, stream);
 }
 
-// The forward (B5a, B5b) at tile width BN: TMA maps of x and w (boxes of
-// 64 x 128 and 64 x 64 or, with trans, 64 x BN) unless a row stride or an
-// operand's alignment rules TMA out.
-template <int BN>
+// The forward (B5a, B5b): TMA maps of x and w (boxes of 64 x 128 and 64 x
+// 64 or, with trans, 64 x 256) unless a row stride or an operand's
+// alignment rules TMA out.
 int launch_fwd(const void* x, const void* w, const int* gids, void* out, int R, int K, int N,
-               int E, int tile_m, int trans, int group_m, cudaStream_t s) {
+               int E, int tile_m, int trans, cudaStream_t s) {
   const bool tma =
       R > 0 && K > 0 && K % 8 == 0 && (trans || N % 8 == 0) && aligned16(x) && aligned16(w);
   CUtensorMap mx{}, mw{};
@@ -441,14 +423,12 @@ int launch_fwd(const void* x, const void* w, const int* gids, void* out, int R, 
     const cuuint32_t bx[2] = {64, 128};
     const cuuint64_t dw[3] = {(cuuint64_t)(trans ? K : N), (cuuint64_t)(trans ? N : K),
                               (cuuint64_t)E};
-    const cuuint32_t bw[3] = {64, trans ? (cuuint32_t)BN : 64u, 1};
+    const cuuint32_t bw[3] = {64, trans ? (cuuint32_t)kWgBN : 64u, 1};
     if (!make_map(&mx, x, 2, dx, bx) || !make_map(&mw, w, 3, dw, bw))
       return (int)cudaErrorInvalidValue;
   }
-  return trans ? launch_wgmma_any<kFwdT, BN>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m,
-                                             group_m, s)
-               : launch_wgmma_any<kFwd, BN>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m,
-                                            group_m, s);
+  return trans ? launch_wgmma_any<kFwdT>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s)
+               : launch_wgmma_any<kFwd>(tma, mx, mw, x, w, gids, out, R, K, N, E, tile_m, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -699,8 +679,7 @@ extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, voi
       if (!make_map(&ma, a, 2, da, box) || !make_map(&mb, b, 2, db, box))
         return (int)cudaErrorInvalidValue;
     }
-    return launch_wgmma_any<kWgrad, kWgBN>(tma, ma, mb, a, b, gids, out, R, K, N, E, tile_m,
-                                           kWgGroupM, s);
+    return launch_wgmma_any<kWgrad>(tma, ma, mb, a, b, gids, out, R, K, N, E, tile_m, s);
   }
   const int n_tiles = R >= tile_m ? R / tile_m : 1;
   gmm_wgrad_f32_kernel<<<E * ((K + kBM - 1) / kBM) * ((N + kBN - 1) / kBN), kThreads, 0, s>>>(
@@ -712,10 +691,8 @@ extern "C" int vita_gmm_wgrad(const void* a, const void* b, const int* gids, voi
 // x [R, K]; w [E, K, N], or [E, N, K] with trans; gids [ceil(R / tile_m)]
 // int32 group per row tile; out [R, N] in x's dtype. tile_m is a multiple
 // of 128 unless R < tile_m (one group). vita_gmm is the float32 tile
-// routine (B5a and B5b), vita_gmm_wgmma the bf16 wgmma + TMA kernel: B5a's
-// schedule (128 x 256 tiles in groups of 16 M tiles), or with `small`
-// B5b's (128 x kWgSmallBN tiles, weights-once). Each returns the CUDA error
-// code of the launch.
+// routine (B5a and B5b), vita_gmm_wgmma the bf16 wgmma + TMA kernel (B5a
+// and B5b). Each returns the CUDA error code of the launch.
 extern "C" int vita_gmm(const void* x, const void* w, const int* gids, void* out, int R, int K,
                         int N, int E, int tile_m, int trans, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -724,29 +701,20 @@ extern "C" int vita_gmm(const void* x, const void* w, const int* gids, void* out
 }
 
 extern "C" int vita_gmm_wgmma(const void* x, const void* w, const int* gids, void* out, int R,
-                              int K, int N, int E, int tile_m, int trans, int small,
-                              void* stream) {
-  using namespace vita;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!small)
-    return launch_fwd<kWgBN>(x, w, gids, out, R, K, N, E, tile_m, trans, kWgGroupM, s);
-  const int nm = (R + kWgBM - 1) / kWgBM;
-  const int group_m = kWgSmallGroupM > 0 ? kWgSmallGroupM : nm > 0 ? nm : 1;
-  return launch_fwd<kWgSmallBN>(x, w, gids, out, R, K, N, E, tile_m, trans, group_m, s);
+                              int K, int N, int E, int tile_m, int trans, void* stream) {
+  return vita::launch_fwd(x, w, gids, out, R, K, N, E, tile_m, trans,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// Resources of a wgmma kernel on the current card (which: 0 B5a, 1 B5a with
-// trans (dx), 2 B12, 3 B5b, 4 B5b with trans; the TMA instantiations): out
-// = registers and local (spilled) bytes a thread, shared bytes a block,
+// Resources of a wgmma kernel on the current card (which: 0 the forward of
+// B5a and B5b, 1 with trans (dx), 2 B12; the TMA instantiations): out =
+// registers and local (spilled) bytes a thread, shared bytes a block,
 // resident blocks per SM.
 extern "C" int vita_gmm_wgmma_info(int which, int* out) {
   using namespace vita;
-  const void* fn = which == 0   ? wgmma_fn<kFwd, true, kWgBN>()
-                   : which == 1 ? wgmma_fn<kFwdT, true, kWgBN>()
-                   : which == 2 ? wgmma_fn<kWgrad, true, kWgBN>()
-                   : which == 3 ? wgmma_fn<kFwd, true, kWgSmallBN>()
-                                : wgmma_fn<kFwdT, true, kWgSmallBN>();
+  const void* fn = which == 0   ? wgmma_fn<kFwd, true>()
+                   : which == 1 ? wgmma_fn<kFwdT, true>()
+                                : wgmma_fn<kWgrad, true>();
   // B12 at the model's 8 experts
-  const int smem = wg_smem(which == 2 ? kWgrad : kFwd, which >= 3 ? kWgSmallBN : kWgBN, 8);
-  return kernel_info(fn, kWgThreads, smem, out);
+  return kernel_info(fn, kWgThreads, wg_smem(which == 2 ? kWgrad : kFwd, 8), out);
 }

@@ -82,11 +82,11 @@ _SIGNATURES = {
     "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
     # x, w, gids, out, R, K, N, E, tile_m, trans, stream (float32)
     "vita_gmm": [_P] * 4 + [_I] * 6 + [_P],
-    # x, w, gids, out, R, K, N, E, tile_m, trans, small, stream (bf16)
-    "vita_gmm_wgmma": [_P] * 4 + [_I] * 7 + [_P],
+    # x, w, gids, out, R, K, N, E, tile_m, trans, stream (bf16)
+    "vita_gmm_wgmma": [_P] * 4 + [_I] * 6 + [_P],
     # a, b, gids, out, R, K, N, E, tile_m, dtype, stream
     "vita_gmm_wgrad": [_P] * 4 + [_I] * 6 + [_P],
-    # which (0: B5a, 1: B5a dx, 2: B12, 3: B5b, 4: B5b dx), out int[4]
+    # which (0: B5a/B5b, 1: their dx, 2: B12), out int[4]
     "vita_gmm_wgmma_info": [_I, _P],
     # which (0: a pair of q heads a block, 1: one), out int[4]
     "vita_flash_fwd_info": [_I, _P],

@@ -13,9 +13,9 @@ schedule (kernel B5b, counter ``gmm_small``), larger R the k-blocked one
 they decide the layout and the schedule.
 
 On CUDA tensors ``gmm`` launches a hand-written kernel of csrc/gmm.cu:
-bfloat16 B5a and B5b run the wgmma + TMA kernel (B5a in 128 x 256 tiles
-grouped 16 M tiles at a time, B5b in the TPU kernel's weights-once order,
-M fastest over all of R), float32 the 128 x 128 FMA tile routine; on CPU
+bfloat16 B5a and B5b run the wgmma + TMA kernel (128 x 256 tiles grouped
+16 M tiles at a time, which up to R 2048 is the TPU kernel's weights-once
+order for B5b), float32 the 128 x 128 FMA tile routine; on CPU
 tensors it runs ``gmm_plain``. ``gmm`` is a ``torch.autograd.Function``
 with the JAX package's custom VJP: dx is ``gmm`` itself with
 ``transpose_rhs`` flipped (B5a/B5b by the same rule), and dw is
@@ -115,8 +115,8 @@ def gmm_plain(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> 
 
 def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> torch.Tensor:
     """csrc/gmm.cu, B5b (small R) or B5a (large R) as ``_gmm_raw``
-    chooses: the wgmma + TMA kernel in bfloat16 (at the schedule's tile
-    order), the 128 x 128 FMA tile routine in float32."""
+    chooses: the wgmma + TMA kernel in bfloat16, the 128 x 128 FMA tile
+    routine in float32."""
     kernels.require_cuda(x, w, gids)
     r, k_dim, n_dim = _shapes(x, w, gids, transpose_rhs, tile_m)
     kernels.require(r < tile_m or tile_m % BLOCK_M == 0,
@@ -129,7 +129,7 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
         args = (x.data_ptr(), w.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
                 w.shape[0], tile_m, int(transpose_rhs))
         if x.dtype == torch.bfloat16:
-            err = kernels.lib().vita_gmm_wgmma(*args, int(not large), kernels.stream_of(x))
+            err = kernels.lib().vita_gmm_wgmma(*args, kernels.stream_of(x))
         else:
             err = kernels.lib().vita_gmm(*args, kernels.stream_of(x))
         kernels.check_launch(err, "gmm")
@@ -139,10 +139,10 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
 
 def gmm_wgmma_info() -> Dict[str, Dict[str, int]]:
     """Resources of the bfloat16 wgmma + TMA kernels on the current card
-    (B5a and B5b, each also with transpose_rhs as dx runs it, and B12;
-    ``kernels.resources``)."""
+    (the forward of B5a and B5b, also with transpose_rhs as dx runs it, and
+    B12; ``kernels.resources``)."""
     return kernels.resources(kernels.lib().vita_gmm_wgmma_info,
-                             ("gmm", "gmm dx", "gmm_wgrad", "gmm_small", "gmm_small dx"))
+                             ("gmm and gmm_small", "gmm and gmm_small dx", "gmm_wgrad"))
 
 
 def _gmm_raw(x, w, gids, transpose_rhs: bool, tile_m: int) -> torch.Tensor:
