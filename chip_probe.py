@@ -13,6 +13,7 @@ NVIDIA GPU.
     python3 chip_probe.py flash-fwd-tiles  # K/V ring stages of bf16 B1
     python3 chip_probe.py gmm-small    # B5b at the serving and training steps' R
     python3 chip_probe.py gmm-small-order  # bf16 B5b's tile order: weights-once vs groups of 16
+    python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -27,8 +28,10 @@ warps: copies of vita_tpu_torch/csrc under build/warps/, each with another
 choice of warps per block in expert_ffn.cu, built together and held
 against the plain versions, then timed on the same inputs (CUDA events,
 median of 25 after 3 warm-ups, two passes in opposite orders): the gather
-schedule at T 1 and the masked one at T 4 (int4: 8), in bf16, int8 and
-int4, at the serving width (D 4096, F 14336, 8 experts).
+schedule at T 1 in bf16, int8 and int4 and the masked one at T 4 in bf16
+and int8, at the serving width (D 4096, F 14336, 8 experts). The masked
+int4 schedule with bf16 activations runs the tensor-core kernel of
+csrc/expert_ffn_q4.cu, not this one, so it is not swept.
 
 gmm: chip_smoke.py's slice through Generator (max_len 12288, gmm prefill)
 on a prompt of 8500 tokens with one new token, under torch.profiler after
@@ -91,6 +94,15 @@ alternating rounds of one process (CUDA events, median of 25 after 3
 warm-ups each; which goes first alternates): per case the median of each
 and the median, least and largest of the paired ratios. At R 1536 (12 M
 tiles) the two are the same walk, so its ratios show a pair's spread.
+
+expert-q4: B8b, the masked int4 expert FFN (masked_expert_ffn_q_cuda,
+bits 4) in bf16 at the serving width (D 4096, F 14336, 8 experts, top-2
+routing from the seed) at T 8 and T 16, held against the plain version,
+then timed: CUDA events, median of 25 after 3 warm-ups, and the rate at
+which it streams the distinct experts' bytes (packed weights and scales,
+each read once). Reads only masked_expert_ffn_q_cuda and
+_active_expert_plan, which every version since the quantized slice has, so
+it times an older checkout's B8b from beside it, as flash does.
 
 Each prints the card's name and power limit first.
 """
@@ -258,11 +270,18 @@ def warps(card: str) -> None:
     wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
     stack = {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd}
     formats = (("bf16", None, 4), ("int8", md.quantize_expert_weights(stack), 4),
-               ("int4", md.quantize_expert_weights_int4(stack), 8))
+               ("int4", md.quantize_expert_weights_int4(stack), None))
     cases = []  # (label, kernel, plain)
     for fmt, qp, t_masked in formats:
         x1 = torch.from_numpy(rng.standard_normal((1, d), np.float32)).to(dev, bf16)
         _, i1 = smoke._routing(rng, 1, 2, 8, 0, bf16, dev)
+        if t_masked is None:  # int4: the masked schedule is csrc/expert_ffn_q4.cu's
+            b = 4
+            cases.append(
+                (f"{fmt} gather T=1",
+                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
+                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_plain(x, i, q, b)))
+            continue
         xm = torch.from_numpy(rng.standard_normal((t_masked, d), np.float32)).to(dev, bf16)
         w, im = smoke._routing(rng, t_masked, 2, 8, 0, bf16, dev)
         act, m = md._active_expert_plan(w, im, 8)
@@ -274,7 +293,7 @@ def warps(card: str) -> None:
                  lambda x=xm, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd),
                  lambda x=xm, a=act, m=m: md.masked_expert_ffn_plain(x, a, m, wg, wu, wd))]
         else:
-            b = 8 if fmt == "int8" else 4
+            b = 8
             cases += [
                 (f"{fmt} gather T=1",
                  lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
@@ -492,6 +511,37 @@ def gmm_small_order(card: str) -> None:
               f"{ratio.min():.4f}-{ratio.max():.4f}", flush=True)
 
 
+def expert_q4(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch.ops import moe_decode as md
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(smoke.SEED)
+    d, f = 4096, 14336
+    wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
+    qp = md.quantize_expert_weights_int4(
+        {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd})
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    # bytes of one expert: packed gate, up and down, and their float32 scales
+    per_expert = 3 * d * f // 2 + 4 * (2 * f + d)
+    for t in (8, 16):
+        x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, bf16)
+        w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        act, m = md._active_expert_plan(w, idx, 8)
+        run = lambda x=x, a=act, m=m: md.masked_expert_ffn_q_cuda(x, a, m, qp, 4)
+        smoke.compare(f"B8b T={t}", run(), md.masked_expert_ffn_q_plain(x, act, m, qp, 4),
+                      2e-2, 2e-2)
+        n_exp = len(torch.unique(idx))
+        ms = smoke.cuda_ms(run)
+        nbytes = n_exp * per_expert
+        bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
+        print(f"  B8b bf16 T={t:2d} over {n_exp} experts ({nbytes:.4g} B): {ms:.4f} ms, "
+              f"{nbytes / ms / 1e9:.3f} TB/s, {bound_ms / ms:.3f} of the bytes bound "
+              f"({bound_ms:.4f} ms)  [{card}]", flush=True)
+
+
 def gmm(card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity
@@ -630,7 +680,7 @@ def main() -> int:
     modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
-             "gmm-small-order": gmm_small_order}
+             "gmm-small-order": gmm_small_order, "expert-q4": expert_q4}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

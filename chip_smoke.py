@@ -15,7 +15,9 @@ Phases, each of which raises on failure:
      prefill with 8500 keys, and one decode row over those keys), B2-B4,
      the grouped matmuls B5a/B5b (B5a also as dx at a 9216-token step's R,
      and on rows that are no TMA tensor; B5b as dx at a 1024-token step's
-     R), the quantized expert FFNs B6/B7 and B8a/B8b, B9 over int8 pages,
+     R), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B8b, on tensor
+     cores, is run twice for equal bits, its resources are printed, and
+     two planted faults must fail its tolerance), B9 over int8 pages,
      and the training backward: B10/B11 at a causal 4096-token sequence
      and at the 9216 training bucket, and B12 at a 9216-token step's R
      (tile 512); each bf16 B1, B5a, B5b, B10, B11 and B12 kernel is run
@@ -244,6 +246,33 @@ def _expert_weights(rng, rows, d, f, dtype, dev):
             t((rows, f, d), f ** -0.5))
 
 
+def _q4_faults(x, act, m, qp):
+    """Two wrong int4 kernels for B8b's check to catch, each run as the real
+    kernel on weights altered so that it computes what the fault would: the
+    last k-step of 16 packed rows of gate/up dropped (32 rows of D: r and
+    r + D/2), and the low and high nibble outputs of the first down tile of
+    128 packed columns swapped."""
+    from vita_tpu_torch.ops import moe_decode as md
+
+    def run(**changed):
+        return md.masked_expert_ffn_q_cuda(x, act, m, {**qp, **changed}, 4)
+
+    def drop_last_k_step():
+        wg, wu = qp["w_gate"].clone(), qp["w_up"].clone()
+        wg[:, -16:] = 0
+        wu[:, -16:] = 0
+        return run(w_gate=wg, w_up=wu)
+
+    def swap_nibbles():
+        wd = qp["w_down"].clone()
+        b = wd[..., :128].clone()
+        wd[..., :128] = ((b & 0xF) << 4) | ((b >> 4) & 0xF)
+        return run(w_down=wd)
+
+    return [("gate/up's last k-step of 16 packed rows dropped", drop_last_k_step),
+            ("down's nibble outputs swapped in its first column tile", swap_nibbles)]
+
+
 def _routing(rng, t, k, n_experts, layer, dtype, dev):
     import torch
 
@@ -296,10 +325,11 @@ def kernel_phase(card: str):
     rows = {}
 
     def check(kernel, case, run_kernel, run_plain, dtype, timed, tols=tol, work=None,
-              library=None, out_tols=None, fault=None):
+              library=None, out_tols=None, faults=()):
         """Kernel against plain (each output of a tuple, at tols[dtype], or
-        ``out_tols``: (text, one (atol, rtol) per output)); ``fault`` runs a
-        deliberately wrong kernel whose output must fail that tolerance. A
+        ``out_tols``: (text, one (atol, rtol) per output)); each of
+        ``faults`` (text, run) runs a deliberately wrong kernel whose output
+        must fail that tolerance. A
         timed case also gives the row of the result line: times, the bound
         of ``work`` (flops, bytes) and the ``library`` call's time (None:
         there is none)."""
@@ -316,8 +346,7 @@ def kernel_phase(card: str):
         err = max(compare(f"{kernel} {case}", *o) for o in outputs(got))
         del got
         line = f"  {kernel:20s} {case:44s} max_abs_err {err:.3e} (tol {tol_text})"
-        if fault is not None:
-            what, run_fault = fault
+        for what, run_fault in faults:
             readings, caught = [], False
             for g, w, atol, rtol in outputs(run_fault()):
                 e = (g.float() - w.float()).abs()
@@ -381,8 +410,8 @@ def kernel_phase(card: str):
               library=lambda a=args: _sdpa_fwd(*a),
               out_tols=("o 2e-3/2e-2 by keys seen + rtol 2e-2, lse 1e-3",
                         flash_fwd_tols(sq, kv_len, q_off, dev)) if bf else None,
-              fault=("the last 128 keys dropped",
-                     lambda a=args: fa.flash_fwd_cuda(*a[:3], a[3] - 128, *a[4:])) if bf else None)
+              faults=[("the last 128 keys dropped",
+                       lambda a=args: fa.flash_fwd_cuda(*a[:3], a[3] - 128, *a[4:]))] if bf else ())
         if dt == bf16 and not _same_bits(fa.flash_fwd_cuda(*args), fa.flash_fwd_cuda(*args)):
             raise AssertionError(f"flash_fwd {case}: two launches differ")
         del q, k, v, args
@@ -483,12 +512,22 @@ def kernel_phase(card: str):
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
                 w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
                 act, m = md._active_expert_plan(w, idx, 8)
+                q4_mma = bits == 4 and dt == bf16  # B8b on tensor cores
                 check("masked_expert_ffn" + sfx, f"{kind} {dt} T={t}",
                       lambda x=x, a=act, m=m, q=qp, b=bits:
                           md.masked_expert_ffn_q_cuda(x, a, m, q, b),
                       lambda x=x, a=act, m=m, q=qp, b=bits:
                           md.masked_expert_ffn_q_plain(x, a, m, q, b),
-                      dt, t < 16 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes))
+                      dt, t < 16 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes),
+                      faults=_q4_faults(x, act, m, qp) if q4_mma else ())
+                if q4_mma and not _same_bits(md._masked_q4_mma(x, act, qp),
+                                             md._masked_q4_mma(x, act, qp)):
+                    raise AssertionError(f"masked_expert_ffn_q4 T={t}: two launches differ")
+            if kind == "int4" and dt == bf16:
+                for name, r in md.expert_ffn_q4_info().items():
+                    print(f"  {name} bf16 mma kernel: {r['registers']} registers, "
+                          f"{r['spill_bytes']} spilled bytes a thread, {r['smem_bytes']} B shared "
+                          f"a block, {r['blocks_per_sm']} blocks per SM  [{card}]", flush=True)
             del qp
         del wg, wu, wd, stack
         torch.cuda.empty_cache()
@@ -1493,7 +1532,7 @@ def main() -> int:
         "gather_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:162"),
         "gather_expert_ffn_q4": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:326"),
         "masked_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:627"),
-        "masked_expert_ffn_q4": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:720"),
+        "masked_expert_ffn_q4": ("csrc/expert_ffn_q4.cu", "vita_tpu/ops/moe_decode.py:720"),
         "paged_attention_q": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:335"),
         "gmm": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:72"),
         "gmm_small": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:96"),

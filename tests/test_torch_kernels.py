@@ -247,6 +247,68 @@ def test_quantized_expert_kernels_match_plain(kind, shape):
         close(got.float().cpu(), want.float().cpu(), **tol)
 
 
+def _confined_routing(rng, n_tok, experts, dev):
+    """Top-2 routing of n_tok tokens over only ``experts`` (flat ids), so
+    the masked plan pads its rows by repeating the last distinct id."""
+    idx = np.stack([rng.choice(experts, 2, replace=False) for _ in range(n_tok)])
+    w = rng.random((n_tok, 2)).astype(np.float32)
+    return t(w / w.sum(1, keepdims=True)).to(dev), t(idx, torch.int32).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tok", [8, 16])
+def test_q4_mma_kernel_padding_rows(n_tok):
+    """bf16 B8b at the serving width with routing confined to 3 of 8
+    experts: 5 of the plan's 8 rows are padding; they read no weights and
+    give zeros, and the weighted output matches the plain version."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(7)
+    qp = _quantized_experts(rng, 4, 0, torch.bfloat16, 1, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, n_tok, [1, 4, 6], dev)
+    act, m = md._active_expert_plan(w, idx, 8)
+    assert act.tolist() == [1, 4, 6, 6, 6, 6, 6, 6]
+    y = md._masked_q4_mma(x, act, qp)
+    assert y.shape == (8, 8 if n_tok <= 8 else 16, 4096)
+    assert torch.isfinite(y).all() and not y[3:].any()
+    got = _launched("masked_expert_ffn_q4", lambda: md.masked_expert_ffn_q_cuda(x, act, m, qp, 4))
+    assert not torch.isnan(got).any()
+    want = md.masked_expert_ffn_q_plain(x, act, m, qp, 4)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL_Q[torch.bfloat16],
+          rtol=TOL_Q[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_q4_mma_kernel_narrow_ragged_widths():
+    """bf16 B8b at D 200, F 648: D/2 = 100 k rows and 648 columns leave
+    ragged k16-steps and column tiles, and rows that are no multiple of 16
+    bytes (staged without cp.async)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(8)
+    qp = _quantized_experts(rng, 4, 0, torch.bfloat16, 1, 200, 648, dev)
+    x = t(normal(rng, 8, 200)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, 8, list(range(8)), dev)
+    act, m = md._active_expert_plan(w, idx, 8)
+    got = _launched("masked_expert_ffn_q4", lambda: md.masked_expert_ffn_q_cuda(x, act, m, qp, 4))
+    want = md.masked_expert_ffn_q_plain(x, act, m, qp, 4)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL_Q[torch.bfloat16],
+          rtol=TOL_Q[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_q4_mma_kernel_is_deterministic():
+    """Down's split sums meet in a fixed order (no atomics): two launches
+    give the same bits."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(9)
+    qp = _quantized_experts(rng, 4, 0, torch.bfloat16, 1, 4096, 14336, dev)
+    x = t(normal(rng, 16, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, 16, list(range(8)), dev)
+    act, _ = md._active_expert_plan(w, idx, 8)
+    a, b = md._masked_q4_mma(x, act, qp), md._masked_q4_mma(x, act, qp)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lengths,page", [([5, 1, 0], 64), ([300, 2, 129], 64),

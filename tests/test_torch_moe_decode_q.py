@@ -127,6 +127,25 @@ def test_masked_expert_ffn_q_matches_jax_kernel(kind, n_tok):
     close(got, want)
 
 
+def test_masked_expert_ffn_q4_padding_rows_match_jax_kernel():
+    """B8b at T 8 with routing confined to 2 of the 4 experts: the plan's
+    act has 2 padding rows (the last id repeated, routing weight 0), which
+    the CUDA kernel skips; the output must stay what the TPU kernel gives."""
+    rng = np.random.default_rng(8)
+    jq, tq = _jax_q(_weights(rng), 4)
+    x = normal(rng, 8, D)
+    idx = np.tile(np.array([[1, 3], [3, 1]], np.int32) + E, (4, 1))
+    w = rng.random((8, 2)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    act, m = md._active_expert_plan(t(w), t(idx), E)
+    assert act.tolist() == [E + 1, E + 3, E + 3, E + 3] and not m[2:].any()
+    got = md.masked_expert_ffn_q4(t(x), t(w), t(idx), tq, n_experts=E)
+    with pltpu.force_tpu_interpret_mode():
+        want = j_md.masked_expert_ffn_q4(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx), jq,
+                                         n_experts=E)
+    close(got, want)
+
+
 def test_masked_q_schedule_windows(monkeypatch):
     """Which schedule each batch size takes: int8 masks from T 4, int4
     per-channel from T 8, grouped int4 never."""

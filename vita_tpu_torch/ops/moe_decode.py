@@ -26,13 +26,15 @@ before the down projection whatever x's dtype.
 
 On CUDA tensors every schedule launches the hand-written kernels of
 csrc/expert_ffn.cu (float32 or bfloat16 activations, D and F even; F a
-multiple of 4 for quantized weights); on CPU tensors they run the
-``*_plain`` versions.
+multiple of 4 for quantized weights), except the masked schedule over int4
+experts with bfloat16 activations and per-channel scales, which runs the
+tensor-core kernel of csrc/expert_ffn_q4.cu (D and F multiples of 4); on
+CPU tensors they run the ``*_plain`` versions.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -408,9 +410,60 @@ def masked_expert_ffn_q_plain(x, act, m, qparams, bits: int) -> torch.Tensor:
     return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(x.dtype)
 
 
+def _masked_q4_mma(x, act, qparams) -> torch.Tensor:
+    """bf16 x over per-channel int4 experts on tensor cores
+    (csrc/expert_ffn_q4.cu): y [A, nt, D] with nt = 8 or 16 token slots;
+    padding rows of ``act`` read no weights and give zeros."""
+    wg, wu, wd = (qparams[n] for n in ("w_gate", "w_up", "w_down"))
+    scales = _q_scales(qparams)
+    kernels.require_cuda(x, act, wg, wu, wd, *scales)
+    t, d = x.shape
+    rows, k, f = wg.shape
+    kernels.require(d == 2 * k and wu.shape == wg.shape and wd.shape == (rows, f, k),
+                    "expert weight shapes do not match x")
+    kernels.require(all(w.dtype == torch.int8 for w in (wg, wu, wd))
+                    and scales[0].shape == scales[1].shape == (rows, 1, f)
+                    and scales[2].shape == (rows, 1, d)
+                    and all(s.dtype == torch.float32 for s in scales),
+                    "the int4 tensor-core kernel takes int8-packed weights and per-channel "
+                    "float32 scales")
+    kernels.require(d % 4 == 0 and f % 4 == 0, f"int4 expert kernel needs D and F multiples "
+                    f"of 4, got {d}, {f}")
+    kernels.require(1 <= t <= MASKED_MAX_T and act.dtype == torch.int32 and act.dim() == 1,
+                    f"masked int4 kernel takes 1..{MASKED_MAX_T} tokens and int32 act")
+    a, nt = act.shape[0], 8 if t <= 8 else 16
+    lib = kernels.lib()
+    h = torch.empty(a, nt, f, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(lib.vita_expert_ffn_q4_splits(f), a, nt, d, dtype=torch.float32,
+                       device=x.device)
+    y = torch.empty(a, nt, d, dtype=x.dtype, device=x.device)
+    if a == 0:
+        return y
+    err = lib.vita_expert_ffn_q4(
+        x.data_ptr(), act.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        *(s.data_ptr() for s in scales), h.data_ptr(), part.data_ptr(), y.data_ptr(),
+        a, t, nt, d, f, kernels.stream_of(x))
+    kernels.check_launch(err, "expert_ffn_q4")
+    return y
+
+
+def expert_ffn_q4_info() -> Dict[str, Dict[str, int]]:
+    """Resources of the tensor-core int4 kernels on the current card (up and
+    down at 8 and 16 token slots; ``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_expert_ffn_q4_info,
+                             ("q4 up, 8 slots", "q4 up, 16 slots", "q4 down, 8 slots",
+                              "q4 down, 16 slots"))
+
+
 def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int) -> torch.Tensor:
-    """One kernel row per active expert with all T tokens, int8 or int4."""
-    y = _q_launch(x, *_active_rows(x, act), qparams, bits)
+    """One kernel row per active expert with all T tokens, int8 or int4;
+    bf16 activations over per-channel int4 experts (the serving path's)
+    take the tensor-core kernel."""
+    per_channel = all(qparams[n].shape[-2] == 1 for n in ("w_gate_scale", "w_down_scale"))
+    if bits == 4 and x.dtype == torch.bfloat16 and per_channel:
+        y = _masked_q4_mma(x.contiguous(), act.contiguous(), qparams)
+    else:
+        y = _q_launch(x, *_active_rows(x, act), qparams, bits)
     kernels.launches["masked_expert_ffn" + _q_suffix(bits)] += 1
     return _masked_combine(m, y, x)
 
