@@ -14,6 +14,7 @@ NVIDIA GPU.
     python3 chip_probe.py gmm-small    # B5b at the serving and training steps' R
     python3 chip_probe.py gmm-small-order  # bf16 B5b's tile order: weights-once vs groups of 16
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
+    python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -100,9 +101,16 @@ bits 4) in bf16 at the serving width (D 4096, F 14336, 8 experts, top-2
 routing from the seed) at T 8 and T 16, held against the plain version,
 then timed: CUDA events, median of 25 after 3 warm-ups, and the rate at
 which it streams the distinct experts' bytes (packed weights and scales,
-each read once). Reads only masked_expert_ffn_q_cuda and
+each read once); then each kernel's device time per launch under
+torch.profiler over 10 calls. Reads only masked_expert_ffn_q_cuda and
 _active_expert_plan, which every version since the quantized slice has, so
 it times an older checkout's B8b from beside it, as flash does.
+
+expert-q4-ring: copies of csrc/expert_ffn_q4.cu under build/expert_q4_ring/,
+one per Q4_RING_CHOICES entry (ring stages of the up and down kernels, F
+rows per down block), held against the plain version and timed on
+expert-q4's cases as warps times its choices, then profiled per kernel as
+expert-q4 does.
 
 Each prints the card's name and power limit first.
 """
@@ -511,35 +519,94 @@ def gmm_small_order(card: str) -> None:
               f"{ratio.min():.4f}-{ratio.max():.4f}", flush=True)
 
 
-def expert_q4(card: str) -> None:
+# name: csrc/expert_ffn_q4.cu's (kUpStages, kDownStages, kDownSplitRows)
+Q4_RING_CHOICES = {
+    "up 3 / down 4 stages, 2048 F rows a down block (shipped)": (3, 4, 2048),
+    "up 4 / down 6 stages, 2048 F rows a down block": (4, 6, 2048),
+    "up 3 / down 4 stages, 1024 F rows a down block": (3, 4, 1024),
+}
+
+
+def _kernel_breakdown(run, n: int = 10) -> str:
+    """Each kernel ``run`` launches: device ms per launch and the launches
+    recorded, under torch.profiler over n calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    per = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[_short(e.name)[:40]].append(e.time_range.elapsed_us() / 1e3)
+    return ", ".join(f"{k} {np.mean(v):.4f} ({len(v)})"
+                     for k, v in sorted(per.items(), key=lambda kv: -sum(kv[1])))
+
+
+def _expert_q4_cases(rng, dev):
+    """(label, kernel, plain, distinct experts' bytes) at T 8 and 16 over
+    int4 experts at the serving width."""
     import torch
 
     from vita_tpu_torch.ops import moe_decode as md
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    rng = np.random.default_rng(smoke.SEED)
     d, f = 4096, 14336
-    wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
+    wg, wu, wd = smoke._expert_weights(rng, 8, d, f, torch.bfloat16, dev)
     qp = md.quantize_expert_weights_int4(
         {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd})
     del wg, wu, wd
     torch.cuda.empty_cache()
     # bytes of one expert: packed gate, up and down, and their float32 scales
     per_expert = 3 * d * f // 2 + 4 * (2 * f + d)
+    out = []
     for t in (8, 16):
-        x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, bf16)
-        w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, torch.bfloat16)
+        w, idx = smoke._routing(rng, t, 2, 8, 0, torch.bfloat16, dev)
         act, m = md._active_expert_plan(w, idx, 8)
-        run = lambda x=x, a=act, m=m: md.masked_expert_ffn_q_cuda(x, a, m, qp, 4)
-        smoke.compare(f"B8b T={t}", run(), md.masked_expert_ffn_q_plain(x, act, m, qp, 4),
-                      2e-2, 2e-2)
         n_exp = len(torch.unique(idx))
+        out.append((f"T={t:2d} over {n_exp} experts",
+                    lambda x=x, a=act, m=m: md.masked_expert_ffn_q_cuda(x, a, m, qp, 4),
+                    lambda x=x, a=act, m=m: md.masked_expert_ffn_q_plain(x, a, m, qp, 4),
+                    n_exp * per_expert))
+    return out
+
+
+def expert_q4_ring(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "expert_q4_ring", "expert_ffn_q4.cu",
+                          [dict(zip(("kUpStages", "kDownStages", "kDownSplitRows"), v))
+                           for v in Q4_RING_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    cases = _expert_q4_cases(np.random.default_rng(smoke.SEED), torch.device("cuda"))
+    _sweep(card, list(Q4_RING_CHOICES), libs, [c[:3] for c in cases], "B8b ring and split")
+    for name, lib in zip(Q4_RING_CHOICES, libs):
+        kernels._lib = lib
+        for label, run, _, _ in cases:
+            print(f"    {name}, {label}: {_kernel_breakdown(run)}", flush=True)
+    kernels._lib = None
+
+
+def expert_q4(card: str) -> None:
+    import torch
+
+    for label, run, plain, nbytes in _expert_q4_cases(np.random.default_rng(smoke.SEED),
+                                                      torch.device("cuda")):
+        smoke.compare(f"B8b {label}", run(), plain(), 2e-2, 2e-2)
         ms = smoke.cuda_ms(run)
-        nbytes = n_exp * per_expert
         bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
-        print(f"  B8b bf16 T={t:2d} over {n_exp} experts ({nbytes:.4g} B): {ms:.4f} ms, "
-              f"{nbytes / ms / 1e9:.3f} TB/s, {bound_ms / ms:.3f} of the bytes bound "
-              f"({bound_ms:.4f} ms)  [{card}]", flush=True)
+        print(f"  B8b bf16 {label} ({nbytes:.4g} B): {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
+              f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms)  [{card}]", flush=True)
+        print(f"    device ms per launch (launches): {_kernel_breakdown(run)}", flush=True)
 
 
 def gmm(card: str) -> None:
@@ -680,7 +747,8 @@ def main() -> int:
     modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
-             "gmm-small-order": gmm_small_order, "expert-q4": expert_q4}
+             "gmm-small-order": gmm_small_order, "expert-q4": expert_q4,
+             "expert-q4-ring": expert_q4_ring}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

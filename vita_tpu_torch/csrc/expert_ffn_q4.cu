@@ -51,8 +51,8 @@
 namespace vita {
 namespace {
 
-constexpr int kUpStages = 4;          // ring stages of the up kernel
-constexpr int kDownStages = 6;        // ring stages of the down kernel
+constexpr int kUpStages = 3;          // ring stages of the up kernel
+constexpr int kDownStages = 4;        // ring stages of the down kernel
 constexpr int kDownSplitRows = 2048;  // F rows per down block
 constexpr int kRows = 64;             // k rows per stage
 constexpr int kCols = 128;            // packed columns per block
@@ -74,7 +74,8 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
 // Two nibbles (bits 0-3 of each 16-bit half of u) as a bf16 pair of their
 // signed values: 128 + (n ^ 8) by setting the exponent of 128, minus 136.
 __device__ __forceinline__ uint32_t dq(uint32_t u) {
-  const uint32_t v = (u & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t v;  // (u & 0x000F000F) ^ 0x43084308 as one instruction
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(u), "n"(0x000F000F), "r"(0x43084308));
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
                              __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&r);
@@ -116,38 +117,41 @@ __device__ __forceinline__ void load_stage(uint8_t* dst, const int8_t* const (&w
                                            int k_end, bool vec) {
   constexpr int kW = M * kRows * (kCols / 16);        // weight chunks
   constexpr int kX = XS * NT8 * 8 * (kRows * 2 / 16);  // activation chunks
+  constexpr int kMat = kRows * (kCols / 16);             // chunks of one matrix
+  static_assert(kMat % kThreads == 0, "whole weight chunks per thread");
   const int tid = threadIdx.x;
   if (vec) {
-    for (int i = tid; i < kW + kX; i += kThreads) {
-      const void* src = w[0];
-      int bytes = 0;
-      uint32_t off;
-      if (i < kW) {
-        const int m = i / (kRows * kCols / 16), r = (i / (kCols / 16)) % kRows,
-                  c = (i % (kCols / 16)) * 16;
-        off = (m * kRows + r) * kStride + c;
-        if (k + r < k_end && c0 + c < width) {
-          src = w[m] + (int64_t)(k + r) * ld + c0 + c;
-          bytes = 16;
-        }
-      } else {
-        const int j = i - kW, per = kRows * 2 / 16;
-        const int s = j / (NT8 * 8 * per), tok = (j / per) % (NT8 * 8), e = (j % per) * 8;
-        off = (M * kRows + s * NT8 * 8 + tok) * kStride + 2 * e;
-        // a chunk is 8 values; k_end is a multiple of 8 on this path
-        if (tok < n_tok && k + e < k_end) {
-          src = act + (int64_t)tok * act_ld + s * act_half + k + e;
-          bytes = 16;
-        }
-      }
-      cp_async16(smem_addr(dst + off), src, bytes);
+    // Each thread's chunks sit at places fixed by tid and the unrolled j, so
+    // they are computed once, not once per stage.
+#pragma unroll
+    for (int j = 0; j < kW / kThreads; ++j) {
+      const int m = j * kThreads / kMat, q = j * kThreads % kMat + tid;
+      const int r = q / (kCols / 16), c = q % (kCols / 16) * 16;
+      const bool ok = k + r < k_end && c0 + c < width;
+      cp_async16(smem_addr(dst + (m * kRows + r) * kStride + c),
+                 ok ? static_cast<const void*>(w[m] + (int64_t)(k + r) * ld + c0 + c) : w[0],
+                 ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < (kX + kThreads - 1) / kThreads; ++j) {
+      const int q = j * kThreads + tid, per = kRows * 2 / 16;
+      if (kX % kThreads != 0 && q >= kX) break;
+      const int s = q / (NT8 * 8 * per), tok = q / per % (NT8 * 8), e = q % per * 8;
+      // a chunk is 8 values; k_end is a multiple of 8 on this path
+      const bool ok = tok < n_tok && k + e < k_end;
+      cp_async16(smem_addr(dst + (M * kRows + s * NT8 * 8 + tok) * kStride + 2 * e),
+                 ok ? static_cast<const void*>(act + (int64_t)tok * act_ld + s * act_half + k + e)
+                    : w[0],
+                 ok ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < M * kRows * kCols; i += kThreads) {
-      const int m = i / (kRows * kCols), r = (i / kCols) % kRows, c = i % kCols;
-      const bool ok = k + r < k_end && c0 + c < width;
-      dst[(m * kRows + r) * kStride + c] = ok ? w[m][(int64_t)(k + r) * ld + c0 + c] : 0;
-    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      for (int i = tid; i < kRows * kCols; i += kThreads) {
+        const int r = i / kCols, c = i % kCols;
+        const bool ok = k + r < k_end && c0 + c < width;
+        dst[(m * kRows + r) * kStride + c] = ok ? w[m][(int64_t)(k + r) * ld + c0 + c] : 0;
+      }
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dst + M * kRows * kStride);
     for (int i = tid; i < XS * NT8 * 8 * kRows; i += kThreads) {
       const int s = i / (NT8 * 8 * kRows), tok = (i / kRows) % (NT8 * 8), e = i % kRows;

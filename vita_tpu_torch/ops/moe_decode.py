@@ -429,8 +429,9 @@ def _masked_q4_mma(x, act, qparams) -> torch.Tensor:
                     "float32 scales")
     kernels.require(d % 4 == 0 and f % 4 == 0, f"int4 expert kernel needs D and F multiples "
                     f"of 4, got {d}, {f}")
-    kernels.require(1 <= t <= MASKED_MAX_T and act.dtype == torch.int32 and act.dim() == 1,
-                    f"masked int4 kernel takes 1..{MASKED_MAX_T} tokens and int32 act")
+    kernels.require(x.dtype == torch.bfloat16 and 1 <= t <= MASKED_MAX_T
+                    and act.dtype == torch.int32 and act.dim() == 1,
+                    f"masked int4 kernel takes 1..{MASKED_MAX_T} bf16 tokens and int32 act")
     a, nt = act.shape[0], 8 if t <= 8 else 16
     lib = kernels.lib()
     h = torch.empty(a, nt, f, dtype=torch.bfloat16, device=x.device)
