@@ -15,6 +15,8 @@ NVIDIA GPU.
     python3 chip_probe.py gmm-small-order  # bf16 B5b's tile order: weights-once vs groups of 16
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
     python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
+    python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
+    python3 chip_probe.py paged-splits # splits and ring bytes of B2/B9
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -111,6 +113,22 @@ one per Q4_RING_CHOICES entry (ring stages of the up and down kernels, F
 rows per down block), held against the plain version and timed on
 expert-q4's cases as warps times its choices, then profiled per kernel as
 expert-q4 does.
+
+paged: B2 (bf16 pages of 64) and B9 (int8 pages of 128, bf16 q) at
+PAGED_CASES: phase 2's slots (lengths 1000/37/0/2048), 8 slots of 4096
+keys (the Engine's default max_len), and a served wave of 8 slots of 44-232
+keys (profile's WAVE lengths plus 32 decoded tokens), 32 / 8 heads of
+128, held against the plain version, then timed: CUDA events, median of
+25 after 3 warm-ups, the rate at which it streams the used K/V rows (and
+int8 rows' scales), q and o, and the share of the bytes bound. Reads only
+paged_attention_cuda and chip_smoke's case builders, which every version
+since the quantized slice has, so it times an older checkout's B2/B9 from
+beside it, as flash does.
+
+paged-splits: copies of csrc/paged_attn.cu under build/paged_splits/, one
+per PAGED_CHOICES entry (the most splits of a slot, the ring's bytes),
+held against the plain version and timed on paged's cases as warps times
+its choices.
 
 Each prints the card's name and power limit first.
 """
@@ -609,6 +627,71 @@ def expert_q4(card: str) -> None:
         print(f"    device ms per launch (launches): {_kernel_breakdown(run)}", flush=True)
 
 
+# (label, int8 pages, lengths, page, table entries)
+_SERVED = [n + 32 for n in WAVE]
+PAGED_CASES = (
+    ("B2 B=4 1000/37/0/2048, page 64", False, [1000, 37, 0, 2048], 64, 32),
+    ("B2 B=8 x 4096, page 64", False, [4096] * 8, 64, 64),
+    ("B2 B=8 served wave, page 64", False, _SERVED, 64, 32),
+    ("B9 B=4 1000/37/0/2048, page 128", True, [1000, 37, 0, 2048], 128, 16),
+    ("B9 B=8 x 4096, page 128", True, [4096] * 8, 128, 32),
+    ("B9 B=8 served wave, page 128", True, _SERVED, 128, 16),
+)
+# name: csrc/paged_attn.cu's (kMaxSplits, kRingBytes)
+PAGED_CHOICES = {
+    "8 splits, 48 KB ring (shipped)": (8, "48 * 1024"),
+    "4 splits, 48 KB ring": (4, "48 * 1024"),
+    "8 splits, 96 KB ring": (8, "96 * 1024"),
+}
+
+
+def _paged_cases(rng, dev):
+    """(label, kernel, plain, bytes) for PAGED_CASES; one pool layer, the
+    used rows read once, q read and o written."""
+    import torch
+
+    from vita_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for label, quant, lengths, page, max_pages in PAGED_CASES:
+        n_pool = sum(-(-n // page) for n in lengths) + 2
+        make = smoke._paged_q_case if quant else smoke._paged_case
+        args = make(rng, lengths, 32, 8, 1, n_pool, page, max_pages, torch.bfloat16, dev)
+        n, b = sum(lengths), len(lengths)
+        row = 128 + 4 if quant else 128 * 2
+        nbytes = 2 * n * 8 * row + 2 * b * 32 * 128 * 2
+        out.append((label, lambda a=args: pa.paged_attention_cuda(*a),
+                    lambda a=args: pa.paged_attention_plain(*a), nbytes))
+    return out
+
+
+def paged(card: str) -> None:
+    import torch
+
+    for label, run, plain, nbytes in _paged_cases(np.random.default_rng(smoke.SEED),
+                                                  torch.device("cuda")):
+        err = smoke.compare(label, run(), plain(), 2e-2, 2e-2)
+        ms = smoke.cuda_ms(run)
+        bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
+        print(f"  {label:34s} ({nbytes:.4g} B): {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
+              f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms), max abs err "
+              f"{err:.3e}  [{card}]", flush=True)
+
+
+def paged_splits(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "paged_splits", "paged_attn.cu",
+                          [dict(zip(("kMaxSplits", "kRingBytes"), v))
+                           for v in PAGED_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    cases = _paged_cases(np.random.default_rng(smoke.SEED), torch.device("cuda"))
+    _sweep(card, list(PAGED_CHOICES), libs, [c[:3] for c in cases], "B2/B9 splits and ring")
+
+
 def gmm(card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity
@@ -748,7 +831,7 @@ def main() -> int:
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
              "gmm-small-order": gmm_small_order, "expert-q4": expert_q4,
-             "expert-q4-ring": expert_q4_ring}
+             "expert-q4-ring": expert_q4_ring, "paged": paged, "paged-splits": paged_splits}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -17,7 +17,11 @@ Phases, each of which raises on failure:
      and on rows that are no TMA tensor; B5b as dx at a 1024-token step's
      R), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B8b, on tensor
      cores, is run twice for equal bits, its resources are printed, and
-     two planted faults must fail its tolerance), B9 over int8 pages,
+     two planted faults must fail its tolerance), B9 over int8 pages (bf16
+     B2 and B9 are run twice for equal bits, the split kernel's resources
+     are printed, and two planted faults of the split, built from
+     csrc/paged_attn.cu under build/paged_faults/, must fail their
+     tolerance),
      and the training backward: B10/B11 at a causal 4096-token sequence
      and at the 9216 training bucket, and B12 at a 9216-token step's R
      (tile 512); each bf16 B1, B5a, B5b, B10, B11 and B12 kernel is run
@@ -68,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -232,6 +237,46 @@ def _paged_q_case(rng, lengths, hq, hkv, n_layers, n_pool, page, max_pages, dtyp
     ks, vs = (torch.rand(sshape, generator=gen, device=dev) * 0.02 for _ in range(2))
     q, tables, lengths = _tables_and_q(rng, lengths, hq, n_pool, page, max_pages, dtype, dev)
     return (q, kp, vp, tables, lengths, n_layers - 1, 128 ** -0.5, ks, vs)
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_fault_libs():
+    """csrc/paged_attn.cu built alone with each planted fault of its header
+    (VITA_PAGED_FAULT) under build/paged_faults/: [(what, library)]."""
+    import ctypes
+
+    from vita_tpu_torch import kernels
+
+    root = kernels.BUILD_DIR.parent / "paged_faults"
+    root.mkdir(parents=True, exist_ok=True)
+    faults = {1: "the last split's partial skipped", 2: "each split's last 16 rows dropped"}
+    kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DVITA_PAGED_FAULT={f}",
+                       "-shared", "-o", str(root / f"fault{f}.so"),
+                       str(kernels.CSRC / "paged_attn.cu")] for f in faults])
+    out = []
+    for f, what in faults.items():
+        lib = ctypes.CDLL(str(root / f"fault{f}.so"))
+        for name in ("vita_paged_attn", "vita_paged_attn_q"):
+            getattr(lib, name).argtypes = kernels._SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        out.append((what, lib))
+    return out
+
+
+def _paged_faults(args):
+    """check()'s faults for B2/B9 on ``args``: the wrapper run through each
+    build of _paged_fault_libs."""
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.ops import paged_attention as pa
+
+    def run(lib):
+        saved, kernels._lib = kernels._lib, lib
+        try:
+            return pa.paged_attention_cuda(*args)
+        finally:
+            kernels._lib = saved
+
+    return [(what, lambda lib=lib: run(lib)) for what, lib in _paged_fault_libs()]
 
 
 def _expert_weights(rng, rows, d, f, dtype, dev):
@@ -421,7 +466,9 @@ def kernel_phase(card: str):
               f"spilled bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} "
               f"blocks per SM  [{card}]", flush=True)
 
-    # B2: decode over the serving pool (4 layers, 128 pages of 64)
+    # B2: decode over the serving pool (4 layers, 128 pages of 64). The
+    # timed case must catch two planted faults of the split (_paged_faults)
+    # and, as every bf16 case of B2 and B9, give equal bits twice.
     for case, lengths, dt, timed in (
         ("bf16 B=4 ragged, one inactive", [1000, 37, 0, 2048], bf16, True),
         ("bf16 B=1", [300], bf16, False),
@@ -437,7 +484,16 @@ def kernel_phase(card: str):
         work = (4 * n * hq * 128, (2 * n * hkv * 128 + 2 * len(lengths) * hq * 128)
                 * args[0].element_size())  # the used k/v rows, q, o
         check("paged_attention", case, lambda a=args: pa.paged_attention_cuda(*a),
-              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work)
+              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work,
+              faults=_paged_faults(args) if timed else ())
+        if dt == bf16 and not _same_bits(pa.paged_attention_cuda(*args),
+                                         pa.paged_attention_cuda(*args)):
+            raise AssertionError(f"paged_attention {case}: two launches differ")
+    for name, r in pa.paged_attn_info(32).items():
+        print(f"  paged_attention {name}: {r['registers']} registers, {r['spill_bytes']} "
+              f"spilled bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} "
+              f"blocks per SM, clusters of {r['splits']} at 32 table entries  [{card}]",
+              flush=True)
 
     # B9: decode over an int8 pool (4 layers, 64 pages of 128, the
     # quantized engine's page size), and page 64
@@ -456,7 +512,11 @@ def kernel_phase(card: str):
         work = (4 * n * hq * 128,  # int8 k/v rows with a float32 scale each, q, o
                 2 * n * hkv * (128 + 4) + 2 * len(lengths) * hq * 128 * args[0].element_size())
         check("paged_attention_q", case, lambda a=args: pa.paged_attention_cuda(*a),
-              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work)
+              lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work,
+              faults=_paged_faults(args) if timed else ())
+        if dt == bf16 and not _same_bits(pa.paged_attention_cuda(*args),
+                                         pa.paged_attention_cuda(*args)):
+            raise AssertionError(f"paged_attention_q {case}: two launches differ")
 
     # B3/B4: the selected experts of layer 3 of 4 (flat ids into [L*E, ...])
     for dt, d, f, n_layers in ((bf16, 4096, 14336, 4), (f32, 256, 512, 2)):

@@ -336,6 +336,73 @@ def test_paged_q_kernel_matches_plain(lengths, page, dtype):
     close(got.float().cpu(), want.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _split_case(rng, lengths, page, max_pages, dtype, quant, dev):
+    """Paged attention arguments at the served model's 32 / 8 heads: every
+    slot's pages distinct, the table clamped to max_pages (a length past
+    it is the speculative overshoot), unused entries the sentinel."""
+    hkv, hq = 8, 32
+    n_pool = sum(min(-(-n // page), max_pages) for n in lengths) + 3
+    shape, sshape = (2, hkv, n_pool, page, 128), (2, hkv, n_pool, 1, page)
+    if quant:
+        kp, vp = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev) for _ in range(2))
+        scales = tuple(torch.rand(sshape, device=dev) * 0.02 for _ in range(2))
+    else:
+        kp, vp = (t(normal(rng, *shape)).to(dev, dtype) for _ in range(2))
+        scales = ()
+    tables = np.full((len(lengths), max_pages), n_pool, np.int32)  # sentinel
+    perm, used = rng.permutation(n_pool), 0
+    for i, n in enumerate(lengths):
+        k = min(-(-n // page), max_pages)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    return (t(normal(rng, len(lengths), hq, 128)).to(dev, dtype), kp, vp, t(tables).to(dev),
+            t(lengths, torch.int32).to(dev), 1, 128 ** -0.5, *scales)
+
+
+# (lengths, page, max_pages): long slots over every split, a ragged last
+# page inside the last split; lengths past the table width (max_pages *
+# page) beside short and empty slots
+SPLIT_CASES = {
+    "long_page_64": ([4096, 1, 0, 2047], 64, 64),
+    "long_page_128": ([4096, 1, 0, 2047], 128, 32),
+    "past_table_page_64": ([600, 5, 0, 300], 64, 8),
+    "past_table_page_16": ([40, 0, 33], 16, 2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8_bf16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_paged_split_kernel_matches_plain(case, kind):
+    """B2 (bf16, f32 pages) and B9 (int8 pages, bf16 q) with the keys split
+    over a cluster of blocks."""
+    dev = cuda_or_skip()
+    lengths, page, max_pages = SPLIT_CASES[case]
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    args = _split_case(np.random.default_rng(12), lengths, page, max_pages, dtype,
+                       kind.startswith("int8"), dev)
+    name = "paged_attention_q" if kind.startswith("int8") else "paged_attention"
+    got = _launched(name, lambda: pa.paged_attention_cuda(*args))
+    want = pa.paged_attention_plain(*args)
+    close(got.float().cpu(), want.float().cpu(), atol=TOL[dtype], rtol=TOL[dtype])
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.count_nonzero(got[i]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_split_kernel_is_deterministic(quant):
+    """The splits meet in rank order (no atomics): two launches of B2 and
+    of B9 give the same bits."""
+    dev = cuda_or_skip()
+    args = _split_case(np.random.default_rng(13), [4096, 37, 0, 2047], 64, 64,
+                       torch.bfloat16, quant, dev)
+    a, b = pa.paged_attention_cuda(*args), pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.gpu
 def test_quantized_public_functions_launch_on_cuda_tensors():
     """The quantized entry points take their kernels for CUDA tensors."""

@@ -22,14 +22,17 @@ def _pool_and_tables(rng, lengths, d=D):
     perm = rng.permutation(POOL)
     used = 0
     for i, n in enumerate(lengths):
-        k = -(-n // PAGE)
+        k = min(-(-n // PAGE), MAXP)
         tables[i, :k] = perm[used:used + k]
         used += k
     return kp, vp, tables
 
 
-@pytest.mark.parametrize("lengths", [[5, 1], [8, 13], [17, 0], [32, 3]])
+@pytest.mark.parametrize("lengths", [[5, 1], [8, 13], [17, 0], [32, 3], [40, 0]])
 def test_paged_plain_matches_jax_kernel(lengths):
+    """[40, 0]: a length past the table's MAXP * PAGE = 32 rows (a
+    speculative overshoot; both clamp the pages to the table) beside an
+    empty slot."""
     rng = np.random.default_rng(0)
     kp, vp, tables = _pool_and_tables(rng, lengths)
     q = normal(rng, len(lengths), HQ, D)

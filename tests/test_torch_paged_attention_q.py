@@ -32,7 +32,7 @@ def _tables(rng, lengths, page, max_pages):
     perm = rng.permutation(POOL)
     used = 0
     for i, n in enumerate(lengths):
-        k = -(-n // page)
+        k = min(-(-n // page), max_pages)
         tables[i, :k] = perm[used:used + k]
         used += k
     return tables
@@ -53,10 +53,11 @@ def _attend(q, pool, tables, lengths, layer, interpret):
     return got, want
 
 
-@pytest.mark.parametrize("lengths", [[130, 0, 384, 5], [1, 256]])
+@pytest.mark.parametrize("lengths", [[130, 0, 384, 5], [1, 256], [400, 0]])
 def test_paged_q_plain_matches_jax_kernel(lengths):
     """Page 128: JAX runs _paged_attn_kernel_q in interpret mode; a length
-    of 384 fills the 3-page table, 0 gives zeros."""
+    of 384 fills the 3-page table, 400 runs past it (both clamp the pages
+    to the table), 0 gives zeros."""
     rng = np.random.default_rng(0)
     pool = _int8_pool(rng, 128)
     tables = _tables(rng, lengths, 128, 3)

@@ -1,5 +1,6 @@
 // Paged decode attention over the block-pool KV cache, bf16/f32 or int8
-// pages.
+// pages: split-K ("flash-decoding"), the splits of a (slot, kv head)
+// combined in the same launch across a thread-block cluster.
 //
 // Replaces: vita_tpu/ops/paged_attention.py::_paged_attn_kernel (the
 // bf16/f32 pallas_call in paged_attention) and ::_paged_attn_kernel_q (its
@@ -7,169 +8,403 @@
 // mixtral._attention_block_paged.
 //
 // What bounds it on the H100: bytes. One decode token per slot does about
-// 2 FLOP per byte of K/V it reads, far below the ~295 FLOP/byte at which the
-// tensor cores would become the limit, so the kernel's time is the slot's
-// true K/V length streamed from HBM.
+// 2 * group FLOP per K/V element (4 per byte of bf16 pages at group 4, 8 per
+// byte of int8), far below the ~295 FLOP/byte at which the tensor cores
+// would become the limit, and within the CUDA cores' float32 rate. The
+// kernel's time is the slots' true K/V bytes streamed from HBM, if the keys
+// are spread over enough SMs, 16-byte loads are kept in flight, and few
+// instructions are spent per byte.
 //
-// Design: one block per (slot, kv head), 128 threads, one thread per head
-// dim column. The block walks the slot's page table in order, clamping the
-// page count to the table width and each page id into the pool exactly as
-// the TPU kernel does (unused table entries hold an out-of-range sentinel).
-// Each 32-row piece of a page is staged in shared memory once and serves
-// every q head of the GQA group (group <= 8), so each K/V byte crosses HBM
-// once per group. Scores are masked at rows >= length; an online softmax
-// keeps a running max and sum per q head; length == 0 writes zeros. Pages
-// are visited one after another inside the block; a split-K variant for
-// long contexts with few slots, and cp.async/TMA double buffering, are
-// later work.
+// What it computes (as the TPU kernels): a slot visits n_pages =
+// min(ceil(length / page), max_pages) pages of its table (the clamp matters:
+// a speculative chunk can push length past the allocation); each page id is
+// clamped into the pool (unused entries hold the pool size as a sentinel);
+// s = (q * scale) . k in float32, masked at rows >= length; an online
+// softmax in float32, p kept in float32 into PV; length 0 gives zeros; o is
+// cast to q's dtype. int8 pages carry one f32 scale per (row, kv head),
+// stored [L, Hkv, P, 1, page], and are never dequantized in memory: the k
+// scale multiplies its score, the v scale multiplies p before PV while l
+// sums the unscaled p.
 //
-// int8 pages (KV = int8_t) carry one f32 scale per (row, kv head), stored
-// [L, Hkv, P, 1, page]. The rows are staged as their exact integers beside
-// their scales, and the pages are never dequantized in memory: a k scale
-// multiplies its score column, (q * scale) . k_int8 * k_scale[row]; a v
-// scale folds into p before the PV sum, while the softmax sum l adds the
-// unscaled p. Half of the bf16 pages' bytes cross HBM.
+// Design:
+// - Split: the grid is (B, Hkv, S), S = min(8, max_pages) chosen on the
+//   host from the table width only. Split s of a slot takes pages
+//   [s n / S, (s + 1) n / S) of its n_pages, computed in the kernel from the
+//   device length, so short and long slots both spread over their splits
+//   and no length is read on the host. An empty split (or a slot of length
+//   0) leaves an empty partial: m = -inf, l = 0, acc = 0.
+// - Ring: a split walks its key rows in tiles of 32 rows, whatever the page
+//   size (each row finds its page through the table), staged in their stored
+//   type by 16-byte cp.async from every thread into a ring of 48 KB (3
+//   stages of K + V for bf16 pages, 5 for int8 with their row scales, 2 for
+//   f32). Rows past the split's end are zero-filled and not read.
+// - Math: 128 threads, 8 half-warps; each half-warp takes 4 rows of a tile,
+//   a row's 128 dims spread over its 16 lanes (8 dims a lane), the group's
+//   q rows (scaled, float32) in registers. A score is 8 FMAs and 4 shuffles
+//   per q head; each half-warp keeps its own running max, sum and
+//   accumulator, rescaled once per tile. No block barrier but the ring's
+//   two per tile.
+// - Combine: the half-warps' partials meet in a fixed order, first within
+//   the warp (shuffles), then in shared memory within the block, leaving
+//   one partial per block (m, l, acc[128] per q head). The S blocks of a
+//   (slot, kv head) form one cluster; after a cluster barrier, rank 0 reads
+//   the peers' partials through distributed shared memory in rank order,
+//   rescales each by exp(m_s - m), divides by l and writes o; a second
+//   cluster barrier keeps the peers resident until then. No global
+//   scratch, no second launch, no atomics: two launches give the same bits.
+//
+// VITA_PAGED_FAULT (0 in the shipped kernel) builds a deliberately wrong
+// kernel for chip_smoke.py's check that its tolerance catches a broken
+// split: 1 drops the last split's partial from the combine, 2 drops the
+// last 16 rows of every split's range.
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "common.cuh"
 
+#ifndef VITA_PAGED_FAULT
+#define VITA_PAGED_FAULT 0
+#endif
+
 namespace vita {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kD = 128;
 constexpr int kMaxGroup = 8;
-constexpr int kRows = 32;  // page rows staged per step
-constexpr int kThreads = kD;
+constexpr int kThreads = 128;              // 4 warps, 8 half-warps
+constexpr int kRows = 32;                  // key rows a tile
+constexpr int kRowsPerHalf = kRows / 8;    // rows a half-warp takes in a tile
+constexpr int kMaxSplits = 8;              // the portable cluster size
+constexpr int kRingBytes = 48 * 1024;
 
-template <typename T, typename KV>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
-                  const KV* __restrict__ v_pages,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, T* __restrict__ o,
-                  const int* __restrict__ tables,
-                  const int* __restrict__ lengths, int layer, int Hq, int Hkv,
-                  int n_pool, int page, int max_pages, float scale) {
-  __shared__ float Qs[kMaxGroup][kD];
-  __shared__ float Ks[kRows][kD + 1];
-  __shared__ float Vs[kRows][kD];
-  __shared__ float Ps[kMaxGroup][kRows];
-  __shared__ float Ksc[kRows], Vsc[kRows];  // int8 pages' row scales
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  __shared__ float st_m[kMaxGroup], st_l[kMaxGroup], st_a[kMaxGroup];
+template <typename KV>
+struct Pages {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kRowBytes = kD * (int)sizeof(KV);
+  static constexpr int kTileBytes = kRows * kRowBytes;
+  // K tile, V tile, and for int8 pages the tile's k and v row scales
+  static constexpr int kStageBytes = 2 * kTileBytes + (kQuant ? 2 * kRows * 4 : 0);
+  static constexpr int kStages = kRingBytes / kStageBytes < 2 ? 2 : kRingBytes / kStageBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+};
 
-  const int slot = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int group = Hq / Hkv;
-  const int length = lengths[slot];
-  const int n_pages =
-      length <= 0 ? 0 : min((length + page - 1) / page, max_pages);
+// The head dims of lane li (0-15) of a half-warp, as 8 floats x[e]: dims
+// 8 li .. 8 li + 7, or for float32 rows 4 li .. 4 li + 3 and 64 + 4 li ..
+// 64 + 4 li + 3 (so that each 16-byte load is contiguous across the lanes).
+template <typename KV>
+__device__ __forceinline__ int dim_of(int li, int e) {
+  if (std::is_same<KV, float>::value) return (e / 4) * 64 + li * 4 + e % 4;
+  return li * 8 + e;
+}
 
-  const T* qs = q + ((int64_t)slot * Hq + (int64_t)kvh * group) * kD;
-  for (int i = tid; i < group * kD; i += kThreads)
-    Qs[i / kD][i % kD] = to_f32(qs[i]) * scale;
-  if (tid < kMaxGroup) {
-    st_m[tid] = -INFINITY;
-    st_l[tid] = 0.f;
-  }
-  float acc[kMaxGroup];
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int li, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(row + li * 8);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-  __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* row, int li, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(row + li * 4);
+  const float4 b = *reinterpret_cast<const float4*>(row + 64 + li * 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const int8_t* row, int li, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(row + li * 8);
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+}
+
+template <typename T, typename KV, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                        const KV* __restrict__ v_pages, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, T* __restrict__ o,
+                        const int* __restrict__ tables, const int* __restrict__ lengths,
+                        int layer, int Hq, int Hkv, int n_pool, int page, int max_pages,
+                        float scale) {
+  using P = Pages<KV>;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float part_m[kMaxGroup], part_l[kMaxGroup];
+  __shared__ float part_acc[kMaxGroup][kD];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slot = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, half = tid / 16, li = tid % 16;
+  const int group = Hq / Hkv;
+
+  // this split's key rows [row0, row_end)
+  const int length = lengths[slot];
+  const int n_pages = length <= 0 ? 0 : min((length + page - 1) / page, max_pages);
+  const int p0 = split * n_pages / n_split, p1 = (split + 1) * n_pages / n_split;
+  const int row0 = p0 * page;
+  int row_end = min(p1 * page, length);
+  if (VITA_PAGED_FAULT == 2) row_end -= 16;
+  const int n_rows = max(row_end - row0, 0);
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
 
   const int64_t page_elems = (int64_t)page * kD;
   const int64_t head_off = ((int64_t)layer * Hkv + kvh) * n_pool * page_elems;
+  const int64_t scale_off = ((int64_t)layer * Hkv + kvh) * n_pool * page;
   const int* table = tables + (int64_t)slot * max_pages;
 
-  // scales of this (layer, kv head): [n_pool, page]
-  const int64_t scale_off = ((int64_t)layer * Hkv + kvh) * n_pool * page;
+  // where key row pos of this slot lies in the pool (its page id clamped)
+  auto row_offset = [&](int pos) -> int64_t {
+    const int pid = min(max(table[pos / page], 0), n_pool - 1);
+    return (int64_t)pid * page + pos % page;
+  };
 
-  for (int pi = 0; pi < n_pages; ++pi) {
-    const int pid = min(max(table[pi], 0), n_pool - 1);
-    const KV* kpg = k_pages + head_off + pid * page_elems;
-    const KV* vpg = v_pages + head_off + pid * page_elems;
-    for (int r0 = 0; r0 < page; r0 += kRows) {
-      const int nrows = min(kRows, page - r0);
-      for (int i = tid; i < kRows * kD; i += kThreads) {
-        const int r = i / kD, c = i % kD;
-        const bool ok = r < nrows;
-        Ks[r][c] = ok ? to_f32(kpg[(int64_t)(r0 + r) * kD + c]) : 0.f;
-        Vs[r][c] = ok ? to_f32(vpg[(int64_t)(r0 + r) * kD + c]) : 0.f;
-      }
-      if (kQuant && tid < kRows) {
-        const int64_t si = scale_off + (int64_t)pid * page + r0 + tid;
-        Ksc[tid] = tid < nrows ? k_scale[si] : 0.f;
-        Vsc[tid] = tid < nrows ? v_scale[si] : 0.f;
-      }
-      __syncthreads();
+  auto load_tile = [&](int j, int stage) {
+    unsigned char* base = ring + stage * P::kStageBytes;
+    constexpr int kChunksPerRow = P::kRowBytes / 16;
+    constexpr int kChunks = kRows * kChunksPerRow;
+    static_assert(kChunks % kThreads == 0, "chunks of a tile per thread");
+#pragma unroll
+    for (int i = 0; i < kChunks / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / kChunksPerRow, col = c % kChunksPerRow;
+      const int pos = row0 + j * kRows + r;
+      const bool ok = pos < row_end;
+      const int64_t off = ok ? (head_off + row_offset(pos) * kD) * (int64_t)sizeof(KV) : 0;
+      const int dst = r * P::kRowBytes + col * 16;
+      cp_async16(smem_addr(base + dst), reinterpret_cast<const char*>(k_pages) + off + col * 16,
+                 ok ? 16 : 0);
+      cp_async16(smem_addr(base + P::kTileBytes + dst),
+                 reinterpret_cast<const char*>(v_pages) + off + col * 16, ok ? 16 : 0);
+    }
+    if (P::kQuant && tid < 2 * kRows) {  // k scales (threads 0-31), v scales (32-63)
+      const int pos = row0 + j * kRows + tid % kRows;
+      const bool ok = pos < row_end;
+      const float* src = (tid < kRows ? k_scale : v_scale) + (ok ? scale_off + row_offset(pos) : 0);
+      cp_async4(smem_addr(base + 2 * P::kTileBytes + tid * 4), src, ok ? 4 : 0);
+    }
+  };
 
-      for (int i = tid; i < group * kRows; i += kThreads) {
-        const int g = i / kRows, r = i % kRows;
-        const int kpos = pi * page + r0 + r;
-        float s = -INFINITY;
-        if (r < nrows && kpos < length) {
-          s = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < kD; ++d) s += Qs[g][d] * Ks[r][d];
-          if (kQuant) s *= Ksc[r];
-        }
-        Ps[g][r] = s;
-      }
-      __syncthreads();
+  // the group's q rows at this lane's dims, times scale (heads past the
+  // group, when G rounds it up, are zero and never written)
+  float qf[G][8];
+  const T* qs = q + ((int64_t)slot * Hq + (int64_t)kvh * group) * kD;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      qf[g][e] = g < group ? to_f32(qs[g * kD + dim_of<KV>(li, e)]) * scale : 0.f;
 
-      for (int g = warp; g < group; g += kThreads / 32) {
-        const float s = Ps[g][lane];
-        const float m_old = st_m[g];
-        const float m_new = fmaxf(m_old, warp_max(s));
-        const float p = masked_exp(s, m_new);
-        const float sum = warp_sum(p);
-        Ps[g][lane] = kQuant ? p * Vsc[lane] : p;
-        if (lane == 0) {
-          const float a = rescale(m_old, m_new);
-          st_l[g] = st_l[g] * a + sum;
-          st_m[g] = m_new;
-          st_a[g] = a;
-        }
-      }
-      __syncthreads();
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
 
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < group) {
-          float sum = 0.f;
-#pragma unroll 8
-          for (int r = 0; r < kRows; ++r) sum += Ps[g][r] * Vs[r][tid];
-          acc[g] = acc[g] * st_a[g] + sum;
-        }
+  for (int s = 0; s < P::kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    const int next = j + P::kStages - 1;
+    if (next < n_tiles) load_tile(next, next % P::kStages);
+    cp_async_commit();
+    cp_async_wait<P::kStages - 1>();
+    __syncthreads();
+
+    const unsigned char* base = ring + (j % P::kStages) * P::kStageBytes;
+    const KV* kt = reinterpret_cast<const KV*>(base);
+    const KV* vt = reinterpret_cast<const KV*>(base + P::kTileBytes);
+    const float* sc = reinterpret_cast<const float*>(base + 2 * P::kTileBytes);
+    const int r0 = half * kRowsPerHalf;
+
+    float s[kRowsPerHalf][G];
+#pragma unroll
+    for (int k = 0; k < kRowsPerHalf; ++k) {
+      float x[8];
+      load8(kt + (r0 + k) * kD, li, x);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(qf[g][e], x[e], d);
+        s[k][g] = d;
       }
-      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kRowsPerHalf; ++k) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)  // the 16 lanes of the half-warp
+          s[k][g] += __shfl_xor_sync(0xffffffffu, s[k][g], off);
+      }
+      const bool valid = row0 + j * kRows + r0 + k < row_end;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        s[k][g] = valid ? (P::kQuant ? s[k][g] * sc[r0 + k] : s[k][g]) : -INFINITY;
+    }
+
+    // online softmax, once per tile; s becomes p
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mt = s[0][g];
+#pragma unroll
+      for (int k = 1; k < kRowsPerHalf; ++k) mt = fmaxf(mt, s[k][g]);
+      const float m_new = fmaxf(m[g], mt);
+      const float a = rescale(m[g], m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kRowsPerHalf; ++k) {
+        s[k][g] = masked_exp(s[k][g], m_new);
+        sum += s[k][g];
+      }
+      l[g] = l[g] * a + sum;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] *= a;
+    }
+#pragma unroll
+    for (int k = 0; k < kRowsPerHalf; ++k) {
+      float x[8];
+      load8(vt + (r0 + k) * kD, li, x);
+      const float vs = P::kQuant ? sc[kRows + r0 + k] : 1.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = s[k][g] * vs;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, x[e], acc[g][e]);
+      }
+    }
+    __syncthreads();  // the stage is read before the next load refills it
+  }
+  cp_async_wait<0>();
+
+  // the two half-warps of a warp (the upper one's values into the lower)
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m[g], 16);
+    const float lo = __shfl_xor_sync(0xffffffffu, l[g], 16);
+    const float mx = fmaxf(m[g], mo);
+    const float wa = rescale(m[g], mx), wb = rescale(mo, mx);
+    l[g] = l[g] * wa + lo * wb;
+    m[g] = mx;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
+      acc[g][e] = acc[g][e] * wa + ao * wb;
     }
   }
 
-  T* os = o + ((int64_t)slot * Hq + (int64_t)kvh * group) * kD;
+  // the four warps, in shared memory (the ring is free: the loop ended on a
+  // barrier and every copy has landed)
+  float* red_acc = reinterpret_cast<float*>(ring);  // [4][G][kD]
+  float* red_ml = red_acc + 4 * G * kD;              // [4][G][2]
+  if (tid % 32 < 16) {
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < group) {
-      const float l = st_l[g];
-      os[(int64_t)g * kD + tid] = from_f32<T>(l > 0.f ? acc[g] / l : 0.f);
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red_acc[(warp * G + g) * kD + dim_of<KV>(li, e)] = acc[g][e];
+      if (li == 0) {
+        red_ml[(warp * G + g) * 2] = m[g];
+        red_ml[(warp * G + g) * 2 + 1] = l[g];
+      }
     }
   }
+  __syncthreads();
+  const int d = tid;  // one head dim a thread
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, red_ml[(w * G + g) * 2]);
+    float sl = 0.f, sa = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = rescale(red_ml[(w * G + g) * 2], mx);
+      sl += red_ml[(w * G + g) * 2 + 1] * wt;
+      sa += red_acc[(w * G + g) * kD + d] * wt;
+    }
+    part_acc[g][d] = sa;
+    if (d == 0) {
+      part_m[g] = mx;
+      part_l[g] = sl;
+    }
+  }
+
+  // the splits, in rank order, by rank 0 of the cluster
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int n_used = VITA_PAGED_FAULT == 1 ? n_split - 1 : n_split;
+    T* os = o + ((int64_t)slot * Hq + (int64_t)kvh * group) * kD;
+    for (int g = 0; g < group; ++g) {
+      float mx = -INFINITY;
+      for (int r = 0; r < n_used; ++r) mx = fmaxf(mx, *cluster.map_shared_rank(&part_m[g], r));
+      float sl = 0.f, sa = 0.f;
+      for (int r = 0; r < n_used; ++r) {
+        const float wt = rescale(*cluster.map_shared_rank(&part_m[g], r), mx);
+        sl += *cluster.map_shared_rank(&part_l[g], r) * wt;
+        sa += *cluster.map_shared_rank(&part_acc[g][d], r) * wt;
+      }
+      os[(int64_t)g * kD + d] = from_f32<T>(sl > 0.f ? sa / sl : 0.f);
+    }
+  }
+  cluster.sync();  // the peers' partials stay resident until rank 0 has read them
 }
 
+// Splits of a slot's keys: one per page up to the portable cluster size.
+int n_splits(int max_pages) {
+  return max_pages < 1 ? 1 : max_pages < kMaxSplits ? max_pages : kMaxSplits;
+}
+
+template <typename T, typename KV, int G>
+int launch_group(const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, void* o, const int* tables, const int* lengths, int B,
+                 int layer, int Hq, int Hkv, int n_pool, int page, int max_pages, float scale,
+                 cudaStream_t stream) {
+  auto kernel = paged_attn_split_kernel<T, KV, G>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Pages<KV>::kSmem);
+  if (set != cudaSuccess) return (int)set;
+  const int n_split = n_splits(max_pages);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = n_split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, Hkv, n_split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Pages<KV>::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                                 static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
+                                 static_cast<T*>(o), tables, lengths, layer, Hq, Hkv, n_pool,
+                                 page, max_pages, scale);
+}
+
+// G: the GQA group rounded up to a power of two (heads past it are idle)
 template <typename T, typename KV>
-int launch(const void* q, const void* kp, const void* vp, const float* ks,
-           const float* vs, void* o, const int* tables, const int* lengths,
-           int B, int layer, int Hq, int Hkv, int n_pool, int page,
-           int max_pages, float scale, cudaStream_t stream) {
-  dim3 grid(B, Hkv);
-  paged_attn_kernel<T, KV><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), ks, vs, static_cast<T*>(o), tables,
-      lengths, layer, Hq, Hkv, n_pool, page, max_pages, scale);
-  return (int)cudaGetLastError();
+int launch(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+           void* o, const int* tables, const int* lengths, int B, int layer, int Hq, int Hkv,
+           int n_pool, int page, int max_pages, float scale, cudaStream_t stream) {
+  const int group = Hq / Hkv;
+  auto run = group <= 1   ? launch_group<T, KV, 1>
+             : group <= 2 ? launch_group<T, KV, 2>
+             : group <= 4 ? launch_group<T, KV, 4>
+                          : launch_group<T, KV, 8>;
+  return run(q, kp, vp, ks, vs, o, tables, lengths, B, layer, Hq, Hkv, n_pool, page, max_pages,
+             scale, stream);
 }
 
 }  // namespace
@@ -212,4 +447,20 @@ extern "C" int vita_paged_attn_q(const void* q, const void* k_pages,
   return vita::launch<float, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
                                      o, tables, lengths, B, layer, Hq, Hkv,
                                      n_pool, page, max_pages, scale, s);
+}
+
+// Splits (blocks of a cluster) a launch with this table width takes.
+extern "C" int vita_paged_attn_splits(int max_pages) { return vita::n_splits(max_pages); }
+
+// Resources of the kernel at group 4 (the served model's 32 / 8 heads),
+// which = 0: bf16 pages, 1: int8 pages with bf16 q; out as kernel_info.
+extern "C" int vita_paged_attn_info(int which, int* out) {
+  using vita::Pages;
+  if (which == 0)
+    return vita::kernel_info(
+        (const void*)vita::paged_attn_split_kernel<__nv_bfloat16, __nv_bfloat16, 4>,
+        vita::kThreads, Pages<__nv_bfloat16>::kSmem, out);
+  return vita::kernel_info(
+      (const void*)vita::paged_attn_split_kernel<__nv_bfloat16, int8_t, 4>, vita::kThreads,
+      Pages<int8_t>::kSmem, out);
 }

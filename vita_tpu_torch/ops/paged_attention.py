@@ -14,9 +14,10 @@ indexing raises or writes out of bounds instead: rows of inactive slots,
 page ids at or past the pool size (the sentinel in unused table entries
 and in padded install vectors) and rows past the end of a slot's table.
 
-``paged_attention`` launches the hand-written kernels (csrc/paged_attn.cu,
-head dim 128, group <= 8; the int8 variant when given scales) on CUDA
-tensors and runs ``paged_attention_plain`` on CPU tensors.
+``paged_attention`` launches the hand-written kernel (csrc/paged_attn.cu:
+split-K over up to 8 blocks of a thread-block cluster, head dim 128,
+group <= 8; over int8 pages when given scales) on CUDA tensors and runs
+``paged_attention_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -108,10 +109,21 @@ def paged_attention_plain(q, k_pages, v_pages, tables, lengths, layer: int,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def paged_attn_info(max_pages: int) -> Dict[str, Dict[str, int]]:
+    """Registers, spilled bytes, shared bytes and blocks per SM of the
+    kernel at group 4 over bf16 and int8 pages, and the splits (blocks of a
+    cluster) it launches per (slot, kv head) at this table width."""
+    lib = kernels.lib()
+    info = kernels.resources(lib.vita_paged_attn_info, ("bf16 pages", "int8 pages"))
+    for r in info.values():
+        r["splits"] = lib.vita_paged_attn_splits(int(max_pages))
+    return info
+
+
 def paged_attention_cuda(q, k_pages, v_pages, tables, lengths, layer: int,
                          scale: float, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Launch csrc/paged_attn.cu (see its header for the design): the
-    bf16/f32 kernel, or with row scales its int8 variant."""
+    """Launch csrc/paged_attn.cu (see its header for the design) over
+    bf16/f32 pages, or with row scales over int8 pages."""
     b, hq, d = q.shape
     n_layers, hkv, n_pool, page_size, _ = k_pages.shape
     quant = k_scale is not None
@@ -125,6 +137,8 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, lengths, layer: int,
                     and tables.shape[0] == b and lengths.shape == (b,),
                     "tables [B, max_pages] and lengths [B] must be int32")
     kernels.require(0 <= layer < n_layers, f"layer {layer} outside the pool's {n_layers}")
+    kernels.require(k_pages.data_ptr() % 16 == v_pages.data_ptr() % 16 == 0,
+                    "paged kernel copies 16-byte chunks: the pools must be 16-byte aligned")
     o = torch.empty_like(q)
     args = (tables.data_ptr(), lengths.data_ptr(), b, int(layer), hq, hkv, n_pool,
             page_size, tables.shape[1], float(scale))
