@@ -16,7 +16,7 @@ NVIDIA GPU.
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
     python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
-    python3 chip_probe.py paged-splits # splits and ring bytes of B2/B9
+    python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
 
 profile: chip_smoke.py's full-width 4-layer slice served by two engines on
 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -118,17 +118,20 @@ paged: B2 (bf16 pages of 64) and B9 (int8 pages of 128, bf16 q) at
 PAGED_CASES: phase 2's slots (lengths 1000/37/0/2048), 8 slots of 4096
 keys (the Engine's default max_len), and a served wave of 8 slots of 44-232
 keys (profile's WAVE lengths plus 32 decoded tokens), 32 / 8 heads of
-128, held against the plain version, then timed: CUDA events, median of
-25 after 3 warm-ups, the rate at which it streams the used K/V rows (and
-int8 rows' scales), q and o, and the share of the bytes bound. Reads only
+128, held against the plain version, then timed: CUDA events around one
+call (median of 25 after 3 warm-ups, the wrapper's host work included),
+and the kernel's device time (torch.profiler, median of 25 launches), each
+with the rate at which it streams the used K/V rows (and int8 rows'
+scales), q and o, and its share of the bytes bound. Reads only
 paged_attention_cuda and chip_smoke's case builders, which every version
 since the quantized slice has, so it times an older checkout's B2/B9 from
 beside it, as flash does.
 
-paged-splits: copies of csrc/paged_attn.cu under build/paged_splits/, one
-per PAGED_CHOICES entry (the most splits of a slot, the ring's bytes),
-held against the plain version and timed on paged's cases as warps times
-its choices.
+paged-ring: copies of csrc/paged_attn.cu under build/paged_ring/, one per
+PAGED_CHOICES entry (the ring stages of the tensor-core path over bf16 and
+over int8 pages), held against the plain version, then the kernel's device
+time on paged's cases (torch.profiler, median of 25 launches) with each
+choice, in two passes of opposite orders.
 
 Each prints the card's name and power limit first.
 """
@@ -545,9 +548,9 @@ Q4_RING_CHOICES = {
 }
 
 
-def _kernel_breakdown(run, n: int = 10) -> str:
-    """Each kernel ``run`` launches: device ms per launch and the launches
-    recorded, under torch.profiler over n calls after one warm-up."""
+def _device_times(run, n: int = 10):
+    """{kernel: [device ms of each launch]} of n calls of ``run`` under
+    torch.profiler, after one warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -563,6 +566,13 @@ def _kernel_breakdown(run, n: int = 10) -> str:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per[_short(e.name)[:40]].append(e.time_range.elapsed_us() / 1e3)
+    return per
+
+
+def _kernel_breakdown(run, n: int = 10) -> str:
+    """Each kernel ``run`` launches: device ms per launch and the launches
+    recorded (_device_times)."""
+    per = _device_times(run, n)
     return ", ".join(f"{k} {np.mean(v):.4f} ({len(v)})"
                      for k, v in sorted(per.items(), key=lambda kv: -sum(kv[1])))
 
@@ -637,11 +647,12 @@ PAGED_CASES = (
     ("B9 B=8 x 4096, page 128", True, [4096] * 8, 128, 32),
     ("B9 B=8 served wave, page 128", True, _SERVED, 128, 16),
 )
-# name: csrc/paged_attn.cu's (kMaxSplits, kRingBytes)
+# name: csrc/paged_attn.cu's (kMmaStages, kMmaStagesQ), the ring stages of
+# the tensor-core path over bf16 and int8 pages
 PAGED_CHOICES = {
-    "8 splits, 48 KB ring (shipped)": (8, "48 * 1024"),
-    "4 splits, 48 KB ring": (4, "48 * 1024"),
-    "8 splits, 96 KB ring": (8, "96 * 1024"),
+    "bf16 2 / int8 2 stages": (2, 2),
+    "bf16 3 / int8 4 stages": (3, 4),
+    "bf16 2 / int8 4 stages": (2, 4),
 }
 
 
@@ -665,31 +676,56 @@ def _paged_cases(rng, dev):
     return out
 
 
+def _paged_device_ms(run) -> float:
+    """Median device ms of the paged kernel's launches in _device_times."""
+    per = _device_times(run, 25)
+    return float(np.median([ms for k, v in per.items() if "paged_attn" in k for ms in v]))
+
+
 def paged(card: str) -> None:
     import torch
 
     for label, run, plain, nbytes in _paged_cases(np.random.default_rng(smoke.SEED),
                                                   torch.device("cuda")):
         err = smoke.compare(label, run(), plain(), 2e-2, 2e-2)
-        ms = smoke.cuda_ms(run)
+        ms, dev_ms = smoke.cuda_ms(run), _paged_device_ms(run)
         bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
         print(f"  {label:34s} ({nbytes:.4g} B): {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
-              f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms), max abs err "
-              f"{err:.3e}  [{card}]", flush=True)
+              f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms); device "
+              f"{dev_ms:.4f} ms, {nbytes / dev_ms / 1e9:.3f} TB/s, {bound_ms / dev_ms:.3f}; "
+              f"max abs err {err:.3e}  [{card}]", flush=True)
 
 
-def paged_splits(card: str) -> None:
+def paged_ring(card: str) -> None:
     import torch
 
     from vita_tpu_torch import kernels
 
     t0 = time.time()
-    libs = _build_choices(kernels.BUILD_DIR.parent / "paged_splits", "paged_attn.cu",
-                          [dict(zip(("kMaxSplits", "kRingBytes"), v))
+    libs = _build_choices(kernels.BUILD_DIR.parent / "paged_ring", "paged_attn.cu",
+                          [dict(zip(("kMmaStages", "kMmaStagesQ"), v))
                            for v in PAGED_CHOICES.values()])
     print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
     cases = _paged_cases(np.random.default_rng(smoke.SEED), torch.device("cuda"))
-    _sweep(card, list(PAGED_CHOICES), libs, [c[:3] for c in cases], "B2/B9 splits and ring")
+    for label, run, plain, _ in cases:
+        want = plain()
+        for name, lib in zip(PAGED_CHOICES, libs):
+            kernels._lib = lib
+            smoke.compare(f"{label} with {name}", run(), want, 2e-2, 2e-2)
+    print(f"  device ms per launch (median of 25), passes in opposite orders  [{card}]")
+    ms = collections.defaultdict(list)
+    for order in (range(len(libs)), reversed(range(len(libs)))):
+        for k in order:
+            kernels._lib = libs[k]
+            for label, run, _, _ in cases:
+                ms[(label, k)].append(_paged_device_ms(run))
+    kernels._lib = None
+    for label, _, _, nbytes in cases:
+        print(f"    {label} ({nbytes:.4g} B)", flush=True)
+        for k, name in enumerate(PAGED_CHOICES):
+            a, b = ms[(label, k)]
+            print(f"      {name:34s} {a:.4f}  {b:.4f}  ({nbytes / min(a, b) / 1e9:.3f} TB/s)",
+                  flush=True)
 
 
 def gmm(card: str) -> None:
@@ -831,7 +867,7 @@ def main() -> int:
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
              "gmm-small-order": gmm_small_order, "expert-q4": expert_q4,
-             "expert-q4-ring": expert_q4_ring, "paged": paged, "paged-splits": paged_splits}
+             "expert-q4-ring": expert_q4_ring, "paged": paged, "paged-ring": paged_ring}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

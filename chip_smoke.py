@@ -489,11 +489,11 @@ def kernel_phase(card: str):
         if dt == bf16 and not _same_bits(pa.paged_attention_cuda(*args),
                                          pa.paged_attention_cuda(*args)):
             raise AssertionError(f"paged_attention {case}: two launches differ")
-    for name, r in pa.paged_attn_info(32).items():
+    for name, r in pa.paged_attn_info(4, 8, 32).items():
         print(f"  paged_attention {name}: {r['registers']} registers, {r['spill_bytes']} "
               f"spilled bytes a thread, {r['smem_bytes']} B shared a block, {r['blocks_per_sm']} "
-              f"blocks per SM, clusters of {r['splits']} at 32 table entries  [{card}]",
-              flush=True)
+              f"blocks per SM, clusters of {r['splits']} at B 4, 8 kv heads, 32 table entries"
+              f"  [{card}]", flush=True)
 
     # B9: decode over an int8 pool (4 layers, 64 pages of 128, the
     # quantized engine's page size), and page 64

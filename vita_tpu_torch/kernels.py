@@ -77,8 +77,8 @@ _SIGNATURES = {
     # q, k_pages, v_pages, k_scale, v_scale, o, tables, lengths, B, layer,
     # Hq, Hkv, n_pool, page, max_pages, scale, dtype, stream
     "vita_paged_attn_q": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-    # max_pages -> splits (blocks of a cluster) of a vita_paged_attn(_q) launch
-    "vita_paged_attn_splits": [_I],
+    # B, Hkv, max_pages -> splits (blocks of a cluster) of a vita_paged_attn(_q) launch
+    "vita_paged_attn_splits": [_I] * 3,
     # which (0: bf16 pages, 1: int8 pages), out int[4]
     "vita_paged_attn_info": [_I, _P],
     # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, n_sg, n_sd,

@@ -109,14 +109,15 @@ def paged_attention_plain(q, k_pages, v_pages, tables, lengths, layer: int,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def paged_attn_info(max_pages: int) -> Dict[str, Dict[str, int]]:
+def paged_attn_info(b: int, n_kv_heads: int, max_pages: int) -> Dict[str, Dict[str, int]]:
     """Registers, spilled bytes, shared bytes and blocks per SM of the
-    kernel at group 4 over bf16 and int8 pages, and the splits (blocks of a
-    cluster) it launches per (slot, kv head) at this table width."""
+    kernel at group 4 with bf16 q over bf16 and int8 pages, and the splits
+    (blocks of a cluster) it launches per (slot, kv head) for b slots of
+    n_kv_heads with this table width."""
     lib = kernels.lib()
     info = kernels.resources(lib.vita_paged_attn_info, ("bf16 pages", "int8 pages"))
     for r in info.values():
-        r["splits"] = lib.vita_paged_attn_splits(int(max_pages))
+        r["splits"] = lib.vita_paged_attn_splits(int(b), int(n_kv_heads), int(max_pages))
     return info
 
 
@@ -137,8 +138,9 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, lengths, layer: int,
                     and tables.shape[0] == b and lengths.shape == (b,),
                     "tables [B, max_pages] and lengths [B] must be int32")
     kernels.require(0 <= layer < n_layers, f"layer {layer} outside the pool's {n_layers}")
-    kernels.require(k_pages.data_ptr() % 16 == v_pages.data_ptr() % 16 == 0,
-                    "paged kernel copies 16-byte chunks: the pools must be 16-byte aligned")
+    kernels.require(k_pages.data_ptr() % 16 == v_pages.data_ptr() % 16 == 0
+                    and q.data_ptr() % 4 == 0,
+                    "paged kernel needs 16-byte aligned pools and a 4-byte aligned q")
     o = torch.empty_like(q)
     args = (tables.data_ptr(), lengths.data_ptr(), b, int(layer), hq, hkv, n_pool,
             page_size, tables.shape[1], float(scale))
