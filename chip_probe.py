@@ -13,6 +13,8 @@ NVIDIA GPU.
     python3 chip_probe.py flash-fwd-tiles  # K/V ring stages of bf16 B1
     python3 chip_probe.py gmm-small    # B5b at the serving and training steps' R
     python3 chip_probe.py gmm-small-order  # bf16 B5b's tile order: weights-once vs groups of 16
+    python3 chip_probe.py expert       # bf16 B3 at T 1, 3 and B4 at T 4, 8, 16
+    python3 chip_probe.py expert-ring  # ring, down split and column tile of bf16 B3/B4
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
     python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
@@ -31,10 +33,11 @@ warps: copies of vita_tpu_torch/csrc under build/warps/, each with another
 choice of warps per block in expert_ffn.cu, built together and held
 against the plain versions, then timed on the same inputs (CUDA events,
 median of 25 after 3 warm-ups, two passes in opposite orders): the gather
-schedule at T 1 in bf16, int8 and int4 and the masked one at T 4 in bf16
-and int8, at the serving width (D 4096, F 14336, 8 experts). The masked
-int4 schedule with bf16 activations runs the tensor-core kernel of
-csrc/expert_ffn_q4.cu, not this one, so it is not swept.
+schedule at T 1 in int8 and int4 and the masked one at T 4 in int8, with
+bf16 activations at the serving width (D 4096, F 14336, 8 experts). bf16
+experts and the masked int4 schedule with bf16 activations run the
+tensor-core kernels of csrc/expert_ffn_bf16.cu and csrc/expert_ffn_q4.cu,
+not this one, so they are not swept.
 
 gmm: chip_smoke.py's slice through Generator (max_len 12288, gmm prefill)
 on a prompt of 8500 tokens with one new token, under torch.profiler after
@@ -97,6 +100,26 @@ alternating rounds of one process (CUDA events, median of 25 after 3
 warm-ups each; which goes first alternates): per case the median of each
 and the median, least and largest of the paired ratios. At R 1536 (12 M
 tiles) the two are the same walk, so its ratios show a pair's spread.
+
+expert: bf16 B3 (gather_expert_ffn_cuda) at T 1 and 3 (T 3's pairs sorted
+by expert, as the main path runs them) and B4 (masked_expert_ffn_cuda) at
+T 4, 8 and 16, over 8 bf16 experts at the serving width (D 4096, F 14336,
+top-2 routing from the seed), and B4 at phase 2's shape (T 4 over 5
+distinct experts), held against the plain version, then timed:
+CUDA events (median of 25 after 3 warm-ups), the device time of the
+expert kernels per call and of each kernel per launch (torch.profiler over
+10 calls), and the rate at which each streams the distinct experts'
+weights, with its share of that bytes bound. Reads only the wrappers and
+chip_smoke helpers every version since the first slice has, so it times
+an older checkout's B3/B4 from beside it, as flash does.
+
+expert-ring: copies of csrc/expert_ffn_bf16.cu under build/expert_ring/,
+one per EXPERT_RING_CHOICES entry (ring stages of the up and down kernels,
+k rows a stage, F rows a down block, output columns a block, the L2
+prefetch hint of the weight copies), held against the plain version and
+timed on expert's cases as warps times its choices, then the expert
+kernels' device ms per call with each choice (10 calls under
+torch.profiler, two passes in opposite orders).
 
 expert-q4: B8b, the masked int4 expert FFN (masked_expert_ffn_q_cuda,
 bits 4) in bf16 at the serving width (D 4096, F 14336, 8 experts, top-2
@@ -298,38 +321,22 @@ def warps(card: str) -> None:
     d, f = 4096, 14336
     wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
     stack = {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd}
-    formats = (("bf16", None, 4), ("int8", md.quantize_expert_weights(stack), 4),
-               ("int4", md.quantize_expert_weights_int4(stack), None))
+    q8, q4 = md.quantize_expert_weights(stack), md.quantize_expert_weights_int4(stack)
+    del wg, wu, wd, stack
     cases = []  # (label, kernel, plain)
-    for fmt, qp, t_masked in formats:
+    for fmt, qp, b in (("int8", q8, 8), ("int4", q4, 4)):
         x1 = torch.from_numpy(rng.standard_normal((1, d), np.float32)).to(dev, bf16)
         _, i1 = smoke._routing(rng, 1, 2, 8, 0, bf16, dev)
-        if t_masked is None:  # int4: the masked schedule is csrc/expert_ffn_q4.cu's
-            b = 4
-            cases.append(
-                (f"{fmt} gather T=1",
-                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
-                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_plain(x, i, q, b)))
-            continue
-        xm = torch.from_numpy(rng.standard_normal((t_masked, d), np.float32)).to(dev, bf16)
-        w, im = smoke._routing(rng, t_masked, 2, 8, 0, bf16, dev)
-        act, m = md._active_expert_plan(w, im, 8)
-        if qp is None:
-            cases += [
-                (f"{fmt} gather T=1", lambda x=x1, i=i1: md.gather_expert_ffn_cuda(x, i, wg, wu, wd),
-                 lambda x=x1, i=i1: md.gather_expert_ffn_plain(x, i, wg, wu, wd)),
-                (f"{fmt} masked T={t_masked}",
-                 lambda x=xm, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd),
-                 lambda x=xm, a=act, m=m: md.masked_expert_ffn_plain(x, a, m, wg, wu, wd))]
-        else:
-            b = 8
-            cases += [
-                (f"{fmt} gather T=1",
-                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
-                 lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_plain(x, i, q, b)),
-                (f"{fmt} masked T={t_masked}",
-                 lambda x=xm, a=act, m=m, q=qp, b=b: md.masked_expert_ffn_q_cuda(x, a, m, q, b),
-                 lambda x=xm, a=act, m=m, q=qp, b=b: md.masked_expert_ffn_q_plain(x, a, m, q, b))]
+        cases.append((f"{fmt} gather T=1",
+                      lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
+                      lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_plain(x, i, q, b)))
+    # int8 only: the masked int4 schedule is csrc/expert_ffn_q4.cu's
+    xm = torch.from_numpy(rng.standard_normal((4, d), np.float32)).to(dev, bf16)
+    w, im = smoke._routing(rng, 4, 2, 8, 0, bf16, dev)
+    act, m = md._active_expert_plan(w, im, 8)
+    cases.append(("int8 masked T=4",
+                  lambda: md.masked_expert_ffn_q_cuda(xm, act, m, q8, 8),
+                  lambda: md.masked_expert_ffn_q_plain(xm, act, m, q8, 8)))
     _sweep(card, list(WARP_CHOICES), libs, cases, "up/down warps")
 
 
@@ -540,6 +547,28 @@ def gmm_small_order(card: str) -> None:
               f"{ratio.min():.4f}-{ratio.max():.4f}", flush=True)
 
 
+# name: csrc/expert_ffn_bf16.cu's (kUpStages, kDownStages, kRows,
+# kDownSplitRows, kCols, kL2Prefetch): ring stages of up and down, k rows a
+# stage, F rows a down block, output columns a block, L2 prefetch hint of
+# the weight copies (bytes)
+EXPERT_RING_NAMES = ("kUpStages", "kDownStages", "kRows", "kDownSplitRows", "kCols",
+                     "kL2Prefetch")
+EXPERT_RING_CHOICES = {
+    "3 / 3 stages of 64 rows, 2048 F rows a down block, 128 columns, L2 prefetch 256 B "
+    "(shipped)": (3, 3, 64, 2048, 128, 256),
+    "4 / 4 stages of 32 rows, 2048, 128 (the first kernel's)": (4, 4, 32, 2048, 128, 0),
+    "6 / 6 stages of 32 rows, 2048, 128": (6, 6, 32, 2048, 128, 0),
+    "3 / 3 stages of 64 rows, 2048, 128": (3, 3, 64, 2048, 128, 0),
+    "8 / 8 stages of 16 rows, 2048, 128": (8, 8, 16, 2048, 128, 0),
+    "4 / 4 stages of 32 rows, 1024, 128": (4, 4, 32, 1024, 128, 0),
+    "4 / 6 stages of 32 rows, 4096, 128": (4, 6, 32, 4096, 128, 0),
+    "4 / 4 stages of 32 rows, 2048, 64": (4, 4, 32, 2048, 64, 0),
+    "6 / 8 stages of 32 rows, 2048, 64": (6, 8, 32, 2048, 64, 0),
+    "4 / 4 stages of 32 rows, 2048, 128, L2 prefetch 128 B": (4, 4, 32, 2048, 128, 128),
+    "4 / 4 stages of 32 rows, 2048, 128, L2 prefetch 256 B": (4, 4, 32, 2048, 128, 256),
+}
+
+
 # name: csrc/expert_ffn_q4.cu's (kUpStages, kDownStages, kDownSplitRows)
 Q4_RING_CHOICES = {
     "up 3 / down 4 stages, 2048 F rows a down block (shipped)": (3, 4, 2048),
@@ -569,12 +598,101 @@ def _device_times(run, n: int = 10):
     return per
 
 
-def _kernel_breakdown(run, n: int = 10) -> str:
-    """Each kernel ``run`` launches: device ms per launch and the launches
-    recorded (_device_times)."""
-    per = _device_times(run, n)
+def _kernel_breakdown(per) -> str:
+    """Each kernel of a _device_times record: device ms per launch and the
+    launches recorded."""
     return ", ".join(f"{k} {np.mean(v):.4f} ({len(v)})"
                      for k, v in sorted(per.items(), key=lambda kv: -sum(kv[1])))
+
+
+def _expert_device_ms(per) -> float:
+    """Device ms per call of the expert FFN kernels (up, down, finish) in
+    _device_times' record of 10 calls."""
+    return sum(sum(v) for k, v in per.items() if re.search(r"_(up|down|finish)_kernel", k)) / 10
+
+
+def _expert_cases(rng, dev):
+    """(label, kernel, plain, distinct experts' bytes) of bf16 B3 at T 1
+    and 3 and B4 at T 4, 8 and 16 over 8 experts at the serving width, and
+    B4 at phase 2's shape: T 4 routed over 5 distinct experts (the routing
+    drawn again from the seed until it selects 5)."""
+    import torch
+
+    from vita_tpu_torch.ops import moe_decode as md
+
+    d, f, bf16 = 4096, 14336, torch.bfloat16
+    wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
+
+    def gather(xr, ir):
+        return md.gather_expert_ffn_cuda(xr, ir, wg, wu, wd)
+
+    out = []
+    for t, want_exp in ((1, None), (3, None), (4, None), (4, 5), (8, None), (16, None)):
+        x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, bf16)
+        w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        while want_exp is not None and len(torch.unique(idx)) != want_exp:
+            w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        n_exp = len(torch.unique(idx))
+        if t < 4:  # the pairs sorted by expert at T 2-3, as masked_expert_ffn runs them
+            run = ((lambda x=x, i=idx: gather(x, i)) if t == 1 else
+                   (lambda x=x, i=idx: md._sorted_pair_gather(x, i, gather)))
+            out.append((f"B3 T={t:2d}, {2 * t} rows over {n_exp} experts", run,
+                        lambda x=x, i=idx: md.gather_expert_ffn_plain(x, i, wg, wu, wd),
+                        n_exp * 3 * d * f * 2))
+            continue
+        act, m = md._active_expert_plan(w, idx, 8)
+        out.append((f"B4 T={t:2d}, {len(act)} plan rows over {n_exp} experts",
+                    lambda x=x, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd),
+                    lambda x=x, a=act, m=m: md.masked_expert_ffn_plain(x, a, m, wg, wu, wd),
+                    n_exp * 3 * d * f * 2))
+    return out
+
+
+def _expert_report(card: str, cases) -> None:
+    for label, run, plain, nbytes in cases:
+        err = smoke.compare(label, run(), plain(), 2e-2, 2e-2)
+        ms = smoke.cuda_ms(run)
+        per = _device_times(run)
+        dev_ms = _expert_device_ms(per)
+        bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
+        print(f"  {label} ({nbytes:.4g} B, bound {bound_ms:.4f} ms): {ms:.4f} ms, "
+              f"{nbytes / ms / 1e9:.3f} TB/s, {bound_ms / ms:.3f} of the bound; device "
+              f"{dev_ms:.4f} ms, {nbytes / dev_ms / 1e9:.3f} TB/s, {bound_ms / dev_ms:.3f}; "
+              f"max abs err {err:.3e}  [{card}]", flush=True)
+        print(f"    device ms per launch (launches): {_kernel_breakdown(per)}", flush=True)
+
+
+def expert(card: str) -> None:
+    import torch
+
+    _expert_report(card, _expert_cases(np.random.default_rng(smoke.SEED), torch.device("cuda")))
+
+
+def expert_ring(card: str) -> None:
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    t0 = time.time()
+    libs = _build_choices(kernels.BUILD_DIR.parent / "expert_ring", "expert_ffn_bf16.cu",
+                          [dict(zip(EXPERT_RING_NAMES, v)) for v in EXPERT_RING_CHOICES.values()])
+    print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
+    cases = _expert_cases(np.random.default_rng(smoke.SEED), torch.device("cuda"))
+    _sweep(card, list(EXPERT_RING_CHOICES), libs, [c[:3] for c in cases], "bf16 B3/B4 ring")
+    print(f"  expert kernels' device ms per call (10 calls), passes in opposite orders  [{card}]")
+    ms = collections.defaultdict(list)
+    for order in (range(len(libs)), reversed(range(len(libs)))):
+        for k in order:
+            kernels._lib = libs[k]
+            for label, run, _, _ in cases:
+                ms[(label, k)].append(_expert_device_ms(_device_times(run)))
+    kernels._lib = None
+    for label, _, _, nbytes in cases:
+        print(f"    {label} ({nbytes:.4g} B)", flush=True)
+        for k, name in enumerate(EXPERT_RING_CHOICES):
+            a, b = ms[(label, k)]
+            print(f"      {name:70s} {a:.4f}  {b:.4f}  ({nbytes / min(a, b) / 1e9:.3f} TB/s)",
+                  flush=True)
 
 
 def _expert_q4_cases(rng, dev):
@@ -620,7 +738,7 @@ def expert_q4_ring(card: str) -> None:
     for name, lib in zip(Q4_RING_CHOICES, libs):
         kernels._lib = lib
         for label, run, _, _ in cases:
-            print(f"    {name}, {label}: {_kernel_breakdown(run)}", flush=True)
+            print(f"    {name}, {label}: {_kernel_breakdown(_device_times(run))}", flush=True)
     kernels._lib = None
 
 
@@ -634,7 +752,8 @@ def expert_q4(card: str) -> None:
         bound_ms = nbytes / smoke.PEAK_BYTES_PER_S * 1e3
         print(f"  B8b bf16 {label} ({nbytes:.4g} B): {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
               f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms)  [{card}]", flush=True)
-        print(f"    device ms per launch (launches): {_kernel_breakdown(run)}", flush=True)
+        print(f"    device ms per launch (launches): {_kernel_breakdown(_device_times(run))}",
+              flush=True)
 
 
 # (label, int8 pages, lengths, page, table entries)
@@ -866,7 +985,8 @@ def main() -> int:
     modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
-             "gmm-small-order": gmm_small_order, "expert-q4": expert_q4,
+             "gmm-small-order": gmm_small_order, "expert": expert,
+             "expert-ring": expert_ring, "expert-q4": expert_q4,
              "expert-q4-ring": expert_q4_ring, "paged": paged, "paged-ring": paged_ring}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)

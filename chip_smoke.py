@@ -15,12 +15,16 @@ Phases, each of which raises on failure:
      prefill with 8500 keys, and one decode row over those keys), B2-B4,
      the grouped matmuls B5a/B5b (B5a also as dx at a 9216-token step's R,
      and on rows that are no TMA tensor; B5b as dx at a 1024-token step's
-     R), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B8b, on tensor
-     cores, is run twice for equal bits, its resources are printed, and
-     two planted faults must fail its tolerance), B9 over int8 pages (bf16
-     B2 and B9 are run twice for equal bits, the split kernel's resources
-     are printed, and two planted faults of the split, built from
-     csrc/paged_attn.cu under build/paged_faults/, must fail their
+     R), bf16 B3/B4 on tensor cores (T 1, 3; T 4, 8, 16 and a plan with
+     padding rows, which must give zeros; run twice for equal bits; its
+     resources are printed, and two planted faults, built from
+     csrc/expert_ffn_bf16.cu under build/faults/, must fail its
+     tolerance), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B8b, on
+     tensor cores, is run twice for equal bits, its resources are printed,
+     and two planted faults must fail its tolerance), B9 over int8 pages
+     (bf16 B2 and B9 are run twice for equal bits, the split kernel's
+     resources are printed, and two planted faults of the split, built
+     from csrc/paged_attn.cu under build/faults/, must fail their
      tolerance),
      and the training backward: B10/B11 at a causal 4096-token sequence
      and at the 9216 training bucket, and B12 at a 9216-token step's R
@@ -239,44 +243,57 @@ def _paged_q_case(rng, lengths, hq, hkv, n_layers, n_pool, page, max_pages, dtyp
     return (q, kp, vp, tables, lengths, n_layers - 1, 128 ** -0.5, ks, vs)
 
 
+# Planted faults, each a build of one source with a macro of its header:
+# key: (source, macro, {value: what it breaks}, C functions its wrapper calls)
+FAULTS = {
+    "paged": ("paged_attn.cu", "VITA_PAGED_FAULT",
+              {1: "the last split's partial skipped", 2: "each split's last 16 rows dropped"},
+              ("vita_paged_attn", "vita_paged_attn_q")),
+    "expert": ("expert_ffn_bf16.cu", "VITA_EXPERT_FAULT",
+               {1: "gate/up's last k-step of 16 rows dropped",
+                2: "the last F split's partial of down skipped"},
+               ("vita_expert_ffn_bf16", "vita_expert_ffn_bf16_splits")),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _paged_fault_libs():
-    """csrc/paged_attn.cu built alone with each planted fault of its header
-    (VITA_PAGED_FAULT) under build/paged_faults/: [(what, library)]."""
+def _fault_libs():
+    """Each source of FAULTS built alone with each of its planted faults
+    under build/faults/, all at once: {key: [(what, library)]}."""
     import ctypes
 
     from vita_tpu_torch import kernels
 
-    root = kernels.BUILD_DIR.parent / "paged_faults"
+    root = kernels.BUILD_DIR.parent / "faults"
     root.mkdir(parents=True, exist_ok=True)
-    faults = {1: "the last split's partial skipped", 2: "each split's last 16 rows dropped"}
-    kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DVITA_PAGED_FAULT={f}",
-                       "-shared", "-o", str(root / f"fault{f}.so"),
-                       str(kernels.CSRC / "paged_attn.cu")] for f in faults])
-    out = []
-    for f, what in faults.items():
-        lib = ctypes.CDLL(str(root / f"fault{f}.so"))
-        for name in ("vita_paged_attn", "vita_paged_attn_q"):
-            getattr(lib, name).argtypes = kernels._SIGNATURES[name]
-            getattr(lib, name).restype = ctypes.c_int
-        out.append((what, lib))
+    kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, f"-D{macro}={v}", "-shared",
+                       "-o", str(root / f"{key}{v}.so"), str(kernels.CSRC / src)]
+                      for key, (src, macro, faults, _) in FAULTS.items() for v in faults])
+    out = {}
+    for key, (_, _, faults, names) in FAULTS.items():
+        out[key] = []
+        for v, what in faults.items():
+            lib = ctypes.CDLL(str(root / f"{key}{v}.so"))
+            for name in names:
+                getattr(lib, name).argtypes = kernels._SIGNATURES[name]
+                getattr(lib, name).restype = ctypes.c_int
+            out[key].append((what, lib))
     return out
 
 
-def _paged_faults(args):
-    """check()'s faults for B2/B9 on ``args``: the wrapper run through each
-    build of _paged_fault_libs."""
+def _faults(key, run):
+    """check()'s faults: ``run`` (a wrapper call) through each build of
+    _fault_libs()[key] in place of the kernel library."""
     from vita_tpu_torch import kernels
-    from vita_tpu_torch.ops import paged_attention as pa
 
-    def run(lib):
+    def with_lib(lib):
         saved, kernels._lib = kernels._lib, lib
         try:
-            return pa.paged_attention_cuda(*args)
+            return run()
         finally:
             kernels._lib = saved
 
-    return [(what, lambda lib=lib: run(lib)) for what, lib in _paged_fault_libs()]
+    return [(what, lambda lib=lib: with_lib(lib)) for what, lib in _fault_libs()[key]]
 
 
 def _expert_weights(rng, rows, d, f, dtype, dev):
@@ -467,7 +484,7 @@ def kernel_phase(card: str):
               f"blocks per SM  [{card}]", flush=True)
 
     # B2: decode over the serving pool (4 layers, 128 pages of 64). The
-    # timed case must catch two planted faults of the split (_paged_faults)
+    # timed case must catch two planted faults of the split (FAULTS)
     # and, as every bf16 case of B2 and B9, give equal bits twice.
     for case, lengths, dt, timed in (
         ("bf16 B=4 ragged, one inactive", [1000, 37, 0, 2048], bf16, True),
@@ -485,7 +502,8 @@ def kernel_phase(card: str):
                 * args[0].element_size())  # the used k/v rows, q, o
         check("paged_attention", case, lambda a=args: pa.paged_attention_cuda(*a),
               lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work,
-              faults=_paged_faults(args) if timed else ())
+              faults=_faults("paged", lambda a=args: pa.paged_attention_cuda(*a)) if timed
+              else ())
         if dt == bf16 and not _same_bits(pa.paged_attention_cuda(*args),
                                          pa.paged_attention_cuda(*args)):
             raise AssertionError(f"paged_attention {case}: two launches differ")
@@ -513,36 +531,78 @@ def kernel_phase(card: str):
                 2 * n * hkv * (128 + 4) + 2 * len(lengths) * hq * 128 * args[0].element_size())
         check("paged_attention_q", case, lambda a=args: pa.paged_attention_cuda(*a),
               lambda a=args: pa.paged_attention_plain(*a), dt, timed, work=work,
-              faults=_paged_faults(args) if timed else ())
+              faults=_faults("paged", lambda a=args: pa.paged_attention_cuda(*a)) if timed
+              else ())
         if dt == bf16 and not _same_bits(pa.paged_attention_cuda(*args),
                                          pa.paged_attention_cuda(*args)):
             raise AssertionError(f"paged_attention_q {case}: two launches differ")
 
-    # B3/B4: the selected experts of layer 3 of 4 (flat ids into [L*E, ...])
+    # B3/B4: the selected experts of layer 3 of 4 (flat ids into [L*E, ...]).
+    # bf16 runs the tensor-core kernel of csrc/expert_ffn_bf16.cu: B3 at T 1
+    # and 3, B4 at T 4, 8 (the served wave's) and 16 and on a plan with
+    # padding rows (T 8 routed over 3 experts), each run twice for equal
+    # bits; the timed B3 and B4 cases must catch its two planted faults
+    # (FAULTS), and its resources are printed
     for dt, d, f, n_layers in ((bf16, 4096, 14336, 4), (f32, 256, 512, 2)):
         layer = n_layers - 1
         wg, wu, wd = _expert_weights(rng, n_layers * 8, d, f, dt, dev)
+        bf = dt == bf16
+
         def ffn_work(t, idx, weight_bytes):
             """Top-k FLOPs of T tokens; each distinct expert's weights read
             once (weight_bytes per gate/up/down element, scales included)."""
             n_exp = len(torch.unique(idx))
             return 2 * 3 * t * idx.shape[1] * d * f, n_exp * 3 * d * f * weight_bytes
 
+        def same_bits(case, x, slot_rows, padded):
+            run = lambda: md._expert_ffn_mma(x, *slot_rows, wg, wu, wd, padded)
+            if not _same_bits(run(), run()):
+                raise AssertionError(f"bf16 expert kernel {case}: two launches differ")
+
         for t in (1, 3):
             x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
             _, idx = _routing(rng, t, 2, 8, layer, dt, dev)
-            check("gather_expert_ffn", f"{dt} T={t}",
-                  lambda x=x, i=idx: md.gather_expert_ffn_cuda(x, i, wg, wu, wd),
+            run = lambda x=x, i=idx: md.gather_expert_ffn_cuda(x, i, wg, wu, wd)
+            check("gather_expert_ffn", f"{dt} T={t}", run,
                   lambda x=x, i=idx: md.gather_expert_ffn_plain(x, i, wg, wu, wd),
-                  dt, t == 1 and dt == bf16, work=ffn_work(t, idx, wg.element_size()))
-        for t in (4, 16):
+                  dt, t == 1 and bf, work=ffn_work(t, idx, wg.element_size()),
+                  faults=_faults("expert", run) if t == 1 and bf else ())
+            if bf:
+                same_bits(f"T={t}", x, md._pair_rows(x, idx), False)
+        # (case, T, experts the routing is confined to: None for all 8)
+        plans = [(f"{dt} T={t}", t, None) for t in (4, 8, 16)]
+        if bf:
+            plans.append(("bf16 T=8 over 3 experts, 5 padding rows", 8, 3))
+        for case, t, n_confined in plans:
             x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
-            w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
+            timed = bf and t == 4
+            if n_confined is None:
+                w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
+            else:
+                experts = rng.choice(8, n_confined, replace=False) + 8 * layer
+                idx = np.stack([rng.choice(experts, 2, replace=False) for _ in range(t)])
+                w = rng.random((t, 2)).astype(np.float32)
+                w, idx = (torch.from_numpy(w / w.sum(1, keepdims=True)).to(dev),
+                          torch.from_numpy(idx.astype(np.int32)).to(dev))
             act, m = md._active_expert_plan(w, idx, 8)
-            check("masked_expert_ffn", f"{dt} T={t}",
-                  lambda x=x, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd),
+            run = lambda x=x, a=act, m=m: md.masked_expert_ffn_cuda(x, a, m, wg, wu, wd)
+            check("masked_expert_ffn", case, run,
                   lambda x=x, a=act, m=m: md.masked_expert_ffn_plain(x, a, m, wg, wu, wd),
-                  dt, t == 4 and dt == bf16, work=ffn_work(t, idx, wg.element_size()))
+                  dt, timed, work=ffn_work(t, idx, wg.element_size()),
+                  faults=_faults("expert", run) if timed else ())
+            if bf:
+                plan_rows = md._active_rows(x, act)
+                same_bits(case, x, plan_rows, True)
+                n_real = len(torch.unique(act))
+                y = md._expert_ffn_mma(x, *plan_rows, wg, wu, wd, True)
+                if y[n_real:].any() or not bool(y[:n_real, :t].abs().amax(-1).min() > 0):
+                    raise AssertionError(f"masked_expert_ffn {case}: the plan's {len(act) - n_real}"
+                                         " padding rows must give zeros and no other row")
+        if bf:
+            for name, r in md.expert_ffn_bf16_info().items():
+                print(f"  {name} bf16 mma kernel: {r['registers']} registers, "
+                      f"{r['spill_bytes']} spilled bytes a thread, {r['smem_bytes']} B shared "
+                      f"a block, {r['blocks_per_sm']} blocks per SM  [{card}]", flush=True)
 
         # B6/B7 (gather) and B8a/B8b (masked) over the same experts,
         # quantized layer by layer; grouped int4 only has the gather schedule
@@ -1587,8 +1647,8 @@ def main() -> int:
     meta = {
         "flash_fwd": ("csrc/flash_fwd.cu", "vita_tpu/ops/flash_attention.py:54"),
         "paged_attention": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:95"),
-        "gather_expert_ffn": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:30"),
-        "masked_expert_ffn": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:539"),
+        "gather_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:30"),
+        "masked_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:539"),
         "gather_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:162"),
         "gather_expert_ffn_q4": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:326"),
         "masked_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:627"),

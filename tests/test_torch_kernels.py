@@ -309,6 +309,128 @@ def test_q4_mma_kernel_is_deterministic():
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def _bf16_experts(rng, rows, d, f, dev):
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def w(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).mul_(scale)
+
+    return w((rows, d, f), d ** -0.5), w((rows, d, f), d ** -0.5), w((rows, f, d), f ** -0.5)
+
+
+def _rows_plain(x, eids, toks, wg, wu, wd):
+    """The plain SwiGLU of each row's token slots: y [R, nt, D], zero for
+    an empty slot (-1)."""
+    xs = torch.where(toks[..., None] >= 0, x[toks.clamp(min=0).long()], 0)
+    e = eids.long()
+    return md._swiglu_rows(xs, wg[e], wu[e], wd[e]).to(x.dtype)
+
+
+def _close_bf16(got, want):
+    close(got.float().cpu(), want.float().cpu(), atol=TOL[torch.bfloat16],
+          rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tok", [4, 8, 16])
+def test_bf16_mma_kernel_padding_rows(n_tok):
+    """bf16 B4 at the serving width with routing confined to 3 of 8
+    experts: 5 of the plan's 8 rows are padding; they read no weights and
+    give zeros, and the weighted output matches the plain version."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(10)
+    wg, wu, wd = _bf16_experts(rng, 8, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, n_tok, [1, 4, 6], dev)
+    act, m = md._active_expert_plan(w, idx, 8)
+    assert act.tolist() == [1, 4, 6, 6, 6, 6, 6, 6]
+    eids, toks = md._active_rows(x, act)
+    y = md._expert_ffn_mma(x, eids, toks, wg, wu, wd, True)
+    assert y.shape == (8, toks.shape[1], 4096)
+    assert not y[3:].any() and y[:3, :n_tok].abs().amax(-1).min() > 0
+    _close_bf16(y[:3], _rows_plain(x, eids[:3], toks[:3], wg, wu, wd))
+    got = _launched("masked_expert_ffn", lambda: md.masked_expert_ffn_cuda(x, act, m, wg, wu, wd))
+    _close_bf16(got, md.masked_expert_ffn_plain(x, act, m, wg, wu, wd))
+
+
+@pytest.mark.gpu
+def test_bf16_mma_kernel_empty_token_slots():
+    """Rows whose slots hold -1 between tokens (and a row of only empty
+    slots): those slots give zeros, the others the plain version's
+    outputs; two pieces of F for down, the last ragged."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(11)
+    wg, wu, wd = _bf16_experts(rng, 8, 512, 2304, dev)
+    x = t(normal(rng, 5, 512)).to(dev, torch.bfloat16)
+    eids = torch.tensor([2, 5, 7], dtype=torch.int32, device=dev)
+    toks = torch.tensor([[0, -1, 2, -1, 1, 3, -1, -1], [-1] * 8, [3, 2, 1, 0, -1, -1, -1, 4]],
+                        dtype=torch.int32, device=dev)
+    y = md._expert_ffn_mma(x, eids, toks, wg, wu, wd, False)
+    torch.cuda.synchronize()
+    assert not y[toks < 0].any() and y[toks >= 0].abs().amax(-1).min() > 0
+    _close_bf16(y, _rows_plain(x, eids, toks, wg, wu, wd))
+
+
+@pytest.mark.gpu
+def test_bf16_mma_kernel_gather_rows_repeat_experts():
+    """Gather rows may name the same expert on adjacent rows (pairs sorted
+    by expert): unlike the masked plan's padding, every one is computed.
+    Also through the public function at T 3, whose pairs are sorted."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(12)
+    wg, wu, wd = _bf16_experts(rng, 8, 1024, 2048, dev)
+    x = t(normal(rng, 3, 1024)).to(dev, torch.bfloat16)
+    eids = torch.tensor([3, 3, 5, 5, 5, 0], dtype=torch.int32, device=dev)
+    toks = torch.tensor([[0], [1], [2], [0], [1], [2]], dtype=torch.int32, device=dev)
+    y = md._expert_ffn_mma(x, eids, toks, wg, wu, wd, False)
+    torch.cuda.synchronize()
+    assert y.abs().amax(-1).min() > 0
+    _close_bf16(y, _rows_plain(x, eids, toks, wg, wu, wd))
+    w, idx = _confined_routing(rng, 3, [1, 4], dev)
+    got = _launched("gather_expert_ffn", lambda: md.masked_expert_ffn(x, w, idx, wg, wu, wd, 8))
+    _close_bf16(got, md.masked_expert_ffn(x.cpu(), w.cpu(), idx.cpu(), wg.cpu(), wu.cpu(),
+                                          wd.cpu(), 8))
+
+
+# (D, F): ragged k16-steps and column tiles with 16-byte rows; rows that
+# are no multiple of 16 bytes (staged without cp.async); several pieces of
+# F for down, the last ragged
+NARROW_BF16 = {"ragged_tiles": (200, 648), "odd_widths": (99, 333), "three_f_pieces": (64, 4400)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(NARROW_BF16))
+def test_bf16_mma_kernel_narrow_ragged_widths(case):
+    dev = cuda_or_skip()
+    d, f = NARROW_BF16[case]
+    rng = np.random.default_rng(13)
+    wg, wu, wd = _bf16_experts(rng, 8, d, f, dev)
+    for n_tok in (1, 3, 8, 16):
+        x = t(normal(rng, n_tok, d)).to(dev, torch.bfloat16)
+        w, idx = _confined_routing(rng, n_tok, list(range(8)), dev)
+        got = md.gather_expert_ffn_cuda(x, idx, wg, wu, wd)
+        _close_bf16(got, md.gather_expert_ffn_plain(x, idx, wg, wu, wd))
+        act, m = md._active_expert_plan(w, idx, 8)
+        got = md.masked_expert_ffn_cuda(x, act, m, wg, wu, wd)
+        _close_bf16(got, md.masked_expert_ffn_plain(x, act, m, wg, wu, wd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tok", [1, 16])
+def test_bf16_mma_kernel_is_deterministic(n_tok):
+    """Down's pieces of F meet in a fixed order (no atomics): two launches
+    give the same bits, for B3's pair rows and B4's plan."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(14)
+    wg, wu, wd = _bf16_experts(rng, 8, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, n_tok, list(range(8)), dev)
+    rows = md._pair_rows(x, idx) if n_tok == 1 else md._active_rows(
+        x, md._active_expert_plan(w, idx, 8)[0])
+    a, b = (md._expert_ffn_mma(x, *rows, wg, wu, wd, n_tok > 1) for _ in range(2))
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lengths,page", [([5, 1, 0], 64), ([300, 2, 129], 64),

@@ -14,6 +14,27 @@ from vita_tpu.ops import moe_decode as j_md
 from vita_tpu_torch.ops import moe_decode as md
 
 E, LAYERS, D, F = 4, 2, 64, 256
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _tol(want, dtype):
+    """float32: the shared 1e-4. bfloat16: one bf16 ulp at the output's
+    scale, the least power of two at or above max |want| (2^-6 for outputs
+    up to 2). The plain version rounds gate and up to bf16 before silu, as
+    the JAX CPU twin does, where the Pallas kernel keeps them in float32;
+    with h and y rounded to bf16 after them, that moves an output by up to
+    one such ulp."""
+    if dtype == torch.float32:
+        return {}
+    top = float(np.abs(np.asarray(want, np.float32)).max())
+    return dict(atol=2.0 ** (np.ceil(np.log2(top)) - 7), rtol=0)
+
+
+def _pair(x, dtype):
+    """The same float32 numpy array in ``dtype`` for torch and for jax
+    (both round to nearest even)."""
+    tdt, jdt = DTYPES[dtype]
+    return t(x).to(tdt), jnp.asarray(x).astype(jdt)
 
 
 def _weights(rng):
@@ -28,31 +49,35 @@ def _routing(rng, n_tok, layer=1):
     return w / w.sum(1, keepdims=True), idx.astype(np.int32)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n_tok", [1, 3])
-def test_gather_expert_ffn_matches_jax_kernel(n_tok):
+def test_gather_expert_ffn_matches_jax_kernel(n_tok, dtype):
     rng = np.random.default_rng(0)
-    ws = _weights(rng)
-    x = normal(rng, n_tok, D)
+    ws = [_pair(w, dtype) for w in _weights(rng)]
+    x, jx = _pair(normal(rng, n_tok, D), dtype)
     _, idx = _routing(rng, n_tok)
-    got = md.gather_expert_ffn(t(x), t(idx), *map(t, ws))
-    assert got.shape == (n_tok, 2, D)
+    got = md.gather_expert_ffn(x, t(idx), *(w for w, _ in ws))
+    assert got.shape == (n_tok, 2, D) and got.dtype == x.dtype
     with pltpu.force_tpu_interpret_mode():
-        want = j_md.gather_expert_ffn(jnp.asarray(x), jnp.asarray(idx),
-                                      *map(jnp.asarray, ws), block_f=128)
-    close(got, want)
+        want = j_md.gather_expert_ffn(jx, jnp.asarray(idx), *(w for _, w in ws), block_f=128)
+    close(got.float(), want.astype(jnp.float32), **_tol(want, x.dtype))
 
 
+# F is one block_f: in interpret mode the masked kernel's output block is
+# revisited when F spans several
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n_tok", [1, 2, 4, 16])
-def test_masked_expert_ffn_matches_jax_kernel(n_tok):
+def test_masked_expert_ffn_matches_jax_kernel(n_tok, dtype):
     rng = np.random.default_rng(1)
-    ws = _weights(rng)
-    x = normal(rng, n_tok, D)
+    ws = [_pair(w, dtype) for w in _weights(rng)]
+    x, jx = _pair(normal(rng, n_tok, D), dtype)
     w, idx = _routing(rng, n_tok)
-    got = md.masked_expert_ffn(t(x), t(w), t(idx), *map(t, ws), n_experts=E)
+    got = md.masked_expert_ffn(x, t(w), t(idx), *(w for w, _ in ws), n_experts=E)
+    assert got.dtype == x.dtype
     with pltpu.force_tpu_interpret_mode():
-        want = j_md.masked_expert_ffn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx),
-                                      *map(jnp.asarray, ws), n_experts=E)
-    close(got, want)
+        want = j_md.masked_expert_ffn(jx, jnp.asarray(w), jnp.asarray(idx),
+                                      *(w for _, w in ws), n_experts=E, block_f=F)
+    close(got.float(), want.astype(jnp.float32), **_tol(want, x.dtype))
 
 
 def test_active_expert_plan_matches_jax():

@@ -1,7 +1,9 @@
-// Selected-expert SwiGLU FFN for MoE decode, over bf16/f32, int8 or int4
+// Selected-expert SwiGLU FFN for MoE decode, over float32, int8 or int4
 // expert weights.
 //
-// Replaces every TPU schedule of the same function:
+// Replaces every TPU schedule of the same function (bf16 activations over
+// bf16 experts run csrc/expert_ffn_bf16.cu instead, and over per-channel
+// int4 experts in the masked schedule csrc/expert_ffn_q4.cu):
 //   vita_tpu/ops/moe_decode.py::_gather_ffn_kernel (gather_expert_ffn: one
 //     grid row per (token, k) pair), ::_masked_ffn_kernel (masked_expert_ffn:
 //     one grid row per unique active expert, all tokens of the batch), and
@@ -31,7 +33,7 @@
 // does on the TPU. Tensor cores and deeper load pipelining are later work.
 //
 // Weight formats (the Fmt template parameter):
-//   kPlain: weights in x's dtype; h is rounded to that dtype.
+//   kPlain: float32 weights for float32 x, h in float32.
 //   kInt8:  int8 values with one f32 scale per output column ([rows, 1, F]
 //           for gate/up, [rows, 1, D] for down). The dot runs over the exact
 //           integers and the scale multiplies the sum once; h is rounded to
@@ -49,6 +51,8 @@
 //           _apply_group_scale rounds it. h is rounded to bf16.
 // Quantized weights load V = 4 bytes per lane in the up kernel (2 with 16
 // token slots, to keep the accumulators and shared memory in bounds).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace vita {
@@ -412,8 +416,10 @@ int launch_fmt(int wfmt, int nt, const void* x, const int* eids,
                int D, int F, cudaStream_t stream) {
   switch (wfmt) {
     case kPlain:
-      return launch<T, kPlain>(nt, x, eids, toks, wg, wu, wd, sg, su, sd,
-                               n_sg, n_sd, h, y, R, D, F, stream);
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, kPlain>(nt, x, eids, toks, wg, wu, wd, sg, su, sd,
+                                 n_sg, n_sd, h, y, R, D, F, stream);
+      return (int)cudaErrorInvalidValue;
     case kInt8:
       return launch<T, kInt8>(nt, x, eids, toks, wg, wu, wd, sg, su, sd,
                               n_sg, n_sd, h, y, R, D, F, stream);
@@ -429,8 +435,8 @@ int launch_fmt(int wfmt, int nt, const void* x, const int* eids,
 
 // x [T, D]; eids [R] int32 flat expert ids; toks [R, nt] int32 token index
 // per slot (-1 = empty); scratch h [R, nt, F] and output y [R, nt, D].
-// wfmt 0 (plain): w_gate/w_up [E_rows, D, F] and w_down [E_rows, F, D] in
-// x's dtype, no scales, h in x's dtype. wfmt 1 (int8): the same shapes in
+// wfmt 0 (plain, float32 x only): w_gate/w_up [E_rows, D, F] and w_down
+// [E_rows, F, D] float32, no scales, h float32. wfmt 1 (int8): the same shapes in
 // int8 with f32 scales s_gate/s_up [E_rows, 1, F] and s_down [E_rows, 1, D].
 // wfmt 2 (int4): w_gate/w_up [E_rows, D/2, F], w_down [E_rows, F, D/2],
 // scales s_gate/s_up [E_rows, n_sg, F] and s_down [E_rows, n_sd, D] (one

@@ -84,6 +84,13 @@ _SIGNATURES = {
     # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, n_sg, n_sd,
     # h, y, R, nt, D, F, dtype, wfmt, stream
     "vita_expert_ffn": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+    # x, eids, toks, w_gate, w_up, w_down, h, part, y, R, nt, D, F, padded,
+    # stream (bf16 x over bf16 experts, both schedules)
+    "vita_expert_ffn_bf16": [_P] * 9 + [_I] * 5 + [_P],
+    # F -> pieces of F a down block of vita_expert_ffn_bf16 takes
+    "vita_expert_ffn_bf16_splits": [_I],
+    # which (0, 1: up at 8, 16 token slots; 2, 3: down), out int[4]
+    "vita_expert_ffn_bf16_info": [_I, _P],
     # x, act, w_gate, w_up, w_down, s_gate, s_up, s_down, h, part, y, A, T,
     # nt, D, F, stream (bf16 x, int4 experts, masked schedule)
     "vita_expert_ffn_q4": [_P] * 11 + [_I] * 5 + [_P],

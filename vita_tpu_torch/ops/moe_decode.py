@@ -24,12 +24,15 @@ float32 and a per-column scale multiplies its result (grouped int4 scales
 multiply each value first, rounded to bf16), and h is rounded to bf16
 before the down projection whatever x's dtype.
 
-On CUDA tensors every schedule launches the hand-written kernels of
-csrc/expert_ffn.cu (float32 or bfloat16 activations, D and F even; F a
-multiple of 4 for quantized weights), except the masked schedule over int4
-experts with bfloat16 activations and per-channel scales, which runs the
-tensor-core kernel of csrc/expert_ffn_q4.cu (D and F multiples of 4); on
-CPU tensors they run the ``*_plain`` versions.
+On CUDA tensors both schedules over bfloat16 experts with bfloat16
+activations launch the tensor-core kernel of csrc/expert_ffn_bf16.cu (any
+D and F), and the masked schedule over int4 experts with bfloat16
+activations and per-channel scales the one of csrc/expert_ffn_q4.cu (D and
+F multiples of 4); every other schedule launches the SIMT kernels of
+csrc/expert_ffn.cu (float32 activations over float32 experts, float32 or
+bfloat16 activations over int8/int4 experts; D and F even, F a multiple of
+4 for quantized weights). On CPU tensors they run the ``*_plain``
+versions.
 """
 
 from __future__ import annotations
@@ -69,9 +72,9 @@ def gather_expert_ffn_plain(x, topk_idx, w_gate, w_up, w_down) -> torch.Tensor:
 
 def _expert_ffn_cuda(x, eids, toks, w_gate, w_up, w_down, scales=None,
                      wfmt: int = kernels.WFMT_PLAIN) -> torch.Tensor:
-    """Every schedule's launch: rows of (expert id, token slots), over
-    weights in x's dtype (``scales`` None) or int8/int4 weights with their
-    f32 scales (w_gate_scale, w_up_scale, w_down_scale)."""
+    """The SIMT kernel's launch: rows of (expert id, token slots), over
+    float32 weights for float32 x (``scales`` None) or int8/int4 weights
+    with their f32 scales (w_gate_scale, w_up_scale, w_down_scale)."""
     kernels.require_cuda(x, eids, toks, w_gate, w_up, w_down, *(scales or ()))
     r, nt = toks.shape
     rows, f = w_gate.shape[0], w_gate.shape[2]
@@ -86,7 +89,8 @@ def _expert_ffn_cuda(x, eids, toks, w_gate, w_up, w_down, scales=None,
                     and eids.shape == (r,), "eids [R] and toks [R, nt] must be int32")
     dt = kernels.dtype_code(x)
     if scales is None:
-        kernels.dtype_code(x, w_gate, w_up, w_down)
+        kernels.require(all(t.dtype == torch.float32 for t in (x, w_gate, w_up, w_down)),
+                        "the SIMT expert kernel takes float32 activations and experts")
         kernels.require(all(w.data_ptr() % (2 * w.element_size()) == 0
                             for w in (w_gate, w_up, w_down)),
                         "expert kernel reads element pairs: weights must be 2-element aligned")
@@ -122,6 +126,52 @@ def _expert_ffn_cuda(x, eids, toks, w_gate, w_up, w_down, scales=None,
     return y
 
 
+def _expert_ffn_mma(x, eids, toks, w_gate, w_up, w_down, padded: bool) -> torch.Tensor:
+    """bf16 x over bf16 experts on tensor cores (csrc/expert_ffn_bf16.cu):
+    y [R, nt, D] for rows of (expert id, token slots). With ``padded`` (the
+    masked schedule's plan), a row whose id repeats the previous row's is a
+    padding row: it reads no weights and gives zeros."""
+    kernels.require_cuda(x, eids, toks, w_gate, w_up, w_down)
+    r, nt = toks.shape
+    rows, d, f = w_gate.shape
+    kernels.require(x.shape[1] == d and w_up.shape == w_gate.shape
+                    and w_down.shape == (rows, f, d), "expert weight shapes do not match x")
+    kernels.require(all(w.dtype == torch.bfloat16 for w in (x, w_gate, w_up, w_down)),
+                    "the bf16 expert kernel takes bf16 activations and weights")
+    kernels.require(nt in (1, 2, 4, 8, 16), f"token slots per row must be 1/2/4/8/16, got {nt}")
+    kernels.require(eids.dtype == torch.int32 and toks.dtype == torch.int32
+                    and eids.shape == (r,), "eids [R] and toks [R, nt] must be int32")
+    lib = kernels.lib()
+    h = torch.empty(r, nt, f, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(lib.vita_expert_ffn_bf16_splits(f), r, nt, d, dtype=torch.float32,
+                       device=x.device)
+    y = torch.empty(r, nt, d, dtype=x.dtype, device=x.device)
+    if r == 0:
+        return y
+    err = lib.vita_expert_ffn_bf16(
+        x.data_ptr(), eids.data_ptr(), toks.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+        w_down.data_ptr(), h.data_ptr(), part.data_ptr(), y.data_ptr(), r, nt, d, f,
+        int(padded), kernels.stream_of(x))
+    kernels.check_launch(err, "expert_ffn_bf16")
+    return y
+
+
+def expert_ffn_bf16_info() -> Dict[str, Dict[str, int]]:
+    """Resources of the tensor-core bf16 kernels on the current card (up and
+    down at up to 8 and 16 token slots; ``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_expert_ffn_bf16_info,
+                             ("bf16 up, 8 slots", "bf16 up, 16 slots", "bf16 down, 8 slots",
+                              "bf16 down, 16 slots"))
+
+
+def _expert_rows(x, eids, toks, w_gate, w_up, w_down, padded: bool) -> torch.Tensor:
+    """Both schedules' launch over experts in x's dtype: the tensor-core
+    kernel for bf16 activations, the SIMT kernel for float32."""
+    if x.dtype == torch.bfloat16:
+        return _expert_ffn_mma(x, eids, toks, w_gate, w_up, w_down, padded)
+    return _expert_ffn_cuda(x, eids, toks, w_gate, w_up, w_down)
+
+
 def _pair_rows(x, topk_idx):
     """The gather schedule's rows: (expert id, token) per (token, k) pair."""
     t, k = topk_idx.shape
@@ -133,7 +183,7 @@ def _pair_rows(x, topk_idx):
 def gather_expert_ffn_cuda(x, topk_idx, w_gate, w_up, w_down) -> torch.Tensor:
     """One kernel row per (token, k) pair, one token slot each."""
     t, d = x.shape
-    y = _expert_ffn_cuda(x.contiguous(), *_pair_rows(x, topk_idx), w_gate, w_up, w_down)
+    y = _expert_rows(x.contiguous(), *_pair_rows(x, topk_idx), w_gate, w_up, w_down, False)
     kernels.launches["gather_expert_ffn"] += 1
     return y.reshape(t, topk_idx.shape[1], d)
 
@@ -217,8 +267,9 @@ def _masked_combine(m, y, x) -> torch.Tensor:
 
 
 def masked_expert_ffn_cuda(x, act, m, w_gate, w_up, w_down) -> torch.Tensor:
-    """One kernel row per active expert with all T tokens."""
-    y = _expert_ffn_cuda(x.contiguous(), *_active_rows(x, act), w_gate, w_up, w_down)
+    """One kernel row per active expert with all T tokens; in bf16 the
+    plan's padding rows read no weights."""
+    y = _expert_rows(x.contiguous(), *_active_rows(x, act), w_gate, w_up, w_down, True)
     kernels.launches["masked_expert_ffn"] += 1
     return _masked_combine(m, y, x)
 
