@@ -17,27 +17,29 @@ NVIDIA GPU.
     python3 chip_probe.py expert-ring  # ring, down split and column tile of bf16 B3/B4
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
     python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
+    python3 chip_probe.py expert-q     # bf16 B7 (int4) at T 1, 3 and B8a (int8) at T 4, 8, 16
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
     python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
 
-profile: chip_smoke.py's full-width 4-layer slice served by two engines on
-8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
-pages) under torch.profiler: one text request alone, then eight text
-requests at once, 64 new tokens each, each after a warm-up with the same
-traffic. Prints per run the wall time (profiler overhead included), the
-device time (the sum of the kernels' and copies' durations), the busy
-share (device over wall), the largest device entries and the host's
-kernel launches.
+profile: chip_smoke.py's full-width 4-layer slice served by three engines
+on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
+pages; int8 experts over int8 KV pages) under torch.profiler: one text
+request alone, then eight text requests at once, 64 new tokens each, each
+after a warm-up with the same traffic. Prints per run the wall time
+(profiler overhead included), the device time (the sum of the kernels'
+and copies' durations), the busy share (device over wall), the largest
+device entries and the host's kernel launches.
 
 warps: copies of vita_tpu_torch/csrc under build/warps/, each with another
 choice of warps per block in expert_ffn.cu, built together and held
 against the plain versions, then timed on the same inputs (CUDA events,
 median of 25 after 3 warm-ups, two passes in opposite orders): the gather
-schedule at T 1 in int8 and int4 and the masked one at T 4 in int8, with
-bf16 activations at the serving width (D 4096, F 14336, 8 experts). bf16
-experts and the masked int4 schedule with bf16 activations run the
-tensor-core kernels of csrc/expert_ffn_bf16.cu and csrc/expert_ffn_q4.cu,
-not this one, so they are not swept.
+schedule at T 1 over int8 experts (B6) and over int4 experts with scales
+in groups of 128, with bf16 activations at the serving width (D 4096, F
+14336, 8 experts). bf16 experts, per-channel int4 experts and the masked
+int8 schedule with bf16 activations run the tensor-core kernels of
+csrc/expert_ffn_bf16.cu and csrc/expert_ffn_q.cu, not this one, so they
+are not swept.
 
 gmm: chip_smoke.py's slice through Generator (max_len 12288, gmm prefill)
 on a prompt of 8500 tokens with one new token, under torch.profiler after
@@ -131,11 +133,24 @@ torch.profiler over 10 calls. Reads only masked_expert_ffn_q_cuda and
 _active_expert_plan, which every version since the quantized slice has, so
 it times an older checkout's B8b from beside it, as flash does.
 
-expert-q4-ring: copies of csrc/expert_ffn_q4.cu under build/expert_q4_ring/,
+expert-q4-ring: copies of csrc/expert_ffn_q.cu under build/expert_q4_ring/,
 one per Q4_RING_CHOICES entry (ring stages of the up and down kernels, F
 rows per down block), held against the plain version and timed on
 expert-q4's cases as warps times its choices, then profiled per kernel as
 expert-q4 does.
+
+expert-q: bf16 B7 (gather_expert_ffn_q_cuda over per-channel int4 experts)
+at T 1 and 3 (T 3's pairs sorted by expert, as the main path runs them)
+and B8a (masked_expert_ffn_q_cuda over int8 experts) at T 4 over 5
+distinct experts (phase 2's shape), 8 and 16, at the serving width (D
+4096, F 14336, 8 experts, top-2 routing from the seed), held against the
+plain version, then timed as expert times bf16 B3/B4: CUDA events, the
+expert kernels' device time per call and per launch (torch.profiler over
+10 calls) and the share of the distinct experts' bytes bound (packed
+weights and scales, each read once). Reads only gather_expert_ffn_q_cuda,
+masked_expert_ffn_q_cuda, _active_expert_plan and the plain versions,
+which every version since the quantized slice has, so it times an older
+checkout's SIMT B7/B8a from beside it, as flash does.
 
 paged: B2 (bf16 pages of 64) and B9 (int8 pages of 128, bf16 q) at
 PAGED_CASES: phase 2's slots (lengths 1000/37/0/2048), 8 slots of 4096
@@ -180,6 +195,9 @@ ENGINES = (
      dict(n_slots=8, page_size=64, decode_moe_mode="gather", max_concurrent_prefills=8)),
     ("int4 experts, int8 KV pages",
      dict(n_slots=8, page_size=128, decode_moe_mode="gather_q4", kv_int8=True,
+          max_concurrent_prefills=8)),
+    ("int8 experts, int8 KV pages",
+     dict(n_slots=8, page_size=128, decode_moe_mode="gather_q", kv_int8=True,
           max_concurrent_prefills=8)),
 )
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -321,22 +339,15 @@ def warps(card: str) -> None:
     d, f = 4096, 14336
     wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
     stack = {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd}
-    q8, q4 = md.quantize_expert_weights(stack), md.quantize_expert_weights_int4(stack)
+    q8, q4g = md.quantize_expert_weights(stack), md.quantize_expert_weights_int4(stack, 128)
     del wg, wu, wd, stack
     cases = []  # (label, kernel, plain)
-    for fmt, qp, b in (("int8", q8, 8), ("int4", q4, 4)):
+    for fmt, qp, b in (("int8", q8, 8), ("int4 group 128", q4g, 4)):
         x1 = torch.from_numpy(rng.standard_normal((1, d), np.float32)).to(dev, bf16)
         _, i1 = smoke._routing(rng, 1, 2, 8, 0, bf16, dev)
         cases.append((f"{fmt} gather T=1",
                       lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_cuda(x, i, q, b),
                       lambda x=x1, i=i1, q=qp, b=b: md.gather_expert_ffn_q_plain(x, i, q, b)))
-    # int8 only: the masked int4 schedule is csrc/expert_ffn_q4.cu's
-    xm = torch.from_numpy(rng.standard_normal((4, d), np.float32)).to(dev, bf16)
-    w, im = smoke._routing(rng, 4, 2, 8, 0, bf16, dev)
-    act, m = md._active_expert_plan(w, im, 8)
-    cases.append(("int8 masked T=4",
-                  lambda: md.masked_expert_ffn_q_cuda(xm, act, m, q8, 8),
-                  lambda: md.masked_expert_ffn_q_plain(xm, act, m, q8, 8)))
     _sweep(card, list(WARP_CHOICES), libs, cases, "up/down warps")
 
 
@@ -569,7 +580,7 @@ EXPERT_RING_CHOICES = {
 }
 
 
-# name: csrc/expert_ffn_q4.cu's (kUpStages, kDownStages, kDownSplitRows)
+# name: csrc/expert_ffn_q.cu's (kUpStages, kDownStages, kDownSplitRows)
 Q4_RING_CHOICES = {
     "up 3 / down 4 stages, 2048 F rows a down block (shipped)": (3, 4, 2048),
     "up 4 / down 6 stages, 2048 F rows a down block": (4, 6, 2048),
@@ -729,7 +740,7 @@ def expert_q4_ring(card: str) -> None:
     from vita_tpu_torch import kernels
 
     t0 = time.time()
-    libs = _build_choices(kernels.BUILD_DIR.parent / "expert_q4_ring", "expert_ffn_q4.cu",
+    libs = _build_choices(kernels.BUILD_DIR.parent / "expert_q4_ring", "expert_ffn_q.cu",
                           [dict(zip(("kUpStages", "kDownStages", "kDownSplitRows"), v))
                            for v in Q4_RING_CHOICES.values()])
     print(f"  built {len(libs)} choices in {time.time() - t0:.1f} s", flush=True)
@@ -754,6 +765,64 @@ def expert_q4(card: str) -> None:
               f"{bound_ms / ms:.3f} of the bytes bound ({bound_ms:.4f} ms)  [{card}]", flush=True)
         print(f"    device ms per launch (launches): {_kernel_breakdown(_device_times(run))}",
               flush=True)
+
+
+def _expert_q_cases(rng, dev):
+    """(label, kernel, plain, distinct experts' bytes) of bf16 B7 at T 1 and
+    3 over per-channel int4 experts and B8a at T 4 over 5 distinct experts
+    (the routing drawn again from the seed until it selects 5), 8 and 16
+    over int8 experts, at the serving width."""
+    import torch
+
+    from vita_tpu_torch.ops import moe_decode as md
+
+    d, f, bf16 = 4096, 14336, torch.bfloat16
+    wg, wu, wd = smoke._expert_weights(rng, 8, d, f, bf16, dev)
+    stack = {"router": wg.new_zeros(d, 8), "w_gate": wg, "w_up": wu, "w_down": wd}
+    qps = {4: md.quantize_expert_weights_int4(stack), 8: md.quantize_expert_weights(stack)}
+    del wg, wu, wd, stack
+    torch.cuda.empty_cache()
+
+    def sorted_pairs(x, idx):
+        """B7 over the pairs sorted by expert (as _sorted_pair_gather runs
+        them), through gather_expert_ffn_q_cuda alone."""
+        t, k = idx.shape
+        order = torch.argsort(idx.reshape(-1), stable=True)
+        out = md.gather_expert_ffn_q_cuda(x.repeat_interleave(k, dim=0)[order],
+                                          idx.reshape(-1)[order][:, None], qps[4], 4)
+        return out.reshape(t * k, d)[torch.argsort(order)].reshape(t, k, d)
+
+    out = []
+    for bits, t, want_exp in ((4, 1, None), (4, 3, None), (8, 4, 5), (8, 8, None),
+                              (8, 16, None)):
+        qp = qps[bits]
+        x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, bf16)
+        w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        while want_exp is not None and len(torch.unique(idx)) != want_exp:
+            w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
+        n_exp = len(torch.unique(idx))
+        # packed weights and their float32 scales, each distinct expert once
+        nbytes = n_exp * (3 * d * f * bits // 8 + 4 * (2 * f + d))
+        if bits == 4:
+            run = ((lambda x=x, i=idx, q=qp: md.gather_expert_ffn_q_cuda(x, i, q, 4))
+                   if t == 1 else (lambda x=x, i=idx: sorted_pairs(x, i)))
+            out.append((f"B7 int4 T={t:2d}, {2 * t} rows over {n_exp} experts", run,
+                        lambda x=x, i=idx, q=qp: md.gather_expert_ffn_q_plain(x, i, q, 4),
+                        nbytes))
+            continue
+        act, m = md._active_expert_plan(w, idx, 8)
+        out.append((f"B8a int8 T={t:2d}, {len(act)} plan rows over {n_exp} experts",
+                    lambda x=x, a=act, m=m, q=qp: md.masked_expert_ffn_q_cuda(x, a, m, q, 8),
+                    lambda x=x, a=act, m=m, q=qp: md.masked_expert_ffn_q_plain(x, a, m, q, 8),
+                    nbytes))
+    return out
+
+
+def expert_q(card: str) -> None:
+    import torch
+
+    _expert_report(card, _expert_q_cases(np.random.default_rng(smoke.SEED),
+                                         torch.device("cuda")))
 
 
 # (label, int8 pages, lengths, page, table entries)
@@ -987,7 +1056,8 @@ def main() -> int:
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
              "gmm-small-order": gmm_small_order, "expert": expert,
              "expert-ring": expert_ring, "expert-q4": expert_q4,
-             "expert-q4-ring": expert_q4_ring, "paged": paged, "paged-ring": paged_ring}
+             "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
+             "paged-ring": paged_ring}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

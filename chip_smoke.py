@@ -19,9 +19,12 @@ Phases, each of which raises on failure:
      padding rows, which must give zeros; run twice for equal bits; its
      resources are printed, and two planted faults, built from
      csrc/expert_ffn_bf16.cu under build/faults/, must fail its
-     tolerance), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B8b, on
-     tensor cores, is run twice for equal bits, its resources are printed,
-     and two planted faults must fail its tolerance), B9 over int8 pages
+     tolerance), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B7,
+     B8a and B8b, on tensor cores, are run twice for equal bits, B8a also
+     on a plan with padding rows, which must give zeros; the kernel's
+     resources are printed, two planted faults built from
+     csrc/expert_ffn_q.cu under build/faults/ must fail B7's and B8a's
+     tolerance, and two of B8b's own must fail its), B9 over int8 pages
      (bf16 B2 and B9 are run twice for equal bits, the split kernel's
      resources are printed, and two planted faults of the split, built
      from csrc/paged_attn.cu under build/faults/, must fail their
@@ -253,6 +256,10 @@ FAULTS = {
                {1: "gate/up's last k-step of 16 rows dropped",
                 2: "the last F split's partial of down skipped"},
                ("vita_expert_ffn_bf16", "vita_expert_ffn_bf16_splits")),
+    "expert_q": ("expert_ffn_q.cu", "VITA_EXPERT_Q_FAULT",
+                 {1: "gate/up's last k-step of 16 (packed) rows dropped",
+                  2: "the last F split's partial of down skipped"},
+                 ("vita_expert_ffn_q", "vita_expert_ffn_q_splits")),
 }
 
 
@@ -606,7 +613,13 @@ def kernel_phase(card: str):
 
         # B6/B7 (gather) and B8a/B8b (masked) over the same experts,
         # quantized layer by layer; grouped int4 only has the gather schedule
-        # on the main path (group 128 at the serving width)
+        # on the main path (group 128 at the serving width). In bf16, B7
+        # (int4, T 1 and 3), B8a (int8, T 4 and 16, and a plan with 5 padding
+        # rows) and B8b (int4, T 8 and 16) run the tensor-core kernel of
+        # csrc/expert_ffn_q.cu: each is run twice for equal bits, the plan's
+        # padding rows must give zeros and no other row, B7's and B8a's
+        # cases must catch its two planted faults (FAULTS), B8b's two of its
+        # own (_q4_faults), and its resources are printed
         stack = {"router": wg.new_zeros(d, 8),
                  **{k: w.view(n_layers, 8, *w.shape[1:])
                     for k, w in (("w_gate", wg), ("w_up", wu), ("w_down", wd))}}
@@ -621,34 +634,67 @@ def kernel_phase(card: str):
             # bytes per weight element: the packed value plus its share of the
             # float32 scales (one per output column, or per group of rows)
             qbytes = bits / 8 + (4 / group if "group" in kind else 4 * (2 / d + 1 / f) / 3)
+
+            def q_same_bits(case, x, slot_rows, padded, qp=qp, bits=bits):
+                run = lambda: md._expert_ffn_q_mma(x, *slot_rows, qp, bits, padded)
+                if not _same_bits(run(), run()):
+                    raise AssertionError(f"quantized expert kernel {case}: two launches differ")
+
             for t in (1, 3):
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
                 _, idx = _routing(rng, t, 2, 8, layer, dt, dev)
-                check("gather_expert_ffn" + sfx, f"{kind} {dt} T={t}",
-                      lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_cuda(x, i, q, b),
+                b7 = kind == "int4" and dt == bf16  # B7 on tensor cores
+                run = lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_cuda(x, i, q, b)
+                check("gather_expert_ffn" + sfx, f"{kind} {dt} T={t}", run,
                       lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_plain(x, i, q, b),
-                      dt, t == 1 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes))
-            for t in ((4, 16) if bits == 8 else (8, 16)) if main else ():
+                      dt, t == 1 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes),
+                      faults=_faults("expert_q", run) if b7 else ())
+                if b7:
+                    q_same_bits(f"B7 T={t}", x, md._pair_rows(x, idx), False)
+            # (case, T, experts the routing is confined to: None for all 8)
+            plans = [(f"{kind} {dt} T={t}", t, None)
+                     for t in ((4, 16) if bits == 8 else (8, 16)) if main]
+            if kind == "int8" and dt == bf16:
+                plans.append(("int8 bf16 T=8 over 3 experts, 5 padding rows", 8, 3))
+            for case, t, n_confined in plans:
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
-                w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
+                if n_confined is None:
+                    w, idx = _routing(rng, t, 2, 8, layer, dt, dev)
+                else:
+                    experts = rng.choice(8, n_confined, replace=False) + 8 * layer
+                    idx = np.stack([rng.choice(experts, 2, replace=False) for _ in range(t)])
+                    w = rng.random((t, 2)).astype(np.float32)
+                    w, idx = (torch.from_numpy(w / w.sum(1, keepdims=True)).to(dev),
+                              torch.from_numpy(idx.astype(np.int32)).to(dev))
                 act, m = md._active_expert_plan(w, idx, 8)
-                q4_mma = bits == 4 and dt == bf16  # B8b on tensor cores
-                check("masked_expert_ffn" + sfx, f"{kind} {dt} T={t}",
-                      lambda x=x, a=act, m=m, q=qp, b=bits:
-                          md.masked_expert_ffn_q_cuda(x, a, m, q, b),
+                mma = dt == bf16  # B8a, B8b on tensor cores
+                run = (lambda x=x, a=act, m=m, q=qp, b=bits:
+                       md.masked_expert_ffn_q_cuda(x, a, m, q, b))
+                faults = ()
+                if mma and bits == 8 and n_confined is None:
+                    faults = _faults("expert_q", run)
+                elif mma and bits == 4:
+                    faults = _q4_faults(x, act, m, qp)
+                check("masked_expert_ffn" + sfx, case, run,
                       lambda x=x, a=act, m=m, q=qp, b=bits:
                           md.masked_expert_ffn_q_plain(x, a, m, q, b),
-                      dt, t < 16 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes),
-                      faults=_q4_faults(x, act, m, qp) if q4_mma else ())
-                if q4_mma and not _same_bits(md._masked_q4_mma(x, act, qp),
-                                             md._masked_q4_mma(x, act, qp)):
-                    raise AssertionError(f"masked_expert_ffn_q4 T={t}: two launches differ")
-            if kind == "int4" and dt == bf16:
-                for name, r in md.expert_ffn_q4_info().items():
-                    print(f"  {name} bf16 mma kernel: {r['registers']} registers, "
-                          f"{r['spill_bytes']} spilled bytes a thread, {r['smem_bytes']} B shared "
-                          f"a block, {r['blocks_per_sm']} blocks per SM  [{card}]", flush=True)
+                      dt, t < 16 and n_confined is None and mma, tol_q,
+                      work=ffn_work(t, idx, qbytes), faults=faults)
+                if mma:
+                    plan_rows = md._active_rows(x, act)
+                    q_same_bits(case, x, plan_rows, True)
+                    n_real = len(torch.unique(act))
+                    y = md._expert_ffn_q_mma(x, *plan_rows, qp, bits, True)
+                    if y[n_real:].any() or not bool(y[:n_real, :t].abs().amax(-1).min() > 0):
+                        raise AssertionError(f"masked_expert_ffn{sfx} {case}: the plan's "
+                                             f"{len(act) - n_real} padding rows must give zeros "
+                                             "and no other row")
             del qp
+        if dt == bf16:
+            for name, r in md.expert_ffn_q_info().items():
+                print(f"  {name} quantized mma kernel: {r['registers']} registers, "
+                      f"{r['spill_bytes']} spilled bytes a thread, {r['smem_bytes']} B shared "
+                      f"a block, {r['blocks_per_sm']} blocks per SM  [{card}]", flush=True)
         del wg, wu, wd, stack
         torch.cuda.empty_cache()
 
@@ -1650,9 +1696,9 @@ def main() -> int:
         "gather_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:30"),
         "masked_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:539"),
         "gather_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:162"),
-        "gather_expert_ffn_q4": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:326"),
-        "masked_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:627"),
-        "masked_expert_ffn_q4": ("csrc/expert_ffn_q4.cu", "vita_tpu/ops/moe_decode.py:720"),
+        "gather_expert_ffn_q4": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:326"),
+        "masked_expert_ffn_q": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:627"),
+        "masked_expert_ffn_q4": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:720"),
         "paged_attention_q": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:335"),
         "gmm": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:72"),
         "gmm_small": ("csrc/gmm.cu", "vita_tpu/ops/moe_gmm.py:96"),

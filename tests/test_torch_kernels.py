@@ -255,6 +255,18 @@ def _confined_routing(rng, n_tok, experts, dev):
     return t(w / w.sum(1, keepdims=True)).to(dev), t(idx, torch.int32).to(dev)
 
 
+def _q_rows_plain(x, eids, toks, qp, bits):
+    """The plain quantized SwiGLU of each row's token slots: y [R, nt, D]
+    in x's dtype, zero for an empty slot (-1)."""
+    xs = torch.where(toks[..., None] >= 0, x[toks.clamp(min=0).long()], 0)
+    return md._swiglu_rows_q(xs, qp, eids, bits).to(x.dtype)
+
+
+def _close_q(got, want):
+    close(got.float().cpu(), want.float().cpu(), atol=TOL_Q[torch.bfloat16],
+          rtol=TOL_Q[torch.bfloat16])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_tok", [8, 16])
 def test_q4_mma_kernel_padding_rows(n_tok):
@@ -268,14 +280,106 @@ def test_q4_mma_kernel_padding_rows(n_tok):
     w, idx = _confined_routing(rng, n_tok, [1, 4, 6], dev)
     act, m = md._active_expert_plan(w, idx, 8)
     assert act.tolist() == [1, 4, 6, 6, 6, 6, 6, 6]
-    y = md._masked_q4_mma(x, act, qp)
+    y = md._expert_ffn_q_mma(x, *md._active_rows(x, act), qp, 4, True)
     assert y.shape == (8, 8 if n_tok <= 8 else 16, 4096)
     assert torch.isfinite(y).all() and not y[3:].any()
     got = _launched("masked_expert_ffn_q4", lambda: md.masked_expert_ffn_q_cuda(x, act, m, qp, 4))
     assert not torch.isnan(got).any()
-    want = md.masked_expert_ffn_q_plain(x, act, m, qp, 4)
-    close(got.float().cpu(), want.float().cpu(), atol=TOL_Q[torch.bfloat16],
-          rtol=TOL_Q[torch.bfloat16])
+    _close_q(got, md.masked_expert_ffn_q_plain(x, act, m, qp, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tok", [4, 8, 16])
+def test_q8_mma_kernel_padding_rows(n_tok):
+    """bf16 B8a at the serving width with routing confined to 3 of 8
+    experts: 5 of the plan's 8 rows are padding; they read no weights and
+    give zeros, the other rows the plain version's outputs, and the
+    weighted output matches the plain version."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(15)
+    qp = _quantized_experts(rng, 8, 0, torch.bfloat16, 1, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, n_tok, [0, 2, 5], dev)
+    act, m = md._active_expert_plan(w, idx, 8)
+    assert act.tolist() == [0, 2, 5, 5, 5, 5, 5, 5]
+    eids, toks = md._active_rows(x, act)
+    y = md._expert_ffn_q_mma(x, eids, toks, qp, 8, True)
+    assert y.shape == (8, toks.shape[1], 4096)
+    assert not y[3:].any() and y[:3, :n_tok].abs().amax(-1).min() > 0
+    _close_q(y[:3], _q_rows_plain(x, eids[:3], toks[:3], qp, 8))
+    got = _launched("masked_expert_ffn_q", lambda: md.masked_expert_ffn_q_cuda(x, act, m, qp, 8))
+    _close_q(got, md.masked_expert_ffn_q_plain(x, act, m, qp, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+def test_q_mma_kernel_empty_token_slots(bits):
+    """Rows whose slots hold -1 between tokens (and a row of only empty
+    slots), in int4 and int8: those slots give zeros, the others the plain
+    version's outputs; two pieces of F for down, the last ragged."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(16)
+    qp = _quantized_experts(rng, bits, 0, torch.bfloat16, 1, 512, 2304, dev)
+    x = t(normal(rng, 5, 512)).to(dev, torch.bfloat16)
+    eids = torch.tensor([2, 5, 7], dtype=torch.int32, device=dev)
+    toks = torch.tensor([[0, -1, 2, -1, 1, 3, -1, -1], [-1] * 8, [3, 2, 1, 0, -1, -1, -1, 4]],
+                        dtype=torch.int32, device=dev)
+    y = md._expert_ffn_q_mma(x, eids, toks, qp, bits, False)
+    torch.cuda.synchronize()
+    assert not y[toks < 0].any() and y[toks >= 0].abs().amax(-1).min() > 0
+    _close_q(y, _q_rows_plain(x, eids, toks, qp, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tok", [1, 2, 3])
+def test_q4_mma_kernel_gather_rows_repeat_experts(n_tok):
+    """bf16 B7 at the serving width: pair rows that name the same expert
+    on adjacent rows (pairs sorted by expert) are all computed, unlike the
+    masked plan's padding; then the public function at T 1-3 (pairs sorted
+    from T 2) launches the kernel and matches the CPU."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(17)
+    qp = _quantized_experts(rng, 4, 0, torch.bfloat16, 1, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    eids = torch.tensor([3, 3, 5, 5, 5, 0][:2 * n_tok], dtype=torch.int32, device=dev)
+    toks = torch.tensor([[0], [1], [2], [0], [1], [2]][:2 * n_tok], dtype=torch.int32,
+                        device=dev).clamp(max=n_tok - 1)
+    y = md._expert_ffn_q_mma(x, eids, toks, qp, 4, False)
+    torch.cuda.synchronize()
+    assert y.abs().amax(-1).min() > 0
+    _close_q(y, _q_rows_plain(x, eids, toks, qp, 4))
+    w, idx = _confined_routing(rng, n_tok, [1, 4], dev)
+    got = _launched("gather_expert_ffn_q4", lambda: md.masked_expert_ffn_q4(x, w, idx, qp, 8))
+    cpu = {k: v.cpu() for k, v in qp.items()}
+    _close_q(got, md.masked_expert_ffn_q4(x.cpu(), w.cpu(), idx.cpu(), cpu, 8))
+
+
+# (D, F): ragged k16-steps and column tiles with 16-byte rows; rows that
+# are no multiple of 16 bytes (staged without cp.async); several pieces of
+# F for down, the last ragged
+NARROW_Q = {"ragged_tiles": (200, 648), "unaligned_rows": (100, 332),
+            "three_f_pieces": (64, 4400)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("case", sorted(NARROW_Q))
+def test_q_mma_kernel_narrow_ragged_widths(case, bits):
+    """bf16 B7 (T 1-3) and B8a/B8b (T 4-16; int4 masks from T 8) at narrow
+    widths against the plain versions."""
+    dev = cuda_or_skip()
+    d, f = NARROW_Q[case]
+    rng = np.random.default_rng(18)
+    qp = _quantized_experts(rng, bits, 0, torch.bfloat16, 1, d, f, dev)
+    for n_tok in (1, 3, 4, 8, 16):
+        x = t(normal(rng, n_tok, d)).to(dev, torch.bfloat16)
+        w, idx = _confined_routing(rng, n_tok, list(range(8)), dev)
+        if bits == 4:
+            got = md.gather_expert_ffn_q_cuda(x, idx, qp, 4)
+            _close_q(got, md.gather_expert_ffn_q_plain(x, idx, qp, 4))
+        act, m = md._active_expert_plan(w, idx, 8)
+        got = md.masked_expert_ffn_q_cuda(x, act, m, qp, bits)
+        _close_q(got, md.masked_expert_ffn_q_plain(x, act, m, qp, bits))
 
 
 @pytest.mark.gpu
@@ -290,9 +394,7 @@ def test_q4_mma_kernel_narrow_ragged_widths():
     w, idx = _confined_routing(rng, 8, list(range(8)), dev)
     act, m = md._active_expert_plan(w, idx, 8)
     got = _launched("masked_expert_ffn_q4", lambda: md.masked_expert_ffn_q_cuda(x, act, m, qp, 4))
-    want = md.masked_expert_ffn_q_plain(x, act, m, qp, 4)
-    close(got.float().cpu(), want.float().cpu(), atol=TOL_Q[torch.bfloat16],
-          rtol=TOL_Q[torch.bfloat16])
+    _close_q(got, md.masked_expert_ffn_q_plain(x, act, m, qp, 4))
 
 
 @pytest.mark.gpu
@@ -304,8 +406,27 @@ def test_q4_mma_kernel_is_deterministic():
     qp = _quantized_experts(rng, 4, 0, torch.bfloat16, 1, 4096, 14336, dev)
     x = t(normal(rng, 16, 4096)).to(dev, torch.bfloat16)
     w, idx = _confined_routing(rng, 16, list(range(8)), dev)
-    act, _ = md._active_expert_plan(w, idx, 8)
-    a, b = md._masked_q4_mma(x, act, qp), md._masked_q4_mma(x, act, qp)
+    rows = md._active_rows(x, md._active_expert_plan(w, idx, 8)[0])
+    a, b = (md._expert_ffn_q_mma(x, *rows, qp, 4, True) for _ in range(2))
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,n_tok", [(4, 1), (4, 3), (8, 4), (8, 16)])
+def test_q_mma_kernel_is_deterministic(bits, n_tok):
+    """Two launches give the same bits for B7's pair rows (T 1, and T 3's
+    sorted pairs) and B8a's plan (T 4, 16)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(19)
+    qp = _quantized_experts(rng, bits, 0, torch.bfloat16, 1, 4096, 14336, dev)
+    x = t(normal(rng, n_tok, 4096)).to(dev, torch.bfloat16)
+    w, idx = _confined_routing(rng, n_tok, list(range(8)), dev)
+    if bits == 4:
+        idx = idx.reshape(-1).sort().values.reshape(n_tok, 2)
+        rows, padded = md._pair_rows(x, idx), False
+    else:
+        rows, padded = md._active_rows(x, md._active_expert_plan(w, idx, 8)[0]), True
+    a, b = (md._expert_ffn_q_mma(x, *rows, qp, bits, padded) for _ in range(2))
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 

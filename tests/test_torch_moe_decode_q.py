@@ -19,6 +19,27 @@ from vita_tpu_torch.ops import moe as moe
 from vita_tpu_torch.ops import moe_decode as md
 
 E, LAYERS, D, F = 4, 2, 64, 256
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _x(x, dtype):
+    """The same float32 numpy activations in ``dtype`` for torch and for
+    jax (both round to nearest even)."""
+    tdt, jdt = DTYPES[dtype]
+    return t(x).to(tdt), jnp.asarray(x).astype(jdt)
+
+
+def _tol(want, dtype):
+    """float32: the shared 1e-4. bfloat16: one bf16 ulp at the output's
+    scale, the least power of two at or above max |want|, over 2^7. Both
+    sides take exact products of bf16 x and the integer weights in float32
+    and round h and y to bf16; their float32 sums run in other orders, which
+    can move h across a bf16 rounding boundary and the rounded output by up
+    to one such ulp."""
+    if dtype == "float32":
+        return {}
+    top = float(np.abs(np.asarray(want, np.float32)).max())
+    return dict(atol=2.0 ** (np.ceil(np.log2(top)) - 7), rtol=0)
 
 
 def _weights(rng, layers=LAYERS):
@@ -91,40 +112,45 @@ GATHER_CASES = {  # name: (bits, group)
 }
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n_tok", [1, 3])
 @pytest.mark.parametrize("kind", sorted(GATHER_CASES))
-def test_gather_expert_ffn_q_matches_jax_kernel(kind, n_tok):
-    """B6 (int8) and B7 (int4, per-channel fold and grouped pre-multiply)."""
+def test_gather_expert_ffn_q_matches_jax_kernel(kind, n_tok, dtype):
+    """B6 (int8) and B7 (int4, per-channel fold and grouped pre-multiply),
+    over float32 and bf16 activations (the serving path's)."""
     bits, group = GATHER_CASES[kind]
     rng = np.random.default_rng(3)
     jq, tq = _jax_q(_weights(rng), bits, group)
-    x = normal(rng, n_tok, D)
+    x, jx = _x(normal(rng, n_tok, D), dtype)
     _, idx = _routing(rng, n_tok)
     fn, jfn = ((md.gather_expert_ffn_q, j_md.gather_expert_ffn_q) if bits == 8
                else (md.gather_expert_ffn_q4, j_md.gather_expert_ffn_q4))
-    got = fn(t(x), t(idx), tq)
-    assert got.shape == (n_tok, 2, D) and got.dtype == torch.float32
+    got = fn(x, t(idx), tq)
+    assert got.shape == (n_tok, 2, D) and got.dtype == x.dtype
     with pltpu.force_tpu_interpret_mode():
-        want = jfn(jnp.asarray(x), jnp.asarray(idx), jq)
-    close(got, want)
+        want = jfn(jx, jnp.asarray(idx), jq)
+    close(got.float(), want.astype(jnp.float32), **_tol(want, dtype))
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n_tok", [4, 8, 16])
 @pytest.mark.parametrize("kind", sorted(GATHER_CASES))
-def test_masked_expert_ffn_q_matches_jax_kernel(kind, n_tok):
+def test_masked_expert_ffn_q_matches_jax_kernel(kind, n_tok, dtype):
     """B8a (int8, T >= 4) and B8b (int4 per-channel, T >= 8); int4 at T 4
-    and grouped int4 take the per-pair schedule (B7) in both packages."""
+    and grouped int4 take the per-pair schedule (B7) in both packages;
+    over float32 and bf16 activations (the serving path's)."""
     bits, group = GATHER_CASES[kind]
     rng = np.random.default_rng(4)
     jq, tq = _jax_q(_weights(rng), bits, group)
-    x = normal(rng, n_tok, D)
+    x, jx = _x(normal(rng, n_tok, D), dtype)
     w, idx = _routing(rng, n_tok)
     fn, jfn = ((md.masked_expert_ffn_q, j_md.masked_expert_ffn_q) if bits == 8
                else (md.masked_expert_ffn_q4, j_md.masked_expert_ffn_q4))
-    got = fn(t(x), t(w), t(idx), tq, n_experts=E)
+    got = fn(x, t(w), t(idx), tq, n_experts=E)
+    assert got.dtype == x.dtype
     with pltpu.force_tpu_interpret_mode():
-        want = jfn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx), jq, n_experts=E)
-    close(got, want)
+        want = jfn(jx, jnp.asarray(w), jnp.asarray(idx), jq, n_experts=E)
+    close(got.float(), want.astype(jnp.float32), **_tol(want, dtype))
 
 
 def test_masked_expert_ffn_q4_padding_rows_match_jax_kernel():
@@ -144,6 +170,25 @@ def test_masked_expert_ffn_q4_padding_rows_match_jax_kernel():
         want = j_md.masked_expert_ffn_q4(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx), jq,
                                          n_experts=E)
     close(got, want)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_masked_expert_ffn_q_padding_rows_match_jax_kernel(dtype):
+    """B8a at T 4 with routing confined to 2 of the 4 experts: the plan's
+    act has 2 padding rows (the last id repeated, routing weight 0), which
+    the CUDA kernel skips; the output must stay what the TPU kernel gives."""
+    rng = np.random.default_rng(9)
+    jq, tq = _jax_q(_weights(rng), 8)
+    x, jx = _x(normal(rng, 4, D), dtype)
+    idx = np.tile(np.array([[0, 2], [2, 0]], np.int32) + E, (2, 1))
+    w = rng.random((4, 2)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    act, m = md._active_expert_plan(t(w), t(idx), E)
+    assert act.tolist() == [E, E + 2, E + 2, E + 2] and not m[2:].any()
+    got = md.masked_expert_ffn_q(x, t(w), t(idx), tq, n_experts=E)
+    with pltpu.force_tpu_interpret_mode():
+        want = j_md.masked_expert_ffn_q(jx, jnp.asarray(w), jnp.asarray(idx), jq, n_experts=E)
+    close(got.float(), want.astype(jnp.float32), **_tol(want, dtype))
 
 
 def test_masked_q_schedule_windows(monkeypatch):

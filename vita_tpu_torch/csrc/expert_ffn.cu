@@ -3,7 +3,7 @@
 //
 // Replaces every TPU schedule of the same function (bf16 activations over
 // bf16 experts run csrc/expert_ffn_bf16.cu instead, and over per-channel
-// int4 experts in the masked schedule csrc/expert_ffn_q4.cu):
+// int4 experts, or int8 experts in the masked schedule, csrc/expert_ffn_q.cu):
 //   vita_tpu/ops/moe_decode.py::_gather_ffn_kernel (gather_expert_ffn: one
 //     grid row per (token, k) pair), ::_masked_ffn_kernel (masked_expert_ffn:
 //     one grid row per unique active expert, all tokens of the batch), and

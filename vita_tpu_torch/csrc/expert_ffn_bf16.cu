@@ -13,7 +13,7 @@
 // the card's ~295, so the kernel has to stream each distinct expert's
 // weights once at a good share of 3.35 TB/s.
 //
-// Design (expert_ffn_q4.cu's, without the dequantization):
+// Design (expert_ffn_q.cu's, without the dequantization):
 //  - A row is one expert id (flat layer * E + e into the stacked weights)
 //    with nt token slots (a token index, or -1 for an empty slot). The
 //    gather schedule passes one row per (token, k) pair with one slot; the

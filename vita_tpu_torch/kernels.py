@@ -91,13 +91,14 @@ _SIGNATURES = {
     "vita_expert_ffn_bf16_splits": [_I],
     # which (0, 1: up at 8, 16 token slots; 2, 3: down), out int[4]
     "vita_expert_ffn_bf16_info": [_I, _P],
-    # x, act, w_gate, w_up, w_down, s_gate, s_up, s_down, h, part, y, A, T,
-    # nt, D, F, stream (bf16 x, int4 experts, masked schedule)
-    "vita_expert_ffn_q4": [_P] * 11 + [_I] * 5 + [_P],
-    # F -> pieces of F a down block of vita_expert_ffn_q4 takes
-    "vita_expert_ffn_q4_splits": [_I],
-    # which (0, 1: up at 8, 16 token slots; 2, 3: down), out int[4]
-    "vita_expert_ffn_q4_info": [_I, _P],
+    # x, eids, toks, w_gate, w_up, w_down, s_gate, s_up, s_down, h, part, y,
+    # R, nt, D, F, bits, padded, stream (bf16 x over int4/int8 experts with
+    # per-channel scales, both schedules)
+    "vita_expert_ffn_q": [_P] * 12 + [_I] * 6 + [_P],
+    # F -> pieces of F a down block of vita_expert_ffn_q takes
+    "vita_expert_ffn_q_splits": [_I],
+    # which (int4 0-3, int8 4-7: up at 8, 16 token slots, then down), out int[4]
+    "vita_expert_ffn_q_info": [_I, _P],
     # x, w, gids, out, R, K, N, E, tile_m, trans, stream (float32)
     "vita_gmm": [_P] * 4 + [_I] * 6 + [_P],
     # x, w, gids, out, R, K, N, E, tile_m, trans, stream (bf16)

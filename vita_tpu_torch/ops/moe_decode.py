@@ -26,17 +26,18 @@ before the down projection whatever x's dtype.
 
 On CUDA tensors both schedules over bfloat16 experts with bfloat16
 activations launch the tensor-core kernel of csrc/expert_ffn_bf16.cu (any
-D and F), and the masked schedule over int4 experts with bfloat16
-activations and per-channel scales the one of csrc/expert_ffn_q4.cu (D and
-F multiples of 4); every other schedule launches the SIMT kernels of
-csrc/expert_ffn.cu (float32 activations over float32 experts, float32 or
-bfloat16 activations over int8/int4 experts; D and F even, F a multiple of
-4 for quantized weights). On CPU tensors they run the ``*_plain``
-versions.
+D and F); with bfloat16 activations, both schedules over int4 experts with
+per-channel scales and the masked schedule over int8 experts launch the
+one of csrc/expert_ffn_q.cu (D and F multiples of 4); every other schedule
+launches the SIMT kernels of csrc/expert_ffn.cu (float32 activations,
+grouped int4 scales, and the gather schedule over int8 experts; D and F
+even, F a multiple of 4 for quantized weights). On CPU tensors they run
+the ``*_plain`` versions.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -172,12 +173,31 @@ def _expert_rows(x, eids, toks, w_gate, w_up, w_down, padded: bool) -> torch.Ten
     return _expert_ffn_cuda(x, eids, toks, w_gate, w_up, w_down)
 
 
+# The token slots of a schedule depend only on its shape: each is made
+# once per shape and device (kernels only read it), which keeps its small
+# launches and host work out of every decode step.
+@functools.lru_cache(maxsize=64)
+def _pair_tokens(t: int, k: int, device: torch.device) -> torch.Tensor:
+    """toks [t * k, 1] int32 of the gather schedule: row r holds token r // k."""
+    return torch.arange(t, dtype=torch.int32, device=device).repeat_interleave(k)[:, None]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tokens(t: int, rows: int, device: torch.device) -> torch.Tensor:
+    """toks [rows, nt] int32 of the masked plan: tokens 0 .. t - 1 in every
+    row and -1 in the slots past t (nt the power of two at or above t)."""
+    nt = 1
+    while nt < t:
+        nt *= 2
+    slots = torch.arange(nt, dtype=torch.int32, device=device)
+    return torch.where(slots < t, slots, -1).expand(rows, nt).contiguous()
+
+
 def _pair_rows(x, topk_idx):
     """The gather schedule's rows: (expert id, token) per (token, k) pair."""
     t, k = topk_idx.shape
     eids = topk_idx.reshape(-1).to(torch.int32).contiguous()
-    toks = torch.arange(t, dtype=torch.int32, device=x.device).repeat_interleave(k)[:, None]
-    return eids, toks.contiguous()
+    return eids, _pair_tokens(t, k, x.device)
 
 
 def gather_expert_ffn_cuda(x, topk_idx, w_gate, w_up, w_down) -> torch.Tensor:
@@ -253,13 +273,7 @@ def masked_expert_ffn_plain(x, act, m, w_gate, w_up, w_down) -> torch.Tensor:
 def _active_rows(x, act):
     """The masked schedule's rows: each active expert with all T tokens
     (slots padded to a power of two; empty slots compute zeros)."""
-    t = x.shape[0]
-    nt = 1
-    while nt < t:
-        nt *= 2
-    slots = torch.arange(nt, dtype=torch.int32, device=x.device)
-    toks = torch.where(slots < t, slots, -1).expand(act.shape[0], nt).contiguous()
-    return act.to(torch.int32).contiguous(), toks
+    return act.to(torch.int32).contiguous(), _plan_tokens(x.shape[0], act.shape[0], x.device)
 
 
 def _masked_combine(m, y, x) -> torch.Tensor:
@@ -431,9 +445,14 @@ def gather_expert_ffn_q_plain(x, topk_idx, qparams, bits: int) -> torch.Tensor:
 
 def gather_expert_ffn_q_cuda(x, topk_idx, qparams, bits: int) -> torch.Tensor:
     """One kernel row per (token, k) pair over int8 (bits 8) or int4 (4)
-    weights."""
+    weights; bf16 activations over per-channel int4 experts (the serving
+    path's) take the tensor-core kernel, int8 keeps the SIMT one."""
     t, d = x.shape
-    y = _q_launch(x, *_pair_rows(x, topk_idx), qparams, bits)
+    rows = _pair_rows(x, topk_idx)
+    if bits == 4 and _q_mma(x, qparams, bits):
+        y = _expert_ffn_q_mma(x.contiguous(), *rows, qparams, bits, False)
+    else:
+        y = _q_launch(x, *rows, qparams, bits)
     kernels.launches["gather_expert_ffn" + _q_suffix(bits)] += 1
     return y.reshape(t, topk_idx.shape[1], d)
 
@@ -461,61 +480,74 @@ def masked_expert_ffn_q_plain(x, act, m, qparams, bits: int) -> torch.Tensor:
     return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(x.dtype)
 
 
-def _masked_q4_mma(x, act, qparams) -> torch.Tensor:
-    """bf16 x over per-channel int4 experts on tensor cores
-    (csrc/expert_ffn_q4.cu): y [A, nt, D] with nt = 8 or 16 token slots;
-    padding rows of ``act`` read no weights and give zeros."""
+def _q_mma(x, qparams, bits: int) -> bool:
+    """Whether the tensor-core kernel of csrc/expert_ffn_q.cu computes
+    these experts: bf16 activations over int8, or over int4 with
+    per-channel scales."""
+    per_channel = all(qparams[n].shape[-2] == 1 for n in ("w_gate_scale", "w_down_scale"))
+    return x.dtype == torch.bfloat16 and (bits == 8 or per_channel)
+
+
+def _expert_ffn_q_mma(x, eids, toks, qparams, bits: int, padded: bool) -> torch.Tensor:
+    """bf16 x over per-channel int4 (bits 4) or int8 (bits 8) experts on
+    tensor cores (csrc/expert_ffn_q.cu): y [R, nt, D] for rows of (expert
+    id, token slots). With ``padded`` (the masked schedule's plan), a row
+    whose id repeats the previous row's is a padding row: it reads no
+    weights and gives zeros."""
     wg, wu, wd = (qparams[n] for n in ("w_gate", "w_up", "w_down"))
     scales = _q_scales(qparams)
-    kernels.require_cuda(x, act, wg, wu, wd, *scales)
-    t, d = x.shape
+    kernels.require_cuda(x, eids, toks, wg, wu, wd, *scales)
+    r, nt = toks.shape
+    d = x.shape[1]
     rows, k, f = wg.shape
-    kernels.require(d == 2 * k and wu.shape == wg.shape and wd.shape == (rows, f, k),
-                    "expert weight shapes do not match x")
+    kernels.require(bits in (4, 8) and d == k * (8 // bits) and wu.shape == wg.shape
+                    and wd.shape == (rows, f, k), "expert weight shapes do not match x")
     kernels.require(all(w.dtype == torch.int8 for w in (wg, wu, wd))
                     and scales[0].shape == scales[1].shape == (rows, 1, f)
                     and scales[2].shape == (rows, 1, d)
                     and all(s.dtype == torch.float32 for s in scales),
-                    "the int4 tensor-core kernel takes int8-packed weights and per-channel "
-                    "float32 scales")
-    kernels.require(d % 4 == 0 and f % 4 == 0, f"int4 expert kernel needs D and F multiples "
-                    f"of 4, got {d}, {f}")
-    kernels.require(x.dtype == torch.bfloat16 and 1 <= t <= MASKED_MAX_T
-                    and act.dtype == torch.int32 and act.dim() == 1,
-                    f"masked int4 kernel takes 1..{MASKED_MAX_T} bf16 tokens and int32 act")
-    a, nt = act.shape[0], 8 if t <= 8 else 16
+                    "the quantized tensor-core kernel takes int8(-packed) weights and "
+                    "per-channel float32 scales")
+    kernels.require(d % 4 == 0 and f % 4 == 0, f"quantized expert kernel needs D and F "
+                    f"multiples of 4, got {d}, {f}")
+    kernels.require(x.dtype == torch.bfloat16, "the quantized tensor-core kernel takes bf16 x")
+    kernels.require(nt in (1, 2, 4, 8, 16), f"token slots per row must be 1/2/4/8/16, got {nt}")
+    kernels.require(eids.dtype == torch.int32 and toks.dtype == torch.int32
+                    and eids.shape == (r,), "eids [R] and toks [R, nt] must be int32")
     lib = kernels.lib()
-    h = torch.empty(a, nt, f, dtype=torch.bfloat16, device=x.device)
-    part = torch.empty(lib.vita_expert_ffn_q4_splits(f), a, nt, d, dtype=torch.float32,
+    h = torch.empty(r, nt, f, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(lib.vita_expert_ffn_q_splits(f), r, nt, d, dtype=torch.float32,
                        device=x.device)
-    y = torch.empty(a, nt, d, dtype=x.dtype, device=x.device)
-    if a == 0:
+    y = torch.empty(r, nt, d, dtype=x.dtype, device=x.device)
+    if r == 0:
         return y
-    err = lib.vita_expert_ffn_q4(
-        x.data_ptr(), act.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-        *(s.data_ptr() for s in scales), h.data_ptr(), part.data_ptr(), y.data_ptr(),
-        a, t, nt, d, f, kernels.stream_of(x))
-    kernels.check_launch(err, "expert_ffn_q4")
+    err = lib.vita_expert_ffn_q(
+        x.data_ptr(), eids.data_ptr(), toks.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+        wd.data_ptr(), *(s.data_ptr() for s in scales), h.data_ptr(), part.data_ptr(),
+        y.data_ptr(), r, nt, d, f, bits, int(padded), kernels.stream_of(x))
+    kernels.check_launch(err, "expert_ffn_q")
     return y
 
 
-def expert_ffn_q4_info() -> Dict[str, Dict[str, int]]:
-    """Resources of the tensor-core int4 kernels on the current card (up and
-    down at 8 and 16 token slots; ``kernels.resources``)."""
-    return kernels.resources(kernels.lib().vita_expert_ffn_q4_info,
-                             ("q4 up, 8 slots", "q4 up, 16 slots", "q4 down, 8 slots",
-                              "q4 down, 16 slots"))
+def expert_ffn_q_info() -> Dict[str, Dict[str, int]]:
+    """Resources of the quantized tensor-core kernels on the current card
+    (int4 and int8; up and down at up to 8 and 16 token slots;
+    ``kernels.resources``)."""
+    return kernels.resources(kernels.lib().vita_expert_ffn_q_info,
+                             tuple(f"{fmt} {kind}, {nt} slots" for fmt in ("int4", "int8")
+                                   for kind in ("up", "down") for nt in (8, 16)))
 
 
 def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int) -> torch.Tensor:
     """One kernel row per active expert with all T tokens, int8 or int4;
-    bf16 activations over per-channel int4 experts (the serving path's)
-    take the tensor-core kernel."""
-    per_channel = all(qparams[n].shape[-2] == 1 for n in ("w_gate_scale", "w_down_scale"))
-    if bits == 4 and x.dtype == torch.bfloat16 and per_channel:
-        y = _masked_q4_mma(x.contiguous(), act.contiguous(), qparams)
+    bf16 activations over int8 or per-channel int4 experts (the serving
+    path's) take the tensor-core kernel, whose plan's padding rows read no
+    weights."""
+    rows = _active_rows(x, act)
+    if _q_mma(x, qparams, bits):
+        y = _expert_ffn_q_mma(x.contiguous(), *rows, qparams, bits, True)
     else:
-        y = _q_launch(x, *_active_rows(x, act), qparams, bits)
+        y = _q_launch(x, *rows, qparams, bits)
     kernels.launches["masked_expert_ffn" + _q_suffix(bits)] += 1
     return _masked_combine(m, y, x)
 
