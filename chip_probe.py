@@ -17,7 +17,7 @@ NVIDIA GPU.
     python3 chip_probe.py expert-ring  # ring, down split and column tile of bf16 B3/B4
     python3 chip_probe.py expert-q4    # bf16 B8b (int4 masked experts) at T 8 and 16
     python3 chip_probe.py expert-q4-ring  # ring stages and down split of bf16 B8b
-    python3 chip_probe.py expert-q     # bf16 B7 (int4) at T 1, 3 and B8a (int8) at T 4, 8, 16
+    python3 chip_probe.py expert-q     # bf16 B7 (int4) and B6 (int8) at T 1, 3; B8a at T 4, 8, 16
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
     python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
 
@@ -139,18 +139,18 @@ rows per down block), held against the plain version and timed on
 expert-q4's cases as warps times its choices, then profiled per kernel as
 expert-q4 does.
 
-expert-q: bf16 B7 (gather_expert_ffn_q_cuda over per-channel int4 experts)
-at T 1 and 3 (T 3's pairs sorted by expert, as the main path runs them)
-and B8a (masked_expert_ffn_q_cuda over int8 experts) at T 4 over 5
-distinct experts (phase 2's shape), 8 and 16, at the serving width (D
-4096, F 14336, 8 experts, top-2 routing from the seed), held against the
+expert-q: bf16 B7 and B6 (gather_expert_ffn_q_cuda over per-channel int4
+and over int8 experts) at T 1 and 3 (T 3's pairs sorted by expert, as the
+main path runs them) and B8a (masked_expert_ffn_q_cuda over int8 experts)
+at T 4 over 5 distinct experts (phase 2's shape), 8 and 16, at the serving
+width (D 4096, F 14336, 8 experts, top-2 routing from the seed), held against the
 plain version, then timed as expert times bf16 B3/B4: CUDA events, the
 expert kernels' device time per call and per launch (torch.profiler over
 10 calls) and the share of the distinct experts' bytes bound (packed
 weights and scales, each read once). Reads only gather_expert_ffn_q_cuda,
 masked_expert_ffn_q_cuda, _active_expert_plan and the plain versions,
 which every version since the quantized slice has, so it times an older
-checkout's SIMT B7/B8a from beside it, as flash does.
+checkout's SIMT B6/B7/B8a from beside it, as flash does.
 
 paged: B2 (bf16 pages of 64) and B9 (int8 pages of 128, bf16 q) at
 PAGED_CASES: phase 2's slots (lengths 1000/37/0/2048), 8 slots of 4096
@@ -769,7 +769,8 @@ def expert_q4(card: str) -> None:
 
 def _expert_q_cases(rng, dev):
     """(label, kernel, plain, distinct experts' bytes) of bf16 B7 at T 1 and
-    3 over per-channel int4 experts and B8a at T 4 over 5 distinct experts
+    3 over per-channel int4 experts, B6 at T 1 and 3 over int8 experts, and
+    B8a at T 4 over 5 distinct experts
     (the routing drawn again from the seed until it selects 5), 8 and 16
     over int8 experts, at the serving width."""
     import torch
@@ -783,18 +784,18 @@ def _expert_q_cases(rng, dev):
     del wg, wu, wd, stack
     torch.cuda.empty_cache()
 
-    def sorted_pairs(x, idx):
-        """B7 over the pairs sorted by expert (as _sorted_pair_gather runs
+    def sorted_pairs(x, idx, bits):
+        """B6/B7 over the pairs sorted by expert (as _sorted_pair_gather runs
         them), through gather_expert_ffn_q_cuda alone."""
         t, k = idx.shape
         order = torch.argsort(idx.reshape(-1), stable=True)
         out = md.gather_expert_ffn_q_cuda(x.repeat_interleave(k, dim=0)[order],
-                                          idx.reshape(-1)[order][:, None], qps[4], 4)
+                                          idx.reshape(-1)[order][:, None], qps[bits], bits)
         return out.reshape(t * k, d)[torch.argsort(order)].reshape(t, k, d)
 
     out = []
-    for bits, t, want_exp in ((4, 1, None), (4, 3, None), (8, 4, 5), (8, 8, None),
-                              (8, 16, None)):
+    for bits, t, want_exp in ((4, 1, None), (4, 3, None), (8, 1, None), (8, 3, None),
+                              (8, 4, 5), (8, 8, None), (8, 16, None)):
         qp = qps[bits]
         x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, bf16)
         w, idx = smoke._routing(rng, t, 2, 8, 0, bf16, dev)
@@ -803,11 +804,12 @@ def _expert_q_cases(rng, dev):
         n_exp = len(torch.unique(idx))
         # packed weights and their float32 scales, each distinct expert once
         nbytes = n_exp * (3 * d * f * bits // 8 + 4 * (2 * f + d))
-        if bits == 4:
-            run = ((lambda x=x, i=idx, q=qp: md.gather_expert_ffn_q_cuda(x, i, q, 4))
-                   if t == 1 else (lambda x=x, i=idx: sorted_pairs(x, i)))
-            out.append((f"B7 int4 T={t:2d}, {2 * t} rows over {n_exp} experts", run,
-                        lambda x=x, i=idx, q=qp: md.gather_expert_ffn_q_plain(x, i, q, 4),
+        if t < 4:
+            run = ((lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_cuda(x, i, q, b))
+                   if t == 1 else (lambda x=x, i=idx, b=bits: sorted_pairs(x, i, b)))
+            name = "B7 int4" if bits == 4 else "B6 int8"
+            out.append((f"{name} T={t:2d}, {2 * t} rows over {n_exp} experts", run,
+                        lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_plain(x, i, q, b),
                         nbytes))
             continue
         act, m = md._active_expert_plan(w, idx, 8)

@@ -19,12 +19,13 @@ Phases, each of which raises on failure:
      padding rows, which must give zeros; run twice for equal bits; its
      resources are printed, and two planted faults, built from
      csrc/expert_ffn_bf16.cu under build/faults/, must fail its
-     tolerance), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B7,
-     B8a and B8b, on tensor cores, are run twice for equal bits, B8a also
-     on a plan with padding rows, which must give zeros; the kernel's
-     resources are printed, two planted faults built from
-     csrc/expert_ffn_q.cu under build/faults/ must fail B7's and B8a's
-     tolerance, and two of B8b's own must fail its), B9 over int8 pages
+     tolerance), the quantized expert FFNs B6/B7 and B8a/B8b (bf16 B6,
+     B7, B8a and B8b, on tensor cores, are run twice for equal bits, B6
+     and B7 at T 3 over the pairs sorted by expert, B8a also on a plan
+     with padding rows, which must give zeros; the kernel's resources are
+     printed, two planted faults built from csrc/expert_ffn_q.cu under
+     build/faults/ must fail B6's, B7's and B8a's tolerance, and two of
+     B8b's own must fail its), B9 over int8 pages
      (bf16 B2 and B9 are run twice for equal bits, the split kernel's
      resources are printed, and two planted faults of the split, built
      from csrc/paged_attn.cu under build/faults/, must fail their
@@ -66,10 +67,19 @@ Phases, each of which raises on failure:
      tiny-random --moe-mode gmm), then three train steps of the narrow
      fp32 config (gmm, flash) on the card and on the CPU: losses and the
      first step's gradients must agree (GRAD_TOL, LOSS_RTOL below), up to
-     the first step where the CPU's router had a near tie.
+     the first step where the CPU's router had a near tie;
+  8. export the full-width slice with the LLM cut to 2 of 32 layers (bf16,
+     about 4.0e9 parameters, 16 GB of float32 safetensors) with
+     export_hf_vita_checkpoint under build/smoke_ckpt/, load it onto the
+     card with load_vita_checkpoint (every leaf bitwise equal), and serve
+     a text request, then an image+audio request with two text requests,
+     from the loaded weights and from the in-memory ones under the loaded
+     config (gmm prefill; bf16 experts, then int8 experts with int8 KV
+     pages): identical greedy streams, and B5b with B2, B3 and B4 (bf16)
+     or B9, B6 and B8a (int8) must launch.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-7) before the last, and as the last
+results (launches summed over phases 3-8) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -352,6 +362,15 @@ def _routing(rng, t, k, n_experts, layer, dtype, dev):
             torch.from_numpy((idx + layer * n_experts).astype(np.int32)).to(dev))
 
 
+def _sorted_pairs(x, idx):
+    """x's rows and the expert ids [T * k, 1] of the (token, k) pairs sorted
+    by expert, as _sorted_pair_gather hands them to the gather kernel."""
+    import torch
+
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    return x.repeat_interleave(idx.shape[1], dim=0)[order], idx.reshape(-1)[order][:, None]
+
+
 def _gmm_case(rng, t, d, f, e, dtype, dev, down):
     """x in the sorted layout of T tokens routed top-2 over e experts (the
     shapes moe_ffn_gmm gives gmm), its gids and tile_m, and the gate-shaped
@@ -613,13 +632,14 @@ def kernel_phase(card: str):
 
         # B6/B7 (gather) and B8a/B8b (masked) over the same experts,
         # quantized layer by layer; grouped int4 only has the gather schedule
-        # on the main path (group 128 at the serving width). In bf16, B7
-        # (int4, T 1 and 3), B8a (int8, T 4 and 16, and a plan with 5 padding
-        # rows) and B8b (int4, T 8 and 16) run the tensor-core kernel of
+        # on the main path (group 128 at the serving width). In bf16, B6
+        # (int8) and B7 (int4) at T 1 and 3 (T 3 over the pairs sorted by
+        # expert), B8a (int8, T 4 and 16, and a plan with 5 padding rows) and
+        # B8b (int4, T 8 and 16) run the tensor-core kernel of
         # csrc/expert_ffn_q.cu: each is run twice for equal bits, the plan's
-        # padding rows must give zeros and no other row, B7's and B8a's
-        # cases must catch its two planted faults (FAULTS), B8b's two of its
-        # own (_q4_faults), and its resources are printed
+        # padding rows must give zeros and no other row, B6's, B7's and
+        # B8a's cases must catch its two planted faults (FAULTS), B8b's two
+        # of its own (_q4_faults), and its resources are printed
         stack = {"router": wg.new_zeros(d, 8),
                  **{k: w.view(n_layers, 8, *w.shape[1:])
                     for k, w in (("w_gate", wg), ("w_up", wu), ("w_down", wd))}}
@@ -643,14 +663,21 @@ def kernel_phase(card: str):
             for t in (1, 3):
                 x = torch.from_numpy(rng.standard_normal((t, d), np.float32)).to(dev, dt)
                 _, idx = _routing(rng, t, 2, 8, layer, dt, dev)
-                b7 = kind == "int4" and dt == bf16  # B7 on tensor cores
-                run = lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_cuda(x, i, q, b)
+                mma = main and dt == bf16  # B6 (int8) and B7 (int4) on tensor cores
+                # T 3 runs the pairs sorted by expert, as the main path does
+                xs, ids = (x, idx) if t == 1 else _sorted_pairs(x, idx)
+
+                def run(x=x, i=idx, q=qp, b=bits, t=t):
+                    gather = lambda xr, ir: md.gather_expert_ffn_q_cuda(xr, ir, q, b)
+                    return gather(x, i) if t == 1 else md._sorted_pair_gather(x, i, gather)
+
                 check("gather_expert_ffn" + sfx, f"{kind} {dt} T={t}", run,
                       lambda x=x, i=idx, q=qp, b=bits: md.gather_expert_ffn_q_plain(x, i, q, b),
-                      dt, t == 1 and dt == bf16, tol_q, work=ffn_work(t, idx, qbytes),
-                      faults=_faults("expert_q", run) if b7 else ())
-                if b7:
-                    q_same_bits(f"B7 T={t}", x, md._pair_rows(x, idx), False)
+                      dt, mma, tol_q, work=ffn_work(t, idx, qbytes),
+                      faults=_faults("expert_q", run) if mma else ())
+                if mma:
+                    q_same_bits(f"{'B6' if bits == 8 else 'B7'} T={t}", xs,
+                                md._pair_rows(xs, ids), False)
             # (case, T, experts the routing is confined to: None for all 8)
             plans = [(f"{kind} {dt} T={t}", t, None)
                      for t in ((4, 16) if bits == 8 else (8, 16)) if main]
@@ -1598,6 +1625,120 @@ def train_equivalence_phase(devices, steps=3):
               f"tie in step {first_tie + 1}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 8: export and reload the 2-layer slice, then serve from it
+# --------------------------------------------------------------------------
+# (label, Engine options, the kernels the run must launch)
+CHECKPOINT_RUNS = (
+    ("bf16 experts", dict(n_slots=4, page_size=64, decode_moe_mode="gather"),
+     ("paged_attention", "gather_expert_ffn", "masked_expert_ffn", "gmm_small")),
+    ("int8 experts, int8 KV pages",
+     dict(n_slots=4, page_size=128, decode_moe_mode="gather_q", kv_int8=True),
+     ("paged_attention_q", "gather_expert_ffn_q", "masked_expert_ffn_q", "gmm_small")),
+)
+
+
+def checkpoint_requests(cfg, max_new_tokens: int = 16):
+    """A text request alone (decode T 1: the gather schedule), then the
+    image+audio request with two text requests (3 slots, padded to T 4:
+    the masked schedule)."""
+    rng = np.random.default_rng(SEED + 8)
+    return [[text_request(cfg, rng, 100, max_new_tokens)],
+            [media_request(cfg, rng, max_new_tokens)]
+            + [text_request(cfg, rng, n, max_new_tokens) for n in (60, 150)]]
+
+
+def checkpoint_phase(card: str, device):
+    """Export the full-width slice with the LLM cut to 2 of 32 layers
+    (bf16, random weights from the seed) with export_hf_vita_checkpoint
+    under build/smoke_ckpt/, load it onto the card with
+    load_vita_checkpoint, hold every leaf bitwise to the weights it was
+    written from, then serve CHECKPOINT_RUNS (gmm prefill) from the loaded
+    weights and from the in-memory ones under the loaded config: the
+    greedy streams must be identical and each run's kernels launch.
+    Returns the launch counts of the runs on the loaded weights."""
+    import shutil
+
+    import torch
+
+    from vita_tpu_torch import checkpoint, kernels
+    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.train.step import tree_leaves
+
+    cfg = slice_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=2))
+    params = slice_params(cfg, device)
+    n_params = sum(x.numel() for x in _leaves(params))
+    path = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    need = 4 * n_params + 2**30  # float32 weights and a GiB of headroom
+    free = shutil.disk_usage(path).free
+    if free < need:
+        raise RuntimeError(f"exporting {n_params:.4g} parameters needs {need / 2**30:.1f} GiB "
+                           f"free under {path}, found {free / 2**30:.1f} GiB")
+    try:
+        t0 = time.time()
+        checkpoint.export_hf_vita_checkpoint(path, cfg, params)
+        os.sync()
+        written = time.time() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(path) for f in files)
+        t0 = time.time()
+        lcfg, loaded = checkpoint.load_vita_checkpoint(path, device)
+        _sync(device)
+        read = time.time() - t0
+        print(f"  exported {n_params:.4g} parameters, {n_bytes} bytes, in {written:.1f} s; "
+              f"loaded onto the card in {read:.1f} s  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    def dims(c):
+        return (c.llm.vocab_size, c.llm.d_model, c.llm.n_layers, c.llm.n_heads, c.llm.n_kv_heads,
+                c.llm.d_ff, c.llm.n_experts, c.llm.top_k, c.vision.image_size, c.vision.hidden,
+                c.vision.n_layers, c.audio.hidden, c.audio.n_layers, c.llm.dtype)
+
+    if dims(lcfg) != dims(cfg):
+        raise AssertionError(f"loaded config {lcfg} does not hold the exported {cfg}")
+    got, want = dict(tree_leaves(loaded)), dict(tree_leaves(params))
+    if got.keys() != want.keys():
+        raise AssertionError(f"loaded leaves {sorted(set(got) ^ set(want))} differ by name")
+    bad = [k for k, w in want.items() if got[k].dtype != w.dtype or not torch.equal(got[k], w)]
+    if bad:
+        raise AssertionError(f"{len(bad)} loaded leaves differ from the exported weights: "
+                             f"{bad[:4]}")
+    print(f"  {len(want)} leaves bitwise equal to the exported weights", flush=True)
+
+    total = {}
+    for label, options, path_kernels in CHECKPOINT_RUNS:
+        streams = []
+        for source, weights in (("loaded", loaded), ("in-memory", params)):
+            engine = Engine(weights, lcfg, max_len=2048, device=device, prefill_moe_mode="gmm",
+                            **options)
+            kernels.reset_launches()
+            reqs = [r for wave in checkpoint_requests(lcfg) for r in serve(engine, wave)]
+            counts = dict(kernels.launches)
+            streams.append([r.tokens for r in reqs])
+            if source == "loaded":
+                print(f"  kernel launches serving {label} from the checkpoint: {counts}",
+                      flush=True)
+                missing = [k for k in path_kernels if counts[k] == 0]
+                if missing:
+                    raise AssertionError(f"{label} from the checkpoint: kernels never "
+                                         f"launched: {missing} ({counts})")
+                for k, n in counts.items():
+                    total[k] = total.get(k, 0) + n
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        if streams[0] != streams[1] or any(len(t) != 16 for t in streams[0]):
+            raise AssertionError(f"{label}: the loaded weights' greedy streams {streams[0]} "
+                                 f"differ from the in-memory weights' {streams[1]}")
+        print(f"  {label}: {len(streams[0])} requests, greedy streams from the checkpoint "
+              f"identical to the in-memory weights' (first: {streams[0][0][:6]}...)",
+              flush=True)
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1688,6 +1829,11 @@ def main() -> int:
     train_equivalence_phase(pair)
     parts.append(dict(kernels.launches))
     print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)
+
+    print("phase 8: the 2-layer slice exported, loaded onto the card and served", flush=True)
+    t0 = time.time()
+    parts.append(checkpoint_phase(card, dev))
+    print(f"  phase 8 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {
@@ -1695,7 +1841,7 @@ def main() -> int:
         "paged_attention": ("csrc/paged_attn.cu", "vita_tpu/ops/paged_attention.py:95"),
         "gather_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:30"),
         "masked_expert_ffn": ("csrc/expert_ffn_bf16.cu", "vita_tpu/ops/moe_decode.py:539"),
-        "gather_expert_ffn_q": ("csrc/expert_ffn.cu", "vita_tpu/ops/moe_decode.py:162"),
+        "gather_expert_ffn_q": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:162"),
         "gather_expert_ffn_q4": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:326"),
         "masked_expert_ffn_q": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:627"),
         "masked_expert_ffn_q4": ("csrc/expert_ffn_q.cu", "vita_tpu/ops/moe_decode.py:720"),

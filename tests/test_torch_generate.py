@@ -15,13 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import close, normal, t
+from torch_port_util import close, normal, t, write_tiny_tokenizer
 from vita_tpu import cli as j_cli
 from vita_tpu import generate as j_gen
 from vita_tpu import sampling as j_sampling
 from vita_tpu.models import mixtral as j_mix
 from vita_tpu.models import vita as j_vita
-from vita_tpu_torch import cli, generate, sampling, tokenization
+from vita_tpu_torch import checkpoint, cli, generate, sampling, tokenization
 from vita_tpu_torch.convert import from_jax_params
 from vita_tpu_torch.models import mixtral, vita
 
@@ -238,8 +238,66 @@ def test_cli_prompt_builders_match_jax(modality, has_audio):
 
 
 def test_cli_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """--mesh still raises (A11). A directory is loaded now (A9): one
+    without a checkpoint raises, and one with a checkpoint but no
+    tokenizer raises rather than fall back to the byte tokenizer."""
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--model", str(tmp_path), "--question", "hi", "--device", "cpu"])
+    cfg = vita.VITAConfig.tiny()
+    checkpoint.export_hf_vita_checkpoint(
+        str(tmp_path), cfg, vita.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(FileNotFoundError, match="no tokenizer"):
         cli.main(["--model", str(tmp_path), "--question", "hi", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A11"):
         cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
                   "--mesh", "2", "2"])
+
+
+@pytest.fixture()
+def offline_hub(monkeypatch):
+    """transformers and huggingface_hub in offline mode: a tokenizer comes
+    from local files only."""
+    import huggingface_hub.constants
+    import transformers.utils.hub
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setattr(huggingface_hub.constants, "HF_HUB_OFFLINE", True)
+    monkeypatch.setattr(transformers.utils.hub, "_is_offline_mode", True)
+
+
+@pytest.mark.parametrize("media", ["text", "image"])
+def test_cli_checkpoint_directory_matches_jax(media, tmp_path, monkeypatch, capsys, offline_hub):
+    """Both CLIs on the CPU on one directory the port exported, with a
+    tokenizer saved beside the weights: the same prompt ids reach the
+    Generator, and it returns the same greedy tokens."""
+    from vita_tpu.parallel import distributed
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setattr(distributed, "enable_compile_cache", lambda *a, **k: None)
+    cfg = vita.VITAConfig.tiny()
+    ckpt = tmp_path / "ckpt"
+    checkpoint.export_hf_vita_checkpoint(
+        str(ckpt), cfg, vita.init_params(cfg, torch.Generator().manual_seed(4), "cpu"))
+    write_tiny_tokenizer(ckpt)
+    calls = {}
+    for name, cls in (("jax", j_gen.Generator), ("port", generate.Generator)):
+        def recording(self, ids, *a, _real=cls.generate, _name=name, **kw):
+            out = _real(self, ids, *a, **kw)
+            calls[_name] = (np.asarray(ids).tolist(), list(out))
+            return out
+
+        monkeypatch.setattr(cls, "generate", recording)
+    args = {"text": ["--question", "Hello there What is it ?"],
+            "image": ["--image", _png(tmp_path / "x.png"), "--question", "What is it ?",
+                      "--max-patches", "2"]}[media]
+    common = ["--model", str(ckpt), "--max-new-tokens", "6", "--max-len", "1024",
+              "--chunk-len", "2", *args]
+    outs = []
+    for main, extra in ((j_cli.main, []), (cli.main, ["--device", "cpu"])):
+        assert main(common + extra) == 0
+        outs.append(capsys.readouterr().out)
+    assert calls["port"] == calls["jax"]
+    ids, tokens = calls["port"]
+    assert len(tokens) == 6 and ids[0] == 1 and len(ids) == _prompt_tokens(outs[1])
+    assert _prompt_tokens(outs[0]) == _prompt_tokens(outs[1])
+    assert outs[1].split("=" * 40)[1] == outs[0].split("=" * 40)[1]  # the decoded text

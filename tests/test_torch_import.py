@@ -41,6 +41,8 @@ def test_package_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(vita_tpu_torch.__path__, 'vita_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         + NO_REFERENCE +
+        "lib = [m for m in ('safetensors', 'transformers') if m in sys.modules]\n"
+        "assert not lib, lib\n"
         "print(json.dumps(names))\n"
     )
     proc = _run(code)
@@ -82,6 +84,44 @@ def test_clis_with_media_files_load_no_reference_module(tmp_path):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "[done] 1 steps" in proc.stdout
+
+
+def test_cli_on_checkpoint_directory_loads_no_reference_module(tmp_path):
+    """The inference CLI on an exported checkpoint directory with its
+    tokenizer, on the CPU: neither jax nor vita_tpu is loaded (transformers,
+    which the tokenizer needs, is)."""
+    from torch_port_util import write_tiny_tokenizer
+    from vita_tpu_torch import checkpoint
+    from vita_tpu_torch.models import vita
+
+    cfg = vita.VITAConfig.tiny()
+    checkpoint.export_hf_vita_checkpoint(
+        str(tmp_path), cfg, vita.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    write_tiny_tokenizer(tmp_path)
+    code = (
+        "import sys\n"
+        "from vita_tpu_torch import cli\n"
+        f"assert cli.main(['--model', {str(tmp_path)!r}, '--question', 'Hello', '--device',"
+        " 'cpu', '--max-new-tokens', '2']) == 0\n"
+        "assert 'transformers' in sys.modules\n"
+        + NO_REFERENCE
+    )
+    proc = _run(code, env_extra={"HF_HUB_OFFLINE": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "[new tokens] 2" in proc.stdout
+
+
+def test_port_sources_leave_safetensors_and_transformers_to_tests():
+    """The port reads and writes safetensors files itself and imports
+    transformers only inside the function that loads a tokenizer."""
+    files = sorted((ROOT / "vita_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    any_import = re.compile(r"^\s*(import safetensors|from safetensors)", re.M)
+    top_level = re.compile(r"^(import transformers|from transformers)", re.M)
+    assert not [str(f) for f in files if any_import.search(f.read_text())]
+    assert not [str(f) for f in files if top_level.search(f.read_text())]
+    lazy = [f.name for f in files if re.search(r"^\s+from transformers import", f.read_text(),
+                                               re.M)]
+    assert lazy == ["cli.py"]
 
 
 def test_no_jax_import_in_port_sources():

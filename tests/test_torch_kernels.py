@@ -430,6 +430,47 @@ def test_q_mma_kernel_is_deterministic(bits, n_tok):
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+# (D, F): multiples of 4 and not of 16, so k16-steps, column tiles and the
+# rows' 16-byte alignment are all ragged; the second has three F pieces
+NARROW_B6 = {"d100_f332": (100, 332), "d36_f4404": (36, 4404)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(NARROW_B6))
+def test_b6_gather_q8_runs_tensor_core_kernel(case, monkeypatch):
+    """bf16 B6 (int8 experts, gather schedule) through the public
+    gather_expert_ffn_q and masked_expert_ffn_q at T 1-3 (pairs sorted by
+    expert from T 2, so adjacent rows repeat an expert): the tensor-core
+    kernel of csrc/expert_ffn_q.cu runs and the SIMT kernel does not, the
+    outputs match the plain version and the CPU, and two launches give
+    equal bits. float32 x still takes the SIMT kernel."""
+    dev = cuda_or_skip()
+    d, f = NARROW_B6[case]
+    simt = []
+    simt_launch = md._expert_ffn_cuda
+    monkeypatch.setattr(md, "_expert_ffn_cuda",
+                        lambda *a, **k: simt.append(1) or simt_launch(*a, **k))
+    rng = np.random.default_rng(21)
+    qp = _quantized_experts(rng, 8, 0, torch.bfloat16, 1, d, f, dev)
+    cpu = {k: v.cpu() for k, v in qp.items()}
+    for n_tok in (1, 2, 3):
+        x = t(normal(rng, n_tok, d)).to(dev, torch.bfloat16)
+        w, idx = _confined_routing(rng, n_tok, [1, 4, 6], dev)
+        got = _launched("gather_expert_ffn_q", lambda: md.gather_expert_ffn_q(x, idx, qp))
+        _close_q(got, md.gather_expert_ffn_q_plain(x, idx, qp, 8))
+        again = md.gather_expert_ffn_q(x, idx, qp)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+        out = _launched("gather_expert_ffn_q",
+                        lambda: md.masked_expert_ffn_q(x, w, idx, qp, 8))
+        _close_q(out, md.masked_expert_ffn_q(x.cpu(), w.cpu(), idx.cpu(), cpu, 8))
+    assert not simt
+    xf = t(normal(rng, 1, d)).to(dev)
+    got = _launched("gather_expert_ffn_q", lambda: md.gather_expert_ffn_q(xf, idx[:1], qp))
+    close(got.cpu(), md.gather_expert_ffn_q_plain(xf, idx[:1], qp, 8).cpu(),
+          atol=TOL_Q[torch.float32], rtol=TOL_Q[torch.float32])
+    assert simt
+
+
 def _bf16_experts(rng, rows, d, f, dev):
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
 

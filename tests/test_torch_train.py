@@ -331,12 +331,71 @@ def test_train_cli_runs_then_resumes(tmp_path, capsys):
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "[step" not in out
-    for bad, what in ((["--mesh", "1"], "A11"), (["--lora-from", "x"], "A9"),
-                      (["--whale-init", "x"], "A9")):
-        with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="A11"):
+        cli.main(argv + ["--mesh", "1"])
+    # checkpoint directories, --lora-from and --whale-init are loaded now
+    # (A9): paths that hold nothing raise
+    for bad in (["--lora-from", str(tmp_path / "x")], ["--whale-init", str(tmp_path / "x")]):
+        with pytest.raises(FileNotFoundError):
             cli.main(argv + bad)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(FileNotFoundError):
         cli.main(["--model", str(tmp_path), *argv[2:]])
+
+
+def test_train_cli_loads_checkpoint_whale_init_and_lora(tmp_path, monkeypatch, capsys):
+    """--model <dir> (an exported checkpoint with its tokenizer),
+    --whale-init (a final.pt with one unknown key) and --lora-from (this
+    port's adapter layout): the Trainer starts from the loaded weights with
+    the Whale encoder merged and the adapters folded in, and trains."""
+    import huggingface_hub.constants
+    import transformers.utils.hub
+
+    from torch_port_util import write_tiny_tokenizer
+    from vita_tpu_torch import checkpoint
+    from vita_tpu_torch.train import cli, trainer
+    from vita_tpu_torch.train.trainer import save_state
+    from vita_tpu_torch.utils import hf_import
+
+    monkeypatch.setattr(huggingface_hub.constants, "HF_HUB_OFFLINE", True)
+    monkeypatch.setattr(transformers.utils.hub, "_is_offline_mode", True)
+    cfg = vita.VITAConfig.tiny()
+    ckpt = tmp_path / "ckpt"
+    checkpoint.export_hf_vita_checkpoint(
+        str(ckpt), cfg, vita.init_params(cfg, torch.Generator().manual_seed(5), "cpu"))
+    write_tiny_tokenizer(ckpt)
+    other = vita.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    state = hf_import.whale_params_to_hf(other["audio"], cfg.audio.n_layers)
+    torch.save({**state, "extra.unknown": torch.zeros(1)}, tmp_path / "final.pt")
+    base_cfg, base = checkpoint.load_vita_checkpoint(str(ckpt), device="cpu")
+    lcfg = lora.LoRAConfig(rank=4, alpha=8.0)
+    ad = lora.init_lora(torch.Generator().manual_seed(7), base["llm"], lcfg)
+    for grp, name in lora.LORA_TARGETS:
+        ad["layers"][grp][name]["b"] += 0.05
+    save_state(str(tmp_path / "adapters"), 3, ad)
+
+    started = {}
+    real_init = trainer.Trainer.__init__
+
+    def init(self, cfg, tc, run, params):
+        started["cfg"] = cfg
+        started["params"] = {k: v.detach().clone() for k, v in step.tree_leaves(params)}
+        real_init(self, cfg, tc, run, params)
+
+    monkeypatch.setattr(trainer.Trainer, "__init__", init)
+    argv = ["--model", str(ckpt), "--data", str(_chat(tmp_path)), "--output-dir",
+            str(tmp_path / "run"), "--batch-size", "2", "--device", "cpu",
+            "--whale-init", str(tmp_path / "final.pt"), "--lora-from", str(tmp_path / "adapters"),
+            "--lora-rank", "4", "--lora-alpha", "8"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[load] whale final.pt: " in out and "1 unknown keys ignored" in out
+    assert "[done] 3 steps" in out
+    assert started["cfg"].llm.dtype == base_cfg.llm.dtype == torch.bfloat16
+    want = lora.merge_lora(base, ad, lcfg)
+    want["audio"] = checkpoint.load_whale_torch_checkpoint(base, str(tmp_path / "final.pt"))["audio"]
+    for path, w in step.tree_leaves(want):
+        assert torch.equal(started["params"][path], w), path
+    assert not torch.equal(want["audio"]["layers"]["q_w"], base["audio"]["layers"]["q_w"])
 
 
 def test_serving_records_no_autograd_graph(tiny):

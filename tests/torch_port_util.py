@@ -37,3 +37,21 @@ def cuda_or_skip() -> torch.device:
 
 def normal(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def write_tiny_tokenizer(path) -> None:
+    """Save a word-level tokenizer (the words of the tests' prompts and of
+    the mixtral_two template, ids under 200; <s> 1, </s> 2, <pad> 3) to the
+    directory ``path``, as a checkpoint directory holds its tokenizer."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+    from transformers import PreTrainedTokenizerFast
+
+    words = ("Hello there What is it ? . , : you are a helpful assistant user bot "
+             "system image audio video the of and to in I <|im_start|> <|im_end|> "
+             "\n < > | _ ' !").split(" ")
+    vocab = {w: i for i, w in enumerate(["<unk>", "<s>", "</s>", "<pad>"] + sorted(set(words)))}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.post_processor = processors.TemplateProcessing(single="<s> $A", special_tokens=[("<s>", 1)])
+    PreTrainedTokenizerFast(tokenizer_object=tok, bos_token="<s>", eos_token="</s>",
+                            unk_token="<unk>", pad_token="<pad>").save_pretrained(str(path))

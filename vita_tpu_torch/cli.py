@@ -11,19 +11,23 @@ The flags are those of ``python -m vita_tpu.cli`` plus ``--device``
 (default ``cuda``; without a card the command stops rather than run on the
 CPU). ``--model tiny-random`` runs ``VITAConfig.tiny()`` with weights drawn
 from a seeded generator and a byte tokenizer: the full pipeline without
-downloaded weights (the output is gibberish by construction). Prompts are
+downloaded weights (the output is gibberish by construction). ``--model
+<dir>`` loads a checkpoint directory (``checkpoint.load_vita_checkpoint``:
+the HF deploy layout or the port's native one) and the tokenizer saved in
+it (``load_hf_tokenizer``, through transformers). Prompts are
 built as the reference builds them (the mixtral_two template of
 vita_tpu_torch.constants, then vita_tpu_torch.tokenization); media files
 are read by the port's copies of the reference's numpy loaders
 (``vita_tpu_torch.data.image`` / ``video`` / ``audio``). Serving goes
 through ``Generator``, or through the ``Engine`` for ``--kv-int8``.
 
-Not ported yet: checkpoint directories and ``--mesh`` (sharded serving).
+Not ported yet: ``--mesh`` (sharded serving).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional
 
@@ -49,6 +53,18 @@ class ByteTokenizer:
     def decode(self, ids) -> str:
         data = bytes(t - self.offset for t in ids if self.offset <= t < self.offset + 256)
         return data.decode(errors="replace")
+
+
+def load_hf_tokenizer(path: str):
+    """The tokenizer saved in the checkpoint directory ``path``
+    (transformers' AutoTokenizer, imported here, from local files only)."""
+    if not any(os.path.exists(os.path.join(path, f)) for f in
+               ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")):
+        raise FileNotFoundError(f"no tokenizer in the checkpoint directory {path!r} "
+                                "(tokenizer.json, tokenizer_config.json or tokenizer.model)")
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(path, use_fast=True, local_files_only=True)
 
 
 def build_prompt(question: str, modality: str, has_audio: bool) -> str:
@@ -95,17 +111,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is not None:
         raise NotImplementedError("--mesh (sharded serving) is not ported yet (ROADMAP A11)")
-    if args.model != "tiny-random":
-        raise NotImplementedError(
-            f"loading the checkpoint {args.model!r} is not ported yet (ROADMAP A9: "
-            "vita_tpu.checkpoint imports jax); use --model tiny-random")
 
     t0 = time.time()
-    cfg = vita.VITAConfig.tiny(
-        **({"vision_fusion": args.vision_fusion} if args.vision_fusion else {}))
-    params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-    tok = ByteTokenizer()
-    encode, eos_id, bos_id, decode = tok.encode, tok.eos_id, tok.bos_id, tok.decode
+    if args.model == "tiny-random":
+        cfg = vita.VITAConfig.tiny(
+            **({"vision_fusion": args.vision_fusion} if args.vision_fusion else {}))
+        params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        tok = ByteTokenizer()
+        encode, eos_id, bos_id, decode = tok.encode, tok.eos_id, tok.bos_id, tok.decode
+    else:
+        from vita_tpu_torch.checkpoint import load_vita_checkpoint
+
+        cfg, params = load_vita_checkpoint(args.model, device)
+        hf_tok = load_hf_tokenizer(args.model)
+        encode = lambda s: hf_tok(s).input_ids
+        bos_id, eos_id = hf_tok.bos_token_id, hf_tok.eos_token_id
+        decode = lambda ids: hf_tok.decode(ids, skip_special_tokens=True)
     print(f"[load] {time.time()-t0:.1f}s")
 
     if args.image and args.video:
@@ -124,13 +145,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.image:
         from PIL import Image
 
-        from vita_tpu_torch.data.image import dynamic_tile_framecat, normalize
+        from vita_tpu_torch.data.image import dynamic_tile, dynamic_tile_framecat, normalize
 
         arr = np.asarray(Image.open(args.image).convert("RGB"))
         if framecat:
             tiles = dynamic_tile_framecat(arr, 1, args.max_patches, cfg.vision.image_size)
-        else:  # the tiny tower takes one tile of its own size
+        elif args.model == "tiny-random":  # the tiny tower takes one tile of its own size
             tiles = [np.asarray(Image.fromarray(arr).resize((cfg.vision.image_size,) * 2))]
+        else:
+            tiles = dynamic_tile(arr, 1, args.max_patches, cfg.vision.image_size, True)
         images = normalize(tiles)
         n_groups = len(tiles) // group
     elif args.video:

@@ -2,8 +2,8 @@
 // expert weights.
 //
 // Replaces every TPU schedule of the same function (bf16 activations over
-// bf16 experts run csrc/expert_ffn_bf16.cu instead, and over per-channel
-// int4 experts, or int8 experts in the masked schedule, csrc/expert_ffn_q.cu):
+// bf16 experts run csrc/expert_ffn_bf16.cu instead, and over int8 or
+// per-channel int4 experts csrc/expert_ffn_q.cu):
 //   vita_tpu/ops/moe_decode.py::_gather_ffn_kernel (gather_expert_ffn: one
 //     grid row per (token, k) pair), ::_masked_ffn_kernel (masked_expert_ffn:
 //     one grid row per unique active expert, all tokens of the batch), and

@@ -1,16 +1,16 @@
 // The quantized selected-expert FFN of MoE decode on tensor cores, bf16
 // activations over int4 or int8 expert weights with per-channel scales.
 //
-// Replaces vita_tpu/ops/moe_decode.py::_gather_ffn_kernel_q4 (B7: one row
-// per (token, k) pair over int4 experts), ::_masked_ffn_kernel_q (B8a: one
-// row per unique active expert with all T tokens, int8) and
-// ::_masked_ffn_kernel_q4 (B8b: the same over int4):
+// Replaces vita_tpu/ops/moe_decode.py::_gather_ffn_kernel_q (B6: one row
+// per (token, k) pair over int8 experts), ::_gather_ffn_kernel_q4 (B7: the
+// same over int4), ::_masked_ffn_kernel_q (B8a: one row per unique active
+// expert with all T tokens, int8) and ::_masked_ffn_kernel_q4 (B8b: the
+// same over int4):
 //   gate = (x @ w_gate) * s_gate,  up = (x @ w_up) * s_up,
 //   h = bf16(silu(gate) * up),  y = bf16((h @ w_down) * s_down),
 // over the exact integer weights, with float32 sums and one float32 scale
-// per output column multiplying after the dot. float32 activations,
-// grouped int4 scales and the int8 gather schedule (B6) keep the SIMT
-// kernel of expert_ffn.cu.
+// per output column multiplying after the dot. float32 activations and
+// grouped int4 scales keep the SIMT kernel of expert_ffn.cu.
 //
 // What bounds it on the H100: bytes. An expert is 3 x 4096 x 14336 weights,
 // 88 MB in int4 and 176 MB in int8; 1-16 tokens make at most 32-64 FLOP per

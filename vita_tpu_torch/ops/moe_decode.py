@@ -26,13 +26,12 @@ before the down projection whatever x's dtype.
 
 On CUDA tensors both schedules over bfloat16 experts with bfloat16
 activations launch the tensor-core kernel of csrc/expert_ffn_bf16.cu (any
-D and F); with bfloat16 activations, both schedules over int4 experts with
-per-channel scales and the masked schedule over int8 experts launch the
-one of csrc/expert_ffn_q.cu (D and F multiples of 4); every other schedule
-launches the SIMT kernels of csrc/expert_ffn.cu (float32 activations,
-grouped int4 scales, and the gather schedule over int8 experts; D and F
-even, F a multiple of 4 for quantized weights). On CPU tensors they run
-the ``*_plain`` versions.
+D and F); with bfloat16 activations, both schedules over int8 experts and
+over int4 experts with per-channel scales launch the one of
+csrc/expert_ffn_q.cu (D and F multiples of 4); every other schedule
+launches the SIMT kernels of csrc/expert_ffn.cu (float32 activations and
+grouped int4 scales; D and F even, F a multiple of 4 for quantized
+weights). On CPU tensors they run the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -445,11 +444,12 @@ def gather_expert_ffn_q_plain(x, topk_idx, qparams, bits: int) -> torch.Tensor:
 
 def gather_expert_ffn_q_cuda(x, topk_idx, qparams, bits: int) -> torch.Tensor:
     """One kernel row per (token, k) pair over int8 (bits 8) or int4 (4)
-    weights; bf16 activations over per-channel int4 experts (the serving
-    path's) take the tensor-core kernel, int8 keeps the SIMT one."""
+    weights; bf16 activations over int8 or per-channel int4 experts (the
+    serving path's) take the tensor-core kernel, which computes every row,
+    also rows that repeat an expert."""
     t, d = x.shape
     rows = _pair_rows(x, topk_idx)
-    if bits == 4 and _q_mma(x, qparams, bits):
+    if _q_mma(x, qparams, bits):
         y = _expert_ffn_q_mma(x.contiguous(), *rows, qparams, bits, False)
     else:
         y = _q_launch(x, *rows, qparams, bits)

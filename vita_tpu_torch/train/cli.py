@@ -8,11 +8,16 @@ Example (smoke run, random tiny model, byte tokenizer):
 The flags are those of ``python -m vita_tpu.train.cli`` plus ``--device``
 (default ``cuda``; without a card the command stops rather than train on
 the CPU). ``--model tiny-random`` trains ``VITAConfig.tiny()`` from weights
-drawn from a seeded generator, with the port's byte tokenizer.
+drawn from a seeded generator, with the port's byte tokenizer; ``--model
+<dir>`` loads a checkpoint directory and its tokenizer
+(``checkpoint.load_vita_checkpoint``, ``cli.load_hf_tokenizer``).
 ``--pretrain-mm-adapter`` overlays a ``Trainer.save_trainable_only``
-output of this port. ``--moe-mode`` and ``--moe-chunk`` each set only
-their own field. Checkpoint directories, ``--whale-init``, ``--lora-from``
-and ``--mesh`` are not ported yet and raise ``NotImplementedError``.
+output of this port, ``--whale-init`` merges a standalone audio-encoder
+``final.pt`` (``checkpoint.load_whale_torch_checkpoint``), and
+``--lora-from`` folds in LoRA adapters saved by this port
+(``trainer.save_state``'s layout). ``--moe-mode`` and ``--moe-chunk`` each
+set only their own field. ``--mesh`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,39 +59,49 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--pretrain-mm-adapter", default=None,
                    help="adapter-only checkpoint of a previous stage "
                         "(Trainer.save_trainable_only output) to overlay")
-    p.add_argument("--whale-init", default=None, help="audio-encoder final.pt (not ported)")
-    p.add_argument("--lora-from", default=None, help="LoRA adapter checkpoint (not ported)")
+    p.add_argument("--whale-init", default=None,
+                   help="standalone audio-encoder final.pt (torch) to shape-check-merge "
+                        "into the audio tower")
+    p.add_argument("--lora-from", default=None,
+                   help="LoRA adapter checkpoint dir (this port's save_state layout) to "
+                        "merge into the base before training")
     p.add_argument("--lora-rank", type=int, default=8)
     p.add_argument("--lora-alpha", type=float, default=16.0)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
-    from vita_tpu_torch.cli import ByteTokenizer
+    from vita_tpu_torch import checkpoint
+    from vita_tpu_torch.cli import ByteTokenizer, load_hf_tokenizer
     from vita_tpu_torch.data.dataset import Collator, ConversationDataset, DataArgs, DatasetSpec
     from vita_tpu_torch.models import vita
+    from vita_tpu_torch.train.lora import LoRAConfig, merge_lora
     from vita_tpu_torch.train.step import TrainConfig
-    from vita_tpu_torch.train.trainer import RunConfig, Trainer, load_adapter_into
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer, load_state
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is not None:
         raise NotImplementedError("--mesh (sharded training) is not ported yet (ROADMAP A11)")
-    if args.model != "tiny-random":
-        raise NotImplementedError(
-            f"loading the checkpoint {args.model!r} is not ported yet (ROADMAP A9); "
-            "use --model tiny-random")
-    for flag, value in (("--whale-init", args.whale_init), ("--lora-from", args.lora_from)):
-        if value:
-            raise NotImplementedError(f"{flag} needs checkpoint import, not ported yet "
-                                      "(ROADMAP A9)")
 
-    cfg = vita.VITAConfig.tiny()
-    params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-    tok = ByteTokenizer()
-    pad_id = 0
+    if args.model == "tiny-random":
+        cfg = vita.VITAConfig.tiny()
+        params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        tok = ByteTokenizer()
+        encode, bos_id, eos_id, pad_id = tok.encode, tok.bos_id, tok.eos_id, 0
+    else:
+        cfg, params = checkpoint.load_vita_checkpoint(args.model, device)
+        hf_tok = load_hf_tokenizer(args.model)
+        encode = lambda s: hf_tok(s).input_ids
+        bos_id, eos_id, pad_id = hf_tok.bos_token_id, hf_tok.eos_token_id, hf_tok.pad_token_id
+
     if args.pretrain_mm_adapter:
-        load_adapter_into(params, args.pretrain_mm_adapter)
+        checkpoint.load_adapter_into(params, args.pretrain_mm_adapter)
+    if args.whale_init:
+        params = checkpoint.load_whale_torch_checkpoint(params, args.whale_init)
+    if args.lora_from:
+        params = merge_lora(params, load_state(args.lora_from, device=device),
+                            LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha))
 
     stage = {
         "pretrain_mlp": TrainConfig.stage1_pretrain_mlp,
@@ -100,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ds = ConversationDataset(
         [DatasetSpec(d, args.data_ratio) for d in args.data],
-        tok.encode, tok.bos_id, tok.eos_id, pad_id=pad_id,
+        encode, bos_id, eos_id, pad_id=pad_id,
         args=DataArgs(
             image_size=cfg.vision.image_size,
             max_patches=args.max_patches,
@@ -124,7 +139,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     num_epochs=args.epochs, save_every_steps=args.save_every,
                     resume=not args.no_resume)
     trainer = Trainer(cfg, stage, run, params)
-    log = trainer.train(ds, Collator(pad_id=pad_id))
+    log = trainer.train(ds, Collator(pad_id=pad_id or 0))
     trainer.save()
     if log:
         print(f"[done] {len(log)} steps, final loss {log[-1]['loss']:.4f}")
