@@ -20,6 +20,7 @@ NVIDIA GPU.
     python3 chip_probe.py expert-q     # bf16 B7 (int4) and B6 (int8) at T 1, 3; B8a at T 4, 8, 16
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
     python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
+    python3 chip_probe.py session      # TTFT of a reused session turn against a cold prefill
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -170,6 +171,16 @@ PAGED_CHOICES entry (the ring stages of the tensor-core path over bf16 and
 over int8 pages), held against the plain version, then the kernel's device
 time on paged's cases (torch.profiler, median of 25 launches) with each
 choice, in two passes of opposite orders.
+
+session: chip_smoke.py's full-width 4-layer slice on two bf16 Engines
+(gather decode, prefill chunks of 256), both warmed up: in each of
+SESSION_ROUNDS rounds a new session's text turn (300 ids, 16 new tokens)
+on the reuse Engine, then its image+audio turn 2 (chip_smoke's
+session_turns: 256 rows reused) on the reuse Engine and the same prompt
+on the cold one, which goes first alternating by round. Prints each
+round's TTFT pair and the medians, quartiles and the paired
+differences, then one reused and one cold turn 2 under torch.profiler
+(wall, device time, busy share, largest device entries).
 
 Each prints the card's name and power limit first.
 """
@@ -1050,6 +1061,65 @@ def _wgrad_walk(gids, tile_m: int, k: int, n: int, e: int = 8) -> str:
             f"{per_block.max() / per_block.mean():.4f}")
 
 
+SESSION_ROUNDS = 10
+
+
+def session(card: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = smoke.slice_config()
+    params = vita.init_params(cfg, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
+    kw = dict(max_len=2048, n_slots=4, prefill_chunk=256, page_size=64,
+              decode_moe_mode="gather", device=dev)
+    reuse, cold = Engine(params, cfg, **kw), Engine(params, cfg, **kw)
+    for e in (reuse, cold):
+        e.warmup(prompt_lens=(512, 1024), media=True, max_new_tokens=2)
+    turn1, turn2, _ = smoke.session_turns(cfg, smoke.SEED + 9)
+
+    def pair(key):
+        first = turn1([])
+        first.session_key = key
+        smoke.serve(reuse, [first])
+        again = turn2([first.tokens])
+        again.session_key = key
+        return again, turn2([first.tokens])
+
+    ttft = {"reused": [], "cold": []}
+    for i in range(SESSION_ROUNDS):
+        again, ref = pair(f"round{i}")
+        order = [(reuse, again, "reused"), (cold, ref, "cold")]
+        for engine, req, name in (order if i % 2 == 0 else order[::-1]):
+            smoke.serve(engine, [req])
+            ttft[name].append(req.ttft_s * 1e3)
+        if again.tokens != ref.tokens or reuse.stats()["reused_prefix_rows"] != 256 * (i + 1):
+            raise AssertionError(f"round {i}: streams or reuse differ")
+        print(f"  round {i} ({'reused' if i % 2 == 0 else 'cold'} first): TTFT reused "
+              f"{ttft['reused'][-1]:.2f} ms, cold {ttft['cold'][-1]:.2f} ms  [{card}]", flush=True)
+    diff = np.subtract(ttft["cold"], ttft["reused"])
+    for name, v in ttft.items():
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        print(f"  turn 2 TTFT {name}: median {med:.2f} ms, quartiles {q1:.2f}-{q3:.2f}  "
+              f"[{card}]", flush=True)
+    print(f"  cold - reused per round: median {np.median(diff):.2f} ms, least "
+          f"{diff.min():.2f}, largest {diff.max():.2f}; reused faster in "
+          f"{int((diff > 0).sum())} of {len(diff)} rounds  [{card}]", flush=True)
+    again, ref = pair("profiled")
+    for engine, req, name in ((reuse, again, "reused turn 2"), (cold, ref, "cold turn 2")):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            smoke.serve(engine, [req])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _summarize(prof, wall, f"{name} (prefill + 16 tokens)", card)
+
+
 def main() -> int:
     import torch
 
@@ -1059,7 +1129,7 @@ def main() -> int:
              "gmm-small-order": gmm_small_order, "expert": expert,
              "expert-ring": expert_ring, "expert-q4": expert_q4,
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
-             "paged-ring": paged_ring}
+             "paged-ring": paged_ring, "session": session}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

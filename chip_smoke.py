@@ -76,10 +76,36 @@ Phases, each of which raises on failure:
      from the loaded weights and from the in-memory ones under the loaded
      config (gmm prefill; bf16 experts, then int8 experts with int8 KV
      pages): identical greedy streams, and B5b with B2, B3 and B4 (bf16)
-     or B9, B6 and B8a (int8) must launch.
+     or B9, B6 and B8a (int8) must launch;
+  9. multi-turn and duplex serving on phase 3's weights (run right after
+     phase 4's Generator, before the weights are freed and the CLI runs),
+     launch counts zeroed before it and read after: (a) a three-turn
+     session (text; image+audio extending it; another image in the same
+     span, whose digest stops the reuse before it) through an Engine with
+     bf16 experts, then one with int8 experts and int8 KV pages, each turn
+     alone and then a wave of four other sessions: the reused offset
+     (256, a whole 256-row chunk of prompt rows) and reused_prefix_rows
+     are printed and checked, and B1 must launch with q_offset = the
+     offset and none lower; the bf16 streams must equal a cold Engine's on
+     the same prompts up to a step where the cold run's top two logits lie
+     within NEAR_TIE; the int8 reuse Engine is held on the card against
+     the CPU at phase 5's narrow fp32 configuration (the dequantized
+     prefix is lossy by design); (b) the port's ServingApp on 127.0.0.1
+     (ephemeral port) over the bf16 Engine: two /v1/generate turns of one
+     session_id, then a streamed /v1/chat/completions, and /stats must
+     show reused rows; (c) DuplexWebApp with two Engines over the weights
+     (gmm prefill), streaming Whale encode at 24 x 1024, fed
+     duplex_demo.synth_session through feed_pcm/drain_audio without
+     real-time sleeps and with a decode mapping every id to a letter:
+     exactly 2 utterances (the noise rejected by the VAD), an interrupt
+     with a role swap, the interrupted request cancelled and both pools
+     full after the drain, and each utterance's streamed features held to
+     whale.forward under the matching chunk mask (STREAM_ATOL,
+     STREAM_COS); speech end -> first text and interrupt -> role swap are
+     printed as readings. B1, B2, B3, B4, B9, B6 and B8a must launch.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-8) before the last, and as the last
+results (launches summed over phases 3-9) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -1739,6 +1765,471 @@ def checkpoint_phase(card: str, device):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 9: multi-turn and duplex serving on the card
+# --------------------------------------------------------------------------
+# the kernels phase 9 must launch
+SESSION_PATH = ("flash_fwd", "paged_attention", "gather_expert_ffn", "masked_expert_ffn",
+                "paged_attention_q", "gather_expert_ffn_q", "masked_expert_ffn_q")
+# the Whale streaming encoder against its own forward under the matching
+# chunk mask, both bf16 on the card through 24 layers: max |error| within
+# 64 bf16 units of roundoff (2^-8) of the layer-normed outputs, and the
+# cosine of the two feature matrices at least 0.999
+STREAM_ATOL = 64 * 2.0 ** -8
+STREAM_COS = 0.999
+
+
+@contextlib.contextmanager
+def _recording_q_offsets(offsets):
+    """While open, every B1 launch appends its q_offset (row 0) to
+    ``offsets``."""
+    from vita_tpu_torch.ops import flash_attention as fa
+
+    real = fa.flash_fwd_cuda
+
+    def fwd(q, k, v, kv_len, q_offset, *a):
+        offsets.append(int(q_offset[0]))
+        return real(q, k, v, kv_len, q_offset, *a)
+
+    fa.flash_fwd_cuda = fwd
+    try:
+        yield
+    finally:
+        fa.flash_fwd_cuda = real
+
+
+@contextlib.contextmanager
+def _recording_offsets(engine, offsets):
+    """While open, every prefill ``engine`` starts appends the offset it
+    starts at (the reused rows) to ``offsets``."""
+    start = engine._start_prefill
+
+    def spy(slot, req, pages):
+        start(slot, req, pages)
+        offsets.append(engine._prefill_jobs[-1].offset)
+
+    engine._start_prefill = spy
+    try:
+        yield
+    finally:
+        engine._start_prefill = start
+
+
+@contextlib.contextmanager
+def _recording_first_top2(store):
+    """While open, every prefill sample of the Engine appends (first,
+    second, gap) of its logits row to ``store``: the last entry of a
+    request's prefill is the one its first token came from."""
+    import torch
+
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real = engine_mod.sample_tokens
+
+    def sample(logits, *a, **k):
+        v, i = torch.topk(logits[0].float(), 2)
+        store.append((int(i[0]), int(i[1]), float(v[0] - v[1])))
+        return real(logits, *a, **k)
+
+    engine_mod.sample_tokens = sample
+    try:
+        yield
+    finally:
+        engine_mod.sample_tokens = real
+
+
+def session_turns(cfg, seed, n_text=300, new_tokens=16, frames=400):
+    """Three turns of one session, each a function of the earlier answers
+    giving a Request: (1) a text prompt; (2) it, its answer, then text, an
+    image, an audio clip and text; (3) turn 2's prompt with another image
+    in the same span, its answer and text. With 256-row prefill chunks the
+    reuse of turn 2 (315 rows shared) and of turn 3 (stopped by the image
+    digest at the image's start, 336) is 256 rows, all of them prompt rows
+    computed by prefill."""
+    from vita_tpu_torch.serve.engine import Request
+    from vita_tpu_torch.tokenization import audio_token_count
+
+    rng = np.random.default_rng(seed)
+    vocab = cfg.llm.vocab_size
+    ids1 = rng.integers(3, vocab, n_text).astype(np.int32)
+    n_img, n_aud = cfg.image_tokens_per_group, audio_token_count(frames)
+    sz = cfg.vision.image_size
+    tiles = [rng.standard_normal((1, sz, sz, 3)).astype(np.float32) for _ in range(2)]
+    speech = rng.standard_normal((frames, cfg.audio.input_dim)).astype(np.float32)
+    head, tail = rng.integers(3, vocab, 20), rng.integers(3, vocab, 40)
+    more = rng.integers(3, vocab, 30).astype(np.int32)
+
+    def media_prompt(answer1, tile):
+        ids = np.concatenate([ids1, answer1, head, np.zeros(n_img + n_aud, np.int32), tail])
+        im, am = np.zeros(len(ids), bool), np.zeros(len(ids), bool)
+        a = len(ids1) + len(answer1) + len(head)
+        im[a:a + n_img] = True
+        am[a + n_img:a + n_img + n_aud] = True
+        return ids.astype(np.int32), im, am, tile
+
+    def request(ids, im=None, am=None, tile=None):
+        media = {} if tile is None else dict(image_mask=im, audio_mask=am, images=tile,
+                                             speech=speech, speech_length=frames)
+        return Request(input_ids=ids, max_new_tokens=new_tokens, eos_id=-1, **media)
+
+    def turn1(answers):
+        return request(ids1)
+
+    def turn2(answers):
+        return request(*media_prompt(np.asarray(answers[0], np.int32), tiles[0]))
+
+    def turn3(answers):
+        ids, im, am, _ = media_prompt(np.asarray(answers[0], np.int32), tiles[1])
+        ids = np.concatenate([ids, np.asarray(answers[1], np.int32), more])
+        pad = np.zeros(len(ids) - len(im), bool)
+        return request(ids, np.concatenate([im, pad]), np.concatenate([am, pad]), tiles[1])
+
+    return [turn1, turn2, turn3]
+
+
+def _first_split(got, ref, top2, rid, near_tie):
+    """None when the streams are equal; else the step where ``got`` leaves
+    ``ref`` if the reference's top two logits there were the two tokens
+    within ``near_tie``; raises otherwise."""
+    if got == ref:
+        return None
+    j = next((j for j, (x, y) in enumerate(zip(got, ref)) if x != y), min(len(got), len(ref)))
+    t1, t2, gap = top2.get((rid, j), (None, None, None))
+    if near_tie > 0 and j < min(len(got), len(ref)) and (t1, t2) == (ref[j], got[j]) \
+            and gap <= near_tie:
+        print(f"    splits at token {j}: {got[j]} vs {ref[j]}, a near tie (reference's "
+              f"top-2 gap {gap:.3e} <= {near_tie}); compared up to it", flush=True)
+        return j
+    raise AssertionError(f"streams differ at token {j}: {got[j:j + 4]} vs {ref[j:j + 4]}; "
+                         f"reference's top two there {(t1, t2)}, gap {gap}")
+
+
+def serve_session(card, engine, turns, label, cold=None, wave=4):
+    """The turns of one session on ``engine`` (session key 's'), each
+    alone; with ``cold`` (an Engine without session keys), each turn's
+    prompt also there, and the streams compared up to a near tie of the
+    cold run. Prints and checks per turn the reuse offset, the reused
+    rows and B1's q_offsets; then a wave of ``wave`` other sessions'
+    first turns (decode batch ``wave``). Returns the offsets."""
+    answers, offsets = [], []
+    with _recording_offsets(engine, offsets):
+        for k, make in enumerate(turns, 1):
+            req = make(answers)
+            req.session_key = "s"
+            rows0 = engine.stats()["reused_prefix_rows"]
+            n_off = len(offsets)
+            q_offs = []
+            t0 = time.time()
+            with _recording_q_offsets(q_offs):
+                serve(engine, [req])
+            wall = time.time() - t0
+            off = offsets[n_off]
+            rows = engine.stats()["reused_prefix_rows"] - rows0
+            tokens = req.tokens
+            if len(tokens) != req.max_new_tokens or not all(
+                    0 <= x < engine.cfg.llm.vocab_size for x in tokens):
+                raise AssertionError(f"{label} turn {k}: tokens {tokens}")
+            print(f"  {label} turn {k}: prompt {len(req.input_ids)}, reused offset {off}, "
+                  f"reused_prefix_rows +{rows:.0f}, B1 q_offsets {sorted(set(q_offs))}, "
+                  f"TTFT {req.ttft_s * 1e3:.2f} ms, wall {wall * 1e3:.1f} ms  [{card}]",
+                  flush=True)
+            if rows != off or (k > 1 and (off <= 0 or min(q_offs) != off)):
+                raise AssertionError(f"{label} turn {k}: offset {off}, reused rows {rows}, "
+                                     f"B1 q_offsets {q_offs}")
+            if cold is not None:
+                top2, first = {}, []
+                ref = make(answers)
+                with _recording_top2(cold, top2), _recording_first_top2(first):
+                    serve(cold, [ref])
+                top2[(ref.request_id, 0)] = first[-1]
+                split = _first_split(tokens, ref.tokens, top2, ref.request_id, NEAR_TIE)
+                print(f"    cold Engine on the same prompt: TTFT {ref.ttft_s * 1e3:.2f} ms, "
+                      f"{'identical stream' if split is None else f'equal up to token {split}'}"
+                      f"  [{card}]", flush=True)
+            answers.append(tokens)
+        # long enough that all of them decode together (T 4: the masked plan)
+        rng = np.random.default_rng(SEED + 9)
+        reqs = [text_request(engine.cfg, rng, 100, 32) for _ in range(wave)]
+        for i, r in enumerate(reqs):
+            r.session_key = f"w{i}"
+        serve(engine, reqs)
+    return offsets
+
+
+def session_equivalence(devices):
+    """The three turns (narrow fp32 config, int8 experts, int8 KV pages,
+    prefill chunk 128) on each device with session reuse; the last device
+    is the reference. Each turn's stream must equal the reference's up to
+    a near tie of the reference (NEAR_TIE); the offsets must agree while
+    the streams do."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.serve.engine import Engine
+
+    cfg = narrow_config()
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    runs = []
+    for dev in devices:
+        engine = Engine(_to(params, dev), cfg, n_slots=2, max_len=1024, page_size=64,
+                        prefill_chunk=128, decode_moe_mode="gather_q", kv_int8=True, device=dev)
+        top2, first, answers, offsets, rids = {}, [], [], [], []
+        for make in session_turns(cfg, SEED + 10, n_text=150, frames=40):
+            req = make(answers)
+            req.session_key = "s"
+            with (_recording_offsets(engine, offsets), _recording_top2(engine, top2),
+                  _recording_first_top2(first)):
+                serve(engine, [req])
+            top2[(req.request_id, 0)] = first[-1]
+            answers.append(req.tokens)
+            rids.append(req.request_id)
+        runs.append((answers, offsets, top2, rids))
+    (got, got_off, _, _), (ref, ref_off, top2, rids) = runs[0], runs[-1]
+    for k, (a, b) in enumerate(zip(got, ref)):
+        split = _first_split(a, b, top2, rids[k], NEAR_TIE)
+        if split is not None:
+            break
+        if got_off[k] != ref_off[k]:
+            raise AssertionError(f"turn {k + 1}: offset {got_off[k]} vs {ref_off[k]}")
+    print(f"  int8 session reuse on {devices}, narrow fp32: offsets {got_off} (reference "
+          f"{ref_off}); streams equal{'' if split is None else ' up to a near tie'}",
+          flush=True)
+    if max(ref_off) <= 0:
+        raise AssertionError("no turn reused a prefix")
+
+
+def letter_decode(ids):
+    """Every id as one lowercase letter: with random weights the byte
+    tokenizer's decode is almost always empty, and the duplex gate decides
+    on the first visible text."""
+    return "".join(chr(97 + t % 26) for t in ids)
+
+
+def duplex_run(card, cfg, params, max_new_tokens=256):
+    """DuplexWebApp on two Engines over the slice weights (gmm prefill,
+    gather decode), streaming Whale encode on the card: the synthetic
+    session of duplex_demo.synth_session through feed_pcm/drain_audio,
+    without real-time sleeps (the second utterance waits only for the
+    first answer's gate). Checks 2 utterances (the noise rejected by the
+    VAD), an interrupt with a role swap, the interrupted request cancelled
+    and its engine's pages back in the pool, and each utterance's streamed
+    features against whale.forward under the matching chunk mask."""
+    import torch
+
+    from vita_tpu_torch.cli import ByteTokenizer
+    from vita_tpu_torch.data.audio import fbank
+    from vita_tpu_torch.models import whale
+    from vita_tpu_torch.serve.duplex_demo import synth_session
+    from vita_tpu_torch.serve.duplex_http import DuplexWebApp
+
+    tok = ByteTokenizer()
+    gcfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, moe_mode="gmm"))
+    t0 = time.time()
+    app = DuplexWebApp(params, gcfg, tok.encode, letter_decode, tok.bos_id, -1,
+                       max_new_tokens=max_new_tokens, max_len=2048, tts=False)
+    print(f"  duplex app with two Engines warm in {time.time() - t0:.1f} s  [{card}]", flush=True)
+    utts, queries, events, swaps = [], [], [], []
+    process, submit, emit, promote = (app._frontend.process, app.ctl.submit_query, app._emit,
+                                      app.ctl._promote)
+
+    def timed_process(chunk):
+        t = time.time()
+        out = process(chunk)
+        if out is not None:
+            utts.append((t, out))
+        return out
+
+    def timed_emit(type_, **kw):
+        events.append((type_, time.time()))
+        return emit(type_, **kw)
+
+    def timed_promote(request):
+        promote(request)
+        swaps.append((request, time.time(), app.ctl.generator_idx))
+
+    app._frontend.process, app._emit, app.ctl._promote = timed_process, timed_emit, timed_promote
+    app.ctl.submit_query = lambda r: (queries.append(r), submit(r))[1]
+    try:
+        chunks = synth_session()
+        t_feed = time.time()
+        for chunk in chunks:
+            app.feed_pcm(chunk)
+            if not app.drain_audio(120):
+                raise AssertionError("audio worker stuck")
+            # the second utterance must find the first answer promoted
+            t_gate = time.time()
+            while len(queries) == 1 and app.ctl.current is None and time.time() - t_gate < 60:
+                time.sleep(0.001)
+        fed = time.time() - t_feed
+        pcm = np.concatenate(chunks)
+        deadline = time.time() + 120
+        while time.time() < deadline and not all(r.finish_time > 0 for r in queries):
+            time.sleep(0.01)
+        for e in app.engines:
+            while e.active_count() or e._prefill_jobs or not e.queue.empty():
+                time.sleep(0.01)
+    finally:
+        app.close()
+    ctl = app.ctl
+    print(f"  {len(pcm) / 16000:.1f} s of audio fed in {fed:.2f} s; utterances "
+          f"{app.n_utterances}, interrupts {ctl.interrupts}, gate rejections "
+          f"{ctl.rejected_noise}, generator engine {ctl.generator_idx}", flush=True)
+    if app.n_utterances != 2 or len(queries) != 2:
+        raise AssertionError(f"{app.n_utterances} utterances segmented, expected 2 "
+                             "(the noise must not form one)")
+    r1, r2 = queries
+    if ctl.interrupts < 1 or len(swaps) < 2 or swaps[0][2] == swaps[1][2]:
+        raise AssertionError(f"no interrupt with a role swap: {ctl.interrupts}, "
+                             f"{[(s[0].request_id, s[2]) for s in swaps]}")
+    if not r1.cancelled or len(r1.tokens) >= max_new_tokens:
+        raise AssertionError(f"the first answer was not interrupted: {len(r1.tokens)} tokens")
+    if len(r2.tokens) != max_new_tokens:
+        raise AssertionError(f"the second answer has {len(r2.tokens)} tokens")
+    for i, e in enumerate(app.engines):
+        st = e.stats()
+        if st["free_pages"] != st["total_pages"] or st["active"]:
+            raise AssertionError(f"engine {i} holds pages after the drain: {st}")
+    print(f"  first answer interrupted after {len(r1.tokens)} tokens and cancelled; both "
+          f"page pools full again", flush=True)
+    # a query's first text follows its promotion (the other answer may
+    # still be streaming between its speech end and then)
+    texts = [t for kind, t in events if kind == "text"]
+    for k, ((t_end, _), (_, t_swap, _)) in enumerate(zip(utts, swaps)):
+        first = min((t for t in texts if t >= t_swap), default=float("nan"))
+        print(f"  utterance {k + 1}: speech end -> first text {(first - t_end) * 1e3:.1f} ms  "
+              f"[{card}]", flush=True)
+    print(f"  interrupt -> role swap (second speech end to the swap): "
+          f"{(swaps[1][1] - utts[1][0]) * 1e3:.1f} ms  [{card}]", flush=True)
+
+    dev = params["audio"]["cmvn"]["mean"].device
+    for k, (_, utt) in enumerate(utts):
+        feats = fbank(utt.wav)
+        outs, tail, n = [], 0, feats.shape[0]
+        for lo in range(0, n, 64):
+            m = min(64, n - lo)
+            t_out = max(int(whale.subsampled_length(tail + m)), 0)
+            outs.append(t_out)
+            tail = min(tail + m - 4 * t_out, whale.TAIL_MAX)
+        full_t = int(whale.subsampled_length(n))
+        bounds = np.cumsum(outs)
+        mask = np.zeros((full_t, full_t), bool)
+        for qi in range(full_t):
+            ci = int(np.searchsorted(bounds, qi, side="right"))
+            mask[qi, :bounds[min(ci, len(bounds) - 1)]] = True
+        with torch.no_grad():
+            want, _ = whale.forward(params["audio"], cfg.audio,
+                                    torch.from_numpy(feats[None]).to(dev),
+                                    torch.tensor([n], device=dev),
+                                    torch.from_numpy(mask).to(dev))
+        want = want[0, :sum(outs)].float().cpu().numpy()
+        got = utt.features
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        cos = float((got * want).sum() / (np.linalg.norm(got) * np.linalg.norm(want)))
+        print(f"  utterance {k + 1}: {n} fbank frames -> {got.shape[0]} streamed features; "
+              f"vs forward with the chunk mask: max |err| {err:.4f} (limit {STREAM_ATOL:.4f}), "
+              f"cosine {cos:.6f} (limit {STREAM_COS})", flush=True)
+        if not np.isfinite(got).all() or err > STREAM_ATOL or cos < STREAM_COS:
+            raise AssertionError(f"utterance {k + 1}: streamed features off the forward")
+
+
+def http_run(card, engine):
+    """The port's ServingApp on 127.0.0.1 (an ephemeral port) over
+    ``engine``: two /v1/generate turns of one session_id, then a streamed
+    /v1/chat/completions; /stats must show the second turn's reuse."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from vita_tpu_torch.cli import ByteTokenizer
+    from vita_tpu_torch.serve.http_server import ServingApp, make_handler
+
+    tok = ByteTokenizer()
+    app = ServingApp(engine, engine.cfg, tok.encode, tok.decode, tok.bos_id, -1,
+                     image_size=engine.cfg.vision.image_size)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.headers.get("Content-Type"), r.read()
+
+    def stats():
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        before = stats()["reused_prefix_rows"]
+        for k, prompt in enumerate(("Tell me about the weather on the coast today.",
+                                    "And tomorrow?"), 1):
+            t0 = time.time()
+            post("/v1/generate", {"prompt": prompt, "session_id": "http", "max_tokens": 16})
+            print(f"  POST /v1/generate turn {k}: {(time.time() - t0) * 1e3:.1f} ms, "
+                  f"reused_prefix_rows {stats()['reused_prefix_rows'] - before:.0f}  [{card}]",
+                  flush=True)
+        ctype, body = post("/v1/chat/completions",
+                           {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 16,
+                            "stream": True})
+        events = [e for e in body.decode().split("\n\n") if e.startswith("data: ")]
+        last = json.loads(events[-2][6:]) if len(events) >= 2 else {}
+        reused = stats()["reused_prefix_rows"] - before
+    finally:
+        server.shutdown()
+        app.thread.stop()
+        app.thread.join(timeout=60)
+    print(f"  streamed /v1/chat/completions: {ctype}, {len(events)} SSE events, finish "
+          f"{last.get('choices', [{}])[0].get('finish_reason')}", flush=True)
+    if (ctype != "text/event-stream" or events[-1] != "data: [DONE]"
+            or last["choices"][0]["finish_reason"] != "length" or reused <= 0):
+        raise AssertionError(f"HTTP run: {ctype}, {events[-2:]}, reused rows {reused}")
+
+
+def session_phase(card, cfg, params, device):
+    """Phase 9 on phase 3's full-width weights: (a) the session turns on a
+    bf16 Engine against a cold Engine and on an int8-expert int8-KV Engine,
+    then the int8 reuse Engine on the card against the CPU (narrow fp32);
+    (b) the HTTP server over the bf16 Engine; (c) the duplex app. Returns
+    the launch counts of the phase."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.serve.engine import Engine
+
+    kernels.reset_launches()
+    kw = dict(max_len=2048, n_slots=4, prefill_chunk=256, device=device)
+    turns = session_turns(cfg, SEED + 9)
+    print("  (a) session KV-prefix reuse, bf16 experts and pages", flush=True)
+    bf16 = Engine(params, cfg, page_size=64, decode_moe_mode="gather", **kw)
+    cold = Engine(params, cfg, page_size=64, decode_moe_mode="gather", **kw)
+    for e in (bf16, cold):  # first-use costs out of the TTFT readings
+        e.warmup(prompt_lens=(512, 1024), media=True, max_new_tokens=2)
+    serve_session(card, bf16, turns, "bf16", cold=cold)
+    del cold
+    print("  (a) session KV-prefix reuse, int8 experts and int8 KV pages", flush=True)
+    q8 = Engine(params, cfg, page_size=128, decode_moe_mode="gather_q", kv_int8=True, **kw)
+    serve_session(card, q8, turns, "int8")
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    session_equivalence([torch.device("cuda"), torch.device("cpu")])
+    print("  (b) the HTTP server over the bf16 Engine", flush=True)
+    http_run(card, bf16)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (c) duplex serving: two Engines, streaming Whale encode", flush=True)
+    duplex_run(card, cfg, params)
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in phase 9: {counts}", flush=True)
+    missing = [k for k in SESSION_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 9: kernels never launched on its path: {missing}")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1800,11 +2291,20 @@ def main() -> int:
     print("phase 4: the slice through Generator (gmm prefill), then the CLI", flush=True)
     t0 = time.time()
     parts.append(generator_phase(card, cfg, params, dev))
+    print(f"  phase 4 Generator wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+    print("phase 9: multi-turn and duplex serving on the card (phase 3's weights)", flush=True)
+    t0 = time.time()
+    parts.append(session_phase(card, cfg, params, dev))
+    print(f"  phase 9 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    print("phase 4 (continued): the CLI", flush=True)
+    t0 = time.time()
     parts.append(cli_phase())
-    print(f"  phase 4 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+    print(f"  phase 4 CLI wall {time.time() - t0:.1f} s  [{card}]", flush=True)
 
     print("phase 5: Engine on cuda vs cpu, narrow fp32 config", flush=True)
     t0 = time.time()

@@ -257,10 +257,14 @@ def test_quantized_engine_batch_of_eight(models, mode, monkeypatch):
 
 
 def test_session_key_and_bad_modes_raise(models):
+    """session_key is served (tests/test_torch_session.py holds its reuse
+    to JAX's); a bad decode mode raises."""
     _, _, tcfg, tp = models
     eng = engine.Engine(tp, tcfg, n_slots=1, max_len=64)
-    with pytest.raises(NotImplementedError, match="session_key"):
-        eng.submit(engine.Request(input_ids=np.array([1], np.int32), session_key="s"))
+    req = eng.submit(engine.Request(input_ids=np.array([1], np.int32), max_new_tokens=2,
+                                    eos_id=-1, session_key="s"))
+    eng.run_until_idle()
+    assert len(req.tokens) == 2 and eng.stats()["cached_prefixes"] == 1
     with pytest.raises(ValueError, match="bad decode_moe_mode"):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, decode_moe_mode="nope")
 

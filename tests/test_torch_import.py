@@ -131,6 +131,37 @@ def test_no_jax_import_in_port_sources():
     assert not offenders
 
 
+ENTRY_POINTS = ["vita_tpu_torch.serve.http_server", "vita_tpu_torch.serve.duplex_http",
+                "vita_tpu_torch.serve.duplex_demo", "vita_tpu_torch.data.tools"]
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_point_help_loads_no_reference_module(module):
+    """``python -m <module> --help`` of each serving and data entry point:
+    usage printed, exit 0, and neither jax nor vita_tpu loaded."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        + NO_REFERENCE
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
+
+
+def test_duplex_demo_refuses_without_a_card():
+    """Without --device cpu the duplex demo runs on the card or not at
+    all: with no card visible it stops before serving anything."""
+    proc = _run(["-m", "vita_tpu_torch.serve.duplex_demo", "--simulate"],
+                env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "[demo]" not in proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0

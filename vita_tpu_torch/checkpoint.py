@@ -42,12 +42,12 @@ from vita_tpu_torch.utils import hf_import, safetensors_io
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # fields of the JAX package's configs that the port has no use for
 # (positions, pipeline stages, the aux-loss coefficient: the port's
-# TrainConfig carries its own), written at the JAX package's defaults so
-# that either package reads the file; ignored on read
+# TrainConfig carries its own; Whale's flash backend), written at the JAX
+# package's defaults so that either package reads the file; ignored on read
 _JAX_ONLY = {
     "llm": {"max_position": 32768, "router_aux_loss_coef": 0.02, "pipe_stages": 1,
             "pipe_microbatches": 4},
-    "audio": {"max_positions": 5000, "attn_backend": "xla"},
+    "audio": {"attn_backend": "xla"},
 }
 
 

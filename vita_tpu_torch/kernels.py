@@ -9,7 +9,8 @@ Nothing is built or loaded at import time: the CPU-only test runs import
 every module of the package.
 
 Every wrapper that launches a kernel adds one to its entry of
-``launches`` right where it launches, and nowhere else; a caller can
+``launches`` (``count_launch``, under a lock) right where it launches,
+and nowhere else; a caller can
 zero the counts with ``reset_launches()`` and read them after a run to
 show that the run went through the kernels.
 """
@@ -114,9 +115,21 @@ _SIGNATURES = {
 }
 
 
+# the two duplex Engines launch from two host threads: a plain ``+= 1``
+# could lose a count between its read and its write
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (called where it is launched)."""
+    with _launches_lock:
+        launches[name] += 1
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:

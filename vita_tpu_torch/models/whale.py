@@ -1,4 +1,5 @@
-"""Whale audio encoder, full-context path (vita_tpu.models.whale.forward).
+"""Whale audio encoder (vita_tpu.models.whale): the full-context forward
+and the streaming (chunked) encoder.
 
 As deployed with VITA: GlobalCMVN -> Conv2dSubsampling4 (two 3x3 stride-2
 valid convs, T -> ((T-1)//2-1)//2) -> linear + LayerNorm + ReLU -> x*sqrt(d)
@@ -7,16 +8,25 @@ without rel_shift and a ReLU FFN -> final LayerNorm. Attention is the
 plain softmax branch of the JAX package (its default ``attn_backend``
 'xla'); padded frames are masked as keys.
 
+``forward`` takes an optional chunk mask [T', T'] (``chunk_mask``) for
+chunk-causal attention. ``streaming_init`` / ``streaming_step`` encode a
+stream block by block: the state carries the unconsumed raw frames (the
+subsampling convs need a 7-frame receptive field), per-layer K/V of the
+last ``left_context`` subsampled frames and the absolute position offset,
+and stays on the device (no step reads back to the host). Concatenated,
+the valid outputs equal ``forward`` under the matching chunk mask.
+
 Parameters keep the JAX layout: conv kernels HWIO [3, 3, in, out] for a
-[B, T, F, C] input, matrices used as x @ w. The streaming (chunked) encoder
-is not ported yet.
+[B, T, F, C] input, matrices used as x @ w. The JAX package's
+``attn_backend='flash'`` (full context only) is not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ class WhaleConfig:
     n_heads: int = 16
     ffn_dim: int = 4096
     ln_eps: float = 1e-5
+    max_positions: int = 5000  # sinusoid table rows; streaming positions wrap
     dtype: torch.dtype = torch.float32
 
     @property
@@ -125,11 +136,24 @@ def _conv_subsample(sub: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ sub["out_w"] + sub["out_b"]
 
 
+def chunk_mask(t: int, chunk_size: int, left_chunks: int = -1) -> np.ndarray:
+    """WeNet chunked attention mask [t, t]: frame i attends within its
+    chunk and up to ``left_chunks`` chunks back (all history if -1)."""
+    chunk_of = np.arange(t) // chunk_size
+    q = chunk_of[:, None]
+    kv = chunk_of[None, :]
+    ok = kv <= q
+    if left_chunks >= 0:
+        ok &= kv >= q - left_chunks
+    return ok
+
+
 def forward(
     params: Params,
     cfg: WhaleConfig,
     speech: torch.Tensor,  # [B, T, input_dim] fbank features
     lengths: torch.Tensor,  # [B] valid frame counts
+    attn_chunk_mask: Optional[torch.Tensor] = None,  # [T', T'] bool (streaming)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (features [B, T', hidden], valid_mask [B, T'])."""
     b = speech.shape[0]
@@ -143,7 +167,10 @@ def forward(
     x = F.relu(layer_norm(x @ e["w"] + e["b"], e["ln_w"], e["ln_b"], eps=1e-5))
     x = x * math.sqrt(cfg.hidden)
     pos = torch.from_numpy(sinusoid_table(t_sub, cfg.hidden)).to(x.device, cfg.dtype)
-    bias = torch.where(valid[:, None, None, :], 0.0, NEG_INF).to(torch.float32)
+    keep = valid[:, None, None, :]  # key padding [B, 1, 1, T']
+    if attn_chunk_mask is not None:
+        keep = keep & torch.as_tensor(attn_chunk_mask, device=x.device)[None, None]
+    bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
 
     nh, hd = cfg.n_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -167,3 +194,138 @@ def forward(
         x = x + (h @ lp["ffn2_w"] + lp["ffn2_b"])
     x = layer_norm(x, params["ln_final"]["w"], params["ln_final"]["b"], cfg.ln_eps)
     return x, valid
+
+
+# ---------------------------------------------------------------------------
+# streaming (chunked) inference
+# ---------------------------------------------------------------------------
+TAIL_MAX = 8  # raw frames carried between chunks (receptive-field overlap)
+
+
+@functools.lru_cache(maxsize=8)
+def _pe_table(n: int, d: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The sinusoid table on ``device``, built once per (rows, width)."""
+    return torch.from_numpy(sinusoid_table(n, d)).to(device, dtype)
+
+
+def streaming_init(cfg: WhaleConfig, batch: int, chunk_frames: int,
+                   left_context: int = 128, device=None) -> Params:
+    """State for streaming_step, on ``device``. ``chunk_frames`` is raw
+    fbank frames per step; ``left_context`` the attention span kept per
+    layer, in subsampled frames."""
+    del chunk_frames  # the state does not depend on it
+    kv = (cfg.n_layers, batch, left_context, cfg.n_heads, cfg.head_dim)
+    scalar = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    return {
+        "raw_tail": torch.zeros(batch, TAIL_MAX, cfg.input_dim, device=device),
+        "tail_len": scalar(),
+        "k": torch.zeros(kv, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(kv, dtype=cfg.dtype, device=device),
+        "ctx_len": scalar(),
+        "pos_offset": scalar(),
+    }
+
+
+@torch.no_grad()
+def streaming_step(
+    params: Params, cfg: WhaleConfig, state: Params, chunk: torch.Tensor,
+    chunk_len=None,
+) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """Encode one chunk [B, chunk_frames, input_dim] of fbank features.
+
+    Returns (features [B, max_out, hidden], valid [B, max_out], new state).
+    ``chunk_len`` (an int or an int32 tensor; default chunk_frames) counts
+    the real leading frames of ``chunk``: a final flush rarely fills a
+    block, and its padding must never become a key (attention is
+    bidirectional within the chunk). Relative positions index the sinusoid
+    table by absolute key position, modulo its size, with no rel_shift."""
+    b, chunk_frames, _ = chunk.shape
+    dev = chunk.device
+    max_out = subsampled_length(TAIL_MAX + chunk_frames)
+    left = state["k"].shape[2]
+    nh, hd = cfg.n_heads, cfg.head_dim
+    if chunk_len is None:
+        chunk_len = chunk_frames
+    chunk_len = torch.as_tensor(chunk_len, dtype=torch.int32, device=dev)
+
+    x_cm = (chunk.float() - params["cmvn"]["mean"]) * params["cmvn"]["istd"]
+    # [tail || chunk]: the tail is right-aligned in its buffer, so one roll
+    # by TAIL_MAX - tail_len makes the valid frames contiguous from 0
+    total_buf = TAIL_MAX + chunk_frames
+    buf = torch.cat([state["raw_tail"], x_cm], dim=1)
+    tail_len = state["tail_len"]
+    ar_buf = torch.arange(total_buf, device=dev)
+    buf = buf[:, (ar_buf + TAIL_MAX - tail_len) % total_buf]
+    t_total = tail_len + chunk_len
+    # fewer than 3 buffered frames subsample to nothing (the formula goes
+    # negative there, which would corrupt the carried state)
+    t_out = subsampled_length(t_total).clamp_min(0)
+    new_tail_len = (t_total - 4 * t_out).clamp(0, TAIL_MAX)
+
+    feats = _conv_subsample(params["sub"], buf.to(cfg.dtype))[:, :max_out]
+    ar_out = torch.arange(max_out, device=dev)
+    out_valid = (ar_out < t_out)[None].expand(b, max_out)
+
+    # carry the unconsumed raw frames right-aligned: slot TAIL_MAX-1 holds
+    # the newest frame (buffer row t_total-1)
+    ar_tail = torch.arange(TAIL_MAX, device=dev)
+    new_tail = buf[:, (t_total - TAIL_MAX + ar_tail).clamp(0, total_buf - 1)]
+    keep = (ar_tail >= TAIL_MAX - new_tail_len)[None, :, None]
+    new_tail = torch.where(keep, new_tail, 0.0)
+
+    e = params["embed"]
+    h = F.relu(layer_norm(feats @ e["w"] + e["b"], e["ln_w"], e["ln_b"], eps=1e-5))
+    h = h * math.sqrt(cfg.hidden)
+
+    # absolute positions of the cached context and of this chunk's outputs
+    pos_offset, ctx_len = state["pos_offset"], state["ctx_len"]
+    ar_left = torch.arange(left, device=dev)
+    kv_abs = torch.cat([pos_offset - ctx_len + ar_left, pos_offset + ar_out])
+    kv_valid = torch.cat([ar_left < ctx_len, ar_out < t_out])
+    # positions wrap at the table size (the reference's pe_index % max_len)
+    pe = _pe_table(cfg.max_positions, cfg.hidden, dev, cfg.dtype)
+    pe_rows = pe[torch.remainder(kv_abs, cfg.max_positions).long()]
+    scale = 1.0 / math.sqrt(hd)
+
+    # each layer's new cache: the last `left` valid keys of [ctx | new],
+    # valid entries first in their order, left-aligned
+    total = left + max_out
+    order = torch.arange(total, device=dev)
+    perm = torch.argsort(torch.where(kv_valid, 0, 1) * total + order)
+    n_valid = ctx_len + t_out
+    start = (n_valid - torch.clamp(n_valid, max=left)).clamp_min(0)
+    sel = perm[(start + ar_left).clamp(0, total - 1)]
+
+    new_k, new_v = [], []
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in layers.items()}
+        hn = layer_norm(h, lp["norm1_w"], lp["norm1_b"], cfg.ln_eps)
+        q = (hn @ lp["q_w"] + lp["q_b"]).reshape(b, max_out, nh, hd)
+        k = (hn @ lp["k_w"] + lp["k_b"]).reshape(b, max_out, nh, hd)
+        v = (hn @ lp["v_w"] + lp["v_b"]).reshape(b, max_out, nh, hd)
+        k_all = torch.cat([state["k"][i], k.to(state["k"].dtype)], dim=1)
+        v_all = torch.cat([state["v"][i], v.to(state["v"].dtype)], dim=1)
+        p_all = (pe_rows @ lp["pos_w"]).reshape(total, nh, hd)
+        ac = torch.einsum("bqhd,bkhd->bhqk", (q + lp["pos_bias_u"]).float(), k_all.float())
+        bd = torch.einsum("bqhd,khd->bhqk", (q + lp["pos_bias_v"]).float(), p_all.float())
+        logits = torch.where(kv_valid, (ac + bd) * scale, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(v_all.dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v_all).reshape(b, max_out, cfg.hidden)
+        h = h + (attn @ lp["out_w"] + lp["out_b"])
+        hn = layer_norm(h, lp["norm2_w"], lp["norm2_b"], cfg.ln_eps)
+        hn = F.relu(hn @ lp["ffn1_w"] + lp["ffn1_b"])
+        h = h + (hn @ lp["ffn2_w"] + lp["ffn2_b"])
+        new_k.append(k_all[:, sel])
+        new_v.append(v_all[:, sel])
+    h = layer_norm(h, params["ln_final"]["w"], params["ln_final"]["b"], cfg.ln_eps)
+
+    new_state = {
+        "raw_tail": new_tail,
+        "tail_len": new_tail_len.to(torch.int32),
+        "k": torch.stack(new_k),
+        "v": torch.stack(new_v),
+        "ctx_len": torch.clamp(n_valid, max=left).to(torch.int32),
+        "pos_offset": (pos_offset + t_out).to(torch.int32),
+    }
+    return h, out_valid, new_state

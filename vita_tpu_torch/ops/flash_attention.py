@@ -142,7 +142,7 @@ def flash_fwd_cuda(q, k, v, kv_len, q_offset, causal: bool, scale: float):
         b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q),
     )
     kernels.check_launch(err, "flash_fwd")
-    kernels.launches["flash_fwd"] += 1
+    kernels.count_launch("flash_fwd")
     return o, lse
 
 
@@ -169,7 +169,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
         delta.data_ptr(), dq.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
         b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q))
     kernels.check_launch(err, "flash_bwd_dq")
-    kernels.launches["flash_bwd_dq"] += 1
+    kernels.count_launch("flash_bwd_dq")
     return dq
 
 
@@ -187,7 +187,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale)
         q_offset.data_ptr(), b, sq, skv, hq, hkv, float(scale), int(causal), dt,
         kernels.stream_of(q))
     kernels.check_launch(err, "flash_bwd_dkv")
-    kernels.launches["flash_bwd_dkv"] += 1
+    kernels.count_launch("flash_bwd_dkv")
     return dk, dv
 
 

@@ -203,7 +203,7 @@ def gather_expert_ffn_cuda(x, topk_idx, w_gate, w_up, w_down) -> torch.Tensor:
     """One kernel row per (token, k) pair, one token slot each."""
     t, d = x.shape
     y = _expert_rows(x.contiguous(), *_pair_rows(x, topk_idx), w_gate, w_up, w_down, False)
-    kernels.launches["gather_expert_ffn"] += 1
+    kernels.count_launch("gather_expert_ffn")
     return y.reshape(t, topk_idx.shape[1], d)
 
 
@@ -283,7 +283,7 @@ def masked_expert_ffn_cuda(x, act, m, w_gate, w_up, w_down) -> torch.Tensor:
     """One kernel row per active expert with all T tokens; in bf16 the
     plan's padding rows read no weights."""
     y = _expert_rows(x.contiguous(), *_active_rows(x, act), w_gate, w_up, w_down, True)
-    kernels.launches["masked_expert_ffn"] += 1
+    kernels.count_launch("masked_expert_ffn")
     return _masked_combine(m, y, x)
 
 
@@ -453,7 +453,7 @@ def gather_expert_ffn_q_cuda(x, topk_idx, qparams, bits: int) -> torch.Tensor:
         y = _expert_ffn_q_mma(x.contiguous(), *rows, qparams, bits, False)
     else:
         y = _q_launch(x, *rows, qparams, bits)
-    kernels.launches["gather_expert_ffn" + _q_suffix(bits)] += 1
+    kernels.count_launch("gather_expert_ffn" + _q_suffix(bits))
     return y.reshape(t, topk_idx.shape[1], d)
 
 
@@ -548,7 +548,7 @@ def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int) -> torch.Tensor:
         y = _expert_ffn_q_mma(x.contiguous(), *rows, qparams, bits, True)
     else:
         y = _q_launch(x, *rows, qparams, bits)
-    kernels.launches["masked_expert_ffn" + _q_suffix(bits)] += 1
+    kernels.count_launch("masked_expert_ffn" + _q_suffix(bits))
     return _masked_combine(m, y, x)
 
 

@@ -133,7 +133,7 @@ def gmm_cuda(x, w, gids, transpose_rhs: bool = False, tile_m: int = TILE_M) -> t
         else:
             err = kernels.lib().vita_gmm(*args, kernels.stream_of(x))
         kernels.check_launch(err, "gmm")
-        kernels.launches["gmm" if large else "gmm_small"] += 1
+        kernels.count_launch("gmm" if large else "gmm_small")
     return out
 
 
@@ -183,7 +183,7 @@ def gmm_wgrad_cuda(a, b, gids, n_groups: int, tile_m: int = TILE_M) -> torch.Ten
             a.data_ptr(), b.data_ptr(), gids.data_ptr(), out.data_ptr(), r, k_dim, n_dim,
             n_groups, tile_m, dt, kernels.stream_of(a))
         kernels.check_launch(err, "gmm_wgrad")
-        kernels.launches["gmm_wgrad"] += 1
+        kernels.count_launch("gmm_wgrad")
     return out
 
 

@@ -157,7 +157,7 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, lengths, layer: int,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), o.data_ptr(), *args, dt, kernels.stream_of(q))
         kernels.check_launch(err, "paged_attention_q")
-        kernels.launches["paged_attention_q"] += 1
+        kernels.count_launch("paged_attention_q")
         return o
     dt = kernels.dtype_code(q, k_pages, v_pages)
     if b == 0:
@@ -167,7 +167,7 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, lengths, layer: int,
         *args, dt, kernels.stream_of(q),
     )
     kernels.check_launch(err, "paged_attention")
-    kernels.launches["paged_attention"] += 1
+    kernels.count_launch("paged_attention")
     return o
 
 

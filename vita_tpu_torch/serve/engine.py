@@ -4,9 +4,9 @@ prefill (vita_tpu.serve.engine, single-device path).
 - Paged KV with lazy growth and preemption: all slots share one page pool
   (ops.paged_attention). A request reserves its prompt's pages at
   admission and grows before each decode chunk (_ensure_pages); under pool
-  pressure the newest request is preempted and later re-prefills
-  prompt+generated tokens (recompute on resume), so greedy streams are
-  unchanged by a preemption.
+  pressure the engine evicts cached session prefixes, then preempts the
+  newest request, which later re-prefills prompt+generated tokens
+  (recompute on resume), so greedy streams are unchanged by a preemption.
 - Chunked prefill: a prompt prefills ``prefill_chunk`` tokens per engine
   tick into a linear scratch, interleaved with decode chunks and with other
   prefills; the finished scratch is scattered into the pool
@@ -26,16 +26,27 @@ prefill (vita_tpu.serve.engine, single-device path).
   bf16 weights, so both copies are resident; ``kv_int8=True`` keeps the
   page pool in int8 with per-(row, head) scales.
 
+- KV-prefix reuse: requests sharing a ``session_key`` keep their pages
+  after finishing (on eos or length). The next turn gathers the longest
+  common prefix of ids and image/audio masks from those pages into its
+  prefill scratch (dequantizing int8 pages), rounded down to a whole
+  chunk, and prefills only the suffix: its first chunk attends from
+  ``q_offset`` = the reused length over rows it did not compute. A prefix
+  covers a media run only where the run's span and content digest match
+  (``_media_spans``). Cached prefixes are evicted under page pressure,
+  oldest first and the requester's own last.
+
 Requests stream tokens to callbacks and can be cancelled mid-decode;
-``EngineThread`` drives ``step`` in the background. Options of the JAX
-engine that are not ported raise NotImplementedError: a mesh (tensor,
-expert or pipeline parallel serving) and ``session_key`` prefix reuse.
+``EngineThread`` drives ``step`` in the background. A mesh (tensor,
+expert or pipeline parallel serving) is not ported and raises
+NotImplementedError (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
 import queue
 import threading
@@ -86,7 +97,9 @@ class Request:
     audio_encoded_length: Any = 0
     on_token: Optional[Callable[[int], None]] = None
     on_finish: Optional[Callable[[List[int], str], None]] = None
-    session_key: Optional[str] = None  # prefix reuse: not ported, must be None
+    # multi-turn KV reuse: requests sharing a session_key keep their pages
+    # after finishing; the next one skips prefill for the shared prefix
+    session_key: Optional[str] = None
     request_id: int = dataclasses.field(default_factory=itertools.count().__next__)
 
     # runtime state
@@ -107,6 +120,55 @@ class Request:
     def decode_tokens_per_s(self) -> float:
         dt = self.finish_time - self.first_token_time
         return (len(self.tokens) - 1) / dt if dt > 0 and len(self.tokens) > 1 else 0.0
+
+
+@dataclasses.dataclass
+class _CachedPrefix:
+    ids: np.ndarray  # tokens whose kv rows live in pages (prompt+generated)
+    pages: List[int]
+    # the prompt's media layout (masks padded to len(ids), generated rows
+    # False) and [(start, end, digest)] of each media run: ids alone cannot
+    # tell two prompts whose tiles or clips differ apart
+    im: Optional[np.ndarray] = None
+    am: Optional[np.ndarray] = None
+    spans: Optional[List[tuple]] = None
+
+
+def _gather_pages(pages: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
+    """Pages [L, Hkv, P, page, d] at page_ids (clipped into the pool) as a
+    linear scratch [L, 1, n*page, Hkv, d]."""
+    x = pages[:, :, page_ids.clamp(0, pages.shape[2] - 1)]
+    l, hkv, n_pp, page, hd = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(l, 1, n_pp * page, hkv, hd)
+
+
+def _extract_pages(cache, page_ids: torch.Tensor, dtype: torch.dtype):
+    """Inverse of install_prefill_pages: a session's cached pages as the
+    next turn's prefill scratch (k, v) [L, 1, n*page, Hkv, d] in ``dtype``.
+    int8 pages are dequantized: the float32 product of the values and
+    their (row, head) scales [L, Hkv, P, 1, page], cast to ``dtype``."""
+    out = []
+    for name in ("k", "v"):
+        x = _gather_pages(cache[f"{name}_pages"], page_ids)
+        scales = cache.get(f"{name}_scale")
+        if scales is not None:
+            s = scales[:, :, page_ids.clamp(0, scales.shape[2] - 1)]
+            l, hkv, n_pp, _, page = s.shape
+            s = s.permute(0, 2, 4, 1, 3).reshape(l, 1, n_pp * page, hkv, 1)
+            x = x.float() * s
+        out.append(x.to(dtype))
+    return out
+
+
+def _host_bytes(x) -> bytes:
+    """The bytes of a contiguous host copy of ``x`` in its own dtype (numpy
+    or a tensor on any device), so equal media give equal digests."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        x = x.numpy()
+    return np.ascontiguousarray(np.asarray(x)).tobytes()
 
 
 @dataclasses.dataclass
@@ -235,12 +297,13 @@ class Engine:
         self._ttft_hist = np.zeros(256, np.int64)
         self._ttft_edges = np.logspace(-4, 3, 257)
         self._ttft_count = 0
+        # session_key -> the previous turn's pages and ids (KV-prefix reuse)
+        self._prefix_cache: Dict[str, _CachedPrefix] = {}
+        self._reused_prefix_rows = 0
         self._preempt_count = 0
 
     # -- public API -------------------------------------------------------
     def submit(self, req: Request) -> Request:
-        if req.session_key is not None:
-            raise NotImplementedError("session_key prefix reuse is not ported")
         if len(req.input_ids) + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"request needs {len(req.input_ids) + req.max_new_tokens} slots, "
@@ -249,7 +312,7 @@ class Engine:
         if pages_needed(len(req.input_ids) + req.max_new_tokens,
                         self.page_size) > self.total_pages:
             # lazy growth never deadlocks only if the oldest request's worst
-            # case fits the pool once newer slots are reclaimed
+            # case fits the pool once caches and newer slots are reclaimed
             raise ValueError(
                 "request's worst-case KV exceeds the page pool "
                 f"({self.total_pages} pages of {self.page_size})"
@@ -267,6 +330,8 @@ class Engine:
             "completed": float(self._ttft_count),
             "free_pages": float(self.alloc.free_count),
             "total_pages": float(self.total_pages),
+            "cached_prefixes": float(len(self._prefix_cache)),
+            "reused_prefix_rows": float(self._reused_prefix_rows),
             "preemptions": float(self._preempt_count),
         }
         if self._ttft_count:
@@ -352,6 +417,95 @@ class Engine:
             if self.step() == 0 and self.queue.empty() and not self._pending:
                 return
 
+    # -- media digests for KV-prefix reuse ---------------------------------
+    def _media_spans(self, req: Request) -> Optional[List[tuple]]:
+        """[(start, end, digest)] of each contiguous media run of the prompt,
+        sorted; [] for text; None when the media cannot be mapped onto the
+        mask runs (the request then neither caches nor reuses a prefix).
+        Features at media positions are a function of the media content
+        alone, so equal digests and masks make cached rows exact."""
+        s = len(req.input_ids)
+        spans: List[tuple] = []
+
+        def runs(mask):
+            m = np.zeros(s, bool)
+            mm = np.asarray(mask, bool)[:s]
+            m[: len(mm)] = mm
+            edges = np.flatnonzero(np.diff(np.concatenate([[0], m.astype(np.int8), [0]])))
+            return list(zip(edges[::2], edges[1::2]))
+
+        if req.images is not None:
+            if req.image_mask is None:
+                return None
+            g = self.cfg.image_group_tiles
+            tpg = self.cfg.image_tokens_per_group
+            tiles = req.images
+            ti = 0
+            for a, b in runs(req.image_mask):
+                n = (b - a) // tpg
+                if n * tpg != (b - a) or ti + n * g > len(tiles):
+                    return None
+                d = hashlib.blake2b(_host_bytes(tiles[ti:ti + n * g]), digest_size=16)
+                spans.append((int(a), int(b), "img:" + d.hexdigest()))
+                ti += n * g
+        elif req.image_mask is not None and np.any(np.asarray(req.image_mask)):
+            return None
+
+        if req.speech is not None or req.audio_encoded is not None:
+            if req.audio_mask is None:
+                return None
+            src = req.speech if req.speech is not None else req.audio_encoded
+            ln = req.speech_length if req.speech is not None else req.audio_encoded_length
+            clips = list(src) if isinstance(src, (list, tuple)) else [src]
+            if isinstance(ln, (list, tuple, np.ndarray)):
+                lens = [int(x) for x in ln]
+            else:
+                lens = [int(ln or clips[0].shape[0])]
+            if len(lens) != len(clips):
+                return None
+            if req.speech is not None:
+                counts = [audio_token_count(n) for n in lens]
+            else:
+                counts = [(n - 1) // 2 + 1 for n in lens]
+            ci = 0
+            for a, b in runs(req.audio_mask):
+                need = int(b - a)
+                h = hashlib.blake2b(digest_size=16)
+                used = 0
+                while used < need and ci < len(clips):
+                    h.update(_host_bytes(clips[ci][: lens[ci]]))
+                    used += counts[ci]
+                    ci += 1
+                if used != need:
+                    return None
+                spans.append((int(a), int(b), "aud:" + h.hexdigest()))
+        elif req.audio_mask is not None and np.any(np.asarray(req.audio_mask)):
+            return None
+
+        spans.sort()
+        return spans
+
+    @staticmethod
+    def _clamp_shared_to_media(shared: int, cached_spans: Optional[List[tuple]],
+                               new_spans: Optional[List[tuple]]) -> int:
+        """The largest prefix length <= shared such that every media run
+        overlapping it is identical (span and digest) in the cached turn
+        and in the new request."""
+        if not cached_spans and not new_spans:
+            return shared
+        if cached_spans is None or new_spans is None:
+            return 0
+        for i in range(max(len(cached_spans), len(new_spans))):
+            cs = cached_spans[i] if i < len(cached_spans) else None
+            ns = new_spans[i] if i < len(new_spans) else None
+            if cs is not None and cs == ns:
+                continue  # identical run: its rows are valid anywhere
+            starts = [x[0] for x in (cs, ns) if x is not None]
+            if starts:
+                shared = min(shared, min(starts))
+            break
+        return shared
+
     # -- admission and prefill ----------------------------------------------
     def _admit(self) -> None:
         try:
@@ -373,8 +527,15 @@ class Engine:
             req = self._pending[0]
             # only the prompt's pages (a resumed request re-prefills its
             # generated tokens too); decode pages grow in _ensure_pages
-            pages = self.alloc.alloc(pages_needed(
-                len(req.input_ids) + len(req.tokens), self.page_size))
+            n_pages = pages_needed(len(req.input_ids) + len(req.tokens), self.page_size)
+            pages = self.alloc.alloc(n_pages)
+            # cached session prefixes are reclaimable: the oldest first, the
+            # requester's own last (its reuse is what the cache is for)
+            while pages is None and self._prefix_cache:
+                others = [k for k in self._prefix_cache if k != req.session_key]
+                key = others[0] if others else next(iter(self._prefix_cache))
+                self.alloc.release(self._prefix_cache.pop(key).pages)
+                pages = self.alloc.alloc(n_pages)
             if pages is None:
                 return
             self._pending.popleft()
@@ -403,13 +564,57 @@ class Engine:
         llm = self.cfg.llm
         shape = (llm.n_layers, 1, bucket, llm.n_kv_heads, llm.head_dim)
         chunk = self.prefill_chunk if bucket % self.prefill_chunk == 0 else bucket
+        chunk = min(chunk, bucket)
+        offset, sk, sv = self._reuse_prefix(req, ids, bucket, chunk)
+        if offset == 0:
+            sk = torch.zeros(shape, dtype=llm.dtype, device=self.device)
+            sv = torch.zeros(shape, dtype=llm.dtype, device=self.device)
         self._prefill_jobs.append(_PrefillJob(
             req=req, slot=slot, pages=pages, true_len=s, bucket=bucket,
-            chunk=min(chunk, bucket), embeds=self._embed(req, np.asarray(padded)),
-            sk=torch.zeros(shape, dtype=llm.dtype, device=self.device),
-            sv=torch.zeros(shape, dtype=llm.dtype, device=self.device),
+            chunk=chunk, embeds=self._embed(req, np.asarray(padded)), sk=sk, sv=sv,
             mode=choose_sampling_mode(req.temperature, req.top_k, req.top_p),
+            offset=offset,
         ))
+
+    def _reuse_prefix(self, req: Request, ids: np.ndarray, bucket: int, chunk: int):
+        """Seed the prefill scratch from this session's cached pages: the
+        longest common prefix of ids and image/audio masks, clamped to
+        identical media runs and rounded down to a whole chunk. Returns
+        (offset, k scratch, v scratch); offset 0 (and no scratch) when
+        nothing is reused. The cached pages go back to the pool either way."""
+        cached = self._prefix_cache.pop(req.session_key, None) if req.session_key else None
+        if cached is None:
+            return 0, None, None
+        s = len(ids)
+        m = min(len(cached.ids), s - 1)
+
+        def mask_of(mask, n):
+            out = np.zeros(n, bool)
+            if mask is not None:
+                k = min(n, len(mask))
+                out[:k] = np.asarray(mask, bool)[:k]
+            return out
+
+        cids = cached.ids
+        cim, cam = mask_of(cached.im, len(cids)), mask_of(cached.am, len(cids))
+        rim, ram = mask_of(req.image_mask, s), mask_of(req.audio_mask, s)
+        same = ((cids[:m] == ids[:m]) & (cim[:m] == rim[:m]) & (cam[:m] == ram[:m]))
+        shared = int(m if same.all() else np.argmin(same))
+        shared = self._clamp_shared_to_media(shared, cached.spans, self._media_spans(req))
+        offset = (shared // chunk) * chunk
+        sk = sv = None
+        if offset > 0:
+            # unused entries pad with page 0 and every id is clipped into
+            # the pool when gathered; the rows they give lie past the
+            # offset, which the suffix's chunks overwrite
+            n_pp = bucket // self.page_size
+            vec = np.zeros(n_pp, np.int64)
+            use = min(n_pp, len(cached.pages))
+            vec[:use] = cached.pages[:use]
+            sk, sv = _extract_pages(self.cache, self._tensor(vec), self.cfg.llm.dtype)
+            self._reused_prefix_rows += offset
+        self.alloc.release(cached.pages)
+        return offset, sk, sv
 
     def _prefill_tick(self) -> None:
         still: List[_PrefillJob] = []
@@ -475,6 +680,10 @@ class Engine:
                     self._table_np[i, len(pages):need] = got
                     pages.extend(got)
                     break
+                if self._prefix_cache:
+                    key = next(iter(self._prefix_cache))
+                    self.alloc.release(self._prefix_cache.pop(key).pages)
+                    continue
                 cand = [(self.slot_req[j].request_id, "slot", j)
                         for j in range(self.n_slots) if self.slot_req[j] is not None]
                 cand += [(job.req.request_id, "job", k)
@@ -594,8 +803,34 @@ class Engine:
         self.slot_req[slot] = None
         self.pos[slot] = 0
         self._skip[slot] = 0
-        if getattr(req, "_pages", None):
-            self.alloc.release(req._pages)
+        pages = getattr(req, "_pages", None)
+        if pages:
+            keep = req.session_key and reason in ("eos", "length")
+            spans = self._media_spans(req) if keep else None
+            if spans is not None:
+                # keep this turn's kv for the session's next request, minus
+                # the final emitted token: its row is written only when the
+                # token is fed to a decode step, which never happens for the
+                # last one
+                old = self._prefix_cache.pop(req.session_key, None)
+                if old is not None:
+                    self.alloc.release(old.pages)
+                s = len(req.input_ids)
+                n = s + len(req.tokens) - 1
+
+                def padmask(mask):
+                    out = np.zeros(n, bool)
+                    if mask is not None:
+                        out[:s] = np.asarray(mask, bool)[:s]
+                    return out
+
+                self._prefix_cache[req.session_key] = _CachedPrefix(
+                    ids=np.concatenate([np.asarray(req.input_ids, np.int64),
+                                        np.asarray(req.tokens[:-1], np.int64)]),
+                    pages=list(pages), im=padmask(req.image_mask),
+                    am=padmask(req.audio_mask), spans=spans)
+            else:
+                self.alloc.release(pages)
         req._pages = None
         self._free_request(req, reason)
 
