@@ -21,6 +21,7 @@ NVIDIA GPU.
     python3 chip_probe.py paged        # B2 and B9 at phase 2's, long and served shapes
     python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
     python3 chip_probe.py session      # TTFT of a reused session turn against a cold prefill
+    python3 chip_probe.py whale        # where Whale's flash and xla forwards spend their time
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -181,6 +182,13 @@ on the cold one, which goes first alternating by round. Prints each
 round's TTFT pair and the medians, quartiles and the paired
 differences, then one reused and one cold turn 2 under torch.profiler
 (wall, device time, busy share, largest device entries).
+
+whale: Whale at full width (24 x 1024, 16 heads of 64, bf16, random
+weights from the seed) on one clip of 4, 30 and 120 s (400, 3000 and
+12000 fbank frames): WHALE_ROUNDS rounds of a flash and an xla forward
+in turns after a warm-up (CUDA events around each forward), then one
+forward of each under torch.profiler (wall, device time, busy share,
+largest device entries, the port's kernels).
 
 Each prints the card's name and power limit first.
 """
@@ -1120,6 +1128,53 @@ def session(card: str) -> None:
         _summarize(prof, wall, f"{name} (prefill + 16 tokens)", card)
 
 
+WHALE_ROUNDS = 5
+
+
+def whale(card: str) -> None:
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch.models import whale as whale_mod
+
+    dev = torch.device("cuda")
+    base = smoke.slice_config().audio
+    params = whale_mod.init_params(base, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
+    cfgs = {b: dataclasses.replace(base, attn_backend=b) for b in ("flash", "xla")}
+    rng = np.random.default_rng(smoke.SEED)
+    for seconds, frames in smoke.WHALE_CLIPS:
+        speech = torch.from_numpy(rng.standard_normal((1, frames, base.input_dim),
+                                                      np.float32)).to(dev)
+        lens = torch.tensor([frames], device=dev)
+
+        def fwd(b):
+            with torch.no_grad():
+                return whale_mod.forward(params, cfgs[b], speech, lens)
+
+        times = {b: [] for b in cfgs}
+        for b in cfgs:
+            fwd(b)
+        for r in range(WHALE_ROUNDS):
+            for b in (("flash", "xla") if r % 2 == 0 else ("xla", "flash")):
+                times[b].append(smoke.cuda_ms(lambda b=b: fwd(b), n=1, warmup=0))
+        print(f"  Whale {seconds} s ({frames} frames): " + "; ".join(
+            f"{b} median {np.median(t):.3f} ms (rounds {', '.join(f'{x:.3f}' for x in t)})"
+            for b, t in times.items()) + f"  [{card}]", flush=True)
+        for b in cfgs:
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fwd(b)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            _summarize(prof, wall, f"Whale {seconds} s, {b}", card, top=8)
+        del speech
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1129,7 +1184,7 @@ def main() -> int:
              "gmm-small-order": gmm_small_order, "expert": expert,
              "expert-ring": expert_ring, "expert-q4": expert_q4,
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
-             "paged-ring": paged_ring, "session": session}
+             "paged-ring": paged_ring, "session": session, "whale": whale}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -12,7 +12,10 @@ Phases, each of which raises on failure:
      the card could take (bound) and, where one PyTorch call computes the
      same function, that call's time: B1 (with its lse; also at the 9216
      training bucket with 5735 real tokens, over the Generator's 12288-row
-     prefill with 8500 keys, and one decode row over those keys), B2-B4,
+     prefill with 8500 keys, one decode row over those keys, and at
+     Whale's flash shape, a 120 s clip of 2999 x 2999 keys, 16 heads of
+     65, non-causal, zero-padded to the kernel's 128, with the bound of
+     the useful and of the padded work; and the tiny Whale's d 9), B2-B4,
      the grouped matmuls B5a/B5b (B5a also as dx at a 9216-token step's R,
      and on rows that are no TMA tensor; B5b as dx at a 1024-token step's
      R), bf16 B3/B4 on tensor cores (T 1, 3; T 4, 8, 16 and a plan with
@@ -102,10 +105,24 @@ Phases, each of which raises on failure:
      full after the drain, and each utterance's streamed features held to
      whale.forward under the matching chunk mask (STREAM_ATOL,
      STREAM_COS); speech end -> first text and interrupt -> role swap are
-     printed as readings. B1, B2, B3, B4, B9, B6 and B8a must launch.
+     printed as readings. B1, B2, B3, B4, B9, B6 and B8a must launch;
+ 10. the rest of the model registry on phase 3's weights (run right after
+     phase 9), launch counts zeroed before it and read after: (a) Whale
+     (24 x 1024, bf16) on clips of 4, 30 and 120 s with attn_backend
+     'flash' and 'xla': features held to each other (STREAM_ATOL,
+     STREAM_COS), each forward's time printed, and 24 B1 launches at
+     d 65 per flash forward; (b) three Engines (gmm prefill, bf16
+     experts) with SigLIP-so400m-patch14-384 + mlp2x_gelu, CLIP
+     ViT-L/14-336 + ldp and EVA02-L/14-336 + spp_v1 with Whale flash,
+     towers and projectors drawn from the seed: an image+audio request
+     with two text requests, each first token held against the
+     cacheless forward, B1, B2, B3, B4 and B5b launched (and B1 at d 65
+     with Whale flash); (c) the Engine on the card and on the CPU at
+     phase 5's narrow fp32 configuration with clip + ldp, siglip +
+     mlp3x_gelu and eva + spp_v1 with Whale flash: identical streams.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-9) before the last, and as the last
+results (launches summed over phases 3-10) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -207,8 +224,8 @@ def compare(name, got, want, atol, rtol):
     return float(err.max())
 
 
-def flash_fwd_tols(sq, kv_len, q_off, dev):
-    """bf16 B1's tolerances, (atol, rtol) for o [B, Sq, Hq, 128] and for
+def flash_fwd_tols(sq, kv_len, q_off, dev, causal=True):
+    """bf16 B1's tolerances, (atol, rtol) for o [B, Sq, Hq, D] and for
     lse: o's atol 2e-3 on rows that see 1024 keys or more, else 2e-2; lse
     (float32, about log of the keys) 1e-3. On a row of n >= 1024 keys with
     N(0, 1) scores a bf16 rounding step of one p moves o by at most 2^-8
@@ -220,8 +237,9 @@ def flash_fwd_tols(sq, kv_len, q_off, dev):
     import torch
 
     r = torch.arange(sq, device=dev)
-    seen = torch.stack([torch.clamp(torch.minimum(torch.tensor(kl, device=dev), qo + r + 1), min=0)
-                        for kl, qo in zip(kv_len, q_off)])  # causal: keys each row sees
+    seen = torch.stack([torch.clamp(torch.minimum(torch.tensor(kl, device=dev), qo + r + 1)
+                                    if causal else torch.full_like(r, kl), min=0)
+                        for kl, qo in zip(kv_len, q_off)])  # keys each row sees
     atol_o = torch.where(seen >= 1024, 2e-3, 2e-2)[:, :, None, None]
     return (atol_o, 2e-2), (1e-3, 0.0)
 
@@ -229,16 +247,17 @@ def flash_fwd_tols(sq, kv_len, q_off, dev):
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-def _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dtype, dev):
+def _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dtype, dev, d=128, causal=True,
+                scale=128 ** -0.5):
     import torch
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, dtype)
 
-    q, k, v = t(b, sq, hq, 128), t(b, skv, hkv, 128), t(b, skv, hkv, 128)
+    q, k, v = t(b, sq, hq, d), t(b, skv, hkv, d), t(b, skv, hkv, d)
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     q_off = torch.tensor(q_off, dtype=torch.int32, device=dev)
-    return (q, k, v, kv_len, q_off, True, 128 ** -0.5)
+    return (q, k, v, kv_len, q_off, causal, scale)
 
 
 def _tables_and_q(rng, lengths, hq, n_pool, page, max_pages, dtype, dev):
@@ -492,42 +511,64 @@ def kernel_phase(card: str):
     # then the long paths: the training bucket of 9216 with 5735 real
     # tokens, the Generator's 12288-row prefill over 8500 keys and its
     # decode row over them. At those lengths the plain version runs one GQA
-    # group at a time (its float32 scores would not fit otherwise). bf16
+    # group at a time (its float32 scores would not fit otherwise). Then
+    # Whale's flash path, head dim hd + 1 (the key-bias column; the
+    # kernel's 128 zero-padded; scale 1/sqrt(hd)): a 120 s clip (T' 2999,
+    # 16 heads of 64, non-causal) in bf16 and the tiny Whale's 8 in fp32. bf16
     # must give equal bits twice, is held at flash_fwd_tols, and the kernel
     # with the last 128 keys of each batch row dropped (kv_len - 128) must
     # fail them.
-    for case, sq, skv, kv_len, q_off, dt, timed in (
-        ("bf16 chunk 256/512, offset 256", 256, 512, [512], [256], bf16, True),
-        ("bf16 chunk 256/512, offset 0", 256, 512, [256], [0], bf16, False),
-        ("bf16 whole bucket 384", 384, 384, [384], [0], bf16, False),
-        ("bf16 train bucket 9216, kv_len 5735", 9216, 9216, [5735], [0], bf16, True),
-        ("bf16 prefill 12288 over kv_len 8500", 12288, 12288, [8500], [0], bf16, True),
-        ("bf16 decode row over kv_len 8500", 1, 12288, [8500], [8499], bf16, True),
-        ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, [150, 77], [50, 0], f32, False),
+    for case, sq, skv, kv_len, q_off, dt, timed, d, causal, heads in (
+        ("bf16 chunk 256/512, offset 256", 256, 512, [512], [256], bf16, True, 128, True, None),
+        ("bf16 chunk 256/512, offset 0", 256, 512, [256], [0], bf16, False, 128, True, None),
+        ("bf16 whole bucket 384", 384, 384, [384], [0], bf16, False, 128, True, None),
+        ("bf16 train bucket 9216, kv_len 5735", 9216, 9216, [5735], [0], bf16, True, 128, True,
+         None),
+        ("bf16 prefill 12288 over kv_len 8500", 12288, 12288, [8500], [0], bf16, True, 128, True,
+         None),
+        ("bf16 decode row over kv_len 8500", 1, 12288, [8500], [8499], bf16, True, 128, True,
+         None),
+        ("fp32 B=2 ragged, kv_len pad, q_offset", 100, 150, [150, 77], [50, 0], f32, False, 128,
+         True, None),
+        ("bf16 Whale flash 2999 x 2999, d 65", 2999, 2999, [2999], [0], bf16, True, 65, False,
+         (16, 16)),
+        ("fp32 tiny Whale B=2, kv_len pad, d 9", 100, 100, [100, 61], [0, 0], f32, False, 9,
+         False, (4, 4)),
     ):
         b = len(kv_len)
-        hq, hkv = (32, 8) if dt == bf16 else (4, 2)
-        args = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dt, dev)
+        hq, hkv = heads or ((32, 8) if dt == bf16 else (4, 2))
+        args = _flash_case(rng, b, sq, skv, hq, hkv, kv_len, q_off, dt, dev, d, causal,
+                           (d - 1 if d < fa.KERNEL_D else d) ** -0.5)
         q, k, v = args[:3]
-        # bytes: the q rows that see a key and the key rows some row sees,
-        # read once; o and lse written
-        row = q.shape[2] * 128 * q.element_size()
-        seen = [np.clip(np.minimum(kl, qo + np.arange(sq) + 1), 0, skv)
-                for kl, qo in zip(kv_len, q_off)]
-        work = (4 * attn_pairs(sq, kv_len, q_off, True) * 128 * hq,
-                sum(int((n > 0).sum()) * row + 2 * int(n.max()) * row // (hq // hkv)
-                    for n in seen) + nbytes(q) + 4 * b * hq * sq)
+
+        def work_at(width):
+            """(FLOP, bytes) at head dim ``width``: the q rows that see a key
+            and the key rows some row sees, read once; o and lse written."""
+            row = q.shape[2] * width * q.element_size()
+            seen = [np.clip(np.minimum(kl, qo + np.arange(sq) + 1) if causal
+                            else np.full(sq, kl), 0, skv) for kl, qo in zip(kv_len, q_off)]
+            return (4 * attn_pairs(sq, kv_len, q_off, causal) * width * hq,
+                    sum(int((n > 0).sum()) * row + 2 * int(n.max()) * row // (hq // hkv)
+                        for n in seen) + b * sq * row + 4 * b * hq * sq)
+
+        work = work_at(d)
         plain = _by_group(fa.flash_fwd_plain, (2, 1)) if sq > 4096 else fa.flash_fwd_plain
         bf = dt == bf16
         check("flash_fwd", case, lambda a=args: fa.flash_fwd_cuda(*a),
               lambda a=args, f=plain: f(*a), dt, timed, work=work,
               library=lambda a=args: _sdpa_fwd(*a),
               out_tols=("o 2e-3/2e-2 by keys seen + rtol 2e-2, lse 1e-3",
-                        flash_fwd_tols(sq, kv_len, q_off, dev)) if bf else None,
+                        flash_fwd_tols(sq, kv_len, q_off, dev, causal)) if bf else None,
               faults=[("the last 128 keys dropped",
                        lambda a=args: fa.flash_fwd_cuda(*a[:3], a[3] - 128, *a[4:]))] if bf else ())
         if dt == bf16 and not _same_bits(fa.flash_fwd_cuda(*args), fa.flash_fwd_cuda(*args)):
             raise AssertionError(f"flash_fwd {case}: two launches differ")
+        if d < fa.KERNEL_D and timed:
+            padded = work_at(fa.KERNEL_D)
+            p_ms, p_by = bound(*padded)
+            print(f"  {'':20s} bound of the padded work the kernel does (d {fa.KERNEL_D}): "
+                  f"{p_ms:.4f} ms ({p_by}: {padded[0]:.4g} FLOP, {padded[1]:.4g} B)  [{card}]",
+                  flush=True)
         del q, k, v, args
         torch.cuda.empty_cache()
     for name, r in fa.flash_fwd_info().items():
@@ -1294,18 +1335,19 @@ def _recording_top2(engine, top2):
         engine_mod.decode_chunk = real_chunk
 
 
-def equivalence_phase(devices, near_tie: float = 0.0, **engine_kw):
+def equivalence_phase(devices, near_tie: float = 0.0, cfg=None, **engine_kw):
     """Greedy streams of the Engine on each device, same weights, prompts
-    and options; the last device is the reference. Raises on any
-    difference, except (with ``near_tie`` > 0) where the reference's own
-    top two logits at that request's step were the two tokens and lay
-    within ``near_tie``: that request is compared up to the step."""
+    and options (``cfg``, narrow_config() by default); the last device is
+    the reference. Raises on any difference, except (with ``near_tie`` >
+    0) where the reference's own top two logits at that request's step
+    were the two tokens and lay within ``near_tie``: that request is
+    compared up to the step."""
     import torch
 
     from vita_tpu_torch.models import mixtral, vita
     from vita_tpu_torch.serve.engine import Engine
 
-    cfg = narrow_config()
+    cfg = cfg or narrow_config()
     params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     streams, top2 = [], {}
     for dev in devices:
@@ -1349,7 +1391,9 @@ def equivalence_phase(devices, near_tie: float = 0.0, **engine_kw):
               f"top two at that step {(t1, t2)}, gap {gap}; cacheless bf16-expert logit "
               f"gap {float(row[b[j]] - row[a[j]]):.3e}", flush=True)
         raise AssertionError(f"greedy streams differ on {devices} ({engine_kw})")
-    print(f"  greedy streams identical on {devices} ({engine_kw}): {len(ref)} requests, "
+    what = dict(engine_kw, tower=cfg.vision_tower, projector=cfg.vision_projector,
+                whale=cfg.audio.attn_backend)
+    print(f"  greedy streams identical on {devices} ({what}): {len(ref)} requests, "
           f"{compared} of {sum(map(len, ref))} tokens compared", flush=True)
 
 
@@ -2230,6 +2274,195 @@ def session_phase(card, cfg, params, device):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: the rest of the model registry at full width
+# --------------------------------------------------------------------------
+# (label, tower key, projector, Whale backend): each tower at its published
+# width, bf16
+TOWER_RUNS = (
+    ("SigLIP-so400m-patch14-384 (27 x 1152, 729 tokens) + mlp2x_gelu", "siglip", "mlp2x_gelu",
+     "xla"),
+    ("CLIP ViT-L/14-336 (24 x 1024, 576 tokens) + ldp (144)", "clip", "ldp", "xla"),
+    ("EVA02-L/14-336 (23 x 1024, 576 tokens) + spp_v1 (144), Whale flash", "eva", "spp_v1",
+     "flash"),
+)
+# the kernels each tower Engine must launch: B1, B2, B3, B4, B5b
+TOWER_PATH = ("flash_fwd", "paged_attention", "gather_expert_ffn", "masked_expert_ffn",
+              "gmm_small")
+# Whale's clips for the flash-vs-xla comparison: (seconds, fbank frames)
+WHALE_CLIPS = ((4, 400), (30, 3000), (120, 12000))
+
+
+def _tower_config(tower: str, dtype, tiny: bool = False):
+    from vita_tpu_torch.models import clip, eva_clip, siglip
+
+    cls = {"clip": clip.CLIPConfig, "siglip": siglip.SigLIPConfig,
+           "eva": eva_clip.EVAConfig}[tower]
+    return cls.tiny(dtype=dtype) if tiny else cls(dtype=dtype)
+
+
+def _launches():
+    from vita_tpu_torch import kernels
+
+    return dict(kernels.launches), dict(kernels.launch_keys)
+
+
+def _delta(before):
+    after = _launches()
+    return tuple({k: v - b.get(k, 0) for k, v in a.items()} for a, b in zip(after, before))
+
+
+def whale_flash_run(card, cfg, params, device):
+    """Whale at full width (24 x 1024, 16 heads of 64, bf16) on clips of 4,
+    30 and 120 s under attn_backend 'flash' and 'xla': the features agree
+    on the valid rows (STREAM_ATOL, STREAM_COS), each forward's CUDA-event
+    time is printed, and a flash forward launches B1 24 times, at d 65."""
+    import torch
+
+    from vita_tpu_torch.models import whale
+
+    acfg = {b: dataclasses.replace(cfg.audio, attn_backend=b) for b in ("flash", "xla")}
+    d_key = f"flash_fwd:d{cfg.audio.head_dim + 1}"
+    rng = np.random.default_rng(SEED + 10)
+    for seconds, frames in WHALE_CLIPS:
+        speech = torch.from_numpy(rng.standard_normal((1, frames, cfg.audio.input_dim),
+                                                      np.float32)).to(device)
+        lens = torch.tensor([frames], device=device)
+        outs, ms = {}, {}
+        with torch.no_grad():
+            for b in ("flash", "xla"):
+                before = _launches()
+                outs[b], valid = whale.forward(params["audio"], acfg[b], speech, lens)
+                torch.cuda.synchronize()
+                counts, keys = _delta(before)
+                want = (cfg.audio.n_layers, {d_key: cfg.audio.n_layers}) \
+                    if b == "flash" else (0, {})
+                got = (counts["flash_fwd"], {k: v for k, v in keys.items() if v})
+                if got != want:
+                    raise AssertionError(f"Whale {b}, {seconds} s: B1 launches {got}, "
+                                         f"expected {want}")
+                ms[b] = cuda_ms(lambda b=b: whale.forward(params["audio"], acfg[b], speech,
+                                                          lens), n=10, warmup=1)
+        v = valid[0]
+        got, want = (outs[b][0, v].float().cpu().numpy() for b in ("flash", "xla"))
+        err = float(np.abs(got - want).max())
+        cos = float((got * want).sum() / (np.linalg.norm(got) * np.linalg.norm(want)))
+        print(f"  Whale {seconds:3d} s ({frames} frames, T' {int(v.sum())}): flash "
+              f"{ms['flash']:.3f} ms, xla {ms['xla']:.3f} ms a forward; flash vs xla max |err| "
+              f"{err:.4f} (limit {STREAM_ATOL:.4f}), cosine {cos:.6f} (limit {STREAM_COS}); B1 "
+              f"{cfg.audio.n_layers} launches a flash forward ({d_key})  [{card}]", flush=True)
+        if not np.isfinite(got).all() or err > STREAM_ATOL or cos < STREAM_COS:
+            raise AssertionError(f"Whale {seconds} s: flash features off the xla branch's")
+        del outs, speech
+        torch.cuda.empty_cache()
+
+
+def tower_engines_run(card, cfg, params, device, max_new_tokens=(16, 32, 32)):
+    """One Engine per TOWER_RUNS entry over phase 3's LLM and Whale, with
+    the tower and projector drawn from the seed on the card: one
+    image+audio request with two text requests, each first token held
+    against the cacheless dense forward; B1, B2, B3, B4 and B5b must
+    launch, and B1 at d 65 where Whale runs flash."""
+    import torch
+
+    from vita_tpu_torch.generate import (DEFAULT_FRAME_BUCKETS, DEFAULT_TILE_BUCKETS,
+                                         embed_prompt, tile_buckets_for)
+    from vita_tpu_torch.models import projectors
+    from vita_tpu_torch.serve.engine import Engine
+
+    d_key = f"flash_fwd:d{cfg.audio.head_dim + 1}"
+    for i, (label, tower, projector, backend) in enumerate(TOWER_RUNS):
+        t0 = time.time()
+        tcfg = dataclasses.replace(
+            cfg, vision_tower=tower, vision=_tower_config(tower, cfg.llm.dtype),
+            vision_projector=projector,
+            audio=dataclasses.replace(cfg.audio, attn_backend=backend))
+        gen = torch.Generator(device=device).manual_seed(SEED + 20 + i)
+        tparams = {**params,
+                   "vision": tcfg.tower_module.init_params(tcfg.vision, gen, device),
+                   "vision_proj": projectors.init_vision_projector_kind(
+                       tcfg.vision_proj_in_dim, cfg.llm.d_model, gen, projector, device,
+                       cfg.llm.dtype)}
+        engine = Engine(tparams, tcfg, max_len=2048, n_slots=4, page_size=64,
+                        decode_moe_mode="gather", prefill_moe_mode="gmm", device=device)
+        # first-use costs (the tower's and Whale's shapes) out of the wave,
+        # so that its three requests decode together (B4 at a batch of 4)
+        engine.warmup(prompt_lens=(64, 256), media=True, max_new_tokens=2)
+        rng = np.random.default_rng(SEED + 30 + i)
+        reqs = [media_request(tcfg, rng, max_new_tokens[0]),
+                text_request(tcfg, rng, 60, max_new_tokens[1]),
+                text_request(tcfg, rng, 150, max_new_tokens[2])]
+        before = _launches()
+        serve(engine, reqs)
+        counts, keys = _delta(before)
+        vocab = tcfg.llm.vocab_size
+        for name, r, n in zip(("image+audio", "text 60", "text 150"), reqs, max_new_tokens):
+            if len(r.tokens) != n or not all(0 <= x < vocab for x in r.tokens):
+                raise AssertionError(f"{label}, {name}: {len(r.tokens)} tokens {r.tokens[:8]}")
+            print(f"  {name:12s} prompt {len(r.input_ids):4d}  TTFT {r.ttft_s * 1e3:9.2f} ms  "
+                  f"decode {r.decode_tokens_per_s:8.2f} tok/s  [{card}]", flush=True)
+        missing = [k for k in TOWER_PATH if counts[k] == 0]
+        if backend == "flash" and not keys.get(d_key):
+            missing.append(d_key)
+        print(f"  {label}: image span {tcfg.image_tokens_per_group} tokens; launches "
+              f"{ {k: v for k, v in counts.items() if v} }, by shape "
+              f"{ {k: v for k, v in keys.items() if v} }", flush=True)
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched on its path: {missing}")
+        media = reqs[0]
+        embeds = embed_prompt(tparams, tcfg, np.asarray(media.input_ids, np.int64), device,
+                              tile_buckets_for(tcfg, DEFAULT_TILE_BUCKETS),
+                              DEFAULT_FRAME_BUCKETS, image_mask=media.image_mask,
+                              audio_mask=media.audio_mask, images=media.images,
+                              speech=media.speech, speech_length=media.speech_length)
+        for r in reqs:
+            ids = torch.as_tensor(np.asarray(r.input_ids, np.int64)[None], device=device)
+            first_token_gap(tparams, tcfg, ids, r.tokens[0],
+                            embeds=embeds if r is media else None)
+        del engine, tparams, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {label}: {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+
+def narrow_tower_config(tower: str, projector: str, whale_backend: str = "xla"):
+    """narrow_config() with a tiny ``tower`` and ``projector`` (fp32)."""
+    import torch
+
+    base = narrow_config()
+    return dataclasses.replace(
+        base, vision_tower=tower, vision=_tower_config(tower, torch.float32, tiny=True),
+        vision_projector=projector,
+        audio=dataclasses.replace(base.audio, attn_backend=whale_backend))
+
+
+def registry_phase(card, cfg, params, device):
+    """Phase 10 on phase 3's full-width weights, launch counts zeroed
+    before it and returned after: (a) Whale flash vs xla at 4, 30 and 120
+    s; (b) three full-width tower Engines; (c) the narrow fp32 tower and
+    projector pairs on the card and on the CPU, identical greedy streams."""
+    import torch
+
+    from vita_tpu_torch import kernels
+
+    kernels.reset_launches()
+    print("  (a) Whale at full width, attn_backend flash vs xla", flush=True)
+    whale_flash_run(card, cfg, params, device)
+    print("  (b) full-width towers through the Engine (gmm prefill, bf16 experts)",
+          flush=True)
+    tower_engines_run(card, cfg, params, device)
+    print("  (c) narrow fp32 tower and projector pairs, cuda vs cpu", flush=True)
+    pair = [torch.device("cuda"), torch.device("cpu")]
+    for tower, projector, backend in (("clip", "ldp", "xla"), ("siglip", "mlp3x_gelu", "xla"),
+                                      ("eva", "spp_v1", "flash")):
+        equivalence_phase(pair, cfg=narrow_tower_config(tower, projector, backend),
+                          decode_moe_mode="gather", prefill_moe_mode="gmm")
+    counts = dict(kernels.launches)
+    print(f"  kernel launches in phase 10: {counts}; by shape: {dict(kernels.launch_keys)}",
+          flush=True)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2297,6 +2530,12 @@ def main() -> int:
     t0 = time.time()
     parts.append(session_phase(card, cfg, params, dev))
     print(f"  phase 9 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+    print("phase 10: the rest of the model registry at full width (phase 3's weights)",
+          flush=True)
+    t0 = time.time()
+    parts.append(registry_phase(card, cfg, params, dev))
+    print(f"  phase 10 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -188,13 +188,41 @@ def test_hf_tables_match_jax(jax_tiny):
 
 
 def test_unported_towers_and_projectors_raise():
-    for fn in (lambda: hf_import.clip_params_from_hf({}, 1),
-               lambda: hf_import.siglip_params_from_hf({}, 1),
-               lambda: hf_import.eva_params_from_reference({}, 1),
-               lambda: hf_import.vision_projector_from_hf({}, kind="linear"),
-               lambda: hf_import.vision_projector_to_hf({}, kind="ldp")):
-        with pytest.raises(NotImplementedError, match="A8"):
-            fn()
+    """Every tower and projector kind is ported; what still raises is what
+    the JAX package refuses too: a projector kind imported without a
+    template, an unknown kind, and the HF deploy export of a tower other
+    than InternViT."""
+    with pytest.raises(ValueError, match="needs a template"):
+        hf_import.vision_projector_from_hf({}, kind="linear")
+    with pytest.raises(ValueError, match="unknown projector kind"):
+        vita.init_params(vita.VITAConfig.tiny(vision_projector="resampler"), None, "meta")
+    cfg = vita.VITAConfig.tiny(vision_tower="clip")
+    for pkg_hf, c in ((hf_import, cfg), (j_hf, j_vita.VITAConfig.tiny(vision_tower="clip"))):
+        with pytest.raises(ValueError, match="internvit"):
+            pkg_hf.vita_params_to_hf({}, c)
+
+
+def test_projector_kind_checkpoint_both_ways(tmp_path):
+    """A tiny bf16 model with the spp_v1 projector: the port's HF export
+    loads in the JAX package and the JAX package's in the port, config
+    and every leaf equal (the projector under its native.<path> names)."""
+    jcfg = j_vita.VITAConfig.tiny(vision_projector="spp_v1")
+    jp = jax.device_get(jax.tree.map(lambda x: x.astype(jnp.bfloat16),
+                                     j_vita.init_params(jax.random.PRNGKey(2), jcfg)))
+    j_ckpt.export_hf_vita_checkpoint(str(tmp_path / "jax"), jcfg, jp)
+    tcfg, tp = checkpoint.load_vita_checkpoint(str(tmp_path / "jax"), device="cpu")
+    jcfg2, jp2 = j_ckpt.load_vita_checkpoint(str(tmp_path / "jax"))
+    assert tcfg.vision_projector == "spp_v1" and set(tp["vision_proj"]) == {
+        "linear_0", "linear_1", "linear_2"}
+    _assert_configs_equal(tcfg, jcfg2)
+    _assert_leaves_equal(tp, _port_params(jp2, tcfg))
+    checkpoint.export_hf_vita_checkpoint(str(tmp_path / "port"), tcfg, tp)
+    jcfg3, jp3 = j_ckpt.load_vita_checkpoint(str(tmp_path / "port"))
+    assert jcfg3 == jcfg2
+    la, lb = (jax.tree_util.tree_leaves_with_path(x) for x in (jp2, jp3))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, a), (_, b) in zip(la, lb):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b)), path
 
 
 # ---------------------------------------------------------------------------

@@ -391,3 +391,42 @@ def test_profiling_matches_the_jax_report(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.ones(64).sum()
     assert (tmp_path / "trace" / "trace.json").exists() and len(prof.key_averages()) > 0
+
+
+# --------------------------------------------------------------------------
+# the native fbank: native/fbank.cc and its ctypes loader, copied
+# --------------------------------------------------------------------------
+def test_native_fbank_source_is_byte_equal():
+    assert (ROOT / "vita_tpu_torch/native/fbank.cc").read_bytes() == \
+        (ROOT / "native/fbank.cc").read_bytes()
+
+
+def test_native_loader_equals_the_original_but_for_its_paths():
+    """The loader's code is the original's with the package name written
+    as vita_tpu, except the lines that place the source and the library
+    (the copy beside the loader, the library under build/native/)."""
+    from vita_tpu_torch import native
+
+    path_lines = ("_SRC = ", "_LIB = ", "os.makedirs(os.path.dirname(_LIB)")
+    keep = lambda code: [ln for ln in code.splitlines()
+                         if not ln.strip().startswith(path_lines)]
+    got = _code(ROOT / "vita_tpu_torch/native/__init__.py", "vita_tpu_torch")
+    assert keep(got) == keep(_code(ROOT / "vita_tpu/native/__init__.py", "vita_tpu"))
+    assert native._SRC == str(ROOT / "vita_tpu_torch/native/fbank.cc")
+    assert native._LIB == str(ROOT / "build/native/libvitafbank.so")
+
+
+def test_native_fbank_matches_numpy():
+    """The port's fbank_native (the copied C++ through the copied loader)
+    against the port's numpy fbank at the JAX test's tolerance 1e-4, and
+    fbank_best takes it."""
+    from vita_tpu_torch.native import fbank_best, fbank_native, native_available
+
+    if not native_available():
+        pytest.skip("g++ build unavailable")
+    wav = (np.random.RandomState(0).randn(16000) * 0.1).astype(np.float32)
+    a, b = audio.fbank(wav), fbank_native(wav)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(fbank_best(wav), b)
+    assert (ROOT / "build/native/libvitafbank.so").exists()

@@ -112,6 +112,39 @@ def test_flash_bf16_kernel_matches_plain(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [9, 65])
+def test_flash_mha_below_head_dim_128_launches_b1(d, dtype):
+    """flash_mha on CUDA tensors at head dim 65 (Whale's flash path: 64
+    and the key-bias column) and 9 (the tiny Whale's): B1 launches once,
+    zero-padded to 128 (counted as flash_fwd:d65 / d9), never the plain
+    version; o, lse and the backward's dq, dk, dv (B10/B11 on the padded
+    head, sliced back) agree with the plain versions at d."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(d)
+    q, k, v, do = (t(normal(rng, 2, 150, 16, d)).to(dev, dtype) for _ in range(4))
+    kv_len = torch.tensor([150, 97], dtype=torch.int32, device=dev)
+    q_off = torch.zeros(2, dtype=torch.int32, device=dev)
+    scale = 64 ** -0.5
+    kernels.reset_launches()
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fa.flash_mha(qg, kg, vg, kv_len=kv_len, causal=False, scale=scale)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert kernels.launch_keys == {f"flash_fwd:d{d}": 1, f"flash_bwd_dq:d{d}": 1,
+                                   f"flash_bwd_dkv:d{d}": 1}
+    want, lse = fa.flash_fwd_plain(q, k, v, kv_len, q_off, False, scale)
+    tol = TOL[dtype]
+    close(o.detach().float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
+    _, got_lse = fa.flash_fwd_cuda(q, k, v, kv_len, q_off, False, scale)
+    close(got_lse.cpu(), lse.cpu(), atol=1e-4, rtol=1e-4)
+    args = (q, k, v, do, lse, fa.flash_delta(do, want), kv_len, q_off, False, scale)
+    close(qg.grad.float().cpu(), fa.flash_bwd_dq_plain(*args).float().cpu(), atol=tol, rtol=tol)
+    for g, w in zip((kg.grad, vg.grad), fa.flash_bwd_dkv_plain(*args)):
+        close(g.float().cpu(), w.float().cpu(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 def test_flash_bf16_kernel_is_deterministic():
     """One write per output and no atomics: two launches of bf16 B1 (both
     block shapes) give the same bits."""

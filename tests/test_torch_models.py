@@ -326,11 +326,13 @@ def test_fuse_embeddings_multi_clip_audio_select(tiny):
 
 
 def test_unported_tower_and_projector_raise():
-    cfg = vita.VITAConfig.tiny(vision_tower="siglip")
-    with pytest.raises(NotImplementedError, match="siglip"):
+    """Every tower and projector of the JAX package is ported; an unknown
+    name raises ValueError naming it, as the JAX package's does."""
+    cfg = vita.VITAConfig.tiny(vision_tower="resnet")
+    with pytest.raises(ValueError, match="resnet"):
         vita.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ldp"):
-        vita.init_params(vita.VITAConfig.tiny(vision_projector="ldp"),
+    with pytest.raises(ValueError, match="ldp_v9"):
+        vita.init_params(vita.VITAConfig.tiny(vision_projector="ldp_v9"),
                          torch.Generator().manual_seed(0))
 
 

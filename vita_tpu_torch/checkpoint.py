@@ -29,7 +29,7 @@ from typing import Any, Dict
 
 import torch
 
-from vita_tpu_torch.models import internvit, mixtral, vita, whale
+from vita_tpu_torch.models import internvit, mixtral, projectors, vita, whale
 from vita_tpu_torch.train.trainer import (  # noqa: F401  (load_adapter_into: stage chaining)
     STATE_FILE,
     committed_steps,
@@ -42,12 +42,11 @@ from vita_tpu_torch.utils import hf_import, safetensors_io
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # fields of the JAX package's configs that the port has no use for
 # (positions, pipeline stages, the aux-loss coefficient: the port's
-# TrainConfig carries its own; Whale's flash backend), written at the JAX
-# package's defaults so that either package reads the file; ignored on read
+# TrainConfig carries its own), written at the JAX package's defaults so
+# that either package reads the file; ignored on read
 _JAX_ONLY = {
     "llm": {"max_position": 32768, "router_aux_loss_coef": 0.02, "pipe_stages": 1,
             "pipe_microbatches": 4},
-    "audio": {"attn_backend": "xla"},
 }
 
 
@@ -179,7 +178,10 @@ def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device):
         "vision": hf_import.internvit_params_from_hf(sub("vision_tower."), cfg.vision.n_layers,
                                                      dtype=dt, device=device),
         "vision_proj": hf_import.vision_projector_from_hf(
-            sub("vision_projector."), kind=cfg.vision_projector, dtype=dt, device=device),
+            sub("vision_projector."), kind=cfg.vision_projector, dtype=dt, device=device,
+            template=projectors.init_vision_projector_kind(
+                cfg.vision_proj_in_dim, cfg.llm.d_model, None, cfg.vision_projector,
+                device="meta")),
         "audio": hf_import.whale_params_from_hf(sub("audio_model."), cfg.audio.n_layers,
                                                 cmvn_mean, cmvn_istd, dtype=dt, device=device),
         "audio_proj": hf_import.audio_projector_from_hf(sub("audio_projector."), dtype=dt,

@@ -12,7 +12,9 @@ Every wrapper that launches a kernel adds one to its entry of
 ``launches`` (``count_launch``, under a lock) right where it launches,
 and nowhere else; a caller can
 zero the counts with ``reset_launches()`` and read them after a run to
-show that the run went through the kernels.
+show that the run went through the kernels. A wrapper may also name a
+shape of the launch (``count_launch("flash_fwd", "d65")``), counted in
+``launch_keys`` under ``"flash_fwd:d65"`` and cleared with the counts.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ launches: Dict[str, int] = {
     "flash_bwd_dkv": 0,
     "gmm_wgrad": 0,
 }
+
+launch_keys: Dict[str, int] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -120,16 +124,20 @@ _SIGNATURES = {
 _launches_lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` (called where it is launched)."""
+def count_launch(name: str, key: str = "") -> None:
+    """Add one launch of kernel ``name`` (called where it is launched),
+    and one to ``launch_keys["name:key"]`` when ``key`` names its shape."""
     with _launches_lock:
         launches[name] += 1
+        if key:
+            launch_keys[f"{name}:{key}"] = launch_keys.get(f"{name}:{key}", 0) + 1
 
 
 def reset_launches() -> None:
     with _launches_lock:
         for name in launches:
             launches[name] = 0
+        launch_keys.clear()
 
 
 def _nvcc() -> str:

@@ -92,11 +92,14 @@ def init_params(cfg: InternViTConfig, generator: torch.Generator, device=None) -
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B, H, W, 3] -> [B, (H/p)*(W/p), p*p*3], features ordered (c, kh, kw)
-    like a flattened torch Conv2d weight."""
+    """[B, H, W, 3] -> [B, (H//p)*(W//p), p*p*3], features ordered (c, kh,
+    kw) like a flattened torch Conv2d weight. A partial patch at the
+    bottom or right edge is dropped, as the stride-p conv drops it (a
+    384px SigLIP tile gives 27 x 27 patches)."""
     b, h, w, c = images.shape
     gh, gw = h // patch, w // patch
-    x = images.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 5, 2, 4)
+    x = images[:, :gh * patch, :gw * patch]
+    x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(b, gh * gw, c * patch * patch)
 
 

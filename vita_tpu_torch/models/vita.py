@@ -3,10 +3,12 @@
 
 The host expands every media placeholder to its exact feature count, so
 fusing is a cumsum-gather: the k-th True position of a mask takes the k-th
-feature row. Only the InternViT tower and the mlp2x_gelu projector are
-ported; 'patch' and 'framecat' fusion both are. ``forward`` (fusion, then
-the cacheless LLM) is the training forward; gradients reach a tower or a
-projector whose parameters require them.
+feature row. The tower is picked from a registry (InternViT, the shipped
+one; CLIP, SigLIP, EVA-CLIP) and the vision projector from
+``projectors.PROJECTOR_KINDS``; 'patch' and 'framecat' fusion both are
+ported. ``forward`` (fusion, then the cacheless LLM) is the training
+forward; gradients reach a tower or a projector whose parameters require
+them.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vita_tpu_torch.constants import IGNORE_INDEX
-from vita_tpu_torch.models import internvit, mixtral, projectors, whale
+from vita_tpu_torch.models import clip, eva_clip, internvit, mixtral, projectors, siglip, whale
 
-_TOWER_MODULES = {"internvit": internvit}
-_PROJECTORS = ("mlp2x_gelu",)
+# the vision tower registry (the reference's build_vision_tower dispatch,
+# applied to the fused model)
+_TOWER_MODULES = {"internvit": internvit, "clip": clip, "siglip": siglip, "eva": eva_clip}
 
 Params = Dict[str, Any]
 
@@ -31,9 +34,9 @@ class VITAConfig:
     vision: Any = dataclasses.field(default_factory=internvit.InternViTConfig)
     audio: whale.WhaleConfig = dataclasses.field(default_factory=whale.WhaleConfig)
     audio_adapter_kernel: int = 5
-    vision_tower: str = "internvit"
+    vision_tower: str = "internvit"  # key of _TOWER_MODULES
     vision_fusion: str = "patch"  # 'patch' | 'framecat'
-    vision_projector: str = "mlp2x_gelu"
+    vision_projector: str = "mlp2x_gelu"  # one of projectors.PROJECTOR_KINDS
 
     @property
     def vision_proj_in_dim(self) -> int:
@@ -41,7 +44,10 @@ class VITAConfig:
 
     @property
     def image_tokens_per_group(self) -> int:
-        return self.vision.out_tokens
+        """LLM tokens per <image> sentinel: tower tokens over the
+        projector's reduction (SPP/LDP/vanilla/minigpt merge 4 into 1)."""
+        return self.vision.out_tokens // projectors.projector_token_reduction(
+            self.vision_projector)
 
     @property
     def image_group_tiles(self) -> int:
@@ -50,12 +56,11 @@ class VITAConfig:
 
     @property
     def tower_module(self):
-        if self.vision_tower not in _TOWER_MODULES:
-            raise NotImplementedError(
-                f"vision_tower {self.vision_tower!r} is not ported; "
-                f"ported: {sorted(_TOWER_MODULES)}"
-            )
-        return _TOWER_MODULES[self.vision_tower]
+        try:
+            return _TOWER_MODULES[self.vision_tower]
+        except KeyError:
+            raise ValueError(f"unknown vision_tower {self.vision_tower!r}; "
+                             f"known: {sorted(_TOWER_MODULES)}") from None
 
     @staticmethod
     def vita_8x7b(**kw) -> "VITAConfig":
@@ -77,22 +82,14 @@ class VITAConfig:
         )
 
 
-def _check_projector(cfg: VITAConfig) -> None:
-    if cfg.vision_projector not in _PROJECTORS:
-        raise NotImplementedError(
-            f"vision_projector {cfg.vision_projector!r} is not ported; ported: {_PROJECTORS}"
-        )
-
-
 def init_params(cfg: VITAConfig, generator: torch.Generator, device=None) -> Params:
     """Random weights with the JAX init's scales, drawn on ``device``."""
-    _check_projector(cfg)
     d_llm, dt = cfg.llm.d_model, cfg.llm.dtype
     return {
         "llm": mixtral.init_params(cfg.llm, generator, device),
         "vision": cfg.tower_module.init_params(cfg.vision, generator, device),
-        "vision_proj": projectors.init_vision_projector(
-            cfg.vision_proj_in_dim, d_llm, generator, device, dt),
+        "vision_proj": projectors.init_vision_projector_kind(
+            cfg.vision_proj_in_dim, d_llm, generator, cfg.vision_projector, device, dt),
         "audio": whale.init_params(cfg.audio, generator, device),
         "audio_proj": projectors.init_audio_projector(
             cfg.audio.hidden, d_llm, generator, cfg.audio_adapter_kernel, device, dt),
@@ -103,14 +100,13 @@ def encode_images(params: Params, cfg: VITAConfig, images: torch.Tensor) -> torc
     """images [N_tiles, H, W, 3] -> LLM-space features [N_groups, T, D];
     framecat channel-concatenates each 5-tuple [mosaic, f1..f4] after the
     tower."""
-    _check_projector(cfg)
     feats = cfg.tower_module.forward(params["vision"], cfg.vision, images)
     if cfg.vision_fusion == "framecat":
         n, t, c = feats.shape
         if n % 5:
             raise ValueError(f"framecat needs tiles in 5-tuples, got {n}")
         feats = feats.reshape(n // 5, 5, t, c).transpose(1, 2).reshape(n // 5, t, 5 * c)
-    return projectors.vision_projector(params["vision_proj"], feats)
+    return projectors.apply_vision_projector(params["vision_proj"], feats, cfg.vision_projector)
 
 
 def encode_audio(

@@ -4,9 +4,12 @@ and the streaming (chunked) encoder.
 As deployed with VITA: GlobalCMVN -> Conv2dSubsampling4 (two 3x3 stride-2
 valid convs, T -> ((T-1)//2-1)//2) -> linear + LayerNorm + ReLU -> x*sqrt(d)
 -> 24 pre-norm layers of Transformer-XL-style relative-position attention
-without rel_shift and a ReLU FFN -> final LayerNorm. Attention is the
-plain softmax branch of the JAX package (its default ``attn_backend``
-'xla'); padded frames are masked as keys.
+without rel_shift and a ReLU FFN -> final LayerNorm; padded frames are
+masked as keys. ``attn_backend`` picks the attention: 'xla' (the default)
+is plain softmax over float32 scores [B, H, T', T']; 'flash' (full
+context only) folds the relative-position terms into one augmented head
+dim and runs the flash kernel (ops.flash_attention, B1 at head dim 65),
+which never holds the scores: the way to encode long sessions.
 
 ``forward`` takes an optional chunk mask [T', T'] (``chunk_mask``) for
 chunk-causal attention. ``streaming_init`` / ``streaming_step`` encode a
@@ -15,10 +18,11 @@ subsampling convs need a 7-frame receptive field), per-layer K/V of the
 last ``left_context`` subsampled frames and the absolute position offset,
 and stays on the device (no step reads back to the host). Concatenated,
 the valid outputs equal ``forward`` under the matching chunk mask.
+Streaming and chunk-masked forwards take the softmax path under either
+backend.
 
 Parameters keep the JAX layout: conv kernels HWIO [3, 3, in, out] for a
-[B, T, F, C] input, matrices used as x @ w. The JAX package's
-``attn_backend='flash'`` (full context only) is not ported (ROADMAP A7).
+[B, T, F, C] input, matrices used as x @ w.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from vita_tpu_torch.ops.attention import NEG_INF
+from vita_tpu_torch.ops.flash_attention import flash_mha
 from vita_tpu_torch.ops.norms import layer_norm
 
 Params = Dict[str, Any]
@@ -47,6 +52,7 @@ class WhaleConfig:
     ffn_dim: int = 4096
     ln_eps: float = 1e-5
     max_positions: int = 5000  # sinusoid table rows; streaming positions wrap
+    attn_backend: str = "xla"  # 'xla' | 'flash' (full context only)
     dtype: torch.dtype = torch.float32
 
     @property
@@ -174,6 +180,10 @@ def forward(
 
     nh, hd = cfg.n_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
+    flash = cfg.attn_backend == "flash" and attn_chunk_mask is None
+    if flash:  # the augmented head dim's column of q (ones) and of v (zeros)
+        ones = torch.ones(b, t_sub, nh, 1, dtype=x.dtype, device=x.device)
+        zeros = torch.zeros_like(ones)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layers.items()}
@@ -182,12 +192,24 @@ def forward(
         k = (h @ lp["k_w"] + lp["k_b"]).reshape(b, t_sub, nh, hd)
         v = (h @ lp["v_w"] + lp["v_b"]).reshape(b, t_sub, nh, hd)
         p = (pos @ lp["pos_w"]).reshape(t_sub, nh, hd)
-        # Transformer-XL terms without rel_shift: content (q+u)·k plus
-        # position (q+v)·p
-        ac = torch.einsum("bqhd,bkhd->bhqk", (q + lp["pos_bias_u"]).float(), k.float())
-        bd = torch.einsum("bqhd,khd->bhqk", (q + lp["pos_bias_v"]).float(), p.float())
-        probs = torch.softmax((ac + bd) * scale + bias, dim=-1).to(v.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t_sub, cfg.hidden)
+        if flash:
+            # without rel_shift, (q+u)·k + (q+v)·p = q·(k+p) + [u·k + v·p]:
+            # keys k+p plus a per-key bias, which rides an extra head dim
+            # (q gets a 1, k the bias, v a 0)
+            key_bias = (torch.einsum("hd,bkhd->bkh", lp["pos_bias_u"], k)
+                        + torch.einsum("hd,khd->kh", lp["pos_bias_v"], p)[None])
+            q_aug = torch.cat([q, ones], dim=-1)
+            k_aug = torch.cat([k + p[None], key_bias[..., None].to(k.dtype)], dim=-1)
+            v_aug = torch.cat([v, zeros], dim=-1)
+            attn = flash_mha(q_aug, k_aug, v_aug, kv_len=out_len, causal=False,
+                             scale=scale)[..., :hd].reshape(b, t_sub, cfg.hidden)
+        else:
+            # Transformer-XL terms without rel_shift: content (q+u)·k plus
+            # position (q+v)·p
+            ac = torch.einsum("bqhd,bkhd->bhqk", (q + lp["pos_bias_u"]).float(), k.float())
+            bd = torch.einsum("bqhd,khd->bhqk", (q + lp["pos_bias_v"]).float(), p.float())
+            probs = torch.softmax((ac + bd) * scale + bias, dim=-1).to(v.dtype)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t_sub, cfg.hidden)
         x = x + (attn @ lp["out_w"] + lp["out_b"])
         h = layer_norm(x, lp["norm2_w"], lp["norm2_b"], cfg.ln_eps)
         h = F.relu(h @ lp["ffn1_w"] + lp["ffn1_b"])

@@ -11,31 +11,48 @@ key); the backward computes delta = rowsum(dO o) in PyTorch, as the JAX
 package computes it outside Pallas, then dq and dk/dv by the flash-2
 recurrence from lse. On CUDA tensors the three steps launch the
 hand-written kernels (csrc/flash_fwd.cu, B1; csrc/flash_bwd.cu, B10 and
-B11; head dim 128, float32 or bfloat16: each runs tensor-core kernels in
-bfloat16, B1 on wgmma + TMA and the backward on mma.sync, and FMA kernels
-in float32); on CPU tensors the same Function runs their plain versions. Rows with no valid key give zeros and
-no gradient in both.
+B11; float32 or bfloat16: each runs tensor-core kernels in bfloat16, B1
+on wgmma + TMA and the backward on mma.sync, and FMA kernels in float32);
+on CPU tensors the same Function runs their plain versions. Rows with no
+valid key give zeros and no gradient in both.
+
+The kernels are built for head dim ``KERNEL_D`` (128). A narrower head
+(Whale's flash path passes 65: 64 plus the key-bias column) is zero-padded
+along d to 128 by the CUDA wrappers, and o, dq, dk and dv are sliced back.
+The padding is exact: zero columns add exact zeros to q.k and give zero
+output columns, and lse is unchanged. The scale is the caller's, never
+recomputed from the padded width. (A bf16 row of 65 elements, 130 bytes,
+is no legal TMA stride either.) Each launch also counts its head dim in
+``kernels.launch_keys`` (``flash_fwd:d65``), so a caller can show which
+width a run took.
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import Dict, Optional, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from vita_tpu_torch import kernels
+
+KERNEL_D = 128  # the head dim csrc/flash_fwd.cu and csrc/flash_bwd.cu are built for
 
 
 def _normalize(q, k, kv_len, q_offset) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, skv = q.shape[0], k.shape[1]
-    dev = q.device
-    if kv_len is None:
-        kv_len = torch.full((b,), skv, dtype=torch.int32, device=dev)
-    kv_len = torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(-1)
-    q_offset = torch.as_tensor(q_offset, device=dev).to(torch.int32).reshape(-1)
-    if q_offset.numel() == 1:
-        q_offset = q_offset.expand(b)
-    return kv_len.expand(b).contiguous(), q_offset.contiguous()
+    """kv_len and q_offset as int32 [B] on q's device. A Python integer is
+    filled on the device: copying it from the host would wait for the
+    device's queue on every call."""
+    b, dev = q.shape[0], q.device
+
+    def per_row(x):
+        if isinstance(x, numbers.Integral):
+            return torch.full((b,), int(x), dtype=torch.int32, device=dev)
+        return torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1).expand(b).contiguous()
+
+    return per_row(k.shape[1] if kv_len is None else kv_len), per_row(q_offset)
 
 
 def _mask(q, k, kv_len, q_offset, causal: bool) -> torch.Tensor:
@@ -117,7 +134,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale
 def _check(q, k, v, kv_len, q_offset, *others):
     b, sq, hq, d = q.shape
     kernels.require_cuda(q, k, v, kv_len, q_offset, *others)
-    kernels.require(d == 128, f"flash kernel takes head dim 128, got {d}")
+    kernels.require(0 < d <= KERNEL_D, f"flash kernel takes head dim 1..{KERNEL_D}, got {d}")
     kernels.require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
                     f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not match q {tuple(q.shape)}")
     kernels.require(kv_len.dtype == torch.int32 and q_offset.dtype == torch.int32
@@ -125,25 +142,33 @@ def _check(q, k, v, kv_len, q_offset, *others):
                     "kv_len and q_offset must be int32 [B]")
 
 
+def _pad_d(*tensors):
+    """Each tensor zero-padded along its last dim to KERNEL_D (as is, when
+    it is that wide)."""
+    return [x if x.shape[-1] == KERNEL_D else F.pad(x, (0, KERNEL_D - x.shape[-1]))
+            for x in tensors]
+
+
 def flash_fwd_cuda(q, k, v, kv_len, q_offset, causal: bool, scale: float):
     """B1 (csrc/flash_fwd.cu): (o, lse); bfloat16 runs the wgmma + TMA
-    kernel, float32 the FMA kernel."""
-    b, sq, hq, _ = q.shape
+    kernel, float32 the FMA kernel. A head dim below 128 runs zero-padded."""
+    b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _check(q, k, v, kv_len, q_offset)
     dt = kernels.dtype_code(q, k, v)
-    o = torch.empty_like(q)
+    qp, kp, vp = _pad_d(q, k, v)
+    o = torch.empty_like(qp)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     if sq == 0 or b * hq == 0:
-        return o, lse
+        return o[..., :d], lse
     err = kernels.lib().vita_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_len.data_ptr(), q_offset.data_ptr(),
         b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q),
     )
     kernels.check_launch(err, "flash_fwd")
-    kernels.count_launch("flash_fwd")
-    return o, lse
+    kernels.count_launch("flash_fwd", f"d{d}")
+    return (o if d == KERNEL_D else o[..., :d].contiguous()), lse
 
 
 def _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset):
@@ -157,38 +182,43 @@ def _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset):
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
-    """B10 (csrc/flash_bwd.cu)."""
+    """B10 (csrc/flash_bwd.cu). A head dim below 128 runs zero-padded."""
     dt = _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset)
-    b, sq, hq, _ = q.shape
+    b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    q, k, v, do = _pad_d(q, k, v, do)
     dq = torch.empty_like(q)
     if sq == 0 or b * hq == 0:
-        return dq
+        return dq[..., :d]
     err = kernels.lib().vita_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
         b, sq, skv, hq, hkv, float(scale), int(causal), dt, kernels.stream_of(q))
     kernels.check_launch(err, "flash_bwd_dq")
-    kernels.count_launch("flash_bwd_dq")
-    return dq
+    kernels.count_launch("flash_bwd_dq", f"d{d}")
+    return dq if d == KERNEL_D else dq[..., :d].contiguous()
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, q_offset, causal, scale):
-    """B11 (csrc/flash_bwd.cu): (dk, dv)."""
+    """B11 (csrc/flash_bwd.cu): (dk, dv). A head dim below 128 runs
+    zero-padded."""
     dt = _check_bwd(q, k, v, do, lse, delta, kv_len, q_offset)
-    b, sq, hq, _ = q.shape
+    b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    q, k, v, do = _pad_d(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if skv == 0 or b * hkv == 0:
-        return dk, dv
+        return dk[..., :d], dv[..., :d]
     err = kernels.lib().vita_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kv_len.data_ptr(),
         q_offset.data_ptr(), b, sq, skv, hq, hkv, float(scale), int(causal), dt,
         kernels.stream_of(q))
     kernels.check_launch(err, "flash_bwd_dkv")
-    kernels.count_launch("flash_bwd_dkv")
-    return dk, dv
+    kernels.count_launch("flash_bwd_dkv", f"d{d}")
+    if d == KERNEL_D:
+        return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 def flash_fwd_info() -> Dict[str, Dict[str, int]]:

@@ -11,9 +11,12 @@ and write the same files.
 Import takes a mapping of torch tensors or numpy arrays and builds each
 leaf in ``dtype`` on ``device`` (the transposes and stacks run there).
 Export returns float32 tensors on the parameters' device, as the JAX
-package returns float32 arrays. Only the InternViT tower and the
-mlp2x_gelu projector are ported; the other towers' tables and projector
-kinds raise ``NotImplementedError`` (ROADMAP A8).
+package returns float32 arrays. The alternative towers import from
+transformers' CLIPVisionModel / SiglipVisionModel state dicts and the
+reference's EVA ViT; every vision projector kind but mlp2x_gelu (the
+reference's linear_1/linear_2) and identity (no parameters) goes both
+ways as its own leaves under ``native.<path>`` names, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -34,10 +37,6 @@ def _t(x, dtype=torch.float32, device=None) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return torch.as_tensor(x).detach().to(device=device, dtype=dtype)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A8)")
 
 
 def _getter(state: Mapping[str, Any], dtype, device, prefix: str = ""):
@@ -174,13 +173,24 @@ def whale_params_from_hf(state: Mapping[str, Any], n_layers: int, cmvn_mean=None
 def vision_projector_from_hf(state: Mapping[str, Any], prefix: str = "", dtype=torch.float32,
                              kind: str = "mlp2x_gelu", template=None,
                              device=None) -> Dict[str, Any]:
-    """The mlp2x_gelu projector from the reference's linear_1/linear_2
-    layout."""
-    if kind != "mlp2x_gelu":
-        _not_ported(f"importing the {kind!r} vision projector")
+    """mlp2x_gelu from the reference's linear_1/linear_2 layout; any other
+    kind fills ``template`` (an ``init_vision_projector_kind`` tree, meta
+    tensors will do) from its ``native.<path>`` leaves."""
     g = _getter(state, dtype, device, prefix)
-    return {"fc1_w": g("linear_1.weight").T.contiguous(), "fc1_b": g("linear_1.bias"),
-            "fc2_w": g("linear_2.weight").T.contiguous(), "fc2_b": g("linear_2.bias")}
+    if kind == "mlp2x_gelu":
+        return {"fc1_w": g("linear_1.weight").T.contiguous(), "fc1_b": g("linear_1.bias"),
+                "fc2_w": g("linear_2.weight").T.contiguous(), "fc2_b": g("linear_2.bias")}
+    if kind == "identity":
+        return {}
+    if template is None:
+        raise ValueError(f"loading projector kind {kind!r} needs a template")
+
+    def fill(tree, path=""):
+        if isinstance(tree, Mapping):
+            return {k: fill(v, f"{path}{k}.") for k, v in tree.items()}
+        return g(f"native.{path[:-1]}").reshape(tree.shape)
+
+    return fill(template)
 
 
 def audio_projector_from_hf(state: Mapping[str, Any], prefix: str = "", dtype=torch.float32,
@@ -195,16 +205,85 @@ def audio_projector_from_hf(state: Mapping[str, Any], prefix: str = "", dtype=to
     }
 
 
-def eva_params_from_reference(state, n_layers: int, dtype=torch.float32):
-    _not_ported("the EVA-CLIP tower's import")
+def eva_params_from_reference(state: Mapping[str, Any], n_layers: int, dtype=torch.float32,
+                              device=None) -> Dict[str, Any]:
+    """The reference's EVA ViT weights (eva_clip/eva_vit.py, as
+    Eva2LargePlusEncoder builds it) -> the port's EVA params. ``n_layers``
+    is the effective depth: the reference's forward skips its last block,
+    so a depth-24 checkpoint imports as 23 and blocks.23.* is dropped. The
+    rope tables are rebuilt (eva_clip.vision_rope_tables), not imported."""
+    g = _getter(state, dtype, device)
+    stack = _stacker(g, n_layers)
+    pw = g("patch_embed.proj.weight")  # [D, 3, p, p]
+    lay = "blocks.{l}."
+    return {
+        "patch_embed": {"w": pw.reshape(pw.shape[0], -1).T.contiguous(),
+                        "b": g("patch_embed.proj.bias")},
+        "cls": g("cls_token").reshape(-1),
+        "pos_embed": g("pos_embed")[0],
+        "layers": {ours: stack(lay + hf, tr) for hf, ours, tr in _EVA_LAYER},
+    }
 
 
-def clip_params_from_hf(state, n_layers: int, dtype=torch.float32):
-    _not_ported("the CLIP tower's import")
+_EVA_LAYER = [
+    ("attn.q_proj.weight", "q_w", True), ("attn.q_bias", "q_b", False),
+    ("attn.k_proj.weight", "k_w", True),
+    ("attn.v_proj.weight", "v_w", True), ("attn.v_bias", "v_b", False),
+    ("attn.inner_attn_ln.weight", "inner_ln_w", False),
+    ("attn.inner_attn_ln.bias", "inner_ln_b", False),
+    ("attn.proj.weight", "o_w", True), ("attn.proj.bias", "o_b", False),
+    ("mlp.w1.weight", "w1", True), ("mlp.w1.bias", "w1_b", False),
+    ("mlp.w2.weight", "w2", True), ("mlp.w2.bias", "w2_b", False),
+    ("mlp.ffn_ln.weight", "ffn_ln_w", False), ("mlp.ffn_ln.bias", "ffn_ln_b", False),
+    ("mlp.w3.weight", "w3", True), ("mlp.w3.bias", "w3_b", False),
+    ("norm1.weight", "ln1_w", False), ("norm1.bias", "ln1_b", False),
+    ("norm2.weight", "ln2_w", False), ("norm2.bias", "ln2_b", False),
+]
+# transformers' CLIP and SigLIP encoder layers (under encoder.layers.{l}.)
+_HF_VIT_LAYER = [
+    ("self_attn.q_proj.weight", "q_w", True), ("self_attn.q_proj.bias", "q_b", False),
+    ("self_attn.k_proj.weight", "k_w", True), ("self_attn.k_proj.bias", "k_b", False),
+    ("self_attn.v_proj.weight", "v_w", True), ("self_attn.v_proj.bias", "v_b", False),
+    ("self_attn.out_proj.weight", "o_w", True), ("self_attn.out_proj.bias", "o_b", False),
+    ("mlp.fc1.weight", "fc1_w", True), ("mlp.fc1.bias", "fc1_b", False),
+    ("mlp.fc2.weight", "fc2_w", True), ("mlp.fc2.bias", "fc2_b", False),
+    ("layer_norm1.weight", "ln1_w", False), ("layer_norm1.bias", "ln1_b", False),
+    ("layer_norm2.weight", "ln2_w", False), ("layer_norm2.bias", "ln2_b", False),
+]
 
 
-def siglip_params_from_hf(state, n_layers: int, dtype=torch.float32):
-    _not_ported("the SigLIP tower's import")
+def clip_params_from_hf(state: Mapping[str, Any], n_layers: int, dtype=torch.float32,
+                        device=None) -> Dict[str, Any]:
+    """A transformers CLIPVisionModel state dict -> the port's CLIP params
+    (the conv patch embedding has no bias)."""
+    g = _getter(state, dtype, device, "vision_model.")
+    stack = _stacker(g, n_layers)
+    pw = g("embeddings.patch_embedding.weight")  # [D, 3, p, p]
+    lay = "encoder.layers.{l}."
+    return {
+        "patch_embed": {"w": pw.reshape(pw.shape[0], -1).T.contiguous()},
+        "cls": g("embeddings.class_embedding"),
+        "pos_embed": g("embeddings.position_embedding.weight"),
+        "pre_ln": {"w": g("pre_layrnorm.weight"), "b": g("pre_layrnorm.bias")},
+        "layers": {ours: stack(lay + hf, tr) for hf, ours, tr in _HF_VIT_LAYER},
+    }
+
+
+def siglip_params_from_hf(state: Mapping[str, Any], n_layers: int, dtype=torch.float32,
+                          device=None) -> Dict[str, Any]:
+    """A transformers SiglipVisionModel state dict -> the port's SigLIP
+    params."""
+    g = _getter(state, dtype, device, "vision_model.")
+    stack = _stacker(g, n_layers)
+    pw = g("embeddings.patch_embedding.weight")
+    lay = "encoder.layers.{l}."
+    return {
+        "patch_embed": {"w": pw.reshape(pw.shape[0], -1).T.contiguous(),
+                        "b": g("embeddings.patch_embedding.bias")},
+        "pos_embed": g("embeddings.position_embedding.weight"),
+        "layers": {ours: stack(lay + hf, tr) for hf, ours, tr in _HF_VIT_LAYER},
+        "post_ln": {"w": g("post_layernorm.weight"), "b": g("post_layernorm.bias")},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +358,20 @@ def whale_params_to_hf(params, n_layers: int) -> Tensors:
 
 
 def vision_projector_to_hf(params, kind: str = "mlp2x_gelu") -> Tensors:
-    if kind != "mlp2x_gelu":
-        _not_ported(f"exporting the {kind!r} vision projector")
-    return {"linear_1.weight": _f32(params["fc1_w"]).T, "linear_1.bias": _f32(params["fc1_b"]),
-            "linear_2.weight": _f32(params["fc2_w"]).T, "linear_2.bias": _f32(params["fc2_b"])}
+    """mlp2x_gelu in the reference's layout; any other kind as its own
+    leaves under ``native.<path>`` (no reference layout exists for them)."""
+    if kind == "mlp2x_gelu":
+        return {"linear_1.weight": _f32(params["fc1_w"]).T,
+                "linear_1.bias": _f32(params["fc1_b"]),
+                "linear_2.weight": _f32(params["fc2_w"]).T,
+                "linear_2.bias": _f32(params["fc2_b"])}
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, Mapping):
+            return [item for k in sorted(tree) for item in paths(tree[k], f"{prefix}{k}.")]
+        return [(prefix[:-1], tree)]
+
+    return {f"native.{p}": _f32(v) for p, v in paths(params)}
 
 
 def audio_projector_to_hf(params) -> Tensors:
