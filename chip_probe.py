@@ -22,6 +22,8 @@ NVIDIA GPU.
     python3 chip_probe.py paged-ring   # ring stages of B2/B9 on tensor cores
     python3 chip_probe.py session      # TTFT of a reused session turn against a cold prefill
     python3 chip_probe.py whale        # where Whale's flash and xla forwards spend their time
+    python3 chip_probe.py mesh         # how far sharded serving's logits move, by mesh axis
+    python3 chip_probe.py mesh-faults  # which of phase 11's checks fail each planted mesh fault
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -190,12 +192,28 @@ in turns after a warm-up (CUDA events around each forward), then one
 forward of each under torch.profiler (wall, device time, busy share,
 largest device entries, the port's kernels).
 
+mesh: chip_smoke.py's full-width 4-layer slice (bf16 experts, dense
+prefill, gather decode) served by the unsharded Engine and, as 4 gloo
+ranks on cuda:0, under the meshes expert x model 2 x 2, 1 x 4 and 4 x 1 on
+phase 11's bf16 traffic: per mesh, the largest difference of each prefill
+sample's logits and of each decode step's up to the request's first
+differing token, and the first prompt row or decode step whose experts
+the mesh chose otherwise, with the unsharded run's router gap there.
+
+mesh-faults: chip_smoke.py's phase 11 (`mesh_phase`) run on a copy of the
+tree under build/mesh_faults/ as it is, then with each MESH_FAULTS edit
+planted in the copy (wo's partial sums rounded to bf16; the sum over
+'model' of the output projection dropped; the expert partials left in
+bf16): per run, each check's reading and the checks that failed.
+
 Each prints the card's name and power limit first.
+
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import gc
 import re
@@ -1175,6 +1193,198 @@ def whale(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# (expert, model) axes of the meshes `mesh` holds against the unsharded Engine
+MESH_PROBE_AXES = ((2, 2), (1, 4), (4, 1))
+MESH_PROBE_KW = dict(n_slots=4, page_size=64, decode_moe_mode="gather")
+
+
+@contextlib.contextmanager
+def _recording_logits(engine, prefill, decode):
+    """While open, ``engine``'s prefill samples append their logits row to
+    ``prefill``, and each decode step stores the row of every active
+    request as decode[(request_id, i)] for generated token i."""
+    from vita_tpu_torch import sampling
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real_pre, real_chunk, real_sample = (engine_mod.sample_tokens, engine_mod.decode_chunk,
+                                         sampling.sample_tokens)
+
+    def pre_sample(logits, *a, **k):
+        prefill.append(logits[0].float().cpu().numpy())
+        return real_pre(logits, *a, **k)
+
+    def chunk(llm_params, cache, tok, pos, *args, **kw):
+        reqs = [r for r in engine.slot_req if r is not None]
+        first = [int(p) + 1 - len(r.input_ids) for p, r in zip(pos.tolist(), reqs)]
+        step = [0]
+
+        def sample(logits, *a, **k):
+            rows = logits.float().cpu().numpy()
+            for row, r in enumerate(reqs):
+                decode[(r.request_id, first[row] + step[0])] = rows[row]
+            step[0] += 1
+            return real_sample(logits, *a, **k)
+
+        sampling.sample_tokens = sample
+        try:
+            return real_chunk(llm_params, cache, tok, pos, *args, **kw)
+        finally:
+            sampling.sample_tokens = real_sample
+
+    engine_mod.sample_tokens, engine_mod.decode_chunk = pre_sample, chunk
+    try:
+        yield
+    finally:
+        engine_mod.sample_tokens, engine_mod.decode_chunk = real_pre, real_chunk
+
+
+def _mesh_probe_run(engine, cfg):
+    """chip_smoke's bf16 full-width traffic with logits and routes recorded,
+    keyed by request index: (streams, prefill rows, decode rows, routes)."""
+    warm, solo, wave = smoke.mesh_full_requests(cfg, smoke.MESH_FULL_RUNS[0][2])
+    smoke.serve(engine, warm)
+    prefill, decode, routes = [], {}, {}
+    with _recording_logits(engine, prefill, decode), smoke._recording_routes(engine, routes):
+        reqs = smoke.serve(engine, solo) + smoke.serve(engine, wave)
+    ids = [r.request_id for r in reqs]
+    index = lambda d: {(ids.index(k[0]),) + k[1:]: v for k, v in d.items() if k[0] in ids}
+    return [r.tokens for r in reqs], prefill, index(decode), index(routes)
+
+
+def mesh_probe_rank(rank, world, ckpt_dir):
+    """Each MESH_PROBE_AXES mesh over the slice's checkpoint in
+    ``ckpt_dir`` (each rank reads its shards) on cuda:0; rank 0 returns
+    its runs."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.parallel.mesh import make_mesh
+    from vita_tpu_torch.serve.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.lib()
+    cfg = smoke.slice_config()
+    dev = torch.device("cuda", 0)
+    runs = []
+    for axes in MESH_PROBE_AXES:
+        mesh = make_mesh((1, 1) + axes)
+        _, shards = load_vita_checkpoint(ckpt_dir, dev, mesh=mesh)
+        engine = Engine(shards, cfg, max_len=2048, device=dev, mesh=mesh, sharded=True,
+                        **MESH_PROBE_KW)
+        runs.append(_mesh_probe_run(engine, cfg))
+        del engine, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs if rank == 0 else None
+
+
+def mesh(card: str) -> None:
+    import os
+
+    import torch
+
+    from vita_tpu_torch.checkpoint import export_hf_vita_checkpoint
+    from vita_tpu_torch.parallel.launch import run_ranks
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = smoke.slice_config()
+    params = smoke.slice_params(cfg, dev)
+    engine = Engine(params, cfg, max_len=2048, device=dev, **MESH_PROBE_KW)
+    ref = _mesh_probe_run(engine, cfg)
+    del engine
+    shutil.rmtree(smoke.MESH_DIR, ignore_errors=True)
+    ckpt_dir = os.path.join(smoke.MESH_DIR, "ckpt")
+    try:
+        export_hf_vita_checkpoint(ckpt_dir, cfg, params, dtype=torch.bfloat16)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = run_ranks(mesh_probe_rank, 4, ckpt_dir, timeout=900, store_dir=smoke.MESH_DIR)[0]
+    finally:
+        shutil.rmtree(smoke.MESH_DIR, ignore_errors=True)
+    for axes, (tokens, prefill, decode, routes) in zip(MESH_PROBE_AXES, runs):
+        print(f"  mesh expert {axes[0]} x model {axes[1]} against the unsharded Engine "
+              f"(bf16, logits of std {np.std(ref[1][0]):.3f})  [{card}]", flush=True)
+        for i, (a, b) in enumerate(zip(ref[1], prefill)):
+            print(f"    prefill sample {i}: max |logit difference| {np.abs(a - b).max():.4f}",
+                  flush=True)
+        for i, (got, want) in enumerate(zip(tokens, ref[0])):
+            j = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), len(want))
+            diffs = [float(np.abs(decode[(i, t)] - ref[2][(i, t)]).max())
+                     for t in range(1, j + 1) if (i, t) in decode and (i, t) in ref[2]]
+            keys = sorted(k for k in ref[3] if k[:2] == (i, "prompt")) + [
+                (i, t) for t in range(1, j + 1)]
+            flip = next((f"{k[1:]} layer {layer}, unsharded router gap {g:.3e}"
+                         for k in keys
+                         for layer, ((x, g), (y, _)) in enumerate(zip(ref[3].get(k, []),
+                                                                      routes.get(k, [])))
+                         if x != y), "none")
+            state = "identical" if j == len(want) else f"splits at token {j}"
+            print(f"    request {i}: {state}; max |logit difference| per decode step up to "
+                  f"it {[round(d, 4) for d in diffs]}; first route that differs: {flip}",
+                  flush=True)
+
+
+# (name, (file, line as committed, line as planted)): faults of rounding
+# size or worse in the serving mesh's sums, each of which phase 11 must fail
+MESH_FAULTS = (
+    ("as committed", None),
+    ("M1: wo partials rounded to bf16",
+     ("vita_tpu_torch/models/mixtral.py",
+      "part = torch.mm(o.reshape(-1, o.shape[-1]), wo, out_dtype=torch.float32)",
+      "part = (o.reshape(-1, o.shape[-1]) @ wo).float()")),
+    ("M2: the sum over 'model' of the output projection dropped",
+     ("vita_tpu_torch/models/mixtral.py",
+      "return all_reduce_sum(part, mesh, MODEL).to(o.dtype)", "return part.to(o.dtype)")),
+    ("M3: the expert partials left in bf16",
+     ("vita_tpu_torch/parallel/sharded_ops.py",
+      "n_experts=e_local, out_dtype=torch.float32)", "n_experts=e_local)")),
+)
+
+
+def mesh_faults(card: str) -> None:
+    import os
+    import subprocess
+
+    from vita_tpu_torch import kernels
+
+    kernels.build()  # the copies take the built library along
+    base = os.path.join(smoke.ROOT, "build", "mesh_faults")
+    tree = os.path.join(base, "tree")
+    code = "import torch, chip_smoke as cs\ncs.mesh_phase(cs.card_line(), torch.device('cuda'))"
+    try:
+        for name, edit in MESH_FAULTS:
+            shutil.rmtree(tree, ignore_errors=True)
+            shutil.copytree(smoke.ROOT, tree, ignore=shutil.ignore_patterns(
+                ".git", "mesh_faults", "smoke_*"))
+            if edit is not None:
+                path, old, new = edit
+                with open(os.path.join(tree, path)) as f:
+                    src = f.read()
+                if src.count(old) != 1:
+                    raise RuntimeError(f"{name}: {path} holds {src.count(old)} copies of {old!r}")
+                with open(os.path.join(tree, path), "w") as f:
+                    f.write(src.replace(old, new))
+            t0 = time.time()
+            run = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                                 text=True, timeout=900)
+            print(f"  -- {name}: phase 11 exit {run.returncode} in {time.time() - t0:.1f} s "
+                  f"[{card}]", flush=True)
+            for line in run.stdout.splitlines():
+                if line.startswith(("  narrow", "  full width", "  layer 0")):
+                    print("  " + line, flush=True)
+            err = run.stderr.splitlines()
+            start = next((i for i, l in enumerate(err) if "phase 11 failed" in l), None)
+            if start is not None:
+                print("\n".join("    " + l for l in err[start:]), flush=True)
+            elif run.returncode:
+                print("\n".join(err[-20:]), flush=True)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1184,7 +1394,8 @@ def main() -> int:
              "gmm-small-order": gmm_small_order, "expert": expert,
              "expert-ring": expert_ring, "expert-q4": expert_q4,
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
-             "paged-ring": paged_ring, "session": session, "whale": whale}
+             "paged-ring": paged_ring, "session": session, "whale": whale,
+             "mesh": mesh, "mesh-faults": mesh_faults}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

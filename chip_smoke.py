@@ -121,8 +121,28 @@ Phases, each of which raises on failure:
      phase 5's narrow fp32 configuration with clip + ldp, siglip +
      mlp3x_gelu and eva + spp_v1 with Whale flash: identical streams.
 
+ 11. the serving mesh on one card: expert 2 x model 2 as 4 ranks spawned
+     on cuda:0 over gloo (parallel.launch.run_ranks, FileStore rendezvous;
+     they load phase 1's library), after the unsharded runs here: (a) the
+     Engine at phase 5's narrow fp32 configuration with gather, gather +
+     gmm prefill, int4 experts + int8 KV and dense decode, phase 5's
+     requests (an image+audio one among them): every rank's greedy streams
+     identical to the unsharded ones; (b) the full-width 4-layer slice,
+     written once with the port's safetensors writer under
+     build/smoke_mesh/ and read by each rank through the mapped reader
+     (only its blocks), served with bf16 experts (dense prefill), and with
+     int4 experts + int8 KV on 8 slots (gmm prefill): every rank's streams
+     equal, and apart from the unsharded run's only at a near tie of its
+     top two logits (NEAR_TIE) or after the mesh routed one of the
+     request's rows otherwise at a router near tie (MESH_ROUTE_NEAR_TIE);
+     each rank's peak memory, TTFT and tok/s printed (time-shared, not a
+     measure of scaling); every rank must launch B1, B2, B9, B3, B4, B7,
+     B8b and B5b; a rank that fails or hangs past the join's timeout fails
+     the phase.
+
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-10) before the last, and as the last
+results (launches summed over phases 3-11, phase 11's over its ranks)
+before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -2463,6 +2483,472 @@ def registry_phase(card, cfg, params, device):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the serving mesh on one card
+# --------------------------------------------------------------------------
+# expert x model: 4 ranks time-sharing cuda:0, over gloo (nccl refuses two
+# ranks on one device)
+MESH_AXES = (2, 2)
+MESH_RANKS = MESH_AXES[0] * MESH_AXES[1]
+MESH_DIR = os.path.join(ROOT, "build", "smoke_mesh")
+# (label, Engine options) at phase 5's narrow fp32 configuration
+MESH_NARROW_RUNS = (
+    ("gather", dict(decode_moe_mode="gather")),
+    ("gather, gmm prefill", dict(decode_moe_mode="gather", prefill_moe_mode="gmm")),
+    ("int4 experts, int8 KV", dict(decode_moe_mode="gather_q4", kv_int8=True)),
+    ("dense", dict(decode_moe_mode="dense")),
+)
+# (label, Engine options, text prompt lengths of the wave beside the
+# image+audio request) at full width; the int4 wave decodes 8 rows, which
+# B8b's masked schedule needs, and prefills through B5b
+MESH_FULL_RUNS = (
+    ("bf16 experts, bf16 KV pages", dict(n_slots=4, page_size=64, decode_moe_mode="gather"),
+     (20, 150)),
+    ("int4 experts, int8 KV pages, gmm prefill",
+     dict(n_slots=8, page_size=128, decode_moe_mode="gather_q4", kv_int8=True,
+          max_concurrent_prefills=8, prefill_moe_mode="gmm"), (20, 150, 60, 33, 90, 12)),
+)
+# the kernels every rank must launch in phase 11: B1, B2, B9, the bf16 and
+# int4 expert kernels (B3/B4, B7/B8b) and B5b
+MESH_PATH = ("flash_fwd", "paged_attention", "paged_attention_q", "gather_expert_ffn",
+             "masked_expert_ffn", "gather_expert_ffn_q4", "masked_expert_ffn_q4", "gmm_small")
+MESH_NOTE = f"{MESH_RANKS} ranks time-sharing one card: not a measure of scaling"
+# the full-width meshes: expert 4 x model 1 first (the expert axis alone:
+# each (token, expert) term comes from one rank and the float32 partials
+# sum exactly, so its streams must equal the unsharded ones but at a logit
+# near tie), then MESH_AXES (every axis at once, whose shards stay for the
+# layer check)
+MESH_EXACT_AXES = (4, 1)
+MESH_FULL_MESHES = (MESH_EXACT_AXES, MESH_AXES)
+# The model axis splits GEMMs (q/k/v by columns, wo by rows, summed in
+# float32), so bf16 activations round otherwise than unsharded ones (under
+# the expert axis alone the logits stay equal: `python3 chip_probe.py
+# mesh`); where a token's router had its second and third experts'
+# probabilities within MESH_ROUTE_NEAR_TIE, that rounding may route it to
+# another expert, which moves the logits by O(1). The routes that differed
+# first had gaps up to 3.3e-3 on the 4-layer slice; the bound leaves room. So a full-width request may also split
+# from the unsharded run after the mesh routed one of its prompt rows or
+# decode steps otherwise at such a near tie (both runs' routes recorded).
+MESH_ROUTE_NEAR_TIE = 2e-2
+# A route excuse cannot see a fault of rounding size in the model axis, so
+# the 2 x 2 shards of layer 0 are also held, at full width, to what each
+# collective must give (mesh_layer_check, on MESH_OP_ROWS rows): the
+# embedding's masked lookup exactly the table's rows; the output
+# projection (wo's row blocks, float32 partials summed over 'model') and
+# the vocabulary-sharded head within MESH_OP_ULPS bf16 ulps of the float32
+# product, and the expert-sharded gather FFN within MESH_OP_ULPS of the
+# unsharded kernel (ulps of the larger of the element and the output's
+# root mean square: _layer_reading); and at most MESH_OP_MISMATCH of each
+# output's elements off the correctly rounded result (a float32 sum
+# rounded once misses only where the float32 error straddles a rounding
+# boundary: 0.13% and 0.23% on the card; bf16-rounded partials and a
+# dropped sum moved 19% to 100%: PERF.md §6).
+MESH_OP_ROWS = 64
+MESH_OP_TOKENS = 8  # the gather FFN's decode-sized batch
+MESH_OP_ULPS = 1.0
+MESH_OP_MISMATCH = 0.01
+
+
+def mesh_narrow_requests(cfg):
+    """Phase 5's requests: a 200-token text alone, then an image+audio
+    request with three texts (12 new tokens each)."""
+    rng = np.random.default_rng(SEED + 1)
+    first = [text_request(cfg, rng, 200, 12)]
+    return first, [media_request(cfg, rng, 12, frames=40)] + [
+        text_request(cfg, rng, n, 12) for n in (5, 130, 33)]
+
+
+def mesh_full_requests(cfg, wave_texts, max_new_tokens=16):
+    """Warm-up, then a 100-token text alone and a wave of one image+audio
+    request with texts of ``wave_texts`` tokens."""
+    rng = np.random.default_rng(SEED + 11)
+    warm = [text_request(cfg, rng, 30, 4), media_request(cfg, rng, 4)]
+    solo = [text_request(cfg, rng, 100, max_new_tokens)]
+    return warm, solo, [media_request(cfg, rng, max_new_tokens)] + [
+        text_request(cfg, rng, n, max_new_tokens) for n in wave_texts]
+
+
+@contextlib.contextmanager
+def _recording_routes(engine, routes):
+    """While open, every routing of ``engine``'s requests is recorded: per
+    layer the two experts and the gap between the second and third router
+    probabilities, as routes[(request_id, i)] for the decode step that
+    samples generated token i and routes[(request_id, "prompt", p)] for
+    prompt row p of a prefill chunk."""
+    import torch
+
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real_chunk, real_prefill = engine_mod.decode_chunk, engine_mod._prefill_chunk
+    real_routes = mixtral.route_topk, moe.route_topk
+    n_layers = engine.cfg.llm.n_layers
+    rows = {}  # the keys of the rows the running forward routes, and its call count
+
+    def route(logits, k):
+        w, idx, probs = real_routes[0](logits, k)
+        if rows:
+            step = rows["calls"] // n_layers
+            rows["calls"] += 1
+            top = torch.topk(probs, k + 1, dim=-1).values
+            gaps = (top[:, k - 1] - top[:, k]).tolist()
+            for key, ids, gap in zip(rows["keys"](step), idx.tolist(), gaps):
+                if key is not None:
+                    routes.setdefault(key, []).append((tuple(sorted(ids)), gap))
+        return w, idx, probs
+
+    def chunk(llm_params, cache, tok, pos, *args, **kw):
+        reqs = [r for r in engine.slot_req if r is not None]
+        first = [int(p) + 1 - len(r.input_ids) for p, r in zip(pos.tolist(), reqs)]
+        rows.update(calls=0, keys=lambda step: [(r.request_id, f + step)
+                                                for r, f in zip(reqs, first)])
+        try:
+            return real_chunk(llm_params, cache, tok, pos, *args, **kw)
+        finally:
+            rows.clear()
+
+    def prefill(llm_params, llm_cfg, job, *args, **kw):
+        rid = job.req.request_id
+        rows.update(calls=0, keys=lambda step: [
+            (rid, "prompt", p) if p < job.true_len else None
+            for p in range(job.offset, job.offset + job.chunk)])
+        try:
+            return real_prefill(llm_params, llm_cfg, job, *args, **kw)
+        finally:
+            rows.clear()
+
+    engine_mod.decode_chunk, engine_mod._prefill_chunk = chunk, prefill
+    mixtral.route_topk = moe.route_topk = route
+    try:
+        yield
+    finally:
+        engine_mod.decode_chunk, engine_mod._prefill_chunk = real_chunk, real_prefill
+        mixtral.route_topk, moe.route_topk = real_routes
+
+
+def _serve_full(engine, cfg, wave_texts, top2, routes):
+    """mesh_full_requests through ``engine``, its top-2 logits and routes
+    recorded: (streams, request ids, TTFT ms, decode tok/s)."""
+    warm, solo, wave = mesh_full_requests(cfg, wave_texts)
+    serve(engine, warm)
+    with _recording_top2(engine, top2), _recording_routes(engine, routes):
+        reqs = serve(engine, solo) + serve(engine, wave)
+    return ([r.tokens for r in reqs], [r.request_id for r in reqs],
+            [r.ttft_s * 1e3 for r in reqs], [r.decode_tokens_per_s for r in reqs])
+
+
+def _mesh_split(i, got, ref, rid, top2, routes, own_routes):
+    """None when request ``i``'s mesh stream equals the unsharded one; else
+    the first differing token j, accepted where the unsharded run's top two
+    logits there were the two tokens within NEAR_TIE, or (with ``routes``;
+    None for the expert-only mesh) where the mesh routed one of the
+    request's prompt rows, or a decode step up to j, otherwise than the
+    unsharded run at a router near tie of the unsharded run
+    (MESH_ROUTE_NEAR_TIE); raises otherwise."""
+    if got == ref:
+        return None
+    j = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+    t1, t2, gap = top2.get((rid, j), (None, None, None))
+    # either order: at an exact tie topk's order is arbitrary (argmax takes
+    # the lower id); otherwise the unsharded run streamed its top token
+    if {t1, t2} == {ref[j], got[j]} and gap <= NEAR_TIE:
+        print(f"    request {i} splits at token {j}: {got[j]} vs {ref[j]}, a near tie of "
+              f"the logits (unsharded top-2 gap {gap:.3e} <= {NEAR_TIE})", flush=True)
+        return j
+    if routes is None:
+        raise AssertionError(
+            f"request {i} differs at token {j}: {got[j:j + 4]} vs {ref[j:j + 4]}; unsharded "
+            f"top two there {(t1, t2)}, gap {gap} (the expert axis alone allows a logit near "
+            f"tie only)")
+    prompt = sorted(k[2] for k in routes if k[:2] == (rid, "prompt"))
+    for where, mine, theirs in ([(f"prompt row {p}", (i, "prompt", p), (rid, "prompt", p))
+                                 for p in prompt]
+                                + [(f"token {t}", (i, t), (rid, t)) for t in range(1, j + 1)]):
+        for layer, ((a, g), (b, _)) in enumerate(zip(routes.get(theirs, []),
+                                                    own_routes.get(mine, []))):
+            if a == b:
+                continue
+            if g > MESH_ROUTE_NEAR_TIE:
+                raise AssertionError(f"request {i}: the mesh routed {where} at layer {layer} to "
+                                     f"{b}, the unsharded run to {a} with a router gap of {g:.3e}")
+            print(f"    request {i} splits at token {j}: {got[j]} vs {ref[j]}, after the mesh "
+                  f"routed {where} at layer {layer} to experts {b}, the unsharded run to {a} at "
+                  f"a router near tie (gap {g:.3e} <= {MESH_ROUTE_NEAR_TIE})", flush=True)
+            return j
+    raise AssertionError(
+        f"request {i} differs at token {j}: {got[j:j + 4]} vs {ref[j:j + 4]}; unsharded top "
+        f"two there {(t1, t2)}, gap {gap}, and the same routes up to it")
+
+
+def mesh_layer_inputs(params, cfg, device):
+    """Seeded inputs of mesh_layer_check and what each collective must
+    give, from the whole weights (float32 products with TF32 off; the
+    unsharded gather FFN for the experts)."""
+    import torch
+
+    from vita_tpu_torch.ops.moe_decode import selected_expert_ffn
+
+    llm, lc = params["llm"], cfg.llm
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    bf16 = torch.bfloat16
+    t, te = MESH_OP_ROWS, MESH_OP_TOKENS
+    ops = {
+        "ids": torch.randint(0, lc.vocab_size, (t,), generator=g, device=device),
+        "o": torch.randn(t, lc.n_heads * lc.head_dim, generator=g, device=device).to(bf16),
+        "x": torch.randn(t, lc.d_model, generator=g, device=device).to(bf16),
+        "xe": torch.randn(te, lc.d_model, generator=g, device=device).to(bf16),
+        "w": torch.rand(te, lc.top_k, generator=g, device=device).softmax(-1),
+        "idx": torch.stack([torch.randperm(lc.n_experts, generator=g, device=device)[:lc.top_k]
+                            for _ in range(te)]),
+    }
+    experts = {k: v.flatten(0, 1) for k, v in llm["layers"]["moe"].items() if k != "router"}
+    want = {
+        "embed": llm["embed"][ops["ids"]],
+        "out_proj": ops["o"].float() @ llm["layers"]["attn"]["wo"][0].float(),
+        "lm_head": ops["x"].float() @ llm["lm_head"].float(),
+        "experts": selected_expert_ffn("gather", ops["xe"], ops["w"], ops["idx"], experts,
+                                       n_experts=lc.n_experts),
+    }
+    return {k: v.cpu() for k, v in ops.items()}, {k: v.cpu() for k, v in want.items()}
+
+
+def mesh_layer_check(llm, cfg, mesh, ops):
+    """Layer 0's collectives at full width on this rank's shards, on the
+    inputs of mesh_layer_inputs: the embedding's masked lookup summed over
+    'model', the output projection over the rank's heads (wo's row block)
+    summed over 'model', the vocabulary-sharded head gathered over
+    'model', and the gather FFN over the rank's experts summed over
+    'expert'."""
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.parallel.mesh import local_shard
+    from vita_tpu_torch.parallel.sharded_ops import sharded_gather_ffn
+
+    dev = llm["embed"].device
+    ops = {k: v.to(dev) for k, v in ops.items()}
+    experts = {k: v for k, v in llm["layers"]["moe"].items() if k != "router"}
+    got = {
+        "embed": mixtral.embed_tokens(llm, ops["ids"], mesh),
+        "out_proj": mixtral._out_proj(local_shard(ops["o"], (None, "model"), mesh),
+                                      llm["layers"]["attn"]["wo"][0], mesh),
+        "lm_head": mixtral.lm_logits(llm, ops["x"], mesh),
+        "experts": sharded_gather_ffn(ops["xe"], ops["w"], ops["idx"], experts, 0,
+                                      cfg.n_experts, "gather", mesh=mesh),
+    }
+    # numpy (exact for bf16): a returned tensor would travel as a handle to
+    # this rank's shared memory, gone once the rank exits
+    return {k: v.float().cpu().numpy() for k, v in got.items()}
+
+
+def _layer_reading(got, want):
+    """(max error of ``got`` in bf16 ulps of the larger of each element of
+    ``want`` and its root mean square, share of elements that differ from
+    ``want`` rounded to bf16). An element summed near zero carries the
+    float32 error of its terms, which scale like the root mean square."""
+    import torch
+
+    got, want = torch.from_numpy(got), want.float()
+    mag = torch.maximum(want.abs(), want.square().mean().sqrt()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (float(((got - want).abs() / ulp).max()),
+            float((got != want.to(torch.bfloat16).float()).float().mean()))
+
+
+def mesh_rank(rank, world, ckpt_dir, layer_path):
+    """One rank of phase 11 on cuda:0: the narrow runs, then the
+    full-width runs on each MESH_FULL_MESHES mesh over this rank's shards,
+    read from the checkpoint in ``ckpt_dir`` by load_vita_checkpoint (the
+    CLI's and the HTTP server's loader: only this rank's blocks of the
+    mapped files are read). Launch counts are zeroed before the path and
+    read after it; then the layer check on the MESH_AXES shards."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.mesh import make_mesh
+    from vita_tpu_torch.serve.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.lib()  # phase 1's library: loaded, not built
+    meshes = {axes: make_mesh((1, 1) + axes) for axes in MESH_FULL_MESHES}
+    mesh = meshes[MESH_AXES]
+    out = {"narrow": {}, "full": {}}
+    kernels.reset_launches()
+    cfg = narrow_config()
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    for label, kw in MESH_NARROW_RUNS:
+        engine = Engine(params, cfg, n_slots=4, max_len=512, page_size=64, prefill_chunk=128,
+                        device=dev, mesh=mesh, **kw)
+        first, wave = mesh_narrow_requests(cfg)
+        out["narrow"][label] = [r.tokens for r in serve(engine, first) + serve(engine, wave)]
+        del engine
+    cfg = slice_config()
+    for axes in MESH_FULL_MESHES:
+        t0 = time.time()
+        _, shards = load_vita_checkpoint(ckpt_dir, dev, mesh=meshes[axes])
+        loaded = time.time() - t0
+        for label, kw, wave_texts in MESH_FULL_RUNS:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            engine = Engine(shards, cfg, max_len=2048, device=dev, mesh=meshes[axes],
+                            sharded=True, **kw)
+            built = time.time() - t0
+            top2, routes = {}, {}
+            tokens, ids, ttft, tps = _serve_full(engine, cfg, wave_texts, top2, routes)
+            # this rank's own routes at each step, by request index
+            own = {(ids.index(k[0]),) + k[1:]: v for k, v in routes.items() if k[0] in ids}
+            out["full"][axes, label] = dict(
+                tokens=tokens, ttft_ms=ttft, tok_s=tps, loaded_s=loaded, built_s=built,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, routes=own)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        if axes != MESH_AXES:
+            del shards
+    out["launches"] = dict(kernels.launches)
+    out["layer"] = mesh_layer_check(shards["llm"], cfg.llm, mesh, torch.load(layer_path))
+    return out
+
+
+def mesh_phase(card: str, device):
+    """Phase 11: the serving mesh as 4 spawned ranks on cuda:0 over gloo,
+    against the unsharded Engine run here first.
+    Narrow fp32 (MESH_NARROW_RUNS, expert 2 x model 2): every rank's
+    greedy streams identical to the unsharded ones. Full width (the
+    4-layer VITA-8x7B slice, MESH_FULL_RUNS): the weights exported once
+    in the HF layout (bf16 safetensors), each rank reading its blocks
+    through load_vita_checkpoint(..., mesh=); every rank's streams equal;
+    under expert 4 x model 1 a split from the unsharded run only at a
+    logit near tie, under expert 2 x model 2 also after a router near tie
+    (_mesh_split); and layer 0's collectives held to what they must give
+    (mesh_layer_check). Every check runs, and the phase then fails on
+    any that failed. Every rank must launch MESH_PATH. Returns the launch
+    counts summed over the ranks."""
+    import shutil
+
+    import torch
+
+    from vita_tpu_torch.checkpoint import export_hf_vita_checkpoint
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.launch import run_ranks
+    from vita_tpu_torch.serve.engine import Engine
+
+    ncfg = narrow_config()
+    nparams = _to(vita.init_params(ncfg, torch.Generator().manual_seed(SEED), "cpu"), device)
+    narrow_ref = {}
+    for label, kw in MESH_NARROW_RUNS:
+        engine = Engine(nparams, ncfg, n_slots=4, max_len=512, page_size=64, prefill_chunk=128,
+                        device=device, **kw)
+        first, wave = mesh_narrow_requests(ncfg)
+        narrow_ref[label] = [r.tokens for r in serve(engine, first) + serve(engine, wave)]
+        del engine
+    del nparams
+
+    cfg = slice_config()
+    params = slice_params(cfg, device)
+    full_ref = {}
+    for label, kw, wave_texts in MESH_FULL_RUNS:
+        engine = Engine(params, cfg, max_len=2048, device=device, **kw)
+        top2, routes = {}, {}
+        tokens, ids, ttft, tps = _serve_full(engine, cfg, wave_texts, top2, routes)
+        full_ref[label] = (tokens, ids, top2, routes)
+        print(f"  unsharded {label}: TTFT {[round(t, 2) for t in ttft]} ms, decode "
+              f"{[round(t, 2) for t in tps]} tok/s  [{card}]", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    layer_ops, layer_want = mesh_layer_inputs(params, cfg, device)
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    free = shutil.disk_usage(MESH_DIR).free
+    if free < n_bytes + 2**30:
+        raise RuntimeError(f"the mesh phase writes {n_bytes / 2**30:.1f} GiB under {MESH_DIR}, "
+                           f"found {free / 2**30:.1f} GiB free")
+    ckpt_dir, layer_path = os.path.join(MESH_DIR, "ckpt"), os.path.join(MESH_DIR, "layer.pt")
+    try:
+        t0 = time.time()
+        export_hf_vita_checkpoint(ckpt_dir, cfg, params, dtype=torch.bfloat16)
+        torch.save(layer_ops, layer_path)
+        print(f"  exported {n_bytes / 2**30:.2f} GiB of bf16 weights (HF layout) in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks get the card; this process keeps its context
+        t0 = time.time()
+        results = run_ranks(mesh_rank, MESH_RANKS, ckpt_dir, layer_path, backend="gloo",
+                            timeout=600, store_dir=MESH_DIR)
+        print(f"  {MESH_RANKS} ranks on cuda:0 over gloo returned in {time.time() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+
+    failed = []
+    for label, _ in MESH_NARROW_RUNS:
+        bad = [r for r, res in enumerate(results) if res["narrow"][label] != narrow_ref[label]]
+        if bad:
+            failed.append(f"narrow {label}: rank {bad[0]}'s greedy streams "
+                          f"{results[bad[0]]['narrow'][label]} differ from the unsharded "
+                          f"{narrow_ref[label]}")
+            continue
+        print(f"  narrow fp32 {label} (expert {MESH_AXES[0]} x model {MESH_AXES[1]}): "
+              f"{len(narrow_ref[label])} requests, every rank's greedy streams identical to the "
+              f"unsharded Engine's", flush=True)
+    for axes in MESH_FULL_MESHES:
+        for label, _, _ in MESH_FULL_RUNS:
+            name = f"expert {axes[0]} x model {axes[1]}, {label}"
+            ref, ids, top2, routes = full_ref[label]
+            got = results[0]["full"][axes, label]["tokens"]
+            if any(res["full"][axes, label]["tokens"] != got for res in results):
+                failed.append(f"{name}: the ranks' streams differ")
+                continue
+            own = results[0]["full"][axes, label]["routes"]
+            try:
+                splits = [_mesh_split(i, g, w, rid, top2,
+                                      None if axes == MESH_EXACT_AXES else routes, own)
+                          for i, (g, w, rid) in enumerate(zip(got, ref, ids))]
+            except AssertionError as e:
+                failed.append(f"{name}: {e}")
+                continue
+            print(f"  full width {name}: {len(ref)} requests, every rank's streams equal; "
+                  f"against the unsharded Engine: {sum(s is None for s in splits)} identical, "
+                  f"splits at near ties {splits}", flush=True)
+            for r, res in enumerate(results):
+                run = res["full"][axes, label]
+                print(f"    rank {r}: peak memory {run['peak_gib']:.2f} GiB, shards loaded in "
+                      f"{run['loaded_s']:.1f} s, Engine built in {run['built_s']:.1f} s, TTFT "
+                      f"{[round(t, 2) for t in run['ttft_ms']]} ms, decode "
+                      f"{[round(t, 2) for t in run['tok_s']]} tok/s  ({MESH_NOTE}) [{card}]",
+                      flush=True)
+    for name, want in layer_want.items():
+        readings = [_layer_reading(res["layer"][name], want) for res in results]
+        ulps, mismatch = max(u for u, _ in readings), max(m for _, m in readings)
+        exact = name == "embed"
+        ok = (ulps == 0.0) if exact else (ulps <= MESH_OP_ULPS and mismatch <= MESH_OP_MISMATCH)
+        print(f"  layer 0 {name} at full width (expert {MESH_AXES[0]} x model {MESH_AXES[1]}): "
+              f"max error {ulps:.4f} bf16 ulps, {mismatch:.5f} of the elements off the "
+              f"correctly rounded result (bound "
+              f"{'exact' if exact else f'{MESH_OP_ULPS} ulps, {MESH_OP_MISMATCH}'})"
+              f"{'' if ok else ': FAILED'}", flush=True)
+        if not ok:
+            failed.append(f"layer 0 {name}: {ulps:.3f} ulps, {mismatch:.5f} mismatched")
+    total = {}
+    for r, res in enumerate(results):
+        counts = res["launches"]
+        print(f"  rank {r} kernel launches in phase 11: {counts}", flush=True)
+        missing = [k for k in MESH_PATH if counts[k] == 0]
+        if missing:
+            failed.append(f"rank {r} never launched {missing}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    if failed:
+        raise AssertionError("phase 11 failed:\n  " + "\n  ".join(failed))
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2573,6 +3059,12 @@ def main() -> int:
     t0 = time.time()
     parts.append(checkpoint_phase(card, dev))
     print(f"  phase 8 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+    print("phase 11: the serving mesh on one card (expert 2 x model 2, 4 gloo ranks)",
+          flush=True)
+    t0 = time.time()
+    parts.append(mesh_phase(card, dev))
+    print(f"  phase 11 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {

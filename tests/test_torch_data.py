@@ -296,8 +296,12 @@ def test_tts_matches(tmp_path):
             worker.submit(1, "first sentence.")
             worker.submit(2, "second one.")
             worker.drain()
-        got = [w.outputs.get(timeout=30) for _ in range(w.outputs.qsize())]
-        want = [jw.outputs.get(timeout=30) for _ in range(jw.outputs.qsize())]
+        # drain() returns once the input queue is empty, while the worker
+        # may still be synthesizing the last sentence: take the three
+        # chunks ("first", the 0.2 s pause, "second") as they arrive
+        got = [w.outputs.get(timeout=30) for _ in range(3)]
+        want = [jw.outputs.get(timeout=30) for _ in range(3)]
+        assert w.outputs.empty() and jw.outputs.empty()
         assert [(c.llm_id, c.text) for c in got] == [(c.llm_id, c.text) for c in want]
         for c, jc in zip(got, want):
             np.testing.assert_array_equal(c.audio, jc.audio)

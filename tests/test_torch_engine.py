@@ -167,10 +167,34 @@ def test_eos_and_capacity_guard(models):
     assert req.tokens == probe.tokens[:3]
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_unported_options_raise(models, kw):
+class _AxisMesh:
+    """Answers what a DeviceMesh answers about its axes, with one axis of 2
+    (a one-process world cannot build such a mesh)."""
+
+    mesh_dim_names = ("data", "fsdp", "expert", "model", "pipe", "seq")
+
+    def __init__(self, name):
+        self.name = name
+
+    def size(self, i):
+        return 2 if self.mesh_dim_names[i] == self.name else 1
+
+    def get_local_rank(self, name):
+        return 0
+
+    def get_group(self, name):
+        return None
+
+
+@pytest.mark.parametrize("kw,item", [(dict(mesh=_AxisMesh("pipe")), "A11c"),
+                                     (dict(mesh=_AxisMesh("seq")), "A11b"),
+                                     (dict(mesh=_AxisMesh("fsdp")), "A11d"),
+                                     (dict(mesh=_AxisMesh("data")), "A11d")])
+def test_unported_options_raise(models, kw, item):
+    """A mesh with an axis the serving path does not shard over yet raises
+    NotImplementedError naming its ROADMAP item."""
     _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=item):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
 
 
@@ -240,9 +264,9 @@ def test_quantized_engine_batch_of_eight(models, mode, monkeypatch):
         batches.append(tok.shape[0])
         return real_chunk(params, cache, tok, *a, **kw)
 
-    def spy_masked(x, act, m, qparams, bits):
+    def spy_masked(x, act, m, qparams, bits, *out_dtype):
         masked.append((x.shape[0], bits))
-        return real_masked(x, act, m, qparams, bits)
+        return real_masked(x, act, m, qparams, bits, *out_dtype)
 
     monkeypatch.setattr(engine, "decode_chunk", spy_chunk)
     monkeypatch.setattr(moe_decode, "masked_expert_ffn_q_plain", spy_masked)

@@ -238,7 +238,8 @@ def test_cli_prompt_builders_match_jax(modality, has_audio):
 
 
 def test_cli_unported_options_raise(tmp_path):
-    """--mesh still raises (A11). A directory is loaded now (A9): one
+    """--mesh EXPERT MODEL PIPE raises (A11c), and a mesh larger than the
+    one-process world raises. A directory is loaded now (A9): one
     without a checkpoint raises, and one with a checkpoint but no
     tokenizer raises rather than fall back to the byte tokenizer."""
     with pytest.raises(FileNotFoundError):
@@ -248,7 +249,10 @@ def test_cli_unported_options_raise(tmp_path):
         str(tmp_path), cfg, vita.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
     with pytest.raises(FileNotFoundError, match="no tokenizer"):
         cli.main(["--model", str(tmp_path), "--question", "hi", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11c"):
+        cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
+                  "--mesh", "1", "1", "2"])
+    with pytest.raises(ValueError, match="does not cover 1 ranks"):
         cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
                   "--mesh", "2", "2"])
 

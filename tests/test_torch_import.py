@@ -50,6 +50,8 @@ def test_package_imports_without_jax():
     names = json.loads(proc.stdout)
     assert len(names) >= 30 and "vita_tpu_torch.cli" in names
     assert "vita_tpu_torch.train.cli" in names and "vita_tpu_torch.data.dataset" in names
+    assert {f"vita_tpu_torch.parallel.{m}" for m in ("mesh", "distributed", "sharded_ops",
+                                                     "launch")} <= set(names)
 
 
 def _wav(path):
@@ -160,6 +162,27 @@ def test_duplex_demo_refuses_without_a_card():
                 env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "[demo]" not in proc.stdout
+
+
+def test_unported_mesh_options_name_their_item():
+    """Every NotImplementedError the port keeps for a mesh names its ROADMAP
+    item: A11b (seq), A11c (pipe), A11d (data/fsdp, training) or A11a
+    (duplex replicas); none names A11 alone."""
+    files = sorted((ROOT / "vita_tpu_torch").rglob("*.py"))
+    raises = re.compile(r"raise NotImplementedError\((.*?)\)\n", re.S)
+    items = re.compile(r"ROADMAP (A11[a-d])")
+    found = {}
+    for f in files:
+        for msg in raises.findall(f.read_text()):
+            if "A11" in msg:
+                tags = items.findall(msg)
+                assert tags, f"{f.name}: {msg!r} names no A11 sub-item"
+                found.setdefault(f.relative_to(ROOT).as_posix(), set()).update(tags)
+    assert found["vita_tpu_torch/parallel/mesh.py"] == {"A11b", "A11c", "A11d"}
+    assert found["vita_tpu_torch/train/cli.py"] == {"A11d"}
+    for name in ("duplex_http.py", "duplex_demo.py"):
+        text = (ROOT / "vita_tpu_torch" / "serve" / name).read_text()
+        assert "ROADMAP A11a (duplex replicas)" in text
 
 
 def test_chip_smoke_fails_without_cuda():

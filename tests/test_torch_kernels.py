@@ -1052,3 +1052,50 @@ def test_gmm_autograd_runs_the_kernels(transpose_rhs):
     for got, want in zip(*grads):
         close(got, want, atol=1e-3, rtol=1e-4)
     assert not grads[0][1][2].any()  # expert 2 owns no tile
+
+
+@pytest.mark.gpu
+def test_sharded_ops_on_two_ranks_sharing_the_card(tmp_path):
+    """Two gloo ranks on cuda:0: sharded_gather_ffn (bf16 B3 at T 3, B4 at
+    T 8, 4 experts a rank, partials all_reduced) and
+    sharded_paged_attention (bf16 B2, 4 of 8 q heads a rank) launch their
+    kernels on every rank and match the plain versions."""
+    import torch_mesh_util as u
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    cuda_or_skip()
+    kernels.build()  # the ranks load the library, never build it
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    e, d, f, L = 8, 256, 512, 2
+    inputs = {"w_gate": t(normal(rng, L, e, d, f, scale=d ** -0.5)).to(bf),
+              "w_up": t(normal(rng, L, e, d, f, scale=d ** -0.5)).to(bf),
+              "w_down": t(normal(rng, L, e, f, d, scale=f ** -0.5)).to(bf), "n_experts": e}
+    for n in (3, 8):
+        idx = np.stack([rng.choice(e, 2, replace=False) for _ in range(n)]).astype(np.int32)
+        w = rng.random((n, 2)).astype(np.float32) + 0.1
+        inputs.update({f"x{n}": t(normal(rng, n, d)).to(bf), f"idx{n}": t(idx),
+                       f"w{n}": t(w / w.sum(1, keepdims=True))})
+    b, hq, hkv, page, n_pool = 4, 8, 2, 16, 16
+    inputs.update({"q": t(normal(rng, b, hq, 128)).to(bf),
+                   "k_pages": t(normal(rng, L, hkv, n_pool, page, 128)).to(bf),
+                   "v_pages": t(normal(rng, L, hkv, n_pool, page, 128)).to(bf),
+                   "table": t(np.arange(n_pool, dtype=np.int32).reshape(b, n_pool // b)),
+                   "lengths": t(np.array([1, 17, 40, 64], np.int32))})
+    out = run_ranks(u.gpu_sharded_ops, 2, inputs, timeout=600, store_dir=str(tmp_path))
+    flat = {k: inputs[k].flatten(0, 1) for k in ("w_gate", "w_up", "w_down")}
+    for n, kernel in ((3, "gather_expert_ffn"), (8, "masked_expert_ffn")):
+        want = md.selected_expert_ffn("gather", inputs[f"x{n}"], inputs[f"w{n}"],
+                                      inputs[f"idx{n}"] + e, flat, n_experts=e)
+        for res in out:
+            assert res[f"ffn{n}_launches"][kernel] == 1
+            close(res[f"ffn{n}"], want.float(), atol=TOL[bf], rtol=TOL[bf])
+    for res in out:
+        m = res["rank"]
+        blk = slice(m * hq // 2, (m + 1) * hq // 2)
+        kblk = slice(m * hkv // 2, (m + 1) * hkv // 2)
+        want = pa.paged_attention(inputs["q"][:, blk], inputs["k_pages"][:, kblk],
+                                  inputs["v_pages"][:, kblk], inputs["table"],
+                                  inputs["lengths"], 1)
+        assert res["paged_launches"]["paged_attention"] == 1
+        close(res["paged"], want.float(), atol=TOL[bf], rtol=TOL[bf])

@@ -50,13 +50,24 @@ _JAX_ONLY = {
 }
 
 
-def load_vita_checkpoint(path: str, device="cuda"):
+def load_vita_checkpoint(path: str, device="cuda", mesh=None):
     """A VITA checkpoint directory -> (VITAConfig, params on ``device``):
-    the native layout this module writes, or the HF deploy layout."""
+    the native layout this module writes, or the HF deploy layout.
+
+    Under a serving ``mesh`` the LLM's leaves are this rank's shards
+    (mixtral.serving_specs) and every other component whole, as
+    ``vita.shard_params`` gives them (pass them to ``Engine(...,
+    sharded=True)``): each rank reads only its blocks of the mapped files
+    (the HF layout's safetensors, the native state through torch.load's
+    mmap), so no rank holds the whole model in host memory."""
     with open(os.path.join(path, "config.json")) as f:
         raw = json.load(f)
     if raw.get("format") == "vita_tpu":
-        return _config_from_json(raw), _load_native(os.path.join(path, "ckpt"), device)
+        cfg = _config_from_json(raw)
+        if mesh is None:
+            return cfg, _load_native(os.path.join(path, "ckpt"), device)
+        params = _load_native(os.path.join(path, "ckpt"), "cpu", mmap=True)
+        return cfg, vita.shard_params(params, cfg, mesh, device)
 
     text = raw.get("text_config", raw)
     vis = raw.get("vision_config", {})
@@ -96,10 +107,10 @@ def load_vita_checkpoint(path: str, device="cuda"):
         vision_fusion=raw.get("vision_fusion", "patch"),
         vision_projector=raw.get("mm_projector_type", "mlp2x_gelu"),
     )
-    return cfg, _load_hf_vita_weights(path, cfg, device)
+    return cfg, _load_hf_vita_weights(path, cfg, device, mesh)
 
 
-def _load_native(ckpt_dir: str, device):
+def _load_native(ckpt_dir: str, device, mmap: bool = False):
     steps = committed_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no step_N checkpoint under {ckpt_dir}")
@@ -108,7 +119,7 @@ def _load_native(ckpt_dir: str, device):
             f"{ckpt_dir}/step_{steps[-1]} holds no {STATE_FILE}: it looks like the JAX "
             "package's orbax layout, which the port does not read. Export it with "
             "vita_tpu.checkpoint.export_hf_vita_checkpoint and load that directory.")
-    return load_state(ckpt_dir, steps[-1], device)
+    return load_state(ckpt_dir, steps[-1], device, mmap=mmap)
 
 
 def _config_from_json(raw: Dict[str, Any]) -> vita.VITAConfig:
@@ -151,11 +162,12 @@ def save_vita_checkpoint(path: str, cfg: vita.VITAConfig, params, step: int = 0)
     save_state(os.path.join(path, "ckpt"), step, params)
 
 
-def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device):
+def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device, mesh=None):
     """The deployed HF checkpoint's safetensors -> params, each leaf built
-    in the config's dtype on ``device``. The Whale CMVN is rounded to that
-    dtype, as the JAX package's import rounds every leaf, and kept in
-    float32, the port's layout."""
+    in the config's dtype on ``device`` (the LLM's as this rank's shards
+    under a ``mesh``). The Whale CMVN is rounded to that dtype, as the JAX
+    package's import rounds every leaf, and kept in float32, the port's
+    layout."""
     shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if not shards:
         raise FileNotFoundError(f"no safetensors under {path}")
@@ -174,7 +186,7 @@ def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device):
                                 for k in ("cmvn_means", "cmvn_istds"))
     return {
         "llm": hf_import.mixtral_params_from_hf(sub("language_model."), cfg.llm, prefix="model.",
-                                                dtype=dt, device=device),
+                                                dtype=dt, device=device, mesh=mesh),
         "vision": hf_import.internvit_params_from_hf(sub("vision_tower."), cfg.vision.n_layers,
                                                      dtype=dt, device=device),
         "vision_proj": hf_import.vision_projector_from_hf(
@@ -253,14 +265,17 @@ def load_whale_torch_checkpoint(params, path: str, strict: bool = False):
     return {**params, "audio": cast(audio, candidate)}
 
 
-def export_hf_vita_checkpoint(path: str, cfg: vita.VITAConfig, params) -> None:
-    """The whole model in the deployed HF layout (float32 safetensors, the
-    composite config and the feature extractor's CMVN): the reverse of
-    load_vita_checkpoint's HF branch, the same files as the JAX package's
-    export."""
+def export_hf_vita_checkpoint(path: str, cfg: vita.VITAConfig, params,
+                              dtype=torch.float32) -> None:
+    """The whole model in the deployed HF layout (safetensors in ``dtype``,
+    float32 by default as the JAX package's export writes; the composite
+    config and the feature extractor's CMVN): the reverse of
+    load_vita_checkpoint's HF branch."""
     os.makedirs(path, exist_ok=True)
-    safetensors_io.save_file(hf_import.vita_params_to_hf(params, cfg),
-                             os.path.join(path, "model.safetensors"))
+    state = hf_import.vita_params_to_hf(params, cfg)
+    for k in state:  # leaf by leaf: the float32 tree and its copy never both whole
+        state[k] = state[k].to(dtype)
+    safetensors_io.save_file(state, os.path.join(path, "model.safetensors"))
     conf = {
         "architectures": ["MixtralForConditionalGeneration"],
         "model_type": "mixtral-multimodal",

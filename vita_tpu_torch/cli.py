@@ -19,9 +19,16 @@ built as the reference builds them (the mixtral_two template of
 vita_tpu_torch.constants, then vita_tpu_torch.tokenization); media files
 are read by the port's copies of the reference's numpy loaders
 (``vita_tpu_torch.data.image`` / ``video`` / ``audio``). Serving goes
-through ``Generator``, or through the ``Engine`` for ``--kv-int8``.
+through ``Generator``, or through the ``Engine`` for ``--kv-int8`` and
+``--mesh``.
 
-Not ported yet: ``--mesh`` (sharded serving).
+``--mesh EXPERT MODEL`` serves one Engine per rank over an expert x model
+mesh, run under torchrun (``torchrun --nproc-per-node N -m
+vita_tpu_torch.cli --mesh E M ...`` with N = E * M); rank 0 prints, the
+others print nothing. The process group's backend is ``--dist-backend``:
+nccl (the default on cards) needs a card per rank; ranks that share one
+card pass gloo. A third number (PIPE) raises: pipeline-parallel serving
+is ROADMAP A11c.
 """
 
 from __future__ import annotations
@@ -93,7 +100,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                    choices=["dense", "capacity", "gather", "gather_q", "gather_q4"],
                    help="MoE path for decode steps (default: inherit model config)")
     p.add_argument("--mesh", type=int, nargs="+", metavar="AX", default=None,
-                   help="serving mesh EXPERT MODEL [PIPE] (not ported)")
+                   help="serving mesh EXPERT MODEL over the ranks of a torchrun launch "
+                        "(PIPE is not ported: ROADMAP A11c)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under --mesh (default nccl on cards, "
+                        "gloo on the CPU; ranks sharing one card need gloo)")
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache pages, served through the Engine")
     p.add_argument("--prefill-moe-mode", default=None,
@@ -103,31 +114,55 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
-    from vita_tpu_torch.generate import GenerationConfig, Generator
-    from vita_tpu_torch.models import vita
-
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
+    mesh, owned_group = None, False
+    say = print
     if args.mesh is not None:
-        raise NotImplementedError("--mesh (sharded serving) is not ported yet (ROADMAP A11)")
+        import torch.distributed as dist
 
+        from vita_tpu_torch.parallel import distributed
+
+        owned_group = not dist.is_initialized()
+        mesh = distributed.serving_mesh(
+            args.mesh, args.dist_backend or distributed.default_backend(device))
+        device = distributed.rank_device(device)
+        if dist.get_rank() != 0:
+            say = lambda *a, **k: None  # noqa: E731 - rank 0 speaks for the mesh
+    try:
+        return _run(args, p, device, mesh, say)
+    finally:
+        if owned_group:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _run(args, p, device, mesh, say) -> int:
+    from vita_tpu_torch.generate import GenerationConfig, Generator
+    from vita_tpu_torch.models import vita
+
+    # under a mesh only this rank's shards reach its device: a checkpoint is
+    # read as those shards, tiny-random's full weights stay on the host
+    load_dev = torch.device("cpu") if mesh is not None else device
     t0 = time.time()
     if args.model == "tiny-random":
         cfg = vita.VITAConfig.tiny(
             **({"vision_fusion": args.vision_fusion} if args.vision_fusion else {}))
-        params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        params = vita.init_params(cfg, torch.Generator(device=load_dev).manual_seed(0), load_dev)
         tok = ByteTokenizer()
         encode, eos_id, bos_id, decode = tok.encode, tok.eos_id, tok.bos_id, tok.decode
     else:
         from vita_tpu_torch.checkpoint import load_vita_checkpoint
 
-        cfg, params = load_vita_checkpoint(args.model, device)
+        cfg, params = load_vita_checkpoint(args.model, device, mesh=mesh)
         hf_tok = load_hf_tokenizer(args.model)
         encode = lambda s: hf_tok(s).input_ids
         bos_id, eos_id = hf_tok.bos_token_id, hf_tok.eos_token_id
         decode = lambda ids: hf_tok.decode(ids, skip_special_tokens=True)
-    print(f"[load] {time.time()-t0:.1f}s")
+    say(f"[load] {time.time()-t0:.1f}s")
 
     if args.image and args.video:
         p.error("--image and --video are mutually exclusive")
@@ -190,14 +225,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     media = dict(image_mask=im if images is not None else None,
                  audio_mask=am if has_audio else None,
                  images=images, speech=speech, speech_length=speech_len)
-    if args.kv_int8:
+    if args.kv_int8 or mesh is not None:
         from vita_tpu_torch.serve.engine import Engine, Request
 
         eng = Engine(params, cfg, n_slots=1, max_len=args.max_len,
                      decode_chunk_len=args.chunk_len,
                      decode_moe_mode=args.decode_moe_mode,
                      prefill_moe_mode=args.prefill_moe_mode,
-                     kv_int8=True, page_size=128, device=device)
+                     kv_int8=args.kv_int8, page_size=128 if args.kv_int8 else 64,
+                     mesh=mesh, sharded=mesh is not None and args.model != "tiny-random",
+                     device=device)
         t1 = time.time()
         req = Request(input_ids=safe, max_new_tokens=args.max_new_tokens,
                       temperature=temperature, eos_id=eos_id, on_token=on_token, **media)
@@ -215,11 +252,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     t2 = time.time()
     text = decode(out)
     ttft = (first_token_t[0] or t2) - t1
-    print(f"[prompt tokens] {len(expanded)}  [new tokens] {len(out)}")
-    print(f"[TTFT] {ttft*1000:.0f} ms  [decode] {(t2-t1):.2f}s "
-          f"({len(out)/max(t2-t1,1e-9):.1f} tok/s)")
-    print("=" * 40)
-    print(text)
+    say(f"[prompt tokens] {len(expanded)}  [new tokens] {len(out)}")
+    say(f"[TTFT] {ttft*1000:.0f} ms  [decode] {(t2-t1):.2f}s "
+        f"({len(out)/max(t2-t1,1e-9):.1f} tok/s)")
+    say("=" * 40)
+    say(text)
     return 0
 
 

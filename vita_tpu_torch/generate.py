@@ -157,6 +157,7 @@ def embed_prompt(
     speech_length: Any = 0,
     audio_encoded=None,  # pre-encoded Whale features, in place of speech
     audio_encoded_length: Any = 0,
+    mesh=None,  # a serving mesh over which the LLM's params are shards
 ) -> torch.Tensor:
     """Token embeddings of one padded prompt with its media merged in:
     [1, bucket, D]. Image tiles and audio clips pad to their buckets."""
@@ -167,7 +168,7 @@ def embed_prompt(
 
     ids_d = tensor(ids, torch.int64)[None]
     if images is None and speech is None and audio_encoded is None:
-        return params["llm"]["embed"][ids_d]
+        return mixtral.embed_tokens(params["llm"], ids_d, mesh)
 
     def padmask(m):
         out = np.zeros(bucket, bool)
@@ -192,7 +193,7 @@ def embed_prompt(
         kw["audio_select"] = (tensor(ci)[None], tensor(ri)[None])
     return vita.fuse_embeddings(
         params, cfg, ids_d, image_mask=tensor(padmask(image_mask))[None],
-        audio_mask=tensor(am)[None], **kw,
+        audio_mask=tensor(am)[None], mesh=mesh, **kw,
     )
 
 

@@ -27,6 +27,18 @@ dropping with ``moe_capacity_factor``). Every mode runs on every path;
 The serving callers (Engine, Generator, decode_chunk) run it under
 ``torch.no_grad()``.
 
+With a serving ``mesh`` (parallel.mesh; expert and model axes) the
+params are this rank's shards (``shard_params``): attention heads and the
+vocabulary split over 'model' (wq/wk/wv by columns, wo by rows with an
+all_reduce after it; the embedding by rows, looked up masked and
+all_reduced; lm_head by columns, the logits all_gathered so every rank
+samples from the same row), experts over 'expert' (whole experts: each
+rank of a model group holds the same ones). Gather and gmm MoE go through
+parallel.sharded_ops; dense, sort and capacity route globally, run the
+local experts with the other ranks' pairs zeroed and all_reduce over
+'expert', with capacity positions counted as unsharded, so the same pairs
+drop.
+
 Shapes follow the deployed VITA config
 (web_demo/vllm_tools/model_weight_file/config.json:17-44): 32L, 4096d,
 32 q-heads / 8 kv-heads, 8 experts top-2, ffn 14336, rope 1e6, vocab 51760.
@@ -41,12 +53,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vita_tpu_torch.ops.attention import NEG_INF, mha_xla
-from vita_tpu_torch.ops.flash_attention import flash_mha
 from vita_tpu_torch.ops.moe import GATHER_MODES, MODES, load_balancing_loss, moe_ffn, route_topk
 from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.ops.norms import rms_norm
-from vita_tpu_torch.ops.paged_attention import paged_attention, write_kv_rows
 from vita_tpu_torch.ops.rope import apply_rope
+from vita_tpu_torch.parallel.mesh import (
+    EXPERT,
+    MODEL,
+    all_gather_cat,
+    all_reduce_sum,
+    axis,
+    local_shard,
+    serving_axes,
+)
+from vita_tpu_torch.parallel.sharded_ops import (
+    sharded_flash_mha,
+    sharded_gather_ffn,
+    sharded_gmm_ffn,
+    sharded_paged_attention,
+    sharded_write_kv_rows,
+)
 
 Params = Dict[str, Any]
 
@@ -126,6 +152,97 @@ def init_params(cfg: MixtralConfig, generator: torch.Generator, device=None) -> 
     }
 
 
+def param_specs(cfg: MixtralConfig) -> Params:
+    """Spec tuples (one entry per dim: None or a mesh axis) mirroring
+    init_params' tree, equal to the JAX package's PartitionSpecs: 'model'
+    shards heads, ffn columns and the vocabulary, 'expert' the expert axis,
+    'fsdp' the remaining large dim."""
+    return {
+        "embed": ("model", "fsdp"),
+        "layers": {
+            "attn": {
+                "wq": (None, "fsdp", "model"),
+                "wk": (None, "fsdp", "model"),
+                "wv": (None, "fsdp", "model"),
+                "wo": (None, "model", "fsdp"),
+            },
+            "moe": {
+                "router": (None, "fsdp", None),
+                "w_gate": (None, "expert", "fsdp", "model"),
+                "w_up": (None, "expert", "fsdp", "model"),
+                "w_down": (None, "expert", "model", "fsdp"),
+            },
+            "ln_attn": (None, None),
+            "ln_moe": (None, None),
+        },
+        "ln_final": (None,),
+        "lm_head": ("fsdp", "model"),
+    }
+
+
+def decode_param_specs(cfg: MixtralConfig, params: Params) -> Params:
+    """param_specs extended to quantized decode params: the int8/int4
+    scale leaves shard like their weights, the expert axis on 'expert'."""
+    specs = param_specs(cfg)
+    moe = specs["layers"]["moe"]
+    for k, v in params["layers"]["moe"].items():
+        if k not in moe:
+            moe[k] = (None, "expert") + (None,) * (v.dim() - 2)
+    return specs
+
+
+def serving_specs(cfg: MixtralConfig, params: Params) -> Params:
+    """The specs the port's serving shards follow: decode_param_specs with
+    each expert whole ('model' dropped from the expert leaves; the JAX
+    package's kernel islands gather them whole too)."""
+    specs = decode_param_specs(cfg, params)
+    moe = specs["layers"]["moe"]
+    for k, spec in moe.items():
+        moe[k] = tuple(None if a == "model" else a for a in spec)
+    return specs
+
+
+def shard_params(params: Params, cfg: MixtralConfig, mesh, device=None) -> Params:
+    """This rank's shards of the full ``params`` (plain or quantized, on
+    any device: CPU views of a mapped file are read only where this rank's
+    blocks lie), contiguous on ``device``."""
+    ep, tp = serving_axes(mesh)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.vocab_size % tp:
+        raise ValueError(f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads and a vocabulary of "
+                         f"{cfg.vocab_size} must divide over a model axis of {tp}")
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts not divisible by expert axis {ep}")
+
+    def cut(tree, specs):
+        if isinstance(tree, dict):
+            return {k: cut(v, specs[k]) for k, v in tree.items()}
+        return local_shard(tree, specs, mesh).to(device).contiguous()
+
+    return cut(params, serving_specs(cfg, params))
+
+
+def embed_tokens(params: Params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Embedding rows of ``ids``; over a 'model' axis each rank holds a
+    block of the vocabulary, looks up the ids in it (zeros elsewhere) and
+    the blocks' rows are summed (exact: one is nonzero)."""
+    emb = params["embed"]
+    tp = axis(mesh, MODEL)
+    if tp.size == 1:
+        return emb[ids.long()]
+    v_local = emb.shape[0]
+    local = ids.long() - tp.rank * v_local
+    mine = (local >= 0) & (local < v_local)
+    rows = emb[local.clamp(0, v_local - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return all_reduce_sum(rows, mesh, MODEL)
+
+
+def lm_logits(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x @ lm_head; over a 'model' axis the vocabulary blocks' logits are
+    gathered, so every rank holds the full row."""
+    return all_gather_cat(x @ params["lm_head"], mesh, MODEL, dim=-1)
+
+
 def quantize_moe_for_decode(params: Params, bits: int = 8) -> Params:
     """Weight-only quantization of every layer's expert weights for the
     'gather_q' (bits 8) or 'gather_q4' (bits 4, per-channel scales) decode
@@ -151,13 +268,31 @@ def init_kv_cache(cfg: MixtralConfig, batch: int, max_len: int, dtype=None,
 
 
 def _qkv(lp: Params, cfg: MixtralConfig, x, positions):
+    """q, k, v over the heads the weights hold (all, or this rank's)."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ lp["wq"]).reshape(b, s, hq, hd)
-    k = (x @ lp["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ lp["wv"]).reshape(b, s, hkv, hd)
+    hd = cfg.head_dim
+    q = (x @ lp["wq"]).reshape(b, s, -1, hd)
+    k = (x @ lp["wk"]).reshape(b, s, -1, hd)
+    v = (x @ lp["wv"]).reshape(b, s, -1, hd)
     q, k = apply_rope(q, k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, mesh) -> torch.Tensor:
+    """o @ wo; over a 'model' axis each rank's row block of wo gives a
+    partial sum, taken in float32 and rounded once after the all_reduce.
+    On a card a 16-bit partial is one GEMM with a float32 output (no
+    float32 copy of o or wo)."""
+    if axis(mesh, MODEL).size == 1:
+        return o @ wo
+    if o.dtype == torch.float32:
+        part = o @ wo
+    elif o.is_cuda:
+        part = torch.mm(o.reshape(-1, o.shape[-1]), wo, out_dtype=torch.float32)
+        part = part.reshape(*o.shape[:-1], wo.shape[-1])
+    else:
+        part = o.float() @ wo.float()
+    return all_reduce_sum(part, mesh, MODEL).to(o.dtype)
 
 
 def _attention_block(
@@ -169,6 +304,7 @@ def _attention_block(
     layer_k: Optional[torch.Tensor],  # scratch [B, S_max, Hkv, hd] or None
     layer_v: Optional[torch.Tensor],
     cache_pos: Optional[torch.Tensor],  # [B]
+    mesh=None,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = _qkv(lp, cfg, x, positions)
@@ -189,10 +325,10 @@ def _attention_block(
     if cfg.attn_backend == "flash":
         # kv rows sit at their absolute positions and validity is a prefix,
         # so causal + kv_len masking inside the kernel is exact
-        out = flash_mha(
+        out = sharded_flash_mha(
             q, k_all.to(q.dtype), v_all.to(q.dtype),
             kv_len=kv_valid.sum(1).to(torch.int32),
-            q_offset=positions[:, 0].to(torch.int32), causal=True,
+            q_offset=positions[:, 0].to(torch.int32), causal=True, mesh=mesh,
         )
     elif cfg.attn_backend == "xla":
         causal = kv_positions[:, None, :] <= positions[:, :, None]  # [B, Sq, Skv]
@@ -201,7 +337,7 @@ def _attention_block(
         out = mha_xla(q, k_all.to(q.dtype), v_all.to(q.dtype), bias=bias)
     else:
         raise ValueError(f"unknown attn_backend {cfg.attn_backend!r}")
-    return out.reshape(b, s, -1) @ lp["wo"]
+    return _out_proj(out.reshape(b, s, -1), lp["wo"], mesh)
 
 
 def _attention_block_paged(
@@ -211,6 +347,7 @@ def _attention_block_paged(
     positions: torch.Tensor,  # [B, 1]
     cache: Params,
     layer_idx: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Decode attention against the paged pool; writes this token's kv row
     first (inactive slots are dropped and attend nothing). An int8 pool
@@ -222,26 +359,33 @@ def _attention_block_paged(
     q, k, v = _qkv(lp, cfg, x, positions)
     pos, active = cache["pos"], cache.get("active")
     ks, vs = cache.get("k_scale"), cache.get("v_scale")
-    write_kv_rows(cache["k_pages"], cache["v_pages"], layer_idx, cache["table"],
-                  pos, k[:, 0], v[:, 0], active, k_scale=ks, v_scale=vs)
+    sharded_write_kv_rows(cache["k_pages"], cache["v_pages"], layer_idx, cache["table"],
+                          pos, k[:, 0], v[:, 0], active, mesh=mesh, k_scale=ks, v_scale=vs)
     lengths = pos + 1
     if active is not None:
         lengths = torch.where(active, lengths, 0)
     q_dt = x.dtype if ks is not None else cache["k_pages"].dtype
-    out = paged_attention(
+    out = sharded_paged_attention(
         q[:, 0].to(q_dt), cache["k_pages"], cache["v_pages"],
-        cache["table"], lengths, layer_idx, k_scale=ks, v_scale=vs,
+        cache["table"], lengths, layer_idx, mesh=mesh, k_scale=ks, v_scale=vs,
     ).to(x.dtype)
-    return out.reshape(b, s, -1) @ lp["wo"]
+    return _out_proj(out.reshape(b, s, -1), lp["wo"], mesh)
 
 
-def _moe_gather_layer(h2d, router, flat_w, layer_idx: int, cfg: MixtralConfig, tm_flat):
-    router_logits = h2d.float() @ router.float()
+def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_flat, mesh):
+    """A gather mode (every mesh), or gmm under a mesh: the router, then
+    the selected experts through parallel.sharded_ops over the stacked
+    (local) expert weights."""
+    router_logits = h2d.float() @ moe["router"][layer_idx].float()
     topk_w, topk_i, probs = route_topk(router_logits, cfg.top_k)
     aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat)
-    idx = topk_i + layer_idx * cfg.n_experts
-    out = moe_decode.selected_expert_ffn(cfg.moe_mode, h2d, topk_w, idx, flat_w,
-                                         n_experts=cfg.n_experts)
+    experts = {k: v for k, v in moe.items() if k != "router"}
+    if cfg.moe_mode == "gmm":
+        out = sharded_gmm_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
+                              mesh=mesh)
+    else:
+        out = sharded_gather_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
+                                 cfg.moe_mode, mesh=mesh)
     return out.to(h2d.dtype), aux
 
 
@@ -255,6 +399,7 @@ def forward(
     cache: Optional[Params] = None,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] real tokens, for aux loss
     return_hidden: bool = False,
+    mesh=None,  # a serving mesh over which ``params`` are this rank's shards
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (logits [B, S, V] or final-norm hidden [B, S, D],
     cache with the advanced ``pos`` or None, moe_aux_loss scalar).
@@ -262,9 +407,12 @@ def forward(
     Cache tensors are updated in place and returned in the new cache."""
     if cfg.moe_mode not in MODES:
         raise ValueError(f"unknown moe_mode {cfg.moe_mode!r}; modes: {MODES}")
+    ep = axis(mesh, EXPERT)
+    if mesh is not None:
+        serving_axes(mesh)
     paged = cache is not None and "k_pages" in cache
     if inputs_embeds is None:
-        inputs_embeds = params["embed"][input_ids.long()]
+        inputs_embeds = embed_tokens(params, input_ids, mesh)
     b, s, d = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
@@ -276,33 +424,32 @@ def forward(
     tm_flat = None if token_mask is None else token_mask.reshape(-1)
 
     layers = params["layers"]
-    gather = cfg.moe_mode in GATHER_MODES
-    # expert weights (and quantization scales) as flat [L*E, ...] views
-    flat_w = ({k: v.flatten(0, 1) for k, v in layers["moe"].items() if k != "router"}
-              if gather else None)
+    routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
+    e_local = layers["moe"]["router"].shape[-1] // ep.size
 
     def layer(x, i: int):
         lp = {k: v[i] for k, v in layers["attn"].items()}
         h = rms_norm(x, layers["ln_attn"][i], cfg.rms_eps)
         if paged:
-            attn_out = _attention_block_paged(lp, cfg, h, positions, cache, i)
+            attn_out = _attention_block_paged(lp, cfg, h, positions, cache, i, mesh)
         else:
             attn_out = _attention_block(
                 lp, cfg, h, positions, attn_valid,
                 cache["k"][i] if cache is not None else None,
                 cache["v"][i] if cache is not None else None,
-                cache["pos"] if cache is not None else None,
+                cache["pos"] if cache is not None else None, mesh,
             )
         x = x + attn_out
         h = rms_norm(x, layers["ln_moe"][i], cfg.rms_eps).reshape(b * s, d)
-        if gather:
-            moe_out, aux = _moe_gather_layer(h, layers["moe"]["router"][i], flat_w,
-                                             i, cfg, tm_flat)
+        if routed:
+            moe_out, aux = _moe_routed_layer(h, layers["moe"], i, cfg, tm_flat, mesh)
         else:
             moe_out, aux = moe_ffn({k: v[i] for k, v in layers["moe"].items()}, h,
                                    cfg.top_k, mode=cfg.moe_mode,
                                    capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
-                                   chunk=cfg.moe_chunk)
+                                   chunk=cfg.moe_chunk, expert_offset=ep.rank * e_local,
+                                   out_dtype=torch.float32 if ep.size > 1 else None)
+            moe_out = all_reduce_sum(moe_out, mesh, EXPERT).to(h.dtype)
         return x + moe_out.reshape(b, s, d), aux
 
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
@@ -316,7 +463,7 @@ def forward(
         aux_total = aux_total + aux
 
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
-    logits = x if return_hidden else x @ params["lm_head"]
+    logits = x if return_hidden else lm_logits(params, x, mesh)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache)

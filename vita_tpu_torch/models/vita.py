@@ -9,6 +9,11 @@ one; CLIP, SigLIP, EVA-CLIP) and the vision projector from
 ported. ``forward`` (fusion, then the cacheless LLM) is the training
 forward; gradients reach a tower or a projector whose parameters require
 them.
+
+Under a serving mesh (``mesh``) the LLM's params are this rank's shards
+(``shard_params``; mixtral.forward runs the collectives) and the towers
+and projectors are whole on every rank: the JAX package shards InternViT
+through GSPMD, the port does not yet.
 """
 
 from __future__ import annotations
@@ -96,6 +101,18 @@ def init_params(cfg: VITAConfig, generator: torch.Generator, device=None) -> Par
     }
 
 
+def shard_params(params: Params, cfg: VITAConfig, mesh, device=None) -> Params:
+    """This rank's params on ``device``: the LLM's shards
+    (mixtral.shard_params), every other component whole."""
+    def whole(tree):
+        if isinstance(tree, dict):
+            return {k: whole(v) for k, v in tree.items()}
+        return tree.to(device)
+
+    return {k: mixtral.shard_params(v, cfg.llm, mesh, device) if k == "llm" else whole(v)
+            for k, v in params.items()}
+
+
 def encode_images(params: Params, cfg: VITAConfig, images: torch.Tensor) -> torch.Tensor:
     """images [N_tiles, H, W, 3] -> LLM-space features [N_groups, T, D];
     framecat channel-concatenates each 5-tuple [mosaic, f1..f4] after the
@@ -163,13 +180,14 @@ def fuse_embeddings(
     audio_select: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     audio_encoded: Optional[torch.Tensor] = None,  # [n_clips, T', whale_hidden]
     audio_encoded_lengths: Optional[torch.Tensor] = None,  # [n_clips]
+    mesh=None,
 ) -> torch.Tensor:
     """Token embeddings with media features merged in: [B, S, D].
 
     ``audio_encoded`` carries Whale features encoded ahead of time in
     place of ``speech``; only the audio adapter runs on them."""
     b, s = input_ids.shape
-    embeds = params["llm"]["embed"][input_ids.long()]
+    embeds = mixtral.embed_tokens(params["llm"], input_ids, mesh)
     image_feats = audio_feats = None
     if images is not None:
         feats = encode_images(params, cfg, images)
@@ -213,13 +231,14 @@ def forward(
     cache: Optional[Params] = None,
     token_mask: Optional[torch.Tensor] = None,
     audio_select: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full multimodal forward. Returns (logits, new_cache, moe_aux)."""
     embeds = fuse_embeddings(
         params, cfg, input_ids, image_mask, audio_mask, images=images, speech=speech,
-        speech_lengths=speech_lengths, audio_select=audio_select,
+        speech_lengths=speech_lengths, audio_select=audio_select, mesh=mesh,
     )
     return mixtral.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds, attn_valid=attn_valid, cache=cache,
-        token_mask=token_mask,
+        token_mask=token_mask, mesh=mesh,
     )

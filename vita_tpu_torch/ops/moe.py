@@ -83,14 +83,17 @@ def _capacity(t: int, top_k: int, e: int, capacity_factor: float) -> int:
     return int(max(top_k, np_ceil(t * top_k / e * capacity_factor)))
 
 
-def _sort_dispatch(params, x, topk_w, topk_i, capacity: int) -> torch.Tensor:
+def _sort_dispatch(params, x, topk_w, topk_i, capacity: int, e0: int = 0) -> torch.Tensor:
     """The pairs sorted by expert (moe_gmm.sorted_pairs) fill [E, C, D]; a
     pair at position >= C is written to a spare row C that is cut off, and
-    contributes nothing."""
+    contributes nothing. With experts [e0, e0 + E_local) only (a rank of an
+    expert-parallel mesh), positions count over all experts and the other
+    experts' pairs go to the spare row too."""
     t, d = x.shape
     e = params["w_gate"].shape[0]
-    order, fe_s, tok_s, pos, _ = sorted_pairs(topk_i, e)
-    keep = pos < capacity
+    order, fe_s, tok_s, pos, _ = sorted_pairs(topk_i, params["router"].shape[-1])
+    keep = (pos < capacity) & (fe_s >= e0) & (fe_s < e0 + e)
+    fe_s = (fe_s - e0).clamp(0, e - 1)
     expert_in = x.new_zeros(e, capacity + 1, d)
     expert_in[fe_s, torch.where(keep, pos, capacity)] = x[tok_s]
     expert_out = _expert_ffn(params, expert_in[:, :capacity])  # [E, C, D]
@@ -99,11 +102,14 @@ def _sort_dispatch(params, x, topk_w, topk_i, capacity: int) -> torch.Tensor:
     return x.new_zeros(t, d).index_add_(0, tok_s, y * w_s[:, None])
 
 
-def _capacity_dispatch(params, x, topk_w, topk_i, capacity: int) -> torch.Tensor:
-    """GShard one-hot dispatch/combine einsums with C slots per expert."""
+def _capacity_dispatch(params, x, topk_w, topk_i, capacity: int, e0: int = 0,
+                       out_dtype=None) -> torch.Tensor:
+    """GShard one-hot dispatch/combine einsums with C slots per expert;
+    slots count over all experts, then experts [e0, e0 + E_local) run."""
     t, _ = x.shape
     k = topk_i.shape[1]
-    e = params["w_gate"].shape[0]
+    e = params["router"].shape[-1]
+    e_local = params["w_gate"].shape[0]
     dt = x.dtype
     sel = F.one_hot(topk_i.long(), e)  # [T, k, E]
     sel_flat = sel.reshape(t * k, e)
@@ -113,9 +119,12 @@ def _capacity_dispatch(params, x, topk_w, topk_i, capacity: int) -> torch.Tensor
     disp = (sel.to(dt)[..., None]
             * F.one_hot(torch.where(keep, pos, 0), capacity).to(dt)[:, :, None, :]
             * keep[..., None, None].to(dt))  # [T, k, E, C]
+    disp = disp[:, :, e0:e0 + e_local]
     dispatch = disp.sum(1)
     combine = (disp * topk_w[..., None, None].to(dt)).sum(1)
     expert_out = _expert_ffn(params, torch.einsum("tec,td->ecd", dispatch, x))
+    if out_dtype is not None:
+        return torch.einsum("tec,ecd->td", combine.to(out_dtype), expert_out.to(out_dtype))
     return torch.einsum("tec,ecd->td", combine, expert_out)
 
 
@@ -127,9 +136,18 @@ def moe_ffn(
     capacity_factor: float = 1.25,
     token_mask: Optional[torch.Tensor] = None,
     chunk: int = 0,
+    expert_offset: int = 0,
+    out_dtype=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, D], aux_loss scalar). ``chunk`` is ignored when
-    T <= chunk, when chunk does not divide T, or in a gather mode."""
+    T <= chunk, when chunk does not divide T, or in a gather mode.
+
+    ``params`` may hold experts [expert_offset, expert_offset + E_local)
+    of the router's E only (a rank of an expert-parallel mesh, dense, sort
+    and capacity modes): routing, capacity and aux stay global, and the
+    output is those experts' weighted partial sum. ``out_dtype`` float32
+    leaves the output unrounded (dense and capacity combine in float32),
+    for ranks that add their partial sums before rounding."""
     if mode not in MODES:
         raise ValueError(f"unknown moe mode {mode!r}")
     t, d = x.shape
@@ -138,13 +156,17 @@ def moe_ffn(
                else token_mask.reshape(-1, chunk))
         outs, auxs = [], []
         for xc, tc in zip(x.split(chunk), tms):
-            out, aux = checkpoint(moe_ffn, params, xc, top_k, mode, capacity_factor, tc,
-                                  use_reentrant=False)
+            out, aux = checkpoint(moe_ffn, params, xc, top_k, mode, capacity_factor, tc, 0,
+                                  expert_offset, out_dtype, use_reentrant=False)
             outs.append(out)
             auxs.append(aux)
         ns = tms.float().sum(1)
         return torch.cat(outs), (torch.stack(auxs) * ns).sum() / ns.sum().clamp_min(1.0)
-    e = params["w_gate"].shape[0]
+    e = params["router"].shape[-1]
+    e_local = params["w_gate"].shape[0]
+    if (e_local != e or expert_offset) and mode not in ("dense", "sort", "capacity"):
+        raise ValueError(f"mode {mode!r} takes every expert; sharded experts go through "
+                         "parallel.sharded_ops")
     router_logits = x.float() @ params["router"].float()
     topk_w, topk_i, probs = route_topk(router_logits, top_k)
     aux = load_balancing_loss(probs, topk_i, e, token_mask)
@@ -155,13 +177,18 @@ def moe_ffn(
     elif mode == "gmm":
         out = moe_ffn_gmm(params, x, topk_w, topk_i)
     elif mode == "sort":
-        out = _sort_dispatch(params, x, topk_w, topk_i, _capacity(t, top_k, e, capacity_factor))
+        out = _sort_dispatch(params, x, topk_w, topk_i, _capacity(t, top_k, e, capacity_factor),
+                             expert_offset)
     elif mode == "capacity":
         out = _capacity_dispatch(params, x, topk_w, topk_i,
-                                 _capacity(t, top_k, e, capacity_factor))
+                                 _capacity(t, top_k, e, capacity_factor), expert_offset, out_dtype)
     else:
         w_full = torch.zeros(t, e, dtype=torch.float32, device=x.device)
         w_full.scatter_add_(1, topk_i.long(), topk_w)
-        out_e = _expert_ffn(params, x.expand(e, t, d))  # [E, T, D]
-        out = torch.einsum("te,etd->td", w_full.to(x.dtype), out_e)
-    return out.to(x.dtype), aux
+        w_full = w_full[:, expert_offset:expert_offset + e_local]
+        out_e = _expert_ffn(params, x.expand(e_local, t, d))  # [E, T, D]
+        w_full = w_full.to(x.dtype)
+        if out_dtype is not None:
+            w_full, out_e = w_full.to(out_dtype), out_e.to(out_dtype)
+        out = torch.einsum("te,etd->td", w_full, out_e)
+    return out.to(out_dtype or x.dtype), aux

@@ -234,8 +234,11 @@ def _sorted_pair_gather(x, topk_idx, run) -> torch.Tensor:
     return out.reshape(t * k, -1)[inv].reshape(t, k, x.shape[-1])
 
 
-def _gather_combine(eo, topk_w, x) -> torch.Tensor:
-    return (eo * topk_w[..., None].to(x.dtype)).sum(1).to(x.dtype)
+def _gather_combine(eo, topk_w, x, out_dtype=None) -> torch.Tensor:
+    """The weighted sum over k; ``out_dtype`` float32 keeps it unrounded
+    (a partial sum that ranks of an expert mesh add before rounding)."""
+    y = eo * topk_w[..., None].to(x.dtype)
+    return y.sum(1).to(x.dtype) if out_dtype is None else y.sum(1, dtype=out_dtype)
 
 
 def _active_expert_plan(topk_w, topk_idx, n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,11 +265,11 @@ def _active_expert_plan(topk_w, topk_idx, n_experts: int) -> Tuple[torch.Tensor,
     return act, m
 
 
-def masked_expert_ffn_plain(x, act, m, w_gate, w_up, w_down) -> torch.Tensor:
+def masked_expert_ffn_plain(x, act, m, w_gate, w_up, w_down, out_dtype=None) -> torch.Tensor:
     """Each active expert on all T tokens, then the weighted combine."""
     a = act.long()
     y = _swiglu_rows(x.expand(a.shape[0], *x.shape), w_gate[a], w_up[a], w_down[a])
-    return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(x.dtype)
+    return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(out_dtype or x.dtype)
 
 
 def _active_rows(x, act):
@@ -275,16 +278,16 @@ def _active_rows(x, act):
     return act.to(torch.int32).contiguous(), _plan_tokens(x.shape[0], act.shape[0], x.device)
 
 
-def _masked_combine(m, y, x) -> torch.Tensor:
-    return torch.einsum("at,atd->td", m, y[:, :x.shape[0]].float()).to(x.dtype)
+def _masked_combine(m, y, x, out_dtype=None) -> torch.Tensor:
+    return torch.einsum("at,atd->td", m, y[:, :x.shape[0]].float()).to(out_dtype or x.dtype)
 
 
-def masked_expert_ffn_cuda(x, act, m, w_gate, w_up, w_down) -> torch.Tensor:
+def masked_expert_ffn_cuda(x, act, m, w_gate, w_up, w_down, out_dtype=None) -> torch.Tensor:
     """One kernel row per active expert with all T tokens; in bf16 the
     plan's padding rows read no weights."""
     y = _expert_rows(x.contiguous(), *_active_rows(x, act), w_gate, w_up, w_down, True)
     kernels.count_launch("masked_expert_ffn")
-    return _masked_combine(m, y, x)
+    return _masked_combine(m, y, x, out_dtype)
 
 
 def masked_expert_ffn(
@@ -295,24 +298,27 @@ def masked_expert_ffn(
     w_up: torch.Tensor,
     w_down: torch.Tensor,  # [E_rows, F, D]
     n_experts: int,  # true expert count (bounds unique ids per call)
+    out_dtype=None,  # None: x's dtype; float32: the unrounded sum
 ) -> torch.Tensor:
     """Weighted MoE FFN output [T, D] from the selected experts only."""
     def masked(act, m):
         fn = masked_expert_ffn_cuda if kernels.on_cuda(x) else masked_expert_ffn_plain
-        return fn(x, act, m, w_gate, w_up, w_down)
+        return fn(x, act, m, w_gate, w_up, w_down, out_dtype)
 
     return _schedule(x, topk_w, topk_idx, n_experts, MASKED_MIN_T,
-                     lambda xr, ir: gather_expert_ffn(xr, ir, w_gate, w_up, w_down), masked)
+                     lambda xr, ir: gather_expert_ffn(xr, ir, w_gate, w_up, w_down), masked,
+                     out_dtype)
 
 
-def _schedule(x, topk_w, topk_idx, n_experts: int, min_t: int, gather, masked) -> torch.Tensor:
+def _schedule(x, topk_w, topk_idx, n_experts: int, min_t: int, gather, masked,
+              out_dtype=None) -> torch.Tensor:
     """The weighted output [T, D]: ``masked(act, m)`` for min_t <= T <=
     MASKED_MAX_T, else ``gather(x, idx)`` per (token, k) pair (sorted by
     expert for T >= 2) and the weighted combine."""
     t = x.shape[0]
     if t < min_t or t > MASKED_MAX_T:
         eo = gather(x, topk_idx) if t < 2 else _sorted_pair_gather(x, topk_idx, gather)
-        return _gather_combine(eo, topk_w, x)
+        return _gather_combine(eo, topk_w, x, out_dtype)
     return masked(*_active_expert_plan(topk_w, topk_idx, n_experts))
 
 
@@ -475,9 +481,9 @@ def gather_expert_ffn_q4(x, topk_idx, qparams) -> torch.Tensor:
     return _gather_q(x, topk_idx, qparams, 4)
 
 
-def masked_expert_ffn_q_plain(x, act, m, qparams, bits: int) -> torch.Tensor:
+def masked_expert_ffn_q_plain(x, act, m, qparams, bits: int, out_dtype=None) -> torch.Tensor:
     y = _swiglu_rows_q(x.expand(act.shape[0], *x.shape), qparams, act, bits)
-    return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(x.dtype)
+    return torch.einsum("at,atd->td", m, y.to(x.dtype).float()).to(out_dtype or x.dtype)
 
 
 def _q_mma(x, qparams, bits: int) -> bool:
@@ -538,7 +544,7 @@ def expert_ffn_q_info() -> Dict[str, Dict[str, int]]:
                                    for kind in ("up", "down") for nt in (8, 16)))
 
 
-def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int) -> torch.Tensor:
+def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int, out_dtype=None) -> torch.Tensor:
     """One kernel row per active expert with all T tokens, int8 or int4;
     bf16 activations over int8 or per-channel int4 experts (the serving
     path's) take the tensor-core kernel, whose plan's padding rows read no
@@ -549,10 +555,11 @@ def masked_expert_ffn_q_cuda(x, act, m, qparams, bits: int) -> torch.Tensor:
     else:
         y = _q_launch(x, *rows, qparams, bits)
     kernels.count_launch("masked_expert_ffn" + _q_suffix(bits))
-    return _masked_combine(m, y, x)
+    return _masked_combine(m, y, x, out_dtype)
 
 
-def _masked_q(x, topk_w, topk_idx, qparams, n_experts: int, bits: int) -> torch.Tensor:
+def _masked_q(x, topk_w, topk_idx, qparams, n_experts: int, bits: int,
+              out_dtype=None) -> torch.Tensor:
     # grouped int4 scales keep the per-pair schedule, as in the JAX package
     grouped = bits == 4 and (qparams["w_gate_scale"].shape[-2] != 1
                              or qparams["w_down_scale"].shape[-2] != 1)
@@ -560,36 +567,40 @@ def _masked_q(x, topk_w, topk_idx, qparams, n_experts: int, bits: int) -> torch.
 
     def masked(act, m):
         fn = masked_expert_ffn_q_cuda if kernels.on_cuda(x) else masked_expert_ffn_q_plain
-        return fn(x, act, m, qparams, bits)
+        return fn(x, act, m, qparams, bits, out_dtype)
 
     return _schedule(x, topk_w, topk_idx, n_experts, MASKED_MAX_T + 1 if grouped else min_t,
-                     lambda xr, ir: _gather_q(xr, ir, qparams, bits), masked)
+                     lambda xr, ir: _gather_q(xr, ir, qparams, bits), masked, out_dtype)
 
 
-def masked_expert_ffn_q(x, topk_w, topk_idx, qparams, n_experts: int) -> torch.Tensor:
+def masked_expert_ffn_q(x, topk_w, topk_idx, qparams, n_experts: int,
+                        out_dtype=None) -> torch.Tensor:
     """Weighted MoE FFN output [T, D] over int8 experts; each unique
     selected expert's weights are read once for 4 <= T <= 16."""
-    return _masked_q(x, topk_w, topk_idx, qparams, n_experts, 8)
+    return _masked_q(x, topk_w, topk_idx, qparams, n_experts, 8, out_dtype)
 
 
-def masked_expert_ffn_q4(x, topk_w, topk_idx, qparams, n_experts: int) -> torch.Tensor:
+def masked_expert_ffn_q4(x, topk_w, topk_idx, qparams, n_experts: int,
+                         out_dtype=None) -> torch.Tensor:
     """Weighted MoE FFN output [T, D] over int4 experts; the masked
     schedule for 8 <= T <= 16 with per-channel scales, else per pair."""
-    return _masked_q(x, topk_w, topk_idx, qparams, n_experts, 4)
+    return _masked_q(x, topk_w, topk_idx, qparams, n_experts, 4, out_dtype)
 
 
-def selected_expert_ffn(mode: str, x, topk_w, topk_idx, params, n_experts: int) -> torch.Tensor:
+def selected_expert_ffn(mode: str, x, topk_w, topk_idx, params, n_experts: int,
+                        out_dtype=None) -> torch.Tensor:
     """The weighted output [T, D] of decode mode ``mode`` (moe.GATHER_MODES)
     over ``params``: the expert weights as they are ('gather'), or from
     quantize_expert_weights ('gather_q') / quantize_expert_weights_int4
-    ('gather_q4')."""
+    ('gather_q4'). ``out_dtype`` float32 leaves the weighted sum
+    unrounded."""
     if mode == "gather":
         return masked_expert_ffn(x, topk_w, topk_idx, params["w_gate"], params["w_up"],
-                                 params["w_down"], n_experts)
+                                 params["w_down"], n_experts, out_dtype)
     if mode == "gather_q":
-        return masked_expert_ffn_q(x, topk_w, topk_idx, params, n_experts)
+        return masked_expert_ffn_q(x, topk_w, topk_idx, params, n_experts, out_dtype)
     if mode == "gather_q4":
-        return masked_expert_ffn_q4(x, topk_w, topk_idx, params, n_experts)
+        return masked_expert_ffn_q4(x, topk_w, topk_idx, params, n_experts, out_dtype)
     raise ValueError(f"no selected-expert decode mode {mode!r}; modes: {GATHER_MODES}")
 
 

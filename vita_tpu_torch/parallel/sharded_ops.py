@@ -1,0 +1,157 @@
+"""The serving kernels per shard (vita_tpu.parallel.sharded_ops).
+
+Each wrapper takes this rank's local shards and the mesh, and calls the
+single-device kernel on them; with its axis of size 1 (or no mesh) it is
+that call and nothing else, so single-device output is bit-identical.
+
+- Attention (B1, B2/B9 and the kv row writes): heads shard over 'model'
+  in contiguous blocks, so a rank holds q heads [r*Hq/tp, (r+1)*Hq/tp)
+  and the kv heads they read, and the kernel's GQA mapping holds locally.
+  No collective: the output projection's row block and the all_reduce
+  after it are the model's (models/mixtral.py).
+- MoE (B3/B4, B6/B7, B8a/B8b through moe_decode; B5a/B5b through
+  moe_gmm): experts shard over 'expert'. Routing is global, so every rank
+  sees every (token, k) pair; it clamps the ids of pairs routed to other
+  ranks into its range and zeroes their combine weights, runs the
+  single-device dispatcher over its [E/ep] experts, and the weighted
+  partials are summed over the 'expert' group in float32 and rounded once.
+  Each pair's term comes from exactly one rank.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from vita_tpu_torch.parallel.mesh import EXPERT, MODEL, SEQ, all_reduce_sum, axis
+
+
+def _local_heads(hq: int, hkv: int, mesh) -> None:
+    if hq % hkv:
+        raise ValueError(f"local q heads ({hq}) not a multiple of local kv heads ({hkv}) "
+                         f"on a model axis of {axis(mesh, MODEL).size}")
+
+
+def sharded_paged_attention(
+    q: torch.Tensor,  # [B, Hq/tp, d] this rank's q heads
+    k_pages: torch.Tensor,  # [L, Hkv/tp, P, page, d] this rank's kv heads
+    v_pages: torch.Tensor,
+    table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B]
+    layer: int,
+    mesh=None,
+    k_scale: Optional[torch.Tensor] = None,  # [L, Hkv/tp, P, 1, page] (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Paged decode attention (B2; B9 over an int8 pool) over the local
+    heads: [B, Hq/tp, d]."""
+    from vita_tpu_torch.ops.paged_attention import paged_attention
+
+    _local_heads(q.shape[1], k_pages.shape[1], mesh)
+    return paged_attention(q, k_pages, v_pages, table, lengths, layer,
+                           k_scale=k_scale, v_scale=v_scale)
+
+
+def sharded_write_kv_rows(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    layer: int,
+    table: torch.Tensor,
+    pos: torch.Tensor,
+    k: torch.Tensor,  # [B, Hkv/tp, d]
+    v: torch.Tensor,
+    active: Optional[torch.Tensor],
+    mesh=None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """One kv row per slot into the local heads' pages, in place (an int8
+    pool quantizes each (row, head) with its own scale, so no head needs
+    another's)."""
+    from vita_tpu_torch.ops.paged_attention import write_kv_rows
+
+    if k.shape[1] != k_pages.shape[1]:
+        raise ValueError(f"{k.shape[1]} kv heads written into a pool of {k_pages.shape[1]}")
+    return write_kv_rows(k_pages, v_pages, layer, table, pos, k, v, active,
+                         k_scale=k_scale, v_scale=v_scale)
+
+
+def sharded_flash_mha(
+    q: torch.Tensor,  # [B, S, Hq/tp, d]
+    k: torch.Tensor,  # [B, Skv, Hkv/tp, d]
+    v: torch.Tensor,
+    kv_len: torch.Tensor,  # [B]
+    q_offset: torch.Tensor,  # [B]
+    causal: bool,
+    mesh=None,
+) -> torch.Tensor:
+    """Flash attention (B1) over the local heads: [B, S, Hq/tp, d]."""
+    from vita_tpu_torch.ops.flash_attention import flash_mha
+
+    if axis(mesh, SEQ).size > 1:
+        raise NotImplementedError(
+            "sequence-parallel attention (a 'seq' axis > 1, the ring schedule) is not "
+            "ported yet (ROADMAP A11b)")
+    _local_heads(q.shape[2], k.shape[2], mesh)
+    return flash_mha(q, k, v, kv_len=kv_len, q_offset=q_offset, causal=causal)
+
+
+def _local_routing(topk_w, topk_idx, n_experts: int, mesh) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(weights with other ranks' pairs zeroed, ids clamped into this
+    rank's [0, E/ep), E/ep)."""
+    ep = axis(mesh, EXPERT).size
+    if n_experts % ep:
+        raise ValueError(f"{n_experts} experts not divisible by expert axis {ep}")
+    e_local = n_experts // ep
+    e0 = axis(mesh, EXPERT).rank * e_local
+    local = (topk_idx >= e0) & (topk_idx < e0 + e_local)
+    idx = (topk_idx - e0).clamp(0, e_local - 1).to(topk_idx.dtype)
+    return torch.where(local, topk_w, torch.zeros_like(topk_w)), idx, e_local
+
+
+def sharded_gather_ffn(
+    x: torch.Tensor,  # [T, D]
+    topk_w: torch.Tensor,  # [T, k] combine weights (float)
+    topk_idx: torch.Tensor,  # [T, k] per-layer expert ids in [0, E)
+    moe_stacked: Dict[str, torch.Tensor],  # leaves [L, E/ep, ...] (+ scales), no router
+    layer_idx: int,
+    n_experts: int,
+    mode: str,  # 'gather' | 'gather_q' | 'gather_q4'
+    mesh=None,
+) -> torch.Tensor:
+    """EP-sharded selected-expert FFN: the WEIGHTED output [T, D].
+
+    The local stacked experts are viewed flat as [L*E/ep, ...] and indexed
+    by layer*E/ep + local id, which is the single-device decode layout."""
+    from vita_tpu_torch.ops.moe_decode import selected_expert_ffn
+
+    flat = {k: v.flatten(0, 1) for k, v in moe_stacked.items()}
+    if axis(mesh, EXPERT).size == 1:
+        return selected_expert_ffn(mode, x, topk_w, topk_idx + layer_idx * n_experts, flat,
+                                   n_experts=n_experts)
+    w_loc, idx_loc, e_local = _local_routing(topk_w, topk_idx, n_experts, mesh)
+    out = selected_expert_ffn(mode, x, w_loc, idx_loc + layer_idx * e_local, flat,
+                              n_experts=e_local, out_dtype=torch.float32)
+    return all_reduce_sum(out, mesh, EXPERT).to(x.dtype)
+
+
+def sharded_gmm_ffn(
+    x: torch.Tensor,  # [T, D]
+    topk_w: torch.Tensor,  # [T, k] combine weights (float)
+    topk_idx: torch.Tensor,  # [T, k] expert ids in [0, E)
+    moe_stacked: Dict[str, torch.Tensor],  # {'w_gate' [L, E/ep, D, F], 'w_up', 'w_down'}
+    layer_idx: int,
+    n_experts: int,
+    mesh=None,
+) -> torch.Tensor:
+    """EP-sharded dropless grouped-matmul FFN (B5a/B5b) for prefill: [T, D].
+    Every rank runs all T*k pairs over its local experts, other ranks'
+    pairs weighted 0."""
+    from vita_tpu_torch.ops.moe_gmm import moe_ffn_gmm
+
+    layer = {k: moe_stacked[k][layer_idx] for k in ("w_gate", "w_up", "w_down")}
+    if axis(mesh, EXPERT).size == 1:
+        return moe_ffn_gmm(layer, x, topk_w, topk_idx)
+    w_loc, idx_loc, _ = _local_routing(topk_w, topk_idx, n_experts, mesh)
+    return all_reduce_sum(moe_ffn_gmm(layer, x, w_loc, idx_loc), mesh, EXPERT)

@@ -5,7 +5,9 @@ pool or the linear cache (a Python loop over steps; the JAX package scans
 on device), with sampling on the device, so the host reads back one small
 [B, chunk_len] int32 array per chunk. Random draws come from a ``torch.Generator``; they
 are not the JAX package's bits, so only greedy decoding is comparable
-token for token.
+token for token. Under a serving ``mesh`` every rank runs the same steps
+on the same full logits with a generator of the same seed, so every rank
+draws the same tokens.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ def decode_chunk(
     llm_cfg: mixtral.MixtralConfig,
     chunk_len: int,
     sampling_mode: str = "filtered",
+    mesh=None,  # a serving mesh over which llm_params are this rank's shards
 ) -> Tuple[Dict[str, Any], torch.Tensor, torch.Tensor]:
     """Run ``chunk_len`` decode steps over the paged pool or the linear
     cache, updating it in place.
@@ -114,7 +117,7 @@ def decode_chunk(
             valid = (rows <= pos[:, None]) & active[:, None]
         logits, _, _ = mixtral.forward(
             llm_params, llm_cfg, input_ids=tok[:, None],
-            positions=pos[:, None], attn_valid=valid, cache=c,
+            positions=pos[:, None], attn_valid=valid, cache=c, mesh=mesh,
         )
         nxt = sample_tokens(logits[:, -1], generator, temperature, top_k, top_p,
                             mode=sampling_mode)

@@ -4,7 +4,8 @@
 Two engine replicas under the generate/monitor role-swap controller, fed
 by the streaming VAD. It runs on the card unless ``--device cpu`` is given
 (without a card it stops); the two Engines share one weights dict there.
-``--mesh`` (a device slice per replica) is not ported (ROADMAP A11).
+``--mesh`` (a slice of ranks per replica) is not ported (ROADMAP A11a
+(duplex replicas)).
 
 Modes:
   --simulate      synthetic mic session (tones + silence + an interrupt):
@@ -111,8 +112,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is not None:
-        raise NotImplementedError("--mesh (a device slice per replica) is not ported yet "
-                                  "(ROADMAP A11)")
+        raise NotImplementedError("--mesh (a slice of ranks per replica) is not ported yet "
+                                  "(ROADMAP A11a (duplex replicas))")
     # random weights run to max tokens (eos -1)
     cfg, params, encode, decode, bos_id, eos_id = load_model(
         args.model, device, eos=args.model != "tiny-random")

@@ -18,8 +18,9 @@ loop of the reference's interactive web demo over the stdlib HTTP server:
 Run: ``python -m vita_tpu_torch.serve.duplex_http --model tiny-random``
 (on the card; ``--device cpu`` runs on the CPU) then open
 http://127.0.0.1:8820/ and talk. The two Engines share one weights dict
-on one device; ``--mesh`` (a device slice per replica) is not ported
-(ROADMAP A11).
+on one device; ``--mesh`` (a slice of ranks per replica) is not ported
+yet (ROADMAP A11a, duplex replicas): the controller drives both Engines
+from one process, which SPMD ranks do not have.
 
 The whole backend (VAD hysteresis, streaming Whale encode during speech,
 '<2>' noise gating, generator/monitor role swap, sentence-chunked formant
@@ -548,8 +549,8 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is not None:
-        raise NotImplementedError("--mesh (a device slice per replica) is not ported yet "
-                                  "(ROADMAP A11)")
+        raise NotImplementedError("--mesh (a slice of ranks per replica) is not ported yet "
+                                  "(ROADMAP A11a (duplex replicas))")
     cfg, params, encode, decode, bos_id, eos_id = load_model(args.model, device, eos=False)
     app = DuplexWebApp(
         params, cfg, encode, decode, bos_id, eos_id,

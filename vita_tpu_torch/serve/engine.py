@@ -37,9 +37,17 @@ prefill (vita_tpu.serve.engine, single-device path).
   oldest first and the requester's own last.
 
 Requests stream tokens to callbacks and can be cancelled mid-decode;
-``EngineThread`` drives ``step`` in the background. A mesh (tensor,
-expert or pipeline parallel serving) is not ported and raises
-NotImplementedError (ROADMAP A11).
+``EngineThread`` drives ``step`` in the background.
+
+- Tensor- and expert-parallel serving (``mesh``, parallel.mesh): SPMD,
+  one Engine per rank. Every rank runs this same host loop on the same
+  requests in the same order (the caller submits to every rank; the HTTP
+  server broadcasts them), so their decisions and collectives line up.
+  The full params (CPU views of a mapped file will do) are cut to this
+  rank's shards before they reach its device, or come as those shards
+  (``sharded``, from ``load_vita_checkpoint(..., mesh=)``); the page pool holds
+  Hkv/model heads. A 'pipe' axis > 1 raises (ROADMAP A11c), 'seq' > 1
+  (A11b), 'data'/'fsdp' > 1 (A11d).
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from vita_tpu_torch.generate import (
     tile_buckets_for,
 )
 from vita_tpu_torch.models import mixtral, vita
+from vita_tpu_torch.parallel.mesh import MODEL, axis, serving_axes
 from vita_tpu_torch.ops.paged_attention import (
     PagePool,
     init_page_pool,
@@ -188,7 +197,7 @@ class _PrefillJob:
 
 
 @torch.no_grad()
-def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator) -> torch.Tensor:
+def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator, mesh=None) -> torch.Tensor:
     """One prefill chunk into the job's scratch (in place); samples the
     token after row ``true_len - 1`` (meaningful on the last chunk). The
     chunk attends over the whole bucket scratch with kv_len offset+chunk."""
@@ -201,10 +210,10 @@ def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator) -> torch.Te
     valid = torch.arange(job.bucket, device=dev)[None] < off + chunk
     hidden, _, _ = mixtral.forward(
         llm_params, llm_cfg, inputs_embeds=x, positions=positions,
-        attn_valid=valid, cache=cache, return_hidden=True,
+        attn_valid=valid, cache=cache, return_hidden=True, mesh=mesh,
     )
     row = min(max(job.true_len - 1 - off, 0), chunk - 1)
-    logits = hidden[:, row] @ llm_params["lm_head"]
+    logits = mixtral.lm_logits(llm_params, hidden[:, row], mesh)
     req = job.req
     return sample_tokens(
         logits, generator,
@@ -216,7 +225,8 @@ def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator) -> torch.Te
 
 
 class Engine:
-    """Single-device continuous-batching engine over a paged KV pool."""
+    """Continuous-batching engine over a paged KV pool, on one device or
+    as one rank of a serving mesh."""
 
     def __init__(
         self,
@@ -237,19 +247,20 @@ class Engine:
         prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
         tile_buckets: Sequence[int] = DEFAULT_TILE_BUCKETS,
         frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
-        mesh=None,
+        mesh=None,  # a serving mesh (expert, model axes): ``params`` are full
+        sharded: bool = False,  # under a mesh: params are this rank's shards already
         device: Optional[torch.device] = None,  # None = where the weights are
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving (tensor/expert/pipeline parallel) is not ported; "
-                "the engine runs on one device"
-            )
         decode_moe_mode, prefill_moe_mode = moe_modes(cfg, decode_moe_mode, prefill_moe_mode)
-        self.params = params
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(
             device if device is not None else params["llm"]["embed"].device)
+        if mesh is not None and not sharded:  # raises for the axes not ported yet
+            params = vita.shard_params(params, cfg, mesh, self.device)
+        elif mesh is not None:
+            serving_axes(mesh)
+        self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
         page_size = min(page_size, max_len)
@@ -273,8 +284,9 @@ class Engine:
         self.total_pages = total_pages
         self.alloc = PagePool(total_pages)
         self._table_np = np.zeros((n_slots, self.max_pages_per_slot), np.int32)
+        self._kv_heads = llm.n_kv_heads // axis(mesh, MODEL).size  # this rank's
         self.cache = init_page_pool(
-            llm.n_layers, llm.n_kv_heads, total_pages, page_size, llm.head_dim,
+            llm.n_layers, self._kv_heads, total_pages, page_size, llm.head_dim,
             dtype=llm.dtype, device=self.device, quantized=kv_int8,
         )
 
@@ -303,7 +315,8 @@ class Engine:
         self._preempt_count = 0
 
     # -- public API -------------------------------------------------------
-    def submit(self, req: Request) -> Request:
+    def check(self, req: Request) -> None:
+        """Raise ValueError when ``req`` can never be served here."""
         if len(req.input_ids) + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"request needs {len(req.input_ids) + req.max_new_tokens} slots, "
@@ -317,6 +330,9 @@ class Engine:
                 "request's worst-case KV exceeds the page pool "
                 f"({self.total_pages} pages of {self.page_size})"
             )
+
+    def submit(self, req: Request) -> Request:
+        self.check(req)
         req.submit_time = time.time()
         self.queue.put(req)
         return req
@@ -551,6 +567,7 @@ class Engine:
             image_mask=req.image_mask, audio_mask=req.audio_mask, images=req.images,
             speech=req.speech, speech_length=req.speech_length,
             audio_encoded=req.audio_encoded, audio_encoded_length=req.audio_encoded_length,
+            mesh=self.mesh,
         )
 
     def _start_prefill(self, slot: int, req: Request, pages: List[int]) -> None:
@@ -562,7 +579,7 @@ class Engine:
         padded, s = pad_to_bucket(ids, self.prompt_buckets, pad_id=0)
         bucket = len(padded)
         llm = self.cfg.llm
-        shape = (llm.n_layers, 1, bucket, llm.n_kv_heads, llm.head_dim)
+        shape = (llm.n_layers, 1, bucket, self._kv_heads, llm.head_dim)
         chunk = self.prefill_chunk if bucket % self.prefill_chunk == 0 else bucket
         chunk = min(chunk, bucket)
         offset, sk, sv = self._reuse_prefix(req, ids, bucket, chunk)
@@ -624,7 +641,7 @@ class Engine:
                 self._free_request(job.req, "cancelled")
                 continue
             job.tok = _prefill_chunk(self.params["llm"], self._prefill_cfg, job,
-                                     self._generator)
+                                     self._generator, self.mesh)
             job.offset += job.chunk
             if job.offset < min(-(-job.true_len // job.chunk) * job.chunk, job.bucket):
                 still.append(job)
@@ -760,7 +777,7 @@ class Engine:
             cache, toks, tok = decode_chunk(
                 self._decode_llm, cache, tok, pos, *args, self._generator,
                 llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
-                sampling_mode=mode,
+                sampling_mode=mode, mesh=self.mesh,
             )
             pos = cache["pos"]
             parts.append(toks)
@@ -872,3 +889,122 @@ class EngineThread(threading.Thread):
 
     def stop(self) -> None:
         self._stop_evt.set()
+
+
+# the fields of a Request that travel to the other ranks of a mesh
+_REQUEST_FIELDS = tuple(f.name for f in dataclasses.fields(Request)
+                        if f.name not in ("on_token", "on_finish", "cancelled", "tokens",
+                                          "submit_time", "first_token_time", "finish_time"))
+
+
+class MeshEngineThread(threading.Thread):
+    """The loop that steps one rank's Engine of a serving mesh, in place of
+    EngineThread: every rank runs it (rank 0 in the background, beside
+    its HTTP server; the others in their main thread).
+
+    Requests reach only rank 0 (``submit``, checked at once against the
+    Engine's limits). Before each step rank 0 broadcasts the new
+    submissions, the ids of requests whose clients cancelled them and a
+    stop flag (``broadcast_object_list`` over a gloo group of all ranks),
+    and every rank admits the same requests, with rank 0's ids, in the same
+    order, and cancels the same ones: requests change only between steps,
+    so every rank makes the same decisions and the collectives line up.
+    Rank 0's copies stream to the submitted requests' callbacks.
+
+    An error on any rank ends the whole mesh, for a rank cannot tell
+    whether its peers raised too or wait in a collective it will never
+    join: the rank prints it, keeps it as ``error``, finishes its
+    requests in flight with the reason 'error' and closes its process
+    group, so the peers' pending collectives raise and they end the same
+    way; then ``on_error`` (rank 0's server shutdown) is called."""
+
+    def __init__(self, engine: Engine, tick_idle_s: float = 0.005,
+                 on_error: Optional[Callable[[], None]] = None):
+        import torch.distributed as dist
+
+        super().__init__(daemon=True)
+        self.engine = engine
+        self.tick_idle_s = tick_idle_s
+        self.rank = dist.get_rank()
+        self._group = dist.new_group(backend="gloo")  # collective: every rank builds one
+        self._lock = threading.Lock()
+        self._new: List[Request] = []
+        self._live: Dict[int, Request] = {}  # rank 0: the submitted requests in flight
+        self._copies: Dict[int, Request] = {}  # the Engine's requests in flight
+        self._stop_evt = threading.Event()
+        self.on_error = on_error
+        self.error: Optional[BaseException] = None
+
+    def submit(self, req: Request) -> Request:
+        self.engine.check(req)
+        req.submit_time = time.time()
+        with self._lock:
+            if self.error is not None:
+                raise RuntimeError(f"the serving mesh has stopped: {self.error!r}")
+            self._new.append(req)
+        return req
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+
+    def _message(self):
+        with self._lock:
+            new, self._new = self._new, []
+        cancel = [rid for rid, r in self._live.items() if r.cancelled]
+        for rid in cancel:
+            self._live.pop(rid)
+        return new, {"new": [{f: getattr(r, f) for f in _REQUEST_FIELDS} for r in new],
+                     "cancel": cancel, "stop": self._stop_evt.is_set()}
+
+    def _finisher(self, rid: int, orig: Optional[Request]):
+        def on_finish(tokens, reason):
+            self._copies.pop(rid, None)
+            self._live.pop(rid, None)
+            if orig is not None and orig.on_finish is not None:
+                orig.on_finish(tokens, reason)
+        return on_finish
+
+    def run(self) -> None:
+        import torch.distributed as dist
+
+        try:
+            self._loop()
+        except Exception as e:  # noqa: BLE001 - ends the mesh, loudly
+            traceback.print_exc()
+            with self._lock:
+                self.error = e
+                new, self._new = self._new, []
+            for req in new + list(self._live.values()):
+                if req.on_finish is not None:
+                    req.on_finish(req.tokens, "error")
+            self._live.clear()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            if self.on_error is not None:
+                self.on_error()
+
+    def _loop(self) -> None:
+        import torch.distributed as dist
+
+        while True:
+            new, msg = self._message() if self.rank == 0 else ([], None)
+            box = [msg]
+            dist.broadcast_object_list(box, src=0, group=self._group)
+            msg = box[0]
+            if msg["stop"]:
+                return
+            for i, fields in enumerate(msg["new"]):
+                copy = Request(**fields)
+                orig = new[i] if self.rank == 0 else None
+                if orig is not None:
+                    copy.on_token = orig.on_token
+                    self._live[copy.request_id] = orig
+                copy.on_finish = self._finisher(copy.request_id, orig)
+                self._copies[copy.request_id] = copy
+                self.engine.submit(copy)
+            for rid in msg["cancel"]:
+                if rid in self._copies:
+                    self._copies[rid].cancel()
+            n = self.engine.step()
+            if n == 0 and not self.engine._pending and self.engine.queue.empty():
+                time.sleep(self.tick_idle_s)

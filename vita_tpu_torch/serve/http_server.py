@@ -33,7 +33,14 @@ sent in turn 1 stays referenced in later turns.
 Launch: python -m vita_tpu_torch.serve.http_server --model tiny-random --port 8800
 (on the card; add ``--device cpu`` to run on the CPU). A ``session_id``
 also keys the Engine's KV-prefix reuse: a turn that extends the previous
-one prefills only its new suffix. ``--mesh`` is not ported (ROADMAP A11).
+one prefills only its new suffix.
+
+``--mesh EXPERT MODEL`` serves one Engine per rank of a torchrun launch
+(``torchrun --nproc-per-node N -m vita_tpu_torch.serve.http_server
+--model ... --mesh E M``, N = E * M; ``--dist-backend gloo`` when the
+ranks share one card): rank 0 serves HTTP and ``/stats``, and its
+MeshEngineThread broadcasts each step's new requests and cancellations
+to the other ranks, which run the same loop in place of EngineThread.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import base64
 import io
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -84,7 +92,7 @@ class ServingApp:
     """Holds the engine, tokenizer, and preprocessing for the handlers."""
 
     def __init__(self, engine, cfg, encode, decode, bos_id, eos_id, image_size=448,
-                 history_mode: str = "replay"):
+                 history_mode: str = "replay", thread=None):
         from vita_tpu_torch.serve.engine import EngineThread
 
         self.engine = engine
@@ -100,7 +108,10 @@ class ServingApp:
         self.history_mode = history_mode
         self.sessions: dict = {}
         self._sessions_lock = threading.Lock()
-        self.thread = EngineThread(engine)
+        # the loop stepping the engine: EngineThread, or rank 0's
+        # MeshEngineThread under a mesh (requests then go through it)
+        self.thread = thread if thread is not None else EngineThread(engine)
+        self.submit = getattr(self.thread, "submit", engine.submit)
         self.thread.start()
 
     def _decode_media(self, payload: dict):
@@ -407,7 +418,7 @@ def make_handler(app: ServingApp):
                 tok_q: "queue.Queue[Optional[int]]" = queue.Queue()
                 req.on_token = tok_q.put
                 req.on_finish = lambda toks, reason: tok_q.put(None)
-                app.engine.submit(req)  # may reject on cache capacity
+                app.submit(req)  # may reject on cache capacity
             except Exception as e:  # malformed request / over capacity
                 if release is not None:
                     release()
@@ -476,7 +487,7 @@ def make_handler(app: ServingApp):
                 req.on_token = tok_q.put
                 req.on_finish = lambda toks, reason: (
                     done.update(reason=reason), tok_q.put(None))
-                app.engine.submit(req)
+                app.submit(req)
             except Exception as e:
                 err = json.dumps({"error": {"message": str(e),
                                             "type": "invalid_request_error"}}).encode()
@@ -610,23 +621,27 @@ def make_handler(app: ServingApp):
     return Handler
 
 
-def load_model(model: str, device: torch.device, eos: bool = True):
+def load_model(model: str, device: torch.device, eos: bool = True, mesh=None):
     """(cfg, params on ``device``, encode, decode, bos_id, eos_id) for
     ``--model``: 'tiny-random' (VITAConfig.tiny() with weights from a
     seeded generator and the byte tokenizer; eos_id -1 when ``eos`` is
     False, so random weights run to max tokens) or a checkpoint directory
-    with its tokenizer."""
+    with its tokenizer. Under a serving ``mesh`` tiny-random's full
+    weights stay on the CPU and a checkpoint is read as this rank's shards
+    (``load_vita_checkpoint(..., mesh=)``)."""
     from vita_tpu_torch.cli import ByteTokenizer, load_hf_tokenizer
     from vita_tpu_torch.models import vita
 
     if model == "tiny-random":
+        if mesh is not None:
+            device = torch.device("cpu")
         cfg = vita.VITAConfig.tiny()
         params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
         tok = ByteTokenizer()
         return cfg, params, tok.encode, tok.decode, tok.bos_id, tok.eos_id if eos else -1
     from vita_tpu_torch.checkpoint import load_vita_checkpoint
 
-    cfg, params = load_vita_checkpoint(model, device)
+    cfg, params = load_vita_checkpoint(model, device, mesh=mesh)
     hf_tok = load_hf_tokenizer(model)
     return (cfg, params, lambda s: hf_tok(s).input_ids,
             lambda ids: hf_tok.decode(ids, skip_special_tokens=False),
@@ -647,7 +662,11 @@ def main(argv=None) -> int:
                         "vision and fronts image tokens")
     p.add_argument("--mesh", type=int, nargs="+", metavar="AX",
                    default=None,
-                   help="serving mesh EXPERT MODEL [PIPE] (not ported)")
+                   help="serving mesh EXPERT MODEL over the ranks of a torchrun launch "
+                        "(PIPE is not ported: ROADMAP A11c)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under --mesh (default nccl on cards, "
+                        "gloo on the CPU; ranks sharing one card need gloo)")
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache pages (half the bytes of a bf16 page "
                         "per token; uses 128-token pages)")
@@ -664,34 +683,60 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
-    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.serve.engine import Engine, MeshEngineThread
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
+    mesh, rank, say = None, 0, print
     if args.mesh is not None:
-        raise NotImplementedError("--mesh (sharded serving) is not ported yet (ROADMAP A11)")
-    cfg, params, encode, decode, bos_id, eos_id = load_model(args.model, device)
+        import torch.distributed as dist
+
+        from vita_tpu_torch.parallel import distributed
+
+        mesh = distributed.serving_mesh(
+            args.mesh, args.dist_backend or distributed.default_backend(device))
+        device, rank = distributed.rank_device(device), dist.get_rank()
+        if rank != 0:
+            say = lambda *a, **k: None  # noqa: E731 - rank 0 speaks for the mesh
+    # under a mesh only this rank's shards reach its device
+    cfg, params, encode, decode, bos_id, eos_id = load_model(args.model, device, mesh=mesh)
     engine = Engine(params, cfg, n_slots=args.slots, max_len=args.max_len,
                     decode_ticks=args.decode_ticks, kv_int8=args.kv_int8,
-                    page_size=128 if args.kv_int8 else 64, device=device)
+                    page_size=128 if args.kv_int8 else 64, mesh=mesh,
+                    sharded=mesh is not None and args.model != "tiny-random", device=device)
+    del params
     warmup = args.warmup
     if warmup is None:
         warmup = args.model != "tiny-random"
     if warmup:
-        print("[serve] warming the serving path ...", flush=True)
+        say("[serve] warming the serving path ...", flush=True)
         t0 = time.time()
         engine.warmup(media=True)
-        print(f"[serve] warmup done in {time.time() - t0:.1f}s")
+        say(f"[serve] warmup done in {time.time() - t0:.1f}s")
+    runner = MeshEngineThread(engine) if mesh is not None else None
+    if rank != 0:
+        runner.run()  # until rank 0 stops, or any rank fails
+        return 1 if runner.error is not None else 0
     app = ServingApp(engine, cfg, encode, decode, bos_id, eos_id,
                      image_size=cfg.vision.image_size,
-                     history_mode=args.history_mode)
+                     history_mode=args.history_mode, thread=runner)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(app))
+    if runner is not None:  # a failed mesh stops the server
+        runner.on_error = server.shutdown
+        if runner.error is not None:  # it failed before it could
+            return 1
     print(f"[serve] listening on http://{args.host}:{args.port}")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
+    finally:
+        app.thread.stop()
+        app.thread.join(timeout=60)
+    if runner is not None and runner.error is not None:
+        print(f"[serve] the serving mesh failed: {runner.error!r}", file=sys.stderr)
+        return 1
     return 0
 
 

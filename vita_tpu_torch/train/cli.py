@@ -16,8 +16,8 @@ output of this port, ``--whale-init`` merges a standalone audio-encoder
 ``final.pt`` (``checkpoint.load_whale_torch_checkpoint``), and
 ``--lora-from`` folds in LoRA adapters saved by this port
 (``trainer.save_state``'s layout). ``--moe-mode`` and ``--moe-chunk`` each
-set only their own field. ``--mesh`` is not ported yet and raises
-``NotImplementedError``.
+set only their own field. ``--mesh`` (sharded training) is not ported
+yet and raises ``NotImplementedError`` (ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is not None:
-        raise NotImplementedError("--mesh (sharded training) is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("--mesh (sharded training) is not ported yet (ROADMAP A11d)")
 
     if args.model == "tiny-random":
         cfg = vita.VITAConfig.tiny()

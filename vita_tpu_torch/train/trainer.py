@@ -75,15 +75,16 @@ def save_state(directory: str, step: int, state) -> str:
     return final
 
 
-def load_state(directory: str, step: Optional[int] = None, device=None):
-    """The state saved at ``step`` (default: the latest) under ``directory``."""
+def load_state(directory: str, step: Optional[int] = None, device=None, mmap: bool = False):
+    """The state saved at ``step`` (default: the latest) under ``directory``
+    (with ``mmap``, CPU views of the mapped file)."""
     if step is None:
         steps = committed_steps(directory)
         if not steps:
             raise FileNotFoundError(f"no step_N checkpoint under {directory}")
         step = steps[-1]
     return torch.load(os.path.join(directory, f"step_{step}", STATE_FILE),
-                      map_location=device, weights_only=True)
+                      map_location=device, weights_only=True, mmap=mmap)
 
 
 @torch.no_grad()

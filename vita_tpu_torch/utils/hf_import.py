@@ -51,38 +51,56 @@ def _stacker(g, n_layers: int):
 
 
 def mixtral_params_from_hf(state: Mapping[str, Any], cfg, prefix: str = "model.",
-                           dtype=torch.float32, device=None) -> Dict[str, Any]:
-    """An HF MixtralForCausalLM state dict -> the port's Mixtral params."""
-    g = _getter(state, dtype, device)
-    stack = _stacker(g, cfg.n_layers)
+                           dtype=torch.float32, device=None, mesh=None) -> Dict[str, Any]:
+    """An HF MixtralForCausalLM state dict -> the port's Mixtral params.
+    Under a serving ``mesh`` each leaf is this rank's block
+    (mixtral.serving_specs), cut from the state's tensors before any copy
+    or stack: a rank reads only its blocks of a mapped file and never
+    builds a whole leaf."""
+    from vita_tpu_torch.models.mixtral import serving_specs
+    from vita_tpu_torch.parallel.mesh import local_shard
 
-    def stack_experts(fmt: str) -> torch.Tensor:  # [L, E, d_in, d_out]
-        return torch.stack([torch.stack([g(fmt.format(l=l, e=e)).T
-                                         for e in range(cfg.n_experts)])
+    specs = serving_specs(cfg, {"layers": {"moe": {}}})
+
+    def g(name: str, spec, transpose: bool = True) -> torch.Tensor:
+        x = state[name]
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        x = x.T if transpose else x
+        return _t(x if mesh is None else local_shard(x, spec, mesh), dtype, device)
+
+    def stack(fmt: str, spec, transpose: bool = True) -> torch.Tensor:
+        return torch.stack([g(fmt.format(l=l), spec[1:], transpose)
                             for l in range(cfg.n_layers)])
 
-    p = prefix
-    moe = p + "layers.{l}.block_sparse_moe."
+    def stack_experts(fmt: str, spec) -> torch.Tensor:  # [L, E, d_in, d_out]
+        experts = torch.arange(cfg.n_experts)
+        if mesh is not None:
+            experts = local_shard(experts, spec[1:2], mesh)
+        return torch.stack([torch.stack([g(fmt.format(l=l, e=e), spec[2:])
+                                         for e in experts.tolist()])
+                            for l in range(cfg.n_layers)])
+
+    p, attn, moe = prefix, specs["layers"]["attn"], specs["layers"]["moe"]
+    lay = p + "layers.{l}."
+    ex = lay + "block_sparse_moe.experts.{e}."
     return {
-        "embed": g(f"{p}embed_tokens.weight"),
+        "embed": g(f"{p}embed_tokens.weight", specs["embed"], transpose=False),
         "layers": {
-            "attn": {
-                "wq": stack(p + "layers.{l}.self_attn.q_proj.weight"),
-                "wk": stack(p + "layers.{l}.self_attn.k_proj.weight"),
-                "wv": stack(p + "layers.{l}.self_attn.v_proj.weight"),
-                "wo": stack(p + "layers.{l}.self_attn.o_proj.weight"),
-            },
+            "attn": {k: stack(lay + f"self_attn.{hf}_proj.weight", attn[k])
+                     for k, hf in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o"))},
             "moe": {
-                "router": stack(moe + "gate.weight"),
-                "w_gate": stack_experts(moe + "experts.{e}.w1.weight"),
-                "w_up": stack_experts(moe + "experts.{e}.w3.weight"),
-                "w_down": stack_experts(moe + "experts.{e}.w2.weight"),
+                "router": stack(lay + "block_sparse_moe.gate.weight", moe["router"]),
+                "w_gate": stack_experts(ex + "w1.weight", moe["w_gate"]),
+                "w_up": stack_experts(ex + "w3.weight", moe["w_up"]),
+                "w_down": stack_experts(ex + "w2.weight", moe["w_down"]),
             },
-            "ln_attn": stack(p + "layers.{l}.input_layernorm.weight", False),
-            "ln_moe": stack(p + "layers.{l}.post_attention_layernorm.weight", False),
+            "ln_attn": stack(lay + "input_layernorm.weight", specs["layers"]["ln_attn"], False),
+            "ln_moe": stack(lay + "post_attention_layernorm.weight",
+                            specs["layers"]["ln_moe"], False),
         },
-        "ln_final": g(f"{p}norm.weight"),
-        "lm_head": g("lm_head.weight").T.contiguous(),
+        "ln_final": g(f"{p}norm.weight", specs["ln_final"], transpose=False),
+        "lm_head": g("lm_head.weight", specs["lm_head"]).contiguous(),
     }
 
 
