@@ -24,6 +24,8 @@ NVIDIA GPU.
     python3 chip_probe.py whale        # where Whale's flash and xla forwards spend their time
     python3 chip_probe.py mesh         # how far sharded serving's logits move, by mesh axis
     python3 chip_probe.py mesh-faults  # which of phase 11's checks fail each planted mesh fault
+    python3 chip_probe.py ring         # where ring attention's forward + backward spends its time
+    python3 chip_probe.py ring-faults  # which of phase 12's (a) and (b) checks fail each planted fault
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -201,10 +203,26 @@ differing token, and the first prompt row or decode step whose experts
 the mesh chose otherwise, with the unsharded run's router gap there.
 
 mesh-faults: chip_smoke.py's phase 11 (`mesh_phase`) run on a copy of the
-tree under build/mesh_faults/ as it is, then with each MESH_FAULTS edit
+tree under build/faults/ as it is, then with each MESH_FAULTS edit
 planted in the copy (wo's partial sums rounded to bf16; the sum over
 'model' of the output projection dropped; the expert partials left in
 bf16): per run, each check's reading and the checks that failed.
+
+ring: ring attention (parallel.ring_attention) at chip_smoke.py phase
+12(a)'s shapes (32 q / 8 kv heads of 128, bf16, B 1, S 8192, causal) as 4
+gloo ranks time-sharing cuda:0, under seq 4 and under seq 2 x model 2: on
+the last rank (one B1, B10 and B11 a ring step), three forward + backward
+passes under torch.profiler, each with its wall and device ms, the busy
+share, the host ms inside the ring's point-to-point shifts and each device
+entry's ms a launch; then the unsharded flash_mha forward + backward alone
+on the card (CUDA events).
+
+ring-faults: chip_smoke.py phase 12's (a) and (b) (`seq_phase_ab`) run
+on a copy of the tree under build/faults/ as it is, then with each
+SEQ_FAULTS edit planted in the copy (each rank's last ring step's dq
+dropped; the last shift of dk/dv home dropped; aux's sums over 'seq'
+summed in the backward too): per run, each check's reading and the
+checks that failed.
 
 Each prints the card's name and power limit first.
 
@@ -216,6 +234,7 @@ import collections
 import contextlib
 import ctypes
 import gc
+import os
 import re
 import shutil
 import sys
@@ -1344,23 +1363,25 @@ MESH_FAULTS = (
 )
 
 
-def mesh_faults(card: str) -> None:
-    import os
+def _fault_runs(card: str, faults, code: str, phase: str, prefixes) -> None:
+    """Each of ``faults`` (name, edits of (file, text as committed, text as
+    planted)) on a copy of the tree under build/faults/ (no edit: the tree
+    as it is), where ``code`` runs ``phase`` in a fresh process: its exit
+    code, the lines of its output that start with ``prefixes`` and the
+    failures it listed."""
     import subprocess
 
     from vita_tpu_torch import kernels
 
     kernels.build()  # the copies take the built library along
-    base = os.path.join(smoke.ROOT, "build", "mesh_faults")
+    base = os.path.join(smoke.ROOT, "build", "faults")
     tree = os.path.join(base, "tree")
-    code = "import torch, chip_smoke as cs\ncs.mesh_phase(cs.card_line(), torch.device('cuda'))"
     try:
-        for name, edit in MESH_FAULTS:
+        for name, edits in faults:
             shutil.rmtree(tree, ignore_errors=True)
             shutil.copytree(smoke.ROOT, tree, ignore=shutil.ignore_patterns(
-                ".git", "mesh_faults", "smoke_*"))
-            if edit is not None:
-                path, old, new = edit
+                ".git", "faults", "smoke_*", "archive", "chiprun_out"))
+            for path, old, new in edits:
                 with open(os.path.join(tree, path)) as f:
                     src = f.read()
                 if src.count(old) != 1:
@@ -1370,19 +1391,180 @@ def mesh_faults(card: str) -> None:
             t0 = time.time()
             run = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                                  text=True, timeout=900)
-            print(f"  -- {name}: phase 11 exit {run.returncode} in {time.time() - t0:.1f} s "
+            print(f"  -- {name}: {phase} exit {run.returncode} in {time.time() - t0:.1f} s "
                   f"[{card}]", flush=True)
             for line in run.stdout.splitlines():
-                if line.startswith(("  narrow", "  full width", "  layer 0")):
+                if line.startswith(prefixes):
                     print("  " + line, flush=True)
             err = run.stderr.splitlines()
-            start = next((i for i, l in enumerate(err) if "phase 11 failed" in l), None)
+            start = next((i for i, l in enumerate(err) if f"{phase} failed" in l), None)
             if start is not None:
                 print("\n".join("    " + l for l in err[start:]), flush=True)
             elif run.returncode:
                 print("\n".join(err[-20:]), flush=True)
     finally:
         shutil.rmtree(base, ignore_errors=True)
+
+
+def mesh_faults(card: str) -> None:
+    _fault_runs(card, [(name, () if edit is None else (edit,)) for name, edit in MESH_FAULTS],
+                "import torch, chip_smoke as cs\n"
+                "cs.mesh_phase(cs.card_line(), torch.device('cuda'))",
+                "phase 11", ("  narrow", "  full width", "  layer 0"))
+
+
+# (name, edits of (file, text as committed, text as planted)): faults of the
+# ring and of the seq-parallel aux loss, each of which phase 12's (a) or
+# (b) must fail
+SEQ_FAULTS = (
+    ("as committed", ()),
+    ("S1: each rank's last ring step's dq dropped",
+     (("vita_tpu_torch/parallel/ring_attention.py", "dq += bwd_dq(*args).float()",
+       "dq += bwd_dq(*args).float() * (t < n - 1)"),)),
+    ("S2: the last shift of dk/dv home dropped",
+     (("vita_tpu_torch/parallel/ring_attention.py",
+       "dk, dv = shift_down([dk, dv], ctx.mesh, SEQ)", "pass"),)),
+    ("S3: aux's sums over 'seq' summed in the backward too",
+     (("vita_tpu_torch/parallel/mesh.py",
+       "    def forward(ctx, x, mesh, name):\n        return all_reduce_sum(x, mesh, name)\n\n"
+       "    @staticmethod\n    def backward(ctx, g):\n        return g, None, None",
+       "    def forward(ctx, x, mesh, name):\n        ctx.axis = (mesh, name)\n"
+       "        return all_reduce_sum(x, mesh, name)\n\n"
+       "    @staticmethod\n    def backward(ctx, g):\n"
+       "        return all_reduce_sum(g.contiguous(), *ctx.axis), None, None"),)),
+)
+
+
+def seq_phase_ab(card: str) -> None:
+    """chip_smoke.py phase 12's (a) and (b) alone: the unsharded training
+    step here, then SEQ_RANKS ranks on cuda:0 over gloo; raises listing
+    every check that failed."""
+    import torch
+
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    ref, picks = smoke.seq_train_reference(card, torch.device("cuda"))
+    plan = {"picks": picks, "ckpt_dir": None, "duplex": {}, "device": "cuda:0"}
+    results = run_ranks(smoke.seq_duplex_rank, smoke.SEQ_RANKS, plan, backend="gloo",
+                        timeout=600, store_dir=os.path.join(smoke.ROOT, "build"))
+    failed = []
+    smoke.seq_ring_report(card, [res["ring"] for res in results],
+                          {n: float("nan") for n in smoke.SEQ_RING_LENGTHS}, failed)
+    smoke.seq_train_report(card, [res["train"] for res in results], ref, failed)
+    if failed:
+        raise AssertionError("phase 12 failed:\n  " + "\n  ".join(failed))
+
+
+def ring_faults(card: str) -> None:
+    _fault_runs(card, SEQ_FAULTS,
+                "import chip_smoke as cs, chip_probe as cp\ncp.seq_phase_ab(cs.card_line())",
+                "phase 12", ("  (a)", "  (b)"))
+
+
+RING_PROBE_MESHES = ((4, 1), (2, 2))  # (seq, model), as chip_smoke phase 12(a)
+RING_PROBE_REPS = 3
+
+
+def ring_probe_rank(rank, world, seq, model, reps):
+    """One rank of ``ring``: phase 12(a)'s ring forward + backward at
+    length SEQ_S; the last rank (the last seq block, which attends every
+    block: the others skip the blocks in their future) runs each of
+    ``reps`` repetitions under torch.profiler, the others unprofiled, and
+    returns, per repetition, the wall ms, the host ms inside the ring's
+    point-to-point shifts and each device entry's ms and count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.parallel import ring_attention as ra
+    from vita_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    mesh = make_mesh((1, 1, 1, model, 1, seq))
+    p2p = [0.0]
+    real_shift = ra.shift_down
+
+    def shift(*a, **k):
+        t0 = time.perf_counter()
+        out = real_shift(*a, **k)
+        p2p[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    ra.shift_down = shift
+    q, k, v, do, lengths = smoke._ring_inputs(smoke.SEQ_S, dev)
+    blocks = [smoke._seq_block(x, mesh) for x in (q, k, v)]
+    dob = smoke._seq_block(do, mesh)
+
+    def run():
+        leaves = [x.clone().requires_grad_() for x in blocks]
+        o, _ = ra.ring_flash_mha_with_lse(*leaves, lengths, causal=True, mesh=mesh)
+        (o.float() * dob.float()).sum().backward()
+
+    run()
+    torch.cuda.synchronize(dev)
+    out = []
+    for _ in range(reps):
+        p2p[0] = 0.0
+        ctx = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if rank == world - 1 else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        per = collections.defaultdict(lambda: [0.0, 0])
+        if rank == world - 1:
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    per[_short(e.name)[:60]][0] += e.time_range.elapsed_us() / 1e3
+                    per[_short(e.name)[:60]][1] += 1
+        out.append(dict(wall=wall, p2p=p2p[0], device={k: tuple(v) for k, v in per.items()}))
+    return out
+
+
+def ring(card: str) -> None:
+    """Ring attention (parallel.ring_attention) at chip_smoke phase 12(a)'s
+    shapes (32 q / 8 kv heads of 128, bf16, B 1, S 8192, causal) on 4 ranks
+    time-sharing cuda:0 over gloo, under seq 4 and seq 2 x model 2: on the
+    last rank (it attends all n blocks, one B1, B10 and B11 a ring step),
+    RING_PROBE_REPS profiled forward + backward passes, each with its wall
+    ms, device ms (busy share = device / wall), the host ms inside the
+    point-to-point shifts (staged through host memory over gloo) and each
+    device entry's ms a launch; then the unsharded flash_mha's forward +
+    backward alone on the card."""
+    import torch
+
+    from vita_tpu_torch.ops.flash_attention import flash_mha_with_lse
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    for seq, model in RING_PROBE_MESHES:
+        world = seq * model
+        reps = run_ranks(ring_probe_rank, world, seq, model, RING_PROBE_REPS,
+                         backend="gloo", timeout=600,
+                         store_dir=os.path.join(smoke.ROOT, "build"))[world - 1]
+        for i, r in enumerate(reps):
+            dev_ms = sum(ms for ms, _ in r["device"].values())
+            print(f"  seq {seq} x model {model}, rank {world - 1}, pass {i + 1}: wall "
+                  f"{r['wall']:.2f} ms, device {dev_ms:.2f} ms, busy {dev_ms / r['wall']:.3f}, "
+                  f"host ms in the {2 * seq - 1} shifts {r['p2p']:.2f} ({smoke.MESH_NOTE}) "
+                  f"[{card}]", flush=True)
+            for name, (ms, n) in sorted(r["device"].items(), key=lambda kv: -kv[1][0])[:8]:
+                print(f"      {ms:9.3f} ms {n:5d} launches, {ms / n:8.4f} ms a launch  {name}",
+                      flush=True)
+    dev = torch.device("cuda")
+    q, k, v, do, lengths = smoke._ring_inputs(smoke.SEQ_S, dev)
+
+    def unsharded():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, _ = flash_mha_with_lse(*leaves, kv_len=lengths, causal=True)
+        (o.float() * do.float()).sum().backward()
+
+    for i in range(RING_PROBE_REPS):
+        print(f"  unsharded flash_mha forward + backward, pass {i + 1}: "
+              f"{smoke.cuda_ms(unsharded, n=10):.3f} ms [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1395,7 +1577,8 @@ def main() -> int:
              "expert-ring": expert_ring, "expert-q4": expert_q4,
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
              "paged-ring": paged_ring, "session": session, "whale": whale,
-             "mesh": mesh, "mesh-faults": mesh_faults}
+             "mesh": mesh, "mesh-faults": mesh_faults, "ring": ring,
+             "ring-faults": ring_faults}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

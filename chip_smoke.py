@@ -140,9 +140,41 @@ Phases, each of which raises on failure:
      B8b and B5b; a rank that fails or hangs past the join's timeout fails
      the phase.
 
+ 12. sequence parallelism and the duplex replicas, as 4 ranks spawned on
+     cuda:0 over gloo after the unsharded runs here: (a) ring attention
+     (parallel.ring_attention) at Mixtral's head geometry (32 q / 8 kv
+     heads of 128, bf16, B 1, S 8192, causal, valid lengths 8192 and 6000)
+     under seq 4 and under seq 2 x model 2: each rank's block of the output,
+     the merged lse and dq/dk/dv held to the unsharded flash_mha (B1's bf16
+     tolerances for o and lse, SEQ_GRAD_TOLS and SEQ_GRAD_REL for the
+     gradients), and every rank
+     launching B1, B10 and B11; the ring's forward + backward ms a rank
+     beside the unsharded call's (alone on the card); (b) the seq-parallel
+     forward + backward of the 2-layer training slice (gmm, flash, remat,
+     bf16; next-token cross entropy + 0.02 aux) at S 8192 under seq 4: the
+     loss (SEQ_LOSS_RTOL) and the gradients summed over the ranks at
+     sampled elements against the unsharded step here (within
+     SEQ_GRAD_SPREAD times the relative error of the same step with
+     attention computed another exact way, plus SEQ_GRAD_FLOOR), every
+     rank launching B1, B10, B11, B12 and B5a or B5b; (c) the duplex
+     replicas at --mesh 1 2 (replica 0 on ranks 0-1, replica 1 on ranks
+     2-3, rank 0 driving both through the DuplexController) at phase 5's
+     narrow fp32 configuration (float32 experts and pages; int4 experts +
+     int8 KV)
+     and on the full-width 4-layer slice read from phase 11's export (bf16
+     experts + int8 KV, gmm prefill): query A, a noise query rejected by
+     '<2>', query B interrupting A; the token ids equal each prompt's
+     unsharded greedy stream (identical at narrow fp32; at full width
+     apart only at phase 11's near ties), as do those of the same script
+     on two unsharded Engines here; every rank launching B1, B2 or B9,
+     B3 or B7 (and B5b at full width); first-text and interrupt latencies
+     printed beside phase 9's, with the noise query's first text on
+     replica 0 beside A's on replica 1 and replica 1's link to rank 0
+     (round trips and their ms).
+
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-11, phase 11's over its ranks)
-before the last, and as the last
+results (launches summed over phases 3-12, phases 11's and 12's over their
+ranks) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -229,7 +261,7 @@ def attn_pairs(sq, kv_len, q_off, causal) -> int:
 def compare(name, got, want, atol, rtol):
     """Max abs error of got vs want; raises past atol + rtol * |want| (atol
     a number, or a tensor that broadcasts against want)."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not bool(got.isfinite().all()):
@@ -2162,8 +2194,10 @@ def duplex_run(card, cfg, params, max_new_tokens=256):
         first = min((t for t in texts if t >= t_swap), default=float("nan"))
         print(f"  utterance {k + 1}: speech end -> first text {(first - t_end) * 1e3:.1f} ms  "
               f"[{card}]", flush=True)
+        PHASE9_READINGS.setdefault("first_text_ms", []).append(round((first - t_end) * 1e3, 1))
     print(f"  interrupt -> role swap (second speech end to the swap): "
           f"{(swaps[1][1] - utts[1][0]) * 1e3:.1f} ms  [{card}]", flush=True)
+    PHASE9_READINGS["swap_ms"] = round((swaps[1][1] - utts[1][0]) * 1e3, 1)
 
     dev = params["audio"]["cmvn"]["mean"].device
     for k, (_, utt) in enumerate(utts):
@@ -2825,8 +2859,9 @@ def mesh_phase(card: str, device):
     logit near tie, under expert 2 x model 2 also after a router near tie
     (_mesh_split); and layer 0's collectives held to what they must give
     (mesh_layer_check). Every check runs, and the phase then fails on
-    any that failed. Every rank must launch MESH_PATH. Returns the launch
-    counts summed over the ranks."""
+    any that failed. Every rank must launch MESH_PATH. The export stays
+    under MESH_DIR/ckpt for phase 12 (main removes MESH_DIR). Returns the
+    launch counts summed over the ranks."""
     import shutil
 
     import torch
@@ -2884,7 +2919,8 @@ def mesh_phase(card: str, device):
         print(f"  {MESH_RANKS} ranks on cuda:0 over gloo returned in {time.time() - t0:.1f} s",
               flush=True)
     finally:
-        shutil.rmtree(MESH_DIR, ignore_errors=True)
+        if os.path.exists(layer_path):
+            os.remove(layer_path)
 
     failed = []
     for label, _ in MESH_NARROW_RUNS:
@@ -2946,6 +2982,734 @@ def mesh_phase(card: str, device):
             total[k] = total.get(k, 0) + n
     if failed:
         raise AssertionError("phase 11 failed:\n  " + "\n  ".join(failed))
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 12: sequence parallelism (the ring on B1/B10/B11) and the duplex
+# replicas, as 4 ranks on cuda:0 over gloo
+# --------------------------------------------------------------------------
+SEQ_RANKS = 4
+SEQ_S = 8192
+# (seq, model) meshes of the ring at Mixtral's head geometry (32 q / 8 kv
+# heads of 128, bf16, B 1, causal), each at two valid lengths
+SEQ_RING_MESHES = ((4, 1), (2, 2))
+SEQ_RING_LENGTHS = (8192, 6000)
+SEQ_RING_TIMED = 3
+# The ring's o is held with B1's bf16 tolerances (flash_fwd_tols: 2e-3 on
+# rows of 1024+ keys, else 2e-2, + rtol 2e-2; lse 1e-3) against the
+# unsharded flash_mha on the same card. dk/dv at the bf16 flash tolerance
+# of phase 2, atol = rtol = 2e-2: each ring step's dk/dv is rounded to
+# bf16 before the float32 sum over the steps, and the unsharded kernel
+# rounds once, so one ulp of an element of 8-16 (3e-2-6e-2) is rounding.
+# dq (float32 sums over the steps, rounded once) is near 0.02 an element,
+# so the same bound could not see a block's share go missing: it is held
+# at atol 5e-3 + rtol 1e-2 (rounding reads 1e-3-2e-3 on the card, PERF.md §6).
+# Each gradient is held too by its relative error (Frobenius norm) at
+# SEQ_GRAD_REL: bf16 rounding reads about 3e-3, a dropped ring step's dq
+# 0.5-0.9 (`chip_probe.py ring-faults`).
+SEQ_GRAD_TOLS = {"dq": (5e-3, 1e-2), "dk": (2e-2, 2e-2), "dv": (2e-2, 2e-2)}
+SEQ_GRAD_REL = 1e-2
+# The seq-parallel 2-layer training slice: the loss (mean next-token
+# cross entropy + 0.02 aux) held at SEQ_LOSS_RTOL of the unsharded step's;
+# each leaf's gradient, summed over the seq ranks, at SEQ_GRAD_SAMPLES
+# elements drawn from a seed, by its relative error (Frobenius norm) from
+# the unsharded step's. In bf16 at full width that error is not rounding
+# size: a rounding-size change of attention's output flips the top-2
+# experts of the tokens whose router lies near a tie, and their rows move
+# whole (every leaf 4-5% apart on the card, PERF.md §6). So the
+# bound is the spread of the model itself: the same unsharded step with
+# attention computed another exact way (attn_backend 'xla', float32
+# scores), and a leaf passes within SEQ_GRAD_SPREAD times that step's
+# error plus SEQ_GRAD_FLOOR. A dropped block or a gradient that misses its
+# owner moves the attention leaves by order 1.
+SEQ_TRAIN_LAYERS = 2
+SEQ_GRAD_SAMPLES = 1 << 18
+SEQ_LOSS_RTOL = 1e-3
+SEQ_GRAD_SPREAD = 2.0
+SEQ_GRAD_FLOOR = 1e-2
+SEQ_TRAIN_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gmm_wgrad")
+# The duplex replicas at --mesh 1 2 (two replicas of model 2): the fixed
+# script's prompts (token counts) and new tokens; A streams long enough to
+# be interrupted. A replica decodes at most two rows at once (its answer
+# and the other query's), below B4's and B8b's masked schedule (4 and 8
+# rows): the replicas run the selected-expert kernels.
+DUPLEX_AXES = (1, 2)
+DUPLEX_RUNS = (
+    ("narrow fp32, gather", "narrow",
+     dict(n_slots=2, max_len=1024, page_size=64, decode_ticks=1, decode_moe_mode="gather"),
+     {"A": (60, 900), "N": (40, 8), "B": (80, 24)},
+     ("flash_fwd", "paged_attention", "gather_expert_ffn")),
+    ("narrow fp32, int4 experts, int8 KV", "narrow",
+     dict(n_slots=2, max_len=1024, page_size=64, decode_ticks=1, decode_moe_mode="gather_q4",
+          kv_int8=True),
+     {"A": (60, 900), "N": (40, 8), "B": (80, 24)},
+     ("flash_fwd", "paged_attention_q", "gather_expert_ffn_q4")),
+    ("full width, bf16 experts, int8 KV, gmm prefill", "full",
+     dict(n_slots=2, max_len=2048, page_size=64, decode_ticks=1, decode_moe_mode="gather",
+          kv_int8=True, prefill_moe_mode="gmm"),
+     {"A": (60, 512), "N": (40, 8), "B": (80, 32)},
+     ("flash_fwd", "paged_attention_q", "gather_expert_ffn", "gmm_small")),
+)
+# Under --mesh 1 2 every rank holds all 8 experts of its replica's 4 layers
+# (11.3 GB of bf16; the model axis splits attention and the vocabulary):
+# about 15 GiB a rank with the towers, pools and activations, 4 ranks on
+# the card. An int4 copy of the experts beside them (decode_moe_mode
+# 'gather_q4') took a rank to 18.2 GiB and the card out of memory, so the
+# int4 experts (B7) run at the narrow width.
+PHASE9_READINGS = {}  # phase 9's duplex latencies, printed beside phase 12's
+
+
+def _ring_inputs(length, dev):
+    """Phase 12(a)'s q, k, v, dO (whole sequence, from a seed on the card)
+    and the valid length."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf = torch.bfloat16
+
+    def rnd(h):
+        return torch.randn(1, SEQ_S, h, 128, generator=g, device=dev).to(bf)
+    q, k, v, do = rnd(32), rnd(8), rnd(8), rnd(32)
+    return q, k, v, do, torch.tensor([length], dtype=torch.int32, device=dev)
+
+
+def _seq_block(x, mesh, heads: bool = True):
+    """This rank's block of [B, S, H, d]: its seq block (and its heads)."""
+    from vita_tpu_torch.parallel.mesh import local_shard
+    from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+    x = shard_seq(x, mesh)
+    return (local_shard(x, (None, None, "model", None), mesh) if heads else x).contiguous()
+
+
+def seq_ring_rank(mesh, dev):
+    """Phase 12(a) on one rank: per mesh and length, the ring's forward +
+    backward (launch counts zeroed before, read after; SEQ_RING_TIMED timed
+    runs after one warm-up), then its block held to the unsharded
+    flash_mha_with_lse on the whole sequence."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.ops.flash_attention import flash_mha_with_lse
+    from vita_tpu_torch.parallel.mesh import MODEL, SEQ, axis
+    from vita_tpu_torch.parallel.ring_attention import ring_flash_mha_with_lse
+
+    a_seq, a_mod = axis(mesh, SEQ), axis(mesh, MODEL)
+    s_loc, h_loc = SEQ_S // a_seq.size, 32 // a_mod.size
+    rows = slice(a_seq.rank * s_loc, (a_seq.rank + 1) * s_loc)
+    hs = slice(a_mod.rank * h_loc, (a_mod.rank + 1) * h_loc)
+
+    def held(name, got, want, atol, rtol):
+        try:
+            return compare(name, got, want, atol, rtol)
+        except AssertionError as e:  # every check runs; the phase lists the failures
+            return f"FAILED: {e}"
+
+    out = {}
+    for length in SEQ_RING_LENGTHS:
+        q, k, v, do, lengths = _ring_inputs(length, dev)
+        blocks = [_seq_block(x, mesh) for x in (q, k, v)]
+        dob = _seq_block(do, mesh)
+
+        def run():
+            leaves = [x.clone().requires_grad_() for x in blocks]
+            o, lse = ring_flash_mha_with_lse(*leaves, lengths, causal=True, mesh=mesh)
+            (o.float() * dob.float()).sum().backward()
+            return o, lse, [x.grad for x in leaves]
+
+        kernels.reset_launches()
+        run()
+        times = []
+        for _ in range(SEQ_RING_TIMED):
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            o, lse, grads = run()
+            torch.cuda.synchronize(dev)
+            times.append((time.time() - t0) * 1e3)
+        launches = dict(kernels.launches)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ro, rlse = flash_mha_with_lse(*leaves, kv_len=lengths, causal=True)
+        (ro.float() * do.float()).sum().backward()
+        (o_tol, o_rtol), (lse_tol, _) = flash_fwd_tols(SEQ_S, [length], [0], dev)
+        errs = {"o": held("ring o", o, _seq_block(ro, mesh), _seq_block(o_tol, mesh, False),
+                          o_rtol),
+                "lse": held("ring lse", lse, rlse[:, hs, rows], lse_tol, 0.0)}
+        for name, got, full in zip(("dq", "dk", "dv"), grads, [x.grad for x in leaves]):
+            want = _seq_block(full, mesh)
+            errs[name] = held(f"ring {name}", got, want, *SEQ_GRAD_TOLS[name])
+            # over the larger of the norm and 1: a block wholly past the valid
+            # length has zero dk/dv
+            rel = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1.0))
+            errs[name + " rel"] = (rel if rel <= SEQ_GRAD_REL else
+                                   f"FAILED: ring {name}: relative error {rel:.3e} past "
+                                   f"{SEQ_GRAD_REL}")
+        out[length] = dict(errs=errs, ms=float(np.median(times)), launches=launches)
+        del q, k, v, do, blocks, leaves, ro, rlse, o, grads
+    return out
+
+
+def _leaf_items(tree):
+    """(name, leaf) of a nested dict, names joined with '/'."""
+    from vita_tpu_torch.train.step import tree_leaves
+
+    return (("/".join(path), leaf) for path, leaf in tree_leaves(tree))
+
+
+def seq_train_config():
+    """The 2-layer training slice's LLM (gmm, flash, remat, bf16)."""
+    lcfg = train_slice_config().llm
+    return dataclasses.replace(lcfg, n_layers=SEQ_TRAIN_LAYERS)
+
+
+def seq_train_batch():
+    """One sequence of SEQ_S ids from a seed and its next-token labels."""
+    rng = np.random.default_rng(SEED + 22)
+    ids = rng.integers(3, seq_train_config().vocab_size, (1, SEQ_S)).astype(np.int64)
+    labels = np.full_like(ids, -100)
+    labels[:, :-1] = ids[:, 1:]
+    return ids, labels
+
+
+def seq_train_step(params, lcfg, ids, labels, n_labels, mesh=None, with_ce=True):
+    """Cross entropy summed over ``labels`` / n_labels + 0.02 aux (the aux
+    term alone without ``with_ce``), and its backward: (cross entropy,
+    aux)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vita_tpu_torch.models import mixtral
+
+    logits, _, aux = mixtral.forward(params, lcfg, input_ids=ids, mesh=mesh)
+    ce = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(), ignore_index=-100,
+                         reduction="sum") / n_labels
+    ((ce if with_ce else 0.0) + 0.02 * aux).backward()
+    return float(ce.detach()), float(aux.detach())
+
+
+def _grad_samples(params, picks):
+    """Each leaf's gradient at the sampled flat indices (float32, host);
+    leaves the objective does not reach are left out."""
+    import torch
+
+    return {name: leaf.grad.reshape(-1)[torch.as_tensor(picks[name], device=leaf.device)]
+            .float().cpu().numpy() for name, leaf in _leaf_items(params)
+            if leaf.grad is not None}
+
+
+def seq_train_params(lcfg, dev):
+    import torch
+
+    from vita_tpu_torch.models import mixtral
+
+    params = mixtral.init_params(lcfg, torch.Generator(device=dev).manual_seed(SEED + 23), dev)
+    for _, leaf in _leaf_items(params):
+        leaf.requires_grad_()
+    return params
+
+
+def seq_train_rank(mesh, dev, picks):
+    """Phase 12(b) on one rank: the seq-parallel forward + backward of the
+    2-layer slice on this rank's SEQ_S/n tokens (launch counts zeroed
+    before, read after); its share of the loss, the aux and the sampled
+    gradients."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+    lcfg = seq_train_config()
+    params = seq_train_params(lcfg, dev)
+    ids, labels = seq_train_batch()
+    n_labels = int((labels != -100).sum())
+    ids_b = shard_seq(torch.as_tensor(ids, device=dev), mesh)
+    labels_b = shard_seq(torch.as_tensor(labels, device=dev), mesh)
+    seq_train_step(params, lcfg, ids_b, labels_b, n_labels, mesh)  # warm-up: first-use costs
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    share, aux = seq_train_step(params, lcfg, ids_b, labels_b, n_labels, mesh)
+    torch.cuda.synchronize(dev)
+    ms = (time.time() - t0) * 1e3
+    out = dict(share=share, aux=aux, ms=ms, launches=dict(kernels.launches),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               samples=_grad_samples(params, picks))
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    seq_train_step(params, lcfg, ids_b, labels_b, n_labels, mesh, with_ce=False)
+    out["samples_aux"] = _grad_samples(params, picks)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flash_llm(cfg):
+    """``cfg`` with the LLM's attention on B1, the 8x7B preset's choice: a
+    loaded HF-layout config carries no attention backend."""
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_backend="flash"))
+
+
+def duplex_prompts(cfg, tokens, seed):
+    rng = np.random.default_rng(seed)
+    return {name: rng.integers(3, cfg.llm.vocab_size, n).astype(np.int32)
+            for name, (n, _) in tokens.items()}
+
+
+def _wait_for(cond, timeout, what):
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() > deadline:
+            raise TimeoutError(f"waited {timeout:.0f} s for {what}")
+        time.sleep(0.002)
+
+
+def duplex_script(engines, prompts, tokens, noise_tok, timeout=300.0, controller_cls=None):
+    """The fixed script through a DuplexController (the port's, or
+    ``controller_cls``) over two running engines: query A (the monitor,
+    engine 1) streams and is promoted; a noise query N (engine 0) is
+    rejected by '<2>' (a decode that reads a response starting with
+    ``noise_tok`` as noise, any other as '<1>'); query B (engine 0)
+    interrupts A, which is cancelled on its engine, and the roles swap
+    back. ``tokens`` maps each query to (prompt length, new tokens).
+    Returns the requests' tokens and ids, the controller's counters and
+    the latencies (ms)."""
+    if controller_cls is None:
+        from vita_tpu_torch.serve.duplex import DuplexController as controller_cls
+
+    def decode(ids):
+        ids = list(ids)
+        if not ids:
+            return ""
+        return ("<2>" if ids[0] == noise_tok else "<1>") + letter_decode(ids[1:])
+
+    ctl = controller_cls(engines, decode)
+    out = {"generator": [ctl.generator_idx]}
+    reqs = {}
+    for name in ("A", "N", "B"):
+        req = ctl.new_request(prompts[name], max_new_tokens=tokens[name][1], eos_id=-1)
+        reqs[name] = req
+        ctl.submit_query(req)
+        out[f"engine_{name}"] = req._duplex_engine_idx
+        if name == "A":
+            _wait_for(lambda: ctl.current is req and len(req.tokens) >= 4, timeout,
+                      "A's answer")
+        elif name == "N":
+            _wait_for(lambda: ctl.rejected_noise == 1 and req.finish_time > 0, timeout,
+                      "the noise query's rejection")
+        else:
+            _wait_for(lambda: req.finish_time > 0 and reqs["A"].finish_time > 0, timeout,
+                      "B's answer and A's cancellation")
+        out["generator"].append(ctl.generator_idx)
+    a, noise, b = reqs["A"], reqs["N"], reqs["B"]
+    out.update({n: list(r.tokens) for n, r in reqs.items()})
+    out["ids"] = {n: r.request_id for n, r in reqs.items()}
+    out.update(interrupts=ctl.interrupts, rejected=ctl.rejected_noise,
+               cancelled={n: r.cancelled for n, r in reqs.items()},
+               first_text_ms=(a.first_token_time - a.submit_time) * 1e3,
+               noise_first_ms=(noise.first_token_time - noise.submit_time) * 1e3,
+               swap_ms=(b.first_token_time - b.submit_time) * 1e3,
+               cancel_ms=(a.finish_time - b.first_token_time) * 1e3)
+    return out
+
+
+def _check_script(label, out, tokens):
+    """The script's protocol: A promoted on engine 1, N rejected, B back on
+    engine 0 interrupting A (cancelled), B whole."""
+    want = dict(generator=[0, 1, 1, 0], rejected=1, interrupts=1,
+                cancelled={"A": True, "N": True, "B": False})
+    got = {k: out[k] for k in want}
+    if got != want or (out["engine_A"], out["engine_N"], out["engine_B"]) != (1, 0, 0):
+        raise AssertionError(f"{label}: the duplex script went otherwise: {got}, engines "
+                             f"{(out['engine_A'], out['engine_N'], out['engine_B'])}")
+    if len(out["B"]) != tokens["B"][1] or not out["A"] or len(out["A"]) >= tokens["A"][1]:
+        raise AssertionError(f"{label}: B has {len(out['B'])} tokens, A {len(out['A'])}")
+
+
+def duplex_replica_rank(reps, dev, cfg, params, sharded, kw, prompts, tokens, noise_tok,
+                        record):
+    """Phase 12(c) on one rank: this rank's Engine of its replica (launch
+    counts zeroed before the script, read after); rank 0 runs the script
+    through replica 0's loop and the RemoteReplica of replica 1, then
+    stops both. With ``record`` each rank records its Engine's routes."""
+    import torch.distributed as dist
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.serve.replicas import replica_loop, start_replicas
+
+    engine = Engine(params, cfg, seed=reps.index, mesh=reps.mesh, sharded=sharded, device=dev,
+                    **kw)
+    loop = replica_loop(reps, engine)
+    routes = {}
+    rec = _recording_routes(engine, routes) if record else contextlib.nullcontext()
+    kernels.reset_launches()
+    with rec:
+        if dist.get_rank() != 0:
+            loop.run()
+            out = {}
+        else:
+            engines = start_replicas(reps, loop)
+            try:
+                out = duplex_script(engines, prompts, tokens, noise_tok)
+            finally:
+                for e in engines:
+                    e.stop()
+                for e in engines:
+                    e.join(timeout=120)
+            out["errors"] = [repr(e.error) for e in engines if e.error is not None]
+    out.update(launches=dict(kernels.launches), error=repr(loop.error) if loop.error else None,
+               routes=routes, replica=reps.index)
+    if loop.link is not None:
+        out["link"] = (loop.link.exchanges, loop.link.wait_s)
+    return out
+
+
+def seq_duplex_rank(rank, world, plan):
+    """One rank of phase 12 on cuda:0: (a) the ring, (b) the seq-parallel
+    training slice, (c) the duplex replicas (narrow fp32, then full width
+    read from phase 11's export)."""
+    # four ranks' peaks of (b) come to 68 of the card's 79 GiB: segments
+    # that grow in place keep each rank's unused cached blocks small (set
+    # before this process first touches the card)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.distributed import serving_replicas
+    from vita_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        kernels.lib()  # phase 1's library: loaded, not built
+    out = {"ring": {}}
+    for seq, model in SEQ_RING_MESHES:
+        out["ring"][seq, model] = seq_ring_rank(make_mesh((1, 1, 1, model, 1, seq)), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = seq_train_rank(make_mesh((1, 1, 1, 1, 1, SEQ_RANKS)), dev, plan["picks"])
+    if not plan["duplex"]:  # (a) and (b) alone (chip_probe.py ring-faults)
+        return out
+    reps = serving_replicas(DUPLEX_AXES, "gloo")
+    out["duplex"] = {"allocated_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    for label, which, kw, tokens, _ in DUPLEX_RUNS:
+        if which == "narrow":
+            cfg = narrow_config()
+            params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+            sharded = False
+        else:
+            cfg, params = load_vita_checkpoint(plan["ckpt_dir"], dev, mesh=reps.mesh)
+            cfg, sharded = _flash_llm(cfg), True
+        p = plan["duplex"][label]
+        out["duplex"][label] = duplex_replica_rank(
+            reps, dev, cfg, params, sharded, kw, p["prompts"], tokens, p["noise"],
+            record=which == "full")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _duplex_reference(card, label, cfg, params, kw, tokens, seed, dev, record):
+    """Phase 12(c)'s unsharded side on the card: each prompt's greedy stream
+    alone (its top-2 logits and routes recorded with ``record``), then the
+    script on two unsharded Engines under EngineThreads. Returns the
+    prompts, the noise query's first token, the streams, their request
+    ids, top-2, routes and the unsharded script's output."""
+    from vita_tpu_torch.serve.engine import Engine, EngineThread, Request
+
+    prompts = duplex_prompts(cfg, tokens, seed)
+    streams, ids, top2, routes = {}, {}, {}, {}
+    for name, ids_ in prompts.items():
+        engine = Engine(params, cfg, device=dev, **kw)
+        req = Request(input_ids=ids_, max_new_tokens=tokens[name][1], eos_id=-1)
+        with (_recording_top2(engine, top2) if record else contextlib.nullcontext()), \
+                (_recording_routes(engine, routes) if record else contextlib.nullcontext()):
+            serve(engine, [req])
+        streams[name], ids[name] = list(req.tokens), req.request_id
+        del engine
+    noise = streams["N"][0]
+    if noise in (streams["A"][0], streams["B"][0]):
+        raise AssertionError(f"{label}: the script needs the noise query's first token "
+                             f"{noise} to differ from A's and B's")
+    engines = [Engine(params, cfg, seed=i, device=dev, **kw) for i in range(2)]
+    threads = [EngineThread(e, tick_idle_s=0.001) for e in engines]
+    for t in threads:
+        t.start()
+    try:
+        script = duplex_script(engines, prompts, tokens, noise)
+    finally:
+        for t in threads:
+            t.stop()
+        for t in threads:
+            t.join(timeout=120)
+    _check_script(f"{label}, unsharded", script, tokens)
+    for name in ("A", "N", "B"):
+        got, want = script[name], streams[name]
+        if got != want[:len(got)]:
+            raise AssertionError(f"{label}, unsharded duplex: {name}'s tokens {got[:8]}... are "
+                                 f"not its greedy stream {want[:8]}...")
+    print(f"  unsharded duplex ({label}): A {len(script['A'])} tokens before B interrupted it, "
+          f"first text {script['first_text_ms']:.2f} ms, B submit -> swap "
+          f"{script['swap_ms']:.2f} ms, swap -> A cancelled {script['cancel_ms']:.2f} ms "
+          f"[{card}]", flush=True)
+    return dict(prompts=prompts, noise=noise, streams=streams, ids=ids, top2=top2,
+                routes=routes, script=script)
+
+
+def seq_train_reference(card, device):
+    """Phase 12(b)'s unsharded side: the step on the whole sequence (after
+    a warm-up step), its loss and sampled gradients, then the same step
+    with attention computed another exact way (attn_backend 'xla') for the
+    spread the check allows. Returns (reference, sampled indices)."""
+    import torch
+
+    lcfg = seq_train_config()
+    params = seq_train_params(lcfg, device)
+    ids, labels = seq_train_batch()
+    rng = np.random.default_rng(SEED + 24)
+    picks = {name: rng.integers(0, leaf.numel(), min(leaf.numel(), SEQ_GRAD_SAMPLES))
+             for name, leaf in _leaf_items(params)}
+    batch = (torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device),
+             int((labels != -100).sum()))
+    seq_train_step(params, lcfg, *batch)  # warm-up: first-use costs
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.time()
+    ce, aux = seq_train_step(params, lcfg, *batch)
+    _sync(device)
+    train_ref = dict(loss=ce + 0.02 * aux, aux=aux, ms=(time.time() - t0) * 1e3,
+                     peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                     samples=_grad_samples(params, picks))
+    xcfg = dataclasses.replace(lcfg, attn_backend="xla")
+    for key, cfg, with_ce in (("samples_xla", xcfg, True), ("samples_aux", lcfg, False),
+                              ("samples_aux_xla", xcfg, False)):
+        for _, leaf in _leaf_items(params):
+            leaf.grad = None
+        ce_x, aux_x = seq_train_step(params, cfg, *batch, with_ce=with_ce)
+        train_ref[key] = _grad_samples(params, picks)
+        if key == "samples_xla":
+            train_ref["loss_xla"] = ce_x + 0.02 * aux_x
+    n_params = sum(leaf.numel() for _, leaf in _leaf_items(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) unsharded {SEQ_TRAIN_LAYERS}-layer slice ({n_params / 1e9:.2f} B parameters) "
+          f"at {SEQ_S} tokens: loss {train_ref['loss']:.6f} (aux {aux:.6f}), forward + "
+          f"backward {train_ref['ms']:.1f} ms, peak {train_ref['peak_gib']:.2f} GiB [{card}]",
+          flush=True)
+    return train_ref, picks
+
+
+def seq_train_report(card, parts, train_ref, failed):
+    """Phase 12(b)'s checks of the ranks' results ``parts`` against
+    ``train_ref``, failures appended to ``failed``; the ranks' launch
+    counts."""
+    auxes = {p["aux"] for p in parts}
+    loss = sum(p["share"] for p in parts) + 0.02 * parts[0]["aux"]
+    rel = abs(loss - train_ref["loss"]) / abs(train_ref["loss"])
+    rel_xla = abs(train_ref["loss_xla"] - train_ref["loss"]) / abs(train_ref["loss"])
+    over, lines = [], []
+    for objective, key, key_xla in (("loss", "samples", "samples_xla"),
+                                    ("aux term alone", "samples_aux", "samples_aux_xla")):
+        errs = {}  # leaf: (seq-summed error, xla error), relative Frobenius over the samples
+        for name, want in train_ref[key].items():
+            got = sum(p[key][name] for p in parts)
+            norm = max(float(np.linalg.norm(want)), 1e-30)
+            errs[name] = (float(np.linalg.norm(got - want)) / norm,
+                          float(np.linalg.norm(train_ref[key_xla][name] - want)) / norm)
+        over += [f"(b) gradient of {n} ({objective}): relative error {e:.3e}, the xla step's "
+                 f"{e_xla:.3e}" for n, (e, e_xla) in errs.items()
+                 if e > SEQ_GRAD_SPREAD * e_xla + SEQ_GRAD_FLOOR]
+        lines.append(f"gradients of the {objective}: " + ", ".join(
+            f"{n} {e[0]:.3e} ({e[1]:.3e})" for n, e in sorted(errs.items())))
+    print(f"  (b) seq {SEQ_RANKS}: loss {loss:.6f} (rel. err {rel:.2e}, bound {SEQ_LOSS_RTOL}; "
+          f"the xla-attention step {rel_xla:.2e}), aux on every rank {sorted(auxes)}; "
+          f"seq-summed at {SEQ_GRAD_SAMPLES} sampled elements a leaf, relative error (the xla "
+          f"step's; bound {SEQ_GRAD_SPREAD} x xla + {SEQ_GRAD_FLOOR}): " + "; ".join(lines)
+          + f"; forward + backward {[round(p['ms'], 1) for p in parts]} ms, peak "
+          f"{[round(p['peak_gib'], 2) for p in parts]} GiB a rank ({MESH_NOTE}) [{card}]",
+          flush=True)
+    failed += over
+    if len(auxes) != 1:
+        failed.append(f"(b) the ranks' aux losses differ: {sorted(auxes)}")
+    if rel > SEQ_LOSS_RTOL:
+        failed.append(f"(b) loss {loss} vs unsharded {train_ref['loss']}")
+    for r, p in enumerate(parts):
+        ran = p["launches"]
+        missing = [k for k in SEQ_TRAIN_PATH if ran.get(k, 0) == 0]
+        if not ran.get("gmm", 0) + ran.get("gmm_small", 0):
+            missing.append("gmm or gmm_small")
+        if missing:
+            failed.append(f"(b) rank {r} never launched {missing}")
+    return [p["launches"] for p in parts]
+
+
+def seq_ring_report(card, rings, ring_ref_ms, failed):
+    """Phase 12(a)'s checks of the ranks' results ``rings`` (seq_ring_rank's,
+    in rank order): failures appended to ``failed``; returns the launch
+    counts of every rank and run."""
+    counts = []
+    for mesh in SEQ_RING_MESHES:
+        for length in SEQ_RING_LENGTHS:
+            runs = [ring[mesh][length] for ring in rings]
+            bad = [f"(a) {mesh} {length}: rank {r} {v}" for r, run in enumerate(runs)
+                   for v in run["errs"].values() if isinstance(v, str)]
+            failed += bad
+            errs = {k: max((r["errs"][k] for r in runs if not isinstance(r["errs"][k], str)),
+                           default=float("nan")) for k in runs[0]["errs"]}
+            print(f"  (a) ring seq {mesh[0]} x model {mesh[1]}, causal, length {length} of "
+                  f"{SEQ_S}: errors against the unsharded flash_mha (max abs; rel: by Frobenius norm) "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + (f" ({len(bad)} checks FAILED)" if bad else "")
+                  + f"; forward + backward {[round(r['ms'], 2) for r in runs]} ms a rank, "
+                  f"unsharded {ring_ref_ms[length]:.2f} ms ({MESH_NOTE}) [{card}]", flush=True)
+            for r, run in enumerate(runs):
+                missing = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                           if run["launches"].get(k, 0) == 0]
+                if missing:
+                    failed.append(f"(a) {mesh} {length}: rank {r} never launched {missing}")
+                counts.append(run["launches"])
+    return counts
+
+
+def seq_duplex_phase(card: str, device, ckpt_dir):
+    """Phase 12: the unsharded references here, then SEQ_RANKS ranks
+    spawned on cuda:0 over gloo (parallel.launch.run_ranks) run (a) the
+    ring under each SEQ_RING_MESHES mesh at SEQ_RING_LENGTHS, (b) the
+    seq-parallel forward + backward of the 2-layer training slice at
+    SEQ_S under seq 4, (c) the duplex replicas at --mesh 1 2 (DUPLEX_RUNS,
+    the full width read from phase 11's export in ``ckpt_dir``). Every
+    check runs, and the phase then fails on any that failed. Returns the
+    launch counts summed over the ranks."""
+    import torch
+
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.ops.flash_attention import flash_mha_with_lse
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    failed = []
+    # (a) the unsharded flash_mha at the ring's shapes, alone on the card
+    ring_ref_ms = {}
+    for length in SEQ_RING_LENGTHS:
+        q, k, v, do, lengths = _ring_inputs(length, device)
+
+        def unsharded():
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o, _ = flash_mha_with_lse(*leaves, kv_len=lengths, causal=True)
+            (o.float() * do.float()).sum().backward()
+
+        ring_ref_ms[length] = cuda_ms(unsharded, n=5, warmup=1)
+        del q, k, v, do
+    train_ref, picks = seq_train_reference(card, device)
+    # (c) the duplex references
+    plan = {"picks": picks, "ckpt_dir": ckpt_dir, "duplex": {}, "device": "cuda:0"}
+    refs = {}
+    for label, which, kw, tokens, _ in DUPLEX_RUNS:
+        if which == "narrow":
+            cfg = narrow_config()
+            params = _to(vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu"),
+                         device)
+        else:
+            cfg, params = load_vita_checkpoint(ckpt_dir, device)
+            cfg = _flash_llm(cfg)
+        refs[label] = _duplex_reference(card, label, cfg, params, kw, tokens, SEED + 25, device,
+                                        record=which == "full")
+        plan["duplex"][label] = {k: refs[label][k] for k in ("prompts", "noise")}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    print(f"  this process holds {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB of "
+          f"the card before the ranks start", flush=True)
+    t0 = time.time()
+    results = run_ranks(seq_duplex_rank, SEQ_RANKS, plan, backend="gloo", timeout=600,
+                        store_dir=os.path.join(ROOT, "build"))
+    print(f"  {SEQ_RANKS} ranks on cuda:0 over gloo returned in {time.time() - t0:.1f} s "
+          f"({MESH_NOTE})", flush=True)
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # (a)
+    for counts in seq_ring_report(card, [res["ring"] for res in results], ring_ref_ms, failed):
+        add(counts)
+    # (b)
+    add_all = seq_train_report(card, [res["train"] for res in results], train_ref, failed)
+    for counts in add_all:
+        add(counts)
+    # (c)
+    print(f"  (c) allocated a rank after (a) and (b): "
+          f"{[round(res['duplex']['allocated_gib'], 2) for res in results]} GiB", flush=True)
+    for label, which, _, tokens, path in DUPLEX_RUNS:
+        ref, first = refs[label], results[0]["duplex"][label]
+        try:
+            if first.get("errors"):
+                raise AssertionError(f"replica errors {first['errors']}")
+            _check_script(f"{label}, replicas", first, tokens)
+            splits = {}
+            for name in ("A", "N", "B"):
+                got, want = first[name], ref["streams"][name][:len(first[name])]
+                if which == "narrow":
+                    if got != want:
+                        raise AssertionError(f"{name}'s tokens {got} are not the unsharded "
+                                             f"{want}")
+                    continue
+                mesh_rid = first["ids"][name]
+                own = {(0,) + k[1:]: v for res in results
+                       for k, v in res["duplex"][label]["routes"].items() if k[0] == mesh_rid}
+                splits[name] = _mesh_split(0, got, want, ref["ids"][name], ref["top2"],
+                                           ref["routes"], own)
+        except (AssertionError, TimeoutError) as e:
+            failed.append(f"(c) {label}: {e}")
+            continue
+        for r, res in enumerate(results):
+            run = res["duplex"][label]
+            if run["error"] is not None:
+                failed.append(f"(c) {label}: rank {r} ended with {run['error']}")
+            missing = [k for k in path if run["launches"].get(k, 0) == 0]
+            if missing:
+                failed.append(f"(c) {label}: rank {r} (replica {run['replica']}) never "
+                              f"launched {missing}")
+            add(run["launches"])
+        p9 = PHASE9_READINGS
+        print(f"  (c) duplex replicas --mesh {DUPLEX_AXES[0]} {DUPLEX_AXES[1]}, {label}: A "
+              f"promoted on replica 1, the noise query rejected by '<2>' on replica 0, B "
+              f"interrupted A after {len(first['A'])} tokens (A cancelled on replica 1, the "
+              f"roles swapped back); token ids equal the unsharded streams"
+              + ("" if which == "narrow" else f" (splits at near ties: {splits})")
+              + f"; first text {first['first_text_ms']:.2f} ms, B submit -> swap "
+              f"{first['swap_ms']:.2f} ms, swap -> A cancelled {first['cancel_ms']:.2f} ms "
+              f"(unsharded {ref['script']['first_text_ms']:.2f} / {ref['script']['swap_ms']:.2f}"
+              f" / {ref['script']['cancel_ms']:.2f}; phase 9's duplex app: speech end -> first "
+              f"text {p9.get('first_text_ms')}, interrupt -> role swap {p9.get('swap_ms')}) "
+              f"[{card}]", flush=True)
+        (n_link, link_s), = [res["duplex"][label]["link"] for res in results
+                             if "link" in res["duplex"][label]]
+        print(f"    first text: A {first['first_text_ms']:.2f} ms on replica 1 (through the "
+              f"link), the noise query {first['noise_first_ms']:.2f} ms on replica 0 (no link; "
+              f"unsharded {ref['script']['first_text_ms']:.2f} / "
+              f"{ref['script']['noise_first_ms']:.2f}); replica 1's link to rank 0: "
+              f"{n_link} round trips, {link_s * 1e3 / max(n_link, 1):.3f} ms each, "
+              f"{link_s:.3f} s in all [{card}]", flush=True)
+        for r, res in enumerate(results):
+            print(f"    rank {r} (replica {res['duplex'][label]['replica']}) launches: "
+                  f"{ {k: n for k, n in res['duplex'][label]['launches'].items() if n} }",
+                  flush=True)
+    if failed:
+        raise AssertionError("phase 12 failed:\n  " + "\n  ".join(failed))
     return total
 
 
@@ -3060,11 +3824,21 @@ def main() -> int:
     parts.append(checkpoint_phase(card, dev))
     print(f"  phase 8 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
 
+    import shutil
+
     print("phase 11: the serving mesh on one card (expert 2 x model 2, 4 gloo ranks)",
           flush=True)
-    t0 = time.time()
-    parts.append(mesh_phase(card, dev))
-    print(f"  phase 11 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+    try:
+        t0 = time.time()
+        parts.append(mesh_phase(card, dev))
+        print(f"  phase 11 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        print("phase 12: sequence parallelism and the duplex replicas (4 gloo ranks on one "
+              "card)", flush=True)
+        t0 = time.time()
+        parts.append(seq_duplex_phase(card, dev, os.path.join(MESH_DIR, "ckpt")))
+        print(f"  phase 12 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {

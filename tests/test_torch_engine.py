@@ -186,15 +186,20 @@ class _AxisMesh:
         return None
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=_AxisMesh("pipe")), "A11c"),
-                                     (dict(mesh=_AxisMesh("seq")), "A11b"),
-                                     (dict(mesh=_AxisMesh("fsdp")), "A11d"),
-                                     (dict(mesh=_AxisMesh("data")), "A11d")])
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh=_AxisMesh("pipe")), (NotImplementedError, "A11c")),
+    (dict(mesh=_AxisMesh("seq")), (ValueError, "KV-cache decode/prefill needs seq axis 1")),
+    (dict(mesh=_AxisMesh("fsdp")), (NotImplementedError, "A11d")),
+    (dict(mesh=_AxisMesh("data")), (NotImplementedError, "A11d"))],
+    ids=["kw0-A11c", "kw1-A11b", "kw2-A11d", "kw3-A11d"])
 def test_unported_options_raise(models, kw, item):
     """A mesh with an axis the serving path does not shard over yet raises
-    NotImplementedError naming its ROADMAP item."""
+    NotImplementedError naming its ROADMAP item; a 'seq' axis (ported as
+    the cacheless ring, A11b) raises the JAX package's ValueError, for a
+    KV cache holds whole sequences."""
     _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError, match=item):
+    exc, match = item
+    with pytest.raises(exc, match=match):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
 
 

@@ -347,3 +347,245 @@ def collectives(mesh, dtype) -> Dict[str, Any]:
             "first": all_gather_cat(x, mesh, MODEL, dim=0).float(),
             "sum": all_reduce_sum(x, mesh, MODEL).float(), "dtype": str(
                 all_reduce_sum(x, mesh, MODEL).dtype)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_ring_attention.py
+# ---------------------------------------------------------------------------
+def _seq_heads(x, mesh):
+    """This rank's block of [B, S, H, d]: its seq block, its model heads."""
+    from vita_tpu_torch.parallel.mesh import local_shard
+    from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+    return local_shard(shard_seq(x, mesh), (None, None, "model", None), mesh).contiguous()
+
+
+def ring_case(mesh, q, k, v, g, lengths, causal) -> Dict[str, Any]:
+    """ring_flash_mha on this rank's block, and the gradients of
+    sum(o * g) (``g`` the whole cotangent, cut like o) for its blocks of
+    q, k and v; the merged lse too."""
+    from vita_tpu_torch.parallel.ring_attention import ring_flash_mha_with_lse
+
+    leaves = [_seq_heads(x, mesh).requires_grad_() for x in (q, k, v)]
+    o, lse = ring_flash_mha_with_lse(*leaves, lengths, causal=causal, mesh=mesh)
+    (o * _seq_heads(g, mesh)).sum().backward()
+    return {"coords": coords(mesh), "out": o.detach(), "lse": lse,
+            "dq": leaves[0].grad, "dk": leaves[1].grad, "dv": leaves[2].grad}
+
+
+def ring_bad_shapes(mesh, q, k, v) -> List[str]:
+    """The two ValueErrors: a sequence that does not divide over 'seq',
+    and q rows that are not the k rows."""
+    from vita_tpu_torch.parallel.ring_attention import ring_flash_mha, shard_seq
+
+    msgs = []
+    s = q.shape[1]
+    try:
+        shard_seq(q[:, : s - 2], mesh)
+    except ValueError as e:
+        msgs.append(str(e))
+    try:
+        ring_flash_mha(shard_seq(q[:, : s // 2], mesh), shard_seq(k, mesh), shard_seq(v, mesh),
+                       torch.tensor([s, s]), mesh=mesh)
+    except ValueError as e:
+        msgs.append(str(e))
+    return msgs
+
+
+def seq_mixtral_case(mesh, params, cfg, ids, valid, mode) -> Dict[str, Any]:
+    """mixtral.forward seq-parallel on this rank's block of ``ids``: the
+    block's share of mean((logits * valid)^2), the aux loss, and the
+    gradients of share + 0.02 aux (each rank adds aux whole)."""
+    import dataclasses
+
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+    cfg = dataclasses.replace(cfg, attn_backend="flash", moe_mode=mode)
+    params = _fresh(params)  # this case's own leaves and gradients
+    local = dict(_tree_leaves(params))
+    b, s = ids.shape
+    vb = shard_seq(valid, mesh)
+    logits, _, aux = mixtral.forward(params, cfg, input_ids=shard_seq(ids, mesh),
+                                     attn_valid=vb, mesh=mesh)
+    m = vb.float()[:, :, None]
+    share = ((logits.float() * m) ** 2).sum() / (b * s * logits.shape[-1])
+    (share + 0.02 * aux).backward()
+    return {"share": share.detach(), "aux": aux.detach(),
+            "grads": {k: leaf.grad for k, leaf in local.items()}}
+
+
+def seq_mixtral_refuses(mesh, params, cfg, ids, mode) -> str:
+    """The message a seq-parallel forward in ``mode`` raises with."""
+    import dataclasses
+
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+    cfg = dataclasses.replace(cfg, attn_backend="flash", moe_mode=mode)
+    try:
+        mixtral.forward(params, cfg, input_ids=shard_seq(ids, mesh), mesh=mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def _fresh(tree):
+    """A copy of a parameter tree whose leaves require gradients."""
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_()
+
+
+def _tree_leaves(tree):
+    """(name, leaf) of a nested dict, names joined with '/'."""
+    from vita_tpu_torch.train.step import tree_leaves
+
+    return (("/".join(path), leaf) for path, leaf in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_duplex_mesh.py
+# ---------------------------------------------------------------------------
+def _replica_engine(reps, engine_kw):
+    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.serve.http_server import load_model
+
+    cfg, params, *_ = load_model("tiny-random", torch.device("cpu"), eos=False, mesh=reps.mesh)
+    return Engine(params, cfg, seed=reps.index, mesh=reps.mesh, device="cpu", **engine_kw)
+
+
+def duplex_replicas_script(rank: int, world: int, axes, prompts, noise_tok, tokens,
+                           engine_kw) -> Dict[str, Any]:
+    """Two duplex replicas of ``axes`` (expert, model) over the 4 ranks;
+    rank 0 runs chip_smoke.duplex_script (the fixed script) through
+    RemoteReplica and replica 0's loop, then stops both replicas."""
+    from chip_smoke import duplex_script
+    from vita_tpu_torch.parallel.distributed import serving_replicas
+    from vita_tpu_torch.serve.replicas import replica_loop, start_replicas
+
+    reps = serving_replicas(axes, "gloo")
+    loop = replica_loop(reps, _replica_engine(reps, engine_kw))
+    if rank != 0:
+        loop.run()
+        return {"replica": reps.index, "error": repr(loop.error),
+                "completed": loop.engine.stats().get("completed", 0)}
+    engines = start_replicas(reps, loop)
+    try:
+        out = duplex_script(engines, prompts, tokens, noise_tok, timeout=120)
+    finally:
+        for e in engines:
+            e.stop()
+        for e in engines:
+            e.join(timeout=60)
+    out["errors"] = [repr(e.error) for e in engines]
+    out["stats"] = [e.stats() for e in engines]
+    return out
+
+
+def duplex_http_replicas(rank: int, world: int, axes, fail_rank=None) -> Dict[str, Any]:
+    """duplex_http's --mesh path (serve_replicas, DuplexWebApp, the
+    handler) on an ephemeral 127.0.0.1 port: rank 0 reads the page and
+    /stats, posts the synthetic session's PCM and collects the event
+    stream. With ``fail_rank``, that rank's Engine raises at its first step
+    with a request: every rank must end, and rank 0's server with them."""
+    import argparse
+    import json
+    import threading
+    import time
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from vita_tpu_torch.serve import duplex_http
+    from vita_tpu_torch.serve.duplex_demo import synth_session
+    from vita_tpu_torch.serve.vad import CHUNK_SAMPLES
+
+    args = argparse.Namespace(model="tiny-random", mesh=list(axes), dist_backend="gloo",
+                              max_len=1024)
+    if fail_rank is not None and rank == fail_rank:
+        from vita_tpu_torch.serve import engine as engine_mod
+
+        real_step = engine_mod.Engine.step
+
+        def step(self):
+            if not self.queue.empty():
+                raise RuntimeError(f"rank {rank} fails on purpose")
+            return real_step(self)
+
+        engine_mod.Engine.step = step
+    served = duplex_http.serve_replicas(args, torch.device("cpu"))
+    if isinstance(served, int):
+        return {"rc": served}
+    (cfg, params, encode, decode, bos_id, eos_id), engines = served
+    app = duplex_http.DuplexWebApp(params, cfg, encode, decode, bos_id, eos_id,
+                                   max_new_tokens=24, tts=fail_rank is None,
+                                   warm=fail_rank is None, engines=engines)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), duplex_http.make_handler(app))
+    for e in engines:
+        e.on_error = server.shutdown
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out: Dict[str, Any] = {"rc": 0}
+    try:
+        if fail_rank is not None:
+            req = app.ctl.new_request(np.arange(3, 20, dtype=np.int32), max_new_tokens=4,
+                                      eos_id=-1)
+            finished = []
+            req.on_finish = lambda toks, reason: finished.append(reason)
+            engines[1].submit(req)
+            serving.join(timeout=120)
+            out.update(server_ended=not serving.is_alive(), finished=finished,
+                       errors=[repr(e.error) for e in engines])
+            for e in engines:
+                e.join(timeout=60)
+            out["alive"] = [e.is_alive() for e in engines]
+            return out
+        events, stop = [], threading.Event()
+
+        def sse_reader():
+            resp = urllib.request.urlopen(base + "/events", timeout=60)
+            while not stop.is_set():
+                line = resp.readline()
+                if not line:
+                    break
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[6:]))
+
+        threading.Thread(target=sse_reader, daemon=True).start()
+        out["page"] = "EventSource" in urllib.request.urlopen(base + "/", timeout=10).read().decode()
+        pcm = (np.clip(np.concatenate(synth_session()), -1, 1) * 32767).astype("<i2")
+        for i in range(0, len(pcm), CHUNK_SAMPLES):
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/audio", data=pcm[i:i + CHUNK_SAMPLES].tobytes(), method="POST"),
+                timeout=30)
+            if app.n_utterances == 1:
+                time.sleep(0.02)  # let the first answer stream before the second query
+        assert app.drain_audio(timeout=120)
+        t0 = time.time()
+        while time.time() - t0 < 120:
+            if app.n_utterances >= 2 and {"interrupt", "tts"} <= {e["type"] for e in events}:
+                break
+            time.sleep(0.1)
+        out["stats"] = json.loads(urllib.request.urlopen(base + "/stats", timeout=30).read())
+        stop.set()
+        out["kinds"] = sorted({e["type"] for e in events})
+    finally:
+        server.shutdown()
+        app.close()
+    out["errors"] = [repr(e.error) for e in engines]
+    return out
+
+
+def duplex_demo_run(rank: int, world: int, argv: List[str]) -> Dict[str, Any]:
+    """vita_tpu_torch.serve.duplex_demo.main(argv) on this rank (the process
+    group is up, so ``--mesh`` builds its replicas over it): exit code and
+    stdout."""
+    from vita_tpu_torch.serve import duplex_demo
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = duplex_demo.main(argv)
+    return {"rc": rc, "stdout": buf.getvalue()}

@@ -58,13 +58,18 @@ from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.ops.norms import rms_norm
 from vita_tpu_torch.ops.rope import apply_rope
 from vita_tpu_torch.parallel.mesh import (
+    DATA,
     EXPERT,
+    FSDP,
     MODEL,
+    PIPE,
+    SEQ,
     all_gather_cat,
     all_reduce_sum,
     axis,
     local_shard,
     serving_axes,
+    sum_stat,
 )
 from vita_tpu_torch.parallel.sharded_ops import (
     sharded_flash_mha,
@@ -305,6 +310,7 @@ def _attention_block(
     layer_v: Optional[torch.Tensor],
     cache_pos: Optional[torch.Tensor],  # [B]
     mesh=None,
+    kv_len: Optional[torch.Tensor] = None,  # [B] int32 valid keys, else kv_valid's count
 ) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = _qkv(lp, cfg, x, positions)
@@ -327,7 +333,7 @@ def _attention_block(
         # so causal + kv_len masking inside the kernel is exact
         out = sharded_flash_mha(
             q, k_all.to(q.dtype), v_all.to(q.dtype),
-            kv_len=kv_valid.sum(1).to(torch.int32),
+            kv_len=kv_valid.sum(1).to(torch.int32) if kv_len is None else kv_len,
             q_offset=positions[:, 0].to(torch.int32), causal=True, mesh=mesh,
         )
     elif cfg.attn_backend == "xla":
@@ -372,13 +378,14 @@ def _attention_block_paged(
     return _out_proj(out.reshape(b, s, -1), lp["wo"], mesh)
 
 
-def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_flat, mesh):
+def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_flat, mesh,
+                      reduce_stats=None):
     """A gather mode (every mesh), or gmm under a mesh: the router, then
     the selected experts through parallel.sharded_ops over the stacked
     (local) expert weights."""
     router_logits = h2d.float() @ moe["router"][layer_idx].float()
     topk_w, topk_i, probs = route_topk(router_logits, cfg.top_k)
-    aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat)
+    aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat, reduce_stats)
     experts = {k: v for k, v in moe.items() if k != "router"}
     if cfg.moe_mode == "gmm":
         out = sharded_gmm_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
@@ -387,6 +394,29 @@ def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_f
         out = sharded_gather_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
                                  cfg.moe_mode, mesh=mesh)
     return out.to(h2d.dtype), aux
+
+
+def _check_seq_forward(cfg: MixtralConfig, mesh, cache) -> None:
+    """The seq-parallel forward is the cacheless one, over a mesh of the
+    'seq' axis alone, with the ring as its attention and token-local MoE
+    statistics; the rest raises (a missing port names its ROADMAP item)."""
+    if cache is not None:
+        raise ValueError("seq-parallel attention supports the cacheless path only (Sq == Skv); "
+                         "KV-cache decode/prefill needs seq axis 1")
+    if axis(mesh, PIPE).size > 1:
+        raise NotImplementedError("a 'pipe' axis beside 'seq' is not ported yet (ROADMAP A11c)")
+    if any(axis(mesh, a).size > 1 for a in (DATA, FSDP, EXPERT, MODEL)):
+        raise NotImplementedError(
+            "a 'seq' axis with data/fsdp/expert/model axes > 1 needs differentiable "
+            "collectives over those axes, not ported yet (ROADMAP A11d)")
+    if cfg.attn_backend != "flash":
+        raise ValueError("a 'seq' axis > 1 runs attention as the ring: attn_backend must be "
+                         f"'flash', got {cfg.attn_backend!r}")
+    if cfg.moe_mode in ("sort", "capacity") or cfg.moe_chunk:
+        raise NotImplementedError(
+            f"moe_mode {cfg.moe_mode!r} with moe_chunk {cfg.moe_chunk} under a 'seq' axis: "
+            "capacity drops and chunk-local aux are decided over the whole sequence's tokens "
+            "in their global order, which no rank holds (ROADMAP A11b (capacity under seq))")
 
 
 def forward(
@@ -404,11 +434,28 @@ def forward(
     """Returns (logits [B, S, V] or final-norm hidden [B, S, D],
     cache with the advanced ``pos`` or None, moe_aux_loss scalar).
 
-    Cache tensors are updated in place and returned in the new cache."""
+    Cache tensors are updated in place and returned in the new cache.
+
+    Under a mesh of a 'seq' axis of n > 1 (and no other axis > 1) this is
+    the seq-parallel cacheless forward: ``params`` are whole on every
+    rank, and ``input_ids``/``inputs_embeds``, ``attn_valid``,
+    ``token_mask`` and ``positions`` are this rank's block of S/n
+    positions of the whole sequence (``parallel.ring_attention.shard_seq``);
+    positions default to the global ones, the ring's kv_len counts the
+    valid keys of the whole sequence (summed over 'seq'), attention runs
+    the ring (attn_backend 'flash'), and the logits are the block's. The
+    MoE must be token-local (dense, gmm or a gather mode). The aux loss is
+    the whole sequence's, on every rank; its sums go over 'seq' through
+    ``parallel.mesh.sum_stat``, whose backward keeps each rank's gradient
+    its own. The contract: when each rank's objective is its block's
+    share of the loss plus the aux term in full, the gradients of the
+    parameters summed over the 'seq' ranks equal the unsharded ones."""
     if cfg.moe_mode not in MODES:
         raise ValueError(f"unknown moe_mode {cfg.moe_mode!r}; modes: {MODES}")
-    ep = axis(mesh, EXPERT)
-    if mesh is not None:
+    ep, sp = axis(mesh, EXPERT), axis(mesh, SEQ)
+    if sp.size > 1:
+        _check_seq_forward(cfg, mesh, cache)
+    elif mesh is not None:
         serving_axes(mesh)
     paged = cache is not None and "k_pages" in cache
     if inputs_embeds is None:
@@ -416,12 +463,17 @@ def forward(
     b, s, d = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
-        base = cache["pos"][:, None] if cache is not None else 0
+        base = cache["pos"][:, None] if cache is not None else sp.rank * s
         positions = torch.arange(s, device=dev)[None, :].expand(b, s) + base
     if attn_valid is None and not paged:
         kv_len = cache["k"].shape[2] if cache is not None else s
         attn_valid = torch.ones(b, kv_len, dtype=torch.bool, device=dev)
+    seq_kv_len = None
+    if sp.size > 1:  # the ring masks keys by the whole sequence's valid count
+        seq_kv_len = all_reduce_sum(attn_valid.sum(1).to(torch.int32), mesh, SEQ)
     tm_flat = None if token_mask is None else token_mask.reshape(-1)
+    # aux's sums over the whole sequence
+    reduce_stats = (lambda sums: sum_stat(sums, mesh, SEQ)) if sp.size > 1 else None
 
     layers = params["layers"]
     routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
@@ -437,18 +489,20 @@ def forward(
                 lp, cfg, h, positions, attn_valid,
                 cache["k"][i] if cache is not None else None,
                 cache["v"][i] if cache is not None else None,
-                cache["pos"] if cache is not None else None, mesh,
+                cache["pos"] if cache is not None else None, mesh, seq_kv_len,
             )
         x = x + attn_out
         h = rms_norm(x, layers["ln_moe"][i], cfg.rms_eps).reshape(b * s, d)
         if routed:
-            moe_out, aux = _moe_routed_layer(h, layers["moe"], i, cfg, tm_flat, mesh)
+            moe_out, aux = _moe_routed_layer(h, layers["moe"], i, cfg, tm_flat, mesh,
+                                             reduce_stats)
         else:
             moe_out, aux = moe_ffn({k: v[i] for k, v in layers["moe"].items()}, h,
                                    cfg.top_k, mode=cfg.moe_mode,
                                    capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
                                    chunk=cfg.moe_chunk, expert_offset=ep.rank * e_local,
-                                   out_dtype=torch.float32 if ep.size > 1 else None)
+                                   out_dtype=torch.float32 if ep.size > 1 else None,
+                                   reduce_stats=reduce_stats)
             moe_out = all_reduce_sum(moe_out, mesh, EXPERT).to(h.dtype)
         return x + moe_out.reshape(b, s, d), aux
 

@@ -9,7 +9,8 @@ It is a ``torch.autograd.Function``. The forward saves q, k, v, o and the
 per-row log-sum-exp lse [B, Hq, Sq] (float32, -inf for a row that sees no
 key); the backward computes delta = rowsum(dO o) in PyTorch, as the JAX
 package computes it outside Pallas, then dq and dk/dv by the flash-2
-recurrence from lse. On CUDA tensors the three steps launch the
+recurrence from lse. ``flash_mha_with_lse`` returns lse too, and its
+cotangent folds into delta. On CUDA tensors the three steps launch the
 hand-written kernels (csrc/flash_fwd.cu, B1; csrc/flash_bwd.cu, B10 and
 B11; float32 or bfloat16: each runs tensor-core kernels in bfloat16, B1
 on wgmma + TMA and the backward on mma.sync, and FMA kernels in float32);
@@ -241,8 +242,10 @@ def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 class _Flash(torch.autograd.Function):
-    """flash_mha with the flash-2 backward: kernels on CUDA tensors, their
-    plain versions on CPU tensors."""
+    """(o, lse) with the flash-2 backward: kernels on CUDA tensors, their
+    plain versions on CPU tensors. The lse cotangent folds into delta
+    (delta - dlse): ds = p (dp - delta) then carries the p dlse term of
+    d lse / d s = p, as the JAX package's ``_flash_bwd`` folds it."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, q_offset, causal, scale):
@@ -250,18 +253,32 @@ class _Flash(torch.autograd.Function):
         o, lse = fwd(q, k, v, kv_len, q_offset, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse, kv_len, q_offset)
         ctx.causal, ctx.scale = causal, scale
-        return o
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse, kv_len, q_offset = ctx.saved_tensors
-        do = do.contiguous()
-        args = (q, k, v, do, lse, flash_delta(do, o), kv_len, q_offset, ctx.causal, ctx.scale)
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        delta = flash_delta(do, o)
+        if dlse is not None:  # rows with lse -inf have p = 0: their dlse adds nothing
+            delta = delta - torch.where(torch.isfinite(lse), dlse.float(), 0.0)
+        args = (q, k, v, do, lse, delta, kv_len, q_offset, ctx.causal, ctx.scale)
         if kernels.on_cuda(q):
             dq, (dk, dv) = flash_bwd_dq_cuda(*args), flash_bwd_dkv_cuda(*args)
         else:
             dq, (dk, dv) = flash_bwd_dq_plain(*args), flash_bwd_dkv_plain(*args)
         return dq, dk, dv, None, None, None, None
+
+
+def _flash_call(q, k, v, kv_len, q_offset, causal, scale):
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hkv})")
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    kv_len, q_offset = _normalize(q, k, kv_len, q_offset)
+    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, q_offset,
+                        causal, scale)
 
 
 def flash_mha(
@@ -275,10 +292,20 @@ def flash_mha(
 ) -> torch.Tensor:
     """Flash attention with native GQA, differentiable in q, k and v.
     Returns [B, Sq, Hq, D]."""
-    hq, hkv = q.shape[2], k.shape[2]
-    if hq % hkv:
-        raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    kv_len, q_offset = _normalize(q, k, kv_len, q_offset)
-    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, q_offset,
-                        causal, scale)
+    return _flash_call(q, k, v, kv_len, q_offset, causal, scale)[0]
+
+
+def flash_mha_with_lse(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,
+    kv_len: Optional[torch.Tensor] = None,
+    q_offset=0,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flash_mha that also returns the log-sum-exp of the scaled, masked
+    logits per q row: (out [B, Sq, Hq, D], lse [B, Hq, Sq] float32, -inf
+    for a row that sees no key), differentiable in q, k and v through
+    both outputs. The same kernels (B1; B10 and B11 in the backward)."""
+    return _flash_call(q, k, v, kv_len, q_offset, causal, scale)

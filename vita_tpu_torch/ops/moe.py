@@ -24,7 +24,7 @@ capacity of sort/capacity modes is per chunk.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,18 +53,23 @@ def load_balancing_loss(
     topk_idx: torch.Tensor,  # [T, k]
     n_experts: int,
     token_mask: Optional[torch.Tensor] = None,  # [T] 1 for real tokens
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Switch-Transformer aux loss: E * sum_e f_e * P_e, padding excluded
-    through ``token_mask``."""
+    through ``token_mask``. ``reduce`` maps the sums [2E + 1] (tokens
+    sent to each expert, router probabilities per expert, real tokens)
+    before they are divided: the seq-parallel forward sums them over
+    'seq' (models.mixtral.forward), so the loss is the whole sequence's."""
     sel = F.one_hot(topk_idx.long(), n_experts).float()  # [T, k, E]
-    if token_mask is not None:
-        m = token_mask.float()
-        denom = m.sum().clamp_min(1.0)
-        f = (sel * m[:, None, None]).sum((0, 1)) / (denom * sel.shape[1])
-        p = (probs * m[:, None]).sum(0) / denom
-    else:
-        f = sel.sum(1).mean(0) / sel.shape[1]
-        p = probs.mean(0)
+    m = (torch.ones(probs.shape[0], device=probs.device) if token_mask is None
+         else token_mask.float())
+    sums = torch.cat([(sel * m[:, None, None]).sum((0, 1)), (probs * m[:, None]).sum(0),
+                      m.sum()[None]])
+    if reduce is not None:
+        sums = reduce(sums)
+    denom = sums[-1].clamp_min(1.0)
+    f = sums[:n_experts] / (denom * sel.shape[1])
+    p = sums[n_experts:2 * n_experts] / denom
     return n_experts * (f * p).sum()
 
 
@@ -138,6 +143,7 @@ def moe_ffn(
     chunk: int = 0,
     expert_offset: int = 0,
     out_dtype=None,
+    reduce_stats: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, D], aux_loss scalar). ``chunk`` is ignored when
     T <= chunk, when chunk does not divide T, or in a gather mode.
@@ -147,7 +153,8 @@ def moe_ffn(
     and capacity modes): routing, capacity and aux stay global, and the
     output is those experts' weighted partial sum. ``out_dtype`` float32
     leaves the output unrounded (dense and capacity combine in float32),
-    for ranks that add their partial sums before rounding."""
+    for ranks that add their partial sums before rounding.
+    ``reduce_stats`` is aux's ``reduce`` (``load_balancing_loss``)."""
     if mode not in MODES:
         raise ValueError(f"unknown moe mode {mode!r}")
     t, d = x.shape
@@ -169,7 +176,7 @@ def moe_ffn(
                          "parallel.sharded_ops")
     router_logits = x.float() @ params["router"].float()
     topk_w, topk_i, probs = route_topk(router_logits, top_k)
-    aux = load_balancing_loss(probs, topk_i, e, token_mask)
+    aux = load_balancing_loss(probs, topk_i, e, token_mask, reduce_stats)
     if mode in GATHER_MODES:
         from vita_tpu_torch.ops import moe_decode as md
 

@@ -3,7 +3,9 @@
 Under torchrun each process calls ``initialize(backend)`` once: the rank,
 world size and rendezvous address come from ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``, then
-``global_mesh(shape)`` builds the 6-axis mesh over every rank.
+``global_mesh(shape)`` builds the 6-axis mesh over every rank, or
+``serving_replicas`` splits the ranks into two replicas of one serving
+mesh each (the duplex surfaces' two Engines).
 
 The backend is always the caller's choice, never found by trying one:
 ``nccl`` when each rank has a card of its own, ``gloo`` on the CPU or when
@@ -12,8 +14,9 @@ several ranks share one card (nccl refuses two ranks on one device).
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -50,9 +53,7 @@ def global_mesh(shape: Optional[Sequence[int]] = None):
     return make_mesh(shape=shape)
 
 
-def serving_mesh(axes: Sequence[int], backend: str):
-    """The mesh of ``--mesh EXPERT MODEL`` over the ranks of a torchrun
-    launch (or one process), the process group started with ``backend``."""
+def _serving_axes(axes: Sequence[int]) -> List[int]:
     axes = [int(a) for a in axes]
     if len(axes) == 3:
         raise NotImplementedError(
@@ -60,8 +61,54 @@ def serving_mesh(axes: Sequence[int], backend: str):
             "(ROADMAP A11c); pass EXPERT MODEL")
     if len(axes) != 2:
         raise ValueError(f"--mesh takes EXPERT MODEL, got {axes}")
+    return axes
+
+
+def serving_mesh(axes: Sequence[int], backend: str):
+    """The mesh of ``--mesh EXPERT MODEL`` over the ranks of a torchrun
+    launch (or one process), the process group started with ``backend``."""
+    axes = _serving_axes(axes)
     initialize(backend)
     return global_mesh((1, 1, axes[0], axes[1]))
+
+
+@dataclasses.dataclass
+class Replicas:
+    """This rank's place among the two duplex replicas of one serving mesh
+    each: replica i holds ranks [i*per, (i+1)*per) and its leader is rank
+    i*per."""
+    index: int  # this rank's replica, 0 or 1
+    per: int  # ranks a replica
+    mesh: Any  # this rank's replica's mesh (expert x model over its ranks)
+    control: Any  # gloo group of this replica's ranks: its step loop's broadcasts
+    link: Any  # gloo group {0, per}: rank 0 and replica 1's leader (None elsewhere)
+
+    @property
+    def leader(self) -> int:
+        return self.index * self.per
+
+
+def serving_replicas(axes: Sequence[int], backend: str) -> Replicas:
+    """The two duplex replicas of the ``--mesh EXPERT MODEL`` serving mesh
+    over the ranks of a torchrun launch of 2*EXPERT*MODEL ranks, the
+    process group started with ``backend``. Every rank builds both
+    replicas' meshes and groups in the same order (creating a group is
+    collective over the whole process group) and keeps its own."""
+    expert, model = _serving_axes(axes)
+    per = expert * model
+    initialize(backend)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != 2 * per:
+        raise ValueError(f"--mesh {expert} {model} serves 2 replicas of {per} rank(s): "
+                         f"launch {2 * per} ranks, not {world}")
+    spans = [list(range(0, per)), list(range(per, 2 * per))]
+    meshes = [make_mesh((1, 1, expert, model), ranks=r) for r in spans]
+    controls = [dist.new_group(r, backend="gloo") for r in spans]
+    link = dist.new_group([0, per], backend="gloo")
+    rank = dist.get_rank()
+    index = rank // per
+    return Replicas(index, per, meshes[index], controls[index],
+                    link if rank in (0, per) else None)
 
 
 def rank_device(device: torch.device) -> torch.device:

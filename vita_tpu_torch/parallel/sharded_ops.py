@@ -8,7 +8,8 @@ that call and nothing else, so single-device output is bit-identical.
   in contiguous blocks, so a rank holds q heads [r*Hq/tp, (r+1)*Hq/tp)
   and the kv heads they read, and the kernel's GQA mapping holds locally.
   No collective: the output projection's row block and the all_reduce
-  after it are the model's (models/mixtral.py).
+  after it are the model's (models/mixtral.py). Under a 'seq' axis the
+  cacheless flash path runs the ring (parallel.ring_attention).
 - MoE (B3/B4, B6/B7, B8a/B8b through moe_decode; B5a/B5b through
   moe_gmm): experts shard over 'expert'. Routing is global, so every rank
   sees every (token, k) pair; it clamps the ids of pairs routed to other
@@ -78,22 +79,32 @@ def sharded_write_kv_rows(
 
 
 def sharded_flash_mha(
-    q: torch.Tensor,  # [B, S, Hq/tp, d]
+    q: torch.Tensor,  # [B, S, Hq/tp, d] (S/n rows under a 'seq' axis of n)
     k: torch.Tensor,  # [B, Skv, Hkv/tp, d]
     v: torch.Tensor,
-    kv_len: torch.Tensor,  # [B]
+    kv_len: torch.Tensor,  # [B] (of the whole sequence under a 'seq' axis)
     q_offset: torch.Tensor,  # [B]
     causal: bool,
     mesh=None,
 ) -> torch.Tensor:
-    """Flash attention (B1) over the local heads: [B, S, Hq/tp, d]."""
+    """Flash attention (B1) over the local heads: [B, S, Hq/tp, d]. Under
+    a 'seq' axis > 1 the cacheless path (Sq == Skv, this rank's block of
+    the sequence) runs the ring schedule (parallel.ring_attention), B1 in
+    the forward and B10/B11 in the backward at every step. ``q_offset`` is
+    dropped there: with Sq == Skv a common position base shifts query and
+    key positions alike, so the causal triangle does not move, and the
+    ring's block offsets carry the relative positions."""
     from vita_tpu_torch.ops.flash_attention import flash_mha
 
-    if axis(mesh, SEQ).size > 1:
-        raise NotImplementedError(
-            "sequence-parallel attention (a 'seq' axis > 1, the ring schedule) is not "
-            "ported yet (ROADMAP A11b)")
     _local_heads(q.shape[2], k.shape[2], mesh)
+    if axis(mesh, SEQ).size > 1:
+        from vita_tpu_torch.parallel.ring_attention import ring_flash_mha
+
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(
+                "seq-parallel attention supports the cacheless path only (Sq == Skv); "
+                "KV-cache decode/prefill needs seq axis 1")
+        return ring_flash_mha(q, k, v, kv_len, causal=causal, mesh=mesh)
     return flash_mha(q, k, v, kv_len=kv_len, q_offset=q_offset, causal=causal)
 
 

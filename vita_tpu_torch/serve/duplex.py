@@ -12,8 +12,10 @@ audio was background noise: the response is aborted and roles keep
 (:368-370 judge_negative). Completed sentences flush to a pluggable TTS
 callback at punctuation boundaries with a minimum length (:572-574).
 
-The controller only needs two Engine objects (vita_tpu.serve.duplex over
-the port's Engine). On one card the two replicas share one weights dict,
+The controller only needs two engine-like objects with ``submit`` and
+``cancel_all`` (vita_tpu.serve.duplex over the port's Engine; under
+``--mesh`` rank 0's replica loop and its serve.replicas.RemoteReplica).
+On one card the two replicas share one weights dict,
 each with its own page pool and EngineThread, so two host threads launch
 kernels on the card: they enqueue on the device's default stream, whose
 order keeps them apart, every buffer they write is their own engine's,

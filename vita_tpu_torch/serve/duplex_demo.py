@@ -4,8 +4,9 @@
 Two engine replicas under the generate/monitor role-swap controller, fed
 by the streaming VAD. It runs on the card unless ``--device cpu`` is given
 (without a card it stops); the two Engines share one weights dict there.
-``--mesh`` (a slice of ranks per replica) is not ported (ROADMAP A11a
-(duplex replicas)).
+``--mesh EXPERT MODEL`` deploys them as two replicas over disjoint ranks of
+a torchrun launch of 2*EXPERT*MODEL ranks (duplex_http.serve_replicas):
+rank 0 runs the demo and drives both replicas through the controller.
 
 Modes:
   --simulate      synthetic mic session (tones + silence + an interrupt):
@@ -96,7 +97,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--no-tts", action="store_true",
                    help="print sentence flushes only; skip synthesis/pacing")
     p.add_argument("--mesh", type=int, nargs=2, metavar=("EXPERT", "MODEL"),
-                   default=None, help="per-replica mesh (not ported)")
+                   default=None,
+                   help="per-replica expert x model mesh: a torchrun launch of "
+                        "2*EXPERT*MODEL ranks serves the two engines as two replicas "
+                        "over disjoint ranks (the reference's 2x TP=2 deployment)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under --mesh (default nccl on cards, "
+                        "gloo on the CPU; ranks sharing one card need gloo)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--tts-pace", type=float, default=1.5,
                    help="sleep factor x clip duration per played chunk "
@@ -106,21 +113,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from vita_tpu_torch.data.audio import fbank
-    from vita_tpu_torch.serve.http_server import load_model
+    from vita_tpu_torch.serve.duplex_http import serve_replicas
+    from vita_tpu_torch.serve.replicas import serve_one
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh (a slice of ranks per replica) is not ported yet "
-                                  "(ROADMAP A11a (duplex replicas))")
     # random weights run to max tokens (eos -1)
-    cfg, params, encode, decode, bos_id, eos_id = load_model(
-        args.model, device, eos=args.model != "tiny-random")
-    # two replicas over one weights dict; decode_ticks=1 keeps token
-    # delivery smooth for TTS pacing and barge-in
-    engines = [Engine(params, cfg, n_slots=2, max_len=args.max_len, seed=i, decode_ticks=1)
-               for i in range(2)]
+    served = serve_replicas(args, device, eos=args.model != "tiny-random")
+    if isinstance(served, int):  # a rank other than 0: its replica's loop has ended
+        return served
+    (cfg, params, encode, decode, bos_id, eos_id), engines = served
+    threads = engines  # the replicas' loops run already
+    if engines is None:
+        # two replicas over one weights dict; decode_ticks=1 keeps token
+        # delivery smooth for TTS pacing and barge-in
+        engines = [Engine(params, cfg, n_slots=2, max_len=args.max_len, seed=i,
+                          decode_ticks=1) for i in range(2)]
 
     # multi-turn context: each utterance carries the session's past audio
     # turns, merged under the interactive demo's rules
@@ -241,14 +250,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             warm = make_query(np.zeros(int(3.0 * SAMPLE_RATE), np.float32),
                               frames=warm_frames)
         warm.max_new_tokens = 9
-        e.submit(warm)
-        e.run_until_idle()
+        serve_one(e, warm)
     session.turns.clear()  # warm turns are not conversation history
     print(f"[demo] engines warm in {time.time()-t0:.1f}s")
 
-    threads = [EngineThread(e) for e in engines]
-    for t in threads:
-        t.start()
+    if threads is None:
+        threads = [EngineThread(e) for e in engines]
+        for t in threads:
+            t.start()
 
     def on_text(chunk: str) -> None:
         sys.stdout.write(chunk)
@@ -385,6 +394,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if st.get("completed"):
             print(f"[engine {i}] completed={st['completed']:.0f} "
                   f"ttft_p50={st.get('ttft_p50_s', 0):.2f}s")
+    failed = [t.error for t in threads if getattr(t, "error", None) is not None]
+    if failed:
+        print(f"[demo] a serving replica failed: {failed[0]!r}", file=sys.stderr)
+        return 1
     return 0
 
 

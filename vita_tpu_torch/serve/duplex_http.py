@@ -18,9 +18,13 @@ loop of the reference's interactive web demo over the stdlib HTTP server:
 Run: ``python -m vita_tpu_torch.serve.duplex_http --model tiny-random``
 (on the card; ``--device cpu`` runs on the CPU) then open
 http://127.0.0.1:8820/ and talk. The two Engines share one weights dict
-on one device; ``--mesh`` (a slice of ranks per replica) is not ported
-yet (ROADMAP A11a, duplex replicas): the controller drives both Engines
-from one process, which SPMD ranks do not have.
+on one device. ``--mesh EXPERT MODEL`` deploys them as two replicas over
+disjoint ranks of a torchrun launch of 2*EXPERT*MODEL ranks
+(``torchrun --nproc-per-node N -m vita_tpu_torch.serve.duplex_http
+--model M --mesh E M2``; ``--dist-backend gloo`` when the ranks share one
+card): each replica an expert x model mesh stepping on its own, rank 0
+serving the page and driving both through the controller (replica 1
+through serve.replicas.RemoteReplica).
 
 The whole backend (VAD hysteresis, streaming Whale encode during speech,
 '<2>' noise gating, generator/monitor role swap, sentence-chunked formant
@@ -35,6 +39,7 @@ import base64
 import io
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -88,7 +93,11 @@ class DuplexWebApp:
         streaming_encode: bool = True,
         tts: bool = True,
         warm: bool = True,
+        engines: Optional[list] = None,
     ):
+        """``engines``: two started engine loops to drive instead of two
+        Engines built here (the replicas of ``--mesh``: rank 0's
+        MeshEngineThread and RemoteReplica)."""
         self.cfg = cfg
         self.encode = encode
         self.decode = decode
@@ -97,10 +106,14 @@ class DuplexWebApp:
         # TTS pacing and barge-in (cancel_all) latency degrade when tokens
         # arrive in bursts of decode_ticks*chunk_len (see engine.py multi-tick
         # dispatch note).
-        self.engines = [
-            Engine(params, cfg, n_slots=2, max_len=max_len, seed=i, decode_ticks=1)
-            for i in range(2)
-        ]
+        if engines is None:
+            self.engines = [
+                Engine(params, cfg, n_slots=2, max_len=max_len, seed=i, decode_ticks=1)
+                for i in range(2)
+            ]
+            self._threads = [EngineThread(e) for e in self.engines]
+        else:
+            self.engines = self._threads = list(engines)
         self.session = ChatSession(limit=history_limit)
         self._turn_meta = {}
         self.camera = CameraBuffer(max_frames=8)
@@ -140,9 +153,9 @@ class DuplexWebApp:
 
         if warm:
             self._warmup()
-        self._threads = [EngineThread(e) for e in self.engines]
-        for t in self._threads:
-            t.start()
+        if engines is None:
+            for t in self._threads:
+                t.start()
         # audio runs on its own worker: the mic POST must return
         # immediately even while an utterance flush compiles/encodes (the
         # browser's fetch would otherwise back up and drop audio)
@@ -348,8 +361,12 @@ class DuplexWebApp:
         return req
 
     def _warmup(self) -> None:
-        """Compile the audio(+camera) prefill + decode programs before the
-        live session (remote compiles must not eat the interaction)."""
+        """Run the audio(+camera) prefill and decode once on each engine
+        before the live session (first-use costs must not eat the
+        interaction): Engines stepped here before their threads start, or
+        running replica loops waited on."""
+        from vita_tpu_torch.serve.replicas import serve_one
+
         t0 = time.time()
         if self._frontend is not None:
             enc = self._frontend.encoder
@@ -363,8 +380,7 @@ class DuplexWebApp:
         for e in self.engines:
             w = mk()
             w.max_new_tokens = 9
-            e.submit(w)
-            e.run_until_idle()
+            serve_one(e, w)
         self.session.turns.clear()
         self._turn_meta.clear()
         self._emit("ready", warm_s=round(time.time() - t0, 1))
@@ -539,34 +555,86 @@ def main(argv=None) -> int:
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--no-streaming-encode", action="store_true")
     p.add_argument("--mesh", type=int, nargs=2, metavar=("EXPERT", "MODEL"),
-                   default=None, help="per-replica mesh (not ported)")
+                   default=None,
+                   help="per-replica expert x model mesh: a torchrun launch of "
+                        "2*EXPERT*MODEL ranks serves the two engines as two replicas "
+                        "over disjoint ranks (the reference's 2x TP=2 deployment)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under --mesh (default nccl on cards, "
+                        "gloo on the CPU; ranks sharing one card need gloo)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
-
-    from vita_tpu_torch.serve.http_server import load_model
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh (a slice of ranks per replica) is not ported yet "
-                                  "(ROADMAP A11a (duplex replicas))")
-    cfg, params, encode, decode, bos_id, eos_id = load_model(args.model, device, eos=False)
+    served = serve_replicas(args, device)
+    if isinstance(served, int):  # a rank other than 0: its replica's loop has ended
+        return served
+    (cfg, params, encode, decode, bos_id, eos_id), engines = served
     app = DuplexWebApp(
         params, cfg, encode, decode, bos_id, eos_id,
         max_new_tokens=args.max_new_tokens, max_len=args.max_len,
         streaming_encode=not args.no_streaming_encode,
-        warm=not args.no_warmup,
+        warm=not args.no_warmup, engines=engines,
     )
     server = ThreadingHTTPServer((args.host, args.port), make_handler(app))
+    for e in engines or ():  # a failed replica stops the server
+        e.on_error = server.shutdown
+    failed = [e for e in engines or () if e.error is not None]
     print(f"[duplex] open http://{args.host}:{args.port}/ and talk")
     try:
-        server.serve_forever()
+        if not failed:
+            server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         app.close()
+    failed = [e.error for e in engines or () if e.error is not None]
+    if failed:
+        print(f"[duplex] a serving replica failed: {failed[0]!r}", file=sys.stderr)
+        return 1
     return 0
+
+
+def serve_replicas(args, device: torch.device, eos: bool = False):
+    """The model and the two engines of the duplex surfaces. Without
+    ``args.mesh``: (load_model's tuple, None), the caller builds two
+    Engines. Under ``--mesh E M``: this rank's shards and Engine of its
+    replica (parallel.distributed.serving_replicas); rank 0 gets
+    (load_model's tuple, [replica 0's loop, replica 1's RemoteReplica],
+    both started); any other rank runs its replica's loop here and gets
+    its exit code: 0 when rank 0 stopped the replicas, 1 when they failed."""
+    from vita_tpu_torch.serve.http_server import load_model
+
+    if args.mesh is None:
+        return load_model(args.model, device, eos=eos), None
+    import torch.distributed as dist
+
+    from vita_tpu_torch.parallel import distributed
+    from vita_tpu_torch.serve.replicas import replica_loop, start_replicas
+
+    reps = distributed.serving_replicas(
+        args.mesh, args.dist_backend or distributed.default_backend(device))
+    device = distributed.rank_device(device)
+    loaded = load_model(args.model, device, eos=eos, mesh=reps.mesh)
+    cfg, params = loaded[0], loaded[1]
+    engine = Engine(params, cfg, n_slots=2, max_len=args.max_len, seed=reps.index,
+                    decode_ticks=1, mesh=reps.mesh, sharded=args.model != "tiny-random",
+                    device=device)
+    loop = replica_loop(reps, engine)
+    if dist.get_rank() != 0:
+        loop.run()  # until rank 0 stops the replicas, or any rank fails
+        return 1 if loop.error is not None else 0
+    if args.model == "tiny-random":  # its whole weights stay on the CPU under a mesh
+        params = {**params, "audio": _to_device(params["audio"], device)}
+    return (cfg, params) + tuple(loaded[2:]), start_replicas(reps, loop)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 if __name__ == "__main__":

@@ -46,8 +46,10 @@ Requests stream tokens to callbacks and can be cancelled mid-decode;
   The full params (CPU views of a mapped file will do) are cut to this
   rank's shards before they reach its device, or come as those shards
   (``sharded``, from ``load_vita_checkpoint(..., mesh=)``); the page pool holds
-  Hkv/model heads. A 'pipe' axis > 1 raises (ROADMAP A11c), 'seq' > 1
-  (A11b), 'data'/'fsdp' > 1 (A11d).
+  Hkv/model heads. A 'pipe' axis > 1 raises (ROADMAP A11c), 'data'/'fsdp'
+  > 1 too (A11d); 'seq' > 1 raises ValueError (a KV cache holds whole
+  sequences). Two Engines of one launch may serve as duplex replicas over
+  disjoint ranks (serve.replicas).
 """
 
 from __future__ import annotations
@@ -897,39 +899,61 @@ _REQUEST_FIELDS = tuple(f.name for f in dataclasses.fields(Request)
                                           "submit_time", "first_token_time", "finish_time"))
 
 
+_GROUP_LOCK = threading.Lock()
+
+
+def end_process_group() -> None:
+    """Close this rank's process group and all its subgroups, once (two
+    loops of one rank may fail together): the peers' pending collectives
+    with this rank then raise instead of waiting."""
+    import torch.distributed as dist
+
+    with _GROUP_LOCK:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 class MeshEngineThread(threading.Thread):
     """The loop that steps one rank's Engine of a serving mesh, in place of
-    EngineThread: every rank runs it (rank 0 in the background, beside
+    EngineThread: every rank runs it (the leader in the background, beside
     its HTTP server; the others in their main thread).
 
-    Requests reach only rank 0 (``submit``, checked at once against the
-    Engine's limits). Before each step rank 0 broadcasts the new
-    submissions, the ids of requests whose clients cancelled them and a
-    stop flag (``broadcast_object_list`` over a gloo group of all ranks),
-    and every rank admits the same requests, with rank 0's ids, in the same
-    order, and cancels the same ones: requests change only between steps,
-    so every rank makes the same decisions and the collectives line up.
-    Rank 0's copies stream to the submitted requests' callbacks.
+    Requests reach only the leader, the lowest rank of ``group`` (a gloo
+    group of the mesh's ranks; all ranks by default): ``submit`` checks
+    them at once against the Engine's limits. Before each step the leader
+    broadcasts the new submissions, the ids of requests whose clients
+    cancelled them and a stop flag (``broadcast_object_list`` over
+    ``group``), and every rank admits the same requests, with the leader's
+    ids, in the same order, and cancels the same ones: requests change only
+    between steps, so every rank makes the same decisions and the
+    collectives line up. The leader's copies stream to the submitted
+    requests' callbacks and fill their ``tokens`` and times. A leader
+    whose requests come from another rank (a duplex replica other than
+    replica 0) has a ``link`` (serve.replicas.ReplicaLink) that exchanges
+    them with that rank before each step.
 
     An error on any rank ends the whole mesh, for a rank cannot tell
     whether its peers raised too or wait in a collective it will never
     join: the rank prints it, keeps it as ``error``, finishes its
     requests in flight with the reason 'error' and closes its process
     group, so the peers' pending collectives raise and they end the same
-    way; then ``on_error`` (rank 0's server shutdown) is called."""
+    way; then ``on_error`` (the leader's server shutdown) is called."""
 
     def __init__(self, engine: Engine, tick_idle_s: float = 0.005,
-                 on_error: Optional[Callable[[], None]] = None):
+                 on_error: Optional[Callable[[], None]] = None, group=None, link=None):
         import torch.distributed as dist
 
         super().__init__(daemon=True)
         self.engine = engine
         self.tick_idle_s = tick_idle_s
         self.rank = dist.get_rank()
-        self._group = dist.new_group(backend="gloo")  # collective: every rank builds one
+        # collective: every rank builds one (or the caller's, built on every rank)
+        self._group = group if group is not None else dist.new_group(backend="gloo")
+        self.leader = dist.get_global_rank(self._group, 0)
+        self.link = link
         self._lock = threading.Lock()
         self._new: List[Request] = []
-        self._live: Dict[int, Request] = {}  # rank 0: the submitted requests in flight
+        self._live: Dict[int, Request] = {}  # leader: the submitted requests in flight
         self._copies: Dict[int, Request] = {}  # the Engine's requests in flight
         self._stop_evt = threading.Event()
         self.on_error = on_error
@@ -944,29 +968,51 @@ class MeshEngineThread(threading.Thread):
             self._new.append(req)
         return req
 
+    def cancel_all(self) -> None:
+        """Cancel every submitted request in flight or not yet broadcast
+        (the next step's broadcast carries the cancellations)."""
+        with self._lock:
+            reqs = self._new + list(self._live.values())
+        for r in reqs:
+            r.cancel()
+
+    def stats(self) -> Dict[str, float]:
+        return self.engine.stats()
+
     def stop(self) -> None:
         self._stop_evt.set()
 
     def _message(self):
         with self._lock:
             new, self._new = self._new, []
-        cancel = [rid for rid, r in self._live.items() if r.cancelled]
-        for rid in cancel:
-            self._live.pop(rid)
+            cancel = [rid for rid, r in self._live.items() if r.cancelled]
+            for rid in cancel:
+                self._live.pop(rid)
         return new, {"new": [{f: getattr(r, f) for f in _REQUEST_FIELDS} for r in new],
                      "cancel": cancel, "stop": self._stop_evt.is_set()}
+
+    @staticmethod
+    def _streamer(orig: Request):
+        def on_token(tok: int) -> None:
+            if not orig.tokens:
+                orig.first_token_time = time.time()
+            orig.tokens.append(tok)
+            if orig.on_token is not None:
+                orig.on_token(tok)
+        return on_token
 
     def _finisher(self, rid: int, orig: Optional[Request]):
         def on_finish(tokens, reason):
             self._copies.pop(rid, None)
-            self._live.pop(rid, None)
-            if orig is not None and orig.on_finish is not None:
-                orig.on_finish(tokens, reason)
+            with self._lock:
+                self._live.pop(rid, None)
+            if orig is not None:
+                orig.finish_time = time.time()
+                if orig.on_finish is not None:
+                    orig.on_finish(tokens, reason)
         return on_finish
 
     def run(self) -> None:
-        import torch.distributed as dist
-
         try:
             self._loop()
         except Exception as e:  # noqa: BLE001 - ends the mesh, loudly
@@ -974,31 +1020,34 @@ class MeshEngineThread(threading.Thread):
             with self._lock:
                 self.error = e
                 new, self._new = self._new, []
-            for req in new + list(self._live.values()):
+                live, self._live = list(self._live.values()), {}
+            for req in new + live:
                 if req.on_finish is not None:
                     req.on_finish(req.tokens, "error")
-            self._live.clear()
-            if dist.is_initialized():
-                dist.destroy_process_group()
+            end_process_group()
             if self.on_error is not None:
                 self.on_error()
 
     def _loop(self) -> None:
         import torch.distributed as dist
 
+        lead = self.rank == self.leader
         while True:
-            new, msg = self._message() if self.rank == 0 else ([], None)
+            if self.link is not None:
+                self.link.exchange(self)
+            new, msg = self._message() if lead else ([], None)
             box = [msg]
-            dist.broadcast_object_list(box, src=0, group=self._group)
+            dist.broadcast_object_list(box, src=self.leader, group=self._group)
             msg = box[0]
             if msg["stop"]:
                 return
             for i, fields in enumerate(msg["new"]):
                 copy = Request(**fields)
-                orig = new[i] if self.rank == 0 else None
+                orig = new[i] if lead else None
                 if orig is not None:
-                    copy.on_token = orig.on_token
-                    self._live[copy.request_id] = orig
+                    copy.on_token = self._streamer(orig)
+                    with self._lock:
+                        self._live[copy.request_id] = orig
                 copy.on_finish = self._finisher(copy.request_id, orig)
                 self._copies[copy.request_id] = copy
                 self.engine.submit(copy)
