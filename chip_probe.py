@@ -26,6 +26,8 @@ NVIDIA GPU.
     python3 chip_probe.py mesh-faults  # which of phase 11's checks fail each planted mesh fault
     python3 chip_probe.py ring         # where ring attention's forward + backward spends its time
     python3 chip_probe.py ring-faults  # which of phase 12's (a) and (b) checks fail each planted fault
+    python3 chip_probe.py pp           # where pipeline-parallel decode's time goes (pipe 4)
+    python3 chip_probe.py pp-faults    # which of phase 13's (a) and (c) checks fail each planted fault
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -223,6 +225,22 @@ SEQ_FAULTS edit planted in the copy (each rank's last ring step's dq
 dropped; the last shift of dk/dv home dropped; aux's sums over 'seq'
 summed in the backward too): per run, each check's reading and the
 checks that failed.
+
+pp: chip_smoke.py's full-width 4-layer slice (bf16 experts, 8 slots)
+served unsharded on the card, then under --mesh 1 1 4 as 4 gloo ranks
+time-sharing cuda:0 (the shards read from a bf16 export under
+build/smoke_mesh/, removed after): after a warm-up wave, eight text
+requests of 64 new tokens; the unsharded run and the last stage under
+torch.profiler (wall, device ms, busy share), every rank's aggregate
+tok/s, TTFT and the host ms of each decode-ring substep's shift.
+
+pp-faults: chip_smoke.py phase 13's (a) and (c) (`pipe_phase` without the
+full-width part) run on a copy of the tree under build/faults/ as it is,
+then with each PIPE_FAULTS edit planted in the copy (the ring's wrap
+carrying the last stage's hidden state instead of the new token's
+embedding; the GPipe prefill's bubble steps computing on zeros and
+writing KV rows; the GPipe backward sending zeros upstream in place of
+dL/dx): per run, each check's reading and the checks that failed.
 
 Each prints the card's name and power limit first.
 
@@ -1567,6 +1585,159 @@ def ring(card: str) -> None:
               f"{smoke.cuda_ms(unsharded, n=10):.3f} ms [{card}]", flush=True)
 
 
+# --------------------------------------------------------------------------
+# pipeline parallelism (chip_smoke.py phase 13)
+# --------------------------------------------------------------------------
+PP_PROBE_KW = dict(n_slots=8, page_size=64, decode_moe_mode="gather")
+PP_PROBE_NEW = 64
+
+
+def _pp_probe_wave(cfg):
+    rng = np.random.default_rng(smoke.SEED + 41)
+    return [smoke.text_request(cfg, rng, n, PP_PROBE_NEW) for n in WAVE]
+
+
+def _device_ms(prof) -> float:
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def pp_probe_rank(rank, world, ckpt_dir):
+    """One rank of ``pp``: the full-width slice under pipe 4 (this rank's
+    layer and pool), PP_PROBE_KW, a warm-up wave, then WAVE's eight text
+    requests of PP_PROBE_NEW new tokens, the last rank under
+    torch.profiler: wall and device ms, the ring's shifts' host ms, TTFT
+    and tok/s."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.parallel.mesh import make_mesh
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    mesh = make_mesh((1, 1, 1, 1, world))
+    cfg = smoke.slice_config()
+    _, shards = load_vita_checkpoint(ckpt_dir, dev, mesh=mesh)
+    engine = Engine(shards, cfg, max_len=2048, device=dev, mesh=mesh, sharded=True,
+                    **PP_PROBE_KW)
+    smoke.serve(engine, _pp_probe_wave(cfg))  # warm-up: first-use costs
+    shifts = []
+    ctx = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if rank == world - 1 else contextlib.nullcontext())
+    with ctx as prof, smoke._timing_ring(shifts):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        reqs = smoke.serve(engine, _pp_probe_wave(cfg))
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    return dict(wall=wall, device=_device_ms(prof) if rank == world - 1 else None,
+                shift_ms=[t * 1e3 for t in shifts],
+                ttft=[r.ttft_s * 1e3 for r in reqs], tok_s=[r.decode_tokens_per_s for r in reqs],
+                tokens=sum(len(r.tokens) for r in reqs),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def pp(card: str) -> None:
+    """The full-width 4-layer slice served with PP_PROBE_KW (bf16 experts,
+    8 slots) under --mesh 1 1 4, 4 ranks time-sharing cuda:0 over gloo,
+    against the unsharded Engine alone on the card: after a warm-up wave,
+    WAVE's eight text requests of PP_PROBE_NEW new tokens; the unsharded
+    run and the last rank (the one that finishes each token) under
+    torch.profiler: wall ms, device ms, busy share, aggregate tok/s, TTFT,
+    and the host ms of each ring substep's shift (median, p90, count)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch.checkpoint import export_hf_vita_checkpoint
+    from vita_tpu_torch.parallel.launch import run_ranks
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = smoke.slice_config()
+    params = smoke.slice_params(cfg, dev)
+    engine = Engine(params, cfg, max_len=2048, device=dev, **PP_PROBE_KW)
+    smoke.serve(engine, _pp_probe_wave(cfg))
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = smoke.serve(engine, _pp_probe_wave(cfg))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = _device_ms(prof)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"  unsharded, 8 text requests x {PP_PROBE_NEW} new tokens: wall {wall:.1f} ms, "
+          f"device {dev_ms:.1f} ms, busy {dev_ms / wall:.3f}, {n_tok / wall * 1e3:.1f} tok/s "
+          f"in all, TTFT {[round(r.ttft_s * 1e3, 1) for r in reqs]} ms [{card}]", flush=True)
+    del engine
+    shutil.rmtree(smoke.MESH_DIR, ignore_errors=True)
+    os.makedirs(smoke.MESH_DIR)
+    ckpt = os.path.join(smoke.MESH_DIR, "ckpt")
+    try:
+        export_hf_vita_checkpoint(ckpt, cfg, params, dtype=torch.bfloat16)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = run_ranks(pp_probe_rank, 4, ckpt, backend="gloo", timeout=600,
+                        store_dir=smoke.MESH_DIR)
+    finally:
+        shutil.rmtree(smoke.MESH_DIR, ignore_errors=True)
+    last = res[-1]
+    for r, out in enumerate(res):
+        shift = np.asarray(out["shift_ms"])
+        busy = (f", device {out['device']:.1f} ms, busy {out['device'] / out['wall']:.3f}"
+                if out["device"] is not None else "")
+        print(f"  --mesh 1 1 4 rank {r} (stage {r}): wall {out['wall']:.1f} ms{busy}, "
+              f"{out['tokens'] / out['wall'] * 1e3:.1f} tok/s in all, TTFT "
+              f"{[round(t, 1) for t in out['ttft']]} ms, ring shift host ms a substep median "
+              f"{np.median(shift):.3f} p90 {np.percentile(shift, 90):.3f} over {len(shift)} "
+              f"substeps ({shift.sum():.1f} ms in all), peak {out['peak_gib']:.2f} GiB "
+              f"({smoke.MESH_NOTE}) [{card}]", flush=True)
+    assert all(o["tokens"] == last["tokens"] for o in res)
+
+
+# (name, edits of (file, text as committed, text as planted)): faults of the
+# pipeline, each of which phase 13's (a) or (c) must fail
+PIPE_FAULTS = (
+    ("as committed", ()),
+    ("P1: the ring's wrap carries the last stage's hidden, not the new token's embedding",
+     (("vita_tpu_torch/parallel/pp_serving.py", "out = emb[:, None].to(y.dtype)", "out = y"),
+      ("vita_tpu_torch/parallel/pipeline.py", "out = emb.to(y.dtype)", "out = y"))),
+    ("P2: bubble steps of the GPipe prefill compute on zeros and write KV rows",
+     (("vita_tpu_torch/parallel/pipeline.py",
+       "        if _valid(j, w_waves):\n"
+       "            cw = _tree_map(lambda c: c[j], consts)\n"
+       "            y = x[j] if s == 0 else held\n",
+       "        if j >= 0:\n"
+       "            j, jt = min(j, w_waves - 1), j\n"
+       "            cw = _tree_map(lambda c: c[j], consts)\n"
+       "            y = x[j] if s == 0 else (torch.zeros_like(x[0]) if held is None else held)\n"),
+      ("vita_tpu_torch/parallel/pipeline.py",
+       "        held = shift_up([x[0] if y is None else y], mesh, PIPE, send=_valid(j, w_waves),\n"
+       "                        recv=_valid(j + 1, w_waves))",
+       "        j = jt if j >= 0 else j\n"
+       "        held = shift_up([x[0] if y is None else y], mesh, PIPE, send=_valid(j, w_waves),\n"
+       "                        recv=_valid(j + 1, w_waves))"))),
+    ("P3: the GPipe backward sends zeros upstream in place of dL/dx",
+     (("vita_tpu_torch/parallel/pipeline.py",
+       "got = shift_down([dx if dx is not None else template]",
+       "got = shift_down([torch.zeros_like(dx) if dx is not None else template]"),)),
+)
+
+
+def pp_faults(card: str) -> None:
+    _fault_runs(card, PIPE_FAULTS,
+                "import torch, chip_smoke as cs\n"
+                "cs.pipe_phase(cs.card_line(), torch.device('cuda'))",
+                "phase 13", ("  (a)", "  (c)"))
+
+
 def main() -> int:
     import torch
 
@@ -1578,7 +1749,7 @@ def main() -> int:
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
              "paged-ring": paged_ring, "session": session, "whale": whale,
              "mesh": mesh, "mesh-faults": mesh_faults, "ring": ring,
-             "ring-faults": ring_faults}
+             "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -172,8 +172,30 @@ Phases, each of which raises on failure:
      replica 0 beside A's on replica 1 and replica 1's link to rank 0
      (round trips and their ms).
 
+ 13. pipeline parallelism, as 4 ranks spawned on cuda:0 over gloo after
+     the unsharded runs here: (a) the Engine at phase 5's narrow fp32
+     configuration with 4 layers under --mesh 1 1 4 and 1 2 2 (EXPERT
+     MODEL PIPE), phase 11's narrow runs and requests: every rank's
+     greedy streams identical to the unsharded ones; mixtral.pp_generate
+     (the GPipe prefill that keeps each stage's KV rows, then the decode
+     ring) under pipe 4 identical to the unsharded greedy loop; (b) the
+     full-width 4-layer slice read per stage from phase 11's export by
+     load_vita_checkpoint(..., mesh=) under --mesh 1 1 4 and 2 1 2,
+     phase 11's full-width runs: every rank's streams equal, and apart
+     from phase 11's unsharded streams only at a logit or router near tie
+     (the ring decodes through B3/B7, where the unsharded batches take
+     B4/B8b); first, under pipe 4, each stage's prefill output and pool
+     held bitwise to the unsharded prefill's after its layer; each rank's
+     peak memory, TTFT, tok/s and the ring's host ms a substep printed;
+     every rank must launch B1, B2, B9, B3, B7 and B5b; (c) one GPipe step
+     (pipe 2, 2 microbatches) of phase 12(b)'s 2-layer slice with dense
+     MoE on two replicas: the loss, the aux (the microbatches' mean) and
+     the gradients held to the same objective taken one microbatch at a
+     time without the pipe, as phase 12(b) holds its own, and every rank
+     launching B1, B10 and B11.
+
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-12, phases 11's and 12's over their
+results (launches summed over phases 3-13, phases 11-13's over their
 ranks) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
@@ -2579,6 +2601,7 @@ MESH_ROUTE_NEAR_TIE = 2e-2
 # dropped sum moved 19% to 100%: PERF.md §6).
 MESH_OP_ROWS = 64
 MESH_OP_TOKENS = 8  # the gather FFN's decode-sized batch
+MESH_FULL_REFS = {}  # label -> phase 11's unsharded (streams, ids, top-2, routes)
 MESH_OP_ULPS = 1.0
 MESH_OP_MISMATCH = 0.01
 
@@ -2890,6 +2913,7 @@ def mesh_phase(card: str, device):
         top2, routes = {}, {}
         tokens, ids, ttft, tps = _serve_full(engine, cfg, wave_texts, top2, routes)
         full_ref[label] = (tokens, ids, top2, routes)
+        MESH_FULL_REFS[label] = full_ref[label]  # phase 13 holds its pipe meshes to them
         print(f"  unsharded {label}: TTFT {[round(t, 2) for t in ttft]} ms, decode "
               f"{[round(t, 2) for t in tps]} tok/s  [{card}]", flush=True)
         del engine
@@ -3713,6 +3737,741 @@ def seq_duplex_phase(card: str, device, ckpt_dir):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 13: pipeline-parallel serving and one GPipe step, as 4 ranks on
+# cuda:0 over gloo
+# --------------------------------------------------------------------------
+PIPE_RANKS = 4
+# --mesh EXPERT MODEL PIPE of (a), narrow fp32 at PIPE_NARROW_LAYERS layers,
+# and of (b), the full-width 4-layer slice read from phase 11's export
+PIPE_NARROW_MESHES = ((1, 1, 4), (1, 2, 2))
+PIPE_FULL_MESHES = ((1, 1, 4), (2, 1, 2))
+PIPE_NARROW_LAYERS = 4
+# (a) also runs mixtral.pp_generate under pipe 4 (the GPipe prefill that
+# keeps each stage's KV rows, then the ring): 4 waves of 2 prompts
+PIPE_GEN_WAVES, PIPE_GEN_BATCH, PIPE_GEN_PROMPT, PIPE_GEN_NEW, PIPE_GEN_LEN = 4, 2, 24, 8, 64
+# the kernels every rank must launch in (a) and (b): B1, B2, B9, B3, B7, B5b
+PIPE_PATH = ("flash_fwd", "paged_attention", "paged_attention_q", "gather_expert_ffn",
+             "gather_expert_ffn_q4", "gmm_small")
+# (c): one GPipe step of phase 12(b)'s 2-layer training slice with dense MoE
+# (gmm under a pipe axis raises, as in the JAX package) under pipe 2 with 2
+# microbatches of one sequence of PIPE_TRAIN_S tokens each, on two replicas
+# (ranks 0-1 and 2-3). Loss and gradients are held as phase 12(b) holds
+# them; aux against the mean of the unpiped per-microbatch aux (the GPipe
+# aux is the microbatches' mean, not the whole batch's) at SEQ_LOSS_RTOL.
+PIPE_TRAIN_S = 2048
+PIPE_TRAIN_B = 2
+# A full-width stream may also split where the pipe run's own logits put
+# the unsharded run's token within this many bf16 ulps of its choice
+# (_pipe_split): on an H100 the 4-layer slice split two requests at logit
+# gaps of one ulp (0.015625) and of zero (a three-way tie), with the same
+# routes (PERF.md section 6)
+PIPE_NEAR_TIE_ULPS = 2
+PIPE_TRAIN_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def pipe_narrow_config():
+    """Phase 5's narrow fp32 configuration at PIPE_NARROW_LAYERS layers."""
+    cfg = narrow_config()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=PIPE_NARROW_LAYERS))
+
+
+def pipe_generate_prompts(cfg):
+    rng = np.random.default_rng(SEED + 31)
+    return rng.integers(3, cfg.llm.vocab_size,
+                        (PIPE_GEN_WAVES, PIPE_GEN_BATCH, PIPE_GEN_PROMPT)).astype(np.int64)
+
+
+def pipe_train_config():
+    return dataclasses.replace(seq_train_config(), moe_mode="dense")
+
+
+def pipe_train_batch():
+    """PIPE_TRAIN_B sequences of PIPE_TRAIN_S ids from a seed and their
+    next-token labels."""
+    rng = np.random.default_rng(SEED + 32)
+    ids = rng.integers(3, pipe_train_config().vocab_size,
+                       (PIPE_TRAIN_B, PIPE_TRAIN_S)).astype(np.int64)
+    labels = np.full_like(ids, -100)
+    labels[:, :-1] = ids[:, 1:]
+    return ids, labels
+
+
+@contextlib.contextmanager
+def _recording_pp_routes(engine, routes):
+    """_recording_routes for a pipe Engine's stage: every routing of this
+    stage's layers, keyed as _recording_routes keys them, as
+    routes[key][global layer] = (experts, gap)."""
+    import torch
+
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.parallel.mesh import PIPE, axis
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    n_local = engine.cfg.llm.n_layers // engine._pp
+    layer0 = axis(engine.mesh, PIPE).rank * n_local
+    real = (engine_mod.pp_prefill_chunk, engine_mod.pp_decode_chunk, mixtral.run_layers,
+            mixtral.route_topk, moe.route_topk)
+    ctx = {}
+
+    def route(logits, k):
+        w, idx, probs = real[3](logits, k)
+        if ctx.get("keys") is not None:
+            layer = layer0 + ctx["calls"]
+            ctx["calls"] += 1
+            top = torch.topk(probs, k + 1, dim=-1).values
+            for key, ids, gap in zip(ctx["keys"], idx.tolist(),
+                                     (top[:, k - 1] - top[:, k]).tolist()):
+                if key is not None:
+                    routes.setdefault(key, {})[layer] = (tuple(sorted(ids)), gap)
+        return w, idx, probs
+
+    def run_layers(layers, cfg, x, positions, *a, **kw):
+        cache = kw.get("cache", a[1] if len(a) > 1 else None)
+        pos = positions[:, 0].tolist() if "prefill" not in ctx else positions[0].tolist()
+        if "prefill" in ctx:
+            job = ctx["prefill"]
+            keys = [(job.req.request_id, "prompt", p) if p < job.true_len else None for p in pos]
+        else:
+            table, slots, bw = ctx["decode"]
+            wave = ((cache["table"].data_ptr() - table.data_ptr())
+                    // (table.stride(0) * table.element_size()))
+            act = cache["active"].tolist()
+            keys = []
+            for b, p in enumerate(pos):
+                req = slots[wave * bw + b]
+                keys.append(None if req is None or not act[b]
+                            else (req.request_id, p + 1 - len(req.input_ids)))
+        ctx.update(keys=keys, calls=0)
+        try:
+            return real[2](layers, cfg, x, positions, *a, **kw)
+        finally:
+            ctx["keys"] = None
+
+    def prefill(llm_params, llm_cfg, job, *a, **kw):
+        ctx["prefill"] = job
+        try:
+            return real[0](llm_params, llm_cfg, job, *a, **kw)
+        finally:
+            ctx.pop("prefill")
+
+    def decode(llm_params, cache, table, *a, **kw):
+        ctx["decode"] = (table, list(engine.slot_req), table.shape[1])
+        try:
+            return real[1](llm_params, cache, table, *a, **kw)
+        finally:
+            ctx.pop("decode")
+
+    engine_mod.pp_prefill_chunk, engine_mod.pp_decode_chunk = prefill, decode
+    mixtral.run_layers = run_layers
+    mixtral.route_topk = moe.route_topk = route
+    try:
+        yield
+    finally:
+        (engine_mod.pp_prefill_chunk, engine_mod.pp_decode_chunk, mixtral.run_layers,
+         mixtral.route_topk, moe.route_topk) = real
+
+
+@contextlib.contextmanager
+def _recording_pp_top(engine, tops, k: int = 4):
+    """While open, each token the decode ring samples records, on the
+    ranks that sample it, its row's top ``k`` (token, logit) as
+    tops[(request_id, i)], i indexing the request's generated token (as
+    _recording_top2 keys it). The ring finishes item jf = w + i*S at its
+    jf-th sample: wave jf mod S, token jf // S."""
+    import torch
+
+    from vita_tpu_torch.parallel import pp_serving
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real_decode, real_sample = engine_mod.pp_decode_chunk, pp_serving.sample_tokens
+    ctx = {}
+
+    def decode(llm_params, cache, table, tok, pos, *a, **kw):
+        ctx.update(pos=pos.tolist(), slots=list(engine.slot_req), waves=tok.shape[0],
+                   bw=tok.shape[1], item=0)
+        try:
+            return real_decode(llm_params, cache, table, tok, pos, *a, **kw)
+        finally:
+            ctx.clear()
+
+    def sample(logits, *a, **kw):
+        if ctx:
+            w, i = ctx["item"] % ctx["waves"], ctx["item"] // ctx["waves"]
+            ctx["item"] += 1
+            v, t = torch.topk(logits.float(), k, dim=-1)
+            for b, (toks, vals) in enumerate(zip(t.tolist(), v.tolist())):
+                req = ctx["slots"][w * ctx["bw"] + b]
+                if req is not None:
+                    key = (req.request_id, ctx["pos"][w][b] + i + 1 - len(req.input_ids))
+                    tops[key] = list(zip(toks, vals))
+        return real_sample(logits, *a, **kw)
+
+    engine_mod.pp_decode_chunk, pp_serving.sample_tokens = decode, sample
+    try:
+        yield
+    finally:
+        engine_mod.pp_decode_chunk, pp_serving.sample_tokens = real_decode, real_sample
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _pipe_split(i, got, ref, rid, top2, routes, own_routes, own_top):
+    """_mesh_split, and where it finds no near tie, the pipe run's own: a
+    split at token j is also accepted where the pipe run's logits put the
+    unsharded run's token within PIPE_NEAR_TIE_ULPS bf16 ulps of its own
+    choice (the ring's B3/B7 round otherwise than the unsharded batches'
+    B4/B8b, and the bf16 logits of two tokens one or two ulps apart, or
+    three at a tie, may reorder)."""
+    try:
+        return _mesh_split(i, got, ref, rid, top2, routes, own_routes)
+    except AssertionError:
+        j = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        vals = dict(own_top.get((i, j), []))
+        if got[j] in vals and ref[j] in vals:
+            gap = vals[got[j]] - vals[ref[j]]
+            bound = PIPE_NEAR_TIE_ULPS * _bf16_ulp(vals[got[j]])
+            if gap <= bound:
+                print(f"    request {i} splits at token {j}: {got[j]} vs {ref[j]}, a near tie "
+                      f"of the pipe run's logits (gap {gap:.3e} <= {PIPE_NEAR_TIE_ULPS} bf16 "
+                      f"ulps, {bound:.3e})", flush=True)
+                return j
+        raise
+
+
+@contextlib.contextmanager
+def _timing_ring(times):
+    """While open, the host seconds of each decode-ring shift (the
+    substep's point-to-point step, staged through host memory on gloo)
+    are appended to ``times``."""
+    from vita_tpu_torch.parallel import pp_serving
+
+    real = pp_serving.ring_shift
+
+    def shift(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    pp_serving.ring_shift = shift
+    try:
+        yield
+    finally:
+        pp_serving.ring_shift = real
+
+
+@contextlib.contextmanager
+def _recording_stage_output(store):
+    """While open, each prefill chunk's hidden state after this stage's
+    layers (mixtral.run_layers over a linear scratch) lands in
+    store["hidden"] (float32, host)."""
+    from vita_tpu_torch.models import mixtral
+
+    real = mixtral.run_layers
+
+    def run_layers(layers, cfg, x, positions, *a, **kw):
+        y, aux = real(layers, cfg, x, positions, *a, **kw)
+        cache = kw.get("cache", a[1] if len(a) > 1 else None)
+        if cache is not None and "k" in cache:
+            store["hidden"] = y[0].float().cpu().numpy()
+        return y, aux
+
+    mixtral.run_layers = run_layers
+    try:
+        yield
+    finally:
+        mixtral.run_layers = real
+
+
+@contextlib.contextmanager
+def _recording_layer_outputs(store):
+    """While open, an unsharded prefill runs its layers one at a time
+    (mixtral.run_layers on one-layer views of the stack and the scratch,
+    the same kernels at the same shapes) and store["hidden"] lists the
+    hidden state after each layer (float32, host)."""
+    import inspect
+
+    from vita_tpu_torch.models import mixtral
+
+    real = mixtral.run_layers
+    sig = inspect.signature(real)
+
+    def run_layers(*a, **kw):
+        args = sig.bind(*a, **kw)
+        args.apply_defaults()
+        v = args.arguments
+        cache = v["cache"]
+        if cache is None or "k" not in cache:
+            return real(*a, **kw)
+        x, aux, out = v["x"], 0.0, []
+        for i in range(mixtral.n_layers_of(v["layers"])):
+            one = {k: ({n: t[i:i + 1] for n, t in l.items()} if isinstance(l, dict)
+                       else l[i:i + 1]) for k, l in v["layers"].items()}
+            c1 = {"k": cache["k"][i:i + 1], "v": cache["v"][i:i + 1], "pos": cache["pos"]}
+            x, a_i = real(**{**v, "layers": one, "x": x, "cache": c1})
+            aux = aux + a_i
+            out.append(x[0].float().cpu().numpy())
+        store["hidden"] = out
+        return x, aux
+
+    mixtral.run_layers = run_layers
+    try:
+        yield
+    finally:
+        mixtral.run_layers = real
+
+
+def pipe_stage_request(cfg):
+    """The stage check's request: one 100-token text, one new token (the
+    prefill's; no decode step writes a row)."""
+    rng = np.random.default_rng(SEED + 33)
+    return text_request(cfg, rng, 100, 1)
+
+
+def _serve_full_pp(engine, cfg, wave_texts, routes, tops, shifts):
+    """mesh_full_requests through a pipe ``engine``, its routes, sampled
+    top logits and ring shifts recorded: (streams, request ids, TTFT ms,
+    decode tok/s)."""
+    warm, solo, wave = mesh_full_requests(cfg, wave_texts)
+    serve(engine, warm)
+    with (_recording_pp_routes(engine, routes), _recording_pp_top(engine, tops),
+          _timing_ring(shifts)):
+        reqs = serve(engine, solo) + serve(engine, wave)
+    return ([r.tokens for r in reqs], [r.request_id for r in reqs],
+            [r.ttft_s * 1e3 for r in reqs], [r.decode_tokens_per_s for r in reqs])
+
+
+def pipe_train_rank(mesh, dev, picks):
+    """Phase 13(c) on one rank: the GPipe forward + backward of the
+    2-layer slice on this stage's layer (after a warm-up step; launch
+    counts zeroed before, read after): loss, aux, step ms, peak memory and
+    this rank's gradients at the sampled elements of each leaf it holds
+    ({name: (sampled positions it holds, values)})."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.parallel.mesh import PIPE, axis
+
+    lcfg = dataclasses.replace(pipe_train_config(), pipe_stages=2, pipe_microbatches=2)
+    whole = seq_train_params(pipe_train_config(), dev)
+    with torch.no_grad():  # copies: the stage's block alone stays on the card
+        params = _to(mixtral.shard_params(whole, lcfg, mesh, dev,
+                                          specs=mixtral.param_specs(lcfg)), dev)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    for _, leaf in _leaf_items(params):
+        leaf.requires_grad_()
+    ids, labels = pipe_train_batch()
+    n_labels = int((labels != -100).sum())
+    batch = (torch.as_tensor(ids, device=dev), torch.as_tensor(labels, device=dev), n_labels)
+    seq_train_step(params, lcfg, *batch, mesh=mesh)  # warm-up: first-use costs
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    ce, aux = seq_train_step(params, lcfg, *batch, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    ms = (time.time() - t0) * 1e3
+    stage = axis(mesh, PIPE).rank
+    samples = {}  # name: (which sampled elements this rank holds, their values)
+    for name, leaf in _leaf_items(params):
+        idx = np.asarray(picks[name])
+        lo = stage * leaf.numel() if name.startswith("layers/") else 0  # the stage's block
+        held = (idx >= lo) & (idx < lo + leaf.numel())
+        vals = np.zeros(len(idx), np.float32)
+        local = torch.as_tensor(idx[held] - lo, device=dev)
+        vals[held] = leaf.grad.reshape(-1)[local].float().cpu().numpy()
+        samples[name] = (held, vals)
+    out = dict(loss=ce + 0.02 * aux, aux=aux, ms=ms, stage=stage,
+               launches=dict(kernels.launches), samples=samples,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_rank(rank, world, plan):
+    """One rank of phase 13 on cuda:0: (a) the narrow fp32 Engine runs
+    under each PIPE_NARROW_MESHES mesh and pp_generate under pipe 4; (b)
+    the full-width runs under each PIPE_FULL_MESHES mesh over this rank's
+    shards read from phase 11's export, with the stage check first under
+    pipe 4; launch counts zeroed before (a) and read after (b); (c) one
+    GPipe step under pipe 2 (two replicas)."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.models import mixtral, vita
+    from vita_tpu_torch.parallel.mesh import make_mesh
+    from vita_tpu_torch.serve.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    kernels.lib()  # phase 1's library: loaded, not built
+    meshes = {axes: make_mesh((1, 1) + axes)
+              for axes in dict.fromkeys(PIPE_NARROW_MESHES + PIPE_FULL_MESHES)}
+    pairs = [make_mesh((1, 1, 1, 1, 2), ranks=r) for r in ((0, 1), (2, 3))]
+    out = {"narrow": {}, "full": {}, "wall_s": {}}
+    t_part = time.time()
+    kernels.reset_launches()
+    cfg = pipe_narrow_config()
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    for axes in PIPE_NARROW_MESHES:
+        for label, kw in MESH_NARROW_RUNS:
+            engine = Engine(params, cfg, n_slots=4, max_len=512, page_size=64,
+                            prefill_chunk=128, device=dev, mesh=meshes[axes], **kw)
+            first, wave = mesh_narrow_requests(cfg)
+            out["narrow"][axes, label] = [r.tokens for r in serve(engine, first)
+                                          + serve(engine, wave)]
+            del engine
+    gcfg = dataclasses.replace(cfg.llm, pipe_stages=4)
+    local = mixtral.shard_params(params["llm"], gcfg, meshes[1, 1, 4], dev)
+    prompts = torch.as_tensor(pipe_generate_prompts(cfg), device=dev)
+    out["generate"] = mixtral.pp_generate(local, gcfg, meshes[1, 1, 4], prompts, PIPE_GEN_NEW,
+                                          PIPE_GEN_LEN).cpu().numpy()
+    del params, local
+    out["wall_s"]["a"], t_part = time.time() - t_part, time.time()
+    cfg = slice_config()
+    for axes in PIPE_FULL_MESHES if plan["ckpt_dir"] else ():
+        mesh = meshes[axes]
+        t0 = time.time()
+        _, shards = load_vita_checkpoint(plan["ckpt_dir"], dev, mesh=mesh)
+        loaded = time.time() - t0
+        if axes == (1, 1, 4):
+            stage = {}
+            engine = Engine(shards, cfg, max_len=2048, device=dev, mesh=mesh, sharded=True,
+                            **MESH_FULL_RUNS[0][1])
+            with _recording_stage_output(stage):
+                serve(engine, [pipe_stage_request(cfg)])
+            out["stage"] = {"hidden": stage["hidden"],  # the pool's bits, as int16
+                            "k": engine.cache["k_pages"].view(torch.int16).cpu().numpy(),
+                            "v": engine.cache["v_pages"].view(torch.int16).cpu().numpy()}
+            del engine
+        for label, kw, wave_texts in MESH_FULL_RUNS:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            engine = Engine(shards, cfg, max_len=2048, device=dev, mesh=mesh, sharded=True,
+                            **kw)
+            built = time.time() - t0
+            routes, tops, shifts = {}, {}, []
+            tokens, ids, ttft, tps = _serve_full_pp(engine, cfg, wave_texts, routes, tops,
+                                                    shifts)
+
+            def own(rec):  # by request index
+                return {(ids.index(k[0]),) + k[1:]: v for k, v in rec.items() if k[0] in ids}
+
+            out["full"][axes, label] = dict(
+                tokens=tokens, ttft_ms=ttft, tok_s=tps, loaded_s=loaded, built_s=built,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, routes=own(routes),
+                tops=own(tops), shift_ms=[t * 1e3 for t in shifts])
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        del shards
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(kernels.launches)
+    out["wall_s"]["b"], t_part = time.time() - t_part, time.time()
+    out["train"] = pipe_train_rank(pairs[rank // 2], dev, plan["picks"])
+    out["wall_s"]["c"] = time.time() - t_part
+    return out
+
+
+def pipe_microbatch_step(params, lcfg, ids, labels, n_labels):
+    """The GPipe step's objective without the pipe, and its backward: for
+    each of the PIPE_TRAIN_B microbatches (one sequence each) its summed
+    cross entropy / n_labels + 0.02 * its aux / PIPE_TRAIN_B, the
+    gradients summed over them (the pipeline's aux is the microbatches'
+    mean, not the whole batch's). Returns (loss, mean aux)."""
+    import torch.nn.functional as F
+
+    from vita_tpu_torch.models import mixtral
+
+    loss, auxes = 0.0, []
+    for i in range(PIPE_TRAIN_B):
+        logits, _, aux = mixtral.forward(params, lcfg, input_ids=ids[i:i + 1])
+        ce = F.cross_entropy(logits.float().flatten(0, 1), labels[i:i + 1].flatten(),
+                             ignore_index=-100, reduction="sum") / n_labels
+        (ce + 0.02 * aux / PIPE_TRAIN_B).backward()
+        loss += float(ce.detach()) + 0.02 * float(aux.detach()) / PIPE_TRAIN_B
+        auxes.append(float(aux.detach()))
+    return loss, float(np.mean(auxes))
+
+
+def pipe_train_reference(card, device):
+    """Phase 13(c)'s unpiped side: the GPipe step's objective taken one
+    microbatch at a time (pipe_microbatch_step, after a warm-up), then
+    with attention computed another exact way ('xla') for the spread the
+    check allows. Returns (reference, sampled indices)."""
+    import torch
+
+    lcfg = pipe_train_config()
+    params = seq_train_params(lcfg, device)
+    ids, labels = pipe_train_batch()
+    rng = np.random.default_rng(SEED + 34)
+    picks = {name: rng.integers(0, leaf.numel(), min(leaf.numel(), SEQ_GRAD_SAMPLES))
+             for name, leaf in _leaf_items(params)}
+    batch = (torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device),
+             int((labels != -100).sum()))
+    pipe_microbatch_step(params, lcfg, *batch)  # warm-up: first-use costs
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    _sync(device)
+    t0 = time.time()
+    loss, aux_mb = pipe_microbatch_step(params, lcfg, *batch)
+    _sync(device)
+    ref = dict(loss=loss, aux_mb=aux_mb, ms=(time.time() - t0) * 1e3,
+               samples=_grad_samples(params, picks))
+    for _, leaf in _leaf_items(params):
+        leaf.grad = None
+    ref["loss_xla"], _ = pipe_microbatch_step(
+        params, dataclasses.replace(lcfg, attn_backend="xla"), *batch)
+    ref["samples_xla"] = _grad_samples(params, picks)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (c) unpiped {SEQ_TRAIN_LAYERS}-layer slice (dense MoE), {PIPE_TRAIN_B} "
+          f"microbatches of {PIPE_TRAIN_S} tokens one after the other: loss {ref['loss']:.6f}, "
+          f"forward + backward {ref['ms']:.1f} ms [{card}]", flush=True)
+    return ref, picks
+
+
+def pipe_train_report(card, parts, ref, failed):
+    """Phase 13(c)'s checks of the ranks' results against ``ref``, failures
+    appended to ``failed``."""
+    rel_xla = abs(ref["loss_xla"] - ref["loss"]) / abs(ref["loss"])
+    for rep in range(len(parts) // 2):
+        pair = parts[2 * rep:2 * rep + 2]
+        tag = f"(c) replica {rep}"
+        losses = {p["loss"] for p in pair}
+        auxes = {p["aux"] for p in pair}
+        loss = pair[0]["loss"]
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        aux_rel = abs(pair[0]["aux"] - ref["aux_mb"]) / abs(ref["aux_mb"])
+        errs = {}
+        for name, want in ref["samples"].items():
+            got = np.zeros_like(want)
+            seen = np.zeros(len(want), bool)
+            for p in pair:
+                held, vals = p["samples"][name]
+                if not name.startswith("layers/") and p is not pair[0]:
+                    # replicated over 'pipe': the whole gradient on every stage
+                    if not np.array_equal(vals, pair[0]["samples"][name][1]):
+                        failed.append(f"{tag}: the stages' gradients of {name} differ")
+                    continue
+                got[held], seen[held] = vals[held], True
+            if not seen.all():
+                failed.append(f"{tag}: no stage holds the gradient of {name} at "
+                              f"{int((~seen).sum())} sampled elements")
+            norm = max(float(np.linalg.norm(want)), 1e-30)
+            errs[name] = (float(np.linalg.norm(got - want)) / norm,
+                          float(np.linalg.norm(ref["samples_xla"][name] - want)) / norm)
+        over = [f"{tag}: gradient of {n}: relative error {e:.3e}, the xla step's {x:.3e}"
+                for n, (e, x) in errs.items() if e > SEQ_GRAD_SPREAD * x + SEQ_GRAD_FLOOR]
+        failed += over
+        if len(losses) != 1 or len(auxes) != 1:
+            failed.append(f"{tag}: the stages' loss or aux differ: {losses}, {auxes}")
+        if rel > SEQ_LOSS_RTOL:
+            failed.append(f"{tag}: loss {loss} vs unpiped {ref['loss']}")
+        if aux_rel > SEQ_LOSS_RTOL:
+            failed.append(f"{tag}: aux {pair[0]['aux']} vs the unpiped per-microbatch mean "
+                          f"{ref['aux_mb']}")
+        for r, p in enumerate(pair):
+            missing = [k for k in PIPE_TRAIN_PATH if p["launches"].get(k, 0) == 0]
+            if missing:
+                failed.append(f"{tag}: stage {r} never launched {missing}")
+        print(f"  (c) pipe 2, M 2, {tag[4:]}: loss {loss:.6f} (rel. err {rel:.2e}, bound "
+              f"{SEQ_LOSS_RTOL}; the xla step {rel_xla:.2e}), aux {pair[0]['aux']:.6f} against "
+              f"the unpiped per-microbatch mean {ref['aux_mb']:.6f} (rel. err {aux_rel:.2e}); "
+              f"gradients at {SEQ_GRAD_SAMPLES} sampled elements a leaf, relative error (the "
+              f"xla step's; bound {SEQ_GRAD_SPREAD} x xla + {SEQ_GRAD_FLOOR}): "
+              + ", ".join(f"{n} {e:.3e} ({x:.3e})" for n, (e, x) in sorted(errs.items()))
+              + f"; step {[round(p['ms'], 1) for p in pair]} ms a stage (unpiped "
+              f"{ref['ms']:.1f}), peak {[round(p['peak_gib'], 2) for p in pair]} GiB "
+              f"({MESH_NOTE}) [{card}]", flush=True)
+    return [p["launches"] for p in parts]
+
+
+def pipe_phase(card: str, device, ckpt_dir=None):
+    """Phase 13: pipeline-parallel serving and one GPipe step as
+    PIPE_RANKS ranks spawned on cuda:0 over gloo, against unsharded runs
+    here (phase 11's full-width references; (a)'s and (c)'s made now).
+    (a) Narrow fp32 (MESH_NARROW_RUNS at PIPE_NARROW_LAYERS layers under
+    each PIPE_NARROW_MESHES mesh): every rank's streams identical to the
+    unsharded Engine's; pp_generate under pipe 4 identical to the greedy
+    loop. (b) Full width (MESH_FULL_RUNS under each PIPE_FULL_MESHES mesh,
+    shards read per stage by load_vita_checkpoint(..., mesh=)): every
+    rank's streams equal, and apart from the unsharded run's only at a
+    logit or router near tie (_mesh_split; the ring decodes through B3/B7
+    where the unsharded Engine's batches take B4/B8b); under pipe 4 each
+    stage's prefill output equals the unsharded prefill's after its layer
+    bitwise, and its pool the unsharded pool's layer. (c) one GPipe step
+    (pipe_train_report). Without ``ckpt_dir`` (b) is left out
+    (chip_probe.py pp-faults). Every check runs, and the phase then fails
+    on any that failed. Returns the launch counts summed over the ranks."""
+    import torch
+
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.models import mixtral, vita
+    from vita_tpu_torch.parallel.launch import run_ranks
+    from vita_tpu_torch.serve.engine import Engine
+
+    failed = []
+    # (a) the unsharded narrow runs and greedy loop
+    ncfg = pipe_narrow_config()
+    nparams = _to(vita.init_params(ncfg, torch.Generator().manual_seed(SEED), "cpu"), device)
+    narrow_ref = {}
+    for label, kw in MESH_NARROW_RUNS:
+        engine = Engine(nparams, ncfg, n_slots=4, max_len=512, page_size=64, prefill_chunk=128,
+                        device=device, **kw)
+        first, wave = mesh_narrow_requests(ncfg)
+        narrow_ref[label] = [r.tokens for r in serve(engine, first) + serve(engine, wave)]
+        del engine
+    prompts = pipe_generate_prompts(ncfg)
+    gen_ref = np.zeros((PIPE_GEN_WAVES, PIPE_GEN_NEW + 1, PIPE_GEN_BATCH), np.int64)
+    with torch.no_grad():
+        for w in range(PIPE_GEN_WAVES):
+            cache = mixtral.init_kv_cache(ncfg.llm, PIPE_GEN_BATCH, PIPE_GEN_LEN, device=device)
+            dense = dataclasses.replace(ncfg.llm, moe_mode="dense")
+            logits, cache, _ = mixtral.forward(nparams["llm"], dense,
+                                               input_ids=torch.as_tensor(prompts[w], device=device),
+                                               cache=cache)
+            tok = logits[:, -1].float().argmax(-1)
+            gen_ref[w, 0] = tok.cpu().numpy()
+            for i in range(PIPE_GEN_NEW):
+                logits, cache, _ = mixtral.forward(nparams["llm"], ncfg.llm,
+                                                   input_ids=tok[:, None], cache=cache)
+                tok = logits[:, -1].float().argmax(-1)
+                gen_ref[w, i + 1] = tok.cpu().numpy()
+    del nparams
+    if ckpt_dir:  # (b) the stage check's unsharded prefill, layer by layer
+        cfg = slice_config()
+        _, params = load_vita_checkpoint(ckpt_dir, device)
+        engine = Engine(params, cfg, max_len=2048, device=device, **MESH_FULL_RUNS[0][1])
+        layers = {}
+        with _recording_layer_outputs(layers):
+            serve(engine, [pipe_stage_request(cfg)])
+        stage_ref = {"hidden": layers["hidden"],
+                     "k": engine.cache["k_pages"].view(torch.int16).cpu().numpy(),
+                     "v": engine.cache["v_pages"].view(torch.int16).cpu().numpy()}
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c)
+    train_ref, picks = pipe_train_reference(card, device)
+    train_ref["picks"] = picks
+    plan = {"ckpt_dir": ckpt_dir, "picks": picks, "device": "cuda:0"}
+    t0 = time.time()
+    results = run_ranks(pipe_rank, PIPE_RANKS, plan, backend="gloo", timeout=600,
+                        store_dir=os.path.join(ROOT, "build"))
+    print(f"  {PIPE_RANKS} ranks on cuda:0 over gloo returned in {time.time() - t0:.1f} s "
+          f"(rank 0: (a) {results[0]['wall_s']['a']:.1f} s, (b) "
+          f"{results[0]['wall_s'].get('b', 0.0):.1f} s, (c) {results[0]['wall_s']['c']:.1f} s; "
+          f"{MESH_NOTE})", flush=True)
+    # (a)
+    for axes in PIPE_NARROW_MESHES:
+        for label, _ in MESH_NARROW_RUNS:
+            bad = [r for r, res in enumerate(results)
+                   if res["narrow"][axes, label] != narrow_ref[label]]
+            if bad:
+                failed.append(f"(a) --mesh {' '.join(map(str, axes))} {label}: rank {bad[0]}'s "
+                              f"streams {results[bad[0]]['narrow'][axes, label]} differ from "
+                              f"the unsharded {narrow_ref[label]}")
+                continue
+            print(f"  (a) narrow fp32 --mesh {' '.join(map(str, axes))}, {label}: "
+                  f"{len(narrow_ref[label])} requests, every rank's greedy streams identical to "
+                  f"the unsharded Engine's", flush=True)
+    bad = [r for r, res in enumerate(results) if not np.array_equal(res["generate"], gen_ref)]
+    if bad:
+        failed.append(f"(a) pp_generate under pipe 4: rank {bad[0]}'s tokens "
+                      f"{results[bad[0]]['generate'].tolist()} are not the greedy loop's "
+                      f"{gen_ref.tolist()}")
+    else:
+        print(f"  (a) pp_generate under pipe 4 ({PIPE_GEN_WAVES} waves of {PIPE_GEN_BATCH}, "
+              f"{PIPE_GEN_NEW} new tokens): every rank's tokens identical to the greedy loop's",
+              flush=True)
+    # (b) the stage check, then the streams
+    for r, res in enumerate(results if ckpt_dir else ()):
+        got = res["stage"]
+        same = (np.array_equal(got["hidden"], stage_ref["hidden"][r])
+                and np.array_equal(got["k"][0], stage_ref["k"][r])
+                and np.array_equal(got["v"][0], stage_ref["v"][r]))
+        diff = float(np.abs(got["hidden"] - stage_ref["hidden"][r]).max())
+        print(f"  (b) --mesh 1 1 4 stage {r}: hidden handed on vs the unsharded prefill after "
+              f"layer {r}: max |diff| {diff:.3e}; pool rows "
+              f"{'equal' if np.array_equal(got['k'][0], stage_ref['k'][r]) else 'DIFFER'} "
+              f"(bitwise check: {'passed' if same else 'FAILED'})", flush=True)
+        if not same:
+            failed.append(f"(b) stage {r}: its hidden state or pool rows differ from the "
+                          f"unsharded prefill's layer {r} (max |diff| {diff:.3e})")
+    for axes in PIPE_FULL_MESHES if ckpt_dir else ():
+        for label, _, _ in MESH_FULL_RUNS:
+            name = f"--mesh {' '.join(map(str, axes))}, {label}"
+            ref, ids, top2, routes = MESH_FULL_REFS[label]
+            got = results[0]["full"][axes, label]["tokens"]
+            if any(res["full"][axes, label]["tokens"] != got for res in results):
+                failed.append(f"(b) {name}: the ranks' streams differ")
+                continue
+            own = {}
+            for res in results:
+                for key, by_layer in res["full"][axes, label]["routes"].items():
+                    own.setdefault(key, {}).update(by_layer)
+            own = {k: [v[i] for i in sorted(v)] for k, v in own.items()}
+            tops = {}
+            for res in results:
+                tops.update(res["full"][axes, label]["tops"])
+            try:
+                splits = [_pipe_split(i, g, w, rid, top2, routes, own, tops)
+                          for i, (g, w, rid) in enumerate(zip(got, ref, ids))]
+            except AssertionError as e:
+                failed.append(f"(b) {name}: {e}")
+                continue
+            print(f"  (b) full width {name}: {len(ref)} requests, every rank's streams equal; "
+                  f"against the unsharded Engine: {sum(s is None for s in splits)} identical, "
+                  f"splits at near ties {splits}", flush=True)
+            for r, res in enumerate(results):
+                run = res["full"][axes, label]
+                shift = np.asarray(run["shift_ms"])
+                print(f"    rank {r}: peak memory {run['peak_gib']:.2f} GiB, shards loaded in "
+                      f"{run['loaded_s']:.1f} s, Engine built in {run['built_s']:.1f} s, TTFT "
+                      f"{[round(t, 2) for t in run['ttft_ms']]} ms, decode "
+                      f"{[round(t, 2) for t in run['tok_s']]} tok/s, ring shift host ms a "
+                      f"substep median {np.median(shift):.3f} (p90 "
+                      f"{np.percentile(shift, 90):.3f}, {len(shift)} substeps)  ({MESH_NOTE}) "
+                      f"[{card}]", flush=True)
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    for r, res in enumerate(results):
+        counts = res["launches"]
+        print(f"  rank {r} kernel launches in phase 13 (a)-(b): "
+              f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+        missing = [k for k in PIPE_PATH if counts.get(k, 0) == 0]
+        if missing:
+            failed.append(f"(a)-(b) rank {r} never launched {missing}")
+        add(counts)
+    for counts in pipe_train_report(card, [res["train"] for res in results], train_ref, failed):
+        add(counts)
+    if failed:
+        raise AssertionError("phase 13 failed:\n  " + "\n  ".join(failed))
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3837,6 +4596,11 @@ def main() -> int:
         t0 = time.time()
         parts.append(seq_duplex_phase(card, dev, os.path.join(MESH_DIR, "ckpt")))
         print(f"  phase 12 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        print("phase 13: pipeline-parallel serving and one GPipe step (4 gloo ranks on one "
+              "card)", flush=True)
+        t0 = time.time()
+        parts.append(pipe_phase(card, dev, os.path.join(MESH_DIR, "ckpt")))
+        print(f"  phase 13 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}

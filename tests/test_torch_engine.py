@@ -168,16 +168,16 @@ def test_eos_and_capacity_guard(models):
 
 
 class _AxisMesh:
-    """Answers what a DeviceMesh answers about its axes, with one axis of 2
-    (a one-process world cannot build such a mesh)."""
+    """Answers what a DeviceMesh answers about its axes, with one axis of
+    ``size`` (a one-process world cannot build such a mesh)."""
 
     mesh_dim_names = ("data", "fsdp", "expert", "model", "pipe", "seq")
 
-    def __init__(self, name):
-        self.name = name
+    def __init__(self, name, size=2):
+        self.name, self.n = name, size
 
     def size(self, i):
-        return 2 if self.mesh_dim_names[i] == self.name else 1
+        return self.n if self.mesh_dim_names[i] == self.name else 1
 
     def get_local_rank(self, name):
         return 0
@@ -187,7 +187,7 @@ class _AxisMesh:
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=_AxisMesh("pipe")), (NotImplementedError, "A11c")),
+    (dict(mesh=_AxisMesh("pipe", 3)), (ValueError, "2 layers not divisible by pipe axis 3")),
     (dict(mesh=_AxisMesh("seq")), (ValueError, "KV-cache decode/prefill needs seq axis 1")),
     (dict(mesh=_AxisMesh("fsdp")), (NotImplementedError, "A11d")),
     (dict(mesh=_AxisMesh("data")), (NotImplementedError, "A11d"))],
@@ -196,7 +196,9 @@ def test_unported_options_raise(models, kw, item):
     """A mesh with an axis the serving path does not shard over yet raises
     NotImplementedError naming its ROADMAP item; a 'seq' axis (ported as
     the cacheless ring, A11b) raises the JAX package's ValueError, for a
-    KV cache holds whole sequences."""
+    KV cache holds whole sequences. A 'pipe' axis is ported (A11c): one
+    that does not divide the layer stack raises the JAX package's
+    ValueError (the case keeps its id)."""
     _, _, tcfg, tp = models
     exc, match = item
     with pytest.raises(exc, match=match):

@@ -238,10 +238,11 @@ def test_cli_prompt_builders_match_jax(modality, has_audio):
 
 
 def test_cli_unported_options_raise(tmp_path):
-    """--mesh EXPERT MODEL PIPE raises (A11c), and a mesh larger than the
-    one-process world raises. A directory is loaded now (A9): one
-    without a checkpoint raises, and one with a checkpoint but no
-    tokenizer raises rather than fall back to the byte tokenizer."""
+    """A mesh larger than the one-process world raises, with two axes and
+    with three (--mesh EXPERT MODEL PIPE is ported: A11c), as do a fourth
+    axis and a size of 0. A directory is loaded now (A9): one without a
+    checkpoint raises, and one with a checkpoint but no tokenizer raises
+    rather than fall back to the byte tokenizer."""
     with pytest.raises(FileNotFoundError):
         cli.main(["--model", str(tmp_path), "--question", "hi", "--device", "cpu"])
     cfg = vita.VITAConfig.tiny()
@@ -249,9 +250,13 @@ def test_cli_unported_options_raise(tmp_path):
         str(tmp_path), cfg, vita.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
     with pytest.raises(FileNotFoundError, match="no tokenizer"):
         cli.main(["--model", str(tmp_path), "--question", "hi", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11c"):
+    with pytest.raises(ValueError, match="does not cover 1 ranks"):
         cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
                   "--mesh", "1", "1", "2"])
+    for bad in (["1", "1", "1", "1"], ["1", "0"]):
+        with pytest.raises(ValueError, match="--mesh"):
+            cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
+                      "--mesh", *bad])
     with pytest.raises(ValueError, match="does not cover 1 ranks"):
         cli.main(["--model", "tiny-random", "--question", "hi", "--device", "cpu",
                   "--mesh", "2", "2"])

@@ -166,11 +166,12 @@ def test_duplex_demo_refuses_without_a_card():
 
 def test_unported_mesh_options_name_their_item():
     """Every NotImplementedError the port keeps for a mesh names its ROADMAP
-    item: A11b (capacity modes under seq), A11c (pipe) or A11d (data/fsdp,
-    training, seq beside other axes); none names A11 alone. The duplex
-    replicas (A11a) and the seq axis (A11b) are ported: the serving mesh
-    refuses seq > 1 with a ValueError, and the duplex surfaces no longer
-    name A11a."""
+    item: A11b (capacity modes under seq) or A11d (data/fsdp, training,
+    seq beside other axes); none names A11 alone. The duplex replicas
+    (A11a), the seq axis (A11b) and the pipe axis (A11c) are ported: the
+    serving mesh refuses seq > 1 with a ValueError, no file names A11c in
+    a refusal, --mesh takes EXPERT MODEL PIPE, and the duplex surfaces no
+    longer name A11a."""
     files = sorted((ROOT / "vita_tpu_torch").rglob("*.py"))
     raises = re.compile(r"raise NotImplementedError\((.*?)\)\n", re.S)
     items = re.compile(r"ROADMAP (A11[a-d])")
@@ -181,9 +182,13 @@ def test_unported_mesh_options_name_their_item():
                 tags = items.findall(msg)
                 assert tags, f"{f.name}: {msg!r} names no A11 sub-item"
                 found.setdefault(f.relative_to(ROOT).as_posix(), set()).update(tags)
-    assert found["vita_tpu_torch/parallel/mesh.py"] == {"A11c", "A11d"}
+    assert found["vita_tpu_torch/parallel/mesh.py"] == {"A11d"}
     assert found["vita_tpu_torch/train/cli.py"] == {"A11d"}
-    assert found["vita_tpu_torch/models/mixtral.py"] == {"A11b", "A11c", "A11d"}
+    assert found["vita_tpu_torch/models/mixtral.py"] == {"A11b", "A11d"}
+    assert not any("A11c" in tags for tags in found.values())
+    for name in ("cli.py", "serve/http_server.py", "parallel/distributed.py"):
+        text = (ROOT / "vita_tpu_torch" / name).read_text()
+        assert "A11c" not in text and "EXPERT MODEL [PIPE]" in text, name
     assert "vita_tpu_torch/parallel/sharded_ops.py" not in found
     for name in ("duplex_http.py", "duplex_demo.py"):
         text = (ROOT / "vita_tpu_torch" / "serve" / name).read_text()

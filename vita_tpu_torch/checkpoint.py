@@ -48,6 +48,9 @@ _JAX_ONLY = {
     "llm": {"max_position": 32768, "router_aux_loss_coef": 0.02, "pipe_stages": 1,
             "pipe_microbatches": 4},
 }
+# fields of a run, not of the weights: a checkpoint is written and read
+# with the defaults (the pipeline's stages come from the run's mesh)
+_RUN_ONLY = ("pipe_stages", "pipe_microbatches")
 
 
 def load_vita_checkpoint(path: str, device="cuda", mesh=None):
@@ -59,7 +62,10 @@ def load_vita_checkpoint(path: str, device="cuda", mesh=None):
     ``vita.shard_params`` gives them (pass them to ``Engine(...,
     sharded=True)``): each rank reads only its blocks of the mapped files
     (the HF layout's safetensors, the native state through torch.load's
-    mmap), so no rank holds the whole model in host memory."""
+    mmap), so no rank holds the whole model in host memory. Under a
+    'pipe' axis that is this stage's layers only and, where the
+    vocabulary is split over ('pipe', 'model'), its block of the
+    vocabulary."""
     with open(os.path.join(path, "config.json")) as f:
         raw = json.load(f)
     if raw.get("format") == "vita_tpu":
@@ -125,7 +131,7 @@ def _load_native(ckpt_dir: str, device, mmap: bool = False):
 def _config_from_json(raw: Dict[str, Any]) -> vita.VITAConfig:
     def build(cls, d):
         fields = {f.name for f in dataclasses.fields(cls)}
-        kw = {k: v for k, v in d.items() if k in fields and k != "dtype"}
+        kw = {k: v for k, v in d.items() if k in fields and k not in _RUN_ONLY + ("dtype",)}
         return cls(dtype=_DTYPES.get(d.get("dtype"), torch.float32), **kw)
 
     return vita.VITAConfig(

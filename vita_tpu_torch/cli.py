@@ -22,13 +22,13 @@ are read by the port's copies of the reference's numpy loaders
 through ``Generator``, or through the ``Engine`` for ``--kv-int8`` and
 ``--mesh``.
 
-``--mesh EXPERT MODEL`` serves one Engine per rank over an expert x model
-mesh, run under torchrun (``torchrun --nproc-per-node N -m
-vita_tpu_torch.cli --mesh E M ...`` with N = E * M); rank 0 prints, the
-others print nothing. The process group's backend is ``--dist-backend``:
-nccl (the default on cards) needs a card per rank; ranks that share one
-card pass gloo. A third number (PIPE) raises: pipeline-parallel serving
-is ROADMAP A11c.
+``--mesh EXPERT MODEL [PIPE]`` serves one Engine per rank over an expert
+x model (x pipe) mesh, run under torchrun (``torchrun --nproc-per-node N
+-m vita_tpu_torch.cli --mesh E M [P] ...`` with N = E * M * P); rank 0
+prints, the others print nothing. A pipe axis splits the layer stack into
+P stages (the Engine's pipeline path; its slots, one here, round up to
+P). The process group's backend is ``--dist-backend``: nccl (the default
+on cards) needs a card per rank; ranks that share one card pass gloo.
 """
 
 from __future__ import annotations
@@ -100,8 +100,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    choices=["dense", "capacity", "gather", "gather_q", "gather_q4"],
                    help="MoE path for decode steps (default: inherit model config)")
     p.add_argument("--mesh", type=int, nargs="+", metavar="AX", default=None,
-                   help="serving mesh EXPERT MODEL over the ranks of a torchrun launch "
-                        "(PIPE is not ported: ROADMAP A11c)")
+                   help="serving mesh EXPERT MODEL [PIPE] over the ranks of a torchrun "
+                        "launch (PIPE: pipeline stages)")
     p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend under --mesh (default nccl on cards, "
                         "gloo on the CPU; ranks sharing one card need gloo)")
@@ -228,7 +228,8 @@ def _run(args, p, device, mesh, say) -> int:
     if args.kv_int8 or mesh is not None:
         from vita_tpu_torch.serve.engine import Engine, Request
 
-        eng = Engine(params, cfg, n_slots=1, max_len=args.max_len,
+        pipe = args.mesh[2] if mesh is not None and len(args.mesh) == 3 else 1
+        eng = Engine(params, cfg, n_slots=max(1, pipe), max_len=args.max_len,
                      decode_chunk_len=args.chunk_len,
                      decode_moe_mode=args.decode_moe_mode,
                      prefill_moe_mode=args.prefill_moe_mode,

@@ -168,7 +168,8 @@ def embed_prompt(
 
     ids_d = tensor(ids, torch.int64)[None]
     if images is None and speech is None and audio_encoded is None:
-        return mixtral.embed_tokens(params["llm"], ids_d, mesh)
+        return mixtral.embed_tokens(params["llm"], ids_d, mesh,
+                                    mixtral.vocab_axes(params["llm"], cfg.llm, mesh))
 
     def padmask(m):
         out = np.zeros(bucket, bool)

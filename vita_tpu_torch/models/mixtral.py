@@ -101,6 +101,11 @@ class MixtralConfig:
     moe_chunk: int = 0
     attn_backend: str = "xla"  # 'xla' | 'flash'
     remat: bool = False  # checkpoint each layer when training
+    # GPipe pipeline parallelism over the mesh's 'pipe' axis
+    # (parallel/pipeline.py): > 1 needs forward(..., mesh=...) and the
+    # cacheless path; n_layers % pipe_stages == 0
+    pipe_stages: int = 1
+    pipe_microbatches: int = 4
     dtype: torch.dtype = torch.float32
 
     @property
@@ -161,24 +166,27 @@ def param_specs(cfg: MixtralConfig) -> Params:
     """Spec tuples (one entry per dim: None or a mesh axis) mirroring
     init_params' tree, equal to the JAX package's PartitionSpecs: 'model'
     shards heads, ffn columns and the vocabulary, 'expert' the expert axis,
-    'fsdp' the remaining large dim."""
+    'fsdp' the remaining large dim, and 'pipe' leads the stacked layer
+    leaves when ``pipe_stages`` > 1 (stage s holds layers
+    [s*L/S, (s+1)*L/S))."""
+    lead = "pipe" if cfg.pipe_stages > 1 else None
     return {
         "embed": ("model", "fsdp"),
         "layers": {
             "attn": {
-                "wq": (None, "fsdp", "model"),
-                "wk": (None, "fsdp", "model"),
-                "wv": (None, "fsdp", "model"),
-                "wo": (None, "model", "fsdp"),
+                "wq": (lead, "fsdp", "model"),
+                "wk": (lead, "fsdp", "model"),
+                "wv": (lead, "fsdp", "model"),
+                "wo": (lead, "model", "fsdp"),
             },
             "moe": {
-                "router": (None, "fsdp", None),
-                "w_gate": (None, "expert", "fsdp", "model"),
-                "w_up": (None, "expert", "fsdp", "model"),
-                "w_down": (None, "expert", "model", "fsdp"),
+                "router": (lead, "fsdp", None),
+                "w_gate": (lead, "expert", "fsdp", "model"),
+                "w_up": (lead, "expert", "fsdp", "model"),
+                "w_down": (lead, "expert", "model", "fsdp"),
             },
-            "ln_attn": (None, None),
-            "ln_moe": (None, None),
+            "ln_attn": (lead, None),
+            "ln_moe": (lead, None),
         },
         "ln_final": (None,),
         "lm_head": ("fsdp", "model"),
@@ -187,65 +195,117 @@ def param_specs(cfg: MixtralConfig) -> Params:
 
 def decode_param_specs(cfg: MixtralConfig, params: Params) -> Params:
     """param_specs extended to quantized decode params: the int8/int4
-    scale leaves shard like their weights, the expert axis on 'expert'."""
+    scale leaves shard like their weights, the expert axis on 'expert'
+    (and the layer axis on 'pipe' when ``pipe_stages`` > 1)."""
     specs = param_specs(cfg)
+    lead = "pipe" if cfg.pipe_stages > 1 else None
     moe = specs["layers"]["moe"]
     for k, v in params["layers"]["moe"].items():
         if k not in moe:
-            moe[k] = (None, "expert") + (None,) * (v.dim() - 2)
+            moe[k] = (lead, "expert") + (None,) * (v.dim() - 2)
     return specs
 
 
-def serving_specs(cfg: MixtralConfig, params: Params) -> Params:
+def vocab_split(cfg: MixtralConfig, mesh) -> bool:
+    """Whether serving shards the vocabulary (embed rows, lm_head columns)
+    over ('pipe', 'model') rather than 'model' alone: a 'pipe' axis > 1
+    whose blocks divide the vocabulary. Otherwise every stage holds the
+    model axis's block of the whole head."""
+    pp, tp = axis(mesh, PIPE).size, axis(mesh, MODEL).size
+    return pp > 1 and cfg.vocab_size % (pp * tp) == 0
+
+
+def vocab_axes(params: Params, cfg: MixtralConfig, mesh) -> Tuple[str, ...]:
+    """The axes ``params``' vocabulary is split over: ('pipe', 'model')
+    when its embedding holds V/(pipe*model) rows, else ('model',)."""
+    pp, tp = axis(mesh, PIPE).size, axis(mesh, MODEL).size
+    if pp > 1 and params["embed"].shape[0] * pp * tp == cfg.vocab_size:
+        return (PIPE, MODEL)
+    return (MODEL,)
+
+
+def serving_specs(cfg: MixtralConfig, params: Params, mesh=None) -> Params:
     """The specs the port's serving shards follow: decode_param_specs with
     each expert whole ('model' dropped from the expert leaves; the JAX
-    package's kernel islands gather them whole too)."""
-    specs = decode_param_specs(cfg, params)
+    package's kernel islands gather them whole too), the layer leaves led
+    by 'pipe' when the mesh has a 'pipe' axis > 1, and the vocabulary
+    over ('pipe', 'model') where ``vocab_split``."""
+    pp = axis(mesh, PIPE).size
+    specs = decode_param_specs(dataclasses.replace(cfg, pipe_stages=pp), params)
     moe = specs["layers"]["moe"]
     for k, spec in moe.items():
         moe[k] = tuple(None if a == "model" else a for a in spec)
+    if vocab_split(cfg, mesh):
+        specs["embed"] = ((PIPE, MODEL), "fsdp")
+        specs["lm_head"] = ("fsdp", (PIPE, MODEL))
     return specs
 
 
-def shard_params(params: Params, cfg: MixtralConfig, mesh, device=None) -> Params:
+def shard_params(params: Params, cfg: MixtralConfig, mesh, device=None, specs=None) -> Params:
     """This rank's shards of the full ``params`` (plain or quantized, on
     any device: CPU views of a mapped file are read only where this rank's
-    blocks lie), contiguous on ``device``."""
-    ep, tp = serving_axes(mesh)
+    blocks lie), contiguous on ``device``; cut by ``serving_specs`` unless
+    ``specs`` are given (``param_specs`` for the GPipe training path)."""
+    if specs is None:  # raises for the axes serving does not shard over
+        serving_axes(mesh)
+    ep, tp, pp = (axis(mesh, a).size for a in (EXPERT, MODEL, PIPE))
     if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.vocab_size % tp:
         raise ValueError(f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads and a vocabulary of "
                          f"{cfg.vocab_size} must divide over a model axis of {tp}")
     if cfg.n_experts % ep:
         raise ValueError(f"{cfg.n_experts} experts not divisible by expert axis {ep}")
+    if cfg.n_layers % pp:
+        raise ValueError(f"layer count {cfg.n_layers} not divisible by pipe axis {pp}")
 
     def cut(tree, specs):
         if isinstance(tree, dict):
             return {k: cut(v, specs[k]) for k, v in tree.items()}
         return local_shard(tree, specs, mesh).to(device).contiguous()
 
-    return cut(params, serving_specs(cfg, params))
+    return cut(params, serving_specs(cfg, params, mesh) if specs is None else specs)
 
 
-def embed_tokens(params: Params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Embedding rows of ``ids``; over a 'model' axis each rank holds a
-    block of the vocabulary, looks up the ids in it (zeros elsewhere) and
-    the blocks' rows are summed (exact: one is nonzero)."""
+def embed_tokens(params: Params, ids: torch.Tensor, mesh=None, axes=(MODEL,)) -> torch.Tensor:
+    """Embedding rows of ``ids``; with the vocabulary split over ``axes``
+    (``vocab_axes``) each rank holds a block of it, looks up the ids in it
+    (zeros elsewhere) and the blocks' rows are summed (exact: one is
+    nonzero)."""
     emb = params["embed"]
-    tp = axis(mesh, MODEL)
-    if tp.size == 1:
+    size, rank = 1, 0
+    for n in axes:
+        a = axis(mesh, n)
+        size, rank = size * a.size, rank * a.size + a.rank
+    if size == 1:
         return emb[ids.long()]
     v_local = emb.shape[0]
-    local = ids.long() - tp.rank * v_local
+    local = ids.long() - rank * v_local
     mine = (local >= 0) & (local < v_local)
     rows = emb[local.clamp(0, v_local - 1)]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return all_reduce_sum(rows, mesh, MODEL)
+    return all_reduce_sum(rows, mesh, axes)
 
 
-def lm_logits(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """x @ lm_head; over a 'model' axis the vocabulary blocks' logits are
-    gathered, so every rank holds the full row."""
-    return all_gather_cat(x @ params["lm_head"], mesh, MODEL, dim=-1)
+def lm_logits(params: Params, x: torch.Tensor, mesh=None, axes=(MODEL,)) -> torch.Tensor:
+    """x @ lm_head; with the vocabulary split over ``axes`` the blocks'
+    logits are gathered, so every rank holds the full row."""
+    return all_gather_cat(x @ params["lm_head"], mesh, axes, dim=-1)
+
+
+def unstack_layers(params: Params) -> Params:
+    """The stacked [L, ...] layer leaves as a list of per-layer trees
+    (views). ``forward`` takes stacked layers; the JAX package's reason
+    for unstacking (no per-layer weight copies at its kernels' operands)
+    does not arise in torch, where a layer's slice is a view, so this is
+    the conversion for callers that want per-layer trees."""
+    stacked = params["layers"]
+    n_layers = stacked["ln_attn"].shape[0]
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return {**params, "layers": [take(stacked, i) for i in range(n_layers)]}
 
 
 def quantize_moe_for_decode(params: Params, bits: int = 8) -> Params:
@@ -379,10 +439,11 @@ def _attention_block_paged(
 
 
 def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_flat, mesh,
-                      reduce_stats=None):
+                      reduce_stats=None, pairs: bool = False):
     """A gather mode (every mesh), or gmm under a mesh: the router, then
     the selected experts through parallel.sharded_ops over the stacked
-    (local) expert weights."""
+    (local) expert weights. ``pairs`` runs the gather modes' per-pair
+    kernel at every batch size (the pipeline's decode ring)."""
     router_logits = h2d.float() @ moe["router"][layer_idx].float()
     topk_w, topk_i, probs = route_topk(router_logits, cfg.top_k)
     aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat, reduce_stats)
@@ -392,19 +453,18 @@ def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_f
                               mesh=mesh)
     else:
         out = sharded_gather_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
-                                 cfg.moe_mode, mesh=mesh)
+                                 cfg.moe_mode, mesh=mesh, pairs=pairs)
     return out.to(h2d.dtype), aux
 
 
 def _check_seq_forward(cfg: MixtralConfig, mesh, cache) -> None:
     """The seq-parallel forward is the cacheless one, over a mesh of the
-    'seq' axis alone, with the ring as its attention and token-local MoE
-    statistics; the rest raises (a missing port names its ROADMAP item)."""
+    'seq' axis alone (or beside 'pipe', each stage running the ring), with
+    the ring as its attention and token-local MoE statistics; the rest
+    raises (a missing port names its ROADMAP item)."""
     if cache is not None:
         raise ValueError("seq-parallel attention supports the cacheless path only (Sq == Skv); "
                          "KV-cache decode/prefill needs seq axis 1")
-    if axis(mesh, PIPE).size > 1:
-        raise NotImplementedError("a 'pipe' axis beside 'seq' is not ported yet (ROADMAP A11c)")
     if any(axis(mesh, a).size > 1 for a in (DATA, FSDP, EXPERT, MODEL)):
         raise NotImplementedError(
             "a 'seq' axis with data/fsdp/expert/model axes > 1 needs differentiable "
@@ -419,6 +479,112 @@ def _check_seq_forward(cfg: MixtralConfig, mesh, cache) -> None:
             "in their global order, which no rank holds (ROADMAP A11b (capacity under seq))")
 
 
+def _check_pipe_forward(params: Params, cfg: MixtralConfig, mesh, cache) -> None:
+    """The GPipe forward is the cacheless one over stacked layers, with a
+    mesh whose 'pipe' axis is ``pipe_stages`` (the JAX package's
+    ValueErrors); ``params`` hold this stage's L/S layers."""
+    if cache is not None or cfg.moe_mode in GATHER_MODES or isinstance(params["layers"], list):
+        raise ValueError(
+            "pipe_stages > 1 supports the cacheless stacked-layer training/prefill path only "
+            "(no KV cache, no gather decode)")
+    if cfg.moe_mode == "gmm":
+        raise ValueError(
+            "moe_mode='gmm' is not supported with pipeline parallelism; use 'dense', 'sort' "
+            "or 'capacity' with pipe_stages > 1")
+    if mesh is None:
+        raise ValueError("pipe_stages > 1 requires forward(..., mesh=...)")
+    if axis(mesh, PIPE).size != cfg.pipe_stages:
+        raise ValueError(f"pipe axis size {axis(mesh, PIPE).size} != pipe_stages "
+                         f"{cfg.pipe_stages}")
+    if cfg.n_layers % cfg.pipe_stages:
+        raise ValueError(f"layer count {cfg.n_layers} not divisible by pipe_stages="
+                         f"{cfg.pipe_stages}")
+    held = params["layers"]["ln_attn"].shape[0]
+    if held != cfg.n_layers // cfg.pipe_stages:
+        raise ValueError(f"params hold {held} layers; a stage of {cfg.n_layers} layers over "
+                         f"{cfg.pipe_stages} stages holds {cfg.n_layers // cfg.pipe_stages}")
+
+
+def _layer_of(layers, i: int):
+    """(stacked layer tree, index) of layer i: the stack and i for stacked
+    leaves, a one-layer stack (views) and 0 for a list of layers."""
+    if isinstance(layers, list):
+        def one(tree):
+            if isinstance(tree, dict):
+                return {k: one(v) for k, v in tree.items()}
+            return tree[None]
+        return one(layers[i]), 0
+    return layers, i
+
+
+def n_layers_of(layers) -> int:
+    """The layers a stacked tree or a list of layers holds."""
+    return len(layers) if isinstance(layers, list) else layers["ln_attn"].shape[0]
+
+
+def run_layers(
+    layers,  # stacked [L', ...] leaves (all layers, or a stage's) or a list of layers
+    cfg: MixtralConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S]
+    attn_valid: Optional[torch.Tensor] = None,  # [B, S_kv] (not for the paged pool)
+    cache: Optional[Params] = None,  # layer-indexed like ``layers``
+    tm_flat: Optional[torch.Tensor] = None,
+    mesh=None,
+    seq_kv_len: Optional[torch.Tensor] = None,
+    reduce_stats=None,
+    remat: bool = False,
+    pairs: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder layers of ``layers`` in order: (x, aux summed over
+    them). The cache (linear scratch or paged pool) is indexed by the same
+    layer numbers and written in place. ``remat`` checkpoints each layer
+    (torch.utils.checkpoint); ``pairs`` runs a gather mode's per-pair
+    kernel at every batch size."""
+    b, s, d = x.shape
+    paged = cache is not None and "k_pages" in cache
+    ep = axis(mesh, EXPERT)
+    routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
+
+    def layer(x, i: int):
+        stack, li = _layer_of(layers, i)
+        lp = {k: v[li] for k, v in stack["attn"].items()}
+        h = rms_norm(x, stack["ln_attn"][li], cfg.rms_eps)
+        if paged:
+            attn_out = _attention_block_paged(lp, cfg, h, positions, cache, i, mesh)
+        else:
+            attn_out = _attention_block(
+                lp, cfg, h, positions, attn_valid,
+                cache["k"][i] if cache is not None else None,
+                cache["v"][i] if cache is not None else None,
+                cache["pos"] if cache is not None else None, mesh, seq_kv_len,
+            )
+        x = x + attn_out
+        h = rms_norm(x, stack["ln_moe"][li], cfg.rms_eps).reshape(b * s, d)
+        if routed:
+            moe_out, aux = _moe_routed_layer(h, stack["moe"], li, cfg, tm_flat, mesh,
+                                             reduce_stats, pairs)
+        else:
+            e_local = stack["moe"]["router"].shape[-1] // ep.size
+            moe_out, aux = moe_ffn({k: v[li] for k, v in stack["moe"].items()}, h,
+                                   cfg.top_k, mode=cfg.moe_mode,
+                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
+                                   chunk=cfg.moe_chunk, expert_offset=ep.rank * e_local,
+                                   out_dtype=torch.float32 if ep.size > 1 else None,
+                                   reduce_stats=reduce_stats)
+            moe_out = all_reduce_sum(moe_out, mesh, EXPERT).to(h.dtype)
+        return x + moe_out.reshape(b, s, d), aux
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_layers_of(layers)):
+        if remat:
+            x, aux = checkpoint(layer, x, i, use_reentrant=False)
+        else:
+            x, aux = layer(x, i)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(
     params: Params,
     cfg: MixtralConfig,
@@ -429,37 +595,55 @@ def forward(
     cache: Optional[Params] = None,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] real tokens, for aux loss
     return_hidden: bool = False,
-    mesh=None,  # a serving mesh over which ``params`` are this rank's shards
+    mesh=None,  # a mesh over which ``params`` are this rank's shards
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (logits [B, S, V] or final-norm hidden [B, S, D],
     cache with the advanced ``pos`` or None, moe_aux_loss scalar).
 
     Cache tensors are updated in place and returned in the new cache.
+    ``params["layers"]`` may also be a list of per-layer trees
+    (``unstack_layers``).
 
-    Under a mesh of a 'seq' axis of n > 1 (and no other axis > 1) this is
-    the seq-parallel cacheless forward: ``params`` are whole on every
-    rank, and ``input_ids``/``inputs_embeds``, ``attn_valid``,
-    ``token_mask`` and ``positions`` are this rank's block of S/n
-    positions of the whole sequence (``parallel.ring_attention.shard_seq``);
-    positions default to the global ones, the ring's kv_len counts the
-    valid keys of the whole sequence (summed over 'seq'), attention runs
-    the ring (attn_backend 'flash'), and the logits are the block's. The
-    MoE must be token-local (dense, gmm or a gather mode). The aux loss is
-    the whole sequence's, on every rank; its sums go over 'seq' through
+    Under a mesh of a 'seq' axis of n > 1 (and no other axis > 1 but
+    'pipe') this is the seq-parallel cacheless forward: ``params`` are
+    whole on every rank, and ``input_ids``/``inputs_embeds``,
+    ``attn_valid``, ``token_mask`` and ``positions`` are this rank's block
+    of S/n positions of the whole sequence
+    (``parallel.ring_attention.shard_seq``); positions default to the
+    global ones, the ring's kv_len counts the valid keys of the whole
+    sequence (summed over 'seq'), attention runs the ring (attn_backend
+    'flash'), and the logits are the block's. The MoE must be token-local
+    (dense, gmm or a gather mode). The aux loss is the whole sequence's,
+    on every rank; its sums go over 'seq' through
     ``parallel.mesh.sum_stat``, whose backward keeps each rank's gradient
     its own. The contract: when each rank's objective is its block's
     share of the loss plus the aux term in full, the gradients of the
-    parameters summed over the 'seq' ranks equal the unsharded ones."""
+    parameters summed over the 'seq' ranks equal the unsharded ones.
+
+    With ``cfg.pipe_stages`` > 1 this is the GPipe forward
+    (parallel.pipeline.pipeline_layer_stack, ``pipe_microbatches``
+    microbatches; ``remat`` recomputes each stage's microbatch in the
+    backward): ``params`` hold this stage's layers (``shard_params`` with
+    ``param_specs``), the embedding and head whole or split over 'model';
+    every rank returns the whole batch's logits, and every leaf replicated
+    over 'pipe' gets the whole gradient on every rank. The aux loss is the
+    microbatches' mean, as in the JAX package. Beside a 'seq' axis each
+    stage runs the ring over its rank's block."""
     if cfg.moe_mode not in MODES:
         raise ValueError(f"unknown moe_mode {cfg.moe_mode!r}; modes: {MODES}")
-    ep, sp = axis(mesh, EXPERT), axis(mesh, SEQ)
+    sp, pp = axis(mesh, SEQ), axis(mesh, PIPE)
+    if cfg.pipe_stages > 1:
+        _check_pipe_forward(params, cfg, mesh, cache)
+    elif pp.size > 1:
+        raise ValueError(f"pipe axis size {pp.size} != pipe_stages {cfg.pipe_stages}")
     if sp.size > 1:
         _check_seq_forward(cfg, mesh, cache)
     elif mesh is not None:
         serving_axes(mesh)
     paged = cache is not None and "k_pages" in cache
+    axes = vocab_axes(params, cfg, mesh) if mesh is not None else (MODEL,)
     if inputs_embeds is None:
-        inputs_embeds = embed_tokens(params, input_ids, mesh)
+        inputs_embeds = embed_tokens(params, input_ids, mesh, axes)
     b, s, d = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
@@ -471,55 +655,144 @@ def forward(
     seq_kv_len = None
     if sp.size > 1:  # the ring masks keys by the whole sequence's valid count
         seq_kv_len = all_reduce_sum(attn_valid.sum(1).to(torch.int32), mesh, SEQ)
-    tm_flat = None if token_mask is None else token_mask.reshape(-1)
     # aux's sums over the whole sequence
     reduce_stats = (lambda sums: sum_stat(sums, mesh, SEQ)) if sp.size > 1 else None
 
-    layers = params["layers"]
-    routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
-    e_local = layers["moe"]["router"].shape[-1] // ep.size
+    if cfg.pipe_stages > 1:
+        from vita_tpu_torch.parallel.pipeline import pipeline_layer_stack
 
-    def layer(x, i: int):
-        lp = {k: v[i] for k, v in layers["attn"].items()}
-        h = rms_norm(x, layers["ln_attn"][i], cfg.rms_eps)
-        if paged:
-            attn_out = _attention_block_paged(lp, cfg, h, positions, cache, i, mesh)
-        else:
-            attn_out = _attention_block(
-                lp, cfg, h, positions, attn_valid,
-                cache["k"][i] if cache is not None else None,
-                cache["v"][i] if cache is not None else None,
-                cache["pos"] if cache is not None else None, mesh, seq_kv_len,
-            )
-        x = x + attn_out
-        h = rms_norm(x, layers["ln_moe"][i], cfg.rms_eps).reshape(b * s, d)
-        if routed:
-            moe_out, aux = _moe_routed_layer(h, layers["moe"], i, cfg, tm_flat, mesh,
-                                             reduce_stats)
-        else:
-            moe_out, aux = moe_ffn({k: v[i] for k, v in layers["moe"].items()}, h,
-                                   cfg.top_k, mode=cfg.moe_mode,
-                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
-                                   chunk=cfg.moe_chunk, expert_offset=ep.rank * e_local,
-                                   out_dtype=torch.float32 if ep.size > 1 else None,
-                                   reduce_stats=reduce_stats)
-            moe_out = all_reduce_sum(moe_out, mesh, EXPERT).to(h.dtype)
-        return x + moe_out.reshape(b, s, d), aux
+        def pp_layer(lp, x, c):
+            tm = c["tm"]
+            one = {k: ({n: t[None] for n, t in v.items()} if isinstance(v, dict) else v[None])
+                   for k, v in lp.items()}
+            return run_layers(one, cfg, x, c["pos"], c["valid"],
+                              tm_flat=None if tm is None else tm.reshape(-1), mesh=mesh,
+                              seq_kv_len=c["kv_len"], reduce_stats=reduce_stats)
 
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    x = inputs_embeds
-    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.n_layers):
-        if remat:
-            x, aux = checkpoint(layer, x, i, use_reentrant=False)
-        else:
-            x, aux = layer(x, i)
-        aux_total = aux_total + aux
+        consts = {"pos": positions, "valid": attn_valid, "tm": token_mask,
+                  "kv_len": seq_kv_len}
+        x, aux_total = pipeline_layer_stack(mesh, pp_layer, params["layers"], inputs_embeds,
+                                            consts, cfg.pipe_stages, cfg.pipe_microbatches,
+                                            remat=cfg.remat)
+    else:
+        tm_flat = None if token_mask is None else token_mask.reshape(-1)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        x, aux_total = run_layers(params["layers"], cfg, inputs_embeds, positions, attn_valid,
+                                  cache, tm_flat, mesh, seq_kv_len, reduce_stats, remat)
 
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
-    logits = x if return_hidden else lm_logits(params, x, mesh)
+    logits = x if return_hidden else lm_logits(params, x, mesh, axes)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache)
         new_cache["pos"] = cache["pos"] + s
     return logits, new_cache, aux_total / cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel greedy generation (the wave-major layer-split cache)
+# ---------------------------------------------------------------------------
+def init_pp_kv_cache(cfg: MixtralConfig, n_waves: int, batch: int, max_len: int, dtype=None,
+                     device=None, mesh=None) -> Params:
+    """Wave-major KV cache for pipeline-parallel decode: {'k','v'}
+    [L/S, W, B, T, Hkv, hd] (this stage's layers under ``mesh``'s 'pipe'
+    axis of S; all L without a mesh) and 'pos' [W, B] int32, all zero."""
+    n_local = cfg.n_layers // axis(mesh, PIPE).size
+    shape = (n_local, n_waves, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.zeros(n_waves, batch, dtype=torch.int32, device=device)}
+
+
+def pp_kv_cache_specs() -> Params:
+    """The wave-major cache's specs: the layer dim over 'pipe'."""
+    return {"k": ("pipe",), "v": ("pipe",), "pos": ()}
+
+
+@torch.no_grad()
+def pp_prefill(params: Params, cfg: MixtralConfig, mesh, prompts: torch.Tensor,
+               max_len: int) -> Tuple[Params, torch.Tensor]:
+    """Pipeline-parallel prefill of W == S waves of prompts [W, B, T0]:
+    the GPipe schedule (parallel.pipeline.pipeline_prefill_kv, dense MoE)
+    fills this stage's rows of the wave-major cache that
+    ``pp_decode_greedy`` reads. ``params`` are this rank's shards
+    (``shard_params``). Returns (cache, first greedy tokens [W, B] on
+    every rank)."""
+    from vita_tpu_torch.parallel.pipeline import pipeline_prefill_kv
+
+    w, b, t0 = prompts.shape
+    dev = params["embed"].device
+    axes = vocab_axes(params, cfg, mesh)
+    x = embed_tokens(params, prompts.reshape(w * b, t0), mesh, axes)
+    x = x.reshape(w, b, t0, -1).to(cfg.dtype)
+    positions = torch.arange(t0, device=dev)[None, None].expand(w, b, t0)
+    kv_valid = (torch.arange(max_len, device=dev) < t0)[None, None].expand(w, b, max_len)
+    hkv = cfg.n_kv_heads // axis(mesh, MODEL).size
+    kv_template = torch.zeros(b, max_len, hkv, cfg.head_dim, dtype=cfg.dtype, device=dev)
+    dense = dataclasses.replace(cfg, moe_mode="dense")
+
+    def body(lp, xx, cw, kv_zeros):
+        one = {k: ({n: t[None] for n, t in v.items()} if isinstance(v, dict) else v[None])
+               for k, v in lp.items()}
+        kv_k, kv_v = kv_zeros, kv_zeros.clone()
+        cache = {"k": kv_k[None], "v": kv_v[None],
+                 "pos": torch.zeros(xx.shape[0], dtype=torch.int32, device=dev)}
+        y, _ = run_layers(one, dense, xx, cw["pos"], cw["valid"], cache, mesh=mesh)
+        return y, kv_k, kv_v
+
+    x_out, ck, cv = pipeline_prefill_kv(mesh, body, params["layers"], x,
+                                        {"pos": positions, "valid": kv_valid}, kv_template,
+                                        axis(mesh, PIPE).size)
+    h = rms_norm(x_out[:, :, -1], params["ln_final"], cfg.rms_eps)
+    first = lm_logits(params, h, mesh, axes).float().argmax(-1).to(torch.int32)
+    cache = {"k": ck, "v": cv, "pos": torch.full((w, b), t0, dtype=torch.int32, device=dev)}
+    return cache, first
+
+
+@torch.no_grad()
+def pp_generate(params: Params, cfg: MixtralConfig, mesh, prompts: torch.Tensor,
+                n_tokens: int, max_len: int) -> torch.Tensor:
+    """Pipeline-parallel greedy generation: ``pp_prefill`` into the
+    layer-split cache, then the S-wave ring decode. Returns tokens
+    [W, n_tokens + 1, B] on every rank (the prefill's first token and
+    n_tokens more)."""
+    cache, first = pp_prefill(params, cfg, mesh, prompts, max_len)
+    toks, _ = pp_decode_greedy(params, cfg, mesh, cache, first, n_tokens)
+    return torch.cat([first[:, None], toks], dim=1)
+
+
+@torch.no_grad()
+def pp_decode_greedy(params: Params, cfg: MixtralConfig, mesh, cache: Params,
+                     first_tokens: torch.Tensor, n_tokens: int) -> Tuple[torch.Tensor, Params]:
+    """Pipeline-parallel greedy decode: S waves ride the 'pipe' ring
+    (parallel.pipeline.pipeline_decode_greedy) over the wave-major cache
+    (``init_pp_kv_cache``, prefilled per wave; written in place).
+    ``params`` are this rank's shards. The MoE follows ``cfg.moe_mode``:
+    the gather modes run their per-pair kernel over the stage's stacked
+    experts (flat layer*E+e ids), any other mode ``moe_ffn``. The last
+    stage finishes each token with the whole head (gathered once when the
+    vocabulary is split). Returns (tokens [W, n_tokens, B] on every rank,
+    the cache with the advanced 'pos')."""
+    from vita_tpu_torch.parallel.pipeline import pipeline_decode_greedy
+
+    axes = vocab_axes(params, cfg, mesh)
+    head = {"ln_final": params["ln_final"],
+            "lm_head": all_gather_cat(params["lm_head"], mesh, axes, dim=1),
+            "embed": all_gather_cat(params["embed"], mesh, axes, dim=0)}
+
+    def stage_fn(local, ck_w, cv_w, x, positions, kv_valid, cache_pos):
+        y, _ = run_layers(local, cfg, x, positions, kv_valid,
+                          {"k": ck_w, "v": cv_w, "pos": cache_pos}, mesh=mesh, pairs=True)
+        return y
+
+    def finish_fn(hp, y):
+        h = rms_norm(y, hp["ln_final"], cfg.rms_eps)[:, 0]
+        tok = (h @ hp["lm_head"]).float().argmax(-1).to(torch.int32)
+        return tok, hp["embed"][tok.long()][:, None]
+
+    x0 = embed_tokens(params, first_tokens.reshape(-1), mesh, axes)
+    x0 = x0.reshape(first_tokens.shape + (1, -1)).to(cfg.dtype)
+    toks = pipeline_decode_greedy(mesh, stage_fn, finish_fn, params["layers"], head,
+                                  cache["k"], cache["v"], x0, cache["pos"], n_tokens)
+    return toks, {**cache, "pos": cache["pos"] + n_tokens}

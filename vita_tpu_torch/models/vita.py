@@ -11,9 +11,13 @@ forward; gradients reach a tower or a projector whose parameters require
 them.
 
 Under a serving mesh (``mesh``) the LLM's params are this rank's shards
-(``shard_params``; mixtral.forward runs the collectives) and the towers
-and projectors are whole on every rank: the JAX package shards InternViT
-through GSPMD, the port does not yet.
+(``shard_params``; mixtral.forward runs the collectives: a 'pipe' axis
+splits the layers by stage and, where it divides, the vocabulary over
+('pipe', 'model')) and the towers and projectors are whole on every rank:
+the JAX package shards InternViT through GSPMD, the port does not yet.
+``forward`` hands the mesh to the LLM, whose GPipe path
+(``cfg.llm.pipe_stages`` > 1) gives the embeddings' gradient, and so the
+towers' and projectors', to every rank.
 """
 
 from __future__ import annotations
@@ -101,16 +105,18 @@ def init_params(cfg: VITAConfig, generator: torch.Generator, device=None) -> Par
     }
 
 
-def shard_params(params: Params, cfg: VITAConfig, mesh, device=None) -> Params:
+def shard_params(params: Params, cfg: VITAConfig, mesh, device=None, llm_specs=None) -> Params:
     """This rank's params on ``device``: the LLM's shards
-    (mixtral.shard_params), every other component whole."""
+    (mixtral.shard_params: serving_specs, or ``llm_specs`` such as
+    ``mixtral.param_specs`` of a pipe_stages config for the GPipe
+    training path), every other component whole."""
     def whole(tree):
         if isinstance(tree, dict):
             return {k: whole(v) for k, v in tree.items()}
         return tree.to(device)
 
-    return {k: mixtral.shard_params(v, cfg.llm, mesh, device) if k == "llm" else whole(v)
-            for k, v in params.items()}
+    return {k: mixtral.shard_params(v, cfg.llm, mesh, device, llm_specs) if k == "llm"
+            else whole(v) for k, v in params.items()}
 
 
 def encode_images(params: Params, cfg: VITAConfig, images: torch.Tensor) -> torch.Tensor:
@@ -187,7 +193,8 @@ def fuse_embeddings(
     ``audio_encoded`` carries Whale features encoded ahead of time in
     place of ``speech``; only the audio adapter runs on them."""
     b, s = input_ids.shape
-    embeds = mixtral.embed_tokens(params["llm"], input_ids, mesh)
+    embeds = mixtral.embed_tokens(params["llm"], input_ids, mesh,
+                                  mixtral.vocab_axes(params["llm"], cfg.llm, mesh))
     image_feats = audio_feats = None
     if images is not None:
         feats = encode_images(params, cfg, images)

@@ -588,12 +588,24 @@ def masked_expert_ffn_q4(x, topk_w, topk_idx, qparams, n_experts: int,
 
 
 def selected_expert_ffn(mode: str, x, topk_w, topk_idx, params, n_experts: int,
-                        out_dtype=None) -> torch.Tensor:
+                        out_dtype=None, pairs: bool = False) -> torch.Tensor:
     """The weighted output [T, D] of decode mode ``mode`` (moe.GATHER_MODES)
     over ``params``: the expert weights as they are ('gather'), or from
     quantize_expert_weights ('gather_q') / quantize_expert_weights_int4
     ('gather_q4'). ``out_dtype`` float32 leaves the weighted sum
-    unrounded."""
+    unrounded. ``pairs`` runs the per-(token, k) gather kernel (B3, B6,
+    B7) at every T, never the masked schedule."""
+    if pairs:
+        if mode == "gather":
+            eo = gather_expert_ffn(x, topk_idx, params["w_gate"], params["w_up"],
+                                   params["w_down"])
+        elif mode == "gather_q":
+            eo = gather_expert_ffn_q(x, topk_idx, params)
+        elif mode == "gather_q4":
+            eo = gather_expert_ffn_q4(x, topk_idx, params)
+        else:
+            raise ValueError(f"no selected-expert decode mode {mode!r}; modes: {GATHER_MODES}")
+        return _gather_combine(eo, topk_w, x, out_dtype)
     if mode == "gather":
         return masked_expert_ffn(x, topk_w, topk_idx, params["w_gate"], params["w_up"],
                                  params["w_down"], n_experts, out_dtype)

@@ -5,8 +5,10 @@ local shards, with explicit collectives over the ``DeviceMesh`` subgroup
 of each axis (``mesh``). ``distributed`` starts the process group and
 splits it into serving replicas, ``sharded_ops`` runs the kernels per
 shard, ``ring_attention`` runs exact attention over a ``seq`` axis,
-``launch`` starts a group of ranks on one host. Tensor (``model``),
-expert (``expert``) and sequence (``seq``, cacheless) parallelism are
-ported; pipeline (A11c) and data/fsdp (A11d) parallelism raise
-NotImplementedError naming their ROADMAP item.
+``pipeline`` runs the layer stack as stages over a ``pipe`` axis (GPipe,
+pipelined prefill and the decode ring) and ``pp_serving`` the Engine's
+pipeline programs, ``launch`` starts a group of ranks on one host.
+Tensor (``model``), expert (``expert``), sequence (``seq``, cacheless)
+and pipeline (``pipe``) parallelism are ported; data/fsdp (A11d)
+parallelism raises NotImplementedError naming its ROADMAP item.
 """

@@ -3,9 +3,10 @@
 Under torchrun each process calls ``initialize(backend)`` once: the rank,
 world size and rendezvous address come from ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``, then
-``global_mesh(shape)`` builds the 6-axis mesh over every rank, or
-``serving_replicas`` splits the ranks into two replicas of one serving
-mesh each (the duplex surfaces' two Engines).
+``global_mesh(shape)`` builds the 6-axis mesh over every rank,
+``serving_mesh`` the ``--mesh EXPERT MODEL [PIPE]`` mesh of the serving
+surfaces, or ``serving_replicas`` splits the ranks into two replicas of
+one expert x model mesh each (the duplex surfaces' two Engines).
 
 The backend is always the caller's choice, never found by trying one:
 ``nccl`` when each rank has a card of its own, ``gloo`` on the CPU or when
@@ -53,23 +54,24 @@ def global_mesh(shape: Optional[Sequence[int]] = None):
     return make_mesh(shape=shape)
 
 
-def _serving_axes(axes: Sequence[int]) -> List[int]:
+def _serving_axes(axes: Sequence[int], pipe: bool = True) -> List[int]:
     axes = [int(a) for a in axes]
-    if len(axes) == 3:
-        raise NotImplementedError(
-            "--mesh EXPERT MODEL PIPE: pipeline-parallel serving is not ported yet "
-            "(ROADMAP A11c); pass EXPERT MODEL")
-    if len(axes) != 2:
-        raise ValueError(f"--mesh takes EXPERT MODEL, got {axes}")
+    if len(axes) == 3 and not pipe:
+        raise ValueError(f"the duplex replicas take --mesh EXPERT MODEL, got {axes}")
+    if len(axes) not in (2, 3):
+        raise ValueError(f"--mesh takes EXPERT MODEL [PIPE], got {axes}")
+    if any(a < 1 for a in axes):
+        raise ValueError(f"--mesh sizes must be positive, got {axes}")
     return axes
 
 
 def serving_mesh(axes: Sequence[int], backend: str):
-    """The mesh of ``--mesh EXPERT MODEL`` over the ranks of a torchrun
-    launch (or one process), the process group started with ``backend``."""
+    """The mesh of ``--mesh EXPERT MODEL [PIPE]`` over the ranks of a
+    torchrun launch (or one process), (1, 1, EXPERT, MODEL, PIPE), the
+    process group started with ``backend``."""
     axes = _serving_axes(axes)
     initialize(backend)
-    return global_mesh((1, 1, axes[0], axes[1]))
+    return global_mesh((1, 1) + tuple(axes))
 
 
 @dataclasses.dataclass
@@ -93,8 +95,9 @@ def serving_replicas(axes: Sequence[int], backend: str) -> Replicas:
     over the ranks of a torchrun launch of 2*EXPERT*MODEL ranks, the
     process group started with ``backend``. Every rank builds both
     replicas' meshes and groups in the same order (creating a group is
-    collective over the whole process group) and keeps its own."""
-    expert, model = _serving_axes(axes)
+    collective over the whole process group) and keeps its own. The
+    duplex surfaces take two axes, as the JAX package's do."""
+    expert, model = _serving_axes(axes, pipe=False)
     per = expert * model
     initialize(backend)
     world = dist.get_world_size() if dist.is_initialized() else 1

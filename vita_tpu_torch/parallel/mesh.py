@@ -12,10 +12,14 @@ In place of ``NamedSharding``: ``local_shard`` cuts a full tensor into this
 rank's block by a spec tuple (``None``, an axis name or a tuple of names
 per dim, as a PartitionSpec), and ``axis`` gives the size, rank and
 process group of one axis. The collectives ``all_reduce_sum`` (and
-``sum_stat``, its form for a statistic every rank uses whole),
-``all_gather_cat`` and ``shift_down`` (the ring's point-to-point step) run
-over one axis's group; a gloo group stages CUDA tensors through host
-memory (ranks that share one card talk over gloo).
+``sum_stat``, its form for a statistic every rank uses whole) and
+``all_gather_cat`` run over one axis's group or over several axes in
+turn (a tuple of names, blocks ordered as ``local_shard`` cuts them);
+``broadcast_from`` sends one coordinate's tensors to the rest of an
+axis; ``shift_down`` (the seq ring's step) and ``shift_up`` (the pipeline's
+stage-to-stage step, as a chain or a cycle) move tensors point to point
+along one axis. A gloo group stages CUDA tensors through host memory
+(ranks that share one card talk over gloo).
 """
 
 from __future__ import annotations
@@ -98,12 +102,10 @@ def axis(mesh, name: str) -> Axis:
 
 
 def serving_axes(mesh) -> Tuple[int, int]:
-    """(expert, model) sizes of a serving mesh. A 'seq' axis > 1 raises
-    ValueError (a KV cache holds whole sequences); the axes the serving
-    path does not shard over yet raise, naming their ROADMAP item."""
-    if axis(mesh, PIPE).size > 1:
-        raise NotImplementedError(
-            "pipeline-parallel serving (a 'pipe' axis > 1) is not ported yet (ROADMAP A11c)")
+    """(expert, model) sizes of a serving mesh (which may also have a
+    'pipe' axis). A 'seq' axis > 1 raises ValueError (a KV cache holds
+    whole sequences); the axes the serving path does not shard over yet
+    raise, naming their ROADMAP item."""
     if axis(mesh, SEQ).size > 1:
         raise ValueError(
             "seq-parallel attention supports the cacheless path only (Sq == Skv); "
@@ -136,21 +138,37 @@ def local_shard(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return x
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of axis ``name``, added in float32
-    and rounded once to x's dtype; ``x`` itself when the axis has size 1."""
-    a = axis(mesh, name)
-    if a.size == 1:
+def _names(name) -> Tuple[str, ...]:
+    return (name,) if isinstance(name, str) else tuple(name)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, name) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of axis ``name`` (or of several
+    axes, a tuple of names), added in float32 and rounded once to x's
+    dtype; ``x`` itself when the axes have size 1."""
+    names = [n for n in _names(name) if axis(mesh, n).size > 1]
+    if not names:
         return x
     buf = x.float()
-    buf = buf.cpu() if buf.is_cuda and a.staged else buf.clone() if buf is x else buf
-    dist.all_reduce(buf, group=a.group)
+    for n in names:
+        a = axis(mesh, n)
+        staged = buf.cpu() if buf.is_cuda and a.staged else buf.clone() if buf is x else buf
+        dist.all_reduce(staged, group=a.group)
+        buf = staged
     return buf.to(device=x.device, dtype=x.dtype)
 
 
-def all_gather_cat(x: torch.Tensor, mesh, name: str, dim: int = -1) -> torch.Tensor:
+def all_gather_cat(x: torch.Tensor, mesh, name, dim: int = -1) -> torch.Tensor:
     """The blocks of the ranks of axis ``name`` joined along ``dim`` in
-    rank order; ``x`` itself when the axis has size 1."""
+    rank order; ``x`` itself when the axis has size 1. A tuple of names
+    joins the blocks row-major over them, as ``local_shard`` cuts a dim
+    over that tuple (the last name's blocks innermost)."""
+    for n in reversed(_names(name)):
+        x = _gather_one(x, mesh, n, dim)
+    return x
+
+
+def _gather_one(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     a = axis(mesh, name)
     if a.size == 1:
         return x
@@ -165,6 +183,39 @@ def all_gather_cat(x: torch.Tensor, mesh, name: str, dim: int = -1) -> torch.Ten
     if x.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     return out.to(x.device)
+
+
+def _pack(tensors: Sequence[torch.Tensor], staged: bool) -> torch.Tensor:
+    """The tensors' bytes in one flat uint8 buffer (on the host when
+    ``staged``)."""
+    buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    return buf.cpu() if buf.is_cuda and staged else buf
+
+
+def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]):
+    """New tensors of ``like``'s shapes, dtypes and device from the bytes
+    of ``buf``."""
+    buf = buf.to(like[0].device)
+    out, at = [], 0
+    for t in like:
+        nbytes = t.numel() * t.element_size()
+        out.append(buf[at:at + nbytes].clone().view(t.dtype).reshape(t.shape))
+        at += nbytes
+    return out
+
+
+def broadcast_from(tensors: Sequence[torch.Tensor], mesh, name: str, src: int):
+    """The tensors of the rank at coordinate ``src`` of axis ``name`` on
+    every rank of the axis, as new tensors (this rank's ``tensors`` give
+    the shapes, dtypes and device; the source's own come back as they
+    are). One buffer of raw bytes travels; a gloo group stages it through
+    host memory."""
+    a = axis(mesh, name)
+    if a.size == 1:
+        return list(tensors)
+    buf = _pack(tensors, a.staged)
+    dist.broadcast(buf, dist.get_global_rank(a.group, src), group=a.group)
+    return list(tensors) if a.rank == src else _unpack(buf, tensors)
 
 
 class _SumStat(torch.autograd.Function):
@@ -192,29 +243,50 @@ def sum_stat(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
     return _SumStat.apply(x, mesh, name)
 
 
-def shift_down(tensors: Sequence[torch.Tensor], mesh, name: str):
+def shift_down(tensors: Sequence[torch.Tensor], mesh, name: str, cycle: bool = True,
+               send: bool = True, recv: bool = True):
     """Each rank of axis ``name`` sends ``tensors`` to the rank before it
     (cyclically) and returns those of the rank after it, as new tensors of
     the same shapes, dtypes and device. One buffer of raw bytes travels
     each way (``batch_isend_irecv``); a gloo group stages CUDA tensors
-    through host memory."""
+    through host memory. ``cycle``, ``send`` and ``recv`` as for
+    ``shift_up``, whose step this reverses."""
+    return _shift(tensors, mesh, name, -1, cycle, send, recv)
+
+
+def shift_up(tensors: Sequence[torch.Tensor], mesh, name: str, cycle: bool = False,
+             send: bool = True, recv: bool = True):
+    """The pipeline's stage-to-stage step: each rank of axis ``name`` sends
+    ``tensors`` to the rank after it and receives from the rank before
+    it, as ``shift_down`` packs and stages them. ``cycle`` False is a
+    chain (the last rank sends nothing, the first receives nothing);
+    True wraps the last rank to the first. ``send`` / ``recv`` False
+    leave out this rank's send / receive of the step (a pipeline bubble);
+    the peer must leave out the matching receive / send. Returns the
+    received tensors (``tensors`` give their shapes), or None when this
+    rank received nothing."""
+    return _shift(tensors, mesh, name, 1, cycle, send, recv)
+
+
+def _shift(tensors, mesh, name: str, step: int, cycle: bool, send: bool, recv: bool):
     a = axis(mesh, name)
     if a.size == 1:
-        return list(tensors)
-    dev = tensors[0].device
-    send = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
-    if send.is_cuda and a.staged:
-        send = send.cpu()
-    recv = torch.empty_like(send)
-    peer = lambda r: dist.get_global_rank(a.group, r % a.size)  # noqa: E731
-    ops = [dist.P2POp(dist.isend, send, peer(a.rank - 1), a.group),
-           dist.P2POp(dist.irecv, recv, peer(a.rank + 1), a.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    recv = recv.to(dev)
-    out, at = [], 0
-    for t in tensors:
-        nbytes = t.numel() * t.element_size()
-        out.append(recv[at:at + nbytes].clone().view(t.dtype).reshape(t.shape))
-        at += nbytes
-    return out
+        return list(tensors) if cycle and send and recv else None
+    to, frm = a.rank + step, a.rank - step
+    if cycle:
+        to, frm = to % a.size, frm % a.size
+    send = send and 0 <= to < a.size
+    recv = recv and 0 <= frm < a.size
+    ops = []
+    peer = lambda r: dist.get_global_rank(a.group, r)  # noqa: E731
+    if send:
+        ops.append(dist.P2POp(dist.isend, _pack(tensors, a.staged), peer(to), a.group))
+    if recv:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        dev = "cpu" if a.staged else tensors[0].device
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        ops.append(dist.P2POp(dist.irecv, buf, peer(frm), a.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return _unpack(buf, tensors) if recv else None

@@ -130,20 +130,23 @@ def sharded_gather_ffn(
     n_experts: int,
     mode: str,  # 'gather' | 'gather_q' | 'gather_q4'
     mesh=None,
+    pairs: bool = False,
 ) -> torch.Tensor:
     """EP-sharded selected-expert FFN: the WEIGHTED output [T, D].
 
     The local stacked experts are viewed flat as [L*E/ep, ...] and indexed
-    by layer*E/ep + local id, which is the single-device decode layout."""
+    by layer*E/ep + local id, which is the single-device decode layout.
+    ``pairs`` keeps the per-pair gather kernel at every T (the
+    pipeline's decode ring, as the JAX package's ring calls it)."""
     from vita_tpu_torch.ops.moe_decode import selected_expert_ffn
 
     flat = {k: v.flatten(0, 1) for k, v in moe_stacked.items()}
     if axis(mesh, EXPERT).size == 1:
         return selected_expert_ffn(mode, x, topk_w, topk_idx + layer_idx * n_experts, flat,
-                                   n_experts=n_experts)
+                                   n_experts=n_experts, pairs=pairs)
     w_loc, idx_loc, e_local = _local_routing(topk_w, topk_idx, n_experts, mesh)
     out = selected_expert_ffn(mode, x, w_loc, idx_loc + layer_idx * e_local, flat,
-                              n_experts=e_local, out_dtype=torch.float32)
+                              n_experts=e_local, out_dtype=torch.float32, pairs=pairs)
     return all_reduce_sum(out, mesh, EXPERT).to(x.dtype)
 
 

@@ -46,10 +46,23 @@ Requests stream tokens to callbacks and can be cancelled mid-decode;
   The full params (CPU views of a mapped file will do) are cut to this
   rank's shards before they reach its device, or come as those shards
   (``sharded``, from ``load_vita_checkpoint(..., mesh=)``); the page pool holds
-  Hkv/model heads. A 'pipe' axis > 1 raises (ROADMAP A11c), 'data'/'fsdp'
-  > 1 too (A11d); 'seq' > 1 raises ValueError (a KV cache holds whole
-  sequences). Two Engines of one launch may serve as duplex replicas over
-  disjoint ranks (serve.replicas).
+  Hkv/model heads. 'data'/'fsdp' > 1 raise (ROADMAP A11d); 'seq' > 1
+  raises ValueError (a KV cache holds whole sequences). Two Engines of one
+  launch may serve as duplex replicas over disjoint ranks
+  (serve.replicas).
+- Pipeline-parallel serving (a 'pipe' axis of S > 1, beside 'model' and
+  'expert' or alone): the layer stack and the page pool are split by
+  layer (a rank holds its stage's L/S layers, their pool and its own
+  prefill scratch), a layer count that does not divide S raises, and
+  ``n_slots`` rounds up to a multiple of S. Prefill chunks run the stage
+  chain and decode the S-wave ring (parallel.pp_serving): every slot
+  rides a fixed [S, n_slots/S] grid, with no active-set buckets. The
+  vocabulary (embedding rows, head columns) is split over ('pipe',
+  'model') when it divides (``mixtral.vocab_split``), else each stage
+  keeps the model axis's block of the whole head. gmm prefill runs
+  through ``sharded_gmm_ffn`` inside each stage on every mesh. Admission,
+  session reuse, streaming, cancellation and ``MeshEngineThread`` are the
+  same.
 """
 
 from __future__ import annotations
@@ -78,13 +91,14 @@ from vita_tpu_torch.generate import (
     tile_buckets_for,
 )
 from vita_tpu_torch.models import mixtral, vita
-from vita_tpu_torch.parallel.mesh import MODEL, axis, serving_axes
+from vita_tpu_torch.parallel.mesh import MODEL, PIPE, axis, serving_axes
 from vita_tpu_torch.ops.paged_attention import (
     PagePool,
     init_page_pool,
     install_prefill_pages,
     pages_needed,
 )
+from vita_tpu_torch.parallel.pp_serving import pp_decode_chunk, pp_prefill_chunk
 from vita_tpu_torch.sampling import choose_sampling_mode, decode_chunk, sample_tokens
 from vita_tpu_torch.tokenization import audio_token_count, pad_to_bucket
 
@@ -256,6 +270,14 @@ class Engine:
         decode_moe_mode, prefill_moe_mode = moe_modes(cfg, decode_moe_mode, prefill_moe_mode)
         self.cfg = cfg
         self.mesh = mesh
+        self._pp = axis(mesh, PIPE).size
+        if self._pp > 1:
+            if cfg.llm.n_layers % self._pp:
+                raise ValueError(f"{cfg.llm.n_layers} layers not divisible by pipe axis "
+                                 f"{self._pp}")
+            # the slots form one wave a stage ([S, Bw] grid): round up
+            n_slots = -(-n_slots // self._pp) * self._pp
+        self._pp_vocab_split = mixtral.vocab_split(cfg.llm, mesh)
         self.device = torch.device(
             device if device is not None else params["llm"]["embed"].device)
         if mesh is not None and not sharded:  # raises for the axes not ported yet
@@ -287,8 +309,9 @@ class Engine:
         self.alloc = PagePool(total_pages)
         self._table_np = np.zeros((n_slots, self.max_pages_per_slot), np.int32)
         self._kv_heads = llm.n_kv_heads // axis(mesh, MODEL).size  # this rank's
+        self._layers = llm.n_layers // self._pp  # this rank's stage's
         self.cache = init_page_pool(
-            llm.n_layers, self._kv_heads, total_pages, page_size, llm.head_dim,
+            self._layers, self._kv_heads, total_pages, page_size, llm.head_dim,
             dtype=llm.dtype, device=self.device, quantized=kv_int8,
         )
 
@@ -581,7 +604,7 @@ class Engine:
         padded, s = pad_to_bucket(ids, self.prompt_buckets, pad_id=0)
         bucket = len(padded)
         llm = self.cfg.llm
-        shape = (llm.n_layers, 1, bucket, self._kv_heads, llm.head_dim)
+        shape = (self._layers, 1, bucket, self._kv_heads, llm.head_dim)
         chunk = self.prefill_chunk if bucket % self.prefill_chunk == 0 else bucket
         chunk = min(chunk, bucket)
         offset, sk, sv = self._reuse_prefix(req, ids, bucket, chunk)
@@ -642,8 +665,12 @@ class Engine:
                 self.alloc.release(job.pages)
                 self._free_request(job.req, "cancelled")
                 continue
-            job.tok = _prefill_chunk(self.params["llm"], self._prefill_cfg, job,
-                                     self._generator, self.mesh)
+            if self._pp > 1:
+                job.tok = pp_prefill_chunk(self.params["llm"], self._prefill_cfg, job,
+                                           self._generator, self.mesh, self._pp_vocab_split)
+            else:
+                job.tok = _prefill_chunk(self.params["llm"], self._prefill_cfg, job,
+                                         self._generator, self.mesh)
             job.offset += job.chunk
             if job.offset < min(-(-job.true_len // job.chunk) * job.chunk, job.bucket):
                 still.append(job)
@@ -758,6 +785,9 @@ class Engine:
             if not active_idx:
                 return
             ticks = self._ticks_this_round(active_idx)
+        if self._pp > 1:
+            self._decode_ring(active_idx, ticks)
+            return
         na = len(active_idx)
         nb = 1
         while nb < na:
@@ -785,7 +815,38 @@ class Engine:
             parts.append(toks)
         self._tok_dev[self._tensor(idx[:na])] = tok[:na]
         self.pos[idx[:na]] += self.decode_chunk_len * ticks
-        toks = torch.cat(parts, dim=1).cpu().numpy()
+        self._stream(active_idx, torch.cat(parts, dim=1).cpu().numpy())
+
+    def _decode_ring(self, active_idx, ticks: int) -> None:
+        """The pipeline's decode round: every slot rides the S-wave ring
+        (parallel.pp_serving.pp_decode_chunk) as wave w = slots
+        [w*Bw, (w+1)*Bw); inactive slots neither write nor attend."""
+        s_waves, n = self._pp, self.n_slots
+        bw = n // s_waves
+        act = np.zeros(n, bool)
+        act[active_idx] = True
+        mode = choose_sampling_mode(self._temps[active_idx], self._topk[active_idx],
+                                    self._topp[active_idx])
+        grid = lambda x, dtype=None: self._tensor(  # noqa: E731
+            np.asarray(x).reshape((s_waves, bw) + np.asarray(x).shape[1:]), dtype)
+        table, active = grid(self._table_np), grid(act)
+        knobs = (grid(self._temps), grid(self._topk), grid(self._topp))
+        pos, tok = grid(self.pos), self._tok_dev.reshape(s_waves, bw)
+        parts = []
+        for _ in range(ticks):
+            toks, tok, pos = pp_decode_chunk(
+                self._decode_llm, self.cache, table, tok, pos, active, *knobs, self._generator,
+                llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
+                sampling_mode=mode, mesh=self.mesh, vocab_split=self._pp_vocab_split)
+            parts.append(toks)
+        self._tok_dev = tok.reshape(n).clone()
+        self.pos[active_idx] += self.decode_chunk_len * ticks
+        # rows are slot-indexed: [S, Bw, ticks*chunk] reshapes to [n, ...]
+        toks = torch.cat(parts, dim=2).reshape(n, -1).cpu().numpy()
+        self._stream(active_idx, toks[active_idx])
+
+    def _stream(self, active_idx, toks) -> None:
+        """Emit each active slot's row of ``toks`` [len(active_idx), T]."""
         for row, slot in enumerate(active_idx):
             req = self.slot_req[slot]
             for t in toks[row]:

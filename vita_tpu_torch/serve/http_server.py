@@ -35,12 +35,14 @@ Launch: python -m vita_tpu_torch.serve.http_server --model tiny-random --port 88
 also keys the Engine's KV-prefix reuse: a turn that extends the previous
 one prefills only its new suffix.
 
-``--mesh EXPERT MODEL`` serves one Engine per rank of a torchrun launch
-(``torchrun --nproc-per-node N -m vita_tpu_torch.serve.http_server
---model ... --mesh E M``, N = E * M; ``--dist-backend gloo`` when the
-ranks share one card): rank 0 serves HTTP and ``/stats``, and its
+``--mesh EXPERT MODEL [PIPE]`` serves one Engine per rank of a torchrun
+launch (``torchrun --nproc-per-node N -m vita_tpu_torch.serve.http_server
+--model ... --mesh E M [P]``, N = E * M * P; ``--dist-backend gloo`` when
+the ranks share one card): rank 0 serves HTTP and ``/stats``, and its
 MeshEngineThread broadcasts each step's new requests and cancellations
 to the other ranks, which run the same loop in place of EngineThread.
+A pipe axis splits the layers into P stages; ``--slots`` rounds up to a
+multiple of P (one wave a stage).
 """
 
 from __future__ import annotations
@@ -662,8 +664,8 @@ def main(argv=None) -> int:
                         "vision and fronts image tokens")
     p.add_argument("--mesh", type=int, nargs="+", metavar="AX",
                    default=None,
-                   help="serving mesh EXPERT MODEL over the ranks of a torchrun launch "
-                        "(PIPE is not ported: ROADMAP A11c)")
+                   help="serving mesh EXPERT MODEL [PIPE] over the ranks of a torchrun "
+                        "launch (PIPE: pipeline stages; --slots rounds up to a multiple)")
     p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend under --mesh (default nccl on cards, "
                         "gloo on the CPU; ranks sharing one card need gloo)")
@@ -689,6 +691,7 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     mesh, rank, say = None, 0, print
+    n_slots = args.slots
     if args.mesh is not None:
         import torch.distributed as dist
 
@@ -699,9 +702,11 @@ def main(argv=None) -> int:
         device, rank = distributed.rank_device(device), dist.get_rank()
         if rank != 0:
             say = lambda *a, **k: None  # noqa: E731 - rank 0 speaks for the mesh
+        pipe = args.mesh[2] if len(args.mesh) == 3 else 1
+        n_slots = -(-n_slots // pipe) * pipe  # one wave a stage
     # under a mesh only this rank's shards reach its device
     cfg, params, encode, decode, bos_id, eos_id = load_model(args.model, device, mesh=mesh)
-    engine = Engine(params, cfg, n_slots=args.slots, max_len=args.max_len,
+    engine = Engine(params, cfg, n_slots=n_slots, max_len=args.max_len,
                     decode_ticks=args.decode_ticks, kv_int8=args.kv_int8,
                     page_size=128 if args.kv_int8 else 64, mesh=mesh,
                     sharded=mesh is not None and args.model != "tiny-random", device=device)

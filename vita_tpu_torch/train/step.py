@@ -178,7 +178,7 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items() if k != "tiles_per_sample"}
 
 
-def batch_logits(params, cfg: vita.VITAConfig, batch, token_mask: bool):
+def batch_logits(params, cfg: vita.VITAConfig, batch, token_mask: bool, mesh=None):
     audio_select = None
     if "audio_select_clip" in batch:
         audio_select = (batch["audio_select_clip"], batch["audio_select_row"])
@@ -188,7 +188,7 @@ def batch_logits(params, cfg: vita.VITAConfig, batch, token_mask: bool):
         images=batch.get("images"), speech=batch.get("speech"),
         speech_lengths=batch.get("speech_lengths"), audio_select=audio_select,
         attn_valid=batch.get("attn_valid"),
-        token_mask=batch.get("attn_valid") if token_mask else None,
+        token_mask=batch.get("attn_valid") if token_mask else None, mesh=mesh,
     )
 
 
@@ -203,10 +203,12 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def loss_fn(params, cfg: vita.VITAConfig, batch: Dict[str, torch.Tensor],
-            aux_coef: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            aux_coef: float, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: input_ids [B,S], labels [B,S], image_mask/audio_mask [B,S],
-    attn_valid [B,S], images [N,H,W,3]?, speech [B,T,80]?, speech_lengths."""
-    logits, _, aux = batch_logits(params, cfg, batch, token_mask=True)
+    attn_valid [B,S], images [N,H,W,3]?, speech [B,T,80]?, speech_lengths.
+    ``mesh`` is needed for pipeline parallelism (cfg.llm.pipe_stages > 1;
+    ``params`` then hold this rank's stage of the LLM)."""
+    logits, _, aux = batch_logits(params, cfg, batch, token_mask=True, mesh=mesh)
     nll, count = token_nll(logits, batch["labels"])
     denom = count.clamp_min(1)
     ce = nll / denom
@@ -214,16 +216,18 @@ def loss_fn(params, cfg: vita.VITAConfig, batch: Dict[str, torch.Tensor],
     return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
 
 
-def make_train_step(cfg: vita.VITAConfig, tc: TrainConfig, optimizer: AdamW) -> Callable:
+def make_train_step(cfg: vita.VITAConfig, tc: TrainConfig, optimizer: AdamW,
+                    mesh=None) -> Callable:
     """step(params, opt_state, batch) -> (params, opt_state, metrics): one
     forward and backward over the trainable leaves, then the optimizer's
-    in-place update."""
+    in-place update. ``mesh`` as for ``loss_fn``: under a pipe axis every
+    rank updates its own leaves, the replicated ones alike everywhere."""
 
     def step(params, opt_state, batch):
         leaves = dict(tree_leaves(params))
         dev = leaves[optimizer.paths[0]].device if optimizer.paths else None
         batch = batch_to(batch, dev)
-        loss, metrics = loss_fn(params, cfg, batch, tc.aux_loss_coef)
+        loss, metrics = loss_fn(params, cfg, batch, tc.aux_loss_coef, mesh)
         ws = [leaves[p] for p in optimizer.paths]
         grads = torch.autograd.grad(loss, ws, allow_unused=True)
         grads = {p: torch.zeros_like(w) if g is None else g

@@ -55,12 +55,16 @@ def mixtral_params_from_hf(state: Mapping[str, Any], cfg, prefix: str = "model."
     """An HF MixtralForCausalLM state dict -> the port's Mixtral params.
     Under a serving ``mesh`` each leaf is this rank's block
     (mixtral.serving_specs), cut from the state's tensors before any copy
-    or stack: a rank reads only its blocks of a mapped file and never
-    builds a whole leaf."""
+    or stack: a rank reads only its blocks of a mapped file (under a
+    'pipe' axis only its stage's layers) and never builds a whole leaf."""
     from vita_tpu_torch.models.mixtral import serving_specs
     from vita_tpu_torch.parallel.mesh import local_shard
 
-    specs = serving_specs(cfg, {"layers": {"moe": {}}})
+    specs = serving_specs(cfg, {"layers": {"moe": {}}}, mesh)
+    layers = torch.arange(cfg.n_layers)
+    if mesh is not None:  # this stage's layers under a 'pipe' axis
+        layers = local_shard(layers, specs["layers"]["ln_attn"][:1], mesh)
+    layers = layers.tolist()
 
     def g(name: str, spec, transpose: bool = True) -> torch.Tensor:
         x = state[name]
@@ -70,8 +74,7 @@ def mixtral_params_from_hf(state: Mapping[str, Any], cfg, prefix: str = "model."
         return _t(x if mesh is None else local_shard(x, spec, mesh), dtype, device)
 
     def stack(fmt: str, spec, transpose: bool = True) -> torch.Tensor:
-        return torch.stack([g(fmt.format(l=l), spec[1:], transpose)
-                            for l in range(cfg.n_layers)])
+        return torch.stack([g(fmt.format(l=l), spec[1:], transpose) for l in layers])
 
     def stack_experts(fmt: str, spec) -> torch.Tensor:  # [L, E, d_in, d_out]
         experts = torch.arange(cfg.n_experts)
@@ -79,7 +82,7 @@ def mixtral_params_from_hf(state: Mapping[str, Any], cfg, prefix: str = "model."
             experts = local_shard(experts, spec[1:2], mesh)
         return torch.stack([torch.stack([g(fmt.format(l=l, e=e), spec[2:])
                                          for e in experts.tolist()])
-                            for l in range(cfg.n_layers)])
+                            for l in layers])
 
     p, attn, moe = prefix, specs["layers"]["attn"], specs["layers"]["moe"]
     lay = p + "layers.{l}."
