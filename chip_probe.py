@@ -28,6 +28,7 @@ NVIDIA GPU.
     python3 chip_probe.py ring-faults  # which of phase 12's (a) and (b) checks fail each planted fault
     python3 chip_probe.py pp           # where pipeline-parallel decode's time goes (pipe 4)
     python3 chip_probe.py pp-faults    # which of phase 13's (a) and (c) checks fail each planted fault
+    python3 chip_probe.py fsdp         # where a ZeRO-3 training step's time goes (fsdp 4)
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -1738,6 +1739,97 @@ def pp_faults(card: str) -> None:
                 "phase 13", ("  (a)", "  (c)"))
 
 
+# --------------------------------------------------------------------------
+# sharded training over 'fsdp' (chip_smoke.py phase 14)
+# --------------------------------------------------------------------------
+FSDP_PROBE_MESH = (1, 4, 1, 1)
+
+
+def fsdp_probe_rank(rank, world, plan):
+    """One rank of ``fsdp``: phase 14(b)'s full-width step under
+    FSDP_PROBE_MESH after a warm-up step; rank 0 under torch.profiler.
+    Returns the wall ms, device ms (rank 0), the host ms inside the
+    forward gathers and the backward reductions (``all_gather_cat``'s
+    autograd Function, every leaf), their counts, and the peak."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    mesh = pm.make_mesh(FSDP_PROBE_MESH)
+    cfg = smoke.fsdp_full_config()
+    batches = smoke.fsdp_batches(cfg, 2, smoke.FSDP_FULL_B, smoke.FSDP_FULL_S,
+                                 smoke.FSDP_FULL_FRAMES, smoke.SEED + 62)
+    spent = {"gather": [0.0, 0], "reduce": [0.0, 0]}
+    real_fwd, real_bwd = pm._GatherCat.forward, pm._GatherCat.backward
+
+    def timed(kind, fn):
+        def run(*a):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize(dev)
+            spent[kind][0] += (time.perf_counter() - t0) * 1e3
+            spent[kind][1] += 1
+            return out
+        return staticmethod(run)
+
+    pm._GatherCat.forward = timed("gather", real_fwd)
+    pm._GatherCat.backward = timed("reduce", real_bwd)
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    params = smoke.slice_params(cfg, dev)
+    run = RunConfig(output_dir=os.path.join(smoke.TRAIN_DIR, "fsdp_probe"),
+                    batch_size=smoke.FSDP_FULL_B, resume=False)
+    trainer = Trainer(cfg, smoke._fsdp_tc(True), run, params, mesh=mesh, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    p, s = trainer.params, trainer.opt_state
+    p, s, _ = trainer.step_fn(p, s, batches[0])
+    for v in spent.values():
+        v[:] = [0.0, 0]
+    ctx = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if rank == 0 else contextlib.nullcontext())
+    with ctx as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        p, s, m = trainer.step_fn(p, s, batches[1])
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    return dict(wall=wall, device=_device_ms(prof) if rank == 0 else None,
+                spent={k: tuple(v) for k, v in spent.items()}, loss=float(m["loss"]),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def fsdp(card: str) -> None:
+    """Phase 14(b)'s full-width step (the 2-layer slice, 4 rows of 2048)
+    under --mesh 1 4 1 1, 4 ranks time-sharing cuda:0 over gloo: each
+    rank's wall ms, peak, and host ms inside the fsdp gathers (forward and
+    remat recompute) and the backward's reductions, in all and a layer;
+    rank 0's device ms and busy share (torch.profiler)."""
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    res = run_ranks(fsdp_probe_rank, 4, None, backend="gloo", timeout=900,
+                    store_dir=os.path.join(smoke.ROOT, "build"))
+    layers = smoke.fsdp_full_config().llm.n_layers
+    for r, out in enumerate(res):
+        (g_ms, g_n), (r_ms, r_n) = out["spent"]["gather"], out["spent"]["reduce"]
+        busy = (f", device {out['device']:.1f} ms, busy {out['device'] / out['wall']:.3f}"
+                if out["device"] is not None else "")
+        print(f"  --mesh 1 4 1 1 rank {r}: step wall {out['wall']:.1f} ms{busy}; gathers "
+              f"{g_n} in {g_ms:.1f} ms host ({g_ms / layers:.1f} a layer, the towers', "
+              f"projectors', embedding's and head's included), reductions {r_n} in "
+              f"{r_ms:.1f} ms ({r_ms / layers:.1f} a layer); peak {out['peak_gib']:.2f} GiB; "
+              f"loss {out['loss']:.6f} ({smoke.FSDP_NOTE}) [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1749,7 +1841,7 @@ def main() -> int:
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
              "paged-ring": paged_ring, "session": session, "whale": whale,
              "mesh": mesh, "mesh-faults": mesh_faults, "ring": ring,
-             "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults}
+             "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults, "fsdp": fsdp}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

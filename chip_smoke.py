@@ -193,9 +193,26 @@ Phases, each of which raises on failure:
      the gradients held to the same objective taken one microbatch at a
      time without the pipe, as phase 12(b) holds its own, and every rank
      launching B1, B10 and B11.
+ 14. sharded training over the data and fsdp axes (ZeRO-3), as 4 ranks
+     spawned on cuda:0 over gloo after the unsharded steps here: (a)
+     phase 7's narrow fp32 configuration (stage 2, gmm, flash; dense and
+     one microbatch under pipe), 3 steps under --mesh 1 4 1 1, 2 2 1 1,
+     1 2 1 1 2 and 1 2 1 1 1 2 (DATA FSDP EXPERT MODEL [PIPE [SEQ]]):
+     each step's loss and every leaf after the last update against the
+     unsharded steps (FSDP_NARROW_*; a rank whose tokens took other
+     experts excused only at a router near tie), the blocks bitwise equal
+     on the ranks that hold the same one; (b) phase 6's 2-layer slice, 4
+     rows of 2048 tokens, a warm-up step and a step through
+     Trainer(mesh=) under 1 4 1 1 and 2 2 1 1: the losses, each group's
+     gradient norm, and the step's gradients and weights at sampled
+     elements against the unsharded Trainer's (FSDP_FULL_*), each rank's
+     peak (below the unsharded peak) and step ms printed, every rank
+     launching B1, B10, B11, B12 and B5a or B5b; (c) the train CLI
+     --mesh 1 4 1 1 --moe-mode gmm on the 4 ranks, twice: every rank exits
+     0, metrics.jsonl is written once, the second run resumes.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-13, phases 11-13's over their
+results (launches summed over phases 3-14, phases 11-14's over their
 ranks) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
@@ -208,7 +225,9 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1728,10 +1747,10 @@ def train_equivalence_phase(devices, steps=3):
         state = opt.init(p)
         grads, real_update = [], opt.update
 
-        def recording_update(params, g, state, real_update=real_update, grads=grads):
+        def recording_update(params, g, state, *a, real_update=real_update, grads=grads):
             if not grads:
                 grads.append({k: v.detach().cpu() for k, v in g.items()})
-            return real_update(params, g, state)
+            return real_update(params, g, state, *a)
 
         opt.update = recording_update
         fn = step.make_train_step(cfg, tc, opt)
@@ -4472,6 +4491,601 @@ def pipe_phase(card: str, device, ckpt_dir=None):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 14: sharded training over the data and fsdp axes (ZeRO-3)
+# --------------------------------------------------------------------------
+FSDP_RANKS = 4
+AXES_ALL = ("data", "fsdp", "expert", "model", "pipe", "seq")
+# (a) narrow fp32: phase 7's configuration (stage 2, gmm, flash); pipe 2
+# runs dense MoE (gmm under pipe raises, as the JAX package's) with one
+# microbatch, so its objective is the unsharded step's (with 2 the aux is
+# the microbatches' mean, the JAX package's GPipe deviation)
+FSDP_NARROW_MESHES = ((1, 4, 1, 1), (2, 2, 1, 1), (1, 2, 1, 1, 2), (1, 2, 1, 1, 1, 2))
+FSDP_NARROW_STEPS = 3
+FSDP_NARROW_B, FSDP_NARROW_S = 4, 256
+# per leaf after the last update: |w_mesh - w_ref| <= 2 * (the leaf's
+# learning rates summed over the updates) + FSDP_NARROW_ATOL everywhere
+# (Adam may move a weight whose gradient is at rounding level by up to
+# 2 lr differently, as phase 7's LOSS_RTOL says), and at most
+# FSDP_NARROW_SHARE of its elements beyond the CPU tests' float32
+# tolerance (atol = rtol = 1e-4)
+FSDP_NARROW_ATOL = 1e-6
+FSDP_NARROW_SHARE = 1e-3
+# (b) full width: phase 6's 2-layer slice, one row of FSDP_FULL_S tokens
+# a rank, a warm-up step (lr 0) and one step under each mesh
+FSDP_FULL_MESHES = ((1, 4, 1, 1), (2, 2, 1, 1))
+FSDP_FULL_B, FSDP_FULL_S = 4, 2048
+FSDP_FULL_FRAMES = 400
+# bf16: the losses within FSDP_FULL_LOSS_RTOL of the unsharded step's;
+# each optimizer group's global gradient norm (Adam is blind to a
+# gradient's scale, the norm is not) within FSDP_FULL_NORM_RTOL of the
+# unsharded one; at FSDP_SAMPLES sampled elements of every trainable
+# leaf, the step's gradient within FSDP_FULL_GRAD_TOL times the leaf's
+# largest sampled unsharded gradient (each rank's bf16 gradient of a
+# gathered layer covers its rows and is rounded before the ranks' float32
+# sum: a few bf16 ulps; a rank's share lost or counted twice is O(1)),
+# and the weight after the step within 2 lr + one bf16 ulp of the
+# unsharded one (an update resolved at bf16's precision, such as a zero
+# bias's, lands one ulp away wherever its gradient rounded otherwise, so
+# how many samples are apart is printed, not held)
+FSDP_FULL_LOSS_RTOL = 1e-3
+FSDP_FULL_NORM_RTOL = 1e-2
+FSDP_FULL_GRAD_TOL = 2e-2
+FSDP_SAMPLES = 4096
+# the kernels every rank must launch in (b)'s step (and B5a or B5b)
+FSDP_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gmm_wgrad")
+FSDP_NOTE = f"{FSDP_RANKS} ranks time-sharing one card: not a measure of scaling"
+
+
+def fsdp_narrow_config(mesh_shape):
+    """Phase 7's configuration for a mesh: dense MoE and one microbatch
+    under pipe, the flash backend throughout."""
+    cfg = narrow_config()
+    shape = tuple(mesh_shape) + (1,) * (6 - len(mesh_shape))
+    if shape[4] > 1:
+        return dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, moe_mode="dense", pipe_stages=shape[4], pipe_microbatches=1))
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, moe_mode="gmm"))
+
+
+def fsdp_batches(cfg, n, b, s, frames, seed):
+    """``n`` global batches of ``b`` rows of ``s`` tokens, each row an
+    image tile and an audio clip of ``frames`` fbank frames, rows 1 and 3
+    padded."""
+    from vita_tpu_torch.tokenization import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
+    from vita_tpu_torch.tokenization import audio_token_count
+
+    rng = np.random.default_rng(seed)
+    sz, n_img, n_aud = cfg.vision.image_size, cfg.image_tokens_per_group, audio_token_count(
+        frames)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(3, cfg.llm.vocab_size, (b, s)).astype(np.int32)
+        ids[:, 4:4 + n_img] = IMAGE_TOKEN_INDEX
+        ids[:, 6 + n_img:6 + n_img + n_aud] = AUDIO_TOKEN_INDEX
+        im, am = ids == IMAGE_TOKEN_INDEX, ids == AUDIO_TOKEN_INDEX
+        valid = np.ones((b, s), bool)
+        valid[1, s - s // 5:] = False
+        valid[3, s - s // 9:] = False
+        labels = np.where(im | am | ~valid, -100, ids).astype(np.int32)
+        labels[:, :8 + n_img + n_aud] = -100  # the prompt
+        out.append({
+            "input_ids": np.where(im | am, 0, ids).astype(np.int32), "labels": labels,
+            "image_mask": im, "audio_mask": am, "attn_valid": valid,
+            "images": rng.standard_normal((b, sz, sz, 3)).astype(np.float32),
+            "speech": rng.standard_normal((b, frames, 80)).astype(np.float32),
+            "speech_lengths": np.full((b,), frames, np.int32)})
+    return out
+
+
+def _fsdp_tc(full: bool):
+    from vita_tpu_torch.train.step import TrainConfig
+
+    if full:  # phase 6's
+        return dataclasses.replace(TrainConfig.stage2_finetune(), warmup_steps=1)
+    return TrainConfig(learning_rate=1e-3, projector_lr=1e-2, warmup_steps=1,
+                       total_steps=10)  # phase 7's
+
+
+def _fsdp_lrs(tc, steps):
+    """(base, projector) learning rates summed over ``steps`` updates."""
+    from vita_tpu_torch.train.step import warmup_cosine_lr
+
+    total = max(tc.total_steps, tc.warmup_steps + 1)
+    base = sum(warmup_cosine_lr(i, tc.learning_rate, tc.warmup_steps, total)
+               for i in range(steps))
+    proj = sum(warmup_cosine_lr(i, tc.projector_lr or tc.learning_rate, tc.warmup_steps, total)
+               for i in range(steps))
+    return base, proj
+
+
+def _block_index(shape, spec, coords, sizes):
+    """For a whole leaf of ``shape`` cut by ``spec``: per dim, the first
+    index and the extent of the block at ``coords``."""
+    lo, ext = [], []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        parts, r = 1, 0
+        for a in names:
+            parts, r = parts * sizes[a], r * sizes[a] + coords[a]
+        lo.append(r * (n // parts))
+        ext.append(n // parts)
+    return lo, ext
+
+
+def _cut(x, spec, coords, sizes):
+    lo, ext = _block_index(x.shape, spec, coords, sizes)
+    return x[tuple(slice(a, a + e) for a, e in zip(lo, ext))]
+
+
+def _sample_block(block, shape, spec, coords, sizes, picks):
+    """The values of the whole leaf (``shape``) at flat ``picks`` that lie
+    in this rank's ``block``: (mask of the picks it holds, values)."""
+    import torch
+
+    lo, ext = _block_index(shape, spec, coords, sizes)
+    idx = np.stack(np.unravel_index(np.asarray(picks), shape), 1) - np.asarray(lo)
+    held = np.all((idx >= 0) & (idx < np.asarray(ext)), 1)
+    vals = np.zeros(len(picks), np.float32)
+    if held.any():
+        flat = np.ravel_multi_index(tuple(idx[held].T), tuple(ext))
+        vals[held] = block.reshape(-1)[torch.as_tensor(flat, device=block.device)].float().cpu(
+        ).numpy()
+    return held, vals
+
+
+def _train_steps(params, cfg, tc, batches, device, mesh=None):
+    """make_train_step over ``batches`` (params cut by the mesh under one):
+    (losses, leaves after the last update on the host, the router's
+    smallest top-k gap per step, its top-k expert ids per step and call)."""
+    import torch
+
+    from vita_tpu_torch.models import mixtral, vita
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.parallel import fsdp
+    from vita_tpu_torch.train import step
+
+    p = (_to(params, device) if mesh is None
+         else fsdp.shard_tree(params, vita.param_specs(cfg), mesh, device))
+    opt = step.make_optimizer(tc, p)
+    state = opt.init(p)
+    fn = step.make_train_step(cfg, tc, opt, mesh)
+    gaps, losses, routes = [], [], []
+    real_route = moe.route_topk
+
+    def recording_route(logits, k):
+        out = real_route(logits, k)
+        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
+        gaps[-1] = min(gaps[-1], float((top[:, k - 1] - top[:, k]).min()))
+        routes[-1].append(np.sort(out[1].detach().cpu().numpy(), -1))
+        return out
+
+    # ops.moe routes the unsharded run, mixtral's own import the sharded one
+    moe.route_topk = mixtral.route_topk = recording_route
+    try:
+        for b in batches:
+            gaps.append(float("inf"))
+            routes.append([])
+            losses.append(float(fn(p, state, b)[2]["loss"]))
+    finally:
+        moe.route_topk = mixtral.route_topk = real_route
+    leaves = {n: w.detach().float().cpu().numpy() for n, w in _leaf_items(p)}
+    return losses, leaves, gaps, routes
+
+
+def _first_flip(ref_routes, got_routes, cfg, coords, sizes, b, s):
+    """The first step at which a rank's tokens took other experts than
+    the same tokens in the unsharded run (its rows over ('data', 'fsdp'),
+    its positions over 'seq', its stage's layers under 'pipe'), or None."""
+    n_rows = sizes["data"] * sizes["fsdp"]
+    r = coords["data"] * sizes["fsdp"] + coords["fsdp"]
+    rows = slice(r * b // n_rows, (r + 1) * b // n_rows)
+    pos = slice(coords["seq"] * s // sizes["seq"], (coords["seq"] + 1) * s // sizes["seq"])
+    per_stage = cfg.llm.n_layers // sizes["pipe"]
+    for i, (ref, got) in enumerate(zip(ref_routes, got_routes)):
+        for j, ids in enumerate(got):
+            want = ref[coords["pipe"] * per_stage + j].reshape(b, s, -1)[rows, pos]
+            if not np.array_equal(ids, want.reshape(ids.shape)):
+                return i
+    return None
+
+
+def fsdp_full_config(small: bool = False):
+    """Phase 6's 2-layer slice (stage 2, gmm, flash, remat, bf16); with
+    ``small`` the tiny VITA at those settings, for a run on the CPU."""
+    if not small:
+        return train_slice_config()
+    from vita_tpu_torch.models import vita
+
+    cfg = vita.VITAConfig.tiny()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, moe_mode="gmm", attn_backend="flash", remat=True))
+
+
+def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
+    """A Trainer (cut over ``mesh`` under one) takes a warm-up step and a
+    step on ``batches``: (losses, step ms, peak GiB since the warm-up's
+    start, launches in the step, the step's global gradient norm of each
+    optimizer group, the step's gradients at the sampled flat ``picks``
+    of each leaf of whole ``shapes`` (``_sample_block``), the trainer)."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel import fsdp
+    from vita_tpu_torch.parallel.mesh import AXES, axis
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    run = RunConfig(output_dir=os.path.join(TRAIN_DIR, "fsdp"), batch_size=FSDP_FULL_B,
+                    resume=False)
+    kw = {} if mesh is None else dict(mesh=mesh, device=device)
+    trainer = Trainer(cfg, _fsdp_tc(True), run, params, **kw)
+    del params
+    gc.collect()
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    losses = []
+    p, s = trainer.params, trainer.opt_state
+    p, s, m = trainer.step_fn(p, s, batches[0])
+    losses.append(float(m["loss"]))
+    norms, grads_at, real_sq_norm = [], {}, fsdp.sq_norm
+    coords = {a: axis(mesh, a).rank for a in AXES}
+    sizes = {a: axis(mesh, a).size for a in AXES}
+    specs = dict(_leaf_items(vita.param_specs(cfg)))
+    real_update = trainer.optimizer.update
+
+    def recording_sq_norm(*a):
+        out = real_sq_norm(*a)
+        norms.append(float(out) ** 0.5)
+        return out
+
+    def recording_update(params, grads, *a):
+        for path, g in grads.items():
+            name = "/".join(path)
+            grads_at[name] = _sample_block(g, shapes[name], specs[name], coords, sizes,
+                                           picks[name])
+        return real_update(params, grads, *a)
+
+    kernels.reset_launches()
+    _sync(device)
+    fsdp.sq_norm, trainer.optimizer.update = recording_sq_norm, recording_update
+    try:
+        t0 = time.time()
+        p, s, m = trainer.step_fn(p, s, batches[1])
+        losses.append(float(m["loss"]))
+        _sync(device)
+        ms = (time.time() - t0) * 1e3
+    finally:
+        fsdp.sq_norm, trainer.optimizer.update = real_sq_norm, real_update
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0
+    return losses, ms, peak, dict(kernels.launches), norms, grads_at, trainer
+
+
+def fsdp_full_reference(cfg, batches, device):
+    """(b)'s unsharded Trainer steps here: losses, step ms, peak, the
+    groups' gradient norms, and the step's gradients and the trainable
+    leaves after it at sampled flat indices (host), with those picks and
+    the leaves' shapes; the card is freed after."""
+    import torch
+
+    from vita_tpu_torch.train.step import trainable_mask
+
+    params = slice_params(cfg, device)
+    rng = np.random.default_rng(SEED + 61)
+    mask = dict(_leaf_items(trainable_mask(params, _fsdp_tc(True))))
+    shapes = {name: tuple(w.shape) for name, w in _leaf_items(params) if mask[name]}
+    picks = {name: np.sort(rng.choice(math.prod(shape), min(FSDP_SAMPLES, math.prod(shape)),
+                                      replace=False)) for name, shape in shapes.items()}
+    losses, ms, peak, _, norms, grads_at, trainer = _fsdp_full_step(
+        cfg, params, batches, device, picks, shapes)
+    del params
+    values = {name: w.detach().reshape(-1)[torch.as_tensor(picks[name], device=device)]
+              .float().cpu().numpy() for name, w in _leaf_items(trainer.params) if name in picks}
+    del trainer
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(losses=losses, ms=ms, peak=peak, norms=norms, shapes=shapes, values=values,
+                grads={k: v for k, (_, v) in grads_at.items()}), picks
+
+
+def fsdp_rank(rank, world, plan):
+    """One rank of phase 14: (a) FSDP_NARROW_STEPS narrow fp32 steps under
+    each FSDP_NARROW_MESHES mesh (the losses and this rank's blocks after
+    the last update); (b) a warm-up step and a step of the full-width
+    slice under each FSDP_FULL_MESHES mesh (losses, step ms, peak, the
+    step's launches, this rank's values at the sampled elements); (c) the
+    train CLI under --mesh 1 4 1 1, twice (exit codes and printed lines)."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.mesh import AXES, axis, make_mesh
+    from vita_tpu_torch.train import cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        kernels.lib()  # phase 1's library: loaded, not built
+    meshes = {m: make_mesh(m) for m in dict.fromkeys(FSDP_NARROW_MESHES + FSDP_FULL_MESHES)}
+    out = {"narrow": {}, "full": {}, "wall_s": {}}
+    t_part = time.time()
+    for shape in FSDP_NARROW_MESHES:
+        mesh = meshes[shape]
+        cfg = fsdp_narrow_config(shape)
+        params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        batches = fsdp_batches(cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B, FSDP_NARROW_S, 60,
+                               SEED + 60)
+        losses, blocks, _, routes = _train_steps(params, cfg, _fsdp_tc(False), batches, dev,
+                                                 mesh)
+        out["narrow"][shape] = dict(losses=losses, blocks=blocks, routes=routes,
+                                    coords={a: axis(mesh, a).rank for a in AXES})
+    out["wall_s"]["a"], t_part = time.time() - t_part, time.time()
+    cfg = fsdp_full_config(plan["small"])
+    batches = fsdp_batches(cfg, 2, FSDP_FULL_B, plan["full_s"], FSDP_FULL_FRAMES, SEED + 62)
+    for shape in FSDP_FULL_MESHES:
+        mesh = meshes[shape]
+        # the whole weights drawn here are dropped once the Trainer has cut them
+        losses, ms, peak, launches, norms, grads_at, trainer = _fsdp_full_step(
+            cfg, slice_params(cfg, dev), batches, dev, plan["picks"], plan["shapes"], mesh)
+        coords = {a: axis(mesh, a).rank for a in AXES}
+        sizes = {a: axis(mesh, a).size for a in AXES}
+        specs = dict(_leaf_items(vita.param_specs(cfg)))
+        samples = {name: _sample_block(w.detach(), plan["shapes"][name], specs[name], coords,
+                                       sizes, plan["picks"][name])
+                   for name, w in _leaf_items(trainer.params) if name in plan["picks"]}
+        out["full"][shape] = dict(losses=losses, ms=ms, peak=peak, launches=launches,
+                                  norms=norms, samples=samples, grads=grads_at)
+        del trainer
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["wall_s"]["b"], t_part = time.time() - t_part, time.time()
+    argv = ["--model", "tiny-random", "--data", plan["chat"], "--output-dir", plan["cli_dir"],
+            "--batch-size", "4", "--mesh", "1", "4", "1", "1", "--moe-mode", "gmm",
+            "--dist-backend", "gloo", "--device", dev.type]
+    out["cli"] = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out["cli"].append((rc, buf.getvalue()))
+    out["wall_s"]["c"] = time.time() - t_part
+    return out
+
+
+def _gather_samples(results, shape, leaf, key, name, failed):
+    """A leaf's sampled values from the ranks that hold them (every
+    sample held by some rank; ranks holding the same one agree bitwise)."""
+    got, seen = None, None
+    for res in results:
+        held, vals = res["full"][shape][key][leaf]
+        if got is None:
+            got, seen = np.zeros_like(vals), np.zeros(len(vals), bool)
+        both = seen & held
+        if both.any() and not np.array_equal(got[both], vals[both]):
+            failed.append(f"{name}: {leaf}'s {key}: ranks holding the same block differ")
+        got[held], seen = vals[held], seen | held
+    if not seen.all():
+        failed.append(f"{name}: {leaf}'s {key}: {int((~seen).sum())} samples held by no rank")
+    return got
+
+
+def fsdp_phase(card: str, device, small: bool = False):
+    """Phase 14: sharded training (ZeRO-3 over 'fsdp', the batch over
+    ('data', 'fsdp')) as FSDP_RANKS ranks spawned on cuda:0 over gloo,
+    against unsharded steps here, made first and kept on the host. (a)
+    narrow fp32 under each FSDP_NARROW_MESHES mesh: each step's loss
+    (phase 7's LOSS_RTOL and router near-tie excuse) and every leaf after
+    the last update against the unsharded steps' (FSDP_NARROW_*), and
+    bitwise equal on the ranks that hold the same block; (b) the
+    full-width slice under each FSDP_FULL_MESHES mesh: the losses and the
+    sampled elements after the step (FSDP_FULL_*), each rank's peak beside
+    the unsharded peak and the step ms, every rank launching FSDP_PATH and
+    B5a or B5b; (c) the train CLI: every rank exits 0, metrics.jsonl is
+    written once, a second run resumes. ``small`` (with a CPU ``device``)
+    runs (b) on the tiny config, to try the phase without a card. Every
+    check runs, and the phase then fails on any that failed. Returns the
+    launch counts of (b)'s steps summed over the ranks."""
+    import shutil
+
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    failed = []
+    # (a) the unsharded narrow steps
+    narrow_ref = {}
+    for shape in FSDP_NARROW_MESHES:
+        cfg = fsdp_narrow_config(shape)
+        key = (cfg.llm.moe_mode, cfg.llm.pipe_stages)
+        if key not in narrow_ref:
+            ref_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, pipe_stages=1))
+            params = vita.init_params(ref_cfg, torch.Generator().manual_seed(SEED), "cpu")
+            batches = fsdp_batches(ref_cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B, FSDP_NARROW_S, 60,
+                                   SEED + 60)
+            narrow_ref[key] = _train_steps(params, ref_cfg, _fsdp_tc(False), batches, device)
+    # (b) the unsharded full-width step
+    full_cfg = fsdp_full_config(small)
+    full_s = FSDP_FULL_S if not small else 64
+    batches = fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)
+    t0 = time.time()
+    full_ref, picks = fsdp_full_reference(full_cfg, batches, device)
+    print(f"  (b) unsharded Trainer: warm-up + step in {time.time() - t0:.1f} s, step "
+          f"{full_ref['ms']:.1f} ms, losses {full_ref['losses']}, peak "
+          f"{full_ref['peak']:.2f} GiB  [{card}]", flush=True)
+    cli_dir = os.path.join(TRAIN_DIR, "fsdp_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+    wav = write_wav(os.path.join(cli_dir, "q.wav"), 1.0, SEED + 63)
+    chat = os.path.join(cli_dir, "chat.json")
+    with open(chat, "w") as f:
+        json.dump([{"conversations": [{"from": "human", "value": "<audio>\n"},
+                                      {"from": "gpt", "value": "a sound"}], "audio": wav},
+                   {"conversations": _turns(np.random.default_rng(SEED), 40)}] * 4, f)
+    plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
+            "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"], "chat": chat,
+            "cli_dir": os.path.join(cli_dir, "run")}
+    t0 = time.time()
+    results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
+                        store_dir=os.path.join(ROOT, "build"))
+    walls = results[0]["wall_s"]
+    print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
+          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
+          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
+    # (a)
+    base_lr, proj_lr = _fsdp_lrs(_fsdp_tc(False), FSDP_NARROW_STEPS)
+    for shape in FSDP_NARROW_MESHES:
+        cfg = fsdp_narrow_config(shape)
+        ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[cfg.llm.moe_mode,
+                                                              cfg.llm.pipe_stages]
+        name = f"(a) --mesh {' '.join(map(str, shape))}"
+        sizes = dict(zip(AXES_ALL, tuple(shape) + (1,) * (6 - len(shape))))
+        # a rank whose tokens took other experts than the unsharded run's at
+        # step i: excused from step i on where the unsharded router had a
+        # near tie there (phase 7's excuse), a failure where it had none
+        flips = [_first_flip(ref_routes, res["narrow"][shape]["routes"], cfg,
+                             res["narrow"][shape]["coords"], sizes, FSDP_NARROW_B,
+                             FSDP_NARROW_S) for res in results]
+        first_tie = min([f for f in flips if f is not None], default=FSDP_NARROW_STEPS)
+        if first_tie < FSDP_NARROW_STEPS and gaps[first_tie] > ROUTE_NEAR_TIE:
+            failed.append(f"{name}: routing differs from the unsharded run's at step "
+                          f"{first_tie + 1}, whose smallest router gap {gaps[first_tie]:.3e} is "
+                          f"no near tie")
+        specs = dict(_leaf_items(vita.param_specs(cfg)))
+        worst_loss, worst_leaf, worst_share, held = 0.0, (0.0, ""), (0.0, ""), {}
+        for r, res in enumerate(results):
+            got = res["narrow"][shape]
+            errs = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref_losses)]
+            worst_loss = max([worst_loss] + errs[:first_tie])
+            if any(e > LOSS_RTOL for e in errs[:first_tie]):
+                failed.append(f"{name}: rank {r}'s losses {got['losses']} vs the unsharded "
+                              f"{ref_losses}")
+            for leaf, b in got["blocks"].items():
+                split = tuple(a for e in specs[leaf] if e is not None
+                              for a in ((e,) if isinstance(e, str) else e) if sizes[a] > 1)
+                key = (leaf, tuple(got["coords"][a] for a in split))
+                if key in held and not np.array_equal(held[key], b):
+                    failed.append(f"{name}: {leaf}'s block {key[1]} differs between ranks")
+                held[key] = b
+                if first_tie < FSDP_NARROW_STEPS:
+                    continue
+                want = _cut(ref_leaves[leaf], specs[leaf], got["coords"], sizes)
+                diff = np.abs(b - want)
+                lr = proj_lr if leaf.endswith("_proj") or "_proj/" in leaf else base_lr
+                bound = 2 * lr + FSDP_NARROW_ATOL
+                share = float((diff > 1e-4 + 1e-4 * np.abs(want)).mean())
+                worst_leaf = max(worst_leaf, (float(diff.max()), leaf))
+                worst_share = max(worst_share, (share, leaf))
+                if diff.max() > bound or share > FSDP_NARROW_SHARE:
+                    failed.append(f"{name}: rank {r}'s {leaf} max |diff| {diff.max():.3e} "
+                                  f"(bound {bound:.3e}), {share:.2e} of it beyond 1e-4")
+        print(f"  {name} narrow fp32, {FSDP_NARROW_STEPS} steps: losses "
+              f"{results[0]['narrow'][shape]['losses']} vs the unsharded {ref_losses} (worst "
+              f"rel err {worst_loss:.3e}, tol {LOSS_RTOL}); after the last update worst leaf "
+              f"max |diff| {worst_leaf[0]:.3e} ({worst_leaf[1]}), worst share beyond 1e-4 "
+              f"{worst_share[0]:.2e} ({worst_share[1]}); the unsharded run's smallest router "
+              f"gap per step {[f'{g:.3e}' for g in gaps]}"
+              + (f"; routing apart from step {first_tie + 1}: steps {first_tie + 1}-"
+                 f"{FSDP_NARROW_STEPS} and the leaves not compared"
+                 if first_tie < FSDP_NARROW_STEPS else "; every rank's routing the unsharded "
+                 "run's"), flush=True)
+    # (b)
+    total = {}
+    tc = _fsdp_tc(True)
+    ulp = lambda w: np.abs(w) * 2.0 ** -7  # noqa: E731 - bf16 spacing
+    for shape in FSDP_FULL_MESHES:
+        name = f"(b) --mesh {' '.join(map(str, shape))}"
+        losses = [res["full"][shape]["losses"] for res in results]
+        if any(l != losses[0] for l in losses):
+            failed.append(f"{name}: the ranks' losses differ: {losses}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses[0], full_ref["losses"])]
+        if max(errs) > FSDP_FULL_LOSS_RTOL:
+            failed.append(f"{name}: losses {losses[0]} vs the unsharded {full_ref['losses']}")
+        norms = [res["full"][shape]["norms"] for res in results]
+        if any(x != norms[0] for x in norms):
+            failed.append(f"{name}: the ranks' gradient norms differ: {norms}")
+        norm_errs = [abs(a - b) / b for a, b in zip(norms[0], full_ref["norms"])]
+        if len(norms[0]) != len(full_ref["norms"]) or max(norm_errs) > FSDP_FULL_NORM_RTOL:
+            failed.append(f"{name}: gradient norms {norms[0]} vs the unsharded "
+                          f"{full_ref['norms']}")
+        worst, worst_grad, apart, n, by_leaf = (0.0, ""), (0.0, ""), 0, 0, []
+        for leaf, want in full_ref["values"].items():
+            got, g = _gather_samples(results, shape, leaf, "samples", name, failed), \
+                _gather_samples(results, shape, leaf, "grads", name, failed)
+            g_ref = full_ref["grads"][leaf]
+            g_err = float(np.abs(g - g_ref).max() / max(np.abs(g_ref).max(), 1e-30))
+            worst_grad = max(worst_grad, (g_err, leaf))
+            if g_err > FSDP_FULL_GRAD_TOL:
+                failed.append(f"{name}: {leaf}'s sampled gradient max |diff| {g_err:.3e} of its "
+                              f"largest (tol {FSDP_FULL_GRAD_TOL})")
+            lr = tc.projector_lr if leaf.startswith(("vision_proj", "audio_proj")) else \
+                tc.learning_rate
+            diff = np.abs(got - want)
+            over = diff > 2 * lr + ulp(want)
+            worst = max(worst, (float((diff / (2 * lr + ulp(want))).max()), leaf))
+            apart += int((got != want).sum())
+            n += len(want)
+            by_leaf.append((float((got != want).mean()), leaf))
+            if over.any():
+                failed.append(f"{name}: {leaf}: {int(over.sum())} samples beyond 2 lr + 1 ulp "
+                              f"(max |diff| {diff.max():.3e})")
+        print(f"  {name} full width, {FSDP_FULL_B} rows of {full_s}: losses {losses[0]} vs "
+              f"the unsharded {full_ref['losses']} (rel errs "
+              f"{[f'{e:.2e}' for e in errs]}, tol {FSDP_FULL_LOSS_RTOL}); group gradient norms "
+              f"{norms[0]} (rel errs {[f'{e:.2e}' for e in norm_errs]}, tol "
+              f"{FSDP_FULL_NORM_RTOL}); sampled gradients worst max |diff| / largest "
+              f"{worst_grad[0]:.3e} ({worst_grad[1]}, tol {FSDP_FULL_GRAD_TOL}); sampled weights "
+              f"after the step: worst |diff| / (2 lr + ulp) {worst[0]:.3f} ({worst[1]}), "
+              f"{apart} of {n} apart ({apart / n:.4f}; most: "
+              f"{', '.join(f'{l} {x:.3f}' for x, l in sorted(by_leaf)[::-1][:4])})", flush=True)
+        mesh_total = {}
+        for r, res in enumerate(results):
+            run = res["full"][shape]
+            print(f"    rank {r}: step {run['ms']:.1f} ms, peak memory {run['peak']:.2f} GiB "
+                  f"(unsharded {full_ref['peak']:.2f} GiB, step {full_ref['ms']:.1f} ms)  "
+                  f"({FSDP_NOTE}) [{card}]", flush=True)
+            counts = run["launches"]
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+                mesh_total[k] = mesh_total.get(k, 0) + c
+            if device.type == "cuda":
+                missing = [k for k in FSDP_PATH if counts.get(k, 0) == 0]
+                if not counts.get("gmm", 0) and not counts.get("gmm_small", 0):
+                    missing.append("gmm or gmm_small")
+                if missing:
+                    failed.append(f"{name}: rank {r} never launched {missing}")
+                if run["peak"] >= full_ref["peak"]:
+                    failed.append(f"{name}: rank {r}'s peak {run['peak']:.2f} GiB is not below "
+                                  f"the unsharded {full_ref['peak']:.2f} GiB")
+        print(f"    launches in the step, summed over the ranks: "
+              f"{ {k: c for k, c in mesh_total.items() if c} }", flush=True)
+    # (c)
+    metrics = os.path.join(plan["cli_dir"], "metrics.jsonl")
+    lines = open(metrics).read().splitlines() if os.path.exists(metrics) else []
+    for r, res in enumerate(results):
+        (rc1, out1), (rc2, out2) = res["cli"]
+        if rc1 or rc2:
+            failed.append(f"(c) rank {r}: exit codes {rc1}, {rc2}")
+        if r == 0 and "resumed from step" not in out2:
+            failed.append(f"(c) rank 0's second run printed no resume: {out2!r}")
+    if len(lines) != 2:
+        failed.append(f"(c) metrics.jsonl holds {len(lines)} lines, not one a step (2)")
+    resumed = [x for x in results[0]["cli"][1][1].splitlines() if "resumed" in x]
+    print(f"  (c) train CLI --mesh 1 4 1 1 --moe-mode gmm: exit codes "
+          f"{[[rc for rc, _ in res['cli']] for res in results]}, metrics.jsonl {len(lines)} "
+          f"lines, second run: {resumed}", flush=True)
+    if failed:
+        raise AssertionError("phase 14 failed:\n  " + "\n  ".join(failed))
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4603,6 +5217,11 @@ def main() -> int:
         print(f"  phase 13 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print("phase 14: sharded training over the data and fsdp axes (4 gloo ranks on one card)",
+          flush=True)
+    t0 = time.time()
+    parts.append(fsdp_phase(card, dev))
+    print(f"  phase 14 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {

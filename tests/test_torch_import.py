@@ -166,26 +166,31 @@ def test_duplex_demo_refuses_without_a_card():
 
 def test_unported_mesh_options_name_their_item():
     """Every NotImplementedError the port keeps for a mesh names its ROADMAP
-    item: A11b (capacity modes under seq) or A11d (data/fsdp, training,
-    seq beside other axes); none names A11 alone. The duplex replicas
-    (A11a), the seq axis (A11b) and the pipe axis (A11c) are ported: the
-    serving mesh refuses seq > 1 with a ValueError, no file names A11c in
-    a refusal, --mesh takes EXPERT MODEL PIPE, and the duplex surfaces no
-    longer name A11a."""
+    item, an A11d sub-item: tensor/expert-parallel training, seq beside
+    model/expert, capacity over split tokens (which took in A11b's
+    capacity under seq), serving over data/fsdp, resume on another mesh;
+    none names A11 alone. The duplex replicas (A11a), the seq axis (A11b),
+    the pipe axis (A11c) and sharded training over data/fsdp are ported:
+    the serving mesh refuses seq > 1 with a ValueError, no file names A11c
+    in a refusal, --mesh takes EXPERT MODEL PIPE, and the duplex surfaces
+    no longer name A11a."""
     files = sorted((ROOT / "vita_tpu_torch").rglob("*.py"))
     raises = re.compile(r"raise NotImplementedError\((.*?)\)\n", re.S)
-    items = re.compile(r"ROADMAP (A11[a-d])")
+    items = re.compile(r"ROADMAP (A11[a-d](?: \([^)]*\))?)")
     found = {}
     for f in files:
         for msg in raises.findall(f.read_text()):
             if "A11" in msg:
-                tags = items.findall(msg)
+                tags = items.findall(re.sub(r'"\s*\n\s*f?"', "", msg))
                 assert tags, f"{f.name}: {msg!r} names no A11 sub-item"
                 found.setdefault(f.relative_to(ROOT).as_posix(), set()).update(tags)
-    assert found["vita_tpu_torch/parallel/mesh.py"] == {"A11d"}
-    assert found["vita_tpu_torch/train/cli.py"] == {"A11d"}
-    assert found["vita_tpu_torch/models/mixtral.py"] == {"A11b", "A11d"}
-    assert not any("A11c" in tags for tags in found.values())
+    assert found["vita_tpu_torch/parallel/mesh.py"] == {
+        "A11d (serving over data/fsdp)", "A11d (tensor/expert-parallel training)"}
+    assert found["vita_tpu_torch/train/cli.py"] == {"A11d (tensor/expert-parallel training)"}
+    assert found["vita_tpu_torch/models/mixtral.py"] == {
+        "A11d (seq beside model/expert)", "A11d (capacity over split tokens)"}
+    assert found["vita_tpu_torch/train/trainer.py"] == {"A11d (resume on another mesh)"}
+    assert all(tag.startswith("A11d (") for tags in found.values() for tag in tags)
     for name in ("cli.py", "serve/http_server.py", "parallel/distributed.py"):
         text = (ROOT / "vita_tpu_torch" / name).read_text()
         assert "A11c" not in text and "EXPERT MODEL [PIPE]" in text, name

@@ -21,7 +21,8 @@ tests/test_ring_attention.py at its shapes (B 2, S 32, 4 q / 2 kv heads of
   shares plus 0.02 aux) at rtol 1e-5 and the gradients summed over the
   ranks at 1e-4, against JAX's seq-parallel run (dense) and its unsharded
   run (dense, and gmm in interpret mode); the capacity and sort modes
-  raise, naming ROADMAP A11b (capacity under seq).
+  raise, naming ROADMAP A11d (capacity over split tokens), the item that
+  took in A11b's capacity under seq.
 
 One group of 4 ranks runs every case, in a thread while this process
 computes JAX's side."""
@@ -288,4 +289,4 @@ def test_seq_parallel_mixtral_matches_jax(results, mode):
 def test_seq_parallel_capacity_modes_name_their_item(results, mode):
     ranks, _ = results
     for r in ranks:
-        assert "ROADMAP A11b (capacity under seq)" in r[f"refuse_{mode}"]
+        assert "ROADMAP A11d (capacity over split tokens)" in r[f"refuse_{mode}"]

@@ -331,8 +331,8 @@ def test_train_cli_runs_then_resumes(tmp_path, capsys):
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "[step" not in out
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(argv + ["--mesh", "1"])
+    with pytest.raises(NotImplementedError, match="A11d"):
+        cli.main(argv + ["--mesh", "1", "1", "1", "2"])
     # checkpoint directories, --lora-from and --whale-init are loaded now
     # (A9): paths that hold nothing raise
     for bad in (["--lora-from", str(tmp_path / "x")], ["--whale-init", str(tmp_path / "x")]):

@@ -30,6 +30,8 @@ from typing import Any, Dict
 import torch
 
 from vita_tpu_torch.models import internvit, mixtral, projectors, vita, whale
+from vita_tpu_torch.parallel import fsdp
+from vita_tpu_torch.parallel.mesh import PIPE, axis
 from vita_tpu_torch.train.trainer import (  # noqa: F401  (load_adapter_into: stage chaining)
     STATE_FILE,
     committed_steps,
@@ -53,7 +55,7 @@ _JAX_ONLY = {
 _RUN_ONLY = ("pipe_stages", "pipe_microbatches")
 
 
-def load_vita_checkpoint(path: str, device="cuda", mesh=None):
+def load_vita_checkpoint(path: str, device="cuda", mesh=None, training: bool = False):
     """A VITA checkpoint directory -> (VITAConfig, params on ``device``):
     the native layout this module writes, or the HF deploy layout.
 
@@ -65,7 +67,14 @@ def load_vita_checkpoint(path: str, device="cuda", mesh=None):
     mmap), so no rank holds the whole model in host memory. Under a
     'pipe' axis that is this stage's layers only and, where the
     vocabulary is split over ('pipe', 'model'), its block of the
-    vocabulary."""
+    vocabulary.
+
+    With ``training`` the ``mesh`` is a training mesh and every
+    component's leaves are this rank's blocks by ``vita.param_specs`` (the
+    LLM's layers led by 'pipe' when the mesh has a 'pipe' axis > 1), as
+    ``Trainer(..., mesh=, sharded=True)`` takes them; the LLM's blocks are
+    read from the mapped files alone, the towers' and projectors' cut from
+    whole leaves on the host."""
     with open(os.path.join(path, "config.json")) as f:
         raw = json.load(f)
     if raw.get("format") == "vita_tpu":
@@ -73,6 +82,8 @@ def load_vita_checkpoint(path: str, device="cuda", mesh=None):
         if mesh is None:
             return cfg, _load_native(os.path.join(path, "ckpt"), device)
         params = _load_native(os.path.join(path, "ckpt"), "cpu", mmap=True)
+        if training:
+            return cfg, fsdp.shard_tree(params, _training_specs(cfg, mesh), mesh, device)
         return cfg, vita.shard_params(params, cfg, mesh, device)
 
     text = raw.get("text_config", raw)
@@ -113,7 +124,16 @@ def load_vita_checkpoint(path: str, device="cuda", mesh=None):
         vision_fusion=raw.get("vision_fusion", "patch"),
         vision_projector=raw.get("mm_projector_type", "mlp2x_gelu"),
     )
-    return cfg, _load_hf_vita_weights(path, cfg, device, mesh)
+    specs = _training_specs(cfg, mesh) if training and mesh is not None else None
+    return cfg, _load_hf_vita_weights(path, cfg, device, mesh, specs)
+
+
+def _training_specs(cfg: vita.VITAConfig, mesh):
+    """``vita.param_specs`` with the LLM's layers led by 'pipe' when the
+    mesh has a 'pipe' axis > 1."""
+    pp = axis(mesh, PIPE).size
+    return vita.param_specs(dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, pipe_stages=pp)))
 
 
 def _load_native(ckpt_dir: str, device, mmap: bool = False):
@@ -168,10 +188,12 @@ def save_vita_checkpoint(path: str, cfg: vita.VITAConfig, params, step: int = 0)
     save_state(os.path.join(path, "ckpt"), step, params)
 
 
-def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device, mesh=None):
+def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device, mesh=None, specs=None):
     """The deployed HF checkpoint's safetensors -> params, each leaf built
     in the config's dtype on ``device`` (the LLM's as this rank's shards
-    under a ``mesh``). The Whale CMVN is rounded to that dtype, as the JAX
+    under a ``mesh``; every component's blocks by the training ``specs``
+    when given: the LLM's read alone, the rest cut from whole leaves built
+    on the host). The Whale CMVN is rounded to that dtype, as the JAX
     package's import rounds every leaf, and kept in float32, the port's
     layout."""
     shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
@@ -190,21 +212,26 @@ def _load_hf_vita_weights(path: str, cfg: vita.VITAConfig, device, mesh=None):
             fe = json.load(f)
         cmvn_mean, cmvn_istd = (torch.tensor(fe.get(k), dtype=torch.float32).to(dt).float()
                                 for k in ("cmvn_means", "cmvn_istds"))
-    return {
-        "llm": hf_import.mixtral_params_from_hf(sub("language_model."), cfg.llm, prefix="model.",
-                                                dtype=dt, device=device, mesh=mesh),
+    rest_dev = device if specs is None else "cpu"
+    rest = {
         "vision": hf_import.internvit_params_from_hf(sub("vision_tower."), cfg.vision.n_layers,
-                                                     dtype=dt, device=device),
+                                                     dtype=dt, device=rest_dev),
         "vision_proj": hf_import.vision_projector_from_hf(
-            sub("vision_projector."), kind=cfg.vision_projector, dtype=dt, device=device,
+            sub("vision_projector."), kind=cfg.vision_projector, dtype=dt, device=rest_dev,
             template=projectors.init_vision_projector_kind(
                 cfg.vision_proj_in_dim, cfg.llm.d_model, None, cfg.vision_projector,
                 device="meta")),
         "audio": hf_import.whale_params_from_hf(sub("audio_model."), cfg.audio.n_layers,
-                                                cmvn_mean, cmvn_istd, dtype=dt, device=device),
+                                                cmvn_mean, cmvn_istd, dtype=dt, device=rest_dev),
         "audio_proj": hf_import.audio_projector_from_hf(sub("audio_projector."), dtype=dt,
-                                                        device=device),
+                                                        device=rest_dev),
     }
+    if specs is not None:
+        rest = fsdp.shard_tree(rest, {k: specs[k] for k in rest}, mesh, device)
+    llm = hf_import.mixtral_params_from_hf(sub("language_model."), cfg.llm, prefix="model.",
+                                           dtype=dt, device=device, mesh=mesh,
+                                           specs=None if specs is None else specs["llm"])
+    return {"llm": llm, **rest}
 
 
 # ---------------------------------------------------------------------------

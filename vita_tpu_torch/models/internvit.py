@@ -91,6 +91,26 @@ def init_params(cfg: InternViTConfig, generator: torch.Generator, device=None) -
     }
 
 
+def param_specs(cfg: InternViTConfig) -> Params:
+    """Spec tuples mirroring init_params' tree, equal to the JAX package's
+    PartitionSpecs: the large matrices' input dims over 'fsdp' and output
+    dims over 'model', the small leaves replicated."""
+    return {
+        "patch_embed": {"w": (None, "fsdp"), "b": (None,)},
+        "cls": (None, None, None),
+        "pos_embed": (None, None, None),
+        "layers": {
+            "qkv_w": (None, "fsdp", "model"), "qkv_b": (None, None),
+            "proj_w": (None, "model", "fsdp"), "proj_b": (None, None),
+            "fc1_w": (None, "fsdp", "model"), "fc1_b": (None, None),
+            "fc2_w": (None, "model", "fsdp"), "fc2_b": (None, None),
+            "norm1_w": (None, None), "norm1_b": (None, None),
+            "norm2_w": (None, None), "norm2_b": (None, None),
+            "ls1": (None, None), "ls2": (None, None),
+        },
+    }
+
+
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """[B, H, W, 3] -> [B, (H//p)*(W//p), p*p*3], features ordered (c, kh,
     kw) like a flattened torch Conv2d weight. A partial patch at the

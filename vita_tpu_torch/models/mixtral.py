@@ -57,6 +57,7 @@ from vita_tpu_torch.ops.moe import GATHER_MODES, MODES, load_balancing_loss, moe
 from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.ops.norms import rms_norm
 from vita_tpu_torch.ops.rope import apply_rope
+from vita_tpu_torch.parallel import fsdp
 from vita_tpu_torch.parallel.mesh import (
     DATA,
     EXPERT,
@@ -70,6 +71,7 @@ from vita_tpu_torch.parallel.mesh import (
     local_shard,
     serving_axes,
     sum_stat,
+    training_axes,
 )
 from vita_tpu_torch.parallel.sharded_ops import (
     sharded_flash_mha,
@@ -269,8 +271,9 @@ def embed_tokens(params: Params, ids: torch.Tensor, mesh=None, axes=(MODEL,)) ->
     """Embedding rows of ``ids``; with the vocabulary split over ``axes``
     (``vocab_axes``) each rank holds a block of it, looks up the ids in it
     (zeros elsewhere) and the blocks' rows are summed (exact: one is
-    nonzero)."""
-    emb = params["embed"]
+    nonzero). Under an 'fsdp' axis the embedding is gathered whole first
+    (parallel.fsdp)."""
+    emb = fsdp.gather(params["embed"], (None, FSDP), mesh)
     size, rank = 1, 0
     for n in axes:
         a = axis(mesh, n)
@@ -287,8 +290,10 @@ def embed_tokens(params: Params, ids: torch.Tensor, mesh=None, axes=(MODEL,)) ->
 
 def lm_logits(params: Params, x: torch.Tensor, mesh=None, axes=(MODEL,)) -> torch.Tensor:
     """x @ lm_head; with the vocabulary split over ``axes`` the blocks'
-    logits are gathered, so every rank holds the full row."""
-    return all_gather_cat(x @ params["lm_head"], mesh, axes, dim=-1)
+    logits are gathered, so every rank holds the full row. Under an
+    'fsdp' axis the head is gathered whole first (parallel.fsdp)."""
+    head = fsdp.gather(params["lm_head"], (FSDP, None), mesh)
+    return all_gather_cat(x @ head, mesh, axes, dim=-1)
 
 
 def unstack_layers(params: Params) -> Params:
@@ -457,26 +462,31 @@ def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_f
     return out.to(h2d.dtype), aux
 
 
-def _check_seq_forward(cfg: MixtralConfig, mesh, cache) -> None:
-    """The seq-parallel forward is the cacheless one, over a mesh of the
-    'seq' axis alone (or beside 'pipe', each stage running the ring), with
-    the ring as its attention and token-local MoE statistics; the rest
-    raises (a missing port names its ROADMAP item)."""
+def _check_split_forward(cfg: MixtralConfig, mesh, cache) -> None:
+    """The forward over tokens split between ranks ('data'/'fsdp' rows,
+    'seq' positions) is the cacheless training one, with the ring as its
+    attention under 'seq' and token-local MoE statistics; the rest raises
+    (a missing port names its ROADMAP item)."""
     if cache is not None:
-        raise ValueError("seq-parallel attention supports the cacheless path only (Sq == Skv); "
-                         "KV-cache decode/prefill needs seq axis 1")
-    if any(axis(mesh, a).size > 1 for a in (DATA, FSDP, EXPERT, MODEL)):
+        if axis(mesh, SEQ).size > 1:
+            raise ValueError("seq-parallel attention supports the cacheless path only "
+                             "(Sq == Skv); KV-cache decode/prefill needs seq axis 1")
+        serving_axes(mesh)
+    if axis(mesh, SEQ).size > 1 and (axis(mesh, EXPERT).size > 1 or axis(mesh, MODEL).size > 1):
         raise NotImplementedError(
-            "a 'seq' axis with data/fsdp/expert/model axes > 1 needs differentiable "
-            "collectives over those axes, not ported yet (ROADMAP A11d)")
-    if cfg.attn_backend != "flash":
+            "a 'seq' axis beside expert/model axes > 1 needs differentiable tensor- and "
+            "expert-parallel collectives, not ported yet "
+            "(ROADMAP A11d (seq beside model/expert))")
+    training_axes(mesh)
+    if axis(mesh, SEQ).size > 1 and cfg.attn_backend != "flash":
         raise ValueError("a 'seq' axis > 1 runs attention as the ring: attn_backend must be "
                          f"'flash', got {cfg.attn_backend!r}")
     if cfg.moe_mode in ("sort", "capacity") or cfg.moe_chunk:
         raise NotImplementedError(
-            f"moe_mode {cfg.moe_mode!r} with moe_chunk {cfg.moe_chunk} under a 'seq' axis: "
-            "capacity drops and chunk-local aux are decided over the whole sequence's tokens "
-            "in their global order, which no rank holds (ROADMAP A11b (capacity under seq))")
+            f"moe_mode {cfg.moe_mode!r} with moe_chunk {cfg.moe_chunk} over tokens split "
+            "between ranks (data/fsdp rows or seq positions): capacity drops and chunk-local "
+            "aux are decided over the whole batch's tokens in their global order, which no "
+            "rank holds (ROADMAP A11d (capacity over split tokens))")
 
 
 def _check_pipe_forward(params: Params, cfg: MixtralConfig, mesh, cache) -> None:
@@ -517,6 +527,12 @@ def _layer_of(layers, i: int):
     return layers, i
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def n_layers_of(layers) -> int:
     """The layers a stacked tree or a list of layers holds."""
     return len(layers) if isinstance(layers, list) else layers["ln_attn"].shape[0]
@@ -540,14 +556,25 @@ def run_layers(
     them). The cache (linear scratch or paged pool) is indexed by the same
     layer numbers and written in place. ``remat`` checkpoints each layer
     (torch.utils.checkpoint); ``pairs`` runs a gather mode's per-pair
-    kernel at every batch size."""
+    kernel at every batch size. Under an 'fsdp' axis > 1 the stacked
+    leaves are this rank's blocks (``param_specs``) and each layer gathers
+    its weights whole at its top (parallel.fsdp.gather), inside what remat
+    recomputes: the gathered layer lives through its forward and is
+    gathered again for its backward, whose gradient the gather's backward
+    reduce-scatters over 'fsdp' right after it (ZeRO-3)."""
     b, s, d = x.shape
     paged = cache is not None and "k_pages" in cache
     ep = axis(mesh, EXPERT)
     routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
+    gathered = axis(mesh, FSDP).size > 1
+    specs = param_specs(cfg)["layers"] if gathered else None
 
     def layer(x, i: int):
         stack, li = _layer_of(layers, i)
+        if gathered:  # this layer's weights whole, as a one-layer stack
+            stack = fsdp.gather_tree(_tree_map(lambda w: w[li], stack),
+                                     _tree_map(lambda sp: sp[1:], specs), mesh)
+            stack, li = _tree_map(lambda w: w[None], stack), 0
         lp = {k: v[li] for k, v in stack["attn"].items()}
         h = rms_norm(x, stack["ln_attn"][li], cfg.rms_eps)
         if paged:
@@ -604,21 +631,26 @@ def forward(
     ``params["layers"]`` may also be a list of per-layer trees
     (``unstack_layers``).
 
-    Under a mesh of a 'seq' axis of n > 1 (and no other axis > 1 but
-    'pipe') this is the seq-parallel cacheless forward: ``params`` are
-    whole on every rank, and ``input_ids``/``inputs_embeds``,
-    ``attn_valid``, ``token_mask`` and ``positions`` are this rank's block
-    of S/n positions of the whole sequence
+    Under a training mesh (``parallel.mesh.training_axes``: 'data',
+    'fsdp', 'pipe', 'seq') this is the cacheless forward over tokens split
+    between ranks. ``input_ids``/``inputs_embeds``, ``attn_valid``,
+    ``token_mask`` and ``positions`` are this rank's rows of the batch
+    over ('data', 'fsdp') (``parallel.fsdp.batch_rows``) and, under a
+    'seq' axis of n > 1, its block of S/n positions of the whole sequence
     (``parallel.ring_attention.shard_seq``); positions default to the
     global ones, the ring's kv_len counts the valid keys of the whole
     sequence (summed over 'seq'), attention runs the ring (attn_backend
-    'flash'), and the logits are the block's. The MoE must be token-local
-    (dense, gmm or a gather mode). The aux loss is the whole sequence's,
-    on every rank; its sums go over 'seq' through
-    ``parallel.mesh.sum_stat``, whose backward keeps each rank's gradient
-    its own. The contract: when each rank's objective is its block's
-    share of the loss plus the aux term in full, the gradients of the
-    parameters summed over the 'seq' ranks equal the unsharded ones.
+    'flash'), and the logits are the block's. Under 'fsdp' > 1 ``params``
+    are this rank's blocks (``param_specs``), gathered where they are
+    used: the embedding and the head whole, each layer at its top
+    (``run_layers``). The MoE must be token-local (dense, gmm or a gather
+    mode). The aux loss is the whole batch's, on every rank; its sums go
+    over ('data', 'fsdp', 'seq') through ``parallel.mesh.sum_stat``,
+    whose backward keeps each rank's gradient its own. The contract: when
+    each rank's objective is its tokens' share of the loss plus the aux
+    term in full, the gradients summed over those ranks (the blocks'
+    summed over 'fsdp' by the gathers' backward) equal the unsharded
+    ones.
 
     With ``cfg.pipe_stages`` > 1 this is the GPipe forward
     (parallel.pipeline.pipeline_layer_stack, ``pipe_microbatches``
@@ -636,8 +668,9 @@ def forward(
         _check_pipe_forward(params, cfg, mesh, cache)
     elif pp.size > 1:
         raise ValueError(f"pipe axis size {pp.size} != pipe_stages {cfg.pipe_stages}")
-    if sp.size > 1:
-        _check_seq_forward(cfg, mesh, cache)
+    split = [a for a in (DATA, FSDP, SEQ) if axis(mesh, a).size > 1]
+    if split:
+        _check_split_forward(cfg, mesh, cache)
     elif mesh is not None:
         serving_axes(mesh)
     paged = cache is not None and "k_pages" in cache
@@ -655,8 +688,8 @@ def forward(
     seq_kv_len = None
     if sp.size > 1:  # the ring masks keys by the whole sequence's valid count
         seq_kv_len = all_reduce_sum(attn_valid.sum(1).to(torch.int32), mesh, SEQ)
-    # aux's sums over the whole sequence
-    reduce_stats = (lambda sums: sum_stat(sums, mesh, SEQ)) if sp.size > 1 else None
+    # aux's sums over the whole batch's tokens
+    reduce_stats = (lambda sums: sum_stat(sums, mesh, tuple(split))) if split else None
 
     if cfg.pipe_stages > 1:
         from vita_tpu_torch.parallel.pipeline import pipeline_layer_stack

@@ -40,6 +40,12 @@ def init_vision_projector(in_dim: int, llm_dim: int, generator: torch.Generator,
     }
 
 
+def vision_projector_specs() -> Params:
+    """The mlp2x_gelu projector's spec tuples (the JAX package's)."""
+    return {"fc1_w": ("fsdp", "model"), "fc1_b": (None,),
+            "fc2_w": ("model", "fsdp"), "fc2_b": (None,)}
+
+
 def vision_projector(params: Params, feats: torch.Tensor) -> torch.Tensor:
     h = F.gelu(feats @ params["fc1_w"] + params["fc1_b"])
     return h @ params["fc2_w"] + params["fc2_b"]
@@ -56,6 +62,13 @@ def init_audio_projector(in_dim: int, llm_dim: int, generator: torch.Generator,
         "proj_w": _nrm((2 * in_dim, llm_dim), (2 * in_dim) ** -0.5, generator, device, dtype),
         "proj_b": torch.zeros(llm_dim, dtype=dtype, device=device),
     }
+
+
+def audio_projector_specs() -> Params:
+    """The audio adapter's spec tuples (the JAX package's)."""
+    return {"conv_w": (None, "fsdp", "model"), "conv_b": (None,),
+            "ln_w": (None,), "ln_b": (None,),
+            "proj_w": ("model", "fsdp"), "proj_b": (None,)}
 
 
 def audio_projector(

@@ -13,11 +13,20 @@ them.
 Under a serving mesh (``mesh``) the LLM's params are this rank's shards
 (``shard_params``; mixtral.forward runs the collectives: a 'pipe' axis
 splits the layers by stage and, where it divides, the vocabulary over
-('pipe', 'model')) and the towers and projectors are whole on every rank:
-the JAX package shards InternViT through GSPMD, the port does not yet.
-``forward`` hands the mesh to the LLM, whose GPipe path
-(``cfg.llm.pipe_stages`` > 1) gives the embeddings' gradient, and so the
-towers' and projectors', to every rank.
+('pipe', 'model')) and the towers and projectors are whole on every rank.
+
+Under a training mesh (``parallel.mesh.training_axes``) every component
+is cut by ``param_specs`` (the JAX package's PartitionSpecs;
+``parallel.fsdp.shard_tree``): a tower or projector is gathered whole
+over 'fsdp' one component at a time where it runs, and the LLM gathers
+its own leaves (mixtral.forward). ``forward`` takes the global batch:
+the towers encode the whole batch's media on every rank (the JAX package
+replicates every array whose first dim is not the batch), and the fused
+embeddings, masks and labels are then cut to this rank's rows over
+('data', 'fsdp') and its block of positions over 'seq'
+(``batch_block``). The GPipe path (``cfg.llm.pipe_stages`` > 1) gives
+the embeddings' gradient, and so the towers' and projectors', to every
+stage.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import torch
 
 from vita_tpu_torch.constants import IGNORE_INDEX
 from vita_tpu_torch.models import clip, eva_clip, internvit, mixtral, projectors, siglip, whale
+from vita_tpu_torch.parallel import fsdp
+from vita_tpu_torch.parallel.mesh import FSDP, SEQ, axis
 
 # the vision tower registry (the reference's build_vision_tower dispatch,
 # applied to the fused model)
@@ -103,6 +114,63 @@ def init_params(cfg: VITAConfig, generator: torch.Generator, device=None) -> Par
         "audio_proj": projectors.init_audio_projector(
             cfg.audio.hidden, d_llm, generator, cfg.audio_adapter_kernel, device, dt),
     }
+
+
+def _replicated(tree) -> Params:
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    return ()
+
+
+def param_specs(cfg: VITAConfig) -> Params:
+    """Spec tuples of every component, equal to the JAX package's
+    ``vita.param_specs``: the LLM's (``mixtral.param_specs``, led by
+    'pipe' when ``pipe_stages`` > 1), the tower's own where its module has
+    them (InternViT) and else replicated (the alternative towers are
+    small), the mlp2x_gelu projector's and else replicated, Whale's and
+    the audio adapter's."""
+    tower = cfg.tower_module
+    if hasattr(tower, "param_specs"):
+        tower_specs = tower.param_specs(cfg.vision)
+    else:
+        tower_specs = _replicated(tower.init_params(cfg.vision, None, "meta"))
+    if cfg.vision_projector == "mlp2x_gelu":
+        proj_specs = projectors.vision_projector_specs()
+    else:
+        proj_specs = _replicated(projectors.init_vision_projector_kind(
+            cfg.vision_proj_in_dim, cfg.llm.d_model, None, cfg.vision_projector, "meta"))
+    return {
+        "llm": mixtral.param_specs(cfg.llm),
+        "vision": tower_specs,
+        "vision_proj": proj_specs,
+        "audio": whale.param_specs(cfg.audio),
+        "audio_proj": projectors.audio_projector_specs(),
+    }
+
+
+def batch_block(x: torch.Tensor, cfg: VITAConfig, mesh) -> torch.Tensor:
+    """This rank's part of a per-sample tensor [B, S, ...] of the global
+    batch under a training mesh: its rows over ('data', 'fsdp')
+    (``parallel.fsdp.batch_rows``, in the GPipe microbatches' order when
+    ``pipe_stages`` > 1), then its block of positions over 'seq'. A batch
+    that does not divide raises ValueError."""
+    if mesh is None:
+        return x
+    micro = cfg.llm.pipe_microbatches if cfg.llm.pipe_stages > 1 else 1
+    x = fsdp.batch_rows(x, mesh, micro)
+    if axis(mesh, SEQ).size > 1:
+        from vita_tpu_torch.parallel.ring_attention import shard_seq
+
+        x = shard_seq(x, mesh, dim=1)
+    return x
+
+
+def _component(params: Params, cfg: VITAConfig, name: str, mesh) -> Params:
+    """Component ``name`` whole: gathered over 'fsdp' from this rank's
+    blocks under a training mesh (differentiable), else as it is."""
+    if axis(mesh, FSDP).size == 1:
+        return params[name]
+    return fsdp.gather_tree(params[name], param_specs(cfg)[name], mesh)
 
 
 def shard_params(params: Params, cfg: VITAConfig, mesh, device=None, llm_specs=None) -> Params:
@@ -196,16 +264,17 @@ def fuse_embeddings(
     embeds = mixtral.embed_tokens(params["llm"], input_ids, mesh,
                                   mixtral.vocab_axes(params["llm"], cfg.llm, mesh))
     image_feats = audio_feats = None
+    part = lambda *names: {n: _component(params, cfg, n, mesh) for n in names}  # noqa: E731
     if images is not None:
-        feats = encode_images(params, cfg, images)
+        feats = encode_images(part("vision", "vision_proj"), cfg, images)
         image_feats = feats.reshape(b, -1, feats.shape[-1])
     if speech is not None:
-        audio_feats, _ = encode_audio(params, cfg, speech, speech_lengths)
+        audio_feats, _ = encode_audio(part("audio", "audio_proj"), cfg, speech, speech_lengths)
     elif audio_encoded is not None:
         t = torch.arange(audio_encoded.shape[1], device=audio_encoded.device)
         valid = t[None, :] < audio_encoded_lengths[:, None]
         audio_feats, _ = projectors.audio_projector(
-            params["audio_proj"], audio_encoded.to(cfg.audio.dtype), valid)
+            part("audio_proj")["audio_proj"], audio_encoded.to(cfg.audio.dtype), valid)
     none = torch.zeros(b, s, dtype=torch.bool, device=input_ids.device)
     return merge_embeddings(
         embeds,
@@ -240,11 +309,17 @@ def forward(
     audio_select: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Full multimodal forward. Returns (logits, new_cache, moe_aux)."""
+    """Full multimodal forward. Returns (logits, new_cache, moe_aux).
+    Under a training mesh the inputs are the global batch's and the
+    logits this rank's block (``batch_block``)."""
     embeds = fuse_embeddings(
         params, cfg, input_ids, image_mask, audio_mask, images=images, speech=speech,
         speech_lengths=speech_lengths, audio_select=audio_select, mesh=mesh,
     )
+    if mesh is not None and cache is None:
+        embeds, attn_valid, token_mask = (
+            None if x is None else batch_block(x, cfg, mesh)
+            for x in (embeds, attn_valid, token_mask))
     return mixtral.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds, attn_valid=attn_valid, cache=cache,
         token_mask=token_mask, mesh=mesh,

@@ -128,6 +128,34 @@ def init_params(cfg: WhaleConfig, generator: torch.Generator, device=None) -> Pa
     }
 
 
+def param_specs(cfg: WhaleConfig) -> Params:
+    """Spec tuples mirroring init_params' tree, equal to the JAX package's
+    PartitionSpecs."""
+    ff = {
+        "q_w": (None, "fsdp", "model"), "q_b": (None, None),
+        "k_w": (None, "fsdp", "model"), "k_b": (None, None),
+        "v_w": (None, "fsdp", "model"), "v_b": (None, None),
+        "out_w": (None, "model", "fsdp"), "out_b": (None, None),
+        "pos_w": (None, "fsdp", "model"),
+        "pos_bias_u": (None, None, None), "pos_bias_v": (None, None, None),
+        "ffn1_w": (None, "fsdp", "model"), "ffn1_b": (None, None),
+        "ffn2_w": (None, "model", "fsdp"), "ffn2_b": (None, None),
+        "norm1_w": (None, None), "norm1_b": (None, None),
+        "norm2_w": (None, None), "norm2_b": (None, None),
+    }
+    return {
+        "cmvn": {"mean": (None,), "istd": (None,)},
+        "sub": {
+            "conv1_w": (None, None, None, "model"), "conv1_b": (None,),
+            "conv2_w": (None, None, None, "model"), "conv2_b": (None,),
+            "out_w": ("fsdp", None), "out_b": (None,),
+        },
+        "embed": {"w": ("fsdp", None), "b": (None,), "ln_w": (None,), "ln_b": (None,)},
+        "layers": ff,
+        "ln_final": {"w": (None,), "b": (None,)},
+    }
+
+
 def _conv_subsample(sub: Params, x: torch.Tensor) -> torch.Tensor:
     """[B, T, F] -> [B, T', hidden] via two stride-2 valid convs + linear.
 

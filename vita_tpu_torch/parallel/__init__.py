@@ -1,4 +1,5 @@
-"""Multi-rank serving over torch.distributed (vita_tpu.parallel).
+"""Multi-rank serving and training over torch.distributed
+(vita_tpu.parallel).
 
 SPMD in PyTorch's idiom: one process per rank, each holding only its
 local shards, with explicit collectives over the ``DeviceMesh`` subgroup
@@ -7,8 +8,9 @@ splits it into serving replicas, ``sharded_ops`` runs the kernels per
 shard, ``ring_attention`` runs exact attention over a ``seq`` axis,
 ``pipeline`` runs the layer stack as stages over a ``pipe`` axis (GPipe,
 pipelined prefill and the decode ring) and ``pp_serving`` the Engine's
-pipeline programs, ``launch`` starts a group of ranks on one host.
-Tensor (``model``), expert (``expert``), sequence (``seq``, cacheless)
-and pipeline (``pipe``) parallelism are ported; data/fsdp (A11d)
-parallelism raises NotImplementedError naming its ROADMAP item.
+pipeline programs, ``fsdp`` shards training over the ``data`` and
+``fsdp`` axes (ZeRO-3), ``launch`` starts a group of ranks on one host.
+Serving takes tensor (``model``), expert (``expert``) and pipeline
+(``pipe``) parallelism, training data, fsdp, pipe and sequence (``seq``,
+cacheless); the rest raises NotImplementedError naming its ROADMAP item.
 """

@@ -5,8 +5,10 @@ world size and rendezvous address come from ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``, then
 ``global_mesh(shape)`` builds the 6-axis mesh over every rank,
 ``serving_mesh`` the ``--mesh EXPERT MODEL [PIPE]`` mesh of the serving
-surfaces, or ``serving_replicas`` splits the ranks into two replicas of
-one expert x model mesh each (the duplex surfaces' two Engines).
+surfaces, ``training_mesh`` the ``--mesh DATA FSDP EXPERT MODEL [PIPE
+[SEQ]]`` mesh of the train CLI, or ``serving_replicas`` splits the ranks
+into two replicas of one expert x model mesh each (the duplex surfaces'
+two Engines).
 
 The backend is always the caller's choice, never found by trying one:
 ``nccl`` when each rank has a card of its own, ``gloo`` on the CPU or when
@@ -72,6 +74,22 @@ def serving_mesh(axes: Sequence[int], backend: str):
     axes = _serving_axes(axes)
     initialize(backend)
     return global_mesh((1, 1) + tuple(axes))
+
+
+def training_mesh(axes: Sequence[int], backend: str):
+    """The mesh of ``--mesh DATA FSDP EXPERT MODEL [PIPE [SEQ]]`` over the
+    ranks of a torchrun launch (or one process), the process group started
+    with ``backend``: the 4-6 axis form of ``make_mesh``, with the JAX
+    package's ValueErrors (an axis count outside 4-6, a shape that does
+    not cover the ranks)."""
+    axes = [int(a) for a in axes]
+    if not 4 <= len(axes) <= 6:
+        raise ValueError(f"mesh shape must have 4-6 axes (data, fsdp, expert, model, pipe, "
+                         f"seq), got {tuple(axes)}")
+    if any(a < 1 for a in axes):
+        raise ValueError(f"--mesh sizes must be positive, got {axes}")
+    initialize(backend)
+    return global_mesh(axes)
 
 
 @dataclasses.dataclass

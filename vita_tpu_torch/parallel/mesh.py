@@ -13,8 +13,10 @@ rank's block by a spec tuple (``None``, an axis name or a tuple of names
 per dim, as a PartitionSpec), and ``axis`` gives the size, rank and
 process group of one axis. The collectives ``all_reduce_sum`` (and
 ``sum_stat``, its form for a statistic every rank uses whole) and
-``all_gather_cat`` run over one axis's group or over several axes in
-turn (a tuple of names, blocks ordered as ``local_shard`` cuts them);
+``all_gather_cat`` (differentiable: its backward reduce-scatters) run
+over one axis's group or over several axes in turn (a tuple of names,
+blocks ordered as ``local_shard`` cuts them); ``serving_axes`` and
+``training_axes`` say which axes a serving or a training mesh may use;
 ``broadcast_from`` sends one coordinate's tensors to the rest of an
 axis; ``shift_down`` (the seq ring's step) and ``shift_up`` (the pipeline's
 stage-to-stage step, as a chain or a cycle) move tensors point to point
@@ -35,6 +37,7 @@ DATA, FSDP, EXPERT, MODEL, PIPE, SEQ = (
     "data", "fsdp", "expert", "model", "pipe", "seq"
 )
 AXES: Tuple[str, ...] = (DATA, FSDP, EXPERT, MODEL, PIPE, SEQ)
+REDUCE_SLICE = 1 << 26  # elements a gather's backward reduce-scatters at once
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None, ranks: Optional[Sequence[int]] = None):
@@ -112,8 +115,22 @@ def serving_axes(mesh) -> Tuple[int, int]:
             "KV-cache decode/prefill needs seq axis 1")
     if axis(mesh, DATA).size > 1 or axis(mesh, FSDP).size > 1:
         raise NotImplementedError(
-            "data/fsdp axes > 1 (sharded training) are not ported yet (ROADMAP A11d)")
+            "serving over data/fsdp axes > 1 is not ported yet "
+            "(ROADMAP A11d (serving over data/fsdp))")
     return axis(mesh, EXPERT).size, axis(mesh, MODEL).size
+
+
+def training_axes(mesh) -> Tuple[int, int, int, int]:
+    """(data, fsdp, pipe, seq) sizes of a training mesh. Training shards
+    the batch over ('data', 'fsdp'), parameters over 'fsdp'
+    (parallel.fsdp), layers over 'pipe' and positions over 'seq'; an
+    'expert' or 'model' axis > 1 raises, naming its ROADMAP item."""
+    if axis(mesh, EXPERT).size > 1 or axis(mesh, MODEL).size > 1:
+        raise NotImplementedError(
+            f"training over expert {axis(mesh, EXPERT).size} x model "
+            f"{axis(mesh, MODEL).size} needs differentiable tensor- and expert-parallel "
+            "collectives, not ported yet (ROADMAP A11d (tensor/expert-parallel training))")
+    return tuple(axis(mesh, a).size for a in (DATA, FSDP, PIPE, SEQ))
 
 
 def local_shard(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
@@ -162,10 +179,66 @@ def all_gather_cat(x: torch.Tensor, mesh, name, dim: int = -1) -> torch.Tensor:
     """The blocks of the ranks of axis ``name`` joined along ``dim`` in
     rank order; ``x`` itself when the axis has size 1. A tuple of names
     joins the blocks row-major over them, as ``local_shard`` cuts a dim
-    over that tuple (the last name's blocks innermost)."""
-    for n in reversed(_names(name)):
+    over that tuple (the last name's blocks innermost).
+
+    Differentiable where autograd records ``x``: the backward
+    reduce-scatters, each rank adding the blocks of the incoming gradient
+    that the ranks of the axes send it (float32, in rank order, rounded
+    once). So when every rank adds its own function of the whole tensor
+    to its objective, each block's gradient is that of the ranks'
+    objectives summed (the fsdp gather)."""
+    names = tuple(n for n in _names(name) if axis(mesh, n).size > 1)
+    if not names:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherCat.apply(x, mesh, names, dim)
+    for n in reversed(names):
         x = _gather_one(x, mesh, n, dim)
     return x
+
+
+class _GatherCat(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        for n in reversed(names):
+            x = _gather_one(x, mesh, n, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        # in slices along another dim, so one slice's buffers at a time are
+        # staged (a gathered layer's gradient is GBs)
+        dim = ctx.dim % g.dim()
+        cdim = 0 if dim else g.dim() - 1
+        per = max(1, REDUCE_SLICE // max(1, g.numel() // max(1, g.shape[cdim])))
+        parts = g.split(per, cdim) if g.dim() > 1 else [g]
+        out = []
+        for part in parts:
+            for n in ctx.names:
+                part = _reduce_scatter_one(part, ctx.mesh, n, dim)
+            out.append(part.to(g.dtype))
+        return torch.cat(out, cdim) if len(out) > 1 else out[0], None, None, None
+
+
+def _reduce_scatter_one(g: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``g`` over the ranks
+    of axis ``name``, in float32: each rank sends every other rank that
+    rank's block (one all_to_all of raw bytes, staged through host memory
+    on gloo), then adds the blocks it received in rank order."""
+    a = axis(mesh, name)
+    blocks = g.chunk(a.size, dim)
+    send = torch.cat([b.contiguous().reshape(-1) for b in blocks]).view(torch.uint8)
+    if send.is_cuda and a.staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=a.group)
+    got = recv.to(g.device).view(g.dtype).reshape((a.size,) + tuple(blocks[0].shape))
+    total = got[0].float()
+    for i in range(1, a.size):
+        total = total + got[i].float()
+    return total
 
 
 def _gather_one(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
@@ -231,14 +304,15 @@ class _SumStat(torch.autograd.Function):
         return g, None, None
 
 
-def sum_stat(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of axis ``name`` (as
-    ``all_reduce_sum``) for a statistic that every rank then uses whole:
+def sum_stat(x: torch.Tensor, mesh, name) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of axis ``name`` (or of several
+    axes, a tuple of names; as ``all_reduce_sum``) for a statistic that
+    every rank then uses whole:
     its backward passes the incoming gradient to this rank's ``x`` and
     does not sum it over the axis. So when every rank adds the same
     function of the sum to its objective, the gradients summed over the
     axis are those of one such term, not ``size`` times them."""
-    if axis(mesh, name).size == 1:
+    if all(axis(mesh, n).size == 1 for n in _names(name)):
         return x
     return _SumStat.apply(x, mesh, name)
 

@@ -16,8 +16,17 @@ output of this port, ``--whale-init`` merges a standalone audio-encoder
 ``final.pt`` (``checkpoint.load_whale_torch_checkpoint``), and
 ``--lora-from`` folds in LoRA adapters saved by this port
 (``trainer.save_state``'s layout). ``--moe-mode`` and ``--moe-chunk`` each
-set only their own field. ``--mesh`` (sharded training) is not ported
-yet and raises ``NotImplementedError`` (ROADMAP A11d).
+set only their own field.
+
+``--mesh DATA FSDP EXPERT MODEL [PIPE [SEQ]]`` trains over a mesh of that
+shape, one process a rank under torchrun:
+  torchrun --nproc-per-node N -m vita_tpu_torch.train.cli --mesh 1 N 1 1 ...
+(``--dist-backend gloo`` when the ranks share a card or run on the CPU).
+Every rank cuts its blocks of the params (``Trainer(mesh=)``; ``--model
+<dir>`` reads only them), pipe > 1 sets the LLM's GPipe stages
+(``--pipe-microbatches``), seq > 1 switches the LLM to the flash backend
+(the ring), and rank 0 prints and writes ``metrics.jsonl``. Expert or
+model > 1 raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,9 +55,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max-patches", type=int, default=12)
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--mesh", type=int, nargs="+", default=None,
-                   help="mesh shape (not ported)")
+                   help="mesh shape: data fsdp expert model [pipe [seq]] over the ranks of a "
+                        "torchrun launch; pipe > 1 enables GPipe pipeline parallelism, seq > 1 "
+                        "ring-attention sequence parallelism (the batch's sequence length "
+                        "must divide by it; the flash attention backend)")
     p.add_argument("--pipe-microbatches", type=int, default=4,
-                   help="GPipe microbatches when the mesh has pipe > 1 (not ported)")
+                   help="GPipe microbatches when the mesh has pipe > 1")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under --mesh (default nccl on cards, gloo on "
+                        "the CPU; gloo when the ranks share a card)")
     p.add_argument("--moe-mode", default=None, choices=["dense", "capacity", "sort", "gmm"],
                    help="training MoE dispatch: dense (exact, E/k extra FLOPs), "
                         "capacity/sort (token-dropping), gmm (grouped matmul: exact "
@@ -70,27 +85,58 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
+    if args.mesh is None:
+        return _run(args, device, None)
+    if len(args.mesh) >= 4 and (args.mesh[2] > 1 or args.mesh[3] > 1):
+        # refused before any rank joins a process group
+        raise NotImplementedError(
+            f"--mesh {' '.join(map(str, args.mesh))}: training over expert or model axes > 1 "
+            "is not ported yet (ROADMAP A11d (tensor/expert-parallel training))")
+    import torch.distributed as dist
+
+    from vita_tpu_torch.parallel import distributed
+
+    owned_group = not dist.is_initialized()
+    mesh = distributed.training_mesh(args.mesh,
+                                     args.dist_backend or distributed.default_backend(device))
+    try:
+        return _run(args, distributed.rank_device(device), mesh)
+    finally:
+        if owned_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
     from vita_tpu_torch import checkpoint
     from vita_tpu_torch.cli import ByteTokenizer, load_hf_tokenizer
     from vita_tpu_torch.data.dataset import Collator, ConversationDataset, DataArgs, DatasetSpec
     from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.mesh import PIPE, SEQ, axis
     from vita_tpu_torch.train.lora import LoRAConfig, merge_lora
     from vita_tpu_torch.train.step import TrainConfig
     from vita_tpu_torch.train.trainer import RunConfig, Trainer, load_state
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh (sharded training) is not ported yet (ROADMAP A11d)")
-
+    lead = mesh is None or not torch.distributed.get_rank()
+    say = print if lead else (lambda *a, **k: None)
+    # overlays need whole params; without them a mesh rank reads only its
+    # blocks of a checkpoint, and tiny-random's whole weights stay on the host
+    overlays = args.pretrain_mm_adapter or args.whale_init or args.lora_from
+    sharded = mesh is not None and args.model != "tiny-random" and not overlays
+    load_dev = torch.device("cpu") if mesh is not None and not sharded else device
     if args.model == "tiny-random":
         cfg = vita.VITAConfig.tiny()
-        params = vita.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        params = vita.init_params(cfg, torch.Generator(device=load_dev).manual_seed(0), load_dev)
         tok = ByteTokenizer()
         encode, bos_id, eos_id, pad_id = tok.encode, tok.bos_id, tok.eos_id, 0
     else:
-        cfg, params = checkpoint.load_vita_checkpoint(args.model, device)
+        if sharded:
+            cfg, params = checkpoint.load_vita_checkpoint(args.model, device, mesh=mesh,
+                                                          training=True)
+        else:
+            cfg, params = checkpoint.load_vita_checkpoint(args.model, load_dev)
         hf_tok = load_hf_tokenizer(args.model)
         encode = lambda s: hf_tok(s).input_ids
         bos_id, eos_id, pad_id = hf_tok.bos_token_id, hf_tok.eos_token_id, hf_tok.pad_token_id
@@ -100,7 +146,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.whale_init:
         params = checkpoint.load_whale_torch_checkpoint(params, args.whale_init)
     if args.lora_from:
-        params = merge_lora(params, load_state(args.lora_from, device=device),
+        params = merge_lora(params, load_state(args.lora_from, device=load_dev),
                             LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha))
 
     stage = {
@@ -127,22 +173,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             image_tokens_per_group=cfg.image_tokens_per_group,
         ),
     )
-    print(f"[data] {len(ds)} samples from {len(args.data)} file(s)")
+    say(f"[data] {len(ds)} samples from {len(args.data)} file(s)")
 
     llm = cfg.llm
     if args.moe_mode:
         llm = dataclasses.replace(llm, moe_mode=args.moe_mode)
     if args.moe_chunk:
         llm = dataclasses.replace(llm, moe_chunk=args.moe_chunk)
+    if axis(mesh, PIPE).size > 1:
+        llm = dataclasses.replace(llm, pipe_stages=axis(mesh, PIPE).size,
+                                  pipe_microbatches=args.pipe_microbatches)
+    if axis(mesh, SEQ).size > 1 and llm.attn_backend != "flash":
+        # ring attention's only entry is the flash backend's dispatch; the
+        # xla backend would ignore the seq axis
+        llm = dataclasses.replace(llm, attn_backend="flash")
+        say("[mesh] seq > 1: switching LLM attention backend to 'flash' "
+            "(ring-attention sequence parallelism)")
     cfg = dataclasses.replace(cfg, llm=llm)
     run = RunConfig(output_dir=args.output_dir, batch_size=args.batch_size,
                     num_epochs=args.epochs, save_every_steps=args.save_every,
                     resume=not args.no_resume)
-    trainer = Trainer(cfg, stage, run, params)
+    mesh_kw = {} if mesh is None else dict(mesh=mesh, sharded=sharded, device=device)
+    trainer = Trainer(cfg, stage, run, params, **mesh_kw)
     log = trainer.train(ds, Collator(pad_id=pad_id or 0))
     trainer.save()
     if log:
-        print(f"[done] {len(log)} steps, final loss {log[-1]['loss']:.4f}")
+        say(f"[done] {len(log)} steps, final loss {log[-1]['loss']:.4f}")
     return 0
 
 

@@ -15,6 +15,18 @@ updates exactly what the JAX package's optax chain updates:
     so the first update has lr 0.
 
 The update happens in place, where the JAX package donates its buffers.
+
+Under a training mesh (``parallel.mesh.training_axes``: 'data', 'fsdp',
+'pipe', 'seq') each rank holds its blocks of the leaves
+(``vita.param_specs``, as the Trainer cuts them) and the global batch;
+the forward takes its rows and positions (``vita.batch_block``) and the
+CE's denominator is the labelled count of the whole batch, so each rank's
+objective is its share. ``make_train_step`` then sums the gradients over
+the ranks (``parallel.fsdp.reduce_grads``), clips each group by its
+global norm (``parallel.fsdp.sq_norm``: each leaf once, its blocks summed
+over the axes that split it, so every rank clips alike) and keeps the
+Adam moments on the rank's blocks. This is the JAX package's step over
+the same global batch, which GSPMD shards.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import torch.nn.functional as F
 
 from vita_tpu_torch.constants import IGNORE_INDEX
 from vita_tpu_torch.models import vita
+from vita_tpu_torch.parallel import fsdp
+from vita_tpu_torch.parallel.mesh import DATA, FSDP, SEQ, all_reduce_sum, axis
 
 Path = Tuple[str, ...]
 
@@ -137,8 +151,12 @@ class AdamW:
                                 max(tc.total_steps, tc.warmup_steps + 1))
 
     @torch.no_grad()
-    def update(self, params, grads: Dict[Path, torch.Tensor], state: Dict[str, Any]):
-        """Apply one update to ``params`` in place; advances ``state``."""
+    def update(self, params, grads: Dict[Path, torch.Tensor], state: Dict[str, Any],
+               mesh=None, specs: Optional[Dict[Path, Any]] = None):
+        """Apply one update to ``params`` in place; advances ``state``.
+        Under a ``mesh`` the leaves and gradients are this rank's blocks
+        by ``specs`` (path -> spec) and each group clips by its global
+        norm (``parallel.fsdp.sq_norm``)."""
         tc = self.tc
         leaves = dict(tree_leaves(params))
         count = state["count"]
@@ -148,7 +166,8 @@ class AdamW:
             if not paths:
                 continue
             gs = [grads[p] for p in paths]
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in gs))
+            norm = torch.sqrt(fsdp.sq_norm(gs, [specs[p] if specs else () for p in paths],
+                                           mesh))
             lr = self.lr(base_lr, count)
             for p, g in zip(paths, gs):
                 w, key = leaves[p], "/".join(p)
@@ -192,36 +211,57 @@ def batch_logits(params, cfg: vita.VITAConfig, batch, token_mask: bool, mesh=Non
     )
 
 
+def next_labels(labels: torch.Tensor) -> torch.Tensor:
+    """The label row t predicts (label t + 1), IGNORE_INDEX at the last
+    position."""
+    return torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)], 1)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor):
+    targets = targets.long()
+    mask = targets != IGNORE_INDEX
+    nll = F.cross_entropy(logits.float().flatten(0, 1), torch.where(mask, targets, 0).flatten(),
+                          reduction="none")
+    return (nll * mask.flatten()).sum(), mask.sum()
+
+
 def token_nll(logits: torch.Tensor, labels: torch.Tensor):
     """(sum of the next-token NLL over labelled positions, their count):
     row t predicts label t + 1."""
-    labels = labels[:, 1:].long()
-    mask = labels != IGNORE_INDEX
-    nll = F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
-                          torch.where(mask, labels, 0).flatten(), reduction="none")
-    return (nll * mask.flatten()).sum(), mask.sum()
+    return _nll(logits, next_labels(labels))
 
 
 def loss_fn(params, cfg: vita.VITAConfig, batch: Dict[str, torch.Tensor],
             aux_coef: float, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: input_ids [B,S], labels [B,S], image_mask/audio_mask [B,S],
     attn_valid [B,S], images [N,H,W,3]?, speech [B,T,80]?, speech_lengths.
-    ``mesh`` is needed for pipeline parallelism (cfg.llm.pipe_stages > 1;
-    ``params`` then hold this rank's stage of the LLM)."""
+    ``mesh`` is a training mesh (``params`` then hold this rank's blocks)
+    or a pipe mesh (cfg.llm.pipe_stages > 1; ``params`` hold this rank's
+    stage of the LLM). Under a mesh the batch is the global one and the
+    returned objective this rank's share: its tokens' NLL over the
+    labelled count summed over ('data', 'fsdp', 'seq') (without
+    gradient), plus the whole batch's aux term; the metrics are the whole
+    batch's, on every rank."""
     logits, _, aux = batch_logits(params, cfg, batch, token_mask=True, mesh=mesh)
-    nll, count = token_nll(logits, batch["labels"])
-    denom = count.clamp_min(1)
+    nll, count = _nll(logits, vita.batch_block(next_labels(batch["labels"]), cfg, mesh))
+    split = tuple(a for a in (DATA, FSDP, SEQ) if axis(mesh, a).size > 1)
+    denom = all_reduce_sum(count, mesh, split).clamp_min(1)
     ce = nll / denom
     total = ce + aux_coef * aux
-    return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
+    if split:
+        ce = all_reduce_sum(nll.detach(), mesh, split) / denom
+    return total, {"loss": ce + aux_coef * aux, "ce": ce, "aux": aux, "tokens": denom}
 
 
 def make_train_step(cfg: vita.VITAConfig, tc: TrainConfig, optimizer: AdamW,
                     mesh=None) -> Callable:
     """step(params, opt_state, batch) -> (params, opt_state, metrics): one
     forward and backward over the trainable leaves, then the optimizer's
-    in-place update. ``mesh`` as for ``loss_fn``: under a pipe axis every
-    rank updates its own leaves, the replicated ones alike everywhere."""
+    in-place update. ``mesh`` as for ``loss_fn``: every rank updates its
+    own blocks (under a pipe axis the replicated leaves alike everywhere),
+    from the gradients summed over the ranks and clipped by the global
+    norm."""
+    specs = dict(tree_leaves(vita.param_specs(cfg))) if mesh is not None else None
 
     def step(params, opt_state, batch):
         leaves = dict(tree_leaves(params))
@@ -232,7 +272,9 @@ def make_train_step(cfg: vita.VITAConfig, tc: TrainConfig, optimizer: AdamW,
         grads = torch.autograd.grad(loss, ws, allow_unused=True)
         grads = {p: torch.zeros_like(w) if g is None else g
                  for p, w, g in zip(optimizer.paths, ws, grads)}
-        opt_state = optimizer.update(params, grads, opt_state)
+        if mesh is not None:
+            grads = fsdp.reduce_grads(grads, specs, mesh)
+        opt_state = optimizer.update(params, grads, opt_state, mesh, specs)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return step

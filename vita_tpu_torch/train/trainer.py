@@ -9,6 +9,19 @@ written with ``torch.save`` to ``output_dir/ckpt/step_N/state.pt``: the
 directory is written under a temporary name and renamed into place when
 complete, so a ``step_N`` directory is always whole. Parameters update in
 place.
+
+``Trainer(..., mesh=)`` trains over a training mesh
+(``parallel.mesh.training_axes``: 'data', 'fsdp', 'pipe', 'seq'; one
+process a rank, as ``parallel.distributed.training_mesh`` starts them). It
+cuts this rank's blocks of the whole params by ``vita.param_specs`` onto
+its device, as the JAX package's ``device_put`` does (or takes blocks
+already cut: ``sharded=True``, from ``checkpoint.load_vita_checkpoint(...,
+mesh=, training=True)``). Every rank builds the same global batch from
+the same seeded order and the step takes its rows. Metrics are the whole
+batch's on every rank; the mesh's first rank prints them and writes
+``metrics.jsonl``. A checkpoint on a mesh holds each rank's blocks
+(``step_N/rank_R.pt`` for rank R of the mesh, with the mesh's shape); a
+run resumes on the mesh it was saved from.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ import torch
 from vita_tpu_torch.data.dataset import Collator, modality_grouped_indices
 from vita_tpu_torch.data.loader import PrefetchLoader
 from vita_tpu_torch.models import vita
+from vita_tpu_torch.parallel import fsdp
+from vita_tpu_torch.parallel.mesh import AXES, all_reduce_sum, axis, training_axes
 from vita_tpu_torch.train.step import (
     TrainConfig,
     batch_logits,
@@ -40,6 +55,7 @@ from vita_tpu_torch.train.step import (
 )
 
 STATE_FILE = "state.pt"
+MESH_FILE = "mesh.json"
 
 
 @dataclasses.dataclass
@@ -75,16 +91,31 @@ def save_state(directory: str, step: int, state) -> str:
     return final
 
 
-def load_state(directory: str, step: Optional[int] = None, device=None, mmap: bool = False):
+def load_state(directory: str, step: Optional[int] = None, device=None, mmap: bool = False,
+               name: str = STATE_FILE):
     """The state saved at ``step`` (default: the latest) under ``directory``
-    (with ``mmap``, CPU views of the mapped file)."""
+    (with ``mmap``, CPU views of the mapped file); ``name`` is the file in
+    ``step_N`` (a rank's ``rank_R.pt`` on a mesh)."""
     if step is None:
         steps = committed_steps(directory)
         if not steps:
             raise FileNotFoundError(f"no step_N checkpoint under {directory}")
         step = steps[-1]
-    return torch.load(os.path.join(directory, f"step_{step}", STATE_FILE),
+    return torch.load(os.path.join(directory, f"step_{step}", name),
                       map_location=device, weights_only=True, mmap=mmap)
+
+
+def _mesh_rank(mesh) -> int:
+    """This rank's index in the mesh, row-major over its axes."""
+    r = 0
+    for a in AXES:
+        r = r * axis(mesh, a).size + axis(mesh, a).rank
+    return r
+
+
+def _barrier(mesh, device) -> None:
+    """Every rank of the mesh has reached this point."""
+    all_reduce_sum(torch.zeros(1, device=device), mesh, AXES)
 
 
 @torch.no_grad()
@@ -105,12 +136,26 @@ def load_adapter_into(params, path: str):
 
 
 class Trainer:
-    def __init__(self, cfg: vita.VITAConfig, tc: TrainConfig, run: RunConfig, params):
-        self.cfg, self.tc, self.run = cfg, tc, run
+    def __init__(self, cfg: vita.VITAConfig, tc: TrainConfig, run: RunConfig, params,
+                 mesh=None, sharded: bool = False, device=None):
+        """``params`` whole (cut here under a ``mesh``, onto ``device``,
+        default the params' own) or, with ``sharded``, this rank's blocks
+        already."""
+        self.cfg, self.tc, self.run, self.mesh = cfg, tc, run, mesh
+        self.lead = True
+        if mesh is not None:
+            data, fsdp_n, _, _ = training_axes(mesh)
+            if run.batch_size % (data * fsdp_n):
+                raise ValueError(f"batch size {run.batch_size} does not divide over data x fsdp "
+                                 f"= {data * fsdp_n} ranks")
+            self.lead = _mesh_rank(mesh) == 0
+            if not sharded:
+                dev = device or next(iter(tree_leaves(params)))[1].device
+                params = fsdp.shard_tree(params, vita.param_specs(cfg), mesh, dev)
         self.optimizer = make_optimizer(tc, params)
         self.params = params
         self.opt_state = self.optimizer.init(params)
-        self.step_fn = make_train_step(cfg, tc, self.optimizer)
+        self.step_fn = make_train_step(cfg, tc, self.optimizer, mesh)
         self.step = 0
         self.metrics_log: List[Dict[str, float]] = []
         if run.resume:
@@ -120,31 +165,75 @@ class Trainer:
     def _ckpt_dir(self) -> str:
         return os.path.join(self.run.output_dir, "ckpt")
 
+    def _device(self):
+        return next(iter(tree_leaves(self.params)))[1].device
+
+    def _state_file(self) -> str:
+        return STATE_FILE if self.mesh is None else f"rank_{_mesh_rank(self.mesh)}.pt"
+
+    def _mesh_shape(self) -> List[int]:
+        return [axis(self.mesh, a).size for a in AXES]
+
     def _maybe_resume(self) -> None:
         steps = committed_steps(self._ckpt_dir())
         if not steps:
             return
-        dev = next(iter(tree_leaves(self.params)))[1].device
-        state = load_state(self._ckpt_dir(), steps[-1], dev)
+        where = os.path.join(self._ckpt_dir(), f"step_{steps[-1]}")
+        saved = None
+        if os.path.exists(os.path.join(where, MESH_FILE)):
+            with open(os.path.join(where, MESH_FILE)) as f:
+                saved = json.load(f)["mesh"]
+        if saved != (None if self.mesh is None else self._mesh_shape()):
+            raise NotImplementedError(
+                f"{where} was saved on mesh {saved}, this run's is "
+                f"{None if self.mesh is None else self._mesh_shape()}: a run resumes on the "
+                "mesh it was saved from (ROADMAP A11d (resume on another mesh))")
+        state = load_state(self._ckpt_dir(), steps[-1], self._device(), name=self._state_file())
         copy_into(self.params, state["params"])
         self.opt_state = state["opt_state"]
         self.step = state["step"]
-        print(f"[trainer] resumed from step {self.step}")
+        if self.lead:
+            print(f"[trainer] resumed from step {self.step}")
 
     def save(self) -> None:
-        save_state(self._ckpt_dir(),
-                   self.step, {"params": self.params, "opt_state": self.opt_state,
-                               "step": self.step})
-        for s in committed_steps(self._ckpt_dir())[: -self.run.keep_checkpoints]:
-            shutil.rmtree(os.path.join(self._ckpt_dir(), f"step_{s}"), ignore_errors=True)
+        """``{params, opt_state, step}`` to ``ckpt/step_N``; on a mesh every
+        rank writes its blocks into one directory, renamed into place by
+        the mesh's first rank once all have written (collective)."""
+        state = {"params": self.params, "opt_state": self.opt_state, "step": self.step}
+        if self.mesh is None:
+            save_state(self._ckpt_dir(), self.step, state)
+        else:
+            final = os.path.join(self._ckpt_dir(), f"step_{self.step}")
+            tmp, dev = f"{final}.tmp", self._device()
+            if self.lead:
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+                with open(os.path.join(tmp, MESH_FILE), "w") as f:
+                    json.dump({"mesh": self._mesh_shape()}, f)
+            _barrier(self.mesh, dev)
+            torch.save(state, os.path.join(tmp, self._state_file()))
+            _barrier(self.mesh, dev)
+            if self.lead:
+                shutil.rmtree(final, ignore_errors=True)
+                os.replace(tmp, final)
+        if self.lead:
+            for s in committed_steps(self._ckpt_dir())[: -self.run.keep_checkpoints]:
+                shutil.rmtree(os.path.join(self._ckpt_dir(), f"step_{s}"), ignore_errors=True)
+        if self.mesh is not None:
+            _barrier(self.mesh, self._device())
 
     def save_trainable_only(self, name: str = "adapters") -> None:
         """Adapter-only checkpoint: just the trainable top-level components
-        (e.g. the mm projector), for ``--pretrain-mm-adapter``."""
+        (e.g. the mm projector), for ``--pretrain-mm-adapter``; whole
+        leaves (gathered on a mesh, written by its first rank)."""
         mask = trainable_mask(self.params, self.tc)
         subset = {k: v for k, v in self.params.items()
                   if next(tree_leaves(mask[k]))[1]}
-        save_state(os.path.join(self.run.output_dir, name), self.step, subset)
+        if self.mesh is not None:
+            specs = vita.param_specs(self.cfg)
+            subset = {k: fsdp.whole_tree(v, specs[k], self.mesh) for k, v in subset.items()}
+        if self.lead:
+            save_state(os.path.join(self.run.output_dir, name), self.step, subset)
 
     # -- data -------------------------------------------------------------
     def batches(self, dataset, collator: Collator) -> Iterable[Dict]:
@@ -175,14 +264,16 @@ class Trainer:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=self.step, epoch=epoch, step_time=time.time() - t0)
                     self.metrics_log.append(m)
-                    print(f"[step {self.step}] loss={m['loss']:.4f} ce={m['ce']:.4f} "
-                          f"aux={m['aux']:.4f} ({m['step_time']:.2f}s)")
+                    if self.lead:
+                        print(f"[step {self.step}] loss={m['loss']:.4f} ce={m['ce']:.4f} "
+                              f"aux={m['aux']:.4f} ({m['step_time']:.2f}s)")
                 if self.step % self.run.save_every_steps == 0:
                     self.save()
-        os.makedirs(self.run.output_dir, exist_ok=True)
-        with open(os.path.join(self.run.output_dir, "metrics.jsonl"), "a") as f:
-            for m in self.metrics_log:
-                f.write(json.dumps(m) + "\n")
+        if self.lead:
+            os.makedirs(self.run.output_dir, exist_ok=True)
+            with open(os.path.join(self.run.output_dir, "metrics.jsonl"), "a") as f:
+                for m in self.metrics_log:
+                    f.write(json.dumps(m) + "\n")
         return self.metrics_log
 
 

@@ -51,16 +51,19 @@ def _stacker(g, n_layers: int):
 
 
 def mixtral_params_from_hf(state: Mapping[str, Any], cfg, prefix: str = "model.",
-                           dtype=torch.float32, device=None, mesh=None) -> Dict[str, Any]:
+                           dtype=torch.float32, device=None, mesh=None,
+                           specs=None) -> Dict[str, Any]:
     """An HF MixtralForCausalLM state dict -> the port's Mixtral params.
     Under a serving ``mesh`` each leaf is this rank's block
-    (mixtral.serving_specs), cut from the state's tensors before any copy
+    (mixtral.serving_specs, or ``specs`` such as the training ones of
+    ``mixtral.param_specs``), cut from the state's tensors before any copy
     or stack: a rank reads only its blocks of a mapped file (under a
     'pipe' axis only its stage's layers) and never builds a whole leaf."""
     from vita_tpu_torch.models.mixtral import serving_specs
     from vita_tpu_torch.parallel.mesh import local_shard
 
-    specs = serving_specs(cfg, {"layers": {"moe": {}}}, mesh)
+    if specs is None:
+        specs = serving_specs(cfg, {"layers": {"moe": {}}}, mesh)
     layers = torch.arange(cfg.n_layers)
     if mesh is not None:  # this stage's layers under a 'pipe' axis
         layers = local_shard(layers, specs["layers"]["ln_attn"][:1], mesh)
