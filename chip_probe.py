@@ -28,6 +28,7 @@ NVIDIA GPU.
     python3 chip_probe.py ring-faults  # which of phase 12's (a) and (b) checks fail each planted fault
     python3 chip_probe.py pp           # where pipeline-parallel decode's time goes (pipe 4)
     python3 chip_probe.py pp-faults    # which of phase 13's (a) and (c) checks fail each planted fault
+    python3 chip_probe.py tp-faults    # phase 15(b)'s gradients by leaf, as committed and each planted fault
     python3 chip_probe.py fsdp         # where a ZeRO-3 training step's time goes (fsdp 4)
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
@@ -242,6 +243,15 @@ carrying the last stage's hidden state instead of the new token's
 embedding; the GPipe prefill's bubble steps computing on zeros and
 writing KV rows; the GPipe backward sending zeros upstream in place of
 dL/dx): per run, each check's reading and the checks that failed.
+
+tp-faults: chip_smoke.py phase 15's (b) alone (`tp_phase_b`: the
+unsharded full-width step and its float32 gradients here, then the slice
+under TP_FULL_MESHES on 4 gloo ranks on cuda:0) run on a copy of the
+tree under build/faults/ as it is, then with each TP_FAULTS edit planted
+in the copy (the "f" over 'model' on the attention's input dropped; the
+experts' ffn-column partials rounded to bf16 before their sum): per run,
+each trainable leaf's sampled gradient against the unsharded bf16 step's
+and both against the float32 gradient, then the checks that failed.
 
 Each prints the card's name and power limit first.
 
@@ -1378,7 +1388,8 @@ MESH_FAULTS = (
       "return all_reduce_sum(part, mesh, MODEL).to(o.dtype)", "return part.to(o.dtype)")),
     ("M3: the expert partials left in bf16",
      ("vita_tpu_torch/parallel/sharded_ops.py",
-      "n_experts=e_local, out_dtype=torch.float32)", "n_experts=e_local)")),
+      "n_experts=e_local, out_dtype=torch.float32, pairs=pairs)",
+      "n_experts=e_local, pairs=pairs)")),
 )
 
 
@@ -1445,12 +1456,12 @@ SEQ_FAULTS = (
        "dk, dv = shift_down([dk, dv], ctx.mesh, SEQ)", "pass"),)),
     ("S3: aux's sums over 'seq' summed in the backward too",
      (("vita_tpu_torch/parallel/mesh.py",
-       "    def forward(ctx, x, mesh, name):\n        return all_reduce_sum(x, mesh, name)\n\n"
+       "    def forward(ctx, x, mesh, names):\n        return _reduce(x, mesh, names)\n\n"
        "    @staticmethod\n    def backward(ctx, g):\n        return g, None, None",
-       "    def forward(ctx, x, mesh, name):\n        ctx.axis = (mesh, name)\n"
-       "        return all_reduce_sum(x, mesh, name)\n\n"
+       "    def forward(ctx, x, mesh, names):\n        ctx.axis = (mesh, names)\n"
+       "        return _reduce(x, mesh, names)\n\n"
        "    @staticmethod\n    def backward(ctx, g):\n"
-       "        return all_reduce_sum(g.contiguous(), *ctx.axis), None, None"),)),
+       "        return _reduce(g.contiguous(), *ctx.axis), None, None"),)),
 )
 
 
@@ -1830,6 +1841,72 @@ def fsdp(card: str) -> None:
               f"loss {out['loss']:.6f} ({smoke.FSDP_NOTE}) [{card}]", flush=True)
 
 
+# --------------------------------------------------------------------------
+# tensor- and expert-parallel training (chip_smoke.py phase 15)
+# --------------------------------------------------------------------------
+def tp_phase_b(card: str, small: bool = False) -> None:
+    """chip_smoke.py phase 15's (b) alone: the unsharded Trainer's
+    steps and the float32 gradients at the samples here, then the
+    full-width slice under TP_FULL_MESHES on 4 gloo ranks on cuda:0; for
+    each trainable leaf, the sampled gradient's largest distance from the
+    unsharded bf16 step's and of both from the float32 gradient (each over
+    the leaf's largest); raises listing every check that failed. With
+    ``small``, the tiny config on the CPU (``fsdp_full_config(small)``)."""
+    import numpy as np
+    import torch
+
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    dev = torch.device("cpu" if small else "cuda")
+    cfg = smoke.fsdp_full_config(small)
+    full_s = 64 if small else smoke.FSDP_FULL_S
+    batches = smoke.fsdp_batches(cfg, 2, smoke.FSDP_FULL_B, full_s, smoke.FSDP_FULL_FRAMES,
+                                 smoke.SEED + 62)
+    full_ref, picks = smoke.fsdp_full_reference(cfg, batches, dev)
+    f32 = smoke.full_f32_gradients(cfg, batches[1], dev, picks)
+    plan = {"device": "cpu" if small else "cuda:0", "small": small, "full_s": full_s,
+            "picks": picks,
+            "shapes": full_ref["shapes"], "narrow_meshes": (),
+            "full_meshes": smoke.TP_FULL_MESHES, "cli": []}
+    results = run_ranks(smoke.fsdp_rank, smoke.FSDP_RANKS, plan, backend="gloo", timeout=900,
+                        store_dir=os.path.join(smoke.ROOT, "build"))
+    failed = []
+    for shape in smoke.TP_FULL_MESHES:
+        for leaf, g_ref in full_ref["grads"].items():
+            g = smoke._gather_samples(results, shape, leaf, "grads", "(b)", failed)
+            top = max(np.abs(f32[leaf]).max(), 1e-30)
+            d_mesh, d_ref = np.abs(g - f32[leaf]).max() / top, np.abs(g_ref - f32[leaf]).max() / top
+            print(f"  TP {' '.join(map(str, shape))} {leaf}: |mesh - unsharded| "
+                  f"{np.abs(g - g_ref).max() / max(np.abs(g_ref).max(), 1e-30):.3e}; from float32 "
+                  f"mesh {d_mesh:.3e}, unsharded {d_ref:.3e} (ratio {d_mesh / max(d_ref, 1e-30):.3f})",
+                  flush=True)
+    smoke._full_report(card, results, smoke.TP_FULL_MESHES, full_ref, full_s, dev, failed,
+                       f32=f32)
+    if failed:
+        raise AssertionError("phase 15 failed:\n  " + "\n  ".join(failed))
+
+
+# (name, edits of (file, text as committed, text as planted)): a missing
+# collective of tensor-parallel training, and the experts' partials as the
+# serving mesh's M3 rounds them
+TP_FAULTS = (
+    ("as committed", ()),
+    ("T1: the 'f' over 'model' on the attention's input dropped",
+     (("vita_tpu_torch/models/mixtral.py",
+       "q, k, v = _qkv(lp, cfg, all_reduce_grad(x, mesh, MODEL), positions)",
+       "q, k, v = _qkv(lp, cfg, x, positions)"),)),
+    ("T2: the experts' ffn-column partials rounded to bf16 before their sum",
+     (("vita_tpu_torch/parallel/sharded_ops.py",
+       "out_dtype=torch.float32 if split_f else None", "out_dtype=None"),)),
+)
+
+
+def tp_faults(card: str) -> None:
+    _fault_runs(card, TP_FAULTS,
+                "import chip_smoke as cs, chip_probe as cp\ncp.tp_phase_b(cs.card_line())",
+                "phase 15", ("  TP", "  (b)", "    routing"))
+
+
 def main() -> int:
     import torch
 
@@ -1841,7 +1918,8 @@ def main() -> int:
              "expert-q4-ring": expert_q4_ring, "expert-q": expert_q, "paged": paged,
              "paged-ring": paged_ring, "session": session, "whale": whale,
              "mesh": mesh, "mesh-faults": mesh_faults, "ring": ring,
-             "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults, "fsdp": fsdp}
+             "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults, "fsdp": fsdp,
+             "tp-faults": tp_faults}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -203,16 +203,31 @@ Phases, each of which raises on failure:
      experts excused only at a router near tie), the blocks bitwise equal
      on the ranks that hold the same one; (b) phase 6's 2-layer slice, 4
      rows of 2048 tokens, a warm-up step and a step through
-     Trainer(mesh=) under 1 4 1 1 and 2 2 1 1: the losses, each group's
+     Trainer(mesh=) under 1 4 1 1: the losses, each group's
      gradient norm, and the step's gradients and weights at sampled
      elements against the unsharded Trainer's (FSDP_FULL_*), each rank's
      peak (below the unsharded peak) and step ms printed, every rank
      launching B1, B10, B11, B12 and B5a or B5b; (c) the train CLI
      --mesh 1 4 1 1 --moe-mode gmm on the 4 ranks, twice: every rank exits
      0, metrics.jsonl is written once, the second run resumes.
+ 15. tensor- and expert-parallel training, as 4 ranks spawned on cuda:0
+     over gloo after phase 14 (whose unsharded references it reuses): (a)
+     phase 14(a)'s narrow steps under --mesh 1 1 2 2, 1 2 1 2, 2 1 2 1,
+     1 1 1 2 2 (pipe x model) and 1 1 1 2 1 2 (model x seq), held as
+     phase 14(a) holds its own; (b) phase 14(b)'s full-width step under
+     1 1 2 2 (16 q / 4 kv heads and 4 experts of 7168 ffn columns a rank),
+     held as phase 14(b) (a leaf's sampled gradient beyond its tolerance
+     held instead to the float32 gradient: TP_GRAD_F32_FACTOR) and
+     printed beside its readings, every rank
+     launching B1, B10, B11, B12 and B5a or B5b; (c) phase 14(c)'s
+     checkpoint (saved under 1 4 1 1) resumed by a Trainer without a mesh
+     and under 1 1 2 2: the saved blocks and each rank's resumed ones are
+     the same whole leaves cut by each mesh's specs, bitwise (params and
+     Adam moments), then the train CLI --mesh 1 1 2 2 trains two more
+     steps from it and every rank exits 0.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-14, phases 11-14's over their
+results (launches summed over phases 3-15, phases 11-15's over their
 ranks) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
@@ -4513,7 +4528,7 @@ FSDP_NARROW_ATOL = 1e-6
 FSDP_NARROW_SHARE = 1e-3
 # (b) full width: phase 6's 2-layer slice, one row of FSDP_FULL_S tokens
 # a rank, a warm-up step (lr 0) and one step under each mesh
-FSDP_FULL_MESHES = ((1, 4, 1, 1), (2, 2, 1, 1))
+FSDP_FULL_MESHES = ((1, 4, 1, 1),)
 FSDP_FULL_B, FSDP_FULL_S = 4, 2048
 FSDP_FULL_FRAMES = 400
 # bf16: the losses within FSDP_FULL_LOSS_RTOL of the unsharded step's;
@@ -4708,11 +4723,14 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
     step on ``batches``: (losses, step ms, peak GiB since the warm-up's
     start, launches in the step, the step's global gradient norm of each
     optimizer group, the step's gradients at the sampled flat ``picks``
-    of each leaf of whole ``shapes`` (``_sample_block``), the trainer)."""
+    of each leaf of whole ``shapes`` (``_sample_block``), the trainer, the
+    step's routing: (sorted top-k ids, top-k gap) of each router call in
+    order)."""
     import torch
 
     from vita_tpu_torch import kernels
-    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.models import mixtral, vita
+    from vita_tpu_torch.ops import moe
     from vita_tpu_torch.parallel import fsdp
     from vita_tpu_torch.parallel.mesh import AXES, axis
     from vita_tpu_torch.train.trainer import RunConfig, Trainer
@@ -4736,6 +4754,13 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
     sizes = {a: axis(mesh, a).size for a in AXES}
     specs = dict(_leaf_items(vita.param_specs(cfg)))
     real_update = trainer.optimizer.update
+    routes, real_route = [], moe.route_topk
+
+    def recording_route(logits, k):
+        out = real_route(logits, k)
+        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
+        routes.append((out[1].detach().sort(-1).values, top[:, k - 1] - top[:, k]))
+        return out
 
     def recording_sq_norm(*a):
         out = real_sq_norm(*a)
@@ -4752,6 +4777,8 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
     kernels.reset_launches()
     _sync(device)
     fsdp.sq_norm, trainer.optimizer.update = recording_sq_norm, recording_update
+    # ops.moe routes the unsharded run, mixtral's own import a mesh's gmm
+    moe.route_topk = mixtral.route_topk = recording_route
     try:
         t0 = time.time()
         p, s, m = trainer.step_fn(p, s, batches[1])
@@ -4760,8 +4787,10 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
         ms = (time.time() - t0) * 1e3
     finally:
         fsdp.sq_norm, trainer.optimizer.update = real_sq_norm, real_update
+        moe.route_topk = mixtral.route_topk = real_route
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0
-    return losses, ms, peak, dict(kernels.launches), norms, grads_at, trainer
+    routes = [(i.cpu().numpy(), g.float().cpu().numpy()) for i, g in routes]
+    return losses, ms, peak, dict(kernels.launches), norms, grads_at, trainer, routes
 
 
 def fsdp_full_reference(cfg, batches, device):
@@ -4779,7 +4808,7 @@ def fsdp_full_reference(cfg, batches, device):
     shapes = {name: tuple(w.shape) for name, w in _leaf_items(params) if mask[name]}
     picks = {name: np.sort(rng.choice(math.prod(shape), min(FSDP_SAMPLES, math.prod(shape)),
                                       replace=False)) for name, shape in shapes.items()}
-    losses, ms, peak, _, norms, grads_at, trainer = _fsdp_full_step(
+    losses, ms, peak, _, norms, grads_at, trainer, routes = _fsdp_full_step(
         cfg, params, batches, device, picks, shapes)
     del params
     values = {name: w.detach().reshape(-1)[torch.as_tensor(picks[name], device=device)]
@@ -4789,16 +4818,20 @@ def fsdp_full_reference(cfg, batches, device):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return dict(losses=losses, ms=ms, peak=peak, norms=norms, shapes=shapes, values=values,
+                routes=routes,
                 grads={k: v for k, (_, v) in grads_at.items()}), picks
 
 
 def fsdp_rank(rank, world, plan):
-    """One rank of phase 14: (a) FSDP_NARROW_STEPS narrow fp32 steps under
-    each FSDP_NARROW_MESHES mesh (the losses and this rank's blocks after
-    the last update); (b) a warm-up step and a step of the full-width
-    slice under each FSDP_FULL_MESHES mesh (losses, step ms, peak, the
-    step's launches, this rank's values at the sampled elements); (c) the
-    train CLI under --mesh 1 4 1 1, twice (exit codes and printed lines)."""
+    """One rank of phases 14 and 15: (a) FSDP_NARROW_STEPS narrow fp32
+    steps under each of ``plan["narrow_meshes"]`` (the losses and this
+    rank's blocks after the last update); (b) a warm-up step and a step of
+    the full-width slice under each of ``plan["full_meshes"]`` (losses,
+    step ms, peak, the step's launches, this rank's values at the sampled
+    elements); (c) with ``plan["resume"]`` (phase 15) a Trainer under its
+    mesh resumes phase 14(c)'s checkpoint (the step, blocks and Adam
+    moments it resumed with); then each argv of ``plan["cli"]`` through
+    the train CLI (exit codes and printed lines)."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
 
@@ -4812,10 +4845,12 @@ def fsdp_rank(rank, world, plan):
     dev = torch.device(plan["device"])
     if dev.type == "cuda":
         kernels.lib()  # phase 1's library: loaded, not built
-    meshes = {m: make_mesh(m) for m in dict.fromkeys(FSDP_NARROW_MESHES + FSDP_FULL_MESHES)}
+    resume = plan.get("resume")
+    meshes = {m: make_mesh(m) for m in dict.fromkeys(
+        plan["narrow_meshes"] + plan["full_meshes"] + ((resume["mesh"],) if resume else ()))}
     out = {"narrow": {}, "full": {}, "wall_s": {}}
     t_part = time.time()
-    for shape in FSDP_NARROW_MESHES:
+    for shape in plan["narrow_meshes"]:
         mesh = meshes[shape]
         cfg = fsdp_narrow_config(shape)
         params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
@@ -4828,10 +4863,10 @@ def fsdp_rank(rank, world, plan):
     out["wall_s"]["a"], t_part = time.time() - t_part, time.time()
     cfg = fsdp_full_config(plan["small"])
     batches = fsdp_batches(cfg, 2, FSDP_FULL_B, plan["full_s"], FSDP_FULL_FRAMES, SEED + 62)
-    for shape in FSDP_FULL_MESHES:
+    for shape in plan["full_meshes"]:
         mesh = meshes[shape]
         # the whole weights drawn here are dropped once the Trainer has cut them
-        losses, ms, peak, launches, norms, grads_at, trainer = _fsdp_full_step(
+        losses, ms, peak, launches, norms, grads_at, trainer, routes = _fsdp_full_step(
             cfg, slice_params(cfg, dev), batches, dev, plan["picks"], plan["shapes"], mesh)
         coords = {a: axis(mesh, a).rank for a in AXES}
         sizes = {a: axis(mesh, a).size for a in AXES}
@@ -4840,22 +4875,54 @@ def fsdp_rank(rank, world, plan):
                                        sizes, plan["picks"][name])
                    for name, w in _leaf_items(trainer.params) if name in plan["picks"]}
         out["full"][shape] = dict(losses=losses, ms=ms, peak=peak, launches=launches,
+                                  routes=routes,
                                   norms=norms, samples=samples, grads=grads_at)
         del trainer
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["wall_s"]["b"], t_part = time.time() - t_part, time.time()
-    argv = ["--model", "tiny-random", "--data", plan["chat"], "--output-dir", plan["cli_dir"],
-            "--batch-size", "4", "--mesh", "1", "4", "1", "1", "--moe-mode", "gmm",
-            "--dist-backend", "gloo", "--device", dev.type]
+    if resume:
+        mesh = meshes[resume["mesh"]]
+        trainer = _cli_trainer(resume["dir"], dev, mesh)
+        out["resume"] = dict(step=trainer.step, coords={a: axis(mesh, a).rank for a in AXES},
+                             state=_host_state(trainer))
+        del trainer
     out["cli"] = []
-    for _ in range(2):
+    for argv in plan["cli"]:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
+            rc = cli.main(argv + ["--device", dev.type])
         out["cli"].append((rc, buf.getvalue()))
     out["wall_s"]["c"] = time.time() - t_part
+    return out
+
+
+def _cli_trainer(out_dir, device, mesh=None):
+    """A Trainer of the train CLI's tiny-random run (its config with gmm
+    MoE, stage 2) on ``out_dir``, resumed from its latest checkpoint: cut
+    over ``mesh`` under one, whole on ``device`` without."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.train.step import TrainConfig
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    cfg = vita.VITAConfig.tiny()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, moe_mode="gmm"))
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    kw = {} if mesh is None else dict(mesh=mesh)
+    return Trainer(cfg, TrainConfig.stage2_finetune(), RunConfig(output_dir=out_dir, batch_size=4),
+                   _to(params, device), **kw)
+
+
+def _host_state(trainer):
+    """The Trainer's params and Adam moments on the host, by leaf name
+    ('mu/<leaf>' and 'nu/<leaf>' for the moments)."""
+    out = {n: w.detach().float().cpu().numpy() for n, w in _leaf_items(trainer.params)}
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{k}": v.float().cpu().numpy()
+                    for k, v in trainer.opt_state[m].items()})
     return out
 
 
@@ -4876,72 +4943,35 @@ def _gather_samples(results, shape, leaf, key, name, failed):
     return got
 
 
-def fsdp_phase(card: str, device, small: bool = False):
-    """Phase 14: sharded training (ZeRO-3 over 'fsdp', the batch over
-    ('data', 'fsdp')) as FSDP_RANKS ranks spawned on cuda:0 over gloo,
-    against unsharded steps here, made first and kept on the host. (a)
-    narrow fp32 under each FSDP_NARROW_MESHES mesh: each step's loss
-    (phase 7's LOSS_RTOL and router near-tie excuse) and every leaf after
-    the last update against the unsharded steps' (FSDP_NARROW_*), and
-    bitwise equal on the ranks that hold the same block; (b) the
-    full-width slice under each FSDP_FULL_MESHES mesh: the losses and the
-    sampled elements after the step (FSDP_FULL_*), each rank's peak beside
-    the unsharded peak and the step ms, every rank launching FSDP_PATH and
-    B5a or B5b; (c) the train CLI: every rank exits 0, metrics.jsonl is
-    written once, a second run resumes. ``small`` (with a CPU ``device``)
-    runs (b) on the tiny config, to try the phase without a card. Every
-    check runs, and the phase then fails on any that failed. Returns the
-    launch counts of (b)'s steps summed over the ranks."""
-    import shutil
-
+def _narrow_refs(meshes, device, refs=None):
+    """The unsharded narrow steps for ``meshes``, by (moe mode, pipe
+    stages): those of ``refs`` (an earlier phase's) where present."""
     import torch
 
     from vita_tpu_torch.models import vita
-    from vita_tpu_torch.parallel.launch import run_ranks
 
-    failed = []
-    # (a) the unsharded narrow steps
-    narrow_ref = {}
-    for shape in FSDP_NARROW_MESHES:
+    refs = dict(refs or {})
+    for shape in meshes:
         cfg = fsdp_narrow_config(shape)
         key = (cfg.llm.moe_mode, cfg.llm.pipe_stages)
-        if key not in narrow_ref:
+        if key not in refs:
             ref_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, pipe_stages=1))
             params = vita.init_params(ref_cfg, torch.Generator().manual_seed(SEED), "cpu")
             batches = fsdp_batches(ref_cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B, FSDP_NARROW_S, 60,
                                    SEED + 60)
-            narrow_ref[key] = _train_steps(params, ref_cfg, _fsdp_tc(False), batches, device)
-    # (b) the unsharded full-width step
-    full_cfg = fsdp_full_config(small)
-    full_s = FSDP_FULL_S if not small else 64
-    batches = fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)
-    t0 = time.time()
-    full_ref, picks = fsdp_full_reference(full_cfg, batches, device)
-    print(f"  (b) unsharded Trainer: warm-up + step in {time.time() - t0:.1f} s, step "
-          f"{full_ref['ms']:.1f} ms, losses {full_ref['losses']}, peak "
-          f"{full_ref['peak']:.2f} GiB  [{card}]", flush=True)
-    cli_dir = os.path.join(TRAIN_DIR, "fsdp_cli")
-    shutil.rmtree(cli_dir, ignore_errors=True)
-    os.makedirs(cli_dir)
-    wav = write_wav(os.path.join(cli_dir, "q.wav"), 1.0, SEED + 63)
-    chat = os.path.join(cli_dir, "chat.json")
-    with open(chat, "w") as f:
-        json.dump([{"conversations": [{"from": "human", "value": "<audio>\n"},
-                                      {"from": "gpt", "value": "a sound"}], "audio": wav},
-                   {"conversations": _turns(np.random.default_rng(SEED), 40)}] * 4, f)
-    plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
-            "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"], "chat": chat,
-            "cli_dir": os.path.join(cli_dir, "run")}
-    t0 = time.time()
-    results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
-                        store_dir=os.path.join(ROOT, "build"))
-    walls = results[0]["wall_s"]
-    print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
-          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
-          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
-    # (a)
+            refs[key] = _train_steps(params, ref_cfg, _fsdp_tc(False), batches, device)
+    return refs
+
+
+def _narrow_report(results, meshes, narrow_ref, failed):
+    """(a): each mesh's losses (phase 7's LOSS_RTOL and router near-tie
+    excuse) and every leaf after the last update against the unsharded
+    steps' (FSDP_NARROW_*), and bitwise equal on the ranks that hold the
+    same block (a leaf replicated over an axis: on every rank of it)."""
+    from vita_tpu_torch.models import vita
+
     base_lr, proj_lr = _fsdp_lrs(_fsdp_tc(False), FSDP_NARROW_STEPS)
-    for shape in FSDP_NARROW_MESHES:
+    for shape in meshes:
         cfg = fsdp_narrow_config(shape)
         ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[cfg.llm.moe_mode,
                                                               cfg.llm.pipe_stages]
@@ -4996,11 +5026,23 @@ def fsdp_phase(card: str, device, small: bool = False):
                  f"{FSDP_NARROW_STEPS} and the leaves not compared"
                  if first_tie < FSDP_NARROW_STEPS else "; every rank's routing the unsharded "
                  "run's"), flush=True)
-    # (b)
-    total = {}
+
+
+def _full_report(card, results, meshes, full_ref, full_s, device, failed, earlier=None,
+                 f32=None):
+    """(b): each mesh's losses, group gradient norms, sampled gradients
+    and weights after the step against the unsharded Trainer's
+    (FSDP_FULL_*; with ``f32``, the float32 gradients at the samples, a
+    leaf's gradient beyond FSDP_FULL_GRAD_TOL is held to them as
+    TP_GRAD_F32_FACTOR says); each rank's step ms and peak (below the
+    unsharded peak) beside ``earlier`` (an earlier phase's per-rank (ms,
+    peak) by mesh), every rank launching FSDP_PATH and B5a or B5b.
+    Returns the launches of the steps summed over the ranks and the
+    per-rank (ms, peak) by mesh."""
+    total, readings = {}, {}
     tc = _fsdp_tc(True)
     ulp = lambda w: np.abs(w) * 2.0 ** -7  # noqa: E731 - bf16 spacing
-    for shape in FSDP_FULL_MESHES:
+    for shape in meshes:
         name = f"(b) --mesh {' '.join(map(str, shape))}"
         losses = [res["full"][shape]["losses"] for res in results]
         if any(l != losses[0] for l in losses):
@@ -5016,13 +5058,23 @@ def fsdp_phase(card: str, device, small: bool = False):
             failed.append(f"{name}: gradient norms {norms[0]} vs the unsharded "
                           f"{full_ref['norms']}")
         worst, worst_grad, apart, n, by_leaf = (0.0, ""), (0.0, ""), 0, 0, []
+        worst_f32 = (0.0, "")
         for leaf, want in full_ref["values"].items():
             got, g = _gather_samples(results, shape, leaf, "samples", name, failed), \
                 _gather_samples(results, shape, leaf, "grads", name, failed)
             g_ref = full_ref["grads"][leaf]
             g_err = float(np.abs(g - g_ref).max() / max(np.abs(g_ref).max(), 1e-30))
             worst_grad = max(worst_grad, (g_err, leaf))
-            if g_err > FSDP_FULL_GRAD_TOL:
+            if f32 is not None and g_err > FSDP_FULL_GRAD_TOL:
+                top = max(np.abs(f32[leaf]).max(), 1e-30)
+                d_mesh = float(np.abs(g - f32[leaf]).max() / top)
+                d_ref = float(np.abs(g_ref - f32[leaf]).max() / top)
+                worst_f32 = max(worst_f32, (d_mesh / max(d_ref, 1e-30), leaf))
+                if d_mesh > TP_GRAD_F32_FACTOR * d_ref:
+                    failed.append(f"{name}: {leaf}'s sampled gradient is {d_mesh:.3e} of its "
+                                  f"largest from the float32 one, the unsharded bf16 step's "
+                                  f"{d_ref:.3e} (factor {TP_GRAD_F32_FACTOR})")
+            elif g_err > FSDP_FULL_GRAD_TOL:
                 failed.append(f"{name}: {leaf}'s sampled gradient max |diff| {g_err:.3e} of its "
                               f"largest (tol {FSDP_FULL_GRAD_TOL})")
             lr = tc.projector_lr if leaf.startswith(("vision_proj", "audio_proj")) else \
@@ -5041,16 +5093,36 @@ def fsdp_phase(card: str, device, small: bool = False):
               f"{[f'{e:.2e}' for e in errs]}, tol {FSDP_FULL_LOSS_RTOL}); group gradient norms "
               f"{norms[0]} (rel errs {[f'{e:.2e}' for e in norm_errs]}, tol "
               f"{FSDP_FULL_NORM_RTOL}); sampled gradients worst max |diff| / largest "
-              f"{worst_grad[0]:.3e} ({worst_grad[1]}, tol {FSDP_FULL_GRAD_TOL}); sampled weights "
+              f"{worst_grad[0]:.3e} ({worst_grad[1]}, tol {FSDP_FULL_GRAD_TOL}"
+              + (f"; beyond it, the largest distance from the float32 gradient over the "
+                 f"unsharded bf16 step's {worst_f32[0]:.3f} ({worst_f32[1]}), factor "
+                 f"{TP_GRAD_F32_FACTOR}" if worst_f32[1] else "") + "); sampled weights "
               f"after the step: worst |diff| / (2 lr + ulp) {worst[0]:.3f} ({worst[1]}), "
               f"{apart} of {n} apart ({apart / n:.4f}; most: "
               f"{', '.join(f'{l} {x:.3f}' for x, l in sorted(by_leaf)[::-1][:4])})", flush=True)
+        sizes = dict(zip(AXES_ALL, tuple(shape) + (1,) * (6 - len(shape))))
+        if all(sizes[a] == 1 for a in ("data", "fsdp", "pipe", "seq")):
+            # every rank routes the whole batch: the forward's router calls
+            flips, top_gap, n_routes = 0, 0.0, 0
+            got_routes = results[0]["full"][shape]["routes"]
+            for (want, gap), (got, _) in zip(full_ref["routes"], got_routes):
+                moved = (want != got).any(-1)
+                flips, n_routes = flips + int(moved.sum()), n_routes + len(moved)
+                top_gap = max([top_gap] + gap[moved].tolist())
+            print(f"    routing of the step (every router call, remat's included): {flips} of "
+                  f"{n_routes} token routes differ from the unsharded step's, the unsharded "
+                  f"router's largest top-k gap among them {top_gap:.3e}", flush=True)
         mesh_total = {}
+        readings[shape] = []
         for r, res in enumerate(results):
             run = res["full"][shape]
+            readings[shape].append((run["ms"], run["peak"]))
+            beside = "".join(f"; phase 14 --mesh {' '.join(map(str, m))}: step {ms:.1f} ms, "
+                             f"peak {pk:.2f} GiB" for m, runs in (earlier or {}).items()
+                             for ms, pk in runs[r:r + 1])
             print(f"    rank {r}: step {run['ms']:.1f} ms, peak memory {run['peak']:.2f} GiB "
-                  f"(unsharded {full_ref['peak']:.2f} GiB, step {full_ref['ms']:.1f} ms)  "
-                  f"({FSDP_NOTE}) [{card}]", flush=True)
+                  f"(unsharded {full_ref['peak']:.2f} GiB, step {full_ref['ms']:.1f} ms{beside})"
+                  f"  ({FSDP_NOTE}) [{card}]", flush=True)
             counts = run["launches"]
             for k, c in counts.items():
                 total[k] = total.get(k, 0) + c
@@ -5066,8 +5138,79 @@ def fsdp_phase(card: str, device, small: bool = False):
                                   f"the unsharded {full_ref['peak']:.2f} GiB")
         print(f"    launches in the step, summed over the ranks: "
               f"{ {k: c for k, c in mesh_total.items() if c} }", flush=True)
+    return total, readings
+
+
+def _train_cli_files(cli_dir):
+    """phase 14(c)'s data for the train CLI under ``cli_dir`` (made anew):
+    the chat file's path."""
+    import shutil
+
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+    wav = write_wav(os.path.join(cli_dir, "q.wav"), 1.0, SEED + 63)
+    chat = os.path.join(cli_dir, "chat.json")
+    with open(chat, "w") as f:
+        json.dump([{"conversations": [{"from": "human", "value": "<audio>\n"},
+                                      {"from": "gpt", "value": "a sound"}], "audio": wav},
+                   {"conversations": _turns(np.random.default_rng(SEED), 40)}] * 4, f)
+    return chat
+
+
+# what phase 14 leaves phase 15: its unsharded references and readings
+TRAIN_REFS = {}
+
+
+def _cli_argv(chat, out_dir, mesh, epochs=1):
+    return ["--model", "tiny-random", "--data", chat, "--output-dir", out_dir, "--batch-size",
+            "4", "--epochs", str(epochs), "--mesh", *map(str, mesh), "--moe-mode", "gmm",
+            "--dist-backend", "gloo"]
+
+
+def fsdp_phase(card: str, device, small: bool = False):
+    """Phase 14: sharded training (ZeRO-3 over 'fsdp', the batch over
+    ('data', 'fsdp')) as FSDP_RANKS ranks spawned on cuda:0 over gloo,
+    against unsharded steps here, made first and kept on the host. (a)
+    narrow fp32 under each FSDP_NARROW_MESHES mesh (``_narrow_report``);
+    (b) the full-width slice under each FSDP_FULL_MESHES mesh
+    (``_full_report``); (c) the train CLI: every rank exits 0,
+    metrics.jsonl is written once, a second run resumes. ``small`` (with
+    a CPU ``device``) runs (b) on the tiny config, to try the phase
+    without a card. Every check runs, and the phase then fails on any
+    that failed. Keeps its references in TRAIN_REFS for phase 15 and
+    returns the launch counts of (b)'s steps summed over the ranks."""
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    failed = []
+    narrow_ref = _narrow_refs(FSDP_NARROW_MESHES, device)
+    # (b) the unsharded full-width step
+    full_cfg = fsdp_full_config(small)
+    full_s = FSDP_FULL_S if not small else 64
+    batches = fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)
+    t0 = time.time()
+    full_ref, picks = fsdp_full_reference(full_cfg, batches, device)
+    print(f"  (b) unsharded Trainer: warm-up + step in {time.time() - t0:.1f} s, step "
+          f"{full_ref['ms']:.1f} ms, losses {full_ref['losses']}, peak "
+          f"{full_ref['peak']:.2f} GiB  [{card}]", flush=True)
+    cli_dir = os.path.join(TRAIN_DIR, "fsdp_cli")
+    chat = _train_cli_files(cli_dir)
+    run_dir = os.path.join(cli_dir, "run")
+    plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
+            "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
+            "narrow_meshes": FSDP_NARROW_MESHES, "full_meshes": FSDP_FULL_MESHES,
+            "cli": [_cli_argv(chat, run_dir, (1, 4, 1, 1))] * 2}
+    t0 = time.time()
+    results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
+                        store_dir=os.path.join(ROOT, "build"))
+    walls = results[0]["wall_s"]
+    print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
+          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
+          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
+    _narrow_report(results, FSDP_NARROW_MESHES, narrow_ref, failed)
+    total, readings = _full_report(card, results, FSDP_FULL_MESHES, full_ref, full_s, device,
+                                   failed)
     # (c)
-    metrics = os.path.join(plan["cli_dir"], "metrics.jsonl")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
     lines = open(metrics).read().splitlines() if os.path.exists(metrics) else []
     for r, res in enumerate(results):
         (rc1, out1), (rc2, out2) = res["cli"]
@@ -5081,9 +5224,196 @@ def fsdp_phase(card: str, device, small: bool = False):
     print(f"  (c) train CLI --mesh 1 4 1 1 --moe-mode gmm: exit codes "
           f"{[[rc for rc, _ in res['cli']] for res in results]}, metrics.jsonl {len(lines)} "
           f"lines, second run: {resumed}", flush=True)
+    TRAIN_REFS.update(narrow=narrow_ref, full=full_ref, picks=picks, full_s=full_s,
+                      readings=readings, chat=chat, run_dir=run_dir, small=small)
     if failed:
         raise AssertionError("phase 14 failed:\n  " + "\n  ".join(failed))
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 15: tensor- and expert-parallel training
+# --------------------------------------------------------------------------
+# (a) narrow fp32 as phase 14's (a): gmm MoE, dense with one microbatch
+# under pipe; every mesh splits 'model' or 'expert'
+TP_NARROW_MESHES = ((1, 1, 2, 2), (1, 2, 1, 2), (2, 1, 2, 1), (1, 1, 1, 2, 2),
+                    (1, 1, 1, 2, 1, 2))
+# (b) the full-width slice: its 32 / 8 heads of 128 split 16 / 4 a rank,
+# each expert's 14336 ffn columns 7168 a rank, 4 experts a rank
+TP_FULL_MESHES = ((1, 1, 2, 2),)
+# (c) phase 14(c)'s checkpoint (saved under --mesh 1 4 1 1) resumed here
+TP_RESUME_MESH = (1, 1, 2, 2)
+# (b)'s gradients: over 'model' the forward's sums are taken in another
+# order than the unsharded step's (the experts' ffn-column partials and
+# the output projection's, each a bf16 GEMM's float32 output summed over
+# the ranks), so bf16 rounding and routing near ties move the sampled
+# gradients by more than FSDP_FULL_GRAD_TOL of each leaf's largest, where
+# phase 14's forward is the unsharded one bitwise: the unsharded bf16
+# step's gradient is itself 8e-3 to 4e-1 of each leaf's largest from the
+# float32 gradient, and another order of the same sums lands as far from
+# it elsewhere. A leaf whose sampled gradient is farther than
+# FSDP_FULL_GRAD_TOL from the unsharded step's is held to the float32
+# gradient of the same weights and rows: no farther from it than
+# TP_GRAD_F32_FACTOR times the unsharded bf16 step's gradient is (at most
+# 1.38 on the H100 as committed; with the "f" over 'model' on the
+# attention's input dropped, 2.6 to 31 on 19 leaves: `chip_probe.py
+# tp-faults`).
+TP_GRAD_F32_FACTOR = 2.0
+
+
+def tp_phase(card: str, device):
+    """Phase 15: tensor- and expert-parallel training as FSDP_RANKS ranks
+    spawned on cuda:0 over gloo, after phase 14 (whose unsharded
+    references it takes from TRAIN_REFS, or makes them when run alone):
+    (a) narrow fp32 under each TP_NARROW_MESHES mesh and (b) the
+    full-width slice under TP_FULL_MESHES, held as phase 14's (a) and (b)
+    are; (c) phase 14(c)'s checkpoint (4 ranks of fsdp) resumed by a
+    Trainer without a mesh here and under TP_RESUME_MESH on the ranks: the
+    saved blocks are the whole leaves the unsharded Trainer resumed with,
+    cut by the saved mesh's specs, and each rank's are the same leaves cut
+    by its own, bitwise (params and Adam moments); then the train CLI
+    under that mesh trains two more steps from it, every rank exiting 0.
+    Returns the launch counts of (b)'s step summed over the ranks."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.parallel.launch import run_ranks
+    from vita_tpu_torch.train.trainer import load_state
+
+    failed = []
+    small = TRAIN_REFS.get("small", False)
+    narrow_ref = _narrow_refs(TP_NARROW_MESHES, device, TRAIN_REFS.get("narrow"))
+    if "full" in TRAIN_REFS:
+        full_ref, picks, full_s = TRAIN_REFS["full"], TRAIN_REFS["picks"], TRAIN_REFS["full_s"]
+    else:
+        full_s = FSDP_FULL_S if not small else 64
+        full_cfg = fsdp_full_config(small)
+        full_ref, picks = fsdp_full_reference(
+            full_cfg, fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62),
+            device)
+    if "run_dir" not in TRAIN_REFS:  # phase 14(c)'s checkpoint, made here
+        chat = _train_cli_files(os.path.join(TRAIN_DIR, "fsdp_cli"))
+        run_dir = os.path.join(TRAIN_DIR, "fsdp_cli", "run")
+        run_ranks(_cli_rank, FSDP_RANKS, _cli_argv(chat, run_dir, (1, 4, 1, 1))
+                  + ["--device", device.type], backend="gloo", timeout=300,
+                  store_dir=os.path.join(ROOT, "build"))
+        TRAIN_REFS.update(chat=chat, run_dir=run_dir)
+    run_dir, chat = TRAIN_REFS["run_dir"], TRAIN_REFS["chat"]
+    # (b) the float32 gradients of the measured step at the samples
+    t0 = time.time()
+    full_cfg = fsdp_full_config(small)
+    f32 = full_f32_gradients(full_cfg, fsdp_batches(
+        full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)[1], device, picks)
+    print(f"  (b) float32 gradients of the unsharded step at the samples in "
+          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+    # (c) the unsharded resume, before the ranks train on from the checkpoint
+    where = os.path.join(run_dir, "ckpt", "step_2")
+    with open(os.path.join(where, "mesh.json")) as f:
+        saved_mesh = tuple(json.load(f)["mesh"])
+    trainer = _cli_trainer(run_dir, device)
+    whole, whole_step = _host_state(trainer), trainer.step
+    del trainer
+    plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
+            "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
+            "narrow_meshes": TP_NARROW_MESHES, "full_meshes": TP_FULL_MESHES,
+            "resume": {"mesh": TP_RESUME_MESH, "dir": run_dir},
+            "cli": [_cli_argv(chat, run_dir, TP_RESUME_MESH, epochs=2)]}
+    t0 = time.time()
+    results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
+                        store_dir=os.path.join(ROOT, "build"))
+    walls = results[0]["wall_s"]
+    print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
+          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
+          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
+    _narrow_report(results, TP_NARROW_MESHES, narrow_ref, failed)
+    total, _ = _full_report(card, results, TP_FULL_MESHES, full_ref, full_s, device, failed,
+                            TRAIN_REFS.get("readings"), f32)
+    # (c)
+    cfg = vita.VITAConfig.tiny()
+    specs = dict(_leaf_items(vita.param_specs(cfg)))
+    spec_of = lambda n: specs[n.split("/", 1)[1] if n[:3] in ("mu/", "nu/") else n]  # noqa
+    old = dict(zip(AXES_ALL, saved_mesh))
+    n_saved, checked = math.prod(saved_mesh), 0
+    for r in range(n_saved):
+        state = load_state(os.path.join(run_dir, "ckpt"), 2, "cpu", name=f"rank_{r}.pt")
+        host = {n: w.detach().float().numpy() for n, w in _leaf_items(state["params"])}
+        for m in ("mu", "nu"):
+            host.update({f"{m}/{k}": v.float().numpy() for k, v in state["opt_state"][m].items()})
+        coords = dict(zip(AXES_ALL, (int(c) for c in np.unravel_index(r, saved_mesh))))
+        if set(host) != set(whole):
+            failed.append(f"(c) saved rank {r}'s leaves {sorted(set(host) ^ set(whole))} differ")
+        for n, b in host.items():
+            if n in whole and not np.array_equal(b, _cut(whole[n], spec_of(n), coords, old)):
+                failed.append(f"(c) saved rank {r}'s {n} is not the unsharded resume's block")
+            checked += 1
+    new = dict(zip(AXES_ALL, tuple(TP_RESUME_MESH) + (1,) * (6 - len(TP_RESUME_MESH))))
+    for r, res in enumerate(results):
+        got = res["resume"]
+        if got["step"] != whole_step:
+            failed.append(f"(c) rank {r} resumed at step {got['step']}, not {whole_step}")
+        for n, b in got["state"].items():
+            if not np.array_equal(b, _cut(whole[n], spec_of(n), got["coords"], new)):
+                failed.append(f"(c) rank {r}'s resumed {n} is not the saved leaf's block")
+            checked += 1
+        (rc, printed), = res["cli"]
+        if rc:
+            failed.append(f"(c) rank {r}: the train CLI exited {rc}")
+        if r == 0 and ("resumed from step 2" not in printed or "[step 4]" not in printed):
+            failed.append(f"(c) rank 0's train CLI did not resume and train on: {printed!r}")
+    resumed = [x for x in results[0]["cli"][0][1].splitlines() if "resumed" in x or "[step" in x]
+    print(f"  (c) phase 14(c)'s checkpoint (--mesh {' '.join(map(str, saved_mesh))}, step "
+          f"{whole_step}) resumed unsharded on {device.type} and under --mesh "
+          f"{' '.join(map(str, TP_RESUME_MESH))}: {checked} saved and resumed blocks of "
+          f"{len(whole)} leaves (params and Adam moments) checked bitwise; the train CLI "
+          f"under that mesh: exit codes {[res['cli'][0][0] for res in results]}, rank 0 "
+          f"{resumed}", flush=True)
+    if failed:
+        raise AssertionError("phase 15 failed:\n  " + "\n  ".join(failed))
+    return total
+
+
+def full_f32_gradients(cfg, batch, device, picks):
+    """The float32 gradient of (b)'s measured step at the sampled flat
+    ``picks`` of each trainable leaf: the slice's bf16 weights
+    (``slice_params``, which the warm-up's update at lr 0 leaves as they
+    are) widened to float32, every component run in float32, one forward
+    and backward of ``loss_fn`` over the unsharded whole batch."""
+    import torch
+
+    from vita_tpu_torch.train import step
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        return tree.float() if tree.is_floating_point() else tree
+
+    params = widen(slice_params(cfg, device))
+    gc.collect()
+    f = torch.float32
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, dtype=f),
+                              vision=dataclasses.replace(cfg.vision, dtype=f),
+                              audio=dataclasses.replace(cfg.audio, dtype=f))
+    tc = _fsdp_tc(True)
+    step.make_optimizer(tc, params)  # marks the trainable leaves
+    loss, _ = step.loss_fn(params, cfg, step.batch_to(batch, device), tc.aux_loss_coef)
+    leaves = dict(_leaf_items(params))
+    names = list(picks)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    out = {n: g.reshape(-1)[torch.as_tensor(picks[n], device=device)].cpu().numpy()
+           for n, g in zip(names, grads)}
+    del params, grads, loss, leaves
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cli_rank(rank, world, argv):
+    """The train CLI on one rank of a spawned group (phase 14(c)'s run,
+    when phase 15 runs alone)."""
+    from vita_tpu_torch.train import cli
+
+    return cli.main(argv)
 
 
 def _leaves(tree):
@@ -5222,6 +5552,11 @@ def main() -> int:
     t0 = time.time()
     parts.append(fsdp_phase(card, dev))
     print(f"  phase 14 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+    print("phase 15: tensor- and expert-parallel training (4 gloo ranks on one card)",
+          flush=True)
+    t0 = time.time()
+    parts.append(tp_phase(card, dev))
+    print(f"  phase 15 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {

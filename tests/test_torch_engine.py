@@ -189,18 +189,26 @@ class _AxisMesh:
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=_AxisMesh("pipe", 3)), (ValueError, "2 layers not divisible by pipe axis 3")),
     (dict(mesh=_AxisMesh("seq")), (ValueError, "KV-cache decode/prefill needs seq axis 1")),
-    (dict(mesh=_AxisMesh("fsdp")), (NotImplementedError, "A11d")),
-    (dict(mesh=_AxisMesh("data")), (NotImplementedError, "A11d"))],
+    (dict(mesh=_AxisMesh("fsdp")), (None, 2)),
+    (dict(mesh=_AxisMesh("data")), (None, 1))],
     ids=["kw0-A11c", "kw1-A11b", "kw2-A11d", "kw3-A11d"])
 def test_unported_options_raise(models, kw, item):
-    """A mesh with an axis the serving path does not shard over yet raises
-    NotImplementedError naming its ROADMAP item; a 'seq' axis (ported as
-    the cacheless ring, A11b) raises the JAX package's ValueError, for a
-    KV cache holds whole sequences. A 'pipe' axis is ported (A11c): one
-    that does not divide the layer stack raises the JAX package's
-    ValueError (the case keeps its id)."""
+    """A 'seq' axis (ported as the cacheless ring, A11b) raises the JAX
+    package's ValueError, for a KV cache holds whole sequences; a 'pipe'
+    axis is ported (A11c): one that does not divide the layer stack raises
+    the JAX package's ValueError. 'fsdp' and 'data' axes are ported too
+    (A11d, refused until then; the cases keep their ids): the Engine holds
+    this rank's 'fsdp' blocks of the LLM (the embedding's columns split
+    over 'fsdp', whole over 'data') and builds its pool whole
+    (tests/test_torch_dp_serving.py serves over them)."""
     _, _, tcfg, tp = models
     exc, match = item
+    if exc is None:
+        eng = engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
+        assert eng.params["llm"]["embed"].shape == (tcfg.llm.vocab_size,
+                                                    tcfg.llm.d_model // match)
+        assert eng.cache["k_pages"].shape[1] == tcfg.llm.n_kv_heads
+        return
     with pytest.raises(exc, match=match):
         engine.Engine(tp, tcfg, n_slots=1, max_len=64, **kw)
 

@@ -30,8 +30,11 @@ step, on ``VITAConfig.tiny()`` with the same weights and global batches.
   metrics.jsonl. The train CLI under 4 ranks (--mesh 1 4 1 1 --device cpu
   --dist-backend gloo): its losses against the unsharded CLI's, and a
   second run resumes.
-- The refusals: expert or model > 1 in training; capacity, sort and
-  moe_chunk under fsdp 2; a batch that does not divide.
+- What a training mesh refuses: a batch that does not divide. The
+  capacity, sort and moe_chunk modes under fsdp 2 and a Trainer over
+  model 2 or expert 2 (refused until they were ported) give the
+  unsharded step's loss and metrics; tests/test_torch_tp_train.py holds
+  them in full.
 - ``load_vita_checkpoint(dir, mesh=, training=True)``: each rank's
   blocks of a native and an HF-layout directory, bitwise.
 
@@ -83,6 +86,10 @@ MESHES = {
     "seq2_fsdp2": ((1, 2, 1, 1, 1, 2), 1, True),
 }
 C4 = (1, 1, 1, 1, 2)
+# the capacity modes and moe_chunk over split tokens (refused until their
+# drops and chunks were taken over the whole batch's token order)
+REFUSE_MESH = (1, 2, 1, 1)
+WHOLE_BATCH_MODES = (("capacity", 0), ("sort", 0), ("dense", 4))
 
 
 def _tc(**kw):
@@ -170,10 +177,12 @@ def _cases(x):
                                                 batches="@b", micro=1)),
         ("pp_batch", "train_steps_case", dict(mesh=(1, 2, 1, 1, 2), params="@p", cfg="@cfg",
                                               tc="@tc", batches="@ppb", micro=1)),
-        ("refuse", "refusals_case", dict(mesh=(1, 2, 1, 1), params="@p", cfg="@cfg",
+        ("refuse", "refusals_case", dict(mesh=REFUSE_MESH, params="@p", cfg="@cfg",
                                          batch=x["batches"][0])),
-        ("refuse_model", "tp_refusal_case", dict(mesh=(1, 1, 1, 2), params="@p", cfg="@cfg")),
-        ("refuse_expert", "tp_refusal_case", dict(mesh=(1, 1, 2, 1), params="@p", cfg="@cfg")),
+        ("refuse_model", "tp_trainer_case", dict(mesh=(1, 1, 1, 2), params="@p", cfg="@cfg",
+                                                  tc="@tc", batch=x["batches"][0])),
+        ("refuse_expert", "tp_trainer_case", dict(mesh=(1, 1, 2, 1), params="@p", cfg="@cfg",
+                                                   tc="@tc", batch=x["batches"][0])),
         ("trainer_straight", "trainer_case",
          dict(mesh=(2, 2, 1, 1), params="@p", cfg="@cfg", tc="@tc", data=x["chat"],
               out=str(tmp / "straight"), runs=[(2, True)])),
@@ -194,22 +203,39 @@ def _j_steps(x, mesh_shape, cfg, tc, batches):
     """JAX's jitted make_train_step on params placed by vita.param_specs
     and batches under P(('data', 'fsdp')): (metrics, params) after each
     update."""
-    n = math.prod(mesh_shape)
-    mesh = j_make_mesh(shape=mesh_shape, devices=jax.devices()[:n])
-    specs = j_vita.param_specs(cfg)
-    params = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), x["jp"], specs)
+    mesh, params = _j_placed(x, mesh_shape, cfg)
     jtc = j_step.TrainConfig(**dataclasses.asdict(tc))
     opt = j_step.make_optimizer(jtc, params)
     state = opt.init(params)
     fn = jax.jit(j_step.make_train_step(cfg, jtc, opt, mesh=mesh))
     out = []
     for b in batches:
-        bsz = b["input_ids"].shape[0]
-        put = {k: jax.device_put(jnp.asarray(v), NamedSharding(
-            mesh, P(("data", "fsdp")) if v.shape[0] == bsz else P())) for k, v in b.items()}
-        params, state, m = fn(params, state, put)
+        params, state, m = fn(params, state, _j_batch(mesh, b))
         out.append(({k: float(v) for k, v in m.items()}, _flat_np(jax.device_get(params))))
     return out
+
+
+def _j_placed(x, mesh_shape, cfg):
+    """JAX's mesh of ``mesh_shape`` and the params placed on it by
+    vita.param_specs."""
+    mesh = j_make_mesh(shape=mesh_shape, devices=jax.devices()[:math.prod(mesh_shape)])
+    specs = j_vita.param_specs(cfg)
+    return mesh, jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), x["jp"],
+                              specs)
+
+
+def _j_batch(mesh, b):
+    bsz = b["input_ids"].shape[0]
+    return {k: jax.device_put(jnp.asarray(v), NamedSharding(
+        mesh, P(("data", "fsdp")) if v.shape[0] == bsz else P())) for k, v in b.items()}
+
+
+def _j_loss(x, mesh_shape, cfg, batch):
+    """JAX's jitted loss_fn (aux coefficient 0.02) over the mesh, as
+    _j_steps places params and batch: the loss."""
+    mesh, params = _j_placed(x, mesh_shape, cfg)
+    fn = jax.jit(lambda p, b: j_step.loss_fn(p, cfg, b, 0.02, mesh=mesh)[0])
+    return float(fn(params, _j_batch(mesh, batch)))
 
 
 def _flat_np(tree, prefix=""):
@@ -243,6 +269,9 @@ def _jax_side(x):
     out["c4_clip"] = _j_steps(x, C4, _mesh_cfg(jcfg, C4, 1), _tc(grad_clip=1e-3), x["batches"])
     mesh = (1, 2, 1, 1, 2)
     out["pp_batch"] = _j_steps(x, mesh, _mesh_cfg(jcfg, mesh, 1), tc, [x["pp_batch"]] * 2)
+    for mode, chunk in WHOLE_BATCH_MODES:
+        out[f"loss_{mode}_{chunk}"] = _j_loss(
+            x, REFUSE_MESH, _with_llm(jcfg, moe_mode=mode, moe_chunk=chunk), x["batches"][0])
     return out
 
 
@@ -398,16 +427,31 @@ def test_pp_full_train_step_batch(results, setup):
     _check_blocks(ranks, "pp_batch", (1, 2, 1, 1, 2), cfg, port["pp_batch"])
 
 
-def test_training_refusals(results):
-    ranks, _, _ = results
+def test_training_refusals(results, setup):
+    """What a training mesh refuses: a batch that does not divide. The
+    capacity and sort modes and moe_chunk under fsdp 2 (refused until
+    their drops and chunks were taken over the whole batch's token order)
+    give the loss of JAX's sharded loss_fn on the same mesh and the
+    unsharded loss, and a Trainer over model 2 or expert 2 steps as the
+    unsharded step does."""
+    ranks, jx, port = results
+    batch = step.batch_to(setup["batches"][0], "cpu")
+    for mode, chunk in WHOLE_BATCH_MODES:
+        c = _with_llm(setup["tcfg"], moe_mode=mode, moe_chunk=chunk)
+        want = float(step.loss_fn(setup["tp"], c, batch, 0.02)[1]["loss"])
+        np.testing.assert_allclose(jx[f"loss_{mode}_{chunk}"], want, rtol=1e-5,
+                                   err_msg=f"JAX {mode}_{chunk}")
+        for r in ranks:
+            np.testing.assert_allclose(float(r["refuse"][f"{mode}_{chunk}"]), want, rtol=1e-5,
+                                       err_msg=f"{mode}_{chunk}")
     for r in ranks:
         got = r["refuse"]
-        for key in ("capacity_0", "sort_0", "dense_4"):
-            assert got[key].startswith("NotImplementedError"), got[key]
-            assert "ROADMAP A11d (capacity over split tokens)" in got[key]
         assert got["odd_batch"].startswith("ValueError") and "does not divide" in got["odd_batch"]
         for key in ("refuse_model", "refuse_expert"):
-            assert "ROADMAP A11d (tensor/expert-parallel training)" in r[key], r[key]
+            for k in ("loss", "ce", "aux"):
+                np.testing.assert_allclose(r[key][k], port["dense"][0][0][k], rtol=1e-5,
+                                           err_msg=f"{key} {k}")
+            assert r[key]["tokens"] == port["dense"][0][0]["tokens"]
 
 
 def test_trainer_resumes_bitwise_on_its_mesh(results):

@@ -165,15 +165,15 @@ def test_duplex_demo_refuses_without_a_card():
 
 
 def test_unported_mesh_options_name_their_item():
-    """Every NotImplementedError the port keeps for a mesh names its ROADMAP
-    item, an A11d sub-item: tensor/expert-parallel training, seq beside
-    model/expert, capacity over split tokens (which took in A11b's
-    capacity under seq), serving over data/fsdp, resume on another mesh;
-    none names A11 alone. The duplex replicas (A11a), the seq axis (A11b),
-    the pipe axis (A11c) and sharded training over data/fsdp are ported:
-    the serving mesh refuses seq > 1 with a ValueError, no file names A11c
-    in a refusal, --mesh takes EXPERT MODEL PIPE, and the duplex surfaces
-    no longer name A11a."""
+    """A NotImplementedError the port kept for a mesh named its ROADMAP
+    item, an A11 sub-item; none is left. The duplex replicas (A11a), the
+    seq axis (A11b), the pipe axis (A11c) and all of A11d (sharded
+    training over data/fsdp; tensor- and expert-parallel training, with
+    seq beside model/expert, the capacity modes over split tokens and
+    resume on another mesh; serving over data/fsdp) are ported: the
+    serving mesh refuses seq > 1 with a ValueError, no file names A11c in
+    a refusal, --mesh takes EXPERT MODEL PIPE, and the duplex surfaces no
+    longer name A11a."""
     files = sorted((ROOT / "vita_tpu_torch").rglob("*.py"))
     raises = re.compile(r"raise NotImplementedError\((.*?)\)\n", re.S)
     items = re.compile(r"ROADMAP (A11[a-d](?: \([^)]*\))?)")
@@ -184,17 +184,10 @@ def test_unported_mesh_options_name_their_item():
                 tags = items.findall(re.sub(r'"\s*\n\s*f?"', "", msg))
                 assert tags, f"{f.name}: {msg!r} names no A11 sub-item"
                 found.setdefault(f.relative_to(ROOT).as_posix(), set()).update(tags)
-    assert found["vita_tpu_torch/parallel/mesh.py"] == {
-        "A11d (serving over data/fsdp)", "A11d (tensor/expert-parallel training)"}
-    assert found["vita_tpu_torch/train/cli.py"] == {"A11d (tensor/expert-parallel training)"}
-    assert found["vita_tpu_torch/models/mixtral.py"] == {
-        "A11d (seq beside model/expert)", "A11d (capacity over split tokens)"}
-    assert found["vita_tpu_torch/train/trainer.py"] == {"A11d (resume on another mesh)"}
-    assert all(tag.startswith("A11d (") for tags in found.values() for tag in tags)
+    assert found == {}
     for name in ("cli.py", "serve/http_server.py", "parallel/distributed.py"):
         text = (ROOT / "vita_tpu_torch" / name).read_text()
         assert "A11c" not in text and "EXPERT MODEL [PIPE]" in text, name
-    assert "vita_tpu_torch/parallel/sharded_ops.py" not in found
     for name in ("duplex_http.py", "duplex_demo.py"):
         text = (ROOT / "vita_tpu_torch" / "serve" / name).read_text()
         assert "A11a" not in text and "NotImplementedError" not in text

@@ -21,8 +21,8 @@ tests/test_ring_attention.py at its shapes (B 2, S 32, 4 q / 2 kv heads of
   shares plus 0.02 aux) at rtol 1e-5 and the gradients summed over the
   ranks at 1e-4, against JAX's seq-parallel run (dense) and its unsharded
   run (dense, and gmm in interpret mode); the capacity and sort modes
-  raise, naming ROADMAP A11d (capacity over split tokens), the item that
-  took in A11b's capacity under seq.
+  (their drops decided over the whole sequence's token order, which each
+  rank gathers for the MoE) against JAX's unsharded run.
 
 One group of 4 ranks runs every case, in a thread while this process
 computes JAX's side."""
@@ -92,9 +92,9 @@ def _cases(x):
                       dict(mesh=_shape(4, 1), params=params, cfg=tcfg, ids=t(x["ids"]),
                            valid=t(x["valid"]), mode=mode)))
     for mode in ("capacity", "sort"):
-        cases.append((f"refuse_{mode}", "seq_mixtral_refuses",
+        cases.append((f"refuse_{mode}", "seq_mixtral_case",
                       dict(mesh=_shape(4, 1), params=params, cfg=tcfg, ids=t(x["ids"]),
-                           mode=mode)))
+                           valid=t(x["valid"]), mode=mode)))
     return cases
 
 
@@ -131,6 +131,9 @@ def _jax_side(x):
         jp, dataclasses.replace(cfg, attn_backend="flash"), x["ids"], x["valid"],
         j_make_mesh((1, 2, 1, 1, 1, 4)))
     out["mix_dense"] = _j_mixtral_loss(jp, cfg, x["ids"], x["valid"], None)
+    for mode in ("capacity", "sort"):
+        out[f"mix_{mode}"] = _j_mixtral_loss(jp, dataclasses.replace(cfg, moe_mode=mode),
+                                             x["ids"], x["valid"], None)
     with pltpu.force_tpu_interpret_mode():
         out["mix_gmm"] = _j_mixtral_loss(jp, dataclasses.replace(cfg, moe_mode="gmm"),
                                          x["ids"], x["valid"], None)
@@ -287,6 +290,17 @@ def test_seq_parallel_mixtral_matches_jax(results, mode):
 
 @pytest.mark.parametrize("mode", ["capacity", "sort"])
 def test_seq_parallel_capacity_modes_name_their_item(results, mode):
-    ranks, _ = results
-    for r in ranks:
-        assert "ROADMAP A11d (capacity over split tokens)" in r[f"refuse_{mode}"]
+    """The capacity and sort modes under seq 4 (refused until their drops
+    were decided over the whole sequence's token order): the loss and the
+    gradients summed over the ranks are JAX's unsharded ones, whose
+    capacity counts every position of the sequence."""
+    ranks, jx = results
+    parts = [r[f"refuse_{mode}"] for r in ranks]
+    aux = {float(p["aux"]) for p in parts}
+    assert len(aux) == 1
+    loss = sum(float(p["share"]) for p in parts) + 0.02 * aux.pop()
+    want_loss, want_g = jx[f"mix_{mode}"]
+    np.testing.assert_allclose(loss, float(want_loss), rtol=1e-5)
+    flat = dict(u._tree_leaves(jax.tree.map(np.asarray, want_g)))
+    for name in parts[0]["grads"]:
+        close(sum(p["grads"][name] for p in parts), flat[name], atol=1e-4, rtol=1e-4)

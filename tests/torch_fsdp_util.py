@@ -1,5 +1,5 @@
 """Rank functions for the sharded-training tests of the PyTorch port
-(tests/test_torch_fsdp_train.py).
+(tests/test_torch_fsdp_train.py, tests/test_torch_tp_train.py).
 
 As tests/torch_pipe_util.py: the test starts a group of gloo ranks with
 ``vita_tpu_torch.parallel.launch.run_ranks``; each rank imports this
@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-from torch_mesh_util import _fresh, as_numpy, coords
+from torch_mesh_util import _fresh, as_numpy, coords, engine_tokens  # noqa: F401 - a case
 
 
 def run_cases(rank: int, world: int, cases: Sequence[Tuple[str, str, Dict[str, Any]]],
@@ -96,9 +96,11 @@ def train_steps_case(mesh, params, cfg, tc, batches, micro: int = 2) -> Dict[str
 
 
 def refusals_case(mesh, params, cfg, batch) -> Dict[str, str]:
-    """The messages of what a training mesh refuses: capacity, sort and
-    moe_chunk over split tokens, and a batch that does not divide over
-    data x fsdp."""
+    """Over a training mesh: the loss (as its repr) of the capacity and
+    sort modes and of moe_chunk over tokens split between ranks (refused
+    until their drops and chunks were taken over the whole batch's token
+    order), and the message a batch that does not divide over data x fsdp
+    raises with."""
     from vita_tpu_torch.models import vita
     from vita_tpu_torch.parallel import fsdp
     from vita_tpu_torch.train import step
@@ -109,8 +111,7 @@ def refusals_case(mesh, params, cfg, batch) -> Dict[str, str]:
 
     def grab(name, fn):
         try:
-            fn()
-            out[name] = "no error"
+            out[name] = repr(float(fn()[1]["loss"]))
         except (ValueError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
 
@@ -123,17 +124,79 @@ def refusals_case(mesh, params, cfg, batch) -> Dict[str, str]:
     return out
 
 
-def tp_refusal_case(mesh, params, cfg) -> str:
-    """A Trainer over a mesh with a 'model' or 'expert' axis > 1."""
-    from vita_tpu_torch.train.step import TrainConfig
+def tp_trainer_case(mesh, params, cfg, tc, batch) -> Dict[str, float]:
+    """A Trainer over a mesh with a 'model' or 'expert' axis > 1 (cutting
+    the whole params itself) takes one step on ``batch``: its metrics."""
     from vita_tpu_torch.train.trainer import RunConfig, Trainer
 
+    tr = Trainer(cfg, tc, RunConfig(output_dir="unused", resume=False, batch_size=4),
+                 _fresh(params), mesh=mesh)
+    _, _, m = tr.step_fn(tr.params, tr.opt_state, batch)
+    return {k: float(v) for k, v in m.items()}
+
+
+def old_norm_steps_case(mesh, params, cfg, tc, batches, micro: int = 1) -> Dict[str, Any]:
+    """``train_steps_case`` with the global norm's axis set that counted
+    a leaf's blocks over ('fsdp', 'pipe') only, planted back: each rank of
+    a 'model' or 'expert' group clips by its own blocks' norm there."""
+    from vita_tpu_torch.parallel import fsdp
+    from vita_tpu_torch.parallel.mesh import FSDP, PIPE
+
+    def old_sq_norm(grads, specs, mesh):
+        parts = {}
+        for g, spec in zip(grads, specs):
+            over = tuple(a for a in (FSDP, PIPE) if a in fsdp.split_axes(spec, mesh))
+            s = (g.float() ** 2).sum()
+            parts[over] = parts[over] + s if over in parts else s
+        return sum(fsdp.all_reduce_sum(parts[o], mesh, o) for o in sorted(parts))
+
+    real = fsdp.sq_norm
+    fsdp.sq_norm = old_sq_norm
     try:
-        Trainer(cfg, TrainConfig(), RunConfig(output_dir="unused", resume=False, batch_size=4),
-                params, mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+        return train_steps_case(mesh, params, cfg, tc, batches, micro)
+    finally:
+        fsdp.sq_norm = real
+
+
+def resume_case(mesh, params, cfg, tc, data: str, out: str, epochs: int, save: bool,
+                per_replica: bool = True) -> Dict[str, Any]:
+    """A Trainer over ``mesh`` on ``out`` (a directory of its own for each
+    replica of a mesh smaller than the group, with ``per_replica``): this
+    rank's blocks, Adam moments and step as it stands after building
+    (resumed from ``out``'s latest checkpoint, if any), then ``epochs``
+    epochs of training and, with ``save``, a checkpoint: the log, the
+    blocks after it and the printed lines."""
+    import os
+
+    import torch.distributed as dist
+
+    from vita_tpu_torch.data.dataset import Collator, ConversationDataset, DataArgs, DatasetSpec
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    from vita_tpu_torch.parallel.mesh import AXES, all_reduce_sum
+
+    # every rank of the mesh has finished the cases before this one (a
+    # checkpoint this run reads was written by another mesh's ranks)
+    all_reduce_sum(torch.zeros(1), mesh, AXES)
+    if per_replica:
+        out = os.path.join(out, f"rep{dist.get_rank() // math.prod(mesh.mesh.shape)}")
+    cfg = mesh_config(cfg, mesh)
+    ds = ConversationDataset([DatasetSpec(data)], encode, 1, 2, pad_id=0,
+                             args=DataArgs(image_size=cfg.vision.image_size, max_patches=1,
+                                           use_thumbnail=False))
+    run = RunConfig(output_dir=out, batch_size=4, num_epochs=epochs, save_every_steps=10 ** 6,
+                    loader_workers=1)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tr = Trainer(cfg, tc, run, _fresh(params), mesh=mesh)
+        loaded = {"step": tr.step, "blocks": _flat(tr.params),
+                  "mu": {k: v.clone() for k, v in tr.opt_state["mu"].items()},
+                  "nu": {k: v.clone() for k, v in tr.opt_state["nu"].items()}}
+        log = tr.train(ds, Collator(pad_id=0))
+        if save:
+            tr.save()
+    return {"coords": coords(mesh), "loaded": loaded, "log": log, "step": tr.step,
+            "blocks": _flat(tr.params), "printed": buf.getvalue()}
 
 
 def trainer_case(mesh, params, cfg, tc, data: str, out: str, runs: List[Tuple[int, bool]],

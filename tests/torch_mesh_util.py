@@ -415,21 +415,6 @@ def seq_mixtral_case(mesh, params, cfg, ids, valid, mode) -> Dict[str, Any]:
             "grads": {k: leaf.grad for k, leaf in local.items()}}
 
 
-def seq_mixtral_refuses(mesh, params, cfg, ids, mode) -> str:
-    """The message a seq-parallel forward in ``mode`` raises with."""
-    import dataclasses
-
-    from vita_tpu_torch.models import mixtral
-    from vita_tpu_torch.parallel.ring_attention import shard_seq
-
-    cfg = dataclasses.replace(cfg, attn_backend="flash", moe_mode=mode)
-    try:
-        mixtral.forward(params, cfg, input_ids=shard_seq(ids, mesh), mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return ""
-
-
 def _fresh(tree):
     """A copy of a parameter tree whose leaves require gradients."""
     if isinstance(tree, dict):

@@ -25,6 +25,7 @@ import torch
 
 from vita_tpu_torch.models import mixtral, vita
 from vita_tpu_torch.models.whale import subsampled_length
+from vita_tpu_torch.parallel.mesh import FSDP, axis
 from vita_tpu_torch.sampling import choose_sampling_mode, decode_chunk, sample_tokens
 from vita_tpu_torch.tokenization import audio_select_arrays, audio_token_count, pad_to_bucket
 
@@ -213,13 +214,43 @@ def moe_modes(cfg: vita.VITAConfig, decode_moe_mode: Optional[str],
     return decode_moe_mode, prefill_moe_mode
 
 
-def decode_params(params, decode_moe_mode: str):
+def decode_params(params, cfg: vita.VITAConfig, decode_moe_mode: str, mesh=None):
     """The LLM weights decode reads: an int8 / int4 copy of the experts for
-    'gather_q' / 'gather_q4', else the weights as they are."""
-    if decode_moe_mode in ("gather_q", "gather_q4"):
-        return mixtral.quantize_moe_for_decode(
-            params["llm"], bits=4 if decode_moe_mode == "gather_q4" else 8)
-    return params["llm"]
+    'gather_q' / 'gather_q4', else the weights as they are. Under a mesh
+    with an 'fsdp' axis > 1 the copy is made one layer at a time from that
+    layer's experts gathered whole over 'fsdp' (the scales are per whole
+    column), and this rank keeps the 'fsdp' block of each quantized weight
+    that its bf16 weight has (``mixtral.serving_specs``; each layer
+    gathers it whole)."""
+    if decode_moe_mode not in ("gather_q", "gather_q4"):
+        return params["llm"]
+    bits = 4 if decode_moe_mode == "gather_q4" else 8
+    llm = params["llm"]
+    if axis(mesh, FSDP).size == 1:
+        return mixtral.quantize_moe_for_decode(llm, bits=bits)
+    from vita_tpu_torch.parallel import fsdp
+    from vita_tpu_torch.parallel.mesh import local_shard
+
+    moe = llm["layers"]["moe"]
+    specs = mixtral.serving_specs(cfg.llm, llm, mesh)["layers"]["moe"]
+    # a layer's leaves, split over 'fsdp' alone (this rank's expert block)
+    cut = {k: tuple(FSDP if e == FSDP else None for e in spec[1:]) for k, spec in specs.items()}
+    experts = ("w_gate", "w_up", "w_down")
+    n = moe["w_gate"].shape[0]
+    qmoe = {}
+    with torch.no_grad():
+        for i in range(n):
+            whole = {k: fsdp.gather(moe[k][i], cut[k], mesh)[None] for k in experts}
+            q = mixtral.quantize_moe_for_decode(
+                {"layers": {"moe": {"router": moe["router"][i:i + 1], **whole}}}, bits=bits)
+            for k, w in q["layers"]["moe"].items():
+                if k != "router":
+                    block = local_shard(w[0], cut.get(k, ()), mesh)
+                    if k not in qmoe:  # the stacked blocks, written a layer at a time
+                        qmoe[k] = block.new_empty((n,) + tuple(block.shape))
+                    qmoe[k][i] = block
+            del whole, q
+    return {**llm, "layers": {**llm["layers"], "moe": {"router": moe["router"], **qmoe}}}
 
 
 class Generator:
@@ -251,7 +282,7 @@ class Generator:
         decode_mode, prefill_mode = moe_modes(cfg, decode_moe_mode, prefill_moe_mode)
         self._decode_cfg = dataclasses.replace(cfg.llm, moe_mode=decode_mode)
         self._prefill_cfg = dataclasses.replace(cfg.llm, moe_mode=prefill_mode)
-        self._decode_llm = decode_params(params, decode_mode)
+        self._decode_llm = decode_params(params, cfg, decode_mode)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)

@@ -27,8 +27,10 @@ dropping with ``moe_capacity_factor``). Every mode runs on every path;
 The serving callers (Engine, Generator, decode_chunk) run it under
 ``torch.no_grad()``.
 
-With a serving ``mesh`` (parallel.mesh; expert and model axes) the
-params are this rank's shards (``shard_params``): attention heads and the
+With a serving ``mesh`` (parallel.mesh; expert and model axes, and
+'fsdp' blocks gathered whole at each layer's top, as training gathers
+them) the params are this rank's shards (``shard_params``): attention
+heads and the
 vocabulary split over 'model' (wq/wk/wv by columns, wo by rows with an
 all_reduce after it; the embedding by rows, looked up masked and
 all_reduced; lm_head by columns, the logits all_gathered so every rank
@@ -38,6 +40,21 @@ parallel.sharded_ops; dense, sort and capacity route globally, run the
 local experts with the other ranks' pairs zeroed and all_reduce over
 'expert', with capacity positions counted as unsharded, so the same pairs
 drop.
+
+Under a training mesh the params are this rank's blocks by
+``param_specs``: heads and the vocabulary over 'model' as above, and the
+experts over 'expert' with their ffn columns over 'model' too (w_gate /
+w_up by columns, w_down by rows). The ranks of one 'model' x 'expert'
+group hold the same tokens and compute the same loss, and the
+collectives come in Megatron's pairs (parallel.mesh): a tensor every
+rank holds whole enters its rank's part of a split product through
+``all_reduce_grad`` ("f": the attention's input, the experts' input and
+combine weights, the head's input), a split product's partial sums leave
+through ``all_reduce_sum`` ("g": after wo, after the experts, the
+embedding's lookup), and the logits are gathered with
+``all_gather_slice``. So each rank's gradient of a split leaf is its
+block of the one loss's gradient, and of a replicated leaf the whole
+gradient.
 
 Shapes follow the deployed VITA config
 (web_demo/vllm_tools/model_weight_file/config.json:17-44): 32L, 4096d,
@@ -53,7 +70,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vita_tpu_torch.ops.attention import NEG_INF, mha_xla
-from vita_tpu_torch.ops.moe import GATHER_MODES, MODES, load_balancing_loss, moe_ffn, route_topk
+from vita_tpu_torch.ops.moe import (
+    GATHER_MODES,
+    MODES,
+    chunks_of,
+    load_balancing_loss,
+    moe_ffn,
+    over_chunks,
+    route_topk,
+)
 from vita_tpu_torch.ops import moe_decode
 from vita_tpu_torch.ops.norms import rms_norm
 from vita_tpu_torch.ops.rope import apply_rope
@@ -66,12 +91,12 @@ from vita_tpu_torch.parallel.mesh import (
     PIPE,
     SEQ,
     all_gather_cat,
+    all_gather_slice,
+    all_reduce_grad,
     all_reduce_sum,
     axis,
     local_shard,
     serving_axes,
-    sum_stat,
-    training_axes,
 )
 from vita_tpu_torch.parallel.sharded_ops import (
     sharded_flash_mha,
@@ -291,9 +316,13 @@ def embed_tokens(params: Params, ids: torch.Tensor, mesh=None, axes=(MODEL,)) ->
 def lm_logits(params: Params, x: torch.Tensor, mesh=None, axes=(MODEL,)) -> torch.Tensor:
     """x @ lm_head; with the vocabulary split over ``axes`` the blocks'
     logits are gathered, so every rank holds the full row. Under an
-    'fsdp' axis the head is gathered whole first (parallel.fsdp)."""
+    'fsdp' axis the head is gathered whole first (parallel.fsdp). In
+    training every rank of ``axes`` computes the same loss from the whole
+    row: x enters through ``all_reduce_grad`` (each rank's dx covers its
+    vocabulary block) and the gather's backward takes the rank's block of
+    the logits' gradient (``all_gather_slice``)."""
     head = fsdp.gather(params["lm_head"], (FSDP, None), mesh)
-    return all_gather_cat(x @ head, mesh, axes, dim=-1)
+    return all_gather_slice(all_reduce_grad(x, mesh, axes) @ head, mesh, axes, dim=-1)
 
 
 def unstack_layers(params: Params) -> Params:
@@ -348,20 +377,41 @@ def _qkv(lp: Params, cfg: MixtralConfig, x, positions):
     return q, k, v
 
 
+class _MatmulF32(torch.autograd.Function):
+    """A 16-bit o [N, K] @ w [K, M] with a float32 output, as one GEMM on a
+    card (no float32 copy of o or w). The backward is the 16-bit
+    product's: the incoming float32 gradient is rounded to o's dtype (the
+    gradient of a sum that is rounded to o's dtype after it is exactly
+    representable there) and multiplied in it."""
+
+    @staticmethod
+    def forward(ctx, o, wo):
+        ctx.save_for_backward(o, wo)
+        if o.is_cuda:
+            part = torch.mm(o.reshape(-1, o.shape[-1]), wo, out_dtype=torch.float32)
+        else:
+            part = o.reshape(-1, o.shape[-1]).float() @ wo.float()
+        return part.reshape(*o.shape[:-1], wo.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        o, wo = ctx.saved_tensors
+        g = g.to(o.dtype)
+        do = g @ wo.T if ctx.needs_input_grad[0] else None
+        dwo = None
+        if ctx.needs_input_grad[1]:
+            dwo = o.reshape(-1, o.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return do, dwo
+
+
 def _out_proj(o: torch.Tensor, wo: torch.Tensor, mesh) -> torch.Tensor:
     """o @ wo; over a 'model' axis each rank's row block of wo gives a
-    partial sum, taken in float32 and rounded once after the all_reduce.
-    On a card a 16-bit partial is one GEMM with a float32 output (no
-    float32 copy of o or wo)."""
+    partial sum, taken in float32 and rounded once after the all_reduce
+    (whose backward hands every rank the whole gradient). A 16-bit
+    partial is one GEMM with a float32 output (``_MatmulF32``)."""
     if axis(mesh, MODEL).size == 1:
         return o @ wo
-    if o.dtype == torch.float32:
-        part = o @ wo
-    elif o.is_cuda:
-        part = torch.mm(o.reshape(-1, o.shape[-1]), wo, out_dtype=torch.float32)
-        part = part.reshape(*o.shape[:-1], wo.shape[-1])
-    else:
-        part = o.float() @ wo.float()
+    part = o @ wo if o.dtype == torch.float32 else _MatmulF32.apply(o, wo)
     return all_reduce_sum(part, mesh, MODEL).to(o.dtype)
 
 
@@ -378,7 +428,8 @@ def _attention_block(
     kv_len: Optional[torch.Tensor] = None,  # [B] int32 valid keys, else kv_valid's count
 ) -> torch.Tensor:
     b, s, _ = x.shape
-    q, k, v = _qkv(lp, cfg, x, positions)
+    # this rank's heads: the gradient into x covers them only ("f")
+    q, k, v = _qkv(lp, cfg, all_reduce_grad(x, mesh, MODEL), positions)
     if layer_k is not None:
         # rows land at cache_pos + i; rows past the scratch are dropped
         s_max = layer_k.shape[1]
@@ -443,50 +494,77 @@ def _attention_block_paged(
     return _out_proj(out.reshape(b, s, -1), lp["wo"], mesh)
 
 
+def expert_axes(moe: Params, cfg: MixtralConfig, mesh) -> Tuple[str, ...]:
+    """The axes the experts' partial outputs are summed over: 'expert',
+    and 'model' where the expert leaves hold a block of the ffn columns
+    (training's ``param_specs``; ``serving_specs`` keeps each expert
+    whole)."""
+    if axis(mesh, MODEL).size > 1 and moe["w_gate"].shape[-1] != cfg.d_ff:
+        return (EXPERT, MODEL)
+    return (EXPERT,)
+
+
 def _moe_routed_layer(h2d, moe: Params, layer_idx: int, cfg: MixtralConfig, tm_flat, mesh,
                       reduce_stats=None, pairs: bool = False):
     """A gather mode (every mesh), or gmm under a mesh: the router, then
     the selected experts through parallel.sharded_ops over the stacked
     (local) expert weights. ``pairs`` runs the gather modes' per-pair
-    kernel at every batch size (the pipeline's decode ring)."""
+    kernel at every batch size (the pipeline's decode ring). gmm with
+    ``moe_chunk`` runs over token chunks as ``ops.moe.moe_ffn`` does
+    (``ops.moe.over_chunks``)."""
+    if cfg.moe_mode == "gmm" and chunks_of(h2d.shape[0], cfg.moe_chunk):
+        one = dataclasses.replace(cfg, moe_chunk=0)
+        return over_chunks(lambda xc, tc: _moe_routed_layer(xc, moe, layer_idx, one, tc, mesh),
+                           h2d, cfg.moe_chunk, tm_flat)
     router_logits = h2d.float() @ moe["router"][layer_idx].float()
     topk_w, topk_i, probs = route_topk(router_logits, cfg.top_k)
     aux = load_balancing_loss(probs, topk_i, cfg.n_experts, tm_flat, reduce_stats)
     experts = {k: v for k, v in moe.items() if k != "router"}
     if cfg.moe_mode == "gmm":
         out = sharded_gmm_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
-                              mesh=mesh)
+                              mesh=mesh, axes=expert_axes(moe, cfg, mesh))
     else:
         out = sharded_gather_ffn(h2d, topk_w, topk_i, experts, layer_idx, cfg.n_experts,
                                  cfg.moe_mode, mesh=mesh, pairs=pairs)
     return out.to(h2d.dtype), aux
 
 
+def _moe_over_batch(moe, h2d: torch.Tensor, tm_flat, b: int, s: int, mesh):
+    """``moe(x, token_mask, reduce_stats)`` (a layer's MoE: its output and
+    aux) over the whole batch's tokens in their global order, for the
+    capacity and sort modes and ``moe_chunk`` when the tokens are split
+    between ranks (rows over ('data', 'fsdp'), positions over 'seq'):
+    capacity positions and chunks run over the global token order, as in
+    the JAX package. Every rank gathers the tokens (``all_gather_cat``,
+    whose backward sums each rank's gradient into the tokens' owners),
+    runs the MoE on all of them and keeps its own rows of the output. The
+    aux term, the whole batch's on every rank, is taken with a gradient of
+    1/n on each of the n ranks, so the gradients summed over them hold it
+    once."""
+    from vita_tpu_torch.parallel.fsdp import BATCH_AXES
+
+    d = h2d.shape[-1]
+
+    def whole(x):
+        return all_gather_cat(all_gather_cat(x, mesh, SEQ, dim=1), mesh, BATCH_AXES, dim=0)
+
+    x = whole(h2d.reshape(b, s, d))
+    tm = None if tm_flat is None else whole(tm_flat.reshape(b, s).float()).reshape(-1)
+    out, aux = moe(x.reshape(-1, d), tm, None)
+    out = local_shard(out.reshape(x.shape), (BATCH_AXES, SEQ), mesh).reshape(b * s, d)
+    n = 1
+    for a in (DATA, FSDP, SEQ):
+        n *= axis(mesh, a).size
+    return out, aux / n + (aux - aux / n).detach()
+
+
 def _check_split_forward(cfg: MixtralConfig, mesh, cache) -> None:
     """The forward over tokens split between ranks ('data'/'fsdp' rows,
     'seq' positions) is the cacheless training one, with the ring as its
-    attention under 'seq' and token-local MoE statistics; the rest raises
-    (a missing port names its ROADMAP item)."""
-    if cache is not None:
-        if axis(mesh, SEQ).size > 1:
-            raise ValueError("seq-parallel attention supports the cacheless path only "
-                             "(Sq == Skv); KV-cache decode/prefill needs seq axis 1")
-        serving_axes(mesh)
-    if axis(mesh, SEQ).size > 1 and (axis(mesh, EXPERT).size > 1 or axis(mesh, MODEL).size > 1):
-        raise NotImplementedError(
-            "a 'seq' axis beside expert/model axes > 1 needs differentiable tensor- and "
-            "expert-parallel collectives, not ported yet "
-            "(ROADMAP A11d (seq beside model/expert))")
-    training_axes(mesh)
+    attention under 'seq' (on this rank's heads beside 'model')."""
     if axis(mesh, SEQ).size > 1 and cfg.attn_backend != "flash":
         raise ValueError("a 'seq' axis > 1 runs attention as the ring: attn_backend must be "
                          f"'flash', got {cfg.attn_backend!r}")
-    if cfg.moe_mode in ("sort", "capacity") or cfg.moe_chunk:
-        raise NotImplementedError(
-            f"moe_mode {cfg.moe_mode!r} with moe_chunk {cfg.moe_chunk} over tokens split "
-            "between ranks (data/fsdp rows or seq positions): capacity drops and chunk-local "
-            "aux are decided over the whole batch's tokens in their global order, which no "
-            "rank holds (ROADMAP A11d (capacity over split tokens))")
 
 
 def _check_pipe_forward(params: Params, cfg: MixtralConfig, mesh, cache) -> None:
@@ -561,13 +639,20 @@ def run_layers(
     its weights whole at its top (parallel.fsdp.gather), inside what remat
     recomputes: the gathered layer lives through its forward and is
     gathered again for its backward, whose gradient the gather's backward
-    reduce-scatters over 'fsdp' right after it (ZeRO-3)."""
+    reduce-scatters over 'fsdp' right after it (ZeRO-3); serving gathers
+    them the same way, without autograd."""
     b, s, d = x.shape
     paged = cache is not None and "k_pages" in cache
     ep = axis(mesh, EXPERT)
     routed = cfg.moe_mode in GATHER_MODES or (cfg.moe_mode == "gmm" and mesh is not None)
     gathered = axis(mesh, FSDP).size > 1
-    specs = param_specs(cfg)["layers"] if gathered else None
+    specs = None
+    if gathered:  # decode_param_specs: a quantized copy's leaves too (whole over 'fsdp')
+        moe = (layers[0] if isinstance(layers, list) else layers)["moe"]
+        specs = decode_param_specs(cfg, {"layers": {"moe": moe}})["layers"]
+    # capacity drops and chunk-local aux over tokens split between ranks
+    whole_batch = (cache is None and (cfg.moe_mode in ("sort", "capacity") or cfg.moe_chunk > 0)
+                   and any(axis(mesh, a).size > 1 for a in (DATA, FSDP, SEQ)))
 
     def layer(x, i: int):
         stack, li = _layer_of(layers, i)
@@ -589,17 +674,27 @@ def run_layers(
         x = x + attn_out
         h = rms_norm(x, stack["ln_moe"][li], cfg.rms_eps).reshape(b * s, d)
         if routed:
-            moe_out, aux = _moe_routed_layer(h, stack["moe"], li, cfg, tm_flat, mesh,
-                                             reduce_stats, pairs)
+            def moe(h, tm, stats):
+                return _moe_routed_layer(h, stack["moe"], li, cfg, tm, mesh, stats, pairs)
         else:
             e_local = stack["moe"]["router"].shape[-1] // ep.size
-            moe_out, aux = moe_ffn({k: v[li] for k, v in stack["moe"].items()}, h,
+            over = expert_axes(stack["moe"], cfg, mesh)
+            split = any(axis(mesh, a).size > 1 for a in over)
+
+            def moe(h, tm, stats):
+                out, aux = moe_ffn({k: v[li] for k, v in stack["moe"].items()}, h,
                                    cfg.top_k, mode=cfg.moe_mode,
-                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm_flat,
+                                   capacity_factor=cfg.moe_capacity_factor, token_mask=tm,
                                    chunk=cfg.moe_chunk, expert_offset=ep.rank * e_local,
-                                   out_dtype=torch.float32 if ep.size > 1 else None,
-                                   reduce_stats=reduce_stats)
-            moe_out = all_reduce_sum(moe_out, mesh, EXPERT).to(h.dtype)
+                                   out_dtype=torch.float32 if split else None,
+                                   reduce_stats=stats,
+                                   expert_inputs=lambda x, w: (all_reduce_grad(x, mesh, over),
+                                                               all_reduce_grad(w, mesh, over)))
+                return all_reduce_sum(out, mesh, over).to(h.dtype), aux
+        if whole_batch:
+            moe_out, aux = _moe_over_batch(moe, h, tm_flat, b, s, mesh)
+        else:
+            moe_out, aux = moe(h, tm_flat, reduce_stats)
         return x + moe_out.reshape(b, s, d), aux
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -631,9 +726,10 @@ def forward(
     ``params["layers"]`` may also be a list of per-layer trees
     (``unstack_layers``).
 
-    Under a training mesh (``parallel.mesh.training_axes``: 'data',
-    'fsdp', 'pipe', 'seq') this is the cacheless forward over tokens split
-    between ranks. ``input_ids``/``inputs_embeds``, ``attn_valid``,
+    Under a training mesh (any of the six axes) this is the
+    cacheless forward over tokens split between ranks ('data', 'fsdp',
+    'seq'), beside heads, ffn columns, the vocabulary and experts split
+    over 'model' and 'expert' (above). ``input_ids``/``inputs_embeds``, ``attn_valid``,
     ``token_mask`` and ``positions`` are this rank's rows of the batch
     over ('data', 'fsdp') (``parallel.fsdp.batch_rows``) and, under a
     'seq' axis of n > 1, its block of S/n positions of the whole sequence
@@ -643,10 +739,13 @@ def forward(
     'flash'), and the logits are the block's. Under 'fsdp' > 1 ``params``
     are this rank's blocks (``param_specs``), gathered where they are
     used: the embedding and the head whole, each layer at its top
-    (``run_layers``). The MoE must be token-local (dense, gmm or a gather
-    mode). The aux loss is the whole batch's, on every rank; its sums go
-    over ('data', 'fsdp', 'seq') through ``parallel.mesh.sum_stat``,
-    whose backward keeps each rank's gradient its own. The contract: when
+    (``run_layers``). Dense and gmm MoE run on the rank's tokens, and
+    the aux loss is the whole batch's on every rank: its sums go over
+    ('data', 'fsdp', 'seq') through ``parallel.mesh.all_reduce_sum``,
+    whose backward keeps each rank's gradient its own. The capacity and
+    sort modes and ``moe_chunk`` decide drops and chunks over the whole
+    batch's token order, so each layer's MoE runs there on the tokens of
+    every rank (``_moe_over_batch``). The contract: when
     each rank's objective is its tokens' share of the loss plus the aux
     term in full, the gradients summed over those ranks (the blocks'
     summed over 'fsdp' by the gathers' backward) equal the unsharded
@@ -668,7 +767,9 @@ def forward(
         _check_pipe_forward(params, cfg, mesh, cache)
     elif pp.size > 1:
         raise ValueError(f"pipe axis size {pp.size} != pipe_stages {cfg.pipe_stages}")
-    split = [a for a in (DATA, FSDP, SEQ) if axis(mesh, a).size > 1]
+    # tokens split between ranks: the cacheless training forward (every
+    # rank of a serving mesh's 'data' and 'fsdp' axes holds the whole batch)
+    split = [a for a in (DATA, FSDP, SEQ) if axis(mesh, a).size > 1 and cache is None]
     if split:
         _check_split_forward(cfg, mesh, cache)
     elif mesh is not None:
@@ -689,7 +790,7 @@ def forward(
     if sp.size > 1:  # the ring masks keys by the whole sequence's valid count
         seq_kv_len = all_reduce_sum(attn_valid.sum(1).to(torch.int32), mesh, SEQ)
     # aux's sums over the whole batch's tokens
-    reduce_stats = (lambda sums: sum_stat(sums, mesh, tuple(split))) if split else None
+    reduce_stats = (lambda sums: all_reduce_sum(sums, mesh, tuple(split))) if split else None
 
     if cfg.pipe_stages > 1:
         from vita_tpu_torch.parallel.pipeline import pipeline_layer_stack
@@ -811,8 +912,10 @@ def pp_decode_greedy(params: Params, cfg: MixtralConfig, mesh, cache: Params,
 
     axes = vocab_axes(params, cfg, mesh)
     head = {"ln_final": params["ln_final"],
-            "lm_head": all_gather_cat(params["lm_head"], mesh, axes, dim=1),
-            "embed": all_gather_cat(params["embed"], mesh, axes, dim=0)}
+            "lm_head": all_gather_cat(fsdp.gather(params["lm_head"], (FSDP, None), mesh), mesh,
+                                      axes, dim=1),
+            "embed": all_gather_cat(fsdp.gather(params["embed"], (None, FSDP), mesh), mesh,
+                                    axes, dim=0)}
 
     def stage_fn(local, ck_w, cv_w, x, positions, kv_valid, cache_pos):
         y, _ = run_layers(local, cfg, x, positions, kv_valid,

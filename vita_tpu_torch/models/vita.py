@@ -15,11 +15,15 @@ Under a serving mesh (``mesh``) the LLM's params are this rank's shards
 splits the layers by stage and, where it divides, the vocabulary over
 ('pipe', 'model')) and the towers and projectors are whole on every rank.
 
-Under a training mesh (``parallel.mesh.training_axes``) every component
+Under a training mesh (any of the six axes) every component
 is cut by ``param_specs`` (the JAX package's PartitionSpecs;
-``parallel.fsdp.shard_tree``): a tower or projector is gathered whole
-over 'fsdp' one component at a time where it runs, and the LLM gathers
-its own leaves (mixtral.forward). ``forward`` takes the global batch:
+``parallel.fsdp.shard_tree``): a tower or projector is gathered whole,
+one component at a time where it runs, over 'fsdp' (the gather's
+backward reduce-scatters) and over 'model' (every rank of a model group
+runs it whole towards the same loss, so the gather's backward takes the
+rank's slice: ``parallel.mesh.all_gather_slice``), and the LLM gathers
+its own leaves over 'fsdp' and keeps its 'model' and 'expert' blocks
+(mixtral.forward). ``forward`` takes the global batch:
 the towers encode the whole batch's media on every rank (the JAX package
 replicates every array whose first dim is not the batch), and the fused
 embeddings, masks and labels are then cut to this rank's rows over
@@ -39,7 +43,7 @@ import torch
 from vita_tpu_torch.constants import IGNORE_INDEX
 from vita_tpu_torch.models import clip, eva_clip, internvit, mixtral, projectors, siglip, whale
 from vita_tpu_torch.parallel import fsdp
-from vita_tpu_torch.parallel.mesh import FSDP, SEQ, axis
+from vita_tpu_torch.parallel.mesh import SEQ, axis
 
 # the vision tower registry (the reference's build_vision_tower dispatch,
 # applied to the fused model)
@@ -165,12 +169,14 @@ def batch_block(x: torch.Tensor, cfg: VITAConfig, mesh) -> torch.Tensor:
     return x
 
 
-def _component(params: Params, cfg: VITAConfig, name: str, mesh) -> Params:
-    """Component ``name`` whole: gathered over 'fsdp' from this rank's
-    blocks under a training mesh (differentiable), else as it is."""
-    if axis(mesh, FSDP).size == 1:
+def _component(params: Params, cfg: VITAConfig, name: str, mesh, blocks: bool) -> Params:
+    """Component ``name`` whole: with ``blocks`` (this rank's blocks under
+    a training mesh) gathered over every axis that splits a leaf
+    (differentiable: ``parallel.fsdp.gather(..., whole=True)``), else as
+    it is (a serving mesh holds the components whole)."""
+    if not blocks:
         return params[name]
-    return fsdp.gather_tree(params[name], param_specs(cfg)[name], mesh)
+    return fsdp.gather_tree(params[name], param_specs(cfg)[name], mesh, whole=True)
 
 
 def shard_params(params: Params, cfg: VITAConfig, mesh, device=None, llm_specs=None) -> Params:
@@ -255,16 +261,20 @@ def fuse_embeddings(
     audio_encoded: Optional[torch.Tensor] = None,  # [n_clips, T', whale_hidden]
     audio_encoded_lengths: Optional[torch.Tensor] = None,  # [n_clips]
     mesh=None,
+    component_blocks: bool = False,
 ) -> torch.Tensor:
     """Token embeddings with media features merged in: [B, S, D].
 
     ``audio_encoded`` carries Whale features encoded ahead of time in
-    place of ``speech``; only the audio adapter runs on them."""
+    place of ``speech``; only the audio adapter runs on them.
+    ``component_blocks``: the towers' and projectors' params are this
+    rank's blocks of a training ``mesh`` (``_component``)."""
     b, s = input_ids.shape
     embeds = mixtral.embed_tokens(params["llm"], input_ids, mesh,
                                   mixtral.vocab_axes(params["llm"], cfg.llm, mesh))
     image_feats = audio_feats = None
-    part = lambda *names: {n: _component(params, cfg, n, mesh) for n in names}  # noqa: E731
+    part = lambda *names: {n: _component(params, cfg, n, mesh, component_blocks)  # noqa: E731
+                           for n in names}
     if images is not None:
         feats = encode_images(part("vision", "vision_proj"), cfg, images)
         image_feats = feats.reshape(b, -1, feats.shape[-1])
@@ -310,11 +320,13 @@ def forward(
     mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full multimodal forward. Returns (logits, new_cache, moe_aux).
-    Under a training mesh the inputs are the global batch's and the
-    logits this rank's block (``batch_block``)."""
+    Under a mesh without a ``cache`` (a training mesh, ``params`` this
+    rank's blocks by ``param_specs``) the inputs are the global batch's
+    and the logits this rank's block (``batch_block``)."""
     embeds = fuse_embeddings(
         params, cfg, input_ids, image_mask, audio_mask, images=images, speech=speech,
         speech_lengths=speech_lengths, audio_select=audio_select, mesh=mesh,
+        component_blocks=mesh is not None and cache is None,
     )
     if mesh is not None and cache is None:
         embeds, attn_valid, token_mask = (

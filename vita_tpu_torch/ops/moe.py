@@ -15,11 +15,12 @@ and ``gather_q4`` run only the selected experts through ops.moe_decode
 (``gather_q``/``gather_q4`` take params quantized by
 moe_decode.quantize_expert_weights / quantize_expert_weights_int4).
 
-``chunk`` runs a training mode over token chunks of that size, each under
-``torch.utils.checkpoint``, so that the backward holds one chunk's expert
-intermediates at a time. As in the JAX package, aux is then the mean of
-the chunk-local aux losses weighted by each chunk's valid tokens, and the
-capacity of sort/capacity modes is per chunk.
+``chunk`` runs a training mode over token chunks of that size
+(``over_chunks``, which models.mixtral's sharded gmm layer takes too),
+each under ``torch.utils.checkpoint``, so that the backward holds one
+chunk's expert intermediates at a time. As in the JAX package, aux is
+then the mean of the chunk-local aux losses weighted by each chunk's
+valid tokens, and the capacity of sort/capacity modes is per chunk.
 """
 
 from __future__ import annotations
@@ -133,6 +134,27 @@ def _capacity_dispatch(params, x, topk_w, topk_i, capacity: int, e0: int = 0,
     return torch.einsum("tec,ecd->td", combine, expert_out)
 
 
+def chunks_of(t: int, chunk: int) -> bool:
+    """Whether ``chunk`` splits T tokens: 0 < chunk < T and chunk divides
+    T (otherwise a layer runs whole)."""
+    return 0 < chunk < t and t % chunk == 0
+
+
+def over_chunks(fn: Callable, x: torch.Tensor, chunk: int,
+                token_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(x_chunk, mask_chunk) -> (out, aux)`` over token chunks of
+    ``chunk`` rows (``chunks_of``), each rematerialized in the backward:
+    the outputs joined, and aux the chunks' mean weighted by their valid
+    tokens."""
+    t = x.shape[0]
+    tms = (torch.ones(t // chunk, chunk, device=x.device) if token_mask is None
+           else token_mask.reshape(-1, chunk))
+    outs, auxs = zip(*(checkpoint(fn, xc, tc, use_reentrant=False)
+                       for xc, tc in zip(x.split(chunk), tms)))
+    ns = tms.float().sum(1)
+    return torch.cat(outs), (torch.stack(auxs) * ns).sum() / ns.sum().clamp_min(1.0)
+
+
 def moe_ffn(
     params,
     x: torch.Tensor,  # [T, D]
@@ -144,6 +166,7 @@ def moe_ffn(
     expert_offset: int = 0,
     out_dtype=None,
     reduce_stats: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    expert_inputs: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, D], aux_loss scalar). ``chunk`` is ignored when
     T <= chunk, when chunk does not divide T, or in a gather mode.
@@ -154,21 +177,19 @@ def moe_ffn(
     output is those experts' weighted partial sum. ``out_dtype`` float32
     leaves the output unrounded (dense and capacity combine in float32),
     for ranks that add their partial sums before rounding.
-    ``reduce_stats`` is aux's ``reduce`` (``load_balancing_loss``)."""
+    ``reduce_stats`` is aux's ``reduce`` (``load_balancing_loss``).
+    ``expert_inputs`` maps (x, topk_w) to what the experts take, after
+    the router has read x (an expert-parallel training mesh's
+    ``all_reduce_grad``, whose backward must not reach the router's
+    path)."""
     if mode not in MODES:
         raise ValueError(f"unknown moe mode {mode!r}")
     t, d = x.shape
-    if chunk and 0 < chunk < t and t % chunk == 0 and mode in TRAIN_MODES:
-        tms = (torch.ones(t // chunk, chunk, device=x.device) if token_mask is None
-               else token_mask.reshape(-1, chunk))
-        outs, auxs = [], []
-        for xc, tc in zip(x.split(chunk), tms):
-            out, aux = checkpoint(moe_ffn, params, xc, top_k, mode, capacity_factor, tc, 0,
-                                  expert_offset, out_dtype, use_reentrant=False)
-            outs.append(out)
-            auxs.append(aux)
-        ns = tms.float().sum(1)
-        return torch.cat(outs), (torch.stack(auxs) * ns).sum() / ns.sum().clamp_min(1.0)
+    if mode in TRAIN_MODES and chunks_of(t, chunk):
+        return over_chunks(
+            lambda xc, tc: moe_ffn(params, xc, top_k, mode, capacity_factor, tc, 0,
+                                   expert_offset, out_dtype, None, expert_inputs),
+            x, chunk, token_mask)
     e = params["router"].shape[-1]
     e_local = params["w_gate"].shape[0]
     if (e_local != e or expert_offset) and mode not in ("dense", "sort", "capacity"):
@@ -177,6 +198,8 @@ def moe_ffn(
     router_logits = x.float() @ params["router"].float()
     topk_w, topk_i, probs = route_topk(router_logits, top_k)
     aux = load_balancing_loss(probs, topk_i, e, token_mask, reduce_stats)
+    if expert_inputs is not None:
+        x, topk_w = expert_inputs(x, topk_w)
     if mode in GATHER_MODES:
         from vita_tpu_torch.ops import moe_decode as md
 

@@ -230,12 +230,14 @@ def gmm(
     return _Gmm.apply(x, w, gids, transpose_rhs, tile_m)
 
 
-def moe_ffn_gmm(params, x, topk_w, topk_idx) -> torch.Tensor:
+def moe_ffn_gmm(params, x, topk_w, topk_idx, out_dtype=None) -> torch.Tensor:
     """Dropless grouped-matmul expert FFN: out [T, D].
 
     params: {'w_gate' [E,D,F], 'w_up', 'w_down' [E,F,D]}. Prefill-sized
     T (T*k <= SMALL_R_MAX) uses row tiles of SMALL_TILE_M, larger T tiles
-    of TILE_M."""
+    of TILE_M. ``out_dtype`` float32 weights and combines the pairs in
+    float32 and leaves the output unrounded (a partial sum over a block of
+    the ffn columns, added to the other blocks' before it is rounded)."""
     t, d = x.shape
     k = topk_idx.shape[1]
     e = params["w_gate"].shape[0]
@@ -252,5 +254,6 @@ def moe_ffn_gmm(params, x, topk_w, topk_idx) -> torch.Tensor:
     ys = gmm(h, params["w_down"], gids, tile_m=tile_m)
 
     y = ys[dest]  # [T*k, D] in sorted pair order
-    w_s = topk_w.reshape(-1)[order.long()].to(x.dtype)
-    return x.new_zeros(t, d).index_add_(0, tok_s, y * w_s[:, None])
+    dt = out_dtype or x.dtype
+    w_s = topk_w.reshape(-1)[order.long()].to(dt)
+    return x.new_zeros(t, d, dtype=dt).index_add_(0, tok_s, y.to(dt) * w_s[:, None])

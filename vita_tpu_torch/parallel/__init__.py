@@ -10,7 +10,8 @@ shard, ``ring_attention`` runs exact attention over a ``seq`` axis,
 pipelined prefill and the decode ring) and ``pp_serving`` the Engine's
 pipeline programs, ``fsdp`` shards training over the ``data`` and
 ``fsdp`` axes (ZeRO-3), ``launch`` starts a group of ranks on one host.
-Serving takes tensor (``model``), expert (``expert``) and pipeline
-(``pipe``) parallelism, training data, fsdp, pipe and sequence (``seq``,
-cacheless); the rest raises NotImplementedError naming its ROADMAP item.
+Training takes every axis (data, fsdp, expert, model, pipe and sequence,
+``seq``, cacheless); serving every axis but ``seq`` (a KV cache holds
+whole sequences), with the batch whole on every rank of ``data`` and
+``fsdp``.
 """

@@ -15,28 +15,48 @@ over the fsdp ranks right after the layer's backward.
 The rest of the step's reduction is ``reduce_grads``: every rank's
 objective is its rows' share of the loss (and positions' share under
 'seq'), so a gradient is summed over 'data' and 'seq', and a leaf that
-'fsdp' does not split is summed over 'fsdp' too. A leaf split over
-'pipe' is the stage's own and summed over nothing more; every stage
-computes the whole gradient of a leaf replicated over 'pipe', and stage
-0's copy is taken everywhere, so such leaves stay bitwise equal on every
-stage. ``sq_norm`` is
-the squared global norm of a set of gradients: each leaf counted once,
-its blocks summed over the axes that split it, so every rank clips by
-the same norm.
+'fsdp' does not split is summed over 'fsdp' too. The ranks of one
+'model' x 'expert' group hold the same rows and compute the same
+objective, and the model's collectives (parallel.mesh's "f" and "g")
+give each of them its block of that one objective's gradient of a leaf
+split over 'model' or 'expert', and the whole gradient of a leaf
+replicated over them: nothing is summed over 'model' or 'expert'. A leaf
+split over 'pipe' is the stage's own and summed over nothing more. Every
+stage computes the whole gradient of a leaf replicated over 'pipe', and
+every rank of a model x expert group that of a leaf replicated over
+'model' or 'expert'; the copies agree up to the order of accumulations
+that need not be deterministic (a scatter-add on a card), so the copy
+of coordinate 0 of those axes is taken everywhere and such leaves stay
+bitwise equal on every rank. ``sq_norm`` is the squared global norm of a
+set of gradients: each leaf counted once, its blocks summed over every
+axis that splits it ('fsdp', 'model', 'expert', 'pipe'), so every rank
+clips by the same norm.
+
+Where a leaf is used whole by every rank of a model group (a tower or a
+projector, which the port runs whole on every rank; ``gather(...,
+whole=True)``) its 'model' block is gathered with
+``parallel.mesh.all_gather_slice``, whose backward takes the rank's slice
+of the gradient: every rank of the group computes the same objective.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterable, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vita_tpu_torch.parallel.mesh import (
+    AXES,
     DATA,
+    EXPERT,
     FSDP,
+    MODEL,
     PIPE,
     SEQ,
     all_gather_cat,
+    all_gather_slice,
     all_reduce_sum,
     axis,
     broadcast_from,
@@ -78,58 +98,70 @@ def shard_tree(tree, specs, mesh, device=None):
     return _map(block, tree, specs)
 
 
-def gather(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+def gather(x: torch.Tensor, spec: Sequence, mesh, whole: bool = False) -> torch.Tensor:
     """The leaf whole over 'fsdp' from this rank's block ``x`` (the dims
     that ``spec`` splits over other axes stay this rank's). Differentiable:
-    the backward reduce-scatters the gradient over 'fsdp'."""
-    if axis(mesh, FSDP).size == 1:
-        return x
+    the backward reduce-scatters the gradient over 'fsdp'. With ``whole``
+    the dims split over the other axes are gathered too, with
+    ``all_gather_slice`` (for a leaf every rank of those axes uses whole
+    towards the same objective: a tower's, a projector's; without
+    autograd, any leaf whole)."""
     for dim, entry in enumerate(spec):
-        if FSDP in _names(entry):
-            x = all_gather_cat(x, mesh, FSDP, dim)
+        for n in reversed(_names(entry)):  # the innermost block first
+            if axis(mesh, n).size == 1:
+                continue
+            if n == FSDP:
+                x = all_gather_cat(x, mesh, FSDP, dim)
+            elif whole:
+                x = all_gather_slice(x, mesh, n, dim)
     return x
 
 
-def gather_tree(tree, specs, mesh):
+def gather_tree(tree, specs, mesh, whole: bool = False):
     """``gather`` on every leaf of ``tree`` (one component's params)."""
-    if axis(mesh, FSDP).size == 1:
-        return tree
-    return _map(lambda x, s: gather(x, s, mesh), tree, specs)
+    return _map(lambda x, s: gather(x, s, mesh, whole), tree, specs)
 
 
-def whole(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
-    """The whole leaf from this rank's block: gathered over every axis
-    its spec splits it over (not differentiable)."""
-    with torch.no_grad():
-        for dim, entry in enumerate(spec):
-            names = tuple(n for n in _names(entry) if axis(mesh, n).size > 1)
-            if names:
-                x = all_gather_cat(x, mesh, names, dim)
-    return x
-
-
-def whole_tree(tree, specs, mesh):
-    """``whole`` on every leaf of ``tree``."""
-    return _map(lambda x, s: whole(x, s, mesh), tree, specs)
+def assemble(blocks: Sequence[torch.Tensor], spec: Sequence, shape: Sequence[int]) -> torch.Tensor:
+    """The whole leaf from ``blocks``, rank r's block of it on a mesh of
+    ``shape`` (sizes in ``AXES`` order, rank r at r's row-major
+    coordinate), cut by ``spec``: the inverse of ``local_shard``. Ranks
+    that hold the same block give it once."""
+    sizes = dict(zip(AXES, shape))
+    entries = [_names(e) for e in spec] + [()] * (blocks[0].dim() - len(spec))
+    parts = [math.prod(sizes[n] for n in names) for names in entries]
+    out = torch.empty([n * p for n, p in zip(blocks[0].shape, parts)], dtype=blocks[0].dtype)
+    done = set()
+    for r, b in enumerate(blocks):
+        coords = dict(zip(AXES, np.unravel_index(r, tuple(shape))))
+        at = []
+        for names in entries:
+            i = 0
+            for n in names:
+                i = i * sizes[n] + int(coords[n])
+            at.append(i)
+        if tuple(at) in done:
+            continue
+        done.add(tuple(at))
+        out[tuple(slice(i * n, (i + 1) * n) for i, n in zip(at, b.shape))] = b
+    return out
 
 
 def reduce_grads(grads: Dict, specs: Dict, mesh) -> Dict:
     """Each gradient summed over the ranks whose objectives it collects:
     'data' and 'seq', and 'fsdp' unless its spec splits the leaf over
-    'fsdp' (then the gather's backward has summed it there); a leaf
-    replicated over 'pipe' takes stage 0's gradient on every stage.
-    ``grads`` and ``specs`` map the same keys. The gradients of one set of
-    axes travel as float32 buffers of up to ``BUCKET`` elements (a large
-    one in several) and are written back into ``grads``' tensors."""
+    'fsdp' (then the gather's backward has summed it there); never over
+    'model' or 'expert'. A leaf replicated over 'pipe', 'model' or
+    'expert' takes the gradient of coordinate 0 of each such axis on every
+    rank. ``grads`` and ``specs`` map the same keys. The gradients of one
+    set of axes travel as float32 buffers of up to ``BUCKET`` elements (a
+    large one in several) and are written back into ``grads``' tensors."""
     out = dict(grads)
-    if axis(mesh, PIPE).size > 1:
-        # a leaf that 'pipe' does not split gets its whole gradient on every
-        # stage (parallel.pipeline); the copies agree up to the order of
-        # accumulations that need not be deterministic (the embedding
-        # lookup's scatter-add), so stage 0's is every stage's
-        keys = [k for k in grads if PIPE not in split_axes(specs[k], mesh)]
-        if keys:
-            out.update(zip(keys, broadcast_from([grads[k] for k in keys], mesh, PIPE, 0)))
+    for name in (PIPE, MODEL, EXPERT):
+        if axis(mesh, name).size > 1:
+            keys = [k for k in grads if name not in split_axes(specs[k], mesh)]
+            if keys:
+                out.update(zip(keys, broadcast_from([out[k] for k in keys], mesh, name, 0)))
     buckets: Dict[Tuple[str, ...], list] = {}
     for key, g in out.items():
         over = (DATA, SEQ) if FSDP in split_axes(specs[key], mesh) else (DATA, FSDP, SEQ)
@@ -153,12 +185,12 @@ def reduce_grads(grads: Dict, specs: Dict, mesh) -> Dict:
 
 def sq_norm(grads: Iterable[torch.Tensor], specs: Iterable[Sequence], mesh) -> torch.Tensor:
     """The squared global norm of the leaves whose blocks ``grads`` are
-    (float32): each block's sum of squares, summed over the axes that
-    split its leaf ('fsdp', 'pipe'), each leaf once. The same value on
-    every rank."""
+    (float32): each block's sum of squares, summed over every axis that
+    splits its leaf, each leaf once. The same value on every rank."""
     parts: Dict[Tuple[str, ...], torch.Tensor] = {}
     for g, spec in zip(grads, specs):
-        over = tuple(a for a in (FSDP, PIPE) if a in split_axes(spec, mesh))
+        split = split_axes(spec, mesh)
+        over = tuple(a for a in AXES if a in split)
         s = (g.float() ** 2).sum()
         parts[over] = parts[over] + s if over in parts else s
     total = None

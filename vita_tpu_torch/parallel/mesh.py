@@ -11,12 +11,27 @@ package reshapes its device list.
 In place of ``NamedSharding``: ``local_shard`` cuts a full tensor into this
 rank's block by a spec tuple (``None``, an axis name or a tuple of names
 per dim, as a PartitionSpec), and ``axis`` gives the size, rank and
-process group of one axis. The collectives ``all_reduce_sum`` (and
-``sum_stat``, its form for a statistic every rank uses whole) and
-``all_gather_cat`` (differentiable: its backward reduce-scatters) run
-over one axis's group or over several axes in turn (a tuple of names,
-blocks ordered as ``local_shard`` cuts them); ``serving_axes`` and
-``training_axes`` say which axes a serving or a training mesh may use;
+process group of one axis. The collectives run over one axis's group
+or over several axes in turn (a tuple of names, blocks ordered as
+``local_shard`` cuts them), each differentiable where autograd records
+its input, in the pairs of Megatron's tensor parallelism:
+
+- ``all_reduce_sum`` ("g"): the sum forward, the identity backward, for
+  a sum of partials that every rank then uses whole (a row-parallel
+  product's output, the aux loss's statistics);
+- ``all_reduce_grad`` ("f"): the identity forward, the sum backward, for
+  a tensor every rank uses whole that feeds this rank's part of a
+  column-parallel product (its gradient there is a partial);
+- ``all_gather_cat``: the join forward, a reduce-scatter backward, where
+  each rank adds its own function of the whole tensor to an objective of
+  its own (the fsdp gather);
+- ``all_gather_slice``: the join forward, this rank's slice of the
+  gradient backward, where every rank of the axis computes the same
+  objective from the whole tensor (the logits over 'model', a tower's
+  leaves gathered over 'model').
+
+``serving_axes`` says which axes a serving mesh may use (a training
+mesh takes all six, as ``vita.param_specs`` places the leaves);
 ``broadcast_from`` sends one coordinate's tensors to the rest of an
 axis; ``shift_down`` (the seq ring's step) and ``shift_up`` (the pipeline's
 stage-to-stage step, as a chain or a cycle) move tensors point to point
@@ -106,31 +121,17 @@ def axis(mesh, name: str) -> Axis:
 
 def serving_axes(mesh) -> Tuple[int, int]:
     """(expert, model) sizes of a serving mesh (which may also have a
-    'pipe' axis). A 'seq' axis > 1 raises ValueError (a KV cache holds
-    whole sequences); the axes the serving path does not shard over yet
-    raise, naming their ROADMAP item."""
+    'pipe' axis, and 'data' or 'fsdp' axes, as the JAX package's Engine
+    places its params by ``param_specs`` and gives its pool no batch axis:
+    a rank holds its 'fsdp' blocks, every layer gathers its weights whole
+    at its top, and every rank of 'data' x 'fsdp' serves the whole batch).
+    A 'seq' axis > 1 raises ValueError (a KV cache holds whole
+    sequences)."""
     if axis(mesh, SEQ).size > 1:
         raise ValueError(
             "seq-parallel attention supports the cacheless path only (Sq == Skv); "
             "KV-cache decode/prefill needs seq axis 1")
-    if axis(mesh, DATA).size > 1 or axis(mesh, FSDP).size > 1:
-        raise NotImplementedError(
-            "serving over data/fsdp axes > 1 is not ported yet "
-            "(ROADMAP A11d (serving over data/fsdp))")
     return axis(mesh, EXPERT).size, axis(mesh, MODEL).size
-
-
-def training_axes(mesh) -> Tuple[int, int, int, int]:
-    """(data, fsdp, pipe, seq) sizes of a training mesh. Training shards
-    the batch over ('data', 'fsdp'), parameters over 'fsdp'
-    (parallel.fsdp), layers over 'pipe' and positions over 'seq'; an
-    'expert' or 'model' axis > 1 raises, naming its ROADMAP item."""
-    if axis(mesh, EXPERT).size > 1 or axis(mesh, MODEL).size > 1:
-        raise NotImplementedError(
-            f"training over expert {axis(mesh, EXPERT).size} x model "
-            f"{axis(mesh, MODEL).size} needs differentiable tensor- and expert-parallel "
-            "collectives, not ported yet (ROADMAP A11d (tensor/expert-parallel training))")
-    return tuple(axis(mesh, a).size for a in (DATA, FSDP, PIPE, SEQ))
 
 
 def local_shard(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
@@ -162,10 +163,23 @@ def _names(name) -> Tuple[str, ...]:
 def all_reduce_sum(x: torch.Tensor, mesh, name) -> torch.Tensor:
     """The sum of ``x`` over the ranks of axis ``name`` (or of several
     axes, a tuple of names), added in float32 and rounded once to x's
-    dtype; ``x`` itself when the axes have size 1."""
+    dtype; ``x`` itself when the axes have size 1.
+
+    Differentiable where autograd records ``x`` (Megatron's "g"): the
+    backward hands this rank's ``x`` the incoming gradient as it is and
+    sums nothing. So when every rank of the axes adds the same function of
+    the sum to its objective (a row-parallel product's output, the aux
+    loss's statistics), each summand's gradient is that of one such term,
+    not ``size`` times it."""
     names = [n for n in _names(name) if axis(mesh, n).size > 1]
     if not names:
         return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SumIdentity.apply(x, mesh, tuple(names))
+    return _reduce(x, mesh, names)
+
+
+def _reduce(x: torch.Tensor, mesh, names) -> torch.Tensor:
     buf = x.float()
     for n in names:
         a = axis(mesh, n)
@@ -173,6 +187,44 @@ def all_reduce_sum(x: torch.Tensor, mesh, name) -> torch.Tensor:
         dist.all_reduce(staged, group=a.group)
         buf = staged
     return buf.to(device=x.device, dtype=x.dtype)
+
+
+class _SumIdentity(torch.autograd.Function):
+    """all_reduce_sum forward; the backward hands each rank the gradient
+    of its own summand only (the identity)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, names):
+        return _reduce(x, mesh, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def all_reduce_grad(x: torch.Tensor, mesh, name) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over the ranks of axis
+    ``name`` (or of several axes) in the backward (Megatron's "f"; float32,
+    rounded once): for a tensor that every rank of the axes holds whole
+    and feeds to its own part of a product split over them (this rank's
+    heads, ffn columns or experts), so that the gradient each rank passes
+    on is the whole one, the same on every rank."""
+    names = tuple(n for n in _names(name) if axis(mesh, n).size > 1)
+    if not names or not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _GradSum.apply(x, mesh, names)
+
+
+class _GradSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, names):
+        ctx.mesh, ctx.names = mesh, names
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous(), ctx.mesh, ctx.names), None, None
 
 
 def all_gather_cat(x: torch.Tensor, mesh, name, dim: int = -1) -> torch.Tensor:
@@ -220,6 +272,40 @@ class _GatherCat(torch.autograd.Function):
                 part = _reduce_scatter_one(part, ctx.mesh, n, dim)
             out.append(part.to(g.dtype))
         return torch.cat(out, cdim) if len(out) > 1 else out[0], None, None, None
+
+
+def all_gather_slice(x: torch.Tensor, mesh, name, dim: int = -1) -> torch.Tensor:
+    """The blocks of the ranks of axis ``name`` (or of several axes)
+    joined along ``dim``, as ``all_gather_cat`` joins them; its backward
+    takes this rank's block of the incoming gradient and sums nothing. For
+    a tensor from which every rank of the axes computes the same objective
+    (the logits split over 'model', a tower's leaves gathered whole over
+    'model'): each rank's own gradient of the whole is already the whole
+    gradient."""
+    names = tuple(n for n in _names(name) if axis(mesh, n).size > 1)
+    if not names:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherSlice.apply(x, mesh, names, dim)
+    for n in reversed(names):
+        x = _gather_one(x, mesh, n, dim)
+    return x
+
+
+class _GatherSlice(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        for n in reversed(names):
+            x = _gather_one(x, mesh, n, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        spec = [None] * g.dim()
+        spec[ctx.dim % g.dim()] = ctx.names
+        return local_shard(g, spec, ctx.mesh).contiguous(), None, None, None
 
 
 def _reduce_scatter_one(g: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
@@ -289,32 +375,6 @@ def broadcast_from(tensors: Sequence[torch.Tensor], mesh, name: str, src: int):
     buf = _pack(tensors, a.staged)
     dist.broadcast(buf, dist.get_global_rank(a.group, src), group=a.group)
     return list(tensors) if a.rank == src else _unpack(buf, tensors)
-
-
-class _SumStat(torch.autograd.Function):
-    """all_reduce_sum forward; the backward hands each rank the gradient
-    of its own summand only (the identity)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, name):
-        return all_reduce_sum(x, mesh, name)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
-def sum_stat(x: torch.Tensor, mesh, name) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of axis ``name`` (or of several
-    axes, a tuple of names; as ``all_reduce_sum``) for a statistic that
-    every rank then uses whole:
-    its backward passes the incoming gradient to this rank's ``x`` and
-    does not sum it over the axis. So when every rank adds the same
-    function of the sum to its objective, the gradients summed over the
-    axis are those of one such term, not ``size`` times them."""
-    if all(axis(mesh, n).size == 1 for n in _names(name)):
-        return x
-    return _SumStat.apply(x, mesh, name)
 
 
 def shift_down(tensors: Sequence[torch.Tensor], mesh, name: str, cycle: bool = True,

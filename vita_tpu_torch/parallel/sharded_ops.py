@@ -16,7 +16,15 @@ that call and nothing else, so single-device output is bit-identical.
   ranks into its range and zeroes their combine weights, runs the
   single-device dispatcher over its [E/ep] experts, and the weighted
   partials are summed over the 'expert' group in float32 and rounded once.
-  Each pair's term comes from exactly one rank.
+  Each pair's term comes from exactly one rank. Under training's
+  ``param_specs`` the experts' ffn columns are split over 'model' too
+  (w_gate/w_up by columns, w_down by rows): the SwiGLU is elementwise in
+  those columns, so each rank's output is a partial sum over them as
+  well, combined in float32 and summed over ('expert', 'model') before it
+  is rounded. The FFN's input and the combine
+  weights enter through ``parallel.mesh.all_reduce_grad`` over the same
+  axes, so the gradients they pass on (to the layer's input and the
+  router) collect every rank's pairs and columns.
 """
 
 from __future__ import annotations
@@ -25,7 +33,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vita_tpu_torch.parallel.mesh import EXPERT, MODEL, SEQ, all_reduce_sum, axis
+from vita_tpu_torch.parallel.mesh import (
+    EXPERT,
+    MODEL,
+    SEQ,
+    all_reduce_grad,
+    all_reduce_sum,
+    axis,
+)
 
 
 def _local_heads(hq: int, hkv: int, mesh) -> None:
@@ -154,18 +169,28 @@ def sharded_gmm_ffn(
     x: torch.Tensor,  # [T, D]
     topk_w: torch.Tensor,  # [T, k] combine weights (float)
     topk_idx: torch.Tensor,  # [T, k] expert ids in [0, E)
-    moe_stacked: Dict[str, torch.Tensor],  # {'w_gate' [L, E/ep, D, F], 'w_up', 'w_down'}
+    moe_stacked: Dict[str, torch.Tensor],  # {'w_gate' [L, E/ep, D, F(/tp)], 'w_up', 'w_down'}
     layer_idx: int,
     n_experts: int,
     mesh=None,
+    axes: Tuple[str, ...] = (EXPERT,),
 ) -> torch.Tensor:
-    """EP-sharded dropless grouped-matmul FFN (B5a/B5b) for prefill: [T, D].
-    Every rank runs all T*k pairs over its local experts, other ranks'
-    pairs weighted 0."""
+    """Sharded dropless grouped-matmul FFN (B5a/B5b forward and dx, B12
+    dw): [T, D]. Every rank runs all T*k pairs over its local experts,
+    other ranks' pairs weighted 0, and the partials are summed over
+    ``axes``: ('expert',), or ('expert', 'model') where the experts' ffn
+    columns are split over 'model' (training). Over 'expert' alone a
+    rank's pairs are whole experts' terms, rounded as the unsharded
+    combine rounds them; a block of the ffn columns gives part of a term,
+    so there the ranks combine their pairs in float32 and the sum is
+    rounded once."""
     from vita_tpu_torch.ops.moe_gmm import moe_ffn_gmm
 
     layer = {k: moe_stacked[k][layer_idx] for k in ("w_gate", "w_up", "w_down")}
-    if axis(mesh, EXPERT).size == 1:
+    if all(axis(mesh, a).size == 1 for a in axes):
         return moe_ffn_gmm(layer, x, topk_w, topk_idx)
+    x, topk_w = all_reduce_grad(x, mesh, axes), all_reduce_grad(topk_w, mesh, axes)
     w_loc, idx_loc, _ = _local_routing(topk_w, topk_idx, n_experts, mesh)
-    return all_reduce_sum(moe_ffn_gmm(layer, x, w_loc, idx_loc), mesh, EXPERT)
+    split_f = axis(mesh, MODEL).size > 1 and MODEL in axes
+    out = moe_ffn_gmm(layer, x, w_loc, idx_loc, out_dtype=torch.float32 if split_f else None)
+    return all_reduce_sum(out, mesh, axes).to(x.dtype)

@@ -46,7 +46,10 @@ Requests stream tokens to callbacks and can be cancelled mid-decode;
   The full params (CPU views of a mapped file will do) are cut to this
   rank's shards before they reach its device, or come as those shards
   (``sharded``, from ``load_vita_checkpoint(..., mesh=)``); the page pool holds
-  Hkv/model heads. 'data'/'fsdp' > 1 raise (ROADMAP A11d); 'seq' > 1
+  Hkv/model heads. Over 'data' and 'fsdp' axes > 1 (the JAX Engine's
+  ``param_specs`` placement, its pool without a batch axis) a rank holds
+  its 'fsdp' blocks, every layer gathers its weights whole at its top
+  (without autograd), and every rank serves the whole batch; 'seq' > 1
   raises ValueError (a KV cache holds whole sequences). Two Engines of one
   launch may serve as duplex replicas over disjoint ranks
   (serve.replicas).
@@ -299,7 +302,7 @@ class Engine:
         self.frame_buckets = tuple(sorted(frame_buckets))
         self._decode_cfg = dataclasses.replace(cfg.llm, moe_mode=decode_moe_mode)
         self._prefill_cfg = dataclasses.replace(cfg.llm, moe_mode=prefill_moe_mode)
-        self._decode_llm = decode_params(params, decode_moe_mode)
+        self._decode_llm = decode_params(params, cfg, decode_moe_mode, mesh)
 
         llm = cfg.llm
         self.max_pages_per_slot = pages_needed(max_len, page_size)

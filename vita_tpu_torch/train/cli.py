@@ -23,10 +23,12 @@ shape, one process a rank under torchrun:
   torchrun --nproc-per-node N -m vita_tpu_torch.train.cli --mesh 1 N 1 1 ...
 (``--dist-backend gloo`` when the ranks share a card or run on the CPU).
 Every rank cuts its blocks of the params (``Trainer(mesh=)``; ``--model
-<dir>`` reads only them), pipe > 1 sets the LLM's GPipe stages
-(``--pipe-microbatches``), seq > 1 switches the LLM to the flash backend
-(the ring), and rank 0 prints and writes ``metrics.jsonl``. Expert or
-model > 1 raises ``NotImplementedError`` naming its ROADMAP item.
+<dir>`` reads only them): parameters over fsdp, heads, ffn columns and the
+vocabulary over model, experts over expert. Pipe > 1 sets the LLM's GPipe
+stages (``--pipe-microbatches``), seq > 1 switches the LLM to the flash
+backend (the ring), and rank 0 prints and writes ``metrics.jsonl``. A run
+resumes from the output directory's latest checkpoint whatever mesh (or
+none) wrote it.
 """
 
 from __future__ import annotations
@@ -90,11 +92,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit("no CUDA device visible to torch; pass --device cpu to run on the CPU")
     if args.mesh is None:
         return _run(args, device, None)
-    if len(args.mesh) >= 4 and (args.mesh[2] > 1 or args.mesh[3] > 1):
-        # refused before any rank joins a process group
-        raise NotImplementedError(
-            f"--mesh {' '.join(map(str, args.mesh))}: training over expert or model axes > 1 "
-            "is not ported yet (ROADMAP A11d (tensor/expert-parallel training))")
     import torch.distributed as dist
 
     from vita_tpu_torch.parallel import distributed

@@ -16,16 +16,19 @@ updates exactly what the JAX package's optax chain updates:
 
 The update happens in place, where the JAX package donates its buffers.
 
-Under a training mesh (``parallel.mesh.training_axes``: 'data', 'fsdp',
-'pipe', 'seq') each rank holds its blocks of the leaves
-(``vita.param_specs``, as the Trainer cuts them) and the global batch;
-the forward takes its rows and positions (``vita.batch_block``) and the
-CE's denominator is the labelled count of the whole batch, so each rank's
-objective is its share. ``make_train_step`` then sums the gradients over
-the ranks (``parallel.fsdp.reduce_grads``), clips each group by its
-global norm (``parallel.fsdp.sq_norm``: each leaf once, its blocks summed
-over the axes that split it, so every rank clips alike) and keeps the
-Adam moments on the rank's blocks. This is the JAX package's step over
+Under a training mesh (any of the six axes) each rank holds
+its blocks of the leaves (``vita.param_specs``, as the Trainer cuts
+them) and the global batch; the forward takes its rows and positions
+(``vita.batch_block``) and the CE's denominator is the labelled count of
+the whole batch, so each rank's objective is its share (the ranks of one
+'model' x 'expert' group hold the same rows and compute the same share,
+whose gradient the model's collectives give each of them: its block of a
+split leaf's, the whole of a replicated one's). ``make_train_step`` then
+sums the gradients over the ranks of 'data', 'fsdp' and 'seq'
+(``parallel.fsdp.reduce_grads``), clips each group by its global norm
+(``parallel.fsdp.sq_norm``: each leaf once, its blocks summed over every
+axis that splits it, so every rank clips alike) and keeps the Adam
+moments on the rank's blocks. This is the JAX package's step over
 the same global batch, which GSPMD shards.
 """
 

@@ -10,9 +10,9 @@ directory is written under a temporary name and renamed into place when
 complete, so a ``step_N`` directory is always whole. Parameters update in
 place.
 
-``Trainer(..., mesh=)`` trains over a training mesh
-(``parallel.mesh.training_axes``: 'data', 'fsdp', 'pipe', 'seq'; one
-process a rank, as ``parallel.distributed.training_mesh`` starts them). It
+``Trainer(..., mesh=)`` trains over a training mesh of any of the six
+axes (one process a rank, as
+``parallel.distributed.training_mesh`` starts them). It
 cuts this rank's blocks of the whole params by ``vita.param_specs`` onto
 its device, as the JAX package's ``device_put`` does (or takes blocks
 already cut: ``sharded=True``, from ``checkpoint.load_vita_checkpoint(...,
@@ -20,8 +20,13 @@ mesh=, training=True)``). Every rank builds the same global batch from
 the same seeded order and the step takes its rows. Metrics are the whole
 batch's on every rank; the mesh's first rank prints them and writes
 ``metrics.jsonl``. A checkpoint on a mesh holds each rank's blocks
-(``step_N/rank_R.pt`` for rank R of the mesh, with the mesh's shape); a
-run resumes on the mesh it was saved from.
+(``step_N/rank_R.pt`` for rank R of the mesh, with the mesh's shape in
+``mesh.json``). A run resumes on any mesh or on none, as the JAX
+package's orbax restores onto the target's sharding: on the mesh it was
+saved from each rank reads its own file; elsewhere each rank reads every
+saved rank's blocks (mapped, not copied), puts each leaf of the params
+and the Adam moments together by the saved mesh's specs and keeps its
+own block of it, one leaf at a time.
 """
 
 from __future__ import annotations
@@ -42,7 +47,15 @@ from vita_tpu_torch.data.dataset import Collator, modality_grouped_indices
 from vita_tpu_torch.data.loader import PrefetchLoader
 from vita_tpu_torch.models import vita
 from vita_tpu_torch.parallel import fsdp
-from vita_tpu_torch.parallel.mesh import AXES, all_reduce_sum, axis, training_axes
+from vita_tpu_torch.parallel.mesh import (
+    AXES,
+    DATA,
+    FSDP,
+    PIPE,
+    all_reduce_sum,
+    axis,
+    local_shard,
+)
 from vita_tpu_torch.train.step import (
     TrainConfig,
     batch_logits,
@@ -105,6 +118,12 @@ def load_state(directory: str, step: Optional[int] = None, device=None, mmap: bo
                       map_location=device, weights_only=True, mmap=mmap)
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _mesh_rank(mesh) -> int:
     """This rank's index in the mesh, row-major over its axes."""
     r = 0
@@ -144,7 +163,7 @@ class Trainer:
         self.cfg, self.tc, self.run, self.mesh = cfg, tc, run, mesh
         self.lead = True
         if mesh is not None:
-            data, fsdp_n, _, _ = training_axes(mesh)
+            data, fsdp_n = axis(mesh, DATA).size, axis(mesh, FSDP).size
             if run.batch_size % (data * fsdp_n):
                 raise ValueError(f"batch size {run.batch_size} does not divide over data x fsdp "
                                  f"= {data * fsdp_n} ranks")
@@ -183,17 +202,52 @@ class Trainer:
         if os.path.exists(os.path.join(where, MESH_FILE)):
             with open(os.path.join(where, MESH_FILE)) as f:
                 saved = json.load(f)["mesh"]
-        if saved != (None if self.mesh is None else self._mesh_shape()):
-            raise NotImplementedError(
-                f"{where} was saved on mesh {saved}, this run's is "
-                f"{None if self.mesh is None else self._mesh_shape()}: a run resumes on the "
-                "mesh it was saved from (ROADMAP A11d (resume on another mesh))")
-        state = load_state(self._ckpt_dir(), steps[-1], self._device(), name=self._state_file())
+        mine = None if self.mesh is None else self._mesh_shape()
+        if saved == mine:
+            state = load_state(self._ckpt_dir(), steps[-1], self._device(),
+                               name=self._state_file())
+        else:
+            state = self._restore(where, saved)
         copy_into(self.params, state["params"])
         self.opt_state = state["opt_state"]
         self.step = state["step"]
         if self.lead:
-            print(f"[trainer] resumed from step {self.step}")
+            print(f"[trainer] resumed from step {self.step}"
+                  + ("" if saved == mine else f" (saved on mesh {saved}, restored onto {mine})"))
+
+    @torch.no_grad()
+    def _restore(self, where: str, saved: Optional[List[int]]):
+        """The state saved in ``where`` on a mesh of shape ``saved`` (None:
+        unsharded) for this run: each leaf of the params and of the Adam
+        moments put together whole from every saved rank's blocks by the
+        saved mesh's specs (``fsdp.assemble``), then cut to this rank's
+        block by this run's (whole without a mesh), one leaf at a time."""
+        files = [STATE_FILE] if saved is None else [
+            f"rank_{r}.pt" for r in range(math.prod(saved))]
+        states = [torch.load(os.path.join(where, f), map_location="cpu", weights_only=True,
+                             mmap=True) for f in files]
+        pipe = 1 if saved is None else saved[AXES.index(PIPE)]
+        old = dict(tree_leaves(vita.param_specs(dataclasses.replace(
+            self.cfg, llm=dataclasses.replace(self.cfg.llm, pipe_stages=pipe)))))
+        new = dict(tree_leaves(vita.param_specs(self.cfg)))
+        dev = self._device()
+
+        def leaf(path, blocks):
+            x = blocks[0] if saved is None else fsdp.assemble(blocks, old[path], saved)
+            if self.mesh is not None:
+                x = local_shard(x, new[path], self.mesh)
+            return x.to(dev, copy=True)
+
+        def params(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: params(v, path + (k,)) for k, v in tree.items()}
+            return leaf(path, [_at(st["params"], path) for st in states])
+
+        opt = states[0]["opt_state"]
+        moments = {m: {key: leaf(tuple(key.split("/")), [st["opt_state"][m][key] for st in states])
+                       for key in opt[m]} for m in ("mu", "nu")}
+        return {"params": params(states[0]["params"]), "step": states[0]["step"],
+                "opt_state": {**opt, **moments}}
 
     def save(self) -> None:
         """``{params, opt_state, step}`` to ``ckpt/step_N``; on a mesh every
@@ -231,7 +285,9 @@ class Trainer:
                   if next(tree_leaves(mask[k]))[1]}
         if self.mesh is not None:
             specs = vita.param_specs(self.cfg)
-            subset = {k: fsdp.whole_tree(v, specs[k], self.mesh) for k, v in subset.items()}
+            with torch.no_grad():
+                subset = {k: fsdp.gather_tree(v, specs[k], self.mesh, whole=True)
+                          for k, v in subset.items()}
         if self.lead:
             save_state(os.path.join(self.run.output_dir, name), self.step, subset)
 
