@@ -2,7 +2,9 @@
 """Measurements behind PERF.md that chip_smoke.py does not take, on one
 NVIDIA GPU.
 
-    python3 chip_probe.py profile   # where served decode's time goes
+    python3 chip_probe.py profile   # where served decode's time goes, at decode_inflight 1 and 2
+    python3 chip_probe.py syncs     # host waits for the card in pure-decode Engine ticks
+    python3 chip_probe.py bounds    # the expert kernels' bounds at the probes' shapes (no card)
     python3 chip_probe.py warps     # warps per block of csrc/expert_ffn.cu
     python3 chip_probe.py gmm       # where the Generator's gmm prefill goes
     python3 chip_probe.py train     # where a training step's time goes
@@ -33,12 +35,27 @@ NVIDIA GPU.
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
-pages; int8 experts over int8 KV pages) under torch.profiler: one text
-request alone, then eight text requests at once, 64 new tokens each, each
-after a warm-up with the same traffic. Prints per run the wall time
-(profiler overhead included), the device time (the sum of the kernels'
-and copies' durations), the busy share (device over wall), the largest
-device entries and the host's kernel launches.
+pages; int8 experts over int8 KV pages), each at decode_inflight 1 and 2
+(the Engine's default), under torch.profiler: one text request alone,
+then eight text requests at once, 64 new tokens each, each after a
+warm-up with the same traffic. Prints per run the wall time (profiler
+overhead included), the device time (the sum of the kernels' and copies'
+durations), the busy share (device over wall), the largest device
+entries and the host's kernel launches.
+
+syncs: the bf16 engine of profile serves one text request of 512 new
+tokens; once it decodes alone, 8 more ticks run under
+torch.cuda.set_sync_debug_mode("warn"), and the warnings (each a host
+wait for the card: a blocking copy, .cpu(), .item(), a stream or device
+synchronize) are counted by the line that made them. It passes no option
+a version of the Engine without decode_inflight lacks, so a copy of this
+file beside an older checkout counts that checkout's waits.
+
+bounds: needs no card. The least time of the expert decode kernels at
+the shapes the expert probes time (chip_smoke.bound: the larger of the
+operations the routed pairs need over the bf16 peak and the bytes over
+the memory rate, counting x, the rows' expert ids and token slots, the
+distinct experts' weights and scales once, and the rows' bf16 outputs).
 
 warps: copies of vita_tpu_torch/csrc under build/warps/, each with another
 choice of warps per block in expert_ffn.cu, built together and held
@@ -310,23 +327,86 @@ def profile(card: str) -> None:
     cfg = smoke.slice_config()
     params = vita.init_params(cfg, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
     for label, options in ENGINES:
-        engine = Engine(params, cfg, max_len=2048, device=dev, **options)
-        for run, lengths in (("solo", WAVE[:1]), ("wave of 8 text", WAVE)):
-            def traffic():
-                rng = np.random.default_rng(smoke.SEED)
-                return [smoke.text_request(cfg, rng, n, NEW_TOKENS) for n in lengths]
+        for depth in (1, 2):
+            engine = Engine(params, cfg, max_len=2048, device=dev, decode_inflight=depth,
+                            **options)
+            for run, lengths in (("solo", WAVE[:1]), ("wave of 8 text", WAVE)):
+                def traffic():
+                    rng = np.random.default_rng(smoke.SEED)
+                    return [smoke.text_request(cfg, rng, n, NEW_TOKENS) for n in lengths]
 
-            smoke.serve(engine, traffic())
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
                 smoke.serve(engine, traffic())
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            _summarize(prof, wall, f"{label}, {run}", card)
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+                with torch_profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    smoke.serve(engine, traffic())
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                _summarize(prof, wall, f"{label}, decode_inflight {depth}, {run}", card)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def syncs(card: str) -> None:
+    import warnings
+
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = smoke.slice_config()
+    params = vita.init_params(cfg, torch.Generator(device=dev).manual_seed(smoke.SEED), dev)
+    label, options = ENGINES[0]
+    engine = Engine(params, cfg, max_len=2048, device=dev, **options)
+    rng = np.random.default_rng(smoke.SEED)
+    smoke.serve(engine, [smoke.text_request(cfg, rng, 100, 8)])  # warm-up
+    req = engine.submit(smoke.text_request(cfg, rng, 100, 512))
+    while engine.active_count() == 0 or engine._prefill_jobs:
+        engine.step()
+    for _ in range(2):  # the chunks in flight, where there are any, fill up
+        engine.step()
+    ticks, sites = 8, collections.Counter()
+    # set before the warnings are recorded: setting it warns once itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                engine.step()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for w in seen:
+        if "synchronizing" in str(w.message):
+            sites[f"{os.path.relpath(w.filename)}:{w.lineno}"] += 1
+    n = sum(sites.values())
+    print(f"  {label}, one request decoding alone: {ticks} ticks in {wall:.1f} ms, {n} host "
+          f"waits for the card ({n / ticks:.2f} a tick)  [{card}]", flush=True)
+    for site, k in sites.most_common():
+        print(f"      {k:5d}  {site}", flush=True)
+    req.cancel()
+    engine.run_until_idle()
+
+
+def bounds(_card: str = "") -> None:
+    d, f, k = 4096, 14336, 2
+    # (kernel, T, distinct experts, weight bits, masked plan)
+    cases = (("B3", 3, 5, 16, False), ("B4", 8, 8, 16, True), ("B4", 16, 8, 16, True),
+             ("B8a", 8, 6, 8, True), ("B8a", 16, 8, 8, True), ("B8b", 16, 8, 4, True))
+    for name, t, n_exp, bits, masked in cases:
+        expert = 3 * d * f * bits // 8 + (0 if bits == 16 else 4 * (2 * f + d))
+        slots = 1 << (t - 1).bit_length()
+        rows, nt = (n_exp, slots) if masked else (t * k, 1)
+        nbytes = 2 * t * d + 4 * rows * (1 + nt) + n_exp * expert + 2 * rows * nt * d
+        flops = 2 * 3 * d * f * t * k
+        ms, by = smoke.bound(flops, nbytes)
+        print(f"  {name} T {t:2d} over {n_exp} experts: bound {ms:.4f} ms ({by}: "
+              f"{flops:.3e} FLOP, {nbytes:.4e} B)", flush=True)
 
 
 def _summarize(prof, wall: float, label: str, card: str, top: int = 6) -> None:
@@ -1910,7 +1990,8 @@ def tp_faults(card: str) -> None:
 def main() -> int:
     import torch
 
-    modes = {"profile": profile, "warps": warps, "gmm": gmm, "train": train, "flash": flash,
+    modes = {"profile": profile, "syncs": syncs, "bounds": bounds, "warps": warps, "gmm": gmm,
+             "train": train, "flash": flash,
              "gmm-kernels": gmm_kernels, "gmm-tiles": gmm_tiles, "flash-fwd": flash_fwd,
              "flash-fwd-tiles": flash_fwd_tiles, "gmm-small": gmm_small,
              "gmm-small-order": gmm_small_order, "expert": expert,
@@ -1923,6 +2004,9 @@ def main() -> int:
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
+    if sys.argv[1] == "bounds":
+        bounds()
+        return 0
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device visible to torch", file=sys.stderr)
         return 1

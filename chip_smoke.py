@@ -47,7 +47,13 @@ Phases, each of which raises on failure:
      image+audio with seven text requests); int8 experts with int8 KV
      pages (alone, then a wave of four); bf16 experts with gmm prefill
      (as the first). Launch counts are zeroed before each run and read
-     after it; every kernel of a run's path must have launched in it;
+     after it; every kernel of a run's path must have launched in it.
+     The Engines keep their default two decode chunks in flight; after
+     the first run the lone text request is served again by an Engine at
+     decode_inflight=1, whose greedy stream must be the same, and eight
+     pure-decode ticks run under torch.cuda.set_sync_debug_mode("error"):
+     no operand upload and no readback of the tick may wait for the card
+     (the wait on the oldest chunk's CUDA event is not such a call);
   4. the same slice through Generator (max_len 12288, gmm prefill, gather
      decode): an image+audio request (bucket 512, B5b) and a text request
      of about 8500 tokens (bucket 12288, T*k 24576, B5a), each first token
@@ -1283,7 +1289,7 @@ def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
     from vita_tpu_torch.serve.engine import Engine
 
     total = {}
-    for label, options, wave_texts, path in SERVED_RUNS:
+    for i, (label, options, wave_texts, path) in enumerate(SERVED_RUNS):
         print(f"  -- {label}: Engine({options})", flush=True)
         t0 = time.time()
         engine = Engine(params, cfg, max_len=2048, device=device, **options)
@@ -1294,6 +1300,8 @@ def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
         missing = [k for k in path if counts[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on its path: {missing}")
+        if i == 0:
+            inflight_check(card, engine, cfg, params, device, options, solo)
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         # reference: the cacheless bf16 forward over the solo prompt, whose
@@ -1305,6 +1313,55 @@ def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+def inflight_check(card: str, engine, cfg, params, device, options, solo,
+                   ticks: int = 8) -> None:
+    """Phase 3's first run, continued: ``solo`` again through an Engine at
+    decode_inflight=1 (its stream must be ``engine``'s, at the default 2),
+    then ``ticks`` pure-decode ticks of ``engine`` under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any call that
+    waits for the card (a blocking copy, .cpu(), .item(), a stream or
+    device synchronize). CUDA event waits are not such calls, so the
+    read of the oldest chunk runs under the mode too."""
+    import torch
+
+    from vita_tpu_torch.serve.engine import Engine, Request
+
+    t0 = time.time()
+    one = Engine(params, cfg, max_len=2048, device=device, decode_inflight=1, **options)
+    again = serve(one, [Request(input_ids=solo.input_ids, max_new_tokens=solo.max_new_tokens,
+                                eos_id=-1)])[0]
+    del one
+    if again.tokens != solo.tokens:
+        raise AssertionError(f"decode_inflight 1 streams {again.tokens} against 2's "
+                             f"{solo.tokens}")
+    print(f"  decode_inflight 1 streams the lone request's {len(solo.tokens)} tokens as 2 "
+          f"does; decode {again.decode_tokens_per_s:.2f} against "
+          f"{solo.decode_tokens_per_s:.2f} tok/s  [{card}]", flush=True)
+    req = engine.submit(text_request(cfg, np.random.default_rng(SEED + 1), 100, 512))
+    while engine.active_count() == 0 or engine._prefill_jobs:
+        engine.step()
+    while len(engine._inflight) < engine.decode_inflight:
+        engine.step()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        wall = (time.perf_counter() - t1) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if len(engine._inflight) != engine.decode_inflight or req.finish_time:
+        raise AssertionError(f"not a steady decode: {len(engine._inflight)} chunks in flight, "
+                             f"{len(req.tokens)} tokens")
+    req.cancel()
+    engine.run_until_idle()
+    if engine._inflight or engine.stats()["free_pages"] != engine.total_pages:
+        raise AssertionError("chunks or pages left after the drain")
+    print(f"  {ticks} pure-decode ticks under set_sync_debug_mode('error'): no host wait for "
+          f"the card ({wall:.1f} ms, {len(req.tokens)} tokens streamed); the check took "
+          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
 
 
 # the kernels the Generator phase must launch

@@ -11,7 +11,8 @@ with 4 requests, pipe 2 x model 2 (gather) and pipe 2 x expert 2
 
 - pipe 2 with dense, gather and gather_q decode; pipe 4 with 4 requests
   over its 4 waves; an image+audio request; session prefix reuse;
-  decode_ticks 4 against 1; gmm prefill under pipe 2 and under pipe 2 x
+  decode_ticks 4 against 1; decode_inflight 2 (two chunks of the ring in
+  flight after a tick); gmm prefill under pipe 2 and under pipe 2 x
   expert 2 (no dense fallback: the grouped-matmul route runs); pipe x
   model and pipe x expert (dense and gather); pipe 2 x model 2 x expert 2
   with int8 experts (8 ranks);
@@ -119,6 +120,8 @@ def _engine_cases(tcfg):
         "pp2_sampled": (PIPE2, sampled, dict(KW, seed=7), dict(runs=2), None),
         "pp2_slots3": (PIPE2, [_text(8)], dict(n_slots=3, max_len=64), {}, None),
         "pp2_cancel": (PIPE2, [_text(40)], KW, dict(cancel_after=5), None),
+        "pp2_inflight2": (PIPE2, [_text(16)], dict(KW, decode_inflight=2, decode_ticks=1), {},
+                          PIPE2),
     }
 
 
@@ -347,6 +350,18 @@ def test_pp_multi_tick_chain_token_identical(results):
     for r in ranks:
         assert r["pp2_ticks4"]["tokens"] == r["pp2_ticks1"]["tokens"]
         assert len(r["pp2_ticks4"]["tokens"][0][0]) == 24
+
+
+def test_pp_decode_inflight_two(results):
+    """decode_inflight 2 under pipe 2: two chunks of the ring ride the
+    stream after a tick, on every rank alike, and the streams equal JAX's
+    single-device Engine at depth 2, its pipe Engine and the unsharded
+    port."""
+    ranks = _check(results, "pp2_inflight2", pipe=True)
+    for r in ranks:
+        got = r["pp2_inflight2"]
+        assert got["inflight"] == r["pp2_inflight2/unsharded"]["inflight"] == 2
+        assert len(got["tokens"][0][0]) == 16
 
 
 def test_pp_vocab_split_head_sharding(results, models):

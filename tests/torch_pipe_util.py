@@ -239,7 +239,8 @@ def engine_run(mesh, params, cfg, requests: List[Dict[str, Any]], engine_kw: Dic
                cancel_after: int = 0, runs: int = 1, count_gmm: bool = False) -> Dict[str, Any]:
     """The Engine over this rank's shards (``mesh`` None: unsharded):
     each request's tokens, the chosen MoE modes and slots, the pages free
-    at the end; ``cancel_after`` > 0 cancels the first request once it
+    at the end, the most decode chunks in flight after a tick;
+    ``cancel_after`` > 0 cancels the first request once it
     streamed that many tokens; ``runs`` > 1 repeats on a fresh Engine;
     ``count_gmm`` counts the sharded grouped-matmul FFN's calls."""
     from vita_tpu_torch.models import mixtral
@@ -252,7 +253,7 @@ def engine_run(mesh, params, cfg, requests: List[Dict[str, Any]], engine_kw: Dic
             calls["gmm"] += 1
             return real(*a, **k)
         mixtral.sharded_gmm_ffn = counted
-    out: Dict[str, Any] = {"tokens": []}
+    out: Dict[str, Any] = {"tokens": [], "inflight": 0}
     try:
         for _ in range(runs):
             eng = Engine(params, cfg, mesh=mesh, device="cpu", **engine_kw)
@@ -264,6 +265,7 @@ def engine_run(mesh, params, cfg, requests: List[Dict[str, Any]], engine_kw: Dic
                 eng.submit(r)
             for _ in range(400):
                 n = eng.step()
+                out["inflight"] = max(out["inflight"], len(eng._inflight))
                 if cancel_after and len(seen) >= cancel_after:
                     reqs[0].cancel()
                 if n == 0 and eng.queue.empty() and not eng._pending:

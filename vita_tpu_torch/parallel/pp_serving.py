@@ -47,12 +47,6 @@ from vita_tpu_torch.parallel.pipeline import ring_item, ring_shift
 from vita_tpu_torch.sampling import sample_tokens
 
 
-def _knobs(dev, temperature, top_k, top_p):
-    return (torch.as_tensor(temperature, dtype=torch.float32, device=dev),
-            torch.as_tensor(top_k, dtype=torch.int32, device=dev),
-            torch.as_tensor(top_p, dtype=torch.float32, device=dev))
-
-
 def _finish(llm_params, h, generator, knobs, mode, mesh, vocab_split: bool, owner: bool):
     """The tokens sampled from the final hidden rows ``h`` [B, D] held on
     the last stage (None elsewhere), and their embeddings [B, D], both on
@@ -82,7 +76,8 @@ def _finish(llm_params, h, generator, knobs, mode, mesh, vocab_split: bool, owne
 def pp_prefill_chunk(llm_params, llm_cfg: mixtral.MixtralConfig, job, generator, mesh,
                      vocab_split: bool) -> torch.Tensor:
     """One prefill chunk of ``job`` (serve.engine._PrefillJob: the prompt's
-    embeddings on every rank, this stage's scratch) through the stage
+    embeddings on every rank, this stage's scratch, the request's sampling
+    knobs on the device) through the stage
     chain; its rows land in each stage's own scratch in place. Returns the
     token after row ``true_len - 1`` [1] int32 on every rank (meaningful
     on the last chunk)."""
@@ -92,7 +87,7 @@ def pp_prefill_chunk(llm_params, llm_cfg: mixtral.MixtralConfig, job, generator,
     dev = job.embeds.device
     x = job.embeds[:, off:off + chunk]
     cache = {"k": job.sk, "v": job.sv,
-             "pos": torch.tensor([off], dtype=torch.int32, device=dev)}
+             "pos": torch.full((1,), off, dtype=torch.int32, device=dev)}
     positions = off + torch.arange(chunk, device=dev)[None]
     valid = torch.arange(job.bucket, device=dev)[None] < off + chunk
     y = x
@@ -106,9 +101,8 @@ def pp_prefill_chunk(llm_params, llm_cfg: mixtral.MixtralConfig, job, generator,
                 y = got[0]
     row = min(max(job.true_len - 1 - off, 0), chunk - 1)
     h = rms_norm(y[:, row], llm_params["ln_final"], llm_cfg.rms_eps) if s == n - 1 else None
-    req = job.req
-    knobs = _knobs(dev, [req.temperature], [req.top_k], [req.top_p])
-    tok, _ = _finish(llm_params, h, generator, knobs, job.mode, mesh, vocab_split, s == n - 1)
+    tok, _ = _finish(llm_params, h, generator, job.knobs, job.mode, mesh, vocab_split,
+                     s == n - 1)
     if vocab_split:
         return tok
     if tok is None:

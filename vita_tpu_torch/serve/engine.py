@@ -14,8 +14,23 @@ prefill (vita_tpu.serve.engine, single-device path).
   chunk.
 - Decode: one sampling.decode_chunk call advances every active slot
   ``decode_chunk_len`` tokens, with the batch padded to the next power of
-  two; in pure decode phases up to ``decode_ticks`` chunks chain before the
-  host reads the tokens back (one ``.cpu()`` per tick).
+  two; in pure decode phases up to ``decode_ticks`` chunks chain into one
+  dispatch. The dispatch's tokens start their copy to the host at once
+  (pinned memory, a CUDA event after it) and the host cursor ``pos``
+  advances; the oldest chunk is read (its event waited on, its rows
+  streamed) only once ``decode_inflight`` newer chunks are queued. No
+  chunk is dispatched once every active slot's token budget is in flight
+  (the JAX Engine dispatches while a slot is active, up to
+  ``decode_inflight`` chunks past a request's end): a tick then reads the
+  oldest chunk, and with no slot active it reads them all. A row whose
+  slot no longer holds the request it was dispatched with (finished,
+  cancelled or preempted meanwhile) is dropped. The decode operands (page
+  table, pos, the active mask, the sampling knobs, the slot index) stay
+  on the device while the slots' state is unchanged (``_dev_state``,
+  keyed on ``_state_epoch``, which every change of that state bumps, and
+  the padded slot layout); pos advances there with the chunks, and a
+  changed state is uploaded from fresh pinned buffers without waiting for
+  the device.
 - Prompts, image tiles and audio frames pad to fixed buckets, as in the
   JAX package.
 - MoE modes: prefill runs ``prefill_moe_mode`` (dense, gmm, sort or
@@ -211,6 +226,7 @@ class _PrefillJob:
     sk: torch.Tensor  # scratch kv [L, 1, bucket, Hkv, hd]
     sv: torch.Tensor
     mode: str  # sampling tier for this request
+    knobs: tuple  # the request's temperature, top_k, top_p [1] on the device
     offset: int = 0
     tok: Optional[torch.Tensor] = None  # first token [1] after the last chunk
 
@@ -224,7 +240,7 @@ def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator, mesh=None) 
     dev = job.embeds.device
     x = job.embeds[:, off:off + chunk]
     cache = {"k": job.sk, "v": job.sv,
-             "pos": torch.tensor([off], dtype=torch.int32, device=dev)}
+             "pos": torch.full((1,), off, dtype=torch.int32, device=dev)}
     positions = off + torch.arange(chunk, device=dev)[None]
     valid = torch.arange(job.bucket, device=dev)[None] < off + chunk
     hidden, _, _ = mixtral.forward(
@@ -233,14 +249,7 @@ def _prefill_chunk(llm_params, llm_cfg, job: _PrefillJob, generator, mesh=None) 
     )
     row = min(max(job.true_len - 1 - off, 0), chunk - 1)
     logits = mixtral.lm_logits(llm_params, hidden[:, row], mesh)
-    req = job.req
-    return sample_tokens(
-        logits, generator,
-        torch.tensor([req.temperature], dtype=torch.float32, device=dev),
-        torch.tensor([req.top_k], dtype=torch.int32, device=dev),
-        torch.tensor([req.top_p], dtype=torch.float32, device=dev),
-        mode=job.mode,
-    )
+    return sample_tokens(logits, generator, *job.knobs, mode=job.mode)
 
 
 class Engine:
@@ -260,6 +269,7 @@ class Engine:
         total_pages: Optional[int] = None,  # default: n_slots * max_len / page
         prefill_chunk: int = 256,
         decode_chunk_len: int = 8,
+        decode_inflight: int = 2,  # dispatched chunks queued before the oldest is read
         decode_ticks: int = 4,
         max_concurrent_prefills: int = 2,
         kv_int8: bool = False,
@@ -283,7 +293,7 @@ class Engine:
         self._pp_vocab_split = mixtral.vocab_split(cfg.llm, mesh)
         self.device = torch.device(
             device if device is not None else params["llm"]["embed"].device)
-        if mesh is not None and not sharded:  # raises for the axes not ported yet
+        if mesh is not None and not sharded:  # raises for a 'seq' axis > 1
             params = vita.shard_params(params, cfg, mesh, self.device)
         elif mesh is not None:
             serving_axes(mesh)
@@ -293,6 +303,7 @@ class Engine:
         page_size = min(page_size, max_len)
         self.page_size = page_size
         self.decode_chunk_len = decode_chunk_len
+        self.decode_inflight = max(1, decode_inflight)
         self.decode_ticks = max(1, decode_ticks)
         self.prefill_chunk = prefill_chunk
         self.prompt_buckets = prompt_buckets_for(prompt_buckets, max_len, page_size)
@@ -327,6 +338,15 @@ class Engine:
         self._topp = np.ones(n_slots, np.float32)
         self._tok_dev = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the decode operands on the device, reused while the slots' state
+        # is unchanged: (key, operands...), key = (epoch, padded slot layout)
+        # or (epoch,) on the pipe ring; every change of the table, pos,
+        # the active set or the knobs bumps the epoch
+        self._dev_state: Optional[tuple] = None
+        self._state_epoch = 0
+        # dispatched chunks not yet read: (tokens on the host, the CUDA
+        # event after their copy or None, [(slot, request)] of the rows)
+        self._inflight: List[tuple] = []
 
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._pending: collections.deque = collections.deque()
@@ -450,11 +470,12 @@ class Engine:
 
     def step(self) -> int:
         """One engine tick: admit, advance every prefill one chunk, decode
-        one round for the active slots. Returns active slots + prefills."""
+        one round for the active slots. Returns active slots + prefills +
+        chunks in flight, so a loop that ticks until 0 reads every chunk."""
         self._admit()
         self._prefill_tick()
         self._decode_tick()
-        return self.active_count() + len(self._prefill_jobs)
+        return self.active_count() + len(self._prefill_jobs) + len(self._inflight)
 
     def run_until_idle(self, max_ticks: int = 100000) -> None:
         for _ in range(max_ticks):
@@ -585,8 +606,15 @@ class Engine:
             self._pending.popleft()
             self._start_prefill(free_slots[0], req, pages)
 
-    def _tensor(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _upload(self, x) -> torch.Tensor:
+        """A device copy of the host array ``x`` that does not wait for the
+        device: on a card it is queued on the stream from a fresh pinned
+        buffer, which the caching host allocator keeps until the copy has
+        run. Later edits of ``x`` do not reach it."""
+        t = torch.from_numpy(np.array(x))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _embed(self, req: Request, ids: np.ndarray) -> torch.Tensor:
         # on resume the masks are shorter than the prompt; they pad with False
@@ -618,6 +646,9 @@ class Engine:
             req=req, slot=slot, pages=pages, true_len=s, bucket=bucket,
             chunk=chunk, embeds=self._embed(req, np.asarray(padded)), sk=sk, sv=sv,
             mode=choose_sampling_mode(req.temperature, req.top_k, req.top_p),
+            knobs=(self._upload(np.array([req.temperature], np.float32)),
+                   self._upload(np.array([req.top_k], np.int32)),
+                   self._upload(np.array([req.top_p], np.float32))),
             offset=offset,
         ))
 
@@ -656,7 +687,7 @@ class Engine:
             vec = np.zeros(n_pp, np.int64)
             use = min(n_pp, len(cached.pages))
             vec[:use] = cached.pages[:use]
-            sk, sv = _extract_pages(self.cache, self._tensor(vec), self.cfg.llm.dtype)
+            sk, sv = _extract_pages(self.cache, self._upload(vec), self.cfg.llm.dtype)
             self._reused_prefix_rows += offset
         self.alloc.release(cached.pages)
         return offset, sk, sv
@@ -688,7 +719,7 @@ class Engine:
         use = min(n_pp, len(job.pages))
         ids[:use] = job.pages[:use]
         install_prefill_pages(self.cache["k_pages"], self.cache["v_pages"],
-                              job.sk, job.sv, self._tensor(ids),
+                              job.sk, job.sv, self._upload(ids),
                               self.cache.get("k_scale"), self.cache.get("v_scale"))
         slot, req = job.slot, job.req
         # unused table entries hold an out-of-range page id: decode writes
@@ -700,6 +731,7 @@ class Engine:
         self._temps[slot] = req.temperature
         self._topk[slot] = req.top_k
         self._topp[slot] = req.top_p
+        self._state_epoch += 1
         self._tok_dev[slot] = job.tok[0]
         req._pages = job.pages
         # emit the first token now; the decode chunk feeding it skips it
@@ -728,6 +760,7 @@ class Engine:
                 if got is not None:
                     self._table_np[i, len(pages):need] = got
                     pages.extend(got)
+                    self._state_epoch += 1  # the device table is stale
                     break
                 if self._prefix_cache:
                     key = next(iter(self._prefix_cache))
@@ -752,107 +785,155 @@ class Engine:
 
     def _preempt_slot(self, slot: int) -> None:
         """Release the slot's pages and re-queue its request at the head of
-        the pending deque (it arrived before anything still pending)."""
+        the pending deque (it arrived before anything still pending). Its
+        rows of the chunks in flight are dropped: it re-prefills from the
+        tokens it has emitted, and may hold this slot again before those
+        chunks are read."""
         req = self.slot_req[slot]
         self.slot_req[slot] = None
         self.pos[slot] = 0
         self._skip[slot] = 0
+        self._state_epoch += 1
+        for _, _, slots in self._inflight:
+            slots[:] = [(s, None if r is req else r) for s, r in slots]
         self.alloc.release(req._pages)
         req._pages = None
         self._pending.appendleft(req)
 
     def _ticks_this_round(self, active_idx) -> int:
-        """Decode chunks to chain before the readback: more than one only
-        in pure decode phases, bounded by the largest remaining budget."""
-        if (self.decode_ticks <= 1 or self._prefill_jobs or self._pending
-                or not self.queue.empty()):
-            return 1
+        """Decode chunks to chain into this round's dispatch: none once
+        every active slot's token budget is dispatched (pos is the
+        speculative cursor: the rows only wait to be read), more than one
+        only in pure decode phases, bounded by the largest remaining
+        budget."""
         remaining = max(
             self.slot_req[i].max_new_tokens
             - (int(self.pos[i]) - len(self.slot_req[i].input_ids))
             for i in active_idx
         )
-        need = -(-max(remaining, 1) // self.decode_chunk_len)
-        return max(1, min(self.decode_ticks, need))
+        if remaining <= 0:
+            return 0
+        if (self.decode_ticks <= 1 or self._prefill_jobs or self._pending
+                or not self.queue.empty()):
+            return 1
+        need = -(-remaining // self.decode_chunk_len)
+        return min(self.decode_ticks, need)
 
     def _decode_tick(self) -> None:
-        """Decode one round for the active slots, batch padded to the next
-        power of two (padding rows repeat a live slot and are inactive),
-        then stream the tokens out."""
+        """Dispatch one round for the active slots, then read the oldest
+        chunks until ``decode_inflight`` remain in flight. With every
+        active budget already in flight, read only the oldest chunk (a
+        tick's worth of tokens, as when dispatching); with no slot active,
+        read them all."""
         active_idx = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active_idx:
-            return
-        ticks = self._ticks_this_round(active_idx)
-        if self._ensure_pages(active_idx, ticks):
+        ticks = self._ticks_this_round(active_idx) if active_idx else 0
+        if ticks and self._ensure_pages(active_idx, ticks):
             active_idx = [i for i, r in enumerate(self.slot_req) if r is not None]
-            if not active_idx:
-                return
-            ticks = self._ticks_this_round(active_idx)
-        if self._pp > 1:
-            self._decode_ring(active_idx, ticks)
-            return
+            ticks = self._ticks_this_round(active_idx) if active_idx else 0
+        if ticks and self._pp > 1:
+            self._dispatch_ring(active_idx, ticks)
+        elif ticks:
+            self._dispatch(active_idx, ticks)
+        if ticks:
+            keep = self.decode_inflight
+        elif active_idx:  # every budget in flight: read a tick's worth
+            keep = max(len(self._inflight) - 1, 0)
+        else:
+            keep = 0
+        while len(self._inflight) > keep:
+            self._process_chunk(*self._inflight.pop(0))
+
+    def _dispatch(self, active_idx, ticks: int) -> None:
+        """Queue ``ticks`` chained chunks for the active slots, the batch
+        padded to the next power of two (padding rows repeat a live slot
+        and are inactive), on the cached device operands."""
         na = len(active_idx)
         nb = 1
         while nb < na:
             nb *= 2
         nb = min(nb, self.n_slots)
         idx = np.asarray(active_idx + [active_idx[0]] * (nb - na), np.int64)
-        active = np.zeros(nb, bool)
-        active[:na] = True
         mode = choose_sampling_mode(self._temps[idx[:na]], self._topk[idx[:na]],
                                     self._topp[idx[:na]])
+        key = (self._state_epoch, idx.tobytes())
+        if self._dev_state is None or self._dev_state[0] != key:
+            active = np.zeros(nb, bool)
+            active[:na] = True
+            self._dev_state = (key,) + tuple(self._upload(x) for x in (
+                idx, self._table_np[idx], self.pos[idx], active, self._temps[idx],
+                self._topk[idx], self._topp[idx]))
+        _, idx_d, table, pos, active, temps, topk, topp = self._dev_state
         cache = dict(self.cache)  # pool (+ scales when kv_int8)
-        cache["table"] = self._tensor(self._table_np[idx])
-        pos = self._tensor(self.pos[idx])
-        args = (self._tensor(active), self._tensor(self._temps[idx]),
-                self._tensor(self._topk[idx]), self._tensor(self._topp[idx]))
-        tok = self._tok_dev[self._tensor(idx)]
+        cache["table"] = table
+        tok = self._tok_dev[idx_d]
         parts = []
         for _ in range(ticks):
             cache, toks, tok = decode_chunk(
-                self._decode_llm, cache, tok, pos, *args, self._generator,
-                llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
+                self._decode_llm, cache, tok, pos, active, temps, topk, topp,
+                self._generator, llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
                 sampling_mode=mode, mesh=self.mesh,
             )
             pos = cache["pos"]
             parts.append(toks)
-        self._tok_dev[self._tensor(idx[:na])] = tok[:na]
+        # the device cursor advances with self.pos (a padding row repeats
+        # its slot's value)
+        self._dev_state = (key, idx_d, table, pos, active, temps, topk, topp)
+        self._tok_dev[idx_d[:na]] = tok[:na]
         self.pos[idx[:na]] += self.decode_chunk_len * ticks
-        self._stream(active_idx, torch.cat(parts, dim=1).cpu().numpy())
+        self._queue_chunk(torch.cat(parts, dim=1), [(i, self.slot_req[i]) for i in active_idx])
 
-    def _decode_ring(self, active_idx, ticks: int) -> None:
-        """The pipeline's decode round: every slot rides the S-wave ring
+    def _dispatch_ring(self, active_idx, ticks: int) -> None:
+        """The pipeline's round: every slot rides the S-wave ring
         (parallel.pp_serving.pp_decode_chunk) as wave w = slots
         [w*Bw, (w+1)*Bw); inactive slots neither write nor attend."""
         s_waves, n = self._pp, self.n_slots
         bw = n // s_waves
-        act = np.zeros(n, bool)
-        act[active_idx] = True
         mode = choose_sampling_mode(self._temps[active_idx], self._topk[active_idx],
                                     self._topp[active_idx])
-        grid = lambda x, dtype=None: self._tensor(  # noqa: E731
-            np.asarray(x).reshape((s_waves, bw) + np.asarray(x).shape[1:]), dtype)
-        table, active = grid(self._table_np), grid(act)
-        knobs = (grid(self._temps), grid(self._topk), grid(self._topp))
-        pos, tok = grid(self.pos), self._tok_dev.reshape(s_waves, bw)
+        key = (self._state_epoch,)
+        if self._dev_state is None or self._dev_state[0] != key:
+            act = np.zeros(n, bool)
+            act[active_idx] = True
+            self._dev_state = (key,) + tuple(
+                self._upload(x.reshape((s_waves, bw) + x.shape[1:]))
+                for x in (self._table_np, self.pos, act, self._temps, self._topk, self._topp))
+        _, table, pos, active, temps, topk, topp = self._dev_state
+        tok = self._tok_dev.reshape(s_waves, bw)
         parts = []
         for _ in range(ticks):
             toks, tok, pos = pp_decode_chunk(
-                self._decode_llm, self.cache, table, tok, pos, active, *knobs, self._generator,
-                llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
+                self._decode_llm, self.cache, table, tok, pos, active, temps, topk, topp,
+                self._generator, llm_cfg=self._decode_cfg, chunk_len=self.decode_chunk_len,
                 sampling_mode=mode, mesh=self.mesh, vocab_split=self._pp_vocab_split)
             parts.append(toks)
+        self._dev_state = (key, table, pos, active, temps, topk, topp)
         self._tok_dev = tok.reshape(n).clone()
         self.pos[active_idx] += self.decode_chunk_len * ticks
-        # rows are slot-indexed: [S, Bw, ticks*chunk] reshapes to [n, ...]
-        toks = torch.cat(parts, dim=2).reshape(n, -1).cpu().numpy()
-        self._stream(active_idx, toks[active_idx])
+        # rows are slot-indexed: [S, Bw, ticks*chunk] reads as [n, ...]
+        self._queue_chunk(torch.cat(parts, dim=2), list(enumerate(self.slot_req)))
 
-    def _stream(self, active_idx, toks) -> None:
-        """Emit each active slot's row of ``toks`` [len(active_idx), T]."""
-        for row, slot in enumerate(active_idx):
-            req = self.slot_req[slot]
-            for t in toks[row]:
+    def _queue_chunk(self, toks: torch.Tensor, slots) -> None:
+        """Queue a dispatched chunk's tokens: on a card their copy into
+        pinned host memory starts now and an event marks its end."""
+        event = None
+        if toks.is_cuda:
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            toks = host
+        self._inflight.append((toks, event, slots))
+
+    def _process_chunk(self, toks: torch.Tensor, event, slots) -> None:
+        """Read a queued chunk: wait for its copy, then stream each row to
+        its request, unless the slot no longer holds that request."""
+        if event is not None:
+            event.synchronize()
+        rows = toks.reshape(-1, toks.shape[-1]).numpy()
+        for row, (slot, req) in enumerate(slots):
+            if req is None or self.slot_req[slot] is not req:
+                continue  # finished, cancelled or preempted while in flight
+            for t in rows[row]:
                 if self._skip[slot] > 0:
                     self._skip[slot] -= 1
                     continue
@@ -886,6 +967,7 @@ class Engine:
         self.slot_req[slot] = None
         self.pos[slot] = 0
         self._skip[slot] = 0
+        self._state_epoch += 1
         pages = getattr(req, "_pages", None)
         if pages:
             keep = req.session_key and reason in ("eos", "length")
