@@ -32,6 +32,8 @@ NVIDIA GPU.
     python3 chip_probe.py pp-faults    # which of phase 13's (a) and (c) checks fail each planted fault
     python3 chip_probe.py tp-faults    # phase 15(b)'s gradients by leaf, as committed and each planted fault
     python3 chip_probe.py fsdp         # where a ZeRO-3 training step's time goes (fsdp 4)
+    python3 chip_probe.py dp-serve     # where full-width serving over fsdp 4 spends its time
+    python3 chip_probe.py dp-faults    # which of phase 14's (a) and (d) checks fail planted faults
 
 profile: chip_smoke.py's full-width 4-layer slice served by three engines
 on 8 slots (bf16 experts over bf16 KV pages; int4 experts over int8 KV
@@ -269,6 +271,23 @@ in the copy (the "f" over 'model' on the attention's input dropped; the
 experts' ffn-column partials rounded to bf16 before their sum): per run,
 each trainable leaf's sampled gradient against the unsharded bf16 step's
 and both against the float32 gradient, then the checks that failed.
+
+dp-serve: the full-width 2-layer slice (chip_smoke.py phase 14(d)'s
+weights, traffic and Engine options) served by the Engine over --mesh
+1 4 1 1, 4 gloo ranks time-sharing cuda:0, with bf16, int8 and int4
+experts (gmm prefill; int8 KV pages beside the quantized experts): per
+rank and engine, the host ms inside the fsdp gathers a prefill chunk and
+a decode step, the quantized copy's gathers at the Engine's build, the
+peak, TTFT and tok/s; rank 0 under torch.profiler for the device's busy
+share over the served requests.
+
+dp-faults: chip_smoke.py phase 14's capacity case of (a) (moe_chunk 40
+under 1 2 1 1) and (d)'s int4 run with the int8 copy (`dp_phase_ad`) run
+on a copy of the tree under build/faults/ as it is, then with each
+DP_FAULTS edit planted in the copy (decode_params quantizing each rank's
+own block of the experts instead of the gathered layer; the capacity
+mode with moe_chunk run over each rank's own tokens): per run, each
+check's reading and the checks that failed.
 
 Each prints the card's name and power limit first.
 
@@ -1940,10 +1959,9 @@ def tp_phase_b(card: str, small: bool = False) -> None:
     dev = torch.device("cpu" if small else "cuda")
     cfg = smoke.fsdp_full_config(small)
     full_s = 64 if small else smoke.FSDP_FULL_S
-    batches = smoke.fsdp_batches(cfg, 2, smoke.FSDP_FULL_B, full_s, smoke.FSDP_FULL_FRAMES,
-                                 smoke.SEED + 62)
-    full_ref, picks = smoke.fsdp_full_reference(cfg, batches, dev)
-    f32 = smoke.full_f32_gradients(cfg, batches[1], dev, picks)
+    batch = smoke.fsdp_full_batch(cfg, full_s)
+    full_ref, picks = smoke.fsdp_full_reference(cfg, batch, dev)
+    f32 = smoke.full_f32_gradients(cfg, batch, dev, picks)
     plan = {"device": "cpu" if small else "cuda:0", "small": small, "full_s": full_s,
             "picks": picks,
             "shapes": full_ref["shapes"], "narrow_meshes": (),
@@ -1987,6 +2005,151 @@ def tp_faults(card: str) -> None:
                 "phase 15", ("  TP", "  (b)", "    routing"))
 
 
+# --------------------------------------------------------------------------
+# serving over data/fsdp (chip_smoke.py phase 14(a) and (d))
+# --------------------------------------------------------------------------
+DP_PROBE_MESH = (1, 4, 1, 1)
+DP_PROBE_RUNS = (
+    ("bf16 experts", dict(decode_moe_mode="gather", prefill_moe_mode="gmm")),
+    ("int8 experts, int8 KV", dict(decode_moe_mode="gather_q", kv_int8=True,
+                                   prefill_moe_mode="gmm")),
+    ("int4 experts, int8 KV", dict(decode_moe_mode="gather_q4", kv_int8=True,
+                                   prefill_moe_mode="gmm")),
+)
+
+
+def dp_serve_probe_rank(rank, world, small):
+    """One rank of ``dp-serve``: each DP_PROBE_RUNS Engine over
+    DP_PROBE_MESH built from the whole weights on the host, serving
+    phase 14(d)'s requests (rank 0 under torch.profiler): wall and device
+    ms, the gathers' host ms by kind (smoke._timing_gathers), build s,
+    peak, TTFT and tok/s."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.parallel.mesh import make_mesh
+    from vita_tpu_torch.serve.engine import Engine
+
+    dev = torch.device("cpu" if small else "cuda:0")
+    if not small:
+        kernels.lib()
+    mesh = make_mesh(DP_PROBE_MESH)
+    cfg = smoke.fsdp_full_config(small)
+    host = smoke._to(smoke.slice_params(cfg, dev), "cpu")
+    out = {}
+    for label, kw in DP_PROBE_RUNS:
+        if not small:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        spent, build = {}, {}
+        with smoke._timing_gathers(build):
+            t0 = time.perf_counter()
+            engine = Engine(host, cfg, mesh=mesh, device=dev, **smoke.DP_SERVE_KW, **kw)
+            built = time.perf_counter() - t0
+        timed = rank == 0 and not small
+        ctx = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if timed else contextlib.nullcontext())
+        with smoke._timing_gathers(spent):
+            with ctx as prof:
+                smoke._sync(dev)
+                t0 = time.perf_counter()
+                reqs = smoke.serve(engine, smoke.dp_serve_requests(cfg))
+                smoke._sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+        out[label] = dict(wall=wall, device=_device_ms(prof) if timed else None, spent=spent,
+                          build=build.get("other", (0.0, 0, 0)), built_s=built,
+                          ttft=[r.ttft_s * 1e3 for r in reqs],
+                          tok_s=[r.decode_tokens_per_s for r in reqs],
+                          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if not small
+                          else 0.0)
+        del engine
+        gc.collect()
+    return out
+
+
+def dp_serve(card: str, small: bool = False) -> None:
+    """Phase 14(d)'s weights and traffic served over --mesh 1 4 1 1 by
+    each DP_PROBE_RUNS Engine (4 gloo ranks on cuda:0; ``small``: the tiny
+    config on the CPU): per rank, the host ms of the fsdp gathers a
+    prefill chunk and a decode step, those of the quantized copy at the
+    build, the peak, TTFT and tok/s; rank 0's device ms and busy share."""
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    res = run_ranks(dp_serve_probe_rank, 4, small, backend="gloo", timeout=900,
+                    store_dir=os.path.join(smoke.ROOT, "build"))
+    for label, _ in DP_PROBE_RUNS:
+        for r, out in enumerate(res):
+            run = out[label]
+            parts = []
+            for kind, name, what in (("prefill", "prefill", "a prefill chunk"),
+                                     ("decode", "decode", "a decode step"),
+                                     ("other", "the prompts' embedding", "")):
+                ms, n_g, n_f = run["spent"].get(kind, (0.0, 0, 0))
+                each = f" ({ms / n_f:.1f} ms {what})" if n_f else ""
+                parts.append(f"{name} {ms:.1f} ms in {n_g} gathers{each}")
+            ms, n_g, _ = run["build"]
+            parts.append(f"the Engine's build {ms:.1f} ms in {n_g} gathers")
+            busy = (f", device {run['device']:.1f} ms, busy {run['device'] / run['wall']:.3f}"
+                    if run["device"] is not None else "")
+            print(f"  dp-serve --mesh 1 4 1 1 {label} rank {r}: built in {run['built_s']:.1f} s, "
+                  f"served in {run['wall']:.1f} ms{busy}; gathers: {'; '.join(parts)}; peak "
+                  f"{run['peak_gib']:.2f} GiB; TTFT {[round(t, 1) for t in run['ttft']]} ms, "
+                  f"decode {[round(t, 3) for t in run['tok_s']]} tok/s ({smoke.FSDP_NOTE}) "
+                  f"[{card}]", flush=True)
+
+
+def dp_phase_ad(card: str, small: bool = False) -> None:
+    """chip_smoke.py phase 14's capacity case of (a) and (d)'s int4 run
+    with the int8 copy alone: the unsharded runs here, then 4 gloo ranks
+    on cuda:0 (``small``: the tiny config on the CPU); raises listing
+    every check that failed."""
+    import torch
+
+    from vita_tpu_torch.parallel.launch import run_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cpu" if small else "cuda")
+    narrow = tuple(smoke.NARROW_WHOLE_BATCH)[:1]
+    runs = [run for run in smoke.DP_SERVE_RUNS if run[2]["decode_moe_mode"] == "gather_q4"]
+    narrow_ref = smoke._narrow_refs(narrow, dev)
+    serve_ref = smoke.dp_serve_reference(card, smoke.fsdp_full_config(small), dev, runs)
+    plan = {"device": "cpu" if small else "cuda:0", "small": small, "narrow_meshes": narrow,
+            "full_meshes": (), "serve": [run[0] for run in runs], "cli": []}
+    results = run_ranks(smoke.fsdp_rank, smoke.FSDP_RANKS, plan, backend="gloo", timeout=900,
+                        store_dir=os.path.join(smoke.ROOT, "build"))
+    failed = []
+    smoke._narrow_report(results, narrow, narrow_ref, failed)
+    smoke.dp_serve_report(card, results, serve_ref, dev, failed, runs)
+    if failed:
+        raise AssertionError("phase 14 failed:\n  " + "\n  ".join(failed))
+
+
+# (name, edits of (file, text as committed, text as planted)): the
+# quantized decode copy made from each rank's own block, and the capacity
+# mode's drops and chunks taken over each rank's own tokens
+DP_FAULTS = (
+    ("as committed", ()),
+    ("D1: decode_params quantizes each rank's own block of the experts",
+     (("vita_tpu_torch/generate.py",
+       "whole = {k: fsdp.gather(moe[k][i], cut[k], mesh)[None] for k in experts}",
+       "whole = {k: torch.cat([moe[k][i]] * axis(mesh, FSDP).size,\n"
+       "                               dim=cut[k].index(FSDP))[None] for k in experts}"),)),
+    ("D2: capacity + moe_chunk over each rank's own tokens (_moe_over_batch skipped)",
+     (("vita_tpu_torch/models/mixtral.py",
+       "        if whole_batch:\n            moe_out, aux = _moe_over_batch(",
+       "        if False:\n            moe_out, aux = _moe_over_batch("),)),
+)
+
+
+def dp_faults(card: str) -> None:
+    _fault_runs(card, DP_FAULTS,
+                "import chip_smoke as cs, chip_probe as cp\ncp.dp_phase_ad(cs.card_line())",
+                "phase 14", ("  (a)", "  (d)"))
+
+
 def main() -> int:
     import torch
 
@@ -2000,7 +2163,7 @@ def main() -> int:
              "paged-ring": paged_ring, "session": session, "whale": whale,
              "mesh": mesh, "mesh-faults": mesh_faults, "ring": ring,
              "ring-faults": ring_faults, "pp": pp, "pp-faults": pp_faults, "fsdp": fsdp,
-             "tp-faults": tp_faults}
+             "tp-faults": tp_faults, "dp-serve": dp_serve, "dp-faults": dp_faults}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

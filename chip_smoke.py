@@ -199,28 +199,51 @@ Phases, each of which raises on failure:
      the gradients held to the same objective taken one microbatch at a
      time without the pipe, as phase 12(b) holds its own, and every rank
      launching B1, B10 and B11.
- 14. sharded training over the data and fsdp axes (ZeRO-3), as 4 ranks
-     spawned on cuda:0 over gloo after the unsharded steps here: (a)
-     phase 7's narrow fp32 configuration (stage 2, gmm, flash; dense and
-     one microbatch under pipe), 3 steps under --mesh 1 4 1 1, 2 2 1 1,
-     1 2 1 1 2 and 1 2 1 1 1 2 (DATA FSDP EXPERT MODEL [PIPE [SEQ]]):
-     each step's loss and every leaf after the last update against the
-     unsharded steps (FSDP_NARROW_*; a rank whose tokens took other
-     experts excused only at a router near tie), the blocks bitwise equal
-     on the ranks that hold the same one; (b) phase 6's 2-layer slice, 4
-     rows of 2048 tokens, a warm-up step and a step through
-     Trainer(mesh=) under 1 4 1 1: the losses, each group's
-     gradient norm, and the step's gradients and weights at sampled
-     elements against the unsharded Trainer's (FSDP_FULL_*), each rank's
-     peak (below the unsharded peak) and step ms printed, every rank
-     launching B1, B10, B11, B12 and B5a or B5b; (c) the train CLI
-     --mesh 1 4 1 1 --moe-mode gmm on the 4 ranks, twice: every rank exits
-     0, metrics.jsonl is written once, the second run resumes.
+ 14. sharded training and serving over the data and fsdp axes (ZeRO-3),
+     as 4 ranks spawned on cuda:0 over gloo after the unsharded runs
+     here: (a) phase 7's narrow fp32 configuration (stage 2, gmm, flash;
+     dense and one microbatch under pipe), 3 steps under --mesh 1 4 1 1,
+     2 2 1 1, 1 2 1 1 2 and 1 2 1 1 1 2 (DATA FSDP EXPERT MODEL [PIPE
+     [SEQ]]), and the capacity mode with moe_chunk 40 under 1 2 1 1 (two
+     replicas of 2 ranks; its MoE over the whole batch's gathered tokens)
+     against unsharded capacity steps: each step's loss and every leaf
+     after the last update against the unsharded steps (FSDP_NARROW_*; a
+     rank whose tokens took other experts excused only at a router near
+     tie), the blocks bitwise equal on the ranks of a mesh that hold the
+     same one; then the narrow fp32 Engine (phase 11's options, decode
+     chunks of 4) on phase 5's wave (an image+audio request and three
+     texts, 4 new tokens) under 2 2 1 1 and 1 4 1 1 with gather, int8 experts, and
+     int4 experts + int8 KV: every rank's greedy streams identical to the
+     unsharded card Engine's; (b) phase 6's 2-layer slice, 4 rows of 2048 tokens, one
+     step through Trainer(mesh=) under 1 4 1 1 (no warm-up step, which
+     took about 39 s a rank, and no learning-rate warm-up): the loss, each
+     group's gradient norm, and the step's gradients and weights at
+     sampled elements against the unsharded Trainer's (FSDP_FULL_*), each
+     rank's peak (below the unsharded peak) and step ms printed, every
+     rank launching B1, B10, B11, B12 and B5a or B5b; (d) the Engine over
+     data/fsdp at full width on (b)'s weights (each rank builds it from
+     the whole weights, which it cuts): S1 under 2 2 1 1 (bf16 experts
+     and KV pages, gmm prefill) and S2 under 1 4 1 1 (int4 experts, int8
+     KV pages, gmm prefill) serve an image+audio and a text request of 4
+     new tokens (2 prefill chunks and 4 decode steps, every one
+     gathering every layer): every rank's streams equal, and equal to the
+     unsharded Engine's here but at a logit near tie (NEAR_TIE); S2's
+     int4 copy and Q8's int8 copy (decode_params over S2's blocks under
+     1 4 1 1) bitwise equal, expert blocks and scales, to the unsharded
+     quantize_moe_for_decode copy cut by the serving specs (sha256
+     digests); every rank launching B1, B5b, B2 and B3 in S1 and B1, B5b,
+     B9 and B7 in S2; each rank's peak, TTFT, tok/s and host ms in the
+     fsdp gathers a prefill chunk and a decode step printed beside the
+     unsharded run's; (c) the train CLI --mesh 1 4 1 1 --moe-mode gmm on
+     the 4 ranks, twice: every rank exits 0, metrics.jsonl is written
+     once, the second run resumes.
  15. tensor- and expert-parallel training, as 4 ranks spawned on cuda:0
      over gloo after phase 14 (whose unsharded references it reuses): (a)
      phase 14(a)'s narrow steps under --mesh 1 1 2 2, 1 2 1 2, 2 1 2 1,
-     1 1 1 2 2 (pipe x model) and 1 1 1 2 1 2 (model x seq), held as
-     phase 14(a) holds its own; (b) phase 14(b)'s full-width step under
+     1 1 1 2 2 (pipe x model) and 1 1 1 2 1 2 (model x seq), and the sort
+     mode under 1 1 2 1 1 2 (expert x seq; its MoE over the whole batch's
+     gathered tokens) against unsharded sort steps, held as phase 14(a)
+     holds its own; (b) phase 14(b)'s full-width step under
      1 1 2 2 (16 q / 4 kv heads and 4 experts of 7168 ffn columns a rank),
      held as phase 14(b) (a leaf's sampled gradient beyond its tolerance
      held instead to the float32 gradient: TP_GRAD_F32_FACTOR) and
@@ -232,9 +255,9 @@ Phases, each of which raises on failure:
      Adam moments), then the train CLI --mesh 1 1 2 2 trains two more
      steps from it and every rank exits 0.
 
-Prints the card's name and power limit first, a JSON line of per-kernel
-results (launches summed over phases 3-15, phases 11-15's over their
-ranks) before the last, and as the last
+Prints the card's name and power limit first, the wall of phases 1-15,
+then a JSON line of per-kernel results (launches summed over phases 3-15,
+phases 11-15's over their ranks) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -2707,7 +2730,8 @@ def mesh_narrow_requests(cfg):
 
 
 def mesh_full_requests(cfg, wave_texts, max_new_tokens=16):
-    """Warm-up, then a 100-token text alone and a wave of one image+audio
+    """Warm-up requests (served before a process's first full-width
+    Engine), a 100-token text alone, and a wave of one image+audio
     request with texts of ``wave_texts`` tokens."""
     rng = np.random.default_rng(SEED + 11)
     warm = [text_request(cfg, rng, 30, 4), media_request(cfg, rng, 4)]
@@ -2775,11 +2799,13 @@ def _recording_routes(engine, routes):
         mixtral.route_topk, moe.route_topk = real_routes
 
 
-def _serve_full(engine, cfg, wave_texts, top2, routes):
-    """mesh_full_requests through ``engine``, its top-2 logits and routes
-    recorded: (streams, request ids, TTFT ms, decode tok/s)."""
-    warm, solo, wave = mesh_full_requests(cfg, wave_texts)
-    serve(engine, warm)
+def _serve_full(engine, cfg, wave_texts, top2, routes, warm=False):
+    """mesh_full_requests through ``engine`` (its warm-up only with
+    ``warm``: a process's first full-width Engine), its top-2 logits and
+    routes recorded: (streams, request ids, TTFT ms, decode tok/s)."""
+    warm_reqs, solo, wave = mesh_full_requests(cfg, wave_texts)
+    if warm:
+        serve(engine, warm_reqs)
     with _recording_top2(engine, top2), _recording_routes(engine, routes):
         reqs = serve(engine, solo) + serve(engine, wave)
     return ([r.tokens for r in reqs], [r.request_id for r in reqs],
@@ -2945,7 +2971,8 @@ def mesh_rank(rank, world, ckpt_dir, layer_path):
                             sharded=True, **kw)
             built = time.time() - t0
             top2, routes = {}, {}
-            tokens, ids, ttft, tps = _serve_full(engine, cfg, wave_texts, top2, routes)
+            tokens, ids, ttft, tps = _serve_full(engine, cfg, wave_texts, top2, routes,
+                                                 warm=not out["full"])
             # this rank's own routes at each step, by request index
             own = {(ids.index(k[0]),) + k[1:]: v for k, v in routes.items() if k[0] in ids}
             out["full"][axes, label] = dict(
@@ -4125,11 +4152,11 @@ def pipe_stage_request(cfg):
 
 
 def _serve_full_pp(engine, cfg, wave_texts, routes, tops, shifts):
-    """mesh_full_requests through a pipe ``engine``, its routes, sampled
-    top logits and ring shifts recorded: (streams, request ids, TTFT ms,
-    decode tok/s)."""
-    warm, solo, wave = mesh_full_requests(cfg, wave_texts)
-    serve(engine, warm)
+    """mesh_full_requests through a pipe ``engine`` without its warm-up
+    (the stage check has served the rank's first pipe request), its
+    routes, sampled top logits and ring shifts recorded: (streams, request
+    ids, TTFT ms, decode tok/s)."""
+    _, solo, wave = mesh_full_requests(cfg, wave_texts)
     with (_recording_pp_routes(engine, routes), _recording_pp_top(engine, tops),
           _timing_ring(shifts)):
         reqs = serve(engine, solo) + serve(engine, wave)
@@ -4572,7 +4599,15 @@ AXES_ALL = ("data", "fsdp", "expert", "model", "pipe", "seq")
 # runs dense MoE (gmm under pipe raises, as the JAX package's) with one
 # microbatch, so its objective is the unsharded step's (with 2 the aux is
 # the microbatches' mean, the JAX package's GPipe deviation)
-FSDP_NARROW_MESHES = ((1, 4, 1, 1), (2, 2, 1, 1), (1, 2, 1, 1, 2), (1, 2, 1, 1, 1, 2))
+FSDP_NARROW_MESHES = ((1, 4, 1, 1), (2, 2, 1, 1), (1, 2, 1, 1, 2), (1, 2, 1, 1, 1, 2),
+                      (1, 2, 1, 1))
+# the capacity and sort modes and moe_chunk over tokens split between ranks
+# (each layer's MoE over the whole batch's gathered tokens): the LLM's
+# overrides of these narrow meshes, each held to an unsharded step of the
+# same mode (phase 15 runs the sort mesh); a mesh of fewer ranks than the
+# group runs as replicas of consecutive ranks
+NARROW_WHOLE_BATCH = {(1, 2, 1, 1): dict(moe_mode="capacity", moe_chunk=40),
+                      (1, 1, 2, 1, 1, 2): dict(moe_mode="sort")}
 FSDP_NARROW_STEPS = 3
 FSDP_NARROW_B, FSDP_NARROW_S = 4, 256
 # per leaf after the last update: |w_mesh - w_ref| <= 2 * (the leaf's
@@ -4584,7 +4619,8 @@ FSDP_NARROW_B, FSDP_NARROW_S = 4, 256
 FSDP_NARROW_ATOL = 1e-6
 FSDP_NARROW_SHARE = 1e-3
 # (b) full width: phase 6's 2-layer slice, one row of FSDP_FULL_S tokens
-# a rank, a warm-up step (lr 0) and one step under each mesh
+# a rank, one step under each mesh (at the full learning rate: no warm-up,
+# and no separate warm-up step, which took about 39 s a rank)
 FSDP_FULL_MESHES = ((1, 4, 1, 1),)
 FSDP_FULL_B, FSDP_FULL_S = 4, 2048
 FSDP_FULL_FRAMES = 400
@@ -4607,13 +4643,51 @@ FSDP_SAMPLES = 4096
 # the kernels every rank must launch in (b)'s step (and B5a or B5b)
 FSDP_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gmm_wgrad")
 FSDP_NOTE = f"{FSDP_RANKS} ranks time-sharing one card: not a measure of scaling"
+# (a) serving over data/fsdp at phase 11's narrow fp32 configuration and
+# Engine options with decode chunks of 4, on phase 5's wave (an image+audio
+# request and three texts) of FSDP_SERVE_NARROW_NEW tokens (one decode
+# chunk: each forward gathers every layer through host memory): every
+# rank's streams identical to the unsharded card Engine's
+FSDP_SERVE_NARROW_NEW = 4
+FSDP_SERVE_NARROW_MESHES = ((2, 2, 1, 1), (1, 4, 1, 1))
+FSDP_SERVE_NARROW_RUNS = (
+    ("gather", dict(decode_moe_mode="gather")),
+    ("int8 experts", dict(decode_moe_mode="gather_q")),
+    ("int4 experts, int8 KV", dict(decode_moe_mode="gather_q4", kv_int8=True)),
+)
+# (d) serving over data/fsdp at full width, on (b)'s 2-layer slice and
+# weights: (label, mesh, Engine options, the kernels every rank must
+# launch). Each layer runs on its whole gathered weights, so the streams
+# must equal the unsharded Engine's but at a logit near tie (NEAR_TIE).
+DP_SERVE_RUNS = (
+    ("S1 bf16 experts, bf16 KV pages", (2, 2, 1, 1),
+     dict(decode_moe_mode="gather", prefill_moe_mode="gmm"),
+     ("flash_fwd", "gmm_small", "paged_attention", "gather_expert_ffn")),
+    ("S2 int4 experts, int8 KV pages", (1, 4, 1, 1),
+     dict(decode_moe_mode="gather_q4", kv_int8=True, prefill_moe_mode="gmm"),
+     ("flash_fwd", "gmm_small", "paged_attention_q", "gather_expert_ffn_q4")),
+)
+# Q8: the int8 copy alone (decode_params over S2's shards, no serving)
+DP_SERVE_Q8_MESH = (1, 4, 1, 1)
+# Every forward gathers every layer, so the forwards are kept few: two
+# slots, each prompt in one prefill chunk, 4 new tokens a request, and
+# one decode chunk of 4 steps (the Engine dispatches max_new_tokens steps
+# after the prefill, and every step of a chunk runs whatever the budget:
+# chunks of 3 would run 6): 2 prefill chunks and 4 decode steps a run.
+DP_SERVE_KW = dict(n_slots=2, max_len=1024, page_size=64, prefill_chunk=512,
+                   decode_chunk_len=4)
+DP_SERVE_NEW = 4
 
 
 def fsdp_narrow_config(mesh_shape):
     """Phase 7's configuration for a mesh: dense MoE and one microbatch
-    under pipe, the flash backend throughout."""
+    under pipe, the NARROW_WHOLE_BATCH modes on their meshes, the flash
+    backend throughout."""
     cfg = narrow_config()
     shape = tuple(mesh_shape) + (1,) * (6 - len(mesh_shape))
+    if tuple(mesh_shape) in NARROW_WHOLE_BATCH:
+        return dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, **NARROW_WHOLE_BATCH[tuple(mesh_shape)]))
     if shape[4] > 1:
         return dataclasses.replace(cfg, llm=dataclasses.replace(
             cfg.llm, moe_mode="dense", pipe_stages=shape[4], pipe_microbatches=1))
@@ -4653,8 +4727,8 @@ def fsdp_batches(cfg, n, b, s, frames, seed):
 def _fsdp_tc(full: bool):
     from vita_tpu_torch.train.step import TrainConfig
 
-    if full:  # phase 6's
-        return dataclasses.replace(TrainConfig.stage2_finetune(), warmup_steps=1)
+    if full:  # phase 6's rates, the first step at the full rate
+        return dataclasses.replace(TrainConfig.stage2_finetune(), warmup_steps=0)
     return TrainConfig(learning_rate=1e-3, projector_lr=1e-2, warmup_steps=1,
                        total_steps=10)  # phase 7's
 
@@ -4749,16 +4823,23 @@ def _train_steps(params, cfg, tc, batches, device, mesh=None):
 def _first_flip(ref_routes, got_routes, cfg, coords, sizes, b, s):
     """The first step at which a rank's tokens took other experts than
     the same tokens in the unsharded run (its rows over ('data', 'fsdp'),
-    its positions over 'seq', its stage's layers under 'pipe'), or None."""
+    its positions over 'seq', its stage's layers under 'pipe'; under a
+    NARROW_WHOLE_BATCH mode each router call takes the whole batch's
+    tokens, or its chunk of them, as the unsharded run's same call), or
+    None."""
     n_rows = sizes["data"] * sizes["fsdp"]
     r = coords["data"] * sizes["fsdp"] + coords["fsdp"]
     rows = slice(r * b // n_rows, (r + 1) * b // n_rows)
     pos = slice(coords["seq"] * s // sizes["seq"], (coords["seq"] + 1) * s // sizes["seq"])
     per_stage = cfg.llm.n_layers // sizes["pipe"]
+    whole = cfg.llm.moe_mode in ("capacity", "sort") or cfg.llm.moe_chunk > 0
     for i, (ref, got) in enumerate(zip(ref_routes, got_routes)):
+        if whole and len(got) != len(ref):
+            return i
         for j, ids in enumerate(got):
-            want = ref[coords["pipe"] * per_stage + j].reshape(b, s, -1)[rows, pos]
-            if not np.array_equal(ids, want.reshape(ids.shape)):
+            want = ref[j] if whole else ref[coords["pipe"] * per_stage + j].reshape(
+                b, s, -1)[rows, pos]
+            if want.size != ids.size or not np.array_equal(ids, want.reshape(ids.shape)):
                 return i
     return None
 
@@ -4775,14 +4856,19 @@ def fsdp_full_config(small: bool = False):
         cfg.llm, moe_mode="gmm", attn_backend="flash", remat=True))
 
 
-def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
-    """A Trainer (cut over ``mesh`` under one) takes a warm-up step and a
-    step on ``batches``: (losses, step ms, peak GiB since the warm-up's
-    start, launches in the step, the step's global gradient norm of each
-    optimizer group, the step's gradients at the sampled flat ``picks``
-    of each leaf of whole ``shapes`` (``_sample_block``), the trainer, the
-    step's routing: (sorted top-k ids, top-k gap) of each router call in
-    order)."""
+def fsdp_full_batch(cfg, full_s):
+    """(b)'s global batch: the second of the seeded pair (the step earlier
+    versions measured after a warm-up step on the first)."""
+    return fsdp_batches(cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)[1]
+
+
+def _fsdp_full_step(cfg, params, batch, device, picks, shapes, mesh=None):
+    """A Trainer (cut over ``mesh`` under one) takes a step on ``batch``:
+    (losses, step ms, peak GiB since the Trainer was built, launches in
+    the step, the step's global gradient norm of each optimizer group, the
+    step's gradients at the sampled flat ``picks`` of each leaf of whole
+    ``shapes`` (``_sample_block``), the trainer, the step's routing:
+    (sorted top-k ids, top-k gap) of each router call in order)."""
     import torch
 
     from vita_tpu_torch import kernels
@@ -4804,8 +4890,6 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
         torch.cuda.reset_peak_memory_stats(device)
     losses = []
     p, s = trainer.params, trainer.opt_state
-    p, s, m = trainer.step_fn(p, s, batches[0])
-    losses.append(float(m["loss"]))
     norms, grads_at, real_sq_norm = [], {}, fsdp.sq_norm
     coords = {a: axis(mesh, a).rank for a in AXES}
     sizes = {a: axis(mesh, a).size for a in AXES}
@@ -4838,7 +4922,7 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
     moe.route_topk = mixtral.route_topk = recording_route
     try:
         t0 = time.time()
-        p, s, m = trainer.step_fn(p, s, batches[1])
+        p, s, m = trainer.step_fn(p, s, batch)
         losses.append(float(m["loss"]))
         _sync(device)
         ms = (time.time() - t0) * 1e3
@@ -4850,7 +4934,7 @@ def _fsdp_full_step(cfg, params, batches, device, picks, shapes, mesh=None):
     return losses, ms, peak, dict(kernels.launches), norms, grads_at, trainer, routes
 
 
-def fsdp_full_reference(cfg, batches, device):
+def fsdp_full_reference(cfg, batch, device):
     """(b)'s unsharded Trainer steps here: losses, step ms, peak, the
     groups' gradient norms, and the step's gradients and the trainable
     leaves after it at sampled flat indices (host), with those picks and
@@ -4866,7 +4950,7 @@ def fsdp_full_reference(cfg, batches, device):
     picks = {name: np.sort(rng.choice(math.prod(shape), min(FSDP_SAMPLES, math.prod(shape)),
                                       replace=False)) for name, shape in shapes.items()}
     losses, ms, peak, _, norms, grads_at, trainer, routes = _fsdp_full_step(
-        cfg, params, batches, device, picks, shapes)
+        cfg, params, batch, device, picks, shapes)
     del params
     values = {name: w.detach().reshape(-1)[torch.as_tensor(picks[name], device=device)]
               .float().cpu().numpy() for name, w in _leaf_items(trainer.params) if name in picks}
@@ -4879,34 +4963,250 @@ def fsdp_full_reference(cfg, batches, device):
                 grads={k: v for k, (_, v) in grads_at.items()}), picks
 
 
+def dp_serve_requests(cfg):
+    """(d)'s traffic: an image+audio request and a 100-token text request,
+    DP_SERVE_NEW new tokens each, submitted together."""
+    rng = np.random.default_rng(SEED + 14)
+    return [media_request(cfg, rng, DP_SERVE_NEW),
+            text_request(cfg, rng, 100, DP_SERVE_NEW)]
+
+
+def _copy_digests(llm):
+    """{leaf: (dtype, shape, sha256 of the bytes)} of the expert leaves of
+    a decode copy's moe (the router left out)."""
+    import hashlib
+
+    out = {}
+    for k, w in llm["layers"]["moe"].items():
+        if k != "router":
+            host = w.detach().contiguous().cpu().numpy()
+            out[k] = (str(host.dtype), host.shape, hashlib.sha256(host.view(np.uint8)).hexdigest())
+    return out
+
+
+@contextlib.contextmanager
+def _timing_gathers(spent):
+    """While open, spent[kind] = [host ms inside parallel.fsdp.gather,
+    gathers, forwards (mixtral.run_layers calls)] accumulate, kind
+    'prefill' inside the Engine's prefill chunks, 'decode' inside its
+    decode chunks, 'other' elsewhere (the prompts' embedding; an Engine's
+    quantized copy when it is built inside). A gather over gloo stages
+    through host memory, so its time includes the wait for the card's
+    queued work."""
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.parallel import fsdp
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real = fsdp.gather, mixtral.run_layers, engine_mod._prefill_chunk, engine_mod.decode_chunk
+    kind = ["other"]
+
+    def record(i, amount):
+        spent.setdefault(kind[0], [0.0, 0, 0])[i] += amount
+
+    def gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real[0](*a, **kw)
+        finally:
+            record(0, (time.perf_counter() - t0) * 1e3)
+            record(1, 1)
+
+    def run_layers(*a, **kw):
+        record(2, 1)
+        return real[1](*a, **kw)
+
+    def within(name, fn):
+        def run(*a, **kw):
+            kind[0] = name
+            try:
+                return fn(*a, **kw)
+            finally:
+                kind[0] = "other"
+        return run
+
+    fsdp.gather, mixtral.run_layers = gather, run_layers
+    engine_mod._prefill_chunk = within("prefill", real[2])
+    engine_mod.decode_chunk = within("decode", real[3])
+    try:
+        yield
+    finally:
+        (fsdp.gather, mixtral.run_layers, engine_mod._prefill_chunk,
+         engine_mod.decode_chunk) = real
+
+
+def _served(reqs, dev, t0):
+    """A served run's readings: streams, TTFT ms, decode tok/s, peak GiB
+    (since the last reset) and wall s since ``t0``."""
+    import torch
+
+    return dict(tokens=[r.tokens for r in reqs], ttft_ms=[r.ttft_s * 1e3 for r in reqs],
+                tok_s=[r.decode_tokens_per_s for r in reqs], wall_s=time.time() - t0,
+                peak=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0)
+
+
+def dp_serve_rank(cfg, dev, meshes, runs=DP_SERVE_RUNS):
+    """(d) on one rank: the whole weights drawn as the unsharded run's
+    (on the card, then kept on the host so that no rank holds them on the
+    card beside its blocks and the quantizer's temporaries), each of
+    ``runs`` (DP_SERVE_RUNS entries) an Engine built from them (the Engine
+    cuts this rank's blocks) serving dp_serve_requests; after the int4 run
+    its copy's digests, then Q8: decode_params over its shards. Per run:
+    streams, TTFT, tok/s, peak (the Engine's build included), launches,
+    the gathers' host ms by kind, and this rank's coordinates."""
+    import torch
+
+    from vita_tpu_torch import generate, kernels
+    from vita_tpu_torch.parallel.mesh import AXES, axis
+    from vita_tpu_torch.serve.engine import Engine
+
+    host = _to(slice_params(cfg, dev), "cpu")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    for label, shape, kw, _ in runs:
+        mesh = meshes[shape]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        spent, build = {}, {}
+        t0 = time.time()
+        with _timing_gathers(build):
+            engine = Engine(host, cfg, mesh=mesh, device=dev, **DP_SERVE_KW, **kw)
+        built = time.time() - t0
+        kernels.reset_launches()
+        t0 = time.time()
+        with _timing_gathers(spent):
+            run = _served(serve(engine, dp_serve_requests(cfg)), dev, t0)
+        run.update(built_s=built, build=build.get("other", (0.0, 0, 0)),
+                   launches=dict(kernels.launches), spent=spent,
+                   coords={a: axis(mesh, a).rank for a in AXES})
+        if kw["decode_moe_mode"] == "gather_q4":
+            run["digests"] = _copy_digests(engine._decode_llm)
+            q8 = meshes[DP_SERVE_Q8_MESH]
+            t0 = time.time()
+            copy = generate.decode_params(engine.params, cfg, "gather_q", q8)
+            out["Q8"] = dict(digests=_copy_digests(copy), built_s=time.time() - t0,
+                             coords={a: axis(q8, a).rank for a in AXES})
+            del copy
+        out[label] = run
+        del engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dp_serve_reference(card, cfg, device, runs=DP_SERVE_RUNS):
+    """(d)'s unsharded runs here on (b)'s weights: each of ``runs``
+    (DP_SERVE_RUNS entries) an Engine without a mesh (streams, request ids, top two logits of each
+    decode step, TTFT, tok/s, peak), and the digests of the unsharded
+    int4 ('S2') and int8 ('Q8') decode copies (mixtral.quantize_moe_for_decode
+    of the whole weights, on the card) cut by the serving specs to each
+    fsdp coordinate of their mesh; the card is freed after."""
+    import torch
+
+    from vita_tpu_torch.models import mixtral
+    from vita_tpu_torch.serve.engine import Engine
+
+    params = slice_params(cfg, device)
+    out = {}
+    for label, _, kw, _ in runs:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        engine = Engine(params, cfg, device=device, **DP_SERVE_KW, **kw)
+        top2 = {}
+        t0 = time.time()
+        with _recording_top2(engine, top2):
+            reqs = serve(engine, dp_serve_requests(cfg))
+        out[label] = dict(_served(reqs, device, t0), ids=[r.request_id for r in reqs], top2=top2)
+        print(f"  (d) unsharded {label}: TTFT {[round(t, 2) for t in out[label]['ttft_ms']]} ms, "
+              f"decode {[round(t, 2) for t in out[label]['tok_s']]} tok/s, peak "
+              f"{out[label]['peak']:.2f} GiB  [{card}]", flush=True)
+        del engine
+    sizes = dict(zip(AXES_ALL, DP_SERVE_Q8_MESH + (1, 1)))
+    for key, bits in (("S2", 4), ("Q8", 8)):
+        q = mixtral.quantize_moe_for_decode(params["llm"], bits=bits)
+        specs = mixtral.serving_specs(cfg.llm, q)["layers"]["moe"]
+        cuts = []
+        for r in range(math.prod(DP_SERVE_Q8_MESH)):
+            coords = dict(zip(AXES_ALL, (int(c) for c in np.unravel_index(
+                r, DP_SERVE_Q8_MESH + (1, 1)))))
+            moe = {k: _cut(w, specs[k], coords, sizes) for k, w in q["layers"]["moe"].items()}
+            cuts.append(_copy_digests({"layers": {"moe": moe}}))
+        out[key + " digests"] = cuts
+        del q
+    del params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _replica_meshes(shapes, rank, world):
+    """Each mesh of ``shapes`` over this rank's replica: a mesh of fewer
+    ranks than the group is built once for each run of consecutive ranks
+    it covers (every rank builds them all, in order, as building a mesh
+    is collective over the group)."""
+    from vita_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for shape in dict.fromkeys(shapes):
+        per = math.prod(shape)
+        built = [make_mesh(shape, ranks=range(i, i + per)) for i in range(0, world, per)]
+        out[shape] = built[rank // per]
+    return out
+
+
+def fsdp_serve_narrow(dev, meshes):
+    """(a)'s serving on one rank: _narrow_engine_tokens under each
+    FSDP_SERVE_NARROW_MESHES mesh with each FSDP_SERVE_NARROW_RUNS option,
+    from the whole weights on the host: the streams by (mesh, label)."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+
+    cfg = narrow_config()
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    return {(shape, label): _narrow_engine_tokens(params, cfg, dev, meshes[shape], **kw)
+            for shape in FSDP_SERVE_NARROW_MESHES for label, kw in FSDP_SERVE_NARROW_RUNS}
+
+
 def fsdp_rank(rank, world, plan):
     """One rank of phases 14 and 15: (a) FSDP_NARROW_STEPS narrow fp32
     steps under each of ``plan["narrow_meshes"]`` (the losses and this
-    rank's blocks after the last update); (b) a warm-up step and a step of
+    rank's blocks after the last update), and with
+    ``plan["serve_narrow"]`` (phase 14) fsdp_serve_narrow; (b) a step of
     the full-width slice under each of ``plan["full_meshes"]`` (losses,
     step ms, peak, the step's launches, this rank's values at the sampled
-    elements); (c) with ``plan["resume"]`` (phase 15) a Trainer under its
-    mesh resumes phase 14(c)'s checkpoint (the step, blocks and Adam
-    moments it resumed with); then each argv of ``plan["cli"]`` through
-    the train CLI (exit codes and printed lines)."""
+    elements); (d) dp_serve_rank for the DP_SERVE_RUNS labels in
+    ``plan["serve"]`` (phase 14); (c) with ``plan["resume"]``
+    (phase 15) a Trainer under its mesh resumes phase 14(c)'s checkpoint
+    (the step, blocks and Adam moments it resumed with); then each argv
+    of ``plan["cli"]`` through the train CLI (exit codes and printed
+    lines)."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
 
     from vita_tpu_torch import kernels
     from vita_tpu_torch.models import vita
-    from vita_tpu_torch.parallel.mesh import AXES, axis, make_mesh
+    from vita_tpu_torch.parallel.mesh import AXES, axis
     from vita_tpu_torch.train import cli
 
+    t_part = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(plan["device"])
     if dev.type == "cuda":
         kernels.lib()  # phase 1's library: loaded, not built
-    resume = plan.get("resume")
-    meshes = {m: make_mesh(m) for m in dict.fromkeys(
-        plan["narrow_meshes"] + plan["full_meshes"] + ((resume["mesh"],) if resume else ()))}
+    resume, serve_narrow = plan.get("resume"), plan.get("serve_narrow")
+    serve_runs = [run for run in DP_SERVE_RUNS if run[0] in plan.get("serve", ())]
+    meshes = _replica_meshes(
+        plan["narrow_meshes"] + plan["full_meshes"] + ((resume["mesh"],) if resume else ())
+        + (FSDP_SERVE_NARROW_MESHES if serve_narrow else ())
+        + tuple(m for _, m, _, _ in serve_runs) + ((DP_SERVE_Q8_MESH,) if serve_runs else ()),
+        rank, world)
     out = {"narrow": {}, "full": {}, "wall_s": {}}
-    t_part = time.time()
+    out["wall_s"]["setup"], t_part = time.time() - t_part, time.time()
     for shape in plan["narrow_meshes"]:
         mesh = meshes[shape]
         cfg = fsdp_narrow_config(shape)
@@ -4917,14 +5217,16 @@ def fsdp_rank(rank, world, plan):
                                                  mesh)
         out["narrow"][shape] = dict(losses=losses, blocks=blocks, routes=routes,
                                     coords={a: axis(mesh, a).rank for a in AXES})
+    if serve_narrow:
+        out["serve_narrow"] = fsdp_serve_narrow(dev, meshes)
     out["wall_s"]["a"], t_part = time.time() - t_part, time.time()
     cfg = fsdp_full_config(plan["small"])
-    batches = fsdp_batches(cfg, 2, FSDP_FULL_B, plan["full_s"], FSDP_FULL_FRAMES, SEED + 62)
+    batch = fsdp_full_batch(cfg, plan["full_s"]) if plan["full_meshes"] else None
     for shape in plan["full_meshes"]:
         mesh = meshes[shape]
         # the whole weights drawn here are dropped once the Trainer has cut them
         losses, ms, peak, launches, norms, grads_at, trainer, routes = _fsdp_full_step(
-            cfg, slice_params(cfg, dev), batches, dev, plan["picks"], plan["shapes"], mesh)
+            cfg, slice_params(cfg, dev), batch, dev, plan["picks"], plan["shapes"], mesh)
         coords = {a: axis(mesh, a).rank for a in AXES}
         sizes = {a: axis(mesh, a).size for a in AXES}
         specs = dict(_leaf_items(vita.param_specs(cfg)))
@@ -4939,6 +5241,9 @@ def fsdp_rank(rank, world, plan):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["wall_s"]["b"], t_part = time.time() - t_part, time.time()
+    if serve_runs:
+        out["serve"] = dp_serve_rank(cfg, dev, meshes, serve_runs)
+    out["wall_s"]["d"], t_part = time.time() - t_part, time.time()
     if resume:
         mesh = meshes[resume["mesh"]]
         trainer = _cli_trainer(resume["dir"], dev, mesh)
@@ -5000,9 +5305,14 @@ def _gather_samples(results, shape, leaf, key, name, failed):
     return got
 
 
+def _narrow_key(cfg):
+    return cfg.llm.moe_mode, cfg.llm.pipe_stages, cfg.llm.moe_chunk
+
+
 def _narrow_refs(meshes, device, refs=None):
     """The unsharded narrow steps for ``meshes``, by (moe mode, pipe
-    stages): those of ``refs`` (an earlier phase's) where present."""
+    stages, moe_chunk): those of ``refs`` (an earlier phase's) where
+    present."""
     import torch
 
     from vita_tpu_torch.models import vita
@@ -5010,7 +5320,7 @@ def _narrow_refs(meshes, device, refs=None):
     refs = dict(refs or {})
     for shape in meshes:
         cfg = fsdp_narrow_config(shape)
-        key = (cfg.llm.moe_mode, cfg.llm.pipe_stages)
+        key = _narrow_key(cfg)
         if key not in refs:
             ref_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, pipe_stages=1))
             params = vita.init_params(ref_cfg, torch.Generator().manual_seed(SEED), "cpu")
@@ -5020,19 +5330,144 @@ def _narrow_refs(meshes, device, refs=None):
     return refs
 
 
+def fsdp_serve_narrow_requests(cfg):
+    """(a)'s serving traffic: phase 5's wave, FSDP_SERVE_NARROW_NEW new
+    tokens each."""
+    rng = np.random.default_rng(SEED + 15)
+    return [media_request(cfg, rng, FSDP_SERVE_NARROW_NEW, frames=40)] + [
+        text_request(cfg, rng, n, FSDP_SERVE_NARROW_NEW) for n in (5, 130, 33)]
+
+
+def _narrow_engine_tokens(params, cfg, device, mesh=None, **kw):
+    """fsdp_serve_narrow_requests' streams through phase 11's narrow
+    Engine (over ``mesh`` under one)."""
+    from vita_tpu_torch.serve.engine import Engine
+
+    engine = Engine(params, cfg, n_slots=4, max_len=512, page_size=64, prefill_chunk=128,
+                    decode_chunk_len=4, device=device, mesh=mesh, **kw)
+    return [r.tokens for r in serve(engine, fsdp_serve_narrow_requests(cfg))]
+
+
+def fsdp_serve_narrow_refs(device):
+    """(a)'s unsharded card Engine for each FSDP_SERVE_NARROW_RUNS option:
+    the streams by label."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+
+    cfg = narrow_config()
+    params = _to(vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu"), device)
+    return {label: _narrow_engine_tokens(params, cfg, device, **kw)
+            for label, kw in FSDP_SERVE_NARROW_RUNS}
+
+
+def fsdp_serve_narrow_report(results, refs, failed):
+    """(a)'s serving: every rank's streams identical to the unsharded
+    card Engine's."""
+    for shape in FSDP_SERVE_NARROW_MESHES:
+        for label, _ in FSDP_SERVE_NARROW_RUNS:
+            name = f"(a) serving --mesh {' '.join(map(str, shape))} narrow fp32 {label}"
+            bad = [r for r, res in enumerate(results)
+                   if res["serve_narrow"][shape, label] != refs[label]]
+            if bad:
+                failed.append(f"{name}: rank {bad[0]}'s greedy streams "
+                              f"{results[bad[0]]['serve_narrow'][shape, label]} differ from the "
+                              f"unsharded {refs[label]}")
+                continue
+            print(f"  {name}: {len(refs[label])} requests, every rank's greedy streams identical "
+                  f"to the unsharded card Engine's", flush=True)
+
+
+def dp_serve_report(card, results, ref, device, failed, runs=DP_SERVE_RUNS):
+    """(d): for each DP_SERVE_RUNS run, every rank's streams equal, and
+    equal to the unsharded run's but at a logit near tie (_mesh_split
+    without the router excuse); S2's int4 and Q8's int8 expert blocks and
+    scales bitwise the unsharded copy's cut to the rank's coordinates;
+    every rank launching the run's kernels (on the card); each rank's
+    peak, TTFT, tok/s and the gathers' host ms a forward printed beside
+    the unsharded run's. Returns the runs' launches summed over the
+    ranks."""
+    total = {}
+    for label, shape, _, path in runs:
+        name = f"(d) --mesh {' '.join(map(str, shape))} {label}"
+        want, run_total = ref[label], {}
+        got = results[0]["serve"][label]["tokens"]
+        if any(res["serve"][label]["tokens"] != got for res in results):
+            failed.append(f"{name}: the ranks' streams differ: "
+                          f"{[res['serve'][label]['tokens'] for res in results]}")
+        else:
+            try:
+                splits = [_mesh_split(i, g, w, rid, want["top2"], None, None)
+                          for i, (g, w, rid) in enumerate(zip(got, want["tokens"], want["ids"]))]
+                print(f"  {name}: {len(got)} requests of {DP_SERVE_NEW} tokens, every rank's "
+                      f"streams equal; against the unsharded Engine: "
+                      f"{sum(x is None for x in splits)} identical, splits at near ties {splits}",
+                      flush=True)
+            except AssertionError as e:
+                failed.append(f"{name}: {e}")
+        for r, res in enumerate(results):
+            run = res["serve"][label]
+            what = {"prefill": "a prefill chunk", "decode": "a decode step",
+                    "other": "the prompts' embedding"}
+            fwd = [f"{k} {ms:.1f} ms in {n_g} gathers"
+                   + (f" over {n_f} forwards ({ms / n_f:.1f} ms {what[k]})" if n_f else "")
+                   for k, (ms, n_g, n_f) in sorted(run["spent"].items())]
+            ms, n_g, _ = run["build"]
+            print(f"    rank {r}: peak {run['peak']:.2f} GiB (unsharded {want['peak']:.2f}), "
+                  f"Engine built in {run['built_s']:.1f} s ({n_g} gathers, {ms:.1f} ms), served in "
+                  f"{run['wall_s']:.1f} s (unsharded {want['wall_s']:.1f}), TTFT "
+                  f"{[round(t, 1) for t in run['ttft_ms']]} ms (unsharded "
+                  f"{[round(t, 1) for t in want['ttft_ms']]}), decode "
+                  f"{[round(t, 2) for t in run['tok_s']]} tok/s (unsharded "
+                  f"{[round(t, 2) for t in want['tok_s']]}); gathers: {'; '.join(fwd)}  "
+                  f"({FSDP_NOTE}) [{card}]", flush=True)
+            for k, c in run["launches"].items():
+                total[k] = total.get(k, 0) + c
+                run_total[k] = run_total.get(k, 0) + c
+            missing = [k for k in path if run["launches"].get(k, 0) == 0]
+            if device.type == "cuda" and missing:
+                failed.append(f"{name}: rank {r} never launched {missing}")
+        print(f"    launches in the run, summed over the ranks: "
+              f"{ {k: c for k, c in run_total.items() if c} }", flush=True)
+    q4 = [label for label, _, kw, _ in runs if kw["decode_moe_mode"] == "gather_q4"]
+    for key, run, bits in (("S2", q4[0], 4), ("Q8", "Q8", 8)) if q4 else ():
+        cuts, same = ref[key + " digests"], 0
+        for r, res in enumerate(results):
+            got = res["serve"][run]
+            at = int(np.ravel_multi_index(tuple(got["coords"][a] for a in AXES_ALL),
+                                          DP_SERVE_Q8_MESH + (1, 1)))
+            for leaf, d in cuts[at].items():
+                if got["digests"].get(leaf) != d:
+                    failed.append(f"(d) {key}: rank {r}'s int{bits} {leaf} block "
+                                  f"{got['digests'].get(leaf)} is not the unsharded copy's "
+                                  f"{d}")
+                else:
+                    same += 1
+        extra = f", made in {[round(res['serve']['Q8']['built_s'], 1) for res in results]} s" \
+            if key == "Q8" else ""
+        print(f"  (d) {key} --mesh {' '.join(map(str, DP_SERVE_Q8_MESH))}: {same} of "
+              f"{sum(len(c) for c in cuts)} int{bits} expert blocks and scales (rank x leaf) "
+              f"bitwise the unsharded quantize_moe_for_decode copy's cut by the serving "
+              f"specs{extra}", flush=True)
+    return total
+
+
 def _narrow_report(results, meshes, narrow_ref, failed):
     """(a): each mesh's losses (phase 7's LOSS_RTOL and router near-tie
     excuse) and every leaf after the last update against the unsharded
-    steps' (FSDP_NARROW_*), and bitwise equal on the ranks that hold the
-    same block (a leaf replicated over an axis: on every rank of it)."""
+    steps' (FSDP_NARROW_*), and bitwise equal on the ranks of a mesh that
+    hold the same block (a leaf replicated over an axis: on every rank of
+    it; the replicas of a mesh smaller than the group are separate runs,
+    whose scatter-adds need not sum in one order)."""
     from vita_tpu_torch.models import vita
 
     base_lr, proj_lr = _fsdp_lrs(_fsdp_tc(False), FSDP_NARROW_STEPS)
     for shape in meshes:
         cfg = fsdp_narrow_config(shape)
-        ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[cfg.llm.moe_mode,
-                                                              cfg.llm.pipe_stages]
-        name = f"(a) --mesh {' '.join(map(str, shape))}"
+        ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[_narrow_key(cfg)]
+        name = f"(a) --mesh {' '.join(map(str, shape))}" + (
+            f" {cfg.llm.moe_mode}" + (f", moe_chunk {cfg.llm.moe_chunk}" if cfg.llm.moe_chunk
+                                       else "") if shape in NARROW_WHOLE_BATCH else "")
         sizes = dict(zip(AXES_ALL, tuple(shape) + (1,) * (6 - len(shape))))
         # a rank whose tokens took other experts than the unsharded run's at
         # step i: excused from step i on where the unsharded router had a
@@ -5057,9 +5492,9 @@ def _narrow_report(results, meshes, narrow_ref, failed):
             for leaf, b in got["blocks"].items():
                 split = tuple(a for e in specs[leaf] if e is not None
                               for a in ((e,) if isinstance(e, str) else e) if sizes[a] > 1)
-                key = (leaf, tuple(got["coords"][a] for a in split))
+                key = (leaf, r // math.prod(shape), tuple(got["coords"][a] for a in split))
                 if key in held and not np.array_equal(held[key], b):
-                    failed.append(f"{name}: {leaf}'s block {key[1]} differs between ranks")
+                    failed.append(f"{name}: {leaf}'s block {key[2]} differs between ranks")
                 held[key] = b
                 if first_tie < FSDP_NARROW_STEPS:
                     continue
@@ -5226,27 +5661,35 @@ def _cli_argv(chat, out_dir, mesh, epochs=1):
 
 def fsdp_phase(card: str, device, small: bool = False):
     """Phase 14: sharded training (ZeRO-3 over 'fsdp', the batch over
-    ('data', 'fsdp')) as FSDP_RANKS ranks spawned on cuda:0 over gloo,
-    against unsharded steps here, made first and kept on the host. (a)
-    narrow fp32 under each FSDP_NARROW_MESHES mesh (``_narrow_report``);
-    (b) the full-width slice under each FSDP_FULL_MESHES mesh
-    (``_full_report``); (c) the train CLI: every rank exits 0,
+    ('data', 'fsdp')) and serving over data/fsdp as FSDP_RANKS ranks
+    spawned on cuda:0 over gloo, against unsharded runs here, made first
+    and kept on the host. (a) narrow fp32 steps under each
+    FSDP_NARROW_MESHES mesh (``_narrow_report``) and the narrow Engine
+    under each FSDP_SERVE_NARROW_MESHES mesh
+    (``fsdp_serve_narrow_report``); (b) the full-width slice's step under
+    each FSDP_FULL_MESHES mesh (``_full_report``); (d) the full-width
+    Engine's DP_SERVE_RUNS and the decode copies (``dp_serve_report``);
+    (c) the train CLI: every rank exits 0,
     metrics.jsonl is written once, a second run resumes. ``small`` (with
     a CPU ``device``) runs (b) on the tiny config, to try the phase
     without a card. Every check runs, and the phase then fails on any
     that failed. Keeps its references in TRAIN_REFS for phase 15 and
-    returns the launch counts of (b)'s steps summed over the ranks."""
+    returns the launch counts of (b)'s steps and (d)'s runs summed over
+    the ranks."""
     from vita_tpu_torch.parallel.launch import run_ranks
 
     failed = []
     narrow_ref = _narrow_refs(FSDP_NARROW_MESHES, device)
+    serve_narrow_ref = fsdp_serve_narrow_refs(device)
     # (b) the unsharded full-width step
     full_cfg = fsdp_full_config(small)
-    full_s = FSDP_FULL_S if not small else 64
-    batches = fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)
     t0 = time.time()
-    full_ref, picks = fsdp_full_reference(full_cfg, batches, device)
-    print(f"  (b) unsharded Trainer: warm-up + step in {time.time() - t0:.1f} s, step "
+    serve_ref = dp_serve_reference(card, full_cfg, device)
+    print(f"  (d) unsharded runs and decode copies in {time.time() - t0:.1f} s", flush=True)
+    full_s = FSDP_FULL_S if not small else 64
+    t0 = time.time()
+    full_ref, picks = fsdp_full_reference(full_cfg, fsdp_full_batch(full_cfg, full_s), device)
+    print(f"  (b) unsharded Trainer: built and stepped in {time.time() - t0:.1f} s, step "
           f"{full_ref['ms']:.1f} ms, losses {full_ref['losses']}, peak "
           f"{full_ref['peak']:.2f} GiB  [{card}]", flush=True)
     cli_dir = os.path.join(TRAIN_DIR, "fsdp_cli")
@@ -5255,17 +5698,22 @@ def fsdp_phase(card: str, device, small: bool = False):
     plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
             "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
             "narrow_meshes": FSDP_NARROW_MESHES, "full_meshes": FSDP_FULL_MESHES,
+            "serve_narrow": True, "serve": [label for label, _, _, _ in DP_SERVE_RUNS],
             "cli": [_cli_argv(chat, run_dir, (1, 4, 1, 1))] * 2}
     t0 = time.time()
     results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
                         store_dir=os.path.join(ROOT, "build"))
     walls = results[0]["wall_s"]
     print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
-          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
-          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
+          f"{time.time() - t0:.1f} s (rank 0: set-up {walls['setup']:.1f} s, (a) "
+          f"{walls['a']:.1f} s, (b) {walls['b']:.1f} s, (d) {walls['d']:.1f} s, (c) "
+          f"{walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
     _narrow_report(results, FSDP_NARROW_MESHES, narrow_ref, failed)
+    fsdp_serve_narrow_report(results, serve_narrow_ref, failed)
     total, readings = _full_report(card, results, FSDP_FULL_MESHES, full_ref, full_s, device,
                                    failed)
+    for k, c in dp_serve_report(card, results, serve_ref, device, failed).items():
+        total[k] = total.get(k, 0) + c
     # (c)
     metrics = os.path.join(run_dir, "metrics.jsonl")
     lines = open(metrics).read().splitlines() if os.path.exists(metrics) else []
@@ -5294,7 +5742,7 @@ def fsdp_phase(card: str, device, small: bool = False):
 # (a) narrow fp32 as phase 14's (a): gmm MoE, dense with one microbatch
 # under pipe; every mesh splits 'model' or 'expert'
 TP_NARROW_MESHES = ((1, 1, 2, 2), (1, 2, 1, 2), (2, 1, 2, 1), (1, 1, 1, 2, 2),
-                    (1, 1, 1, 2, 1, 2))
+                    (1, 1, 1, 2, 1, 2), (1, 1, 2, 1, 1, 2))
 # (b) the full-width slice: its 32 / 8 heads of 128 split 16 / 4 a rank,
 # each expert's 14336 ffn columns 7168 a rank, 4 experts a rank
 TP_FULL_MESHES = ((1, 1, 2, 2),)
@@ -5345,9 +5793,8 @@ def tp_phase(card: str, device):
     else:
         full_s = FSDP_FULL_S if not small else 64
         full_cfg = fsdp_full_config(small)
-        full_ref, picks = fsdp_full_reference(
-            full_cfg, fsdp_batches(full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62),
-            device)
+        full_ref, picks = fsdp_full_reference(full_cfg, fsdp_full_batch(full_cfg, full_s),
+                                              device)
     if "run_dir" not in TRAIN_REFS:  # phase 14(c)'s checkpoint, made here
         chat = _train_cli_files(os.path.join(TRAIN_DIR, "fsdp_cli"))
         run_dir = os.path.join(TRAIN_DIR, "fsdp_cli", "run")
@@ -5359,8 +5806,7 @@ def tp_phase(card: str, device):
     # (b) the float32 gradients of the measured step at the samples
     t0 = time.time()
     full_cfg = fsdp_full_config(small)
-    f32 = full_f32_gradients(full_cfg, fsdp_batches(
-        full_cfg, 2, FSDP_FULL_B, full_s, FSDP_FULL_FRAMES, SEED + 62)[1], device, picks)
+    f32 = full_f32_gradients(full_cfg, fsdp_full_batch(full_cfg, full_s), device, picks)
     print(f"  (b) float32 gradients of the unsharded step at the samples in "
           f"{time.time() - t0:.1f} s  [{card}]", flush=True)
     # (c) the unsharded resume, before the ranks train on from the checkpoint
@@ -5380,8 +5826,9 @@ def tp_phase(card: str, device):
                         store_dir=os.path.join(ROOT, "build"))
     walls = results[0]["wall_s"]
     print(f"  {FSDP_RANKS} ranks on {plan['device']} over gloo returned in "
-          f"{time.time() - t0:.1f} s (rank 0: (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, "
-          f"(c) {walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
+          f"{time.time() - t0:.1f} s (rank 0: set-up {walls['setup']:.1f} s, (a) "
+          f"{walls['a']:.1f} s, (b) {walls['b']:.1f} s, (c) {walls['c']:.1f} s; {FSDP_NOTE})",
+          flush=True)
     _narrow_report(results, TP_NARROW_MESHES, narrow_ref, failed)
     total, _ = _full_report(card, results, TP_FULL_MESHES, full_ref, full_s, device, failed,
                             TRAIN_REFS.get("readings"), f32)
@@ -5432,9 +5879,9 @@ def tp_phase(card: str, device):
 def full_f32_gradients(cfg, batch, device, picks):
     """The float32 gradient of (b)'s measured step at the sampled flat
     ``picks`` of each trainable leaf: the slice's bf16 weights
-    (``slice_params``, which the warm-up's update at lr 0 leaves as they
-    are) widened to float32, every component run in float32, one forward
-    and backward of ``loss_fn`` over the unsharded whole batch."""
+    (``slice_params``, as the step finds them) widened to float32, every
+    component run in float32, one forward and backward of ``loss_fn``
+    over the unsharded whole batch."""
     import torch
 
     from vita_tpu_torch.train import step
@@ -5515,7 +5962,7 @@ def main() -> int:
           flush=True)
 
     print("phase 1: build the kernels", flush=True)
-    t0 = time.time()
+    t_start = t0 = time.time()
     path = kernels.build()
     kernels.lib()
     print(f"  built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s", flush=True)
@@ -5614,6 +6061,7 @@ def main() -> int:
     t0 = time.time()
     parts.append(tp_phase(card, dev))
     print(f"  phase 15 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+    print(f"phases 1-15 wall {time.time() - t_start:.1f} s  [{card}]", flush=True)
     counts = {k: sum(p.get(k, 0) for p in parts) for k in kernels.launches}
 
     meta = {

@@ -18,6 +18,12 @@ the TPU kernels compute, since neither GSPMD nor shard_map takes an
 interpret-mode Pallas call). Weights are drawn in the port from a seed and
 handed to both packages (the trees are leaf for leaf the same).
 
+The int8 and int4 decode copies each rank makes under (1,4,1,1) and
+(2,2,1,1) are held bitwise to the unsharded copy
+(``mixtral.quantize_moe_for_decode`` of the whole weights) cut by the
+serving specs; the copy quantized from a rank's own blocks alone is not
+that, so the check can fail.
+
 One group of 4 ranks runs every case (the 2-rank meshes as two
 replicas), in a thread while this process runs JAX's Engines."""
 
@@ -37,7 +43,7 @@ from torch_mesh_util import engine_tokens
 from vita_tpu.models import vita as j_vita
 from vita_tpu.parallel.mesh import make_mesh as j_make_mesh
 from vita_tpu.serve import engine as j_engine
-from vita_tpu_torch.models import vita
+from vita_tpu_torch.models import mixtral, vita
 from vita_tpu_torch.parallel.launch import run_ranks
 from vita_tpu_torch.tokenization import audio_token_count
 
@@ -75,6 +81,10 @@ CASES = {
 
 
 QUANT = ("gather_q", "gather_q4")
+# name: (mesh, decode mode) of the quantized decode copies held bitwise
+DECODE_COPIES = {f"{m}_{mode}": (mesh, mode) for m, mesh in (("fsdp4", (1, 4, 1, 1)),
+                                                              ("dp2_fsdp2", (2, 2, 1, 1)))
+                 for mode in QUANT}
 
 
 def _to_jax(tree):
@@ -115,6 +125,8 @@ def results(setup, tmp_path_factory):
                                           requests=reqs[kind],
                                           engine_kw=dict(n_slots=2, max_len=256, **kw)))
              for name, (mesh, kind, kw) in CASES.items()]
+    cases += [(name, "decode_copy_case", dict(mesh=mesh, params="@p", cfg="@cfg", mode=mode))
+              for name, (mesh, mode) in DECODE_COPIES.items()]
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(run_ranks, u.run_cases, WORLD, cases, {"p": params, "cfg": cfg},
                             threads=1, timeout=600,
@@ -138,3 +150,58 @@ def test_engine_over_data_and_fsdp_matches_unsharded(results, setup, name):
         got = r[name]
         assert got["tokens"] == jax_out[name], name
         assert (got["prefill"], got["decode"]) == (want["prefill"], want["decode"])
+
+
+def _unsharded_copy_blocks(params, cfg, mode, mesh, coords):
+    """The unsharded decode copy's expert leaves, each cut to the block
+    at ``coords`` by the serving specs."""
+    q = mixtral.quantize_moe_for_decode(params["llm"], bits=4 if mode == "gather_q4" else 8)
+    specs = mixtral.serving_specs(cfg.llm, q)["layers"]["moe"]
+    sizes = dict(zip(("data", "fsdp", "expert", "model", "pipe", "seq"), mesh + (1, 1)))
+    out = {}
+    for k, w in q["layers"]["moe"].items():
+        if k == "router":
+            continue
+        w = w.numpy()
+        for dim, entry in enumerate(specs[k]):
+            names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            n, r = 1, 0
+            for a in names:
+                n, r = n * sizes[a], r * sizes[a] + coords[a]
+            step = w.shape[dim] // n
+            w = np.take(w, np.arange(r * step, (r + 1) * step), axis=dim)
+        out[k] = w
+    return out
+
+
+@pytest.mark.parametrize("name", list(DECODE_COPIES))
+def test_fsdp_decode_copy_is_the_unsharded_copy_cut(results, setup, name):
+    """Each rank's int8 / int4 expert blocks and scales, made a layer at a
+    time from the layer's experts gathered whole over 'fsdp', are bitwise
+    the unsharded copy's blocks at its coordinates."""
+    cfg, params, _, _ = setup
+    mesh, mode = DECODE_COPIES[name]
+    ranks, _ = results
+    for r in ranks:
+        got = r[name]
+        want = _unsharded_copy_blocks(params, cfg, mode, mesh, got["coords"])
+        assert set(got["copy"]) == set(want) and len(want) == 6
+        for k, w in want.items():
+            assert got["copy"][k].dtype == w.dtype and np.array_equal(got["copy"][k], w), (name, k)
+
+
+@pytest.mark.parametrize("mode", QUANT)
+def test_decode_copy_of_own_block_is_another_copy(results, setup, mode):
+    """The check above can fail: quantizing each rank's own fsdp block of
+    the experts (per-column scales over a quarter of the rows; int4
+    nibbles paired within the block) gives other bits than the unsharded
+    copy cut."""
+    cfg, params, _, _ = setup
+    ranks, _ = results
+    name = f"fsdp4_{mode}"
+    for r in ranks:
+        got = r[name]
+        want = _unsharded_copy_blocks(params, cfg, mode, DECODE_COPIES[name][0], got["coords"])
+        for k in ("w_gate", "w_gate_scale"):
+            assert got["own"][k].shape == want[k].shape
+            assert not np.array_equal(got["own"][k], want[k]), k

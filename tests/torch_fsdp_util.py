@@ -254,3 +254,19 @@ def cli_case(argv: List[str]) -> Dict[str, Any]:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     return {"rc": rc, "out": buf.getvalue()}
+
+
+def decode_copy_case(mesh, params, cfg, mode: str) -> Dict[str, Any]:
+    """The quantized decode copy an Engine over ``mesh`` makes
+    (``generate.decode_params`` on this rank's serving shards): its expert
+    leaves; beside them the copy quantized from this rank's own blocks of
+    the bf16 experts alone (``own``), which is not the unsharded copy cut."""
+    from vita_tpu_torch.generate import decode_params
+    from vita_tpu_torch.models import mixtral, vita
+
+    shards = vita.shard_params(params, cfg, mesh, "cpu")
+    copy = decode_params(shards, cfg, mode, mesh)["layers"]["moe"]
+    own = mixtral.quantize_moe_for_decode(shards["llm"], bits=4 if mode == "gather_q4" else 8)
+    return {"coords": coords(mesh),
+            "copy": {k: v.clone() for k, v in copy.items() if k != "router"},
+            "own": {k: v.clone() for k, v in own["layers"]["moe"].items() if k != "router"}}
