@@ -2115,7 +2115,7 @@ def dp_phase_ad(card: str, small: bool = False) -> None:
     narrow = tuple(smoke.NARROW_WHOLE_BATCH)[:1]
     runs = [run for run in smoke.DP_SERVE_RUNS if run[2]["decode_moe_mode"] == "gather_q4"]
     narrow_ref = smoke._narrow_refs(narrow, dev)
-    serve_ref = smoke.dp_serve_reference(card, smoke.fsdp_full_config(small), dev, runs)
+    serve_ref = smoke.dp_serve_reference(card, smoke.dp_serve_config(small), dev, runs)
     plan = {"device": "cpu" if small else "cuda:0", "small": small, "narrow_meshes": narrow,
             "full_meshes": (), "serve": [run[0] for run in runs], "cli": []}
     results = run_ranks(smoke.fsdp_rank, smoke.FSDP_RANKS, plan, backend="gloo", timeout=900,

@@ -71,12 +71,29 @@ Phases, each of which raises on failure:
      Trainer for one step per sample: two text samples past 4096 tokens
      (bucket 9216: B5a), shorter ones (B5b) and an image+audio sample;
      B1, B5a, B5b, B10, B11 and B12 must launch, the losses be finite,
-     the trainable components change and the frozen towers not;
+     the trainable components change and the frozen towers not; then a
+     stage-1 Trainer (the vision projector alone trains) over the same
+     samples, the text ones without the dummy image and audio that a
+     multimodal dataset adds, so that they reach no trainable leaf and
+     take a zero gradient (ROADMAP C6): every loss finite, only
+     vision_proj changed (the LLM, both towers and audio_proj bitwise as
+     they were), B1, B10, B11 and B5a or B5b launched and B12 not once,
+     its peak memory printed beside stage 2's; then one stage-3 step from
+     the stage-1 weights on the image+audio sample, where B12 must launch
+     again;
   7. the train CLI in process (python -m vita_tpu_torch.train.cli --model
-     tiny-random --moe-mode gmm), then three train steps of the narrow
-     fp32 config (gmm, flash) on the card and on the CPU: losses and the
-     first step's gradients must agree (GRAD_TOL, LOSS_RTOL below), up to
-     the first step where the CPU's router had a near tie;
+     tiny-random --moe-mode gmm), then again with --stage pretrain_mlp on
+     the same audio and text samples (exit code 0, finite losses); three
+     train steps of the narrow fp32 config (gmm, flash) on the card and on
+     the CPU: losses and the first step's gradients must agree (GRAD_TOL,
+     LOSS_RTOL below), up to the first step where the CPU's router had a
+     near tie; then the three-stage recipe of tests/test_stage_chaining.py
+     on both devices at that config (stage 1, its adapter-only checkpoint
+     overlaid on fresh weights, stage 2, a full checkpoint saved and
+     loaded, stage 3; four batches a stage of image, audio-only and
+     text-only samples): each step's loss (LOSS_RTOL) and gradients
+     (GRAD_TOL) and every leaf after each stage (phase 14(a)'s bound)
+     held to the CPU's, up to the CPU router's first near tie;
   8. export the full-width slice with the LLM cut to 2 of 32 layers (bf16,
      about 4.0e9 parameters, 16 GB of float32 safetensors) with
      export_hf_vita_checkpoint under build/smoke_ckpt/, load it onto the
@@ -123,9 +140,19 @@ Phases, each of which raises on failure:
      towers and projectors drawn from the seed: an image+audio request
      with two text requests, each first token held against the
      cacheless forward, B1, B2, B3, B4 and B5b launched (and B1 at d 65
-     with Whale flash); (c) the Engine on the card and on the CPU at
-     phase 5's narrow fp32 configuration with clip + ldp, siglip +
-     mlp3x_gelu and eva + spp_v1 with Whale flash: identical streams.
+     with Whale flash); then two Engines of max_len 8192 on phase 3's
+     weights: patch fusion serving a 13-tile image (12 tiles and the
+     thumbnail, 3328 image tokens) and a 16-frame video with an audio
+     question (16 tiles, 4096 image tokens: the prompt takes the bucket
+     appended past 4096), and frameCat fusion (a frameCat projector over 5
+     x 4096 channels drawn from the seed) serving a 16-frame video (4
+     five-tuples, 20 tiles) and an image tiled 4 x 2 (10 tiles), each
+     beside a text request (tile counts above the largest tile bucket pass
+     unpadded): each first token held against the cacheless forward, B1,
+     B5a or B5b, B2, B3 and B4 launched, and TTFT printed; (c) the Engine
+     on the card and on the CPU at phase 5's narrow fp32 configuration
+     with clip + ldp, siglip + mlp3x_gelu, eva + spp_v1 with Whale flash,
+     and frameCat fusion: identical streams.
 
  11. the serving mesh on one card: expert 2 x model 2 as 4 ranks spawned
      on cuda:0 over gloo (parallel.launch.run_ranks, FileStore rendezvous;
@@ -204,9 +231,13 @@ Phases, each of which raises on failure:
      here: (a) phase 7's narrow fp32 configuration (stage 2, gmm, flash;
      dense and one microbatch under pipe), 3 steps under --mesh 1 4 1 1,
      2 2 1 1, 1 2 1 1 2 and 1 2 1 1 1 2 (DATA FSDP EXPERT MODEL [PIPE
-     [SEQ]]), and the capacity mode with moe_chunk 40 under 1 2 1 1 (two
+     [SEQ]]), the capacity mode with moe_chunk 40 under 1 2 1 1 (two
      replicas of 2 ranks; its MoE over the whole batch's gathered tokens)
-     against unsharded capacity steps: each step's loss and every leaf
+     against unsharded capacity steps, and stage 1 (the vision projector
+     alone) under 2 2 1 1 (the first data rank's rows text-only) and 1 2 1
+     1 2 (the first fsdp rank's one microbatch text-only) over a split
+     batch, a text-only one and another split one (stage1_batches)
+     against unsharded stage-1 steps: each step's loss and every leaf
      after the last update against the unsharded steps (FSDP_NARROW_*; a
      rank whose tokens took other experts excused only at a router near
      tie), the blocks bitwise equal on the ranks of a mesh that hold the
@@ -221,11 +252,12 @@ Phases, each of which raises on failure:
      sampled elements against the unsharded Trainer's (FSDP_FULL_*), each
      rank's peak (below the unsharded peak) and step ms printed, every
      rank launching B1, B10, B11, B12 and B5a or B5b; (d) the Engine over
-     data/fsdp at full width on (b)'s weights (each rank builds it from
-     the whole weights, which it cuts): S1 under 2 2 1 1 (bf16 experts
-     and KV pages, gmm prefill) and S2 under 1 4 1 1 (int4 experts, int8
-     KV pages, gmm prefill) serve an image+audio and a text request of 4
-     new tokens (2 prefill chunks and 4 decode steps, every one
+     data/fsdp at full width on (b)'s slice cut to 1 LLM layer (each
+     rank builds it from the whole weights, which it cuts): S1 under 2 2
+     1 1 (bf16 experts and KV pages, gmm prefill) and S2 under 1 4 1 1
+     (int4 experts, int8 KV pages, gmm prefill) serve an image+audio and
+     a text request of 4 new tokens (2 prefill chunks and 4 decode steps,
+     every one
      gathering every layer): every rank's streams equal, and equal to the
      unsharded Engine's here but at a logit near tie (NEAR_TIE); S2's
      int4 copy and Q8's int8 copy (decode_params over S2's blocks under
@@ -240,10 +272,11 @@ Phases, each of which raises on failure:
  15. tensor- and expert-parallel training, as 4 ranks spawned on cuda:0
      over gloo after phase 14 (whose unsharded references it reuses): (a)
      phase 14(a)'s narrow steps under --mesh 1 1 2 2, 1 2 1 2, 2 1 2 1,
-     1 1 1 2 2 (pipe x model) and 1 1 1 2 1 2 (model x seq), and the sort
+     1 1 1 2 2 (pipe x model) and 1 1 1 2 1 2 (model x seq), the sort
      mode under 1 1 2 1 1 2 (expert x seq; its MoE over the whole batch's
-     gathered tokens) against unsharded sort steps, held as phase 14(a)
-     holds its own; (b) phase 14(b)'s full-width step under
+     gathered tokens) against unsharded sort steps, and stage 1 under 1 1
+     1 2 1 2 (the image in the second seq block only), held as phase
+     14(a) holds its own; (b) phase 14(b)'s full-width step under
      1 1 2 2 (16 q / 4 kv heads and 4 experts of 7168 ffn columns a rank),
      held as phase 14(b) (a leaf's sampled gradient beyond its tolerance
      held instead to the float32 gradient: TP_GRAD_F32_FACTOR) and
@@ -257,7 +290,8 @@ Phases, each of which raises on failure:
 
 Prints the card's name and power limit first, the wall of phases 1-15,
 then a JSON line of per-kernel results (launches summed over phases 3-15,
-phases 11-15's over their ranks) before the last, and as the last
+phases 11-15's over their ranks; "stage1_launches", phase 6's stage-1
+run alone) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
 phase fails.
@@ -1181,8 +1215,9 @@ def slice_config():
 
 
 def media_request(cfg, rng, max_new_tokens, frames=400):
-    """One 448px tile + 400 fbank frames (4 s) + text, expanded to its
-    feature slots (256 image + 50 audio tokens)."""
+    """One <image> group (a 448px tile, or a frameCat 5-tuple) + 400 fbank
+    frames (4 s) + text, expanded to its feature slots (256 image + 50
+    audio tokens)."""
     from vita_tpu_torch.serve.engine import Request
     from vita_tpu_torch.tokenization import audio_token_count
 
@@ -1196,7 +1231,7 @@ def media_request(cfg, rng, max_new_tokens, frames=400):
     sz = cfg.vision.image_size
     return Request(
         input_ids=ids, image_mask=im, audio_mask=am,
-        images=rng.standard_normal((1, sz, sz, 3)).astype(np.float32),
+        images=rng.standard_normal((cfg.image_group_tiles, sz, sz, 3)).astype(np.float32),
         speech=rng.standard_normal((frames, cfg.audio.input_dim)).astype(np.float32),
         speech_length=frames, max_new_tokens=max_new_tokens, eos_id=-1,
     )
@@ -1580,7 +1615,7 @@ def equivalence_phase(devices, near_tie: float = 0.0, cfg=None, **engine_kw):
               f"gap {float(row[b[j]] - row[a[j]]):.3e}", flush=True)
         raise AssertionError(f"greedy streams differ on {devices} ({engine_kw})")
     what = dict(engine_kw, tower=cfg.vision_tower, projector=cfg.vision_projector,
-                whale=cfg.audio.attn_backend)
+                fusion=cfg.vision_fusion, whale=cfg.audio.attn_backend)
     print(f"  greedy streams identical on {devices} ({what}): {len(ref)} requests, "
           f"{compared} of {sum(map(len, ref))} tokens compared", flush=True)
 
@@ -1627,7 +1662,24 @@ def _turns(rng, n_words):
             {"from": "gpt", "value": text[len(text) // 2:]}]
 
 
-class SmokeData:
+class Samples:
+    """A Trainer's dataset over samples already built: ``lengths`` as
+    ``modality_lengths`` gives them (negative for text-only samples)."""
+
+    def __init__(self, samples, lengths):
+        self.samples, self.lengths = samples, lengths
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def modality_lengths(self):
+        return self.lengths
+
+
+class SmokeData(Samples):
     """Conversation samples for the training phase, through the port's data
     pipeline with the byte tokenizer: text samples from a JSON file via
     ConversationDataset (two long ones past 4096 tokens, which the Collator
@@ -1652,7 +1704,7 @@ class SmokeData:
                            image_tokens_per_group=cfg.image_tokens_per_group)
         text = ds.ConversationDataset([ds.DatasetSpec(chat)], tok.encode, tok.bos_id, tok.eos_id,
                                       pad_id=0, args=args)
-        self.samples = [text[i] for i in range(len(text))]
+        samples = [text[i] for i in range(len(text))]
 
         feats, _ = wav_to_features(write_wav(os.path.join(directory, "q.wav"), 2.0, seed))
         turns = [{"from": "human", "value": "<image>\n<audio>\n"},
@@ -1664,19 +1716,10 @@ class SmokeData:
                                        [audio_token_count(len(feats))])
         sz = cfg.vision.image_size
         tile = rng.integers(0, 256, (sz, sz, 3), dtype=np.uint8)
-        self.samples.append({"modality": "image", "images": image.normalize([tile]),
-                             "audio": feats, "input_ids": ids, "labels": labels})
-        self.lengths = [-len(s["input_ids"]) for s in self.samples[:-1]] + [
-            len(self.samples[-1]["input_ids"])]
-
-    def __len__(self):
-        return len(self.samples)
-
-    def __getitem__(self, i):
-        return self.samples[i]
-
-    def modality_lengths(self):
-        return self.lengths
+        samples.append({"modality": "image", "images": image.normalize([tile]),
+                        "audio": feats, "input_ids": ids, "labels": labels})
+        super().__init__(samples, [-len(s["input_ids"]) for s in samples[:-1]]
+                         + [len(samples[-1]["input_ids"])])
 
 
 def train_phase(card: str, device):
@@ -1744,16 +1787,114 @@ def train_phase(card: str, device):
     for comp in ("llm", "vision_proj", "audio_proj"):
         if changed[comp] == 0:
             raise AssertionError(f"training: trainable {comp} did not change")
-    del trainer, params, before
+    peak2 = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    del trainer, before
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return counts
+    stage1, stage3 = stage1_and_3_runs(card, cfg, params, data, device, peak2)
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    STAGE1_LAUNCHES.update(stage1)
+    return {k: counts[k] + stage1[k] + stage3[k] for k in counts}
+
+
+# the kernels of stage 1 (the LLM frozen, the vision projector trained
+# through it): B1, B10 and B11, and B5a or B5b (forward and dx); B12 must
+# not launch (the gmm Function skips the weight gradient of a frozen
+# expert leaf)
+STAGE1_PATH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+STAGE1_LAUNCHES = {}  # phase 6's stage-1 run, for the kernels line
+
+
+def stage1_and_3_runs(card, cfg, params, data, device, peak2):
+    """Phase 6 after its stage-2 run, on the weights it left: a stage-1
+    Trainer (the vision projector alone trains, at the full rate from its
+    first step) over the same SmokeData, the text samples without the
+    dummy media a multimodal dataset gives them, so that they take a zero
+    gradient (ROADMAP C6), and the image+audio sample training the
+    projector through the frozen LLM; then one stage-3 step on the
+    image+audio sample from the stage-1 weights. Checks every loss is
+    finite, only vision_proj changed in stage 1 (the LLM, both towers and
+    audio_proj bitwise as they were), stage 1's kernels launched and B12
+    did not, and B12 launched again in stage 3. Returns the two runs'
+    launch counts."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.data.dataset import Collator
+    from vita_tpu_torch.train.step import TrainConfig, tree_leaves
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    on_card = device.type == "cuda"
+    t0 = time.time()
+    before = {p: w.detach().to("cpu", copy=True) for p, w in tree_leaves(params)}
+    # the text samples as a language-only dataset gives them
+    # (DataArgs(is_multimodal=False)): without the dummy image and audio a
+    # multimodal one adds, so their batches reach no trainable leaf
+    lang = Samples([{k: v for k, v in x.items() if k not in ("images", "audio")} if n < 0
+                    else x for x, n in zip(data.samples, data.lengths)], data.lengths)
+    run = RunConfig(output_dir=os.path.join(TRAIN_DIR, "run1"), batch_size=1,
+                    save_every_steps=10 ** 9, loader_workers=2, resume=False)
+    tc = dataclasses.replace(TrainConfig.stage1_pretrain_mlp(), warmup_steps=0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer = Trainer(cfg, tc, run, params)
+    log = trainer.train(lang, Collator(pad_id=0))
+    _sync(device)
+    stage1 = dict(kernels.launches)
+    peak1 = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    print(f"  stage 1 (vision projector alone): kernel launches {stage1}", flush=True)
+    for m in log:
+        print(f"  stage 1 step {m['step']}: loss {m['loss']:.4f} (ce {m['ce']:.4f}, aux "
+              f"{m['aux']:.4f}), {m['step_time'] * 1e3:9.2f} ms  [{card}]", flush=True)
+    if on_card:
+        print(f"  peak device memory: stage 2 {peak2:.2f} GiB, stage 1 {peak1:.2f} GiB  "
+              f"[{card}]", flush=True)
+    if len(log) != len(data) or not all(np.isfinite(m["loss"]) for m in log):
+        raise AssertionError(f"stage 1: {len(log)} steps, losses {[m['loss'] for m in log]}")
+    missing = [k for k in STAGE1_PATH if stage1[k] == 0]
+    if stage1["gmm"] + stage1["gmm_small"] == 0:
+        missing.append("gmm or gmm_small")
+    if missing or stage1["gmm_wgrad"]:
+        raise AssertionError(f"stage 1: kernels never launched {missing}, B12 launched "
+                             f"{stage1['gmm_wgrad']} times (must be 0)")
+    changed = {}
+    for p, w in tree_leaves(params):
+        changed[p[0]] = changed.get(p[0], 0) + int((w.detach().cpu() != before[p]).sum())
+    print(f"  stage 1 elements changed per component: {changed}", flush=True)
+    if changed["vision_proj"] == 0 or any(n for c, n in changed.items() if c != "vision_proj"):
+        raise AssertionError(f"stage 1 changed {changed}: the vision projector alone trains")
+    del trainer, before
+    gc.collect()
+    # stage 3 from the stage-1 weights: one step on the image+audio sample
+    one = Samples(*zip(*[(s, n) for s, n in zip(data.samples, data.lengths) if "images" in s]))
+    run3 = dataclasses.replace(run, output_dir=os.path.join(TRAIN_DIR, "run3"))
+    kernels.reset_launches()
+    trainer = Trainer(cfg, dataclasses.replace(TrainConfig.stage3_task(), warmup_steps=0), run3,
+                      params)
+    log3 = trainer.train(one, Collator(pad_id=0))
+    _sync(device)
+    stage3 = dict(kernels.launches)
+    print(f"  stage 3, one step from the stage-1 weights: loss {log3[0]['loss']:.4f}, "
+          f"{log3[0]['step_time'] * 1e3:.2f} ms; kernel launches {stage3}  [{card}]", flush=True)
+    if not np.isfinite(log3[0]["loss"]) or stage3["gmm_wgrad"] == 0:
+        raise AssertionError(f"stage 3: loss {log3[0]['loss']}, B12 launches "
+                             f"{stage3['gmm_wgrad']}")
+    del trainer
+    print(f"  stages 1 and 3 in {time.time() - t0:.1f} s  [{card}]", flush=True)
+    return stage1, stage3
 
 
 def train_cli_phase():
     """python -m vita_tpu_torch.train.cli --model tiny-random --moe-mode gmm
-    on the card, in process, over a text sample and an audio sample."""
+    on the card, in process, over a text sample and an audio sample, then
+    with --stage pretrain_mlp on them."""
+    import shutil
+
     from vita_tpu_torch import kernels
     from vita_tpu_torch.train import cli
 
@@ -1773,6 +1914,22 @@ def train_cli_phase():
     print(f"  kernel launches in the train CLI run: {counts}", flush=True)
     if rc != 0 or min(counts["gmm_wgrad"], counts["gmm_small"]) == 0:
         raise AssertionError(f"train CLI: exit code {rc}, launches {counts}")
+    # stage 1 on the same chat file: its audio and text batches reach no
+    # trainable leaf (ROADMAP C6), so every step takes a zero gradient
+    out = os.path.join(directory, "run_stage1")
+    shutil.rmtree(out, ignore_errors=True)  # its metrics.jsonl appends
+    kernels.reset_launches()
+    rc = cli.main(["--model", "tiny-random", "--data", chat, "--output-dir", out,
+                   "--batch-size", "2", "--no-resume", "--moe-mode", "gmm",
+                   "--stage", "pretrain_mlp"])
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    print(f"  train CLI --stage pretrain_mlp: exit code {rc}, losses {losses}, kernel launches "
+          f"{ {k: v for k, v in kernels.launches.items() if v} }", flush=True)
+    if rc != 0 or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"train CLI --stage pretrain_mlp: exit code {rc}, losses {losses}")
+    for k, v in kernels.launches.items():
+        counts[k] += v
     return counts
 
 
@@ -1881,6 +2038,168 @@ def train_equivalence_phase(devices, steps=3):
     if first_tie < steps:
         print(f"  steps {first_tie + 1}-{steps} not compared: the reference's router had a near "
               f"tie in step {first_tie + 1}", flush=True)
+
+
+def chain_samples(cfg, seed=SEED + 5):
+    """Phase 7's data for the three-stage chain: four image samples, two
+    audio-only and two text-only ones, as the Collator takes them; the
+    image samples are the longest, so that modality grouping pairs them
+    and gives one audio-only and one text-only batch of two."""
+    from vita_tpu_torch.tokenization import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
+    from vita_tpu_torch.tokenization import audio_token_count
+
+    rng = np.random.default_rng(seed)
+    sz, n_img, frames = cfg.vision.image_size, cfg.image_tokens_per_group, 60
+    vocab = cfg.llm.vocab_size
+    samples, lengths = [], []
+    for i in range(8):
+        kind = ("image", "audio", "text")[(i >= 4) + (i >= 6)]
+        media = {"image": [IMAGE_TOKEN_INDEX] * n_img,
+                 "audio": [AUDIO_TOKEN_INDEX] * audio_token_count(frames), "text": []}[kind]
+        ids = np.concatenate([[1], media, rng.integers(3, vocab, 40 + i)]).astype(np.int64)
+        labels = np.where(ids < 0, -100, ids)
+        labels[:len(media) + 4] = -100
+        s = {"input_ids": ids, "labels": labels, "modality": kind}
+        if kind == "image":
+            s["images"] = rng.standard_normal((1, sz, sz, 3)).astype(np.float32)
+        if kind == "audio":
+            s["audio"] = rng.standard_normal((frames, 80)).astype(np.float32)
+        samples.append(s)
+        lengths.append(len(ids) * (-1 if kind == "text" else 1))
+    return Samples(samples, lengths)
+
+
+def stage_chain_phase(devices):
+    """The three-stage recipe of tests/test_stage_chaining.py on each
+    device (the last is the reference), at the narrow fp32 config (gmm,
+    flash): stage 1 (the vision projector alone) -> its adapter-only
+    checkpoint (Trainer.save_trainable_only) overlaid on fresh base weights
+    (load_adapter_into) -> stage 2 -> save_vita_checkpoint ->
+    load_vita_checkpoint -> stage 3, four batches a stage over
+    chain_samples (image, audio-only and text-only batches). Holds each
+    step's loss (LOSS_RTOL) and gradients (GRAD_TOL) to the reference's
+    up to the first step where the reference's router had a near tie
+    (ROUTE_NEAR_TIE), and every leaf after each stage to the reference's
+    as phase 14(a) holds a mesh's leaves (within 2 x the leaf's learning
+    rate summed over its updates in this and the earlier stages, plus
+    FSDP_NARROW_ATOL), unless a near tie came first."""
+    import shutil
+
+    import torch
+
+    from vita_tpu_torch.checkpoint import (load_adapter_into, load_vita_checkpoint,
+                                           save_vita_checkpoint)
+    from vita_tpu_torch.data.dataset import Collator
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.train.step import AdamW, TrainConfig, tree_leaves
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer
+
+    t0 = time.time()
+    base = narrow_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, moe_mode="gmm"))
+    data = chain_samples(cfg)
+    fresh = lambda: vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")  # noqa
+    tcs = [dataclasses.replace(f(), warmup_steps=1, total_steps=4) for f in (
+        TrainConfig.stage1_pretrain_mlp, TrainConfig.stage2_finetune, TrainConfig.stage3_task)]
+    gaps, step_gaps, runs = [], [], []  # the reference's smallest router gap a step
+    real_route, real_update = moe.route_topk, AdamW.update
+
+    def recording_route(logits, k):
+        out = real_route(logits, k)
+        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
+        step_gaps.append(float((top[:, k - 1] - top[:, k]).min()))
+        return out
+
+    for dev in devices:
+        root = os.path.join(TRAIN_DIR, "chain", dev.type)
+        shutil.rmtree(root, ignore_errors=True)
+        reference = dev is devices[-1]
+        losses, grads, leaves = [], [], []
+
+        def recording_update(self, params, g, state, *a, grads=grads, reference=reference):
+            grads.append({k: v.detach().float().cpu() for k, v in g.items()})
+            if reference:
+                gaps.append(min(step_gaps, default=float("inf")))
+                step_gaps.clear()
+            return real_update(self, params, g, state, *a)
+
+        def stage(i, params, cfg=cfg):
+            run = RunConfig(output_dir=os.path.join(root, f"s{i + 1}"), batch_size=2,
+                            save_every_steps=10 ** 6, loader_workers=1, resume=False)
+            trainer = Trainer(cfg, tcs[i], run, params)
+            with contextlib.redirect_stdout(io.StringIO()):  # the per-step lines
+                log = trainer.train(data, Collator(pad_id=0, buckets=(64,)))
+            losses.append([m["loss"] for m in log])
+            leaves.append({"/".join(p): w.detach().float().cpu()
+                           for p, w in tree_leaves(trainer.params)})
+            return trainer
+
+        AdamW.update = recording_update
+        if reference:
+            moe.route_topk = recording_route
+        try:
+            t1 = stage(0, _to(fresh(), dev))
+            t1.save_trainable_only("adapters")
+            t2 = stage(1, load_adapter_into(_to(fresh(), dev), os.path.join(root, "s1",
+                                                                             "adapters")))
+            save_vita_checkpoint(os.path.join(root, "s2full"), cfg, t2.params)
+            cfg3, params3 = load_vita_checkpoint(os.path.join(root, "s2full"), dev)
+            stage(2, params3, cfg3)
+        finally:
+            AdamW.update, moe.route_topk = real_update, real_route
+        runs.append((losses, grads, leaves))
+        shutil.rmtree(root, ignore_errors=True)
+    (losses, grads, leaves), (ref_losses, ref_grads, ref_leaves) = runs
+    n = [len(x) for x in ref_losses]
+    if [len(x) for x in losses] != n or n != [4, 4, 4]:
+        raise AssertionError(f"stage chain: steps a stage {[len(x) for x in losses]} vs {n}")
+    tied = [i for i, g in enumerate(gaps) if g <= ROUTE_NEAR_TIE]
+    first_tie = tied[0] if tied else len(gaps)
+    flat, ref_flat = sum(losses, []), sum(ref_losses, [])
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(flat, ref_flat)]
+    grad_errs = [max((float((g[k] - r[k]).abs().max() / r[k].abs().max().clamp_min(1e-30)), k)
+                     for k in r) for g, r in zip(grads, ref_grads)]
+    bad = [f"step {i + 1} loss" for i, e in enumerate(loss_errs[:first_tie]) if e > LOSS_RTOL]
+    bad += [f"step {i + 1} gradients ({e[1]})" for i, e in enumerate(grad_errs[:first_tie])
+            if e[0] > GRAD_TOL]
+    worst, lr_sum = [], {}  # lr_sum: a leaf's learning rate summed over its updates so far
+    for i, tc in enumerate(tcs):
+        if first_tie < 4 * (i + 1):
+            break
+        base_lr, proj_lr = _fsdp_lrs(tc, 4)
+        trains = {"llm": tc.train_llm, "vision": tc.train_vision, "audio": tc.train_audio,
+                  "vision_proj": tc.train_vision_proj, "audio_proj": tc.train_audio_proj}
+        leaf_worst = (0.0, "")
+        for k, w in ref_leaves[i].items():
+            comp = k.split("/")[0]
+            if trains[comp]:
+                lr_sum[k] = lr_sum.get(k, 0.0) + (proj_lr if comp.endswith("_proj") else base_lr)
+            diff = float((leaves[i][k] - w).abs().max())
+            bound = 2 * lr_sum.get(k, 0.0) + FSDP_NARROW_ATOL
+            leaf_worst = max(leaf_worst, (diff, k))
+            if diff > bound:
+                bad.append(f"stage {i + 1}: {k} max |diff| {diff:.3e} (bound {bound:.3e})")
+        worst.append(leaf_worst)
+    # the components each stage moved on the reference, from the weights it began with
+    start = [{"/".join(p): w.float() for p, w in tree_leaves(fresh())}] + ref_leaves[:2]
+    moved = {i + 1: sorted({k.split("/")[0] for k, w in ref_leaves[i].items()
+                            if not torch.equal(w, start[i][k])}) for i in range(3)}
+    print(f"  stage chain on {devices[0]} vs {devices[-1]}: losses a stage {losses} vs "
+          f"{ref_losses}; worst loss rel err {max(loss_errs[:first_tie], default=0):.3e} (tol "
+          f"{LOSS_RTOL}), worst gradient rel err "
+          f"{max(grad_errs[:first_tie], default=(0.0, ''))[0]:.3e} (tol {GRAD_TOL}); worst leaf "
+          f"|diff| after each stage {[f'{d:.3e} ({k})' for d, k in worst]}; components moved "
+          f"by each stage on the reference {moved}; the reference's smallest router gap a step "
+          f"{[f'{g:.3e}' for g in gaps]}", flush=True)
+    if moved[1] != ["vision_proj"]:
+        bad.append(f"stage 1 moved {moved[1]}, not the vision projector alone")
+    if bad:
+        raise AssertionError(f"stage chain differs on {devices}: {bad}")
+    if first_tie < len(gaps):
+        print(f"  steps {first_tie + 1}-{len(gaps)} not compared: the reference's router had a "
+              f"near tie in step {first_tie + 1}", flush=True)
+    print(f"  stage chain on both devices in {time.time() - t0:.1f} s", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -2615,6 +2934,138 @@ def tower_engines_run(card, cfg, params, device, max_new_tokens=(16, 32, 32)):
         print(f"  {label}: {time.time() - t0:.1f} s  [{card}]", flush=True)
 
 
+# (b) many tiles, video and frameCat at full width on phase 3's weights,
+# through Engines of MEDIA_MAX_LEN (a 16-frame patch video's 4096 image
+# tokens run past the default 4096 and take the appended prompt bucket);
+# the kernels each must launch: B1, B5a or B5b, B2, B3 and B4
+MEDIA_MAX_LEN = 8192
+MEDIA_PATH = ("flash_fwd", "paged_attention", "gather_expert_ffn", "masked_expert_ffn")
+
+
+def _tiles(rng, n, size):
+    """``n`` seeded uint8 tiles of ``size`` px, normalized as the pipeline
+    normalizes them (the card's host has no PIL to resize a mosaic, so
+    every tile, the frameCat mosaics too, is any array of the tile size)."""
+    from vita_tpu_torch.data.image import normalize
+
+    return normalize(list(rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)))
+
+
+def media_prompt(cfg, rng, n_tiles, max_new_tokens, frames=0, n_text=40):
+    """A request of ``n_tiles`` tiles as the pipeline lays them out (one
+    <image> group of cfg.image_group_tiles tiles a frame, tile or frameCat
+    5-tuple, each group's image_tokens_per_group slots followed by a
+    newline token), an optional audio question of ``frames`` fbank frames
+    and ``n_text`` text tokens."""
+    from vita_tpu_torch.serve.engine import Request
+    from vita_tpu_torch.tokenization import audio_token_count
+
+    groups, per = n_tiles // cfg.image_group_tiles, cfg.image_tokens_per_group
+    n_aud = audio_token_count(frames) if frames else 0
+    head = 8
+    s = head + groups * (per + 1) + n_aud + n_text
+    ids = rng.integers(3, cfg.llm.vocab_size, s).astype(np.int32)
+    im, am = np.zeros(s, bool), np.zeros(s, bool)
+    for g in range(groups):
+        im[head + g * (per + 1):head + g * (per + 1) + per] = True
+    a0 = head + groups * (per + 1)
+    am[a0:a0 + n_aud] = True
+    ids[im | am] = 0
+    kw = dict(speech=rng.standard_normal((frames, cfg.audio.input_dim)).astype(np.float32),
+              speech_length=frames) if frames else {}
+    return Request(input_ids=ids, image_mask=im, audio_mask=am,
+                   images=_tiles(rng, n_tiles, cfg.vision.image_size),
+                   max_new_tokens=max_new_tokens, eos_id=-1, **kw)
+
+
+def media_engines_run(card, cfg, params, device, max_new_tokens=(32, 16), video_text=40):
+    """Two Engines (MEDIA_MAX_LEN, gmm prefill, bf16 experts) over phase
+    3's weights. Patch: a 13-tile image (a 4 x 3 grid of 12 tiles and the
+    thumbnail, 13 x 256 image tokens) and a 16-frame video with an audio
+    question (16 tiles, 4096 image tokens: the prompt runs past 4096 into
+    the appended bucket; ``video_text`` text tokens), each beside a text
+    request. FrameCat
+    (vision_fusion 'framecat': phase 3's LLM and tower, a frameCat
+    projector over 5 x the tower's channels drawn from the seed): a
+    16-frame video (4 five-tuples [mosaic, f1..f4], 20 tiles) and an image
+    tiled by dynamic_tile_framecat's layout (a 4 x 2 grid: 2 super-tiles,
+    10 tiles), each beside a text request. Tile counts above the largest
+    tile bucket pass unpadded. Each first token is held against the
+    cacheless forward; each Engine must launch MEDIA_PATH and B5a or B5b.
+    ``max_new_tokens``: (a media request's and the second text's, the
+    first text's)."""
+    import torch
+
+    from vita_tpu_torch.generate import (DEFAULT_FRAME_BUCKETS, DEFAULT_TILE_BUCKETS,
+                                         embed_prompt, tile_buckets_for)
+    from vita_tpu_torch.models import projectors
+    from vita_tpu_torch.serve.engine import Engine
+
+    fcfg = dataclasses.replace(cfg, vision_fusion="framecat")
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    fparams = {**params, "vision_proj": projectors.init_vision_projector_kind(
+        fcfg.vision_proj_in_dim, cfg.llm.d_model, gen, "mlp2x_gelu", device, cfg.llm.dtype)}
+    rng = np.random.default_rng(SEED + 41)
+    m, t = max_new_tokens
+    # the media requests prefill first (two at a time) and the text requests
+    # join their decode: a batch of 4 (B4), then fewer as they end (B3)
+    runs = (
+        ("patch: 13-tile image, 16-frame video + audio", cfg, params,
+         lambda: [media_prompt(cfg, rng, 13, m),
+                  media_prompt(cfg, rng, 16, m, frames=400, n_text=video_text),
+                  text_request(cfg, rng, 60, t), text_request(cfg, rng, 150, m)]),
+        ("framecat: 16-frame video (20 tiles), an image tiled 4 x 2 (10 tiles)",
+         fcfg, fparams,
+         lambda: [media_prompt(fcfg, rng, 20, m), media_prompt(fcfg, rng, 10, m),
+                  text_request(fcfg, rng, 60, t), text_request(fcfg, rng, 150, m)]),
+    )
+    for label, rcfg, rparams, make in runs:
+        t0 = time.time()
+        engine = Engine(rparams, rcfg, max_len=MEDIA_MAX_LEN, n_slots=4, page_size=64,
+                        decode_moe_mode="gather", prefill_moe_mode="gmm", device=device)
+        reqs = make()
+        longest = max(len(r.input_ids) for r in reqs)
+        if rcfg is cfg and (longest <= 4096 or engine.prompt_buckets[-2:] != (4096,
+                                                                            MEDIA_MAX_LEN)):
+            raise AssertionError(f"{label}: the longest prompt {longest} takes none of the "
+                                 f"buckets past 4096 ({engine.prompt_buckets})")
+        before = _launches()
+        serve(engine, reqs)
+        counts, _ = _delta(before)
+        for r in reqs:
+            tiles = 0 if r.images is None else len(r.images)
+            if len(r.tokens) != r.max_new_tokens or not all(
+                    0 <= x < rcfg.llm.vocab_size for x in r.tokens):
+                raise AssertionError(f"{label}: {len(r.tokens)} tokens {r.tokens[:8]}")
+            print(f"  {tiles:2d} tiles, prompt {len(r.input_ids):4d} (bucket "
+                  f"{next(x for x in engine.prompt_buckets if x >= len(r.input_ids))})  TTFT "
+                  f"{r.ttft_s * 1e3:9.2f} ms  decode {r.decode_tokens_per_s:8.2f} tok/s  "
+                  f"[{card}]", flush=True)
+        missing = [k for k in MEDIA_PATH if counts[k] == 0]
+        if counts["gmm"] + counts["gmm_small"] == 0:
+            missing.append("gmm or gmm_small")
+        print(f"  {label}: launches { {k: v for k, v in counts.items() if v} }", flush=True)
+        if missing and device.type == "cuda":  # a CPU run (to try the logic) launches none
+            raise AssertionError(f"{label}: kernels never launched on its path: {missing}")
+        for r in reqs:
+            ids = np.asarray(r.input_ids, np.int64)
+            embeds = None
+            if r.images is not None:
+                embeds = embed_prompt(rparams, rcfg, ids, device,
+                                      tile_buckets_for(rcfg, DEFAULT_TILE_BUCKETS),
+                                      DEFAULT_FRAME_BUCKETS, image_mask=r.image_mask,
+                                      audio_mask=r.audio_mask, images=r.images,
+                                      speech=r.speech, speech_length=r.speech_length)
+            first_token_gap(rparams, rcfg, torch.as_tensor(ids[None], device=device),
+                            r.tokens[0], embeds=embeds)
+            del embeds
+        del engine
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"  {label}: {time.time() - t0:.1f} s  [{card}]", flush=True)
+
+
 def narrow_tower_config(tower: str, projector: str, whale_backend: str = "xla"):
     """narrow_config() with a tiny ``tower`` and ``projector`` (fp32)."""
     import torch
@@ -2629,8 +3080,10 @@ def narrow_tower_config(tower: str, projector: str, whale_backend: str = "xla"):
 def registry_phase(card, cfg, params, device):
     """Phase 10 on phase 3's full-width weights, launch counts zeroed
     before it and returned after: (a) Whale flash vs xla at 4, 30 and 120
-    s; (b) three full-width tower Engines; (c) the narrow fp32 tower and
-    projector pairs on the card and on the CPU, identical greedy streams."""
+    s; (b) three full-width tower Engines, then many tiles, patch video
+    and frameCat (``media_engines_run``); (c) the narrow fp32 tower and
+    projector pairs and the frameCat fusion on the card and on the CPU,
+    identical greedy streams."""
     import torch
 
     from vita_tpu_torch import kernels
@@ -2641,12 +3094,17 @@ def registry_phase(card, cfg, params, device):
     print("  (b) full-width towers through the Engine (gmm prefill, bf16 experts)",
           flush=True)
     tower_engines_run(card, cfg, params, device)
-    print("  (c) narrow fp32 tower and projector pairs, cuda vs cpu", flush=True)
+    print(f"  (b) many tiles, patch video and frameCat through Engines of max_len "
+          f"{MEDIA_MAX_LEN}", flush=True)
+    media_engines_run(card, cfg, params, device)
+    print("  (c) narrow fp32 tower, projector and fusion variants, cuda vs cpu", flush=True)
     pair = [torch.device("cuda"), torch.device("cpu")]
     for tower, projector, backend in (("clip", "ldp", "xla"), ("siglip", "mlp3x_gelu", "xla"),
                                       ("eva", "spp_v1", "flash")):
         equivalence_phase(pair, cfg=narrow_tower_config(tower, projector, backend),
                           decode_moe_mode="gather", prefill_moe_mode="gmm")
+    equivalence_phase(pair, cfg=dataclasses.replace(narrow_config(), vision_fusion="framecat"),
+                      decode_moe_mode="gather", prefill_moe_mode="gmm")
     counts = dict(kernels.launches)
     print(f"  kernel launches in phase 10: {counts}; by shape: {dict(kernels.launch_keys)}",
           flush=True)
@@ -4610,6 +5068,11 @@ NARROW_WHOLE_BATCH = {(1, 2, 1, 1): dict(moe_mode="capacity", moe_chunk=40),
                       (1, 1, 2, 1, 1, 2): dict(moe_mode="sort")}
 FSDP_NARROW_STEPS = 3
 FSDP_NARROW_B, FSDP_NARROW_S = 4, 256
+# (a) stage 1 (the vision projector alone trains, ROADMAP C6) under meshes
+# where only some ranks' share of a batch reaches it (stage1_batches):
+# phase 14's, then phase 15's model x seq
+STAGE1_NARROW_MESHES = ((2, 2, 1, 1), (1, 2, 1, 1, 2))
+TP_STAGE1_MESHES = ((1, 1, 1, 2, 1, 2),)
 # per leaf after the last update: |w_mesh - w_ref| <= 2 * (the leaf's
 # learning rates summed over the updates) + FSDP_NARROW_ATOL everywhere
 # (Adam may move a weight whose gradient is at rounding level by up to
@@ -4655,10 +5118,11 @@ FSDP_SERVE_NARROW_RUNS = (
     ("int8 experts", dict(decode_moe_mode="gather_q")),
     ("int4 experts, int8 KV", dict(decode_moe_mode="gather_q4", kv_int8=True)),
 )
-# (d) serving over data/fsdp at full width, on (b)'s 2-layer slice and
-# weights: (label, mesh, Engine options, the kernels every rank must
-# launch). Each layer runs on its whole gathered weights, so the streams
-# must equal the unsharded Engine's but at a logit near tie (NEAR_TIE).
+# (d) serving over data/fsdp at full width, on (b)'s slice cut to one LLM
+# layer (dp_serve_config): (label, mesh, Engine options, the kernels every
+# rank must launch). Each layer runs on its whole gathered weights, so the
+# streams must equal the unsharded Engine's but at a logit near tie
+# (NEAR_TIE).
 DP_SERVE_RUNS = (
     ("S1 bf16 experts, bf16 KV pages", (2, 2, 1, 1),
      dict(decode_moe_mode="gather", prefill_moe_mode="gmm"),
@@ -4722,6 +5186,63 @@ def fsdp_batches(cfg, n, b, s, frames, seed):
             "speech": rng.standard_normal((b, frames, 80)).astype(np.float32),
             "speech_lengths": np.full((b,), frames, np.int32)})
     return out
+
+
+def stage1_batches(cfg, b, s, frames, seed):
+    """Stage 1's FSDP_NARROW_STEPS global batches: split, text-only, split.
+    In a split batch rows 0 and 1 are text and rows 2 and 3 each hold an
+    image tile and an audio clip in the second half of their positions, so
+    under 2 2 1 1 the first data rank's rows, under 1 2 1 1 2 the first
+    fsdp rank's one microbatch and under 1 1 1 2 1 2 the first seq block
+    reach no image. The text-only batch (no media keys, as the Collator
+    gives one) reaches no trainable leaf on any rank."""
+    from vita_tpu_torch.tokenization import audio_token_count
+
+    rng = np.random.default_rng(seed)
+    sz, n_img, n_aud = cfg.vision.image_size, cfg.image_tokens_per_group, audio_token_count(
+        frames)
+    out = []
+    for i in range(FSDP_NARROW_STEPS):
+        ids = rng.integers(3, cfg.llm.vocab_size, (b, s)).astype(np.int32)
+        im, am = np.zeros((b, s), bool), np.zeros((b, s), bool)
+        valid = np.ones((b, s), bool)
+        valid[1, s - s // 5:] = False
+        valid[3, s - s // 9:] = False
+        media = i != 1
+        if media:
+            h = s // 2 + 4
+            im[2:, h:h + n_img] = True
+            am[2:, h + 2 + n_img:h + 2 + n_img + n_aud] = True
+        labels = np.where(im | am | ~valid, -100, ids).astype(np.int32)
+        labels[:, :8] = -100
+        batch = {"input_ids": np.where(im | am, 0, ids).astype(np.int32), "labels": labels,
+                 "image_mask": im, "audio_mask": am, "attn_valid": valid}
+        if media:
+            batch.update(images=rng.standard_normal((b, sz, sz, 3)).astype(np.float32),
+                         speech=rng.standard_normal((b, frames, 80)).astype(np.float32),
+                         speech_lengths=np.full((b,), frames, np.int32))
+        out.append(batch)
+    return out
+
+
+def _stage1_tc():
+    """Stage 1 at its preset's rate (5e-4), the first update at lr 0."""
+    from vita_tpu_torch.train.step import TrainConfig
+
+    return dataclasses.replace(TrainConfig.stage1_pretrain_mlp(), warmup_steps=1,
+                               total_steps=10)
+
+
+def narrow_inputs(shape, stage: int = 2):
+    """(config, TrainConfig, batches) of (a)'s narrow steps under mesh
+    ``shape``: stage 2 at phase 7's rates over fsdp_batches, or stage 1
+    over stage1_batches."""
+    cfg = fsdp_narrow_config(shape)
+    if stage == 1:
+        return cfg, _stage1_tc(), stage1_batches(cfg, FSDP_NARROW_B, FSDP_NARROW_S, 60,
+                                                 SEED + 61)
+    return cfg, _fsdp_tc(False), fsdp_batches(cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B,
+                                              FSDP_NARROW_S, 60, SEED + 60)
 
 
 def _fsdp_tc(full: bool):
@@ -5044,6 +5565,15 @@ def _served(reqs, dev, t0):
                 peak=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0)
 
 
+def dp_serve_config(small: bool = False):
+    """(d)'s configuration: fsdp_full_config cut to 1 LLM layer. Every
+    forward over data/fsdp gathers each layer's weights through host
+    memory (a bf16 layer about 6-8 s a forward on the shared card), and
+    one layer runs the same gathers, copies and kernels as two."""
+    cfg = fsdp_full_config(small)
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=1))
+
+
 def dp_serve_rank(cfg, dev, meshes, runs=DP_SERVE_RUNS):
     """(d) on one rank: the whole weights drawn as the unsharded run's
     (on the card, then kept on the host so that no rank holds them on the
@@ -5174,7 +5704,8 @@ def fsdp_serve_narrow(dev, meshes):
 def fsdp_rank(rank, world, plan):
     """One rank of phases 14 and 15: (a) FSDP_NARROW_STEPS narrow fp32
     steps under each of ``plan["narrow_meshes"]`` (the losses and this
-    rank's blocks after the last update), and with
+    rank's blocks after the last update), the same at stage 1 under each
+    of ``plan["stage1_meshes"]`` (``narrow_inputs``), and with
     ``plan["serve_narrow"]`` (phase 14) fsdp_serve_narrow; (b) a step of
     the full-width slice under each of ``plan["full_meshes"]`` (losses,
     step ms, peak, the step's launches, this rank's values at the sampled
@@ -5200,22 +5731,23 @@ def fsdp_rank(rank, world, plan):
         kernels.lib()  # phase 1's library: loaded, not built
     resume, serve_narrow = plan.get("resume"), plan.get("serve_narrow")
     serve_runs = [run for run in DP_SERVE_RUNS if run[0] in plan.get("serve", ())]
+    stage1_meshes = tuple(plan.get("stage1_meshes", ()))
     meshes = _replica_meshes(
-        plan["narrow_meshes"] + plan["full_meshes"] + ((resume["mesh"],) if resume else ())
+        plan["narrow_meshes"] + stage1_meshes + plan["full_meshes"]
+        + ((resume["mesh"],) if resume else ())
         + (FSDP_SERVE_NARROW_MESHES if serve_narrow else ())
         + tuple(m for _, m, _, _ in serve_runs) + ((DP_SERVE_Q8_MESH,) if serve_runs else ()),
         rank, world)
-    out = {"narrow": {}, "full": {}, "wall_s": {}}
+    out = {"narrow": {}, "stage1": {}, "full": {}, "wall_s": {}}
     out["wall_s"]["setup"], t_part = time.time() - t_part, time.time()
-    for shape in plan["narrow_meshes"]:
-        mesh = meshes[shape]
-        cfg = fsdp_narrow_config(shape)
-        params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-        batches = fsdp_batches(cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B, FSDP_NARROW_S, 60,
-                               SEED + 60)
-        losses, blocks, _, routes = _train_steps(params, cfg, _fsdp_tc(False), batches, dev,
-                                                 mesh)
-        out["narrow"][shape] = dict(losses=losses, blocks=blocks, routes=routes,
+    for stage, part, shapes in ((2, "narrow", plan["narrow_meshes"]),
+                                (1, "stage1", stage1_meshes)):
+        for shape in shapes:
+            mesh = meshes[shape]
+            cfg, tc, batches = narrow_inputs(shape, stage)
+            params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+            losses, blocks, _, routes = _train_steps(params, cfg, tc, batches, dev, mesh)
+            out[part][shape] = dict(losses=losses, blocks=blocks, routes=routes,
                                     coords={a: axis(mesh, a).rank for a in AXES})
     if serve_narrow:
         out["serve_narrow"] = fsdp_serve_narrow(dev, meshes)
@@ -5242,7 +5774,7 @@ def fsdp_rank(rank, world, plan):
             torch.cuda.empty_cache()
     out["wall_s"]["b"], t_part = time.time() - t_part, time.time()
     if serve_runs:
-        out["serve"] = dp_serve_rank(cfg, dev, meshes, serve_runs)
+        out["serve"] = dp_serve_rank(dp_serve_config(plan["small"]), dev, meshes, serve_runs)
     out["wall_s"]["d"], t_part = time.time() - t_part, time.time()
     if resume:
         mesh = meshes[resume["mesh"]]
@@ -5305,28 +5837,26 @@ def _gather_samples(results, shape, leaf, key, name, failed):
     return got
 
 
-def _narrow_key(cfg):
-    return cfg.llm.moe_mode, cfg.llm.pipe_stages, cfg.llm.moe_chunk
+def _narrow_key(cfg, stage: int = 2):
+    return cfg.llm.moe_mode, cfg.llm.pipe_stages, cfg.llm.moe_chunk, stage
 
 
-def _narrow_refs(meshes, device, refs=None):
-    """The unsharded narrow steps for ``meshes``, by (moe mode, pipe
-    stages, moe_chunk): those of ``refs`` (an earlier phase's) where
-    present."""
+def _narrow_refs(meshes, device, refs=None, stage: int = 2):
+    """The unsharded narrow steps (``narrow_inputs`` at ``stage``) for
+    ``meshes``, by (moe mode, pipe stages, moe_chunk, stage): those of
+    ``refs`` (an earlier phase's) where present."""
     import torch
 
     from vita_tpu_torch.models import vita
 
     refs = dict(refs or {})
     for shape in meshes:
-        cfg = fsdp_narrow_config(shape)
-        key = _narrow_key(cfg)
+        cfg, tc, batches = narrow_inputs(shape, stage)
+        key = _narrow_key(cfg, stage)
         if key not in refs:
             ref_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, pipe_stages=1))
             params = vita.init_params(ref_cfg, torch.Generator().manual_seed(SEED), "cpu")
-            batches = fsdp_batches(ref_cfg, FSDP_NARROW_STEPS, FSDP_NARROW_B, FSDP_NARROW_S, 60,
-                                   SEED + 60)
-            refs[key] = _train_steps(params, ref_cfg, _fsdp_tc(False), batches, device)
+            refs[key] = _train_steps(params, ref_cfg, tc, batches, device)
     return refs
 
 
@@ -5452,28 +5982,30 @@ def dp_serve_report(card, results, ref, device, failed, runs=DP_SERVE_RUNS):
     return total
 
 
-def _narrow_report(results, meshes, narrow_ref, failed):
+def _narrow_report(results, meshes, narrow_ref, failed, stage: int = 2):
     """(a): each mesh's losses (phase 7's LOSS_RTOL and router near-tie
     excuse) and every leaf after the last update against the unsharded
     steps' (FSDP_NARROW_*), and bitwise equal on the ranks of a mesh that
     hold the same block (a leaf replicated over an axis: on every rank of
     it; the replicas of a mesh smaller than the group are separate runs,
-    whose scatter-adds need not sum in one order)."""
+    whose scatter-adds need not sum in one order); ``stage`` 1 reads the
+    ranks' stage-1 runs."""
     from vita_tpu_torch.models import vita
 
-    base_lr, proj_lr = _fsdp_lrs(_fsdp_tc(False), FSDP_NARROW_STEPS)
+    part = "narrow" if stage == 2 else "stage1"
     for shape in meshes:
-        cfg = fsdp_narrow_config(shape)
-        ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[_narrow_key(cfg)]
-        name = f"(a) --mesh {' '.join(map(str, shape))}" + (
+        cfg, tc, _ = narrow_inputs(shape, stage)
+        base_lr, proj_lr = _fsdp_lrs(tc, FSDP_NARROW_STEPS)
+        ref_losses, ref_leaves, gaps, ref_routes = narrow_ref[_narrow_key(cfg, stage)]
+        name = f"(a){' stage 1' if stage == 1 else ''} --mesh {' '.join(map(str, shape))}" + (
             f" {cfg.llm.moe_mode}" + (f", moe_chunk {cfg.llm.moe_chunk}" if cfg.llm.moe_chunk
                                        else "") if shape in NARROW_WHOLE_BATCH else "")
         sizes = dict(zip(AXES_ALL, tuple(shape) + (1,) * (6 - len(shape))))
         # a rank whose tokens took other experts than the unsharded run's at
         # step i: excused from step i on where the unsharded router had a
         # near tie there (phase 7's excuse), a failure where it had none
-        flips = [_first_flip(ref_routes, res["narrow"][shape]["routes"], cfg,
-                             res["narrow"][shape]["coords"], sizes, FSDP_NARROW_B,
+        flips = [_first_flip(ref_routes, res[part][shape]["routes"], cfg,
+                             res[part][shape]["coords"], sizes, FSDP_NARROW_B,
                              FSDP_NARROW_S) for res in results]
         first_tie = min([f for f in flips if f is not None], default=FSDP_NARROW_STEPS)
         if first_tie < FSDP_NARROW_STEPS and gaps[first_tie] > ROUTE_NEAR_TIE:
@@ -5483,7 +6015,7 @@ def _narrow_report(results, meshes, narrow_ref, failed):
         specs = dict(_leaf_items(vita.param_specs(cfg)))
         worst_loss, worst_leaf, worst_share, held = 0.0, (0.0, ""), (0.0, ""), {}
         for r, res in enumerate(results):
-            got = res["narrow"][shape]
+            got = res[part][shape]
             errs = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref_losses)]
             worst_loss = max([worst_loss] + errs[:first_tie])
             if any(e > LOSS_RTOL for e in errs[:first_tie]):
@@ -5509,7 +6041,7 @@ def _narrow_report(results, meshes, narrow_ref, failed):
                     failed.append(f"{name}: rank {r}'s {leaf} max |diff| {diff.max():.3e} "
                                   f"(bound {bound:.3e}), {share:.2e} of it beyond 1e-4")
         print(f"  {name} narrow fp32, {FSDP_NARROW_STEPS} steps: losses "
-              f"{results[0]['narrow'][shape]['losses']} vs the unsharded {ref_losses} (worst "
+              f"{results[0][part][shape]['losses']} vs the unsharded {ref_losses} (worst "
               f"rel err {worst_loss:.3e}, tol {LOSS_RTOL}); after the last update worst leaf "
               f"max |diff| {worst_leaf[0]:.3e} ({worst_leaf[1]}), worst share beyond 1e-4 "
               f"{worst_share[0]:.2e} ({worst_share[1]}); the unsharded run's smallest router "
@@ -5680,11 +6212,12 @@ def fsdp_phase(card: str, device, small: bool = False):
 
     failed = []
     narrow_ref = _narrow_refs(FSDP_NARROW_MESHES, device)
+    stage1_ref = _narrow_refs(STAGE1_NARROW_MESHES, device, stage=1)
     serve_narrow_ref = fsdp_serve_narrow_refs(device)
     # (b) the unsharded full-width step
     full_cfg = fsdp_full_config(small)
     t0 = time.time()
-    serve_ref = dp_serve_reference(card, full_cfg, device)
+    serve_ref = dp_serve_reference(card, dp_serve_config(small), device)
     print(f"  (d) unsharded runs and decode copies in {time.time() - t0:.1f} s", flush=True)
     full_s = FSDP_FULL_S if not small else 64
     t0 = time.time()
@@ -5697,8 +6230,9 @@ def fsdp_phase(card: str, device, small: bool = False):
     run_dir = os.path.join(cli_dir, "run")
     plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
             "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
-            "narrow_meshes": FSDP_NARROW_MESHES, "full_meshes": FSDP_FULL_MESHES,
-            "serve_narrow": True, "serve": [label for label, _, _, _ in DP_SERVE_RUNS],
+            "narrow_meshes": FSDP_NARROW_MESHES, "stage1_meshes": STAGE1_NARROW_MESHES,
+            "full_meshes": FSDP_FULL_MESHES, "serve_narrow": True,
+            "serve": [label for label, _, _, _ in DP_SERVE_RUNS],
             "cli": [_cli_argv(chat, run_dir, (1, 4, 1, 1))] * 2}
     t0 = time.time()
     results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
@@ -5709,6 +6243,7 @@ def fsdp_phase(card: str, device, small: bool = False):
           f"{walls['a']:.1f} s, (b) {walls['b']:.1f} s, (d) {walls['d']:.1f} s, (c) "
           f"{walls['c']:.1f} s; {FSDP_NOTE})", flush=True)
     _narrow_report(results, FSDP_NARROW_MESHES, narrow_ref, failed)
+    _narrow_report(results, STAGE1_NARROW_MESHES, stage1_ref, failed, stage=1)
     fsdp_serve_narrow_report(results, serve_narrow_ref, failed)
     total, readings = _full_report(card, results, FSDP_FULL_MESHES, full_ref, full_s, device,
                                    failed)
@@ -5729,8 +6264,8 @@ def fsdp_phase(card: str, device, small: bool = False):
     print(f"  (c) train CLI --mesh 1 4 1 1 --moe-mode gmm: exit codes "
           f"{[[rc for rc, _ in res['cli']] for res in results]}, metrics.jsonl {len(lines)} "
           f"lines, second run: {resumed}", flush=True)
-    TRAIN_REFS.update(narrow=narrow_ref, full=full_ref, picks=picks, full_s=full_s,
-                      readings=readings, chat=chat, run_dir=run_dir, small=small)
+    TRAIN_REFS.update(narrow={**narrow_ref, **stage1_ref}, full=full_ref, picks=picks,
+                      full_s=full_s, readings=readings, chat=chat, run_dir=run_dir, small=small)
     if failed:
         raise AssertionError("phase 14 failed:\n  " + "\n  ".join(failed))
     return total
@@ -5788,6 +6323,7 @@ def tp_phase(card: str, device):
     failed = []
     small = TRAIN_REFS.get("small", False)
     narrow_ref = _narrow_refs(TP_NARROW_MESHES, device, TRAIN_REFS.get("narrow"))
+    stage1_ref = _narrow_refs(TP_STAGE1_MESHES, device, TRAIN_REFS.get("narrow"), stage=1)
     if "full" in TRAIN_REFS:
         full_ref, picks, full_s = TRAIN_REFS["full"], TRAIN_REFS["picks"], TRAIN_REFS["full_s"]
     else:
@@ -5818,8 +6354,8 @@ def tp_phase(card: str, device):
     del trainer
     plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
             "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
-            "narrow_meshes": TP_NARROW_MESHES, "full_meshes": TP_FULL_MESHES,
-            "resume": {"mesh": TP_RESUME_MESH, "dir": run_dir},
+            "narrow_meshes": TP_NARROW_MESHES, "stage1_meshes": TP_STAGE1_MESHES,
+            "full_meshes": TP_FULL_MESHES, "resume": {"mesh": TP_RESUME_MESH, "dir": run_dir},
             "cli": [_cli_argv(chat, run_dir, TP_RESUME_MESH, epochs=2)]}
     t0 = time.time()
     results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
@@ -5830,6 +6366,7 @@ def tp_phase(card: str, device):
           f"{walls['a']:.1f} s, (b) {walls['b']:.1f} s, (c) {walls['c']:.1f} s; {FSDP_NOTE})",
           flush=True)
     _narrow_report(results, TP_NARROW_MESHES, narrow_ref, failed)
+    _narrow_report(results, TP_STAGE1_MESHES, stage1_ref, failed, stage=1)
     total, _ = _full_report(card, results, TP_FULL_MESHES, full_ref, full_s, device, failed,
                             TRAIN_REFS.get("readings"), f32)
     # (c)
@@ -6023,6 +6560,7 @@ def main() -> int:
     parts.append(train_cli_phase())
     kernels.reset_launches()
     train_equivalence_phase(pair)
+    stage_chain_phase(pair)
     parts.append(dict(kernels.launches))
     print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)
 
@@ -6082,7 +6620,8 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"vita_tpu_torch/{src}",
-         "replaces": tpu, "launches": counts[name], **rows[name]}
+         "replaces": tpu, "launches": counts[name],
+         "stage1_launches": STAGE1_LAUNCHES.get(name, 0), **rows[name]}
         for name, (src, tpu) in meta.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

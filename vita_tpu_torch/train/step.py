@@ -30,6 +30,11 @@ sums the gradients over the ranks of 'data', 'fsdp' and 'seq'
 axis that splits it, so every rank clips alike) and keeps the Adam
 moments on the rank's blocks. This is the JAX package's step over
 the same global batch, which GSPMD shards.
+
+A batch whose loss reaches no trainable leaf (stage 1 on a text or a
+speech batch) gives every trainable leaf a zero gradient and still takes
+the update (the count advances, the moments decay, weight decay applies),
+as optax does on the JAX package's gradients, which are zero there.
 """
 
 from __future__ import annotations
@@ -272,7 +277,13 @@ def make_train_step(cfg: vita.VITAConfig, tc: TrainConfig, optimizer: AdamW,
         batch = batch_to(batch, dev)
         loss, metrics = loss_fn(params, cfg, batch, tc.aux_loss_coef, mesh)
         ws = [leaves[p] for p in optimizer.paths]
-        grads = torch.autograd.grad(loss, ws, allow_unused=True)
+        # No graph: the loss reaches no trainable leaf (the module's
+        # docstring). Every rank of a mesh decides alike: the towers and the
+        # fusion run over the whole global batch on every rank, so a rank's
+        # block of the embeddings carries a graph whenever any row's media
+        # does.
+        grads = (torch.autograd.grad(loss, ws, allow_unused=True) if loss.requires_grad
+                 else [None] * len(ws))
         grads = {p: torch.zeros_like(w) if g is None else g
                  for p, w, g in zip(optimizer.paths, ws, grads)}
         if mesh is not None:
