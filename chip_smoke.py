@@ -53,19 +53,44 @@ Phases, each of which raises on failure:
      decode_inflight=1, whose greedy stream must be the same, and eight
      pure-decode ticks run under torch.cuda.set_sync_debug_mode("error"):
      no operand upload and no readback of the tick may wait for the card
-     (the wait on the oldest chunk's CUDA event is not such a call);
+     (the wait on the oldest chunk's CUDA event is not such a call), with a
+     greedy request active and again with a filtered one (top_k 40, top_p
+     0.9); before those, that Engine serves SAMPLED_WAVE (8 requests of 32
+     new tokens: greedy, temperature 0.8 alone, top_k 40, top_p 0.9, top_k
+     1, top_p 1e-6, top_k 40 with top_p 0.9), a second Engine of the same
+     seed must stream it alike, its top_k 1 and top_p 1e-6 rows must equal
+     the same prompts served greedy but at a NEAR_TIE split, and every
+     sampled token must lie in its nucleus by the cacheless forward
+     (nucleus_check); a categorical and a filtered request alone print
+     their decode tok/s beside greedy's; after the four runs, preempt_case
+     with bf16 experts, then int4 experts with int8 KV pages: pages of 64,
+     decode_inflight 2, a pool too small for both requests' worst cases, at
+     least one preemption, a preempted request admitted again into its
+     slot while a chunk dispatched before its preemption is in flight,
+     every page free after the drain, and streams as the roomy pool's (from
+     a resumption on, as the prompt and the tokens before it served anew),
+     up to a NEAR_TIE split;
   4. the same slice through Generator (max_len 12288, gmm prefill, gather
      decode): an image+audio request (bucket 512, B5b) and a text request
      of about 8500 tokens (bucket 12288, T*k 24576, B5a), each first token
-     held against the cacheless dense forward; then the CLI in process
-     (python -m vita_tpu_torch.cli --model tiny-random --prefill-moe-mode
-     gmm);
+     held against the cacheless dense forward, then the image+audio request
+     sampled (temperature 0.7, top_p 0.9), every token in its nucleus; then
+     the CLI in process (python -m vita_tpu_torch.cli --model tiny-random
+     --prefill-moe-mode gmm), and again with --temperature 0.8;
   5. the same Engine on the card and on the CPU, narrow fp32 config, same
      weights and prompts: float experts with dense and with gmm prefill,
      then int4 experts with int8 KV pages: greedy streams must be
      identical (for the quantized run, a request may split only at a step
      where the CPU's own top two logits were the two tokens, within
-     NEAR_TIE below);
+     NEAR_TIE below); then preempt_case with float experts on both devices
+     (streams equal the roomy pool's and identical on both); then the
+     sampler alone: SAMPLER_CASES (bf16 rows at V 51760 whose ties
+     straddle the 40th place or the top-p edge; categorical, top_k 40,
+     top_p 0.9, both), SAMPLE_DRAWS draws each on the card and on the
+     CPU from a seeded generator (the CPU's in a child process that runs
+     beside phases 5-8 and is read after phase 8): no draw outside the
+     kept set of the JAX rule (kept_set, float64) and each chi-square
+     p-value at least CHI2_P_FLOOR;
   6. train the full-width slice with the LLM cut to 2 of 32 layers
      (stage 2, gmm MoE, flash attention, per-layer remat, bf16) through
      Trainer for one step per sample: two text samples past 4096 tokens
@@ -118,10 +143,12 @@ Phases, each of which raises on failure:
      the CPU at phase 5's narrow fp32 configuration (the dequantized
      prefix is lossy by design); (b) the port's ServingApp on 127.0.0.1
      (ephemeral port) over the bf16 Engine: two /v1/generate turns of one
-     session_id, then a streamed /v1/chat/completions, and /stats must
-     show reused rows; (c) DuplexWebApp with two Engines over the weights
-     (gmm prefill), streaming Whale encode at 24 x 1024, fed
-     duplex_demo.synth_session through feed_pcm/drain_audio without
+     session_id, then a streamed /v1/chat/completions, greedy and then with
+     temperature 0.7 and top_p 0.9 (16 tokens in the vocabulary, the knobs
+     on the Engine's request), and /stats must show reused rows; (c)
+     DuplexWebApp with two Engines over the weights (gmm prefill),
+     streaming Whale encode at 24 x 1024, fed duplex_demo.synth_session
+     through feed_pcm/drain_audio without
      real-time sleeps and with a decode mapping every id to a letter:
      exactly 2 utterances (the noise rejected by the VAD), an interrupt
      with a role swap, the interrupted request cancelled and both pools
@@ -169,9 +196,12 @@ Phases, each of which raises on failure:
      top two logits (NEAR_TIE) or after the mesh routed one of the
      request's rows otherwise at a router near tie (MESH_ROUTE_NEAR_TIE);
      each rank's peak memory, TTFT and tok/s printed (time-shared, not a
-     measure of scaling); every rank must launch B1, B2, B9, B3, B4, B7,
-     B8b and B5b; a rank that fails or hangs past the join's timeout fails
-     the phase.
+     measure of scaling); under expert 2 x model 2 the bf16 Engine also
+     serves MESH_SAMPLED_WAVE (filtered: top_k 40 with top_p 0.9, and top_k
+     1) and its prompts greedy: every rank's streams identical, the top_k 1
+     rows as greedy but at a NEAR_TIE split; every rank must launch B1, B2,
+     B9, B3, B4, B7, B8b and B5b; a rank that fails or hangs past the
+     join's timeout fails the phase.
 
  12. sequence parallelism and the duplex replicas, as 4 ranks spawned on
      cuda:0 over gloo after the unsharded runs here: (a) ring attention
@@ -220,6 +250,8 @@ Phases, each of which raises on failure:
      B4/B8b); first, under pipe 4, each stage's prefill output and pool
      held bitwise to the unsharded prefill's after its layer; each rank's
      peak memory, TTFT, tok/s and the ring's host ms a substep printed;
+     under pipe 4 (the vocabulary split) the bf16 Engine serves phase 11's
+     sampled wave, held as there (a split also within PIPE_NEAR_TIE_ULPS);
      every rank must launch B1, B2, B9, B3, B7 and B5b; (c) one GPipe step
      (pipe 2, 2 microbatches) of phase 12(b)'s 2-layer slice with dense
      MoE on two replicas: the loss, the aux (the microbatches' mean) and
@@ -256,7 +288,7 @@ Phases, each of which raises on failure:
      rank builds it from the whole weights, which it cuts): S1 under 2 2
      1 1 (bf16 experts and KV pages, gmm prefill) and S2 under 1 4 1 1
      (int4 experts, int8 KV pages, gmm prefill) serve an image+audio and
-     a text request of 4 new tokens (2 prefill chunks and 4 decode steps,
+     a text request of 2 new tokens (2 prefill chunks and 2 decode steps,
      every one
      gathering every layer): every rank's streams equal, and equal to the
      unsharded Engine's here but at a logit near tie (NEAR_TIE); S2's
@@ -1359,6 +1391,7 @@ def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
         if missing:
             raise AssertionError(f"{label}: kernels never launched on its path: {missing}")
         if i == 0:
+            sampled_wave_check(card, engine, cfg, params, device, options, solo)
             inflight_check(card, engine, cfg, params, device, options, solo)
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
@@ -1370,6 +1403,7 @@ def slice_phase(card: str, cfg, params, device, max_new_tokens: int = 32):
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    preempt_phase(card, cfg, params, device)
     return total
 
 
@@ -1380,10 +1414,13 @@ def inflight_check(card: str, engine, cfg, params, device, options, solo,
     then ``ticks`` pure-decode ticks of ``engine`` under
     torch.cuda.set_sync_debug_mode("error"), which raises at any call that
     waits for the card (a blocking copy, .cpu(), .item(), a stream or
-    device synchronize). CUDA event waits are not such calls, so the
-    read of the oldest chunk runs under the mode too."""
+    device synchronize), with a greedy request active and again with a
+    filtered one (top_k 40, top_p 0.9: the full-vocabulary sort in the
+    tick). CUDA event waits are not such calls, so the read of the oldest
+    chunk runs under the mode too."""
     import torch
 
+    from vita_tpu_torch.sampling import choose_sampling_mode
     from vita_tpu_torch.serve.engine import Engine, Request
 
     t0 = time.time()
@@ -1397,29 +1434,39 @@ def inflight_check(card: str, engine, cfg, params, device, options, solo,
     print(f"  decode_inflight 1 streams the lone request's {len(solo.tokens)} tokens as 2 "
           f"does; decode {again.decode_tokens_per_s:.2f} against "
           f"{solo.decode_tokens_per_s:.2f} tok/s  [{card}]", flush=True)
-    req = engine.submit(text_request(cfg, np.random.default_rng(SEED + 1), 100, 512))
-    while engine.active_count() == 0 or engine._prefill_jobs:
-        engine.step()
-    while len(engine._inflight) < engine.decode_inflight:
-        engine.step()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        t1 = time.perf_counter()
-        for _ in range(ticks):
+    for knobs in ({}, dict(temperature=SAMPLE_TEMP, top_k=40, top_p=0.9)):
+        req = text_request(cfg, np.random.default_rng(SEED + 1), 100, 512)
+        for k, v in knobs.items():
+            setattr(req, k, v)
+        engine.submit(req)
+        while engine.active_count() == 0 or engine._prefill_jobs:
             engine.step()
-        wall = (time.perf_counter() - t1) * 1e3
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    if len(engine._inflight) != engine.decode_inflight or req.finish_time:
-        raise AssertionError(f"not a steady decode: {len(engine._inflight)} chunks in flight, "
-                             f"{len(req.tokens)} tokens")
-    req.cancel()
-    engine.run_until_idle()
-    if engine._inflight or engine.stats()["free_pages"] != engine.total_pages:
-        raise AssertionError("chunks or pages left after the drain")
-    print(f"  {ticks} pure-decode ticks under set_sync_debug_mode('error'): no host wait for "
-          f"the card ({wall:.1f} ms, {len(req.tokens)} tokens streamed); the check took "
-          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+        while len(engine._inflight) < engine.decode_inflight:
+            engine.step()
+        active = [i for i, r in enumerate(engine.slot_req) if r is not None]
+        mode = choose_sampling_mode(engine._temps[active], engine._topk[active],
+                                    engine._topp[active])
+        if mode != ("filtered" if knobs else "greedy"):
+            raise AssertionError(f"the ticks would decode {mode}")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            for _ in range(ticks):
+                engine.step()
+            wall = (time.perf_counter() - t1) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if len(engine._inflight) != engine.decode_inflight or req.finish_time:
+            raise AssertionError(f"not a steady decode: {len(engine._inflight)} chunks in "
+                                 f"flight, {len(req.tokens)} tokens")
+        req.cancel()
+        engine.run_until_idle()
+        if engine._inflight or engine.stats()["free_pages"] != engine.total_pages:
+            raise AssertionError("chunks or pages left after the drain")
+        print(f"  {ticks} pure-decode ticks ({mode}) under set_sync_debug_mode('error'): no "
+              f"host wait for the card ({wall:.1f} ms, {len(req.tokens)} tokens streamed)  "
+              f"[{card}]", flush=True)
+    print(f"  the decode_inflight checks took {time.time() - t0:.1f} s", flush=True)
 
 
 # the kernels the Generator phase must launch
@@ -1430,8 +1477,10 @@ def generator_phase(card: str, cfg, params, device, max_new_tokens: int = 32,
                     max_len: int = 12288, text_len: int = 8500):
     """The slice through Generator(max_len=12288, gmm prefill, gather
     decode): an image+audio request (bucket 512: B5b) and a text request of
-    8500 tokens (bucket 12288: T*k 24576 > SMALL_R_MAX, so B5a). Returns
-    the launch counts of the two requests."""
+    8500 tokens (bucket 12288: T*k 24576 > SMALL_R_MAX, so B5a), then the
+    image+audio request sampled (temperature 0.7, top_p 0.9), every token
+    held to nucleus_check. Returns the launch counts of the two greedy
+    requests."""
     import torch
 
     from vita_tpu_torch import kernels
@@ -1467,12 +1516,27 @@ def generator_phase(card: str, cfg, params, device, max_new_tokens: int = 32,
     missing = [k for k in GENERATOR_PATH if counts[k] == 0]
     if missing:
         raise AssertionError(f"Generator: kernels never launched on its path: {missing}")
-    for prompt, toks in outs:
+    # the image+audio request again, sampled: every token in its nucleus
+    scfg = GenerationConfig(max_new_tokens=max_new_tokens, eos_id=-1, temperature=0.7,
+                            top_p=0.9)
+    t0 = time.time()
+    sampled = gen.generate(gen=scfg, **prompts[0][1])
+    wall = time.time() - t0
+    for i, (prompt, toks) in enumerate(outs):
         ids = np.asarray(prompt["input_ids"], np.int64)
         embeds = embed_prompt(params, cfg, ids, device, gen.tile_buckets, gen.frame_buckets,
                               **{k: v for k, v in prompt.items() if k != "input_ids"})
         first_token_gap(params, cfg, torch.as_tensor(ids[None], device=device), toks[0],
                         embeds=embeds)
+        if i == 0:
+            if len(sampled) != max_new_tokens:
+                raise AssertionError(f"sampled image+audio: {len(sampled)} tokens")
+            _, p_margin = nucleus_check(params, cfg, ids, sampled, scfg.temperature, 0,
+                                        scfg.top_p, embeds=embeds)
+            print(f"  image+audio sampled (temperature 0.7, top_p 0.9): {len(sampled)} tokens "
+                  f"in {wall * 1e3:.1f} ms, each in its nucleus (least top-p margin "
+                  f"{p_margin:.4f}); {sum(a != b for a, b in zip(sampled, toks))} of "
+                  f"{len(toks)} differ from the greedy stream  [{card}]", flush=True)
         del embeds
         torch.cuda.empty_cache()
     return counts
@@ -1480,16 +1544,22 @@ def generator_phase(card: str, cfg, params, device, max_new_tokens: int = 32,
 
 def cli_phase():
     """python -m vita_tpu_torch.cli --model tiny-random --prefill-moe-mode
-    gmm, in process; returns its launch counts (B5b must be among them)."""
+    gmm, in process, then again with --temperature 0.8 (exit code 0);
+    returns the first run's launch counts (B5b must be among them)."""
     from vita_tpu_torch import cli, kernels
 
     kernels.reset_launches()
-    rc = cli.main(["--model", "tiny-random", "--question", "Hello", "--prefill-moe-mode", "gmm",
-                   "--max-new-tokens", "16"])
+    argv = ["--model", "tiny-random", "--question", "Hello", "--prefill-moe-mode", "gmm",
+            "--max-new-tokens", "16"]
+    rc = cli.main(argv)
     counts = dict(kernels.launches)
     print(f"  kernel launches in the CLI run: {counts}", flush=True)
     if rc != 0 or counts["gmm_small"] == 0:
         raise AssertionError(f"CLI: exit code {rc}, gmm_small launches {counts['gmm_small']}")
+    rc = cli.main(argv + ["--temperature", "0.8"])
+    print(f"  the CLI with --temperature 0.8: exit code {rc}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"CLI --temperature 0.8: exit code {rc}")
     ref = [m for m in sys.modules if m == "vita_tpu" or m.startswith("vita_tpu.")]
     if ref or "jax" in sys.modules:
         raise AssertionError(f"the CLI loaded the reference package: {ref}")
@@ -1618,6 +1688,538 @@ def equivalence_phase(devices, near_tie: float = 0.0, cfg=None, **engine_kw):
                 fusion=cfg.vision_fusion, whale=cfg.audio.attn_backend)
     print(f"  greedy streams identical on {devices} ({what}): {len(ref)} requests, "
           f"{compared} of {sum(map(len, ref))} tokens compared", flush=True)
+
+
+# A pool too small for two requests' worst cases: the newer request is
+# preempted with decode chunks in flight and admitted again, into its own
+# slot, before a chunk dispatched ahead of its preemption is read (the
+# pattern of tests/test_torch_decode_inflight.py at pages of 64).
+PREEMPT_KW = dict(n_slots=2, max_len=1024, page_size=64, decode_inflight=2)
+PREEMPT_PROMPTS = (64, 20)
+PREEMPT_NEW = 64
+PREEMPT_PAGES = 3
+
+
+@contextlib.contextmanager
+def _recording_resumes(events):
+    """While open, every Engine records in ``events``: ("preempt", request
+    id, slot, time, the chunks in flight holding its rows) at each
+    preemption of a slot, and ("admit", request id, slot, time after its
+    first token, resumed, whether a chunk dispatched before its last
+    preemption is still in flight, tokens emitted before this prefill) at
+    the end of each prefill."""
+    from vita_tpu_torch.serve.engine import Engine
+
+    real_preempt, real_finish = Engine._preempt_slot, Engine._finish_prefill
+    held = {}
+
+    def preempt(eng, slot):
+        req = eng.slot_req[slot]
+        held[req.request_id] = [sl for _, _, sl in eng._inflight
+                                if any(r is req for _, r in sl)]
+        events.append(("preempt", req.request_id, slot, time.perf_counter(),
+                       len(held[req.request_id])))
+        real_preempt(eng, slot)
+
+    def finish(eng, job):
+        emitted = len(job.req.tokens)
+        before = held.get(job.req.request_id, [])
+        in_flight = any(any(sl is b for b in before) for _, _, sl in eng._inflight)
+        real_finish(eng, job)
+        events.append(("admit", job.req.request_id, job.slot, time.perf_counter(),
+                       emitted > 0, in_flight, emitted))
+
+    Engine._preempt_slot, Engine._finish_prefill = preempt, finish
+    try:
+        yield
+    finally:
+        Engine._preempt_slot, Engine._finish_prefill = real_preempt, real_finish
+
+
+def preempt_case(params, cfg, device, near_tie=0.0, **options):
+    """PREEMPT_PROMPTS through an Engine of PREEMPT_PAGES pages and through
+    one with a roomy pool (same options, ``options`` added to PREEMPT_KW).
+    Checks: at least one preemption; a preempted request admitted again
+    into the slot it left while a chunk dispatched before its preemption
+    is in flight; every page free and nothing in flight after the drain.
+    A resumed request recomputes its emitted tokens' rows by prefill, so
+    each stream is held, up to its first resumption, to the roomy pool's,
+    and from each resumption on to the roomy Engine serving the prompt and
+    the tokens emitted before it as a new request; either may split only
+    from a step where the reference's top two logits were the two tokens
+    within ``near_tie``. (With quantized experts the recomputed rows come
+    from the bf16 prefill experts, not the decode copy, so the stream after
+    a resumption is not the roomy pool's.) Returns (streams, roomy
+    streams, preemptions, resumed requests' ms from preemption to their
+    next token)."""
+    from vita_tpu_torch.serve.engine import Engine, Request
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(3, cfg.llm.vocab_size, n).astype(np.int32)
+               for n in PREEMPT_PROMPTS]
+    events, top2 = [], {}
+    tight = Engine(params, cfg, device=device, total_pages=PREEMPT_PAGES, **PREEMPT_KW,
+                   **options)
+    reqs = [Request(input_ids=p, max_new_tokens=PREEMPT_NEW, eos_id=-1) for p in prompts]
+    with _recording_resumes(events):
+        serve(tight, reqs)
+    roomy = Engine(params, cfg, device=device, **PREEMPT_KW, **options)
+    with _recording_top2(roomy, top2):
+        refs = serve(roomy, [Request(input_ids=p, max_new_tokens=PREEMPT_NEW, eos_id=-1)
+                             for p in prompts])
+        # each resumption as (request, tokens it had emitted), served anew
+        resumes = [(r, e[6]) for e in events if e[0] == "admit" and e[4]
+                   for r in reqs if r.request_id == e[1]]
+        conts = serve(roomy, [Request(input_ids=np.concatenate([r.input_ids, r.tokens[:m]]),
+                                      max_new_tokens=PREEMPT_NEW - m, eos_id=-1)
+                              for r, m in resumes])
+    n_pre = tight.stats()["preemptions"]
+    for eng, label in ((tight, "small"), (roomy, "roomy")):
+        if eng._inflight or eng.alloc.free_count != eng.total_pages:
+            raise AssertionError(f"{label} pool: chunks or pages left after the drain")
+    if any(len(r.tokens) != PREEMPT_NEW for r in reqs + refs):
+        raise AssertionError(f"{[len(r.tokens) for r in reqs + refs]} tokens")
+    if n_pre == 0 or roomy.stats()["preemptions"] != 0:
+        raise AssertionError(f"preemptions: {n_pre} in the small pool, "
+                             f"{roomy.stats()['preemptions']} roomy")
+    last, back, resume_ms = {}, [], []
+    for ev in events:
+        if ev[0] == "preempt":
+            last[ev[1]] = ev
+        elif ev[4]:  # a resumed request's admission
+            p = last[ev[1]]
+            resume_ms.append((ev[3] - p[3]) * 1e3)
+            back.append(ev[2] == p[2] and ev[5])
+    if not any(back):
+        raise AssertionError(f"no preempted request came back into its slot with an earlier "
+                             f"chunk in flight: {events}")
+    for r, ref in zip(reqs, refs):
+        cuts = sorted(m for q, m in resumes if q is r)
+        segs = [(0, ref)] + [(m, c) for (q, m), c in zip(resumes, conts) if q is r]
+        for (start, want), stop in zip(segs, cuts + [PREEMPT_NEW]):
+            got = r.tokens[start:stop]
+            _first_split(got, want.tokens[:stop - start], top2, want.request_id, near_tie)
+    return [r.tokens for r in reqs], [r.tokens for r in refs], int(n_pre), resume_ms
+
+
+# --------------------------------------------------------------------------
+# sampled decoding: the JAX package's filtered rule, the draws' chi-square
+# and the teacher-forced nucleus check (phases 3-5, 9, 11 and 13;
+# tests/test_torch_sampling.py holds the port and JAX to the same ones)
+# --------------------------------------------------------------------------
+SAMPLE_VOCAB = 51760  # VITA-8x7B's vocabulary
+SAMPLE_TEMP = 0.8
+SAMPLE_DRAWS = 8192  # draws of each case in phase 5, on the card and on the CPU
+# The CPU's plain sampler sorts a row of 51760 in about 1.3 ms: its draws
+# took 91.8 s on the 8 cores beside an H100, so they run in a child process
+# of this many threads beside phases 5-8 (cpu_sampler_start)
+SAMPLE_CPU_THREADS = 4
+SAMPLER_OUT = os.path.join(ROOT, "build", "smoke_cpu_draws.npz")
+CHI2_P_FLOOR = 1e-4  # a case fails below this p-value (fixed seed)
+# (row, top_k, top_p, mode) at SAMPLE_TEMP: categorical, then filtered
+# with top_k 40, top_p 0.9 and both, on rows whose ties straddle the edge
+SAMPLER_CASES = (
+    ("natural", 0, 1.0, "categorical"),
+    ("k-tie", 40, 1.0, "filtered"),
+    ("natural", 40, 1.0, "filtered"),
+    ("p-tie", 0, 0.9, "filtered"),
+    ("k-tie", 40, 0.9, "filtered"),
+    ("natural", 40, 0.9, "filtered"),
+)
+
+
+# phase 3's sampled wave, (temperature, top_k, top_p) a request: greedy,
+# temperature alone (categorical when alone), top_k 40, top_p 0.9, top_k 1
+# and top_p 1e-6 (each must stream as greedy), top_k 40 with top_p 0.9
+SAMPLED_WAVE = ((0.0, 0, 1.0), (0.0, 0, 1.0), (SAMPLE_TEMP, 0, 1.0), (SAMPLE_TEMP, 40, 1.0),
+                (SAMPLE_TEMP, 0, 0.9), (SAMPLE_TEMP, 1, 1.0), (SAMPLE_TEMP, 0, 1e-6),
+                (SAMPLE_TEMP, 40, 0.9))
+
+
+def kept_set(x, top_k, top_p):
+    """The JAX package's filtered rule (vita_tpu/sampling.py:73-87) in
+    float64 on one row of temperature-scaled logits ``x``: a stable
+    descending order (among equal logits the lower id first), the first
+    top_k (all when <= 0), then the prefix whose exclusive cumulative mass,
+    renormalised over those, stays below top_p. Returns (the kept ids in
+    that order, their exact draw probabilities, the distance of top_p from
+    the nearest exclusive cumulative mass)."""
+    x = np.asarray(x, np.float64)
+    v = x.shape[-1]
+    order = np.argsort(-x, kind="stable")
+    k = min(int(top_k), v) if top_k > 0 else v
+    w = np.exp(x[order[:k]] - x[order[0]])
+    excl = (np.cumsum(w) - w) / w.sum()
+    p = min(max(float(top_p), 1e-6), 1.0)
+    n = int(np.sum(excl < p))
+    return order[:n], w[:n] / w[:n].sum(), float(np.min(np.abs(excl - p)))
+
+
+def chi_square_p(counts, probs, n):
+    """Pearson's chi-square of ``counts`` of ``n`` draws against
+    ``n * probs``, the tokens taken in falling expectation and merged into
+    bins of expected count >= 5 (a remainder joins the last bin). Returns
+    (statistic, degrees of freedom, p-value)."""
+    import torch
+
+    e = n * np.asarray(probs, np.float64)
+    o = np.asarray(counts, np.float64)
+    order = np.argsort(-e, kind="stable")
+    bins_o, bins_e, acc_o, acc_e = [], [], 0.0, 0.0
+    for j in order:
+        acc_o, acc_e = acc_o + o[j], acc_e + e[j]
+        if acc_e >= 5.0:
+            bins_o.append(acc_o)
+            bins_e.append(acc_e)
+            acc_o = acc_e = 0.0
+    if not bins_e:
+        bins_o, bins_e = [acc_o], [acc_e]
+    else:
+        bins_o[-1] += acc_o
+        bins_e[-1] += acc_e
+    bo, be = np.asarray(bins_o), np.asarray(bins_e)
+    stat, df = float(np.sum((bo - be) ** 2 / be)), len(be) - 1
+    if df == 0:
+        return stat, 0, 1.0
+    p = torch.special.gammaincc(torch.tensor(df / 2, dtype=torch.float64),
+                                torch.tensor(stat / 2, dtype=torch.float64))
+    return stat, df, float(p)
+
+
+def sampler_rows(seed=SEED, vocab=SAMPLE_VOCAB, k=40):
+    """bf16 logit rows (as float32 numpy) over ``vocab`` ids, by name:
+    'k-tie', 20 tokens at 7.53-8.13 above 100 tied at 7.5, over N(0, 1)
+    noise, so the k-th place (40) falls inside the tie; 'p-tie', 5 tokens at
+    11 above 200 tied at 10, so top_p 0.9 at SAMPLE_TEMP ends inside the
+    tie; 'natural', the first N(0, 2.5) row of the seed in which equal
+    logits straddle the k-th place (ties at the top of a bf16 row are
+    common)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def bf16(x):
+        return torch.as_tensor(np.asarray(x, np.float32)).bfloat16().float().numpy()
+
+    def noise():
+        return np.clip(rng.standard_normal(vocab), -4.0, 4.0).astype(np.float32)
+
+    kt = noise()
+    ids = rng.permutation(vocab)
+    kt[ids[:20]] = 7.5 + 0.03125 * np.arange(1, 21)
+    kt[ids[20:120]] = 7.5
+    pt = noise()
+    ids = rng.permutation(vocab)
+    pt[ids[:5]] = 11.0
+    pt[ids[5:205]] = 10.0
+    while True:
+        nat = bf16(rng.standard_normal(vocab) * 2.5)
+        top = np.sort(nat)[::-1]
+        if top[k - 1] == top[k]:
+            break
+    return {"k-tie": bf16(kt), "p-tie": bf16(pt), "natural": nat}
+
+
+def port_draws(rows, cases, device, n, generator, per=256):
+    """``n`` draws of each case (row name, top_k, top_p, mode) at
+    SAMPLE_TEMP from sampling.sample_tokens on ``device``: the cases of a
+    mode share each call, ``per`` draws of each a call. Returns one count
+    array [V] a case."""
+    import torch
+
+    from vita_tpu_torch.sampling import sample_tokens
+
+    counts = [np.zeros(len(next(iter(rows.values()))), np.int64) for _ in cases]
+    for mode in dict.fromkeys(c[3] for c in cases):
+        which = [i for i, c in enumerate(cases) if c[3] == mode]
+        logits = torch.stack([torch.as_tensor(rows[cases[i][0]]) for i in which]).to(
+            device, torch.bfloat16)
+        m = len(which)
+
+        def knob(j, dtype):
+            return torch.tensor([cases[i][j] for i in which], dtype=dtype,
+                                device=device).repeat(per)
+
+        temp = torch.full((m * per,), SAMPLE_TEMP, device=device)
+        top_k, top_p = knob(1, torch.int32), knob(2, torch.float32)
+        big = logits.repeat(per, 1)
+        for done in range(0, n, per):
+            tok = sample_tokens(big, generator, temp, top_k, top_p, mode=mode)
+            tok = tok.reshape(per, m)[: min(per, n - done)].cpu().numpy()
+            for col, i in enumerate(which):
+                counts[i] += np.bincount(tok[:, col], minlength=len(counts[i]))
+    return counts
+
+
+def check_draws(rows, case, counts, n):
+    """The draws of ``case`` held to the JAX rule on its row: (draws
+    outside the kept set, kept size, chi-square, df, p-value)."""
+    name, top_k, top_p, _ = case
+    x = np.float32(rows[name]) / np.float32(SAMPLE_TEMP)
+    ids, probs, _ = kept_set(x, top_k, top_p)
+    outside = int(counts.sum() - counts[ids].sum())
+    stat, df, p = chi_square_p(counts[ids], probs, n)
+    return outside, len(ids), stat, df, p
+
+
+def sampler_counts(dev):
+    """SAMPLE_DRAWS draws of each SAMPLER_CASES case on ``dev`` from a
+    generator seeded SEED: (one count array a case, wall seconds)."""
+    import torch
+
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    counts = port_draws(sampler_rows(), SAMPLER_CASES, dev, SAMPLE_DRAWS, gen)
+    return counts, time.time() - t0
+
+
+def _cpu_sampler_child(out):
+    """The CPU's draws of phase 5's sampler, in the child process: the
+    counts and the wall to ``out`` (.npz)."""
+    import torch
+
+    counts, wall = sampler_counts(torch.device("cpu"))
+    np.savez(out, counts=np.stack(counts), wall=wall)
+
+
+def cpu_sampler_start():
+    """Starts the child process of the CPU's draws (the card hidden from
+    it, SAMPLE_CPU_THREADS threads); cpu_sampler_finish reads them."""
+    if os.path.exists(SAMPLER_OUT):
+        os.remove(SAMPLER_OUT)
+    os.makedirs(os.path.dirname(SAMPLER_OUT), exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(SAMPLE_CPU_THREADS))
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke._cpu_sampler_child({SAMPLER_OUT!r})"],
+        cwd=ROOT, env=env)
+
+
+def cpu_sampler_finish(proc):
+    """Waits for the child of cpu_sampler_start: (counts a case, its wall,
+    the seconds waited here); raises if it failed."""
+    t0 = time.time()
+    rc = proc.wait()
+    waited = time.time() - t0
+    if rc != 0:
+        raise RuntimeError(f"the CPU's sampler draws exited with {rc}")
+    with np.load(SAMPLER_OUT) as f:
+        counts, wall = list(f["counts"]), float(f["wall"])
+    os.remove(SAMPLER_OUT)
+    return counts, wall, waited
+
+
+def sampler_phase(legs):
+    """Phase 5's sampler alone: ``legs`` as (device, counts of each
+    SAMPLER_CASES case from sampler_counts, a note on their time); no
+    draw may fall outside the JAX rule's kept set and each case's
+    chi-square p-value must reach CHI2_P_FLOOR."""
+    rows = sampler_rows()
+    n = SAMPLE_DRAWS
+    failed = []
+    for dev, counts, note in legs:
+        for case, c in zip(SAMPLER_CASES, counts):
+            outside, kept, stat, df, p = check_draws(rows, case, c, n)
+            bad = outside > 0 or p < CHI2_P_FLOOR
+            print(f"  sampler on {dev}: {case[0]:7s} top_k {case[1]:2d} top_p {case[2]:.1f} "
+                  f"{case[3]:11s}: {n} draws, kept {kept}, outside {outside}, chi-square "
+                  f"{stat:.1f} on {df} df, p {p:.3g}{'  FAILED' if bad else ''}", flush=True)
+            if bad:
+                failed.append((dev, case))
+        print(f"  sampler on {dev}: {len(SAMPLER_CASES)} cases x {n} draws {note}", flush=True)
+    if failed:
+        raise AssertionError(f"sampled draws outside the JAX rule or off its distribution "
+                             f"(p < {CHI2_P_FLOOR}): {failed}")
+
+
+def sampled_specs(cfg, rng, lengths, max_new_tokens, wave=SAMPLED_WAVE):
+    """Text requests of ``lengths`` with the knobs of ``wave`` in turn, as
+    Request keyword dicts."""
+    return [dict(input_ids=rng.integers(3, cfg.llm.vocab_size, n).astype(np.int32),
+                 max_new_tokens=max_new_tokens, eos_id=-1, temperature=t, top_k=k, top_p=p)
+            for n, (t, k, p) in zip(lengths, wave)]
+
+
+def requests_of(specs, greedy=False):
+    """Fresh Requests of ``specs``; with ``greedy`` their knobs are off."""
+    from vita_tpu_torch.serve.engine import Request
+
+    off = dict(temperature=0.0, top_k=0, top_p=1.0) if greedy else {}
+    return [Request(**dict(spec, **off)) for spec in specs]
+
+
+SAMPLED_LENGTHS = (40, 90, 150, 60, 120, 30, 200, 75)
+
+
+def sampled_wave_check(card, engine, cfg, params, device, options, solo,
+                       max_new_tokens=32):
+    """Phase 3's first run, continued: SAMPLED_WAVE (8 requests of 32 new
+    tokens) on ``engine``, whose generator no greedy run has drawn from,
+    then on a second Engine of the same seed and options (every stream
+    must be the same), and as greedy requests; the top_k 1 and top_p 1e-6
+    rows (and the greedy ones) must stream as greedy up to a step where the
+    greedy run's top two logits lie within NEAR_TIE; every sampled stream
+    passes nucleus_check. Then a categorical and a filtered request alone;
+    decode tok/s of each beside the greedy run's."""
+    import torch
+
+    from vita_tpu_torch.sampling import choose_sampling_mode
+    from vita_tpu_torch.serve.engine import Engine
+
+    t0 = time.time()
+    specs = sampled_specs(cfg, np.random.default_rng(SEED + 3), SAMPLED_LENGTHS,
+                          max_new_tokens)
+    mode = choose_sampling_mode(*zip(*SAMPLED_WAVE))
+    t1 = time.time()
+    first = serve(engine, requests_of(specs))
+    wall_s = time.time() - t1
+    twin = Engine(params, cfg, max_len=2048, device=device, **options)
+    second = serve(twin, requests_of(specs))
+    del twin
+    if [r.tokens for r in first] != [r.tokens for r in second]:
+        raise AssertionError("a second Engine of the same seed streams the sampled wave "
+                             "otherwise")
+    top2 = {}
+    with _recording_top2(engine, top2):
+        t1 = time.time()
+        greedy = serve(engine, requests_of(specs, greedy=True))
+        wall_g = time.time() - t1
+    split = {}
+    for i, (r, g) in enumerate(zip(first, greedy)):
+        if len(r.tokens) != max_new_tokens:
+            raise AssertionError(f"request {i}: {len(r.tokens)} tokens")
+        if r.temperature <= 0.0 or r.top_k == 1 or r.top_p < 1e-3:  # the top token alone
+            j = _first_split(r.tokens, g.tokens, top2, g.request_id, NEAR_TIE)
+            if j is not None:
+                split[i] = j
+    if all(r.tokens == g.tokens for r, g in zip(first, greedy)):
+        raise AssertionError("no sampled request left the greedy stream")
+    margins = []
+    for r in first:
+        if r.temperature > 0.0:
+            margins.append(nucleus_check(params, cfg, r.input_ids, r.tokens, r.temperature,
+                                         r.top_k, r.top_p))
+    torch.cuda.empty_cache()
+    solos = {}
+    for name, kw in (("categorical", dict(temperature=SAMPLE_TEMP)),
+                     ("filtered", dict(temperature=SAMPLE_TEMP, top_k=40, top_p=0.9))):
+        req = serve(engine, requests_of([dict(input_ids=solo.input_ids, eos_id=-1,
+                                              max_new_tokens=solo.max_new_tokens, **kw)]))[0]
+        if len(req.tokens) != solo.max_new_tokens:
+            raise AssertionError(f"{name} alone: {len(req.tokens)} tokens")
+        solos[name] = req.decode_tokens_per_s
+    n = len(specs) * max_new_tokens
+    print(f"  sampled wave ({mode}; {len(specs)} requests x {max_new_tokens} tokens): two "
+          f"Engines of one seed stream alike; the greedy, top_k 1 and top_p 1e-6 rows stream "
+          f"as greedy (splits at near ties: {split}); every fed token in its nucleus "
+          f"(least k / p margins {margins}); {n / wall_s:.2f} tok/s against greedy "
+          f"{n / wall_g:.2f}; alone: greedy {solo.decode_tokens_per_s:.2f}, categorical "
+          f"{solos['categorical']:.2f}, filtered {solos['filtered']:.2f} tok/s; the check "
+          f"took {time.time() - t0:.1f} s  [{card}]", flush=True)
+    for name, r in zip(("greedy", "greedy", "T alone", "top_k 40", "top_p 0.9", "top_k 1",
+                        "top_p 1e-6", "k 40 p 0.9"), first):
+        print(f"    {name:10s} prompt {len(r.input_ids):4d}  TTFT {r.ttft_s * 1e3:8.2f} ms  "
+              f"decode {r.decode_tokens_per_s:8.2f} tok/s  [{card}]", flush=True)
+
+
+def preempt_phase(card, cfg, params, device):
+    """Phase 3's preemption with chunks in flight on the slice's weights:
+    preempt_case with bf16 experts, then int4 experts with int8 KV pages."""
+    t0 = time.time()
+    for label, kw in (("bf16 experts", dict(decode_moe_mode="gather")),
+                      ("int4 experts, int8 KV", dict(decode_moe_mode="gather_q4",
+                                                     kv_int8=True))):
+        _, _, n_pre, resume_ms = preempt_case(params, cfg, device, NEAR_TIE, **kw)
+        print(f"  preemption, {label}: {n_pre} preemptions in a pool of {PREEMPT_PAGES} pages "
+              f"of 64 (prompts {PREEMPT_PROMPTS}, {PREEMPT_NEW} new tokens, decode_inflight "
+              f"2); a preempted request back in its slot with an earlier chunk in flight; "
+              f"streams as the roomy pool's and its resumptions'; preemption -> next token "
+              f"{[round(x, 2) for x in resume_ms]} ms  [{card}]", flush=True)
+    print(f"  preemption checks took {time.time() - t0:.1f} s", flush=True)
+
+
+def preempt_equivalence(devices):
+    """Phase 5's preemption: preempt_case at the narrow fp32 configuration
+    (float experts, gather decode) on each device; the streams must equal
+    the roomy pool's exactly and be identical on every device."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+
+    cfg = narrow_config()
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    streams = []
+    for dev in devices:
+        t0 = time.time()
+        tight, roomy, n_pre, resume_ms = preempt_case(_to(params, dev), cfg, dev,
+                                                      decode_moe_mode="gather")
+        if tight != roomy:
+            raise AssertionError(f"{dev}: the preempted streams are not the roomy pool's")
+        streams.append(tight)
+        print(f"  preemption on {dev}, narrow fp32: {n_pre} preemptions, streams equal the "
+              f"roomy pool's; preemption -> next token {[round(x, 2) for x in resume_ms]} "
+              f"ms; {time.time() - t0:.1f} s", flush=True)
+    if any(x != streams[-1] for x in streams):
+        raise AssertionError(f"preempted streams differ between {devices}")
+    print(f"  preempted streams identical on {devices}", flush=True)
+
+
+def nucleus_check(params, cfg, prompt_ids, tokens, temperature, top_k, top_p, embeds=None,
+                  tie=NEAR_TIE):
+    """Teacher-force a sampled stream through the cacheless dense forward
+    over the prompt (its ids, or its embeddings ``embeds`` [1, S, D]) and
+    the stream, as first_token_gap does for one token. At every step the
+    fed token's logit lies at or above the k-th logit (top_k > 0) less the
+    tolerance, and the mass of the tokens whose logits lie above it by
+    more than the tolerance, at ``temperature`` and renormalised over the
+    top k, is below top_p (< 1). The tolerance is ``tie`` plus two steps
+    of the logits' dtype at the k-th logit's magnitude: the reference sums
+    in another order than the Engine, so a logit may round a step either
+    way. Raises on a miss or a non-finite row; returns the least margins
+    (logits, mass) of the k and p rules (None where a rule is off)."""
+    import torch
+
+    from vita_tpu_torch.models import mixtral
+
+    llm = params["llm"]
+    dev = llm["embed"].device
+    fed = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+    if embeds is None:
+        ids = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)[None]
+        logits, _, _ = mixtral.forward(llm, cfg.llm,
+                                       input_ids=torch.cat([ids, fed[None, :-1]], 1))
+    else:
+        more = mixtral.embed_tokens(llm, fed[None, :-1]).to(embeds.dtype)
+        logits, _, _ = mixtral.forward(llm, cfg.llm,
+                                       inputs_embeds=torch.cat([embeds, more], 1))
+    s = len(prompt_ids)
+    rows = logits[0, s - 1:].double()  # row i is the one tokens[i] was drawn from
+    if rows.shape != (len(tokens), cfg.llm.vocab_size) or not bool(rows.isfinite().all()):
+        raise AssertionError(f"teacher-forced logits {tuple(rows.shape)} not finite")
+    if not all(0 <= t < cfg.llm.vocab_size for t in tokens):
+        raise AssertionError(f"tokens out of range: {tokens}")
+    eps = torch.finfo(logits.dtype).eps
+    x = rows.gather(1, fed[:, None])[:, 0]
+    k = top_k if top_k > 0 else rows.shape[1]
+    top = rows.topk(k, dim=-1)
+    kth = top.values[:, -1]
+    tol = tie + 2 * eps * kth.abs()
+    k_margin = p_margin = None
+    bad = []
+    if top_k > 0:
+        m = x - (kth - tol)
+        k_margin = float(m.min())
+        bad += [("top_k", i) for i in torch.nonzero(m < 0)[:, 0].tolist()]
+    if top_p < 1.0:
+        probs = torch.softmax(top.values / max(temperature, 1e-6), dim=-1)
+        above = (probs * (top.values > (x + tol)[:, None])).sum(-1)
+        m = top_p - above
+        p_margin = float(m.min())
+        bad += [("top_p", i) for i in torch.nonzero(m <= 0)[:, 0].tolist()]
+    if bad:
+        raise AssertionError(f"fed tokens outside the nucleus (rule, step): {bad[:8]}; "
+                             f"tokens {list(tokens)[:16]}")
+    return k_margin, p_margin
 
 
 # --------------------------------------------------------------------------
@@ -2688,7 +3290,9 @@ def duplex_run(card, cfg, params, max_new_tokens=256):
 def http_run(card, engine):
     """The port's ServingApp on 127.0.0.1 (an ephemeral port) over
     ``engine``: two /v1/generate turns of one session_id, then a streamed
-    /v1/chat/completions; /stats must show the second turn's reuse."""
+    /v1/chat/completions, greedy and then sampled (temperature 0.7, top_p
+    0.9: the Engine's request must carry them and stream 16 tokens in the
+    vocabulary); /stats must show the second turn's reuse."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -2699,6 +3303,14 @@ def http_run(card, engine):
     tok = ByteTokenizer()
     app = ServingApp(engine, engine.cfg, tok.encode, tok.decode, tok.bos_id, -1,
                      image_size=engine.cfg.vision.image_size)
+    submitted = []
+    real_submit = app.submit
+
+    def submit(req):
+        submitted.append(req)
+        return real_submit(req)
+
+    app.submit = submit
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2723,21 +3335,33 @@ def http_run(card, engine):
             print(f"  POST /v1/generate turn {k}: {(time.time() - t0) * 1e3:.1f} ms, "
                   f"reused_prefix_rows {stats()['reused_prefix_rows'] - before:.0f}  [{card}]",
                   flush=True)
-        ctype, body = post("/v1/chat/completions",
-                           {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 16,
-                            "stream": True})
-        events = [e for e in body.decode().split("\n\n") if e.startswith("data: ")]
-        last = json.loads(events[-2][6:]) if len(events) >= 2 else {}
+        chats = []
+        for knobs in ({}, {"temperature": 0.7, "top_p": 0.9}):
+            t0 = time.time()
+            ctype, body = post("/v1/chat/completions",
+                               {"messages": [{"role": "user", "content": "hi"}],
+                                "max_tokens": 16, "stream": True, **knobs})
+            events = [e for e in body.decode().split("\n\n") if e.startswith("data: ")]
+            last = json.loads(events[-2][6:]) if len(events) >= 2 else {}
+            chats.append((knobs, ctype, events, last, submitted[-1], time.time() - t0))
         reused = stats()["reused_prefix_rows"] - before
     finally:
         server.shutdown()
         app.thread.stop()
         app.thread.join(timeout=60)
-    print(f"  streamed /v1/chat/completions: {ctype}, {len(events)} SSE events, finish "
-          f"{last.get('choices', [{}])[0].get('finish_reason')}", flush=True)
-    if (ctype != "text/event-stream" or events[-1] != "data: [DONE]"
-            or last["choices"][0]["finish_reason"] != "length" or reused <= 0):
-        raise AssertionError(f"HTTP run: {ctype}, {events[-2:]}, reused rows {reused}")
+    vocab = engine.cfg.llm.vocab_size
+    for knobs, ctype, events, last, req, wall in chats:
+        print(f"  streamed /v1/chat/completions {knobs or 'greedy'}: {ctype}, {len(events)} "
+              f"SSE events, finish {last.get('choices', [{}])[0].get('finish_reason')}, "
+              f"{len(req.tokens)} tokens in {wall * 1e3:.1f} ms  [{card}]", flush=True)
+        if (ctype != "text/event-stream" or events[-1] != "data: [DONE]"
+                or last["choices"][0]["finish_reason"] != "length" or reused <= 0):
+            raise AssertionError(f"HTTP run: {ctype}, {events[-2:]}, reused rows {reused}")
+        if (len(req.tokens) != 16 or not all(0 <= t < vocab for t in req.tokens)
+                or (req.temperature, req.top_p) != (knobs.get("temperature", 0.0),
+                                                    knobs.get("top_p", 1.0))):
+            raise AssertionError(f"HTTP {knobs}: the Engine's request had temperature "
+                                 f"{req.temperature}, top_p {req.top_p}, tokens {req.tokens}")
 
 
 def session_phase(card, cfg, params, device):
@@ -3178,6 +3802,75 @@ MESH_OP_ULPS = 1.0
 MESH_OP_MISMATCH = 0.01
 
 
+# phases 11 and 13: one sampled wave (filtered: top_k 40 with top_p 0.9,
+# and top_k 1) on each rank group's full-width bf16 Engine, then its
+# prompts greedy on the same Engine
+MESH_SAMPLED_WAVE = ((SAMPLE_TEMP, 40, 0.9), (SAMPLE_TEMP, 1, 1.0), (SAMPLE_TEMP, 40, 0.9),
+                     (SAMPLE_TEMP, 1, 1.0))
+MESH_SAMPLED_LENGTHS = (60, 120, 90, 30)
+
+
+def mesh_sampled_wave(engine, cfg, pipe=False, max_new_tokens=16):
+    """MESH_SAMPLED_WAVE through a mesh rank's ``engine``, then the same
+    prompts greedy with each decode step's top two logits recorded (the
+    ring's under ``pipe``): {"sampled", "greedy": streams, "top2": (request
+    index, token) -> (first, second, gap), "own_top": under ``pipe`` the
+    ring's (request index, token) -> its top (token, logit) pairs,
+    "wall_s"}."""
+    specs = sampled_specs(cfg, np.random.default_rng(SEED + 12), MESH_SAMPLED_LENGTHS,
+                          max_new_tokens, MESH_SAMPLED_WAVE)
+    t0 = time.time()
+    sampled = serve(engine, requests_of(specs))
+    wall = time.time() - t0
+    top = {}
+    with (_recording_pp_top(engine, top) if pipe
+          else _recording_top2(engine, top)):
+        greedy = serve(engine, requests_of(specs, greedy=True))
+    ids = [r.request_id for r in greedy]
+    two, own = {}, {}
+    for (rid, j), v in top.items():
+        if rid in ids:
+            i = ids.index(rid)
+            if pipe:
+                own[i, j] = v
+                v = (v[0][0], v[1][0], v[0][1] - v[1][1])
+            two[i, j] = v
+    return {"sampled": [r.tokens for r in sampled], "greedy": [r.tokens for r in greedy],
+            "top2": two, "own_top": own, "wall_s": wall}
+
+
+def mesh_sampled_report(card, name, results, failed, vocab, pipe=False):
+    """Every rank's sampled (and greedy) streams identical and in
+    ``vocab``; each top_k 1 row equal to the greedy stream but at a split
+    that phase 11's rule (_mesh_split) or, under ``pipe``, phase 13's
+    (_pipe_split) accepts, the greedy run in the place of the run whose
+    logits were recorded."""
+    first = results[0]["sampled"]
+    if any(res["sampled"]["sampled"] != first["sampled"]
+           or res["sampled"]["greedy"] != first["greedy"] for res in results):
+        failed.append(f"{name}: the ranks' sampled or greedy streams differ")
+        return
+    splits = {}
+    for i, ((_, k, _), got, ref) in enumerate(zip(MESH_SAMPLED_WAVE, first["sampled"],
+                                                  first["greedy"])):
+        if len(got) != len(ref) or not all(0 <= t < vocab for t in got):
+            failed.append(f"{name}: sampled request {i} streamed {got}")
+        if k != 1:
+            continue
+        try:
+            j = (_pipe_split(i, ref, got, i, first["top2"], None, None, first["own_top"])
+                 if pipe else _mesh_split(i, ref, got, i, first["top2"], None, None))
+        except AssertionError as e:
+            failed.append(f"{name}: top_k 1 request {i} leaves the greedy stream: {e}")
+            continue
+        if j is not None:
+            splits[i] = j
+    print(f"  {name}, sampled wave (top_k 40 + top_p 0.9, top_k 1; filtered): every rank's "
+          f"streams identical; the top_k 1 rows stream as greedy (splits at near ties: "
+          f"{splits}); {[round(res['sampled']['wall_s'], 2) for res in results]} s a rank  "
+          f"[{card}]", flush=True)
+
+
 def mesh_narrow_requests(cfg):
     """Phase 5's requests: a 200-token text alone, then an image+audio
     request with three texts (12 new tokens each)."""
@@ -3436,6 +4129,8 @@ def mesh_rank(rank, world, ckpt_dir, layer_path):
             out["full"][axes, label] = dict(
                 tokens=tokens, ttft_ms=ttft, tok_s=tps, loaded_s=loaded, built_s=built,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, routes=own)
+            if axes == MESH_AXES and kw is MESH_FULL_RUNS[0][1]:
+                out["sampled"] = mesh_sampled_wave(engine, cfg)
             del engine
             gc.collect()
             torch.cuda.empty_cache()
@@ -3559,6 +4254,8 @@ def mesh_phase(card: str, device):
                       f"{[round(t, 2) for t in run['ttft_ms']]} ms, decode "
                       f"{[round(t, 2) for t in run['tok_s']]} tok/s  ({MESH_NOTE}) [{card}]",
                       flush=True)
+    mesh_sampled_report(card, f"full width expert {MESH_AXES[0]} x model {MESH_AXES[1]}, "
+                        f"{MESH_FULL_RUNS[0][0]}", results, failed, cfg.llm.vocab_size)
     for name, want in layer_want.items():
         readings = [_layer_reading(res["layer"][name], want) for res in results]
         ulps, mismatch = max(u for u, _ in readings), max(m for _, m in readings)
@@ -4752,6 +5449,8 @@ def pipe_rank(rank, world, plan):
                 tokens=tokens, ttft_ms=ttft, tok_s=tps, loaded_s=loaded, built_s=built,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, routes=own(routes),
                 tops=own(tops), shift_ms=[t * 1e3 for t in shifts])
+            if axes == (1, 1, 4) and kw is MESH_FULL_RUNS[0][1]:
+                out["sampled"] = mesh_sampled_wave(engine, cfg, pipe=True)
             del engine
             gc.collect()
             torch.cuda.empty_cache()
@@ -5027,6 +5726,10 @@ def pipe_phase(card: str, device, ckpt_dir=None):
                       f"substep median {np.median(shift):.3f} (p90 "
                       f"{np.percentile(shift, 90):.3f}, {len(shift)} substeps)  ({MESH_NOTE}) "
                       f"[{card}]", flush=True)
+    if ckpt_dir:
+        mesh_sampled_report(card, f"(b) --mesh 1 1 4 (the vocabulary split), "
+                            f"{MESH_FULL_RUNS[0][0]}", results, failed,
+                            cfg.llm.vocab_size, pipe=True)
     total = {}
 
     def add(counts):
@@ -6541,33 +7244,48 @@ def main() -> int:
 
     print("phase 5: Engine on cuda vs cpu, narrow fp32 config", flush=True)
     t0 = time.time()
-    pair = [torch.device("cuda"), torch.device("cpu")]
-    kernels.reset_launches()
-    equivalence_phase(pair, decode_moe_mode="gather")
-    equivalence_phase(pair, decode_moe_mode="gather", prefill_moe_mode="gmm")
-    equivalence_phase(pair, NEAR_TIE, decode_moe_mode="gather_q4", kv_int8=True)
-    parts.append(dict(kernels.launches))
-    print(f"  phase 5 wall {time.time() - t0:.1f} s", flush=True)
+    cpu_draws = cpu_sampler_start()
+    try:
+        pair = [torch.device("cuda"), torch.device("cpu")]
+        kernels.reset_launches()
+        equivalence_phase(pair, decode_moe_mode="gather")
+        equivalence_phase(pair, decode_moe_mode="gather", prefill_moe_mode="gmm")
+        equivalence_phase(pair, NEAR_TIE, decode_moe_mode="gather_q4", kv_int8=True)
+        preempt_equivalence(pair)
+        parts.append(dict(kernels.launches))
+        counts, wall = sampler_counts(pair[0])
+        sampler_phase([("cuda", counts, f"in {wall:.1f} s")])
+        print(f"  phase 5 wall {time.time() - t0:.1f} s", flush=True)
 
-    print("phase 6: full-width VITA-8x7B slice (2 of 32 LLM layers) through Trainer", flush=True)
-    t0 = time.time()
-    parts.append(train_phase(card, dev))
-    print(f"  phase 6 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        print("phase 6: full-width VITA-8x7B slice (2 of 32 LLM layers) through Trainer",
+              flush=True)
+        t0 = time.time()
+        parts.append(train_phase(card, dev))
+        print(f"  phase 6 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
 
-    print("phase 7: the train CLI, then train steps on cuda vs cpu, narrow fp32 config",
-          flush=True)
-    t0 = time.time()
-    parts.append(train_cli_phase())
-    kernels.reset_launches()
-    train_equivalence_phase(pair)
-    stage_chain_phase(pair)
-    parts.append(dict(kernels.launches))
-    print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)
+        print("phase 7: the train CLI, then train steps on cuda vs cpu, narrow fp32 config",
+              flush=True)
+        t0 = time.time()
+        parts.append(train_cli_phase())
+        kernels.reset_launches()
+        train_equivalence_phase(pair)
+        stage_chain_phase(pair)
+        parts.append(dict(kernels.launches))
+        print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)
 
-    print("phase 8: the 2-layer slice exported, loaded onto the card and served", flush=True)
-    t0 = time.time()
-    parts.append(checkpoint_phase(card, dev))
-    print(f"  phase 8 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        print("phase 8: the 2-layer slice exported, loaded onto the card and served",
+              flush=True)
+        t0 = time.time()
+        parts.append(checkpoint_phase(card, dev))
+        print(f"  phase 8 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        counts, wall, waited = cpu_sampler_finish(cpu_draws)
+    finally:
+        if cpu_draws.poll() is None:
+            cpu_draws.kill()
+            cpu_draws.wait()
+    print("phase 5 (continued): the sampler's CPU draws", flush=True)
+    sampler_phase([("cpu", counts, f"in {wall:.1f} s beside phases 5-8 "
+                    f"({SAMPLE_CPU_THREADS} threads), {waited:.1f} s waited after phase 8")])
 
     import shutil
 

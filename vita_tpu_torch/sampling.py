@@ -62,7 +62,10 @@ def sample_tokens(
     if mode == "categorical":
         sampled = _categorical(x, generator).to(torch.int32)
         return torch.where(temperature <= 0.0, greedy, sampled)
-    x_sorted, order = torch.sort(x, dim=-1, descending=True)
+    # stable, as jnp.argsort(-x): among equal logits the lower token id
+    # ranks first, so a tie across the k-th place or the top-p edge keeps
+    # the tokens the reference keeps
+    x_sorted, order = torch.sort(x, dim=-1, descending=True, stable=True)
     ranks = torch.arange(v, device=x.device)[None, :]
     k = torch.where(top_k > 0, top_k.clamp(1, v), v)[:, None]
     keep = ranks < k
