@@ -105,14 +105,35 @@ Phases, each of which raises on failure:
      they were), B1, B10, B11 and B5a or B5b launched and B12 not once,
      its peak memory printed beside stage 2's; then one stage-3 step from
      the stage-1 weights on the image+audio sample, where B12 must launch
-     again;
+     again; then LoRA on the weights left, the whole params frozen
+     (lora_step_run: rank 8, alpha 16 on every LORA_TARGETS leaf): with
+     init_lora's B = 0 every merged leaf and the image+audio loss bitwise
+     the base's; with B drawn (scale*B*A about LORA_REL of each leaf's
+     RMS) one forward and backward of lora_loss_fn on a 9216-bucket text
+     sample and on the image+audio sample, the gradients of the adapters
+     and of the merged leaves in one autograd.grad: finite losses, finite
+     and nonzero adapter gradients within LORA_CHAIN_TOL of the chain rule
+     in float32 from the merged leaves' gradients, no base leaf with a
+     gradient or changed, and B1, B5a, B5b, B10, B11 and B12 launched (B12
+     above 0, where stage 1 has 0); each run's ms and peak printed beside
+     stage 2's and stage 1's;
   7. the train CLI in process (python -m vita_tpu_torch.train.cli --model
      tiny-random --moe-mode gmm), then again with --stage pretrain_mlp on
-     the same audio and text samples (exit code 0, finite losses); three
+     the same audio and text samples (exit code 0, finite losses), then
+     again with --pretrain-mm-adapter, --whale-init and --lora-from
+     (overlay_files, written on the card: a stage-1 Trainer's
+     save_trainable_only, a Whale final.pt with one unknown key, rank-4
+     adapters with B += 0.05): exit code 0, the whale loader's line
+     reporting 1 unknown key, finite losses, and the Trainer (its
+     __init__ wrapped here) starting from the three overlays applied on
+     the card in the CLI's order, bitwise; three
      train steps of the narrow fp32 config (gmm, flash) on the card and on
      the CPU: losses and the first step's gradients must agree (GRAD_TOL,
      LOSS_RTOL below), up to the first step where the CPU's router had a
-     near tie; then the three-stage recipe of tests/test_stage_chaining.py
+     near tie; lora_loss_fn with rank-4 adapters (B drawn) on an
+     image+audio batch and a text-only batch on both devices: the loss
+     (LOSS_RTOL) and every adapter gradient (GRAD_TOL), excused only at a
+     CPU router near tie; then the three-stage recipe of tests/test_stage_chaining.py
      on both devices at that config (stage 1, its adapter-only checkpoint
      overlaid on fresh weights, stage 2, a full checkpoint saved and
      loaded, stage 3; four batches a stage of image, audio-only and
@@ -127,7 +148,16 @@ Phases, each of which raises on failure:
      from the loaded weights and from the in-memory ones under the loaded
      config (gmm prefill; bf16 experts, then int8 experts with int8 KV
      pages): identical greedy streams, and B5b with B2, B3 and B4 (bf16)
-     or B9, B6 and B8a (int8) must launch;
+     or B9, B6 and B8a (int8) must launch; then, the in-memory weights
+     freed, rank-8 adapters (B drawn) saved with save_state and merged by
+     python -m vita_tpu_torch.train.merge_lora in process at its default
+     device, cuda (its wall, bytes and load time printed): the merged
+     checkpoint bitwise equal to merge_lora on the card, to
+     load_lora_vita_checkpoint and to merge_lora over its merge=False
+     parts, every targeted leaf off the base and every other leaf the
+     base; then both runs served from the merged checkpoint and from the
+     in-memory merge: identical streams, the kernels launched, and every
+     first-token logits row off the base's;
   9. multi-turn and duplex serving on phase 3's weights (run right after
      phase 4's Generator, before the weights are freed and the CLI runs),
      launch counts zeroed before it and read after: (a) a three-turn
@@ -300,7 +330,11 @@ Phases, each of which raises on failure:
      fsdp gathers a prefill chunk and a decode step printed beside the
      unsharded run's; (c) the train CLI --mesh 1 4 1 1 --moe-mode gmm on
      the 4 ranks, twice: every rank exits 0, metrics.jsonl is written
-     once, the second run resumes.
+     once, the second run resumes; then once more with phase 7's three
+     overlays (the CLI's whole-params path): every rank exits 0,
+     metrics.jsonl holds 2 finite losses, and the whole weights rank 0
+     hands to its Trainer are the overlays applied to the host-drawn
+     tiny-random base, bitwise.
  15. tensor- and expert-parallel training, as 4 ranks spawned on cuda:0
      over gloo after phase 14 (whose unsharded references it reuses): (a)
      phase 14(a)'s narrow steps under --mesh 1 1 2 2, 1 2 1 2, 2 1 2 1,
@@ -2324,6 +2358,24 @@ class SmokeData(Samples):
                          + [len(samples[-1]["input_ids"])])
 
 
+def _leaf_copy(params):
+    """A copy of every leaf on its own device, by path, and its bytes:
+    what a bitwise check of the leaves after a run compares with, without
+    a trip through the host."""
+    from vita_tpu_torch.train.step import tree_leaves
+
+    copy = {p: w.detach().clone() for p, w in tree_leaves(params)}
+    return copy, sum(w.numel() * w.element_size() for w in copy.values())
+
+
+def _peak_gib(held: int) -> float:
+    """The card's peak allocation since its last reset, less ``held``
+    bytes that stayed allocated all along (a _leaf_copy)."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - held) / 2**30
+
+
 def train_phase(card: str, device):
     """Trainer over SmokeData on the full-width slice, stage 2 (the LLM and
     both projectors train, the towers are frozen) with a warm-up of one
@@ -2341,16 +2393,10 @@ def train_phase(card: str, device):
     cfg = train_slice_config()
     on_card = device.type == "cuda"
     params = slice_params(cfg, device)
-    before = {p: w.detach().to("cpu", copy=True) for p, w in tree_leaves(params)}
+    before, held = _leaf_copy(params)
     data = SmokeData(cfg, TRAIN_DIR)
     seqs = []
-    collate = Collator(pad_id=0)
-
-    def collator(samples):
-        batch = collate(samples)
-        seqs.append((batch["input_ids"].shape[1], int(batch["attn_valid"].sum())))
-        return batch
-
+    collator = _recording_collator(seqs)
     tc = dataclasses.replace(TrainConfig.stage2_finetune(), warmup_steps=1)
     run = RunConfig(output_dir=os.path.join(TRAIN_DIR, "run"), batch_size=1,
                     save_every_steps=10 ** 9, loader_workers=2, resume=False)
@@ -2364,24 +2410,24 @@ def train_phase(card: str, device):
     print(f"  kernel launches in the training run: {counts}", flush=True)
     # one timed run per step; a step's time includes the first launches at
     # its bucket's shapes, so the second step at the top bucket is the warm one
-    for m, (seq, real) in zip(log, seqs):
+    for m, (seq, real, _) in zip(log, seqs):
         print(f"  step {m['step']}: bucket {seq:5d} ({real:5d} real tokens), loss {m['loss']:.4f}"
               f" (ce {m['ce']:.4f}, aux {m['aux']:.4f}), step {m['step_time'] * 1e3:9.2f} ms, "
               f"{real / m['step_time']:9.1f} real tokens/s ({seq / m['step_time']:9.1f} bucket "
               f"positions/s)  [{card}]", flush=True)
     if on_card:
-        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+        print(f"  peak device memory {_peak_gib(held):.2f} GiB  "
               f"[{card}]", flush=True)
     missing = [k for k in TRAIN_PATH if counts[k] == 0]
     if missing:
         raise AssertionError(f"training: kernels never launched on its path: {missing}")
     if len(log) != len(data) or not all(np.isfinite(m["loss"]) for m in log):
         raise AssertionError(f"training: {len(log)} steps, losses {[m['loss'] for m in log]}")
-    if max(seq for seq, _ in seqs) != TRAIN_TOP_BUCKET:
+    if max(seq for seq, _, _ in seqs) != TRAIN_TOP_BUCKET:
         raise AssertionError(f"training: no batch reached the {TRAIN_TOP_BUCKET} bucket: {seqs}")
     changed = {}
     for p, w in tree_leaves(params):
-        n = int((w.detach().cpu() != before[p]).sum())
+        n = int((w.detach() != before[p]).sum())
         changed[p[0]] = changed.get(p[0], 0) + n
         if not w.requires_grad and n:
             raise AssertionError(f"training: frozen {'/'.join(p)} changed in {n} elements")
@@ -2389,18 +2435,46 @@ def train_phase(card: str, device):
     for comp in ("llm", "vision_proj", "audio_proj"):
         if changed[comp] == 0:
             raise AssertionError(f"training: trainable {comp} did not change")
-    peak2 = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    peak2 = _peak_gib(held) if on_card else 0.0
     del trainer, before
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    stage1, stage3 = stage1_and_3_runs(card, cfg, params, data, device, peak2)
+    stage1, stage3, ref1 = stage1_and_3_runs(card, cfg, params, data, device, peak2)
+    lora_counts = lora_step_run(card, cfg, params, data, device,
+                                {"stage 2": (peak2, _step_ms(log, seqs)), "stage 1": ref1})
     del params
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     STAGE1_LAUNCHES.update(stage1)
-    return {k: counts[k] + stage1[k] + stage3[k] for k in counts}
+    return {k: counts[k] + stage1[k] + stage3[k] + lora_counts[k] for k in counts}
+
+
+def _recording_collator(shapes):
+    """A Collator that appends (bucket, real tokens, whether an image or
+    audio span is in the batch) of each batch to ``shapes``."""
+    from vita_tpu_torch.data.dataset import Collator
+
+    collate = Collator(pad_id=0)
+
+    def collator(samples):
+        batch = collate(samples)
+        shapes.append((batch["input_ids"].shape[1], int(batch["attn_valid"].sum()),
+                       bool(batch["image_mask"].any() or batch["audio_mask"].any())))
+        return batch
+
+    return collator
+
+
+def _step_ms(log, shapes):
+    """The last text step's ms at TRAIN_TOP_BUCKET and the media step's,
+    from a Trainer's log over _recording_collator's shapes."""
+    ms = {}
+    for m, (seq, _, media) in zip(log, shapes):
+        if media or seq == TRAIN_TOP_BUCKET:
+            ms["image+audio" if media else "text"] = m["step_time"] * 1e3
+    return ms
 
 
 # the kernels of stage 1 (the LLM frozen, the vision projector trained
@@ -2422,7 +2496,7 @@ def stage1_and_3_runs(card, cfg, params, data, device, peak2):
     finite, only vision_proj changed in stage 1 (the LLM, both towers and
     audio_proj bitwise as they were), stage 1's kernels launched and B12
     did not, and B12 launched again in stage 3. Returns the two runs'
-    launch counts."""
+    launch counts and stage 1's (peak GiB, _step_ms)."""
     import torch
 
     from vita_tpu_torch import kernels
@@ -2432,7 +2506,7 @@ def stage1_and_3_runs(card, cfg, params, data, device, peak2):
 
     on_card = device.type == "cuda"
     t0 = time.time()
-    before = {p: w.detach().to("cpu", copy=True) for p, w in tree_leaves(params)}
+    before, held = _leaf_copy(params)
     # the text samples as a language-only dataset gives them
     # (DataArgs(is_multimodal=False)): without the dummy image and audio a
     # multimodal one adds, so their batches reach no trainable leaf
@@ -2445,10 +2519,11 @@ def stage1_and_3_runs(card, cfg, params, data, device, peak2):
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     trainer = Trainer(cfg, tc, run, params)
-    log = trainer.train(lang, Collator(pad_id=0))
+    shapes = []
+    log = trainer.train(lang, _recording_collator(shapes))
     _sync(device)
     stage1 = dict(kernels.launches)
-    peak1 = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    peak1 = _peak_gib(held) if on_card else 0.0
     print(f"  stage 1 (vision projector alone): kernel launches {stage1}", flush=True)
     for m in log:
         print(f"  stage 1 step {m['step']}: loss {m['loss']:.4f} (ce {m['ce']:.4f}, aux "
@@ -2466,14 +2541,14 @@ def stage1_and_3_runs(card, cfg, params, data, device, peak2):
                              f"{stage1['gmm_wgrad']} times (must be 0)")
     changed = {}
     for p, w in tree_leaves(params):
-        changed[p[0]] = changed.get(p[0], 0) + int((w.detach().cpu() != before[p]).sum())
+        changed[p[0]] = changed.get(p[0], 0) + int((w.detach() != before[p]).sum())
     print(f"  stage 1 elements changed per component: {changed}", flush=True)
     if changed["vision_proj"] == 0 or any(n for c, n in changed.items() if c != "vision_proj"):
         raise AssertionError(f"stage 1 changed {changed}: the vision projector alone trains")
     del trainer, before
     gc.collect()
     # stage 3 from the stage-1 weights: one step on the image+audio sample
-    one = Samples(*zip(*[(s, n) for s, n in zip(data.samples, data.lengths) if "images" in s]))
+    one = Samples(*zip(*[(s, n) for s, n in zip(data.samples, data.lengths) if n > 0]))
     run3 = dataclasses.replace(run, output_dir=os.path.join(TRAIN_DIR, "run3"))
     kernels.reset_launches()
     trainer = Trainer(cfg, dataclasses.replace(TrainConfig.stage3_task(), warmup_steps=0), run3,
@@ -2488,14 +2563,185 @@ def stage1_and_3_runs(card, cfg, params, data, device, peak2):
                              f"{stage3['gmm_wgrad']}")
     del trainer
     print(f"  stages 1 and 3 in {time.time() - t0:.1f} s  [{card}]", flush=True)
-    return stage1, stage3
+    return stage1, stage3, (peak1, _step_ms(log, shapes))
+
+
+# phase 6's LoRA step: LoRAConfig's rank 8 and alpha 16 on every
+# LORA_TARGETS leaf, B drawn so that scale*B*A carries about LORA_REL of
+# the leaf's RMS
+LORA_REL = 0.01
+# each adapter gradient against the chain rule in float32 from the merged
+# leaf's own gradient (dA = s Bᵀ dW, dB = s dW Aᵀ): max |error| within
+# LORA_CHAIN_TOL of the reference's largest element. The einsum's bf16
+# backward rounds its output (2^-9 relative) and may add its float32
+# partials in another order; a wrong gradient is off by O(1).
+LORA_CHAIN_TOL = 2.0 ** -6
+
+
+def lora_adapters(llm, lcfg, generator, rel=LORA_REL):
+    """init_lora's adapters (A ~ N(0, 1/r), drawn from ``generator``) with
+    B drawn from it too at sigma = rel x the leaf's RMS / scale: the
+    entries of scale * B A then have RMS about ``rel`` of the leaf's.
+    Returns (adapters, {leaf: sigma})."""
+    import torch
+
+    from vita_tpu_torch.train import lora
+
+    ad = lora.init_lora(generator, llm, lcfg)
+    sigmas = {}
+    for grp, name in lora.LORA_TARGETS:
+        w = llm["layers"][grp][name]
+        rms = float(torch.linalg.vector_norm(w.detach(), dtype=torch.float32)) / w.numel() ** 0.5
+        sigmas[f"{grp}/{name}"] = sigma = rel * rms / lcfg.scale
+        with torch.no_grad():
+            ad["layers"][grp][name]["b"].normal_(generator=generator).mul_(sigma)
+    return ad, sigmas
+
+
+def _adapter_leaves(ad):
+    from vita_tpu_torch.train import lora
+
+    return [(f"{grp}/{name}/{k}", ad["layers"][grp][name][k])
+            for grp, name in lora.LORA_TARGETS for k in ("a", "b")]
+
+
+def lora_step_run(card, cfg, params, data, device, refs):
+    """Phase 6 after stages 1 and 3, on the weights they left, the whole
+    params frozen: LoRA adapters (LoRAConfig: rank 8, alpha 16) on every
+    LORA_TARGETS leaf from a generator on ``device`` seeded with SEED. (a)
+    With init_lora's B = 0 every merged leaf is bitwise the base, and
+    lora_loss_fn's loss on the image+audio sample bitwise step.loss_fn's
+    on the base (both without autograd). (b) B drawn by lora_adapters;
+    then the forward and one backward of lora_loss_fn on a text sample of
+    the TRAIN_TOP_BUCKET bucket and on the image+audio sample, taking
+    torch.autograd.grad of the loss over the adapters and the merged
+    target leaves (captured from the loss_fn that lora_loss_fn calls):
+    finite losses, finite adapter gradients with A's and B's nonzero,
+    each within LORA_CHAIN_TOL of the chain rule from the merged leaf's
+    gradient, no base leaf with a gradient or changed (bitwise). (c)
+    TRAIN_PATH launched, B12 among them. Prints each run's ms and peak
+    beside ``refs`` ({stage: (peak GiB, _step_ms)}). Returns the launch
+    counts of (b)."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.data.dataset import Collator
+    from vita_tpu_torch.train import lora, step
+    from vita_tpu_torch.train.step import TrainConfig, tree_leaves
+
+    on_card = device.type == "cuda"
+    t0 = time.time()
+    for _, w in tree_leaves(params):
+        w.requires_grad_(False)
+    before, held = _leaf_copy(params)
+    lcfg, aux = lora.LoRAConfig(), TrainConfig.stage2_finetune().aux_loss_coef
+    collate = Collator(pad_id=0)
+    media = step.batch_to(collate([next(s for s, n in zip(data.samples, data.lengths)
+                                        if n > 0)]), device)
+    text = next(b for b in (collate([s]) for s, n in zip(data.samples, data.lengths) if n < 0)
+                if b["input_ids"].shape[1] == TRAIN_TOP_BUCKET)
+    text = step.batch_to(text, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    # (a) identity
+    ad = lora.init_lora(gen, params["llm"], lcfg)
+    merged = dict(tree_leaves(lora.merge_lora(params, ad, lcfg)))
+    moved = [p for p, w in tree_leaves(params) if not torch.equal(merged[p], w)]
+    del merged
+    with torch.no_grad():
+        got = lora.lora_loss_fn(params, ad, cfg, lcfg, media, aux, step.loss_fn)[0]
+        want = step.loss_fn(params, cfg, media, aux)[0]
+    print(f"  LoRA (a) identity: B = 0, {len(before) - len(moved)} of {len(before)} merged leaves "
+          f"bitwise the base; image+audio loss {float(got):.6f} with the adapters, "
+          f"{float(want):.6f} without", flush=True)
+    if moved or not torch.equal(got, want):
+        raise AssertionError(f"LoRA identity: merged leaves {moved[:4]} differ from the base, "
+                             f"loss {float(got)!r} vs {float(want)!r}")
+
+    # (b) gradients
+    ad, sigmas = lora_adapters(params["llm"], lcfg, gen)
+    print(f"  LoRA (b) B ~ N(0, sigma^2) a leaf: sigma "
+          f"{ {k: f'{v:.3e}' for k, v in sigmas.items()} } (scale*B*A about {LORA_REL} of the "
+          f"leaf's RMS)", flush=True)
+    leaves = _adapter_leaves(ad)
+    for _, w in leaves:
+        w.requires_grad_(True)
+    kernels.reset_launches()
+    bad, readings = [], {}
+    for label, batch in (("text", text), ("image+audio", media)):
+        captured = {}
+
+        def capturing(p, *a, captured=captured):
+            captured.update({(g, n): p["llm"]["layers"][g][n] for g, n in lora.LORA_TARGETS})
+            return step.loss_fn(p, *a)
+
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        loss, _ = lora.lora_loss_fn(params, ad, cfg, lcfg, batch, aux, capturing)
+        targets = [captured[t] for t in lora.LORA_TARGETS]
+        grads = torch.autograd.grad(loss, [w for _, w in leaves] + targets)
+        _sync(device)
+        ms = (time.time() - t1) * 1e3
+        peak = _peak_gib(held) if on_card else 0.0
+        readings[label] = (ms, peak)
+        dws = dict(zip(lora.LORA_TARGETS, grads[len(leaves):]))
+        g_ad = dict(zip((n for n, _ in leaves), grads[:len(leaves)]))
+        worst = (0.0, "")
+        for grp, name in lora.LORA_TARGETS:
+            a, b = (ad["layers"][grp][name][k].detach().float() for k in ("a", "b"))
+            dw = dws[(grp, name)].float()
+            want = {"a": lcfg.scale * torch.einsum("...ir,...io->...ro", b, dw),
+                    "b": lcfg.scale * torch.einsum("...io,...ro->...ir", dw, a)}
+            del dw
+            for k, ref in want.items():
+                g = g_ad[f"{grp}/{name}/{k}"].float()
+                err = float((g - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+                worst = max(worst, (err, f"{grp}/{name}/{k}"))
+                if not bool(g.isfinite().all()) or not bool(g.ne(0).any()):
+                    bad.append(f"{label}: {grp}/{name}/{k} gradient not finite or all zero")
+                elif err > LORA_CHAIN_TOL:
+                    bad.append(f"{label}: {grp}/{name}/{k} off the chain rule by {err:.3e}")
+        print(f"  LoRA (b) {label} (bucket {batch['input_ids'].shape[1]}): loss "
+              f"{float(loss.detach()):.4f}, forward + backward {ms:.2f} ms, peak {peak:.2f} GiB; "
+              f"worst adapter gradient off the chain rule {worst[0]:.3e} ({worst[1]}, tol "
+              f"{LORA_CHAIN_TOL:.3e})  [{card}]", flush=True)
+        if not np.isfinite(float(loss.detach())):
+            bad.append(f"{label}: loss {float(loss.detach())}")
+        del loss, grads, captured, targets, dws, g_ad
+    _sync(device)
+    counts = dict(kernels.launches)
+    fmt = lambda ms: ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())  # noqa: E731
+    print(f"  LoRA forward + backward {fmt({k: v[0] for k, v in readings.items()})}, peak "
+          f"{max(p for _, p in readings.values()):.2f} GiB; beside the Trainer's steps (with "
+          f"AdamW): " + "; ".join(f"{stage} {fmt(ms)}, peak {peak:.2f} GiB"
+                                  for stage, (peak, ms) in refs.items()) + f"  [{card}]",
+          flush=True)
+    print(f"  LoRA kernel launches: {counts}", flush=True)
+    missing = [k for k in TRAIN_PATH if counts[k] == 0]
+    if missing:
+        bad.append(f"kernels never launched: {missing} (B12 {counts['gmm_wgrad']})")
+    changed = [p for p, w in tree_leaves(params)
+               if w.grad is not None or not torch.equal(w.detach(), before[p])]
+    if changed:
+        bad.append(f"base leaves with a gradient or changed: {changed[:4]}")
+    del before, ad, leaves
+    gc.collect()
+    if bad:
+        raise AssertionError("LoRA step:\n  " + "\n  ".join(bad))
+    print(f"  LoRA runs in {time.time() - t0:.1f} s  [{card}]", flush=True)
+    return counts
 
 
 def train_cli_phase():
     """python -m vita_tpu_torch.train.cli --model tiny-random --moe-mode gmm
     on the card, in process, over a text sample and an audio sample, then
-    with --stage pretrain_mlp on them."""
+    with --stage pretrain_mlp on them, then with the three overlays
+    (cli_overlay_run)."""
     import shutil
+
+    import torch
 
     from vita_tpu_torch import kernels
     from vita_tpu_torch.train import cli
@@ -2532,7 +2778,157 @@ def train_cli_phase():
         raise AssertionError(f"train CLI --stage pretrain_mlp: exit code {rc}, losses {losses}")
     for k, v in kernels.launches.items():
         counts[k] += v
+    kernels.reset_launches()
+    cli_overlay_run(directory, chat, torch.device("cuda"))
+    for k, v in kernels.launches.items():
+        counts[k] += v
     return counts
+
+
+# the train CLI's three overlays (phase 7's files, reused by phase 14(c)):
+# their directory, and the LoRA flags of the adapters written there
+OVERLAY_DIR = os.path.join(TRAIN_DIR, "cli", "overlays")
+OVERLAY_LORA = (4, 8.0)  # rank, alpha
+
+
+def overlay_flags():
+    return ["--pretrain-mm-adapter", os.path.join(OVERLAY_DIR, "mm", "adapters"),
+            "--whale-init", os.path.join(OVERLAY_DIR, "final.pt"),
+            "--lora-from", os.path.join(OVERLAY_DIR, "lora"),
+            "--lora-rank", str(OVERLAY_LORA[0]), "--lora-alpha", str(OVERLAY_LORA[1])]
+
+
+def overlay_files(device):
+    """The train CLI's three overlays for VITAConfig.tiny(), written under
+    OVERLAY_DIR from weights drawn on ``device``: mm/adapters,
+    Trainer.save_trainable_only of a stage-1 Trainer whose vision_proj is
+    seed SEED + 31's; final.pt, hf_import.whale_params_to_hf of seed SEED +
+    32's Whale with one unknown key; lora, save_state of init_lora (rank 4,
+    alpha 8, seed SEED + 33) with B += 0.05. Returns overlay_flags."""
+    import shutil
+
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.train import lora
+    from vita_tpu_torch.train.step import TrainConfig
+    from vita_tpu_torch.train.trainer import RunConfig, Trainer, save_state
+    from vita_tpu_torch.utils import hf_import
+
+    shutil.rmtree(OVERLAY_DIR, ignore_errors=True)
+    os.makedirs(OVERLAY_DIR)
+    cfg = vita.VITAConfig.tiny()
+
+    def draw(seed):
+        return vita.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+    params = draw(SEED)
+    params["vision_proj"] = draw(SEED + 31)["vision_proj"]
+    Trainer(cfg, TrainConfig.stage1_pretrain_mlp(),
+            RunConfig(output_dir=os.path.join(OVERLAY_DIR, "mm"), batch_size=2, resume=False),
+            params).save_trainable_only("adapters")
+    whale = hf_import.whale_params_to_hf(draw(SEED + 32)["audio"], cfg.audio.n_layers)
+    torch.save({**whale, "extra.unknown": torch.zeros(1, device=device)},
+               os.path.join(OVERLAY_DIR, "final.pt"))
+    lcfg = lora.LoRAConfig(*OVERLAY_LORA)
+    ad = lora.init_lora(torch.Generator(device=device).manual_seed(SEED + 33), params["llm"], lcfg)
+    for grp, name in lora.LORA_TARGETS:
+        ad["layers"][grp][name]["b"] += 0.05
+    save_state(os.path.join(OVERLAY_DIR, "lora"), 0, ad)
+    return overlay_flags()
+
+
+def overlaid_start(device):
+    """The weights the train CLI's tiny-random Trainer should start from
+    with overlay_flags: the base drawn as the CLI draws it on ``device``
+    (the host under a mesh), then load_adapter_into, then
+    load_whale_torch_checkpoint, then merge_lora, the CLI's order. By leaf
+    name, on the host."""
+    import torch
+
+    from vita_tpu_torch import checkpoint
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.train import lora
+    from vita_tpu_torch.train.trainer import load_state
+
+    with contextlib.redirect_stdout(io.StringIO()):  # the loaders' [load] lines
+        params = vita.init_params(vita.VITAConfig.tiny(),
+                                  torch.Generator(device=device).manual_seed(0), device)
+        checkpoint.load_adapter_into(params, os.path.join(OVERLAY_DIR, "mm", "adapters"))
+        params = checkpoint.load_whale_torch_checkpoint(params,
+                                                        os.path.join(OVERLAY_DIR, "final.pt"))
+        params = lora.merge_lora(params, load_state(os.path.join(OVERLAY_DIR, "lora"),
+                                                    device=device),
+                                 lora.LoRAConfig(*OVERLAY_LORA))
+    return {n: w.detach().to("cpu", copy=True) for n, w in _leaf_items(params)}
+
+
+@contextlib.contextmanager
+def _recording_trainer_start(store):
+    """While open, every Trainer appends the params it is given (whole, by
+    leaf name, on the host) to ``store``."""
+    from vita_tpu_torch.train import trainer
+
+    real = trainer.Trainer.__init__
+
+    def init(self, cfg, tc, run, params, *a, **kw):
+        store.append({n: w.detach().to("cpu", copy=True) for n, w in _leaf_items(params)})
+        real(self, cfg, tc, run, params, *a, **kw)
+
+    trainer.Trainer.__init__ = init
+    try:
+        yield
+    finally:
+        trainer.Trainer.__init__ = real
+
+
+def _start_diff(got, want):
+    """The leaves where a Trainer's start ``got`` is not ``want`` bitwise."""
+    import torch
+
+    if got is None:
+        return ["no Trainer started"]
+    if got.keys() != want.keys():
+        return sorted(set(got) ^ set(want))
+    return [n for n, w in want.items() if got[n].dtype != w.dtype or not torch.equal(got[n], w)]
+
+
+def cli_overlay_run(directory, chat, device):
+    """The train CLI in process with its three overlays (overlay_files,
+    written on ``device``): exit code 0, the whale loader's line reports 1
+    unknown key, every loss finite, and the Trainer starts from
+    overlaid_start on ``device`` leaf for leaf, bitwise."""
+    import shutil
+
+    from vita_tpu_torch.train import cli
+
+    t0 = time.time()
+    flags = overlay_files(device)
+    out = os.path.join(directory, "run_overlays")
+    shutil.rmtree(out, ignore_errors=True)
+    starts, buf = [], io.StringIO()
+    with _recording_trainer_start(starts), contextlib.redirect_stdout(buf):
+        rc = cli.main(["--model", "tiny-random", "--data", chat, "--output-dir", out,
+                       "--batch-size", "2", "--no-resume", "--moe-mode", "gmm", *flags,
+                       "--device", device.type])
+    lines = buf.getvalue().splitlines()
+    loads = [x for x in lines if x.startswith("[load]")]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    diff = _start_diff(starts[0] if starts else None, overlaid_start(device))
+    print(f"  train CLI with --pretrain-mm-adapter, --whale-init and --lora-from: exit code "
+          f"{rc}, {loads}, losses {losses}; the Trainer's start against the overlays applied "
+          f"on {device}: {len(diff)} leaves differ; {time.time() - t0:.1f} s", flush=True)
+    bad = []
+    if rc != 0 or not losses or not np.isfinite(losses).all():
+        bad.append(f"exit code {rc}, losses {losses}")
+    if not any(x.startswith("[load] whale final.pt") and "1 unknown keys ignored" in x
+               for x in loads):
+        bad.append(f"no whale final.pt line with 1 unknown key: {loads}")
+    if diff:
+        bad.append(f"the Trainer started off the overlays at {diff[:4]}")
+    if bad:
+        raise AssertionError("train CLI overlays: " + "; ".join(bad))
 
 
 # Router near ties: the card's and the CPU's float32 router probabilities
@@ -2552,6 +2948,113 @@ GRAD_TOL = 1e-3
 LOSS_RTOL = 1e-4
 
 
+def narrow_batch(cfg, rng, media=True):
+    """A 2 x 256 batch: row 0 with an image span and a 7-slot audio span
+    (60 fbank frames), row 1 valid up to 200; without ``media`` text alone
+    (no spans, no media arrays)."""
+    from vita_tpu_torch.tokenization import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
+
+    sz, n_img = cfg.vision.image_size, cfg.image_tokens_per_group
+    ids = rng.integers(3, cfg.llm.vocab_size, (2, 256)).astype(np.int32)
+    if media:
+        ids[0, 4:4 + n_img] = IMAGE_TOKEN_INDEX
+        ids[0, 6 + n_img:13 + n_img] = AUDIO_TOKEN_INDEX  # 7 slots: 60 fbank frames
+    im, am = ids == IMAGE_TOKEN_INDEX, ids == AUDIO_TOKEN_INDEX
+    valid = np.ones((2, 256), bool)
+    valid[1, 200:] = False
+    batch = {"input_ids": np.where(im | am, 0, ids),
+             "labels": np.where(im | am | ~valid, -100, ids),
+             "image_mask": im, "audio_mask": am, "attn_valid": valid}
+    if media:
+        batch.update(images=rng.standard_normal((2, sz, sz, 3)).astype(np.float32),
+                     speech=rng.standard_normal((2, 60, 80)).astype(np.float32),
+                     speech_lengths=np.array([60, 60], np.int32))
+    return batch
+
+
+def _recording_gaps(store):
+    """A route_topk that appends the smallest gap between the k-th and the
+    (k+1)-th router probability of its tokens to ``store``."""
+    import torch
+
+    from vita_tpu_torch.ops import moe
+
+    real = moe.route_topk
+
+    def route(logits, k):
+        out = real(logits, k)
+        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
+        store.append(float((top[:, k - 1] - top[:, k]).min()))
+        return out
+
+    return route
+
+
+def lora_equivalence_phase(devices):
+    """lora_loss_fn at the narrow fp32 config (gmm, flash) with rank-4
+    adapters whose B is drawn by lora_adapters, on an image+audio batch and
+    a text-only batch, on each device from the same weights (the last
+    device is the reference): the loss within LOSS_RTOL and every adapter
+    leaf's gradient within GRAD_TOL of the reference's; a batch beyond
+    them is excused only where the reference's router had a near tie
+    (ROUTE_NEAR_TIE)."""
+    import torch
+
+    from vita_tpu_torch.models import vita
+    from vita_tpu_torch.ops import moe
+    from vita_tpu_torch.train import lora, step
+
+    base = narrow_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, moe_mode="gmm"))
+    params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    lcfg = lora.LoRAConfig(rank=4)
+    ad, _ = lora_adapters(params["llm"], lcfg, torch.Generator().manual_seed(SEED + 7))
+    rng = np.random.default_rng(SEED + 9)
+    batches = {"image+audio": narrow_batch(cfg, rng), "text": narrow_batch(cfg, rng, False)}
+    aux = step.TrainConfig().aux_loss_coef
+    runs, gaps, seen, real_route = [], {}, [], moe.route_topk
+    for dev in devices:
+        p, a = _to(params, dev), _to(ad, dev)
+        leaves = _adapter_leaves(a)
+        for _, w in leaves:
+            w.requires_grad_(True)
+        if dev is devices[-1]:
+            moe.route_topk = _recording_gaps(seen)
+        out = {}
+        try:
+            for label, batch in batches.items():
+                loss, _ = lora.lora_loss_fn(p, a, cfg, lcfg, step.batch_to(batch, dev), aux,
+                                            step.loss_fn)
+                grads = torch.autograd.grad(loss, [w for _, w in leaves])
+                out[label] = (float(loss.detach()),
+                              {n: g.cpu() for (n, _), g in zip(leaves, grads)})
+                gaps[label] = min(seen, default=float("inf"))
+                seen.clear()
+        finally:
+            moe.route_topk = real_route
+        runs.append(out)
+    got, ref = runs
+    bad, lines = [], []
+    for label, (ref_loss, ref_grads) in ref.items():
+        loss, grads = got[label]
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        worst = max((float((grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)), n)
+                    for n, g in ref_grads.items())
+        tie = gaps[label]
+        lines.append(f"{label}: loss rel err {loss_err:.3e}, worst adapter gradient rel err "
+                     f"{worst[0]:.3e} ({worst[1]}), the reference's smallest router gap "
+                     f"{tie:.3e}")
+        if loss_err > LOSS_RTOL or worst[0] > GRAD_TOL:
+            if tie > ROUTE_NEAR_TIE:
+                bad.append(lines[-1])
+            lines[-1] += " (beyond the tolerance at a near tie: excused)"
+
+    print(f"  LoRA on {devices[0]} vs {devices[-1]} (rank 4, tols {LOSS_RTOL} / {GRAD_TOL}): "
+          + "; ".join(lines), flush=True)
+    if bad:
+        raise AssertionError(f"LoRA differs on {devices}: {bad}")
+
+
 def train_equivalence_phase(devices, steps=3):
     """Three train steps (stage 2, gmm MoE, flash attention) of the narrow
     fp32 config on each device from the same weights and batches; the last
@@ -2564,37 +3067,15 @@ def train_equivalence_phase(devices, steps=3):
     from vita_tpu_torch.models import vita
     from vita_tpu_torch.ops import moe
     from vita_tpu_torch.train import step
-    from vita_tpu_torch.tokenization import AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX
 
     base = narrow_config()
     cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, moe_mode="gmm"))
     params = vita.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     rng = np.random.default_rng(SEED + 3)
-    sz, n_img = cfg.vision.image_size, cfg.image_tokens_per_group
-    batches = []
-    for _ in range(steps):
-        ids = rng.integers(3, cfg.llm.vocab_size, (2, 256)).astype(np.int32)
-        ids[0, 4:4 + n_img] = IMAGE_TOKEN_INDEX
-        ids[0, 6 + n_img:13 + n_img] = AUDIO_TOKEN_INDEX  # 7 slots: 60 fbank frames
-        im, am = ids == IMAGE_TOKEN_INDEX, ids == AUDIO_TOKEN_INDEX
-        valid = np.ones((2, 256), bool)
-        valid[1, 200:] = False
-        batches.append({
-            "input_ids": np.where(im | am, 0, ids), "labels": np.where(im | am | ~valid, -100, ids),
-            "image_mask": im, "audio_mask": am, "attn_valid": valid,
-            "images": rng.standard_normal((2, sz, sz, 3)).astype(np.float32),
-            "speech": rng.standard_normal((2, 60, 80)).astype(np.float32),
-            "speech_lengths": np.array([60, 60], np.int32)})
+    batches = [narrow_batch(cfg, rng) for _ in range(steps)]
     tc = step.TrainConfig(learning_rate=1e-3, projector_lr=1e-2, warmup_steps=1, total_steps=10)
-    gaps, runs = [], []  # gaps: per reference step, its router gaps
+    step_gaps, seen, runs = [], [], []  # per reference step, its smallest router gap
     real_route = moe.route_topk
-
-    def recording_route(logits, k):
-        out = real_route(logits, k)
-        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
-        gaps[-1].append(float((top[:, k - 1] - top[:, k]).min()))
-        return out
-
     for dev in devices:
         p = _to(params, dev)
         opt = step.make_optimizer(tc, p)
@@ -2610,18 +3091,18 @@ def train_equivalence_phase(devices, steps=3):
         fn = step.make_train_step(cfg, tc, opt)
         reference = dev is devices[-1]
         if reference:
-            moe.route_topk = recording_route
+            moe.route_topk = _recording_gaps(seen)
         try:
             losses = []
             for b in batches:
-                if reference:
-                    gaps.append([])
                 losses.append(float(fn(p, state, b)[2]["loss"]))
+                if reference:
+                    step_gaps.append(min(seen))
+                    seen.clear()
         finally:
             moe.route_topk = real_route
         runs.append((losses, grads[0]))
     (losses, grads), (ref_losses, ref_grads) = runs
-    step_gaps = [min(g) for g in gaps]
     tied = [i for i, g in enumerate(step_gaps) if g <= ROUTE_NEAR_TIE]
     first_tie = tied[0] if tied else steps
     worst = max((float((grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)), "/".join(k))
@@ -2706,13 +3187,6 @@ def stage_chain_phase(devices):
         TrainConfig.stage1_pretrain_mlp, TrainConfig.stage2_finetune, TrainConfig.stage3_task)]
     gaps, step_gaps, runs = [], [], []  # the reference's smallest router gap a step
     real_route, real_update = moe.route_topk, AdamW.update
-
-    def recording_route(logits, k):
-        out = real_route(logits, k)
-        top = torch.topk(out[2].detach(), k + 1, dim=-1).values
-        step_gaps.append(float((top[:, k - 1] - top[:, k]).min()))
-        return out
-
     for dev in devices:
         root = os.path.join(TRAIN_DIR, "chain", dev.type)
         shutil.rmtree(root, ignore_errors=True)
@@ -2739,7 +3213,7 @@ def stage_chain_phase(devices):
 
         AdamW.update = recording_update
         if reference:
-            moe.route_topk = recording_route
+            moe.route_topk = _recording_gaps(step_gaps)
         try:
             t1 = stage(0, _to(fresh(), dev))
             t1.save_trainable_only("adapters")
@@ -2834,8 +3308,10 @@ def checkpoint_phase(card: str, device):
     load_vita_checkpoint, hold every leaf bitwise to the weights it was
     written from, then serve CHECKPOINT_RUNS (gmm prefill) from the loaded
     weights and from the in-memory ones under the loaded config: the
-    greedy streams must be identical and each run's kernels launch.
-    Returns the launch counts of the runs on the loaded weights."""
+    greedy streams must be identical and each run's kernels launch. Then,
+    with the export still on disk and the in-memory weights freed, the
+    LoRA merge (lora_merge_run). Returns the launch counts of the runs on
+    the loaded and the merged checkpoints."""
     import shutil
 
     import torch
@@ -2848,14 +3324,18 @@ def checkpoint_phase(card: str, device):
     cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layers=2))
     params = slice_params(cfg, device)
     n_params = sum(x.numel() for x in _leaves(params))
-    path = os.path.join(ROOT, "build", "smoke_ckpt")
-    shutil.rmtree(path, ignore_errors=True)
+    path, merged_path, lora_path = (os.path.join(ROOT, "build", f"smoke_{name}")
+                                    for name in ("ckpt", "ckpt_merged", "lora"))
+    for d in (path, merged_path, lora_path):
+        shutil.rmtree(d, ignore_errors=True)
     os.makedirs(path)
-    need = 4 * n_params + 2**30  # float32 weights and a GiB of headroom
+    # float32 export, the bf16 merged checkpoint beside it, a GiB of headroom
+    need = 4 * n_params + 2 * n_params + 2**30
     free = shutil.disk_usage(path).free
     if free < need:
-        raise RuntimeError(f"exporting {n_params:.4g} parameters needs {need / 2**30:.1f} GiB "
-                           f"free under {path}, found {free / 2**30:.1f} GiB")
+        raise RuntimeError(f"exporting {n_params:.4g} parameters and writing them merged needs "
+                           f"{need / 2**30:.1f} GiB free under {path}, found "
+                           f"{free / 2**30:.1f} GiB")
     try:
         t0 = time.time()
         checkpoint.export_hf_vita_checkpoint(path, cfg, params)
@@ -2869,52 +3349,208 @@ def checkpoint_phase(card: str, device):
         read = time.time() - t0
         print(f"  exported {n_params:.4g} parameters, {n_bytes} bytes, in {written:.1f} s; "
               f"loaded onto the card in {read:.1f} s  [{card}]", flush=True)
+
+        def dims(c):
+            return (c.llm.vocab_size, c.llm.d_model, c.llm.n_layers, c.llm.n_heads,
+                    c.llm.n_kv_heads, c.llm.d_ff, c.llm.n_experts, c.llm.top_k,
+                    c.vision.image_size, c.vision.hidden, c.vision.n_layers, c.audio.hidden,
+                    c.audio.n_layers, c.llm.dtype)
+
+        if dims(lcfg) != dims(cfg):
+            raise AssertionError(f"loaded config {lcfg} does not hold the exported {cfg}")
+        got, want = dict(tree_leaves(loaded)), dict(tree_leaves(params))
+        if got.keys() != want.keys():
+            raise AssertionError(f"loaded leaves {sorted(set(got) ^ set(want))} differ by name")
+        bad = [k for k, w in want.items() if got[k].dtype != w.dtype or not torch.equal(got[k], w)]
+        if bad:
+            raise AssertionError(f"{len(bad)} loaded leaves differ from the exported weights: "
+                                 f"{bad[:4]}")
+        print(f"  {len(want)} leaves bitwise equal to the exported weights", flush=True)
+        del got, want
+
+        total, base_rows = {}, {}
+        for label, options, path_kernels in CHECKPOINT_RUNS:
+            counts, base_rows[label] = _served_alike(label, lcfg, device, options, path_kernels,
+                                                     ("loaded", loaded), ("in-memory", params))
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # handed over, so that the merge can free the base's targeted leaves
+        weights = {"loaded": loaded}
+        del loaded
+        for k, n in lora_merge_run(card, path, merged_path, lora_path, lcfg, weights, device,
+                                   base_rows).items():
+            total[k] += n
     finally:
-        shutil.rmtree(path, ignore_errors=True)
-    def dims(c):
-        return (c.llm.vocab_size, c.llm.d_model, c.llm.n_layers, c.llm.n_heads, c.llm.n_kv_heads,
-                c.llm.d_ff, c.llm.n_experts, c.llm.top_k, c.vision.image_size, c.vision.hidden,
-                c.vision.n_layers, c.audio.hidden, c.audio.n_layers, c.llm.dtype)
+        for d in (path, merged_path, lora_path):
+            shutil.rmtree(d, ignore_errors=True)
+    return total
 
-    if dims(lcfg) != dims(cfg):
-        raise AssertionError(f"loaded config {lcfg} does not hold the exported {cfg}")
-    got, want = dict(tree_leaves(loaded)), dict(tree_leaves(params))
-    if got.keys() != want.keys():
-        raise AssertionError(f"loaded leaves {sorted(set(got) ^ set(want))} differ by name")
-    bad = [k for k, w in want.items() if got[k].dtype != w.dtype or not torch.equal(got[k], w)]
-    if bad:
-        raise AssertionError(f"{len(bad)} loaded leaves differ from the exported weights: "
-                             f"{bad[:4]}")
-    print(f"  {len(want)} leaves bitwise equal to the exported weights", flush=True)
 
+@contextlib.contextmanager
+def _recording_first_rows(store):
+    """While open, every prefill sample of the Engine appends its logits
+    row (float32, on the host) to ``store``."""
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    real = engine_mod.sample_tokens
+
+    def sample(logits, *a, **k):
+        store.append(logits[0].detach().float().cpu())
+        return real(logits, *a, **k)
+
+    engine_mod.sample_tokens = sample
+    try:
+        yield
+    finally:
+        engine_mod.sample_tokens = real
+
+
+def _served_alike(label, cfg, device, options, path_kernels, *sources):
+    """Serve checkpoint_requests (gmm prefill, ``options``) from each
+    (source name, weights) of ``sources`` on one Engine each, freed
+    after: identical greedy streams of 16 tokens, and the first source's
+    run launching ``path_kernels``. Returns that run's launch counts and
+    the logits rows of its prefill samples."""
+    import torch
+
+    from vita_tpu_torch import kernels
+    from vita_tpu_torch.serve.engine import Engine
+
+    streams, rows = [], []
+    for i, (source, weights) in enumerate(sources):
+        engine = Engine(weights, cfg, max_len=2048, device=device, prefill_moe_mode="gmm",
+                        **options)
+        kernels.reset_launches()
+        with _recording_first_rows(rows) if i == 0 else contextlib.nullcontext():
+            reqs = [r for wave in checkpoint_requests(cfg) for r in serve(engine, wave)]
+        streams.append([r.tokens for r in reqs])
+        if i == 0:
+            counts = dict(kernels.launches)
+            print(f"  kernel launches serving {label} from the {source} weights: {counts}",
+                  flush=True)
+            missing = [k for k in path_kernels if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"{label} from the {source} weights: kernels never "
+                                     f"launched: {missing} ({counts})")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    names = [s for s, _ in sources]
+    if any(s != streams[0] for s in streams) or any(len(t) != 16 for t in streams[0]):
+        raise AssertionError(f"{label}: greedy streams differ between {names}: {streams}")
+    print(f"  {label}: {len(streams[0])} requests, greedy streams from the {names[0]} weights "
+          f"identical to the {' and '.join(names[1:])} weights' (first: "
+          f"{streams[0][0][:6]}...)", flush=True)
+    return counts, rows
+
+
+def lora_merge_run(card, export, merged_path, adapters, cfg, weights, device, base_rows):
+    """Phase 8's LoRA merge, on the export at ``export`` and its loaded
+    weights (``weights["loaded"]``, taken out of the dict): seeded adapters
+    (LoRAConfig: rank 8, alpha 16; B by lora_adapters) saved with
+    save_state under ``adapters``; ``python -m
+    vita_tpu_torch.train.merge_lora --base export --lora adapters --output
+    merged_path`` in process at its default device (cuda); its checkpoint,
+    loaded onto the card, bitwise equal leaf for leaf to merge_lora(loaded,
+    the saved adapters) on the card, to load_lora_vita_checkpoint(export,
+    adapters), and to merge_lora over the parts its merge=False returns;
+    every targeted leaf differing from the base, every other leaf bitwise
+    the base. Then CHECKPOINT_RUNS served from the merged checkpoint and
+    from the in-memory merge: identical streams, the kernels launched, and
+    every first-token logits row different from the base's
+    (``base_rows``, label -> rows). Holds at most three copies of the
+    weights at once, plus the targeted leaves of one while it merges.
+    Returns the launch counts of the merged checkpoint's runs."""
+    import torch
+
+    from vita_tpu_torch import checkpoint
+    from vita_tpu_torch.train import lora
+    from vita_tpu_torch.train import merge_lora as merge_cli
+    from vita_tpu_torch.train.trainer import load_state, save_state
+
+    t0 = time.time()
+    loaded, lcfg = weights.pop("loaded"), lora.LoRAConfig()
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    ad, _ = lora_adapters(loaded["llm"], lcfg, gen)
+    save_state(adapters, 0, ad)
+    del ad
+    # no --device on the card: the CLI's default, cuda, is what runs
+    on = [] if device.type == "cuda" else ["--device", device.type]
+    t1 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = merge_cli.main(["--base", export, "--lora", adapters, "--output", merged_path, *on])
+    _sync(device)
+    merge_s = time.time() - t1
+    n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, files in os.walk(merged_path) for f in files)
+    if rc != 0:
+        raise AssertionError(f"merge CLI: exit code {rc}: {out.getvalue()}")
+    t1 = time.time()
+    mcfg, merged = checkpoint.load_vita_checkpoint(merged_path, device)
+    _sync(device)
+    load_s = time.time() - t1
+    print(f"  merge CLI ({' '.join(on) or 'at its default --device cuda'}): exit code {rc} in "
+          f"{merge_s:.1f} s, wrote {n_bytes} bytes; loaded onto {device} in {load_s:.1f} s  "
+          f"[{card}]", flush=True)
+    got = dict(_leaf_items(merged))
+    targets = {f"llm/layers/{g}/{n}" for g, n in lora.LORA_TARGETS}
+    bad = [n for n, w in _leaf_items(loaded)
+           if n in targets and torch.equal(got[n], w)
+           or n not in targets and not torch.equal(got[n], w)]
+    inmem = lora.merge_lora(loaded, load_state(adapters, device=device), lcfg)
+    del loaded  # its targeted leaves; the others are the in-memory merge's
+    gc.collect()
+    checks = [("targeted leaves moved, the others the base", bad)]
+
+    def differing(tree):
+        leaves = dict(_leaf_items(tree))
+        if leaves.keys() != got.keys():
+            return sorted(set(leaves) ^ set(got))
+        return [n for n, w in got.items() if leaves[n].dtype != w.dtype
+                or not torch.equal(leaves[n], w)]
+
+    checks.append(("merge_lora on the card", differing(inmem)))
+    t1 = time.time()
+    _, whole = checkpoint.load_lora_vita_checkpoint(export, adapters, device=device)
+    checks.append(("load_lora_vita_checkpoint", differing(whole)))
+    del whole
+    t2 = time.time()
+    _, base, parts, plcfg = checkpoint.load_lora_vita_checkpoint(export, adapters, merge=False,
+                                                                 device=device)
+    whole = lora.merge_lora(base, parts, plcfg)
+    del base, parts
+    checks.append(("merge_lora over merge=False's parts", differing(whole)))
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  merged checkpoint ({len(got)} leaves, {len(targets)} targeted) against: "
+          + "; ".join(f"{name} {len(b)} differing" for name, b in checks)
+          + f" (the two loads of the export {t2 - t1:.1f} / {time.time() - t2:.1f} s)",
+          flush=True)
+    failed = [f"{name}: {b[:4]}" for name, b in checks if b]
+    if mcfg != cfg or failed:
+        raise AssertionError(f"merged checkpoint: config {mcfg == cfg}, {failed}")
+    del got
     total = {}
     for label, options, path_kernels in CHECKPOINT_RUNS:
-        streams = []
-        for source, weights in (("loaded", loaded), ("in-memory", params)):
-            engine = Engine(weights, lcfg, max_len=2048, device=device, prefill_moe_mode="gmm",
-                            **options)
-            kernels.reset_launches()
-            reqs = [r for wave in checkpoint_requests(lcfg) for r in serve(engine, wave)]
-            counts = dict(kernels.launches)
-            streams.append([r.tokens for r in reqs])
-            if source == "loaded":
-                print(f"  kernel launches serving {label} from the checkpoint: {counts}",
-                      flush=True)
-                missing = [k for k in path_kernels if counts[k] == 0]
-                if missing:
-                    raise AssertionError(f"{label} from the checkpoint: kernels never "
-                                         f"launched: {missing} ({counts})")
-                for k, n in counts.items():
-                    total[k] = total.get(k, 0) + n
-            del engine
-            gc.collect()
-            torch.cuda.empty_cache()
-        if streams[0] != streams[1] or any(len(t) != 16 for t in streams[0]):
-            raise AssertionError(f"{label}: the loaded weights' greedy streams {streams[0]} "
-                                 f"differ from the in-memory weights' {streams[1]}")
-        print(f"  {label}: {len(streams[0])} requests, greedy streams from the checkpoint "
-              f"identical to the in-memory weights' (first: {streams[0][0][:6]}...)",
-              flush=True)
+        counts, rows = _served_alike(label, mcfg, device, options, path_kernels,
+                                     ("merged checkpoint", merged), ("in-memory merged", inmem))
+        same = [i for i, (r, b) in enumerate(zip(rows, base_rows[label])) if torch.equal(r, b)]
+        if len(rows) != len(base_rows[label]) or same:
+            raise AssertionError(f"{label}: merged first-token logits rows {same} equal the "
+                                 f"base's ({len(rows)} rows, base {len(base_rows[label])})")
+        moved = max(float((r - b).abs().max()) for r, b in zip(rows, base_rows[label]))
+        print(f"  {label}: {len(rows)} first-token logits rows, every one off the base's "
+              f"(largest |diff| {moved:.4f})", flush=True)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    del merged, inmem
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  LoRA merge and serving in {time.time() - t0:.1f} s  [{card}]", flush=True)
     return total
 
 
@@ -6491,8 +7127,44 @@ def fsdp_rank(rank, world, plan):
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv + ["--device", dev.type])
         out["cli"].append((rc, buf.getvalue()))
+    if plan.get("cli_overlays"):
+        starts, buf = [], io.StringIO()  # rank 0's: whole weights on the host
+        with _recording_trainer_start(starts if rank == 0 else []), \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(plan["cli_overlays"] + ["--device", dev.type])
+        start = None
+        if starts:  # as bytes: tensors through the queue share storage with the exiting rank
+            start = io.BytesIO()
+            torch.save(starts[0], start)
+        out["cli_overlays"] = (rc, buf.getvalue(), start and start.getvalue())
     out["wall_s"]["c"] = time.time() - t_part
     return out
+
+
+def _overlay_report(results, run_dir, failed):
+    """Phase 14(c)'s run of the train CLI with the three overlays under
+    --mesh 1 4 1 1 (the CLI's whole-params path): every rank exits 0,
+    metrics.jsonl holds one line a step with finite losses, and the whole
+    weights rank 0 hands to its Trainer are the overlays applied to the
+    host-drawn tiny-random base (overlaid_start on the CPU), bitwise."""
+    import torch
+
+    codes = [res["cli_overlays"][0] for res in results]
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    losses = ([json.loads(x)["loss"] for x in open(metrics).read().splitlines()]
+              if os.path.exists(metrics) else [])
+    start = results[0]["cli_overlays"][2]
+    start = start and torch.load(io.BytesIO(start), weights_only=True)
+    diff = _start_diff(start, overlaid_start(torch.device("cpu")))
+    print(f"  (c) train CLI --mesh 1 4 1 1 with the three overlays: exit codes {codes}, "
+          f"metrics.jsonl losses {losses}; rank 0's Trainer start against the overlays on the "
+          f"host-drawn base: {len(diff)} leaves differ", flush=True)
+    if any(codes):
+        failed.append(f"(c) overlays: exit codes {codes}")
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        failed.append(f"(c) overlays: metrics.jsonl losses {losses}, not 2 finite ones")
+    if diff:
+        failed.append(f"(c) overlays: rank 0's Trainer started off the overlays at {diff[:4]}")
 
 
 def _cli_trainer(out_dir, device, mesh=None):
@@ -6930,13 +7602,17 @@ def fsdp_phase(card: str, device, small: bool = False):
           f"{full_ref['peak']:.2f} GiB  [{card}]", flush=True)
     cli_dir = os.path.join(TRAIN_DIR, "fsdp_cli")
     chat = _train_cli_files(cli_dir)
-    run_dir = os.path.join(cli_dir, "run")
+    run_dir, overlay_run = os.path.join(cli_dir, "run"), os.path.join(cli_dir, "run_overlays")
+    if not os.path.exists(os.path.join(OVERLAY_DIR, "lora")):  # phase 7 did not run
+        overlay_files(device)
     plan = {"device": "cuda:0" if device.type == "cuda" else "cpu", "small": small,
             "full_s": full_s, "picks": picks, "shapes": full_ref["shapes"],
             "narrow_meshes": FSDP_NARROW_MESHES, "stage1_meshes": STAGE1_NARROW_MESHES,
             "full_meshes": FSDP_FULL_MESHES, "serve_narrow": True,
             "serve": [label for label, _, _, _ in DP_SERVE_RUNS],
-            "cli": [_cli_argv(chat, run_dir, (1, 4, 1, 1))] * 2}
+            "cli": [_cli_argv(chat, run_dir, (1, 4, 1, 1))] * 2,
+            "cli_overlays": _cli_argv(chat, overlay_run, (1, 4, 1, 1)) + ["--no-resume",
+                                                                           *overlay_flags()]}
     t0 = time.time()
     results = run_ranks(fsdp_rank, FSDP_RANKS, plan, backend="gloo", timeout=900,
                         store_dir=os.path.join(ROOT, "build"))
@@ -6967,6 +7643,7 @@ def fsdp_phase(card: str, device, small: bool = False):
     print(f"  (c) train CLI --mesh 1 4 1 1 --moe-mode gmm: exit codes "
           f"{[[rc for rc, _ in res['cli']] for res in results]}, metrics.jsonl {len(lines)} "
           f"lines, second run: {resumed}", flush=True)
+    _overlay_report(results, overlay_run, failed)
     TRAIN_REFS.update(narrow={**narrow_ref, **stage1_ref}, full=full_ref, picks=picks,
                       full_s=full_s, readings=readings, chat=chat, run_dir=run_dir, small=small)
     if failed:
@@ -7269,6 +7946,7 @@ def main() -> int:
         parts.append(train_cli_phase())
         kernels.reset_launches()
         train_equivalence_phase(pair)
+        lora_equivalence_phase(pair)
         stage_chain_phase(pair)
         parts.append(dict(kernels.launches))
         print(f"  phase 7 wall {time.time() - t0:.1f} s", flush=True)

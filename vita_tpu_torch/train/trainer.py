@@ -149,8 +149,16 @@ def copy_into(params, loaded) -> None:
 
 def load_adapter_into(params, path: str):
     """Overlay the components of a ``save_trainable_only`` checkpoint (the
-    latest step under ``path``) onto ``params``, in place."""
-    copy_into(params, load_state(path))
+    latest step under ``path``) onto ``params``, in place. A component the
+    params do not have raises KeyError, as vita_tpu.checkpoint's does."""
+    subset = load_state(path)
+    for key in subset:
+        if key not in params:
+            raise KeyError(f"adapter checkpoint has unknown component {key!r}")
+    copy_into(params, subset)
+    for key, sub in subset.items():
+        n = sum(w.numel() for _, w in tree_leaves(sub))
+        print(f"[load] adapter overlay: {key} ({n / 1e6:.2f}M params)")
     return params
 
 
