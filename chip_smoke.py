@@ -263,7 +263,27 @@ Phases, each of which raises on failure:
      B3 or B7 (and B5b at full width); first-text and interrupt latencies
      printed beside phase 9's, with the noise query's first text on
      replica 0 beside A's on replica 1 and replica 1's link to rank 0
-     (round trips and their ms).
+     (round trips and their ms); (d) after (a)-(c), the three serving
+     mains a user starts, each in a child process on cuda:0 over phase
+     11's export (entry_child: a byte-level tokenizer in place of the
+     checkpoint's, every Request an Engine accepts recorded, launch counts
+     zeroed; it prints its counts, the requests' layouts and any jax or
+     vita_tpu module loaded, which fails it): (d1) python -m
+     vita_tpu_torch.serve.http_server --model <export> --history-mode
+     interactive --slots 4 --max-len 2048 (default media warm-up): /health,
+     an audio turn and a text turn of one session, a streamed chat
+     completion, /stats with reused rows, SIGINT and exit 0; its prompts
+     and greedy streams equal an in-process ServingApp(history_mode=
+     'interactive') over an Engine built with main's arguments, but at a
+     NEAR_TIE split; (d2) duplex_http.main (--max-new-tokens 16, warm-up
+     on) fed duplex_demo.synth_session as int16 chunks on /audio while
+     /events is read: 2 utterances, vad, utterance, text, interrupt and tts
+     events (RIFF wavs), SIGINT and exit 0; (d3) duplex_demo.main
+     --simulate --camera synthetic --tts-dir --history-limit 1 --max-len
+     4096: exit 0, 2 queries, a wav written, each query 8 tiles of image
+     tokens before its audio and the second with the history's audio span
+     beside its own; each child launching B2 (the export loads with 'xla'
+     attention and 'dense' MoE, as the JAX loader's config: no B1).
 
  13. pipeline parallelism, as 4 ranks spawned on cuda:0 over gloo after
      the unsharded runs here: (a) the Engine at phase 5's narrow fp32
@@ -354,9 +374,10 @@ Phases, each of which raises on failure:
      Adam moments), then the train CLI --mesh 1 1 2 2 trains two more
      steps from it and every rank exits 0.
 
-Prints the card's name and power limit first, the wall of phases 1-15,
+Prints the card's name and power limit first, whether the host has PIL,
+cv2 and transformers, the wall of phases 1-15,
 then a JSON line of per-kernel results (launches summed over phases 3-15,
-phases 11-15's over their ranks; "stage1_launches", phase 6's stage-1
+phases 11-15's over their ranks and 12(d)'s over its children; "stage1_launches", phase 6's stage-1
 run alone) before the last, and as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when no CUDA device is present or any
@@ -369,6 +390,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -5647,6 +5669,541 @@ def seq_duplex_phase(card: str, device, ckpt_dir):
 
 
 # --------------------------------------------------------------------------
+# phase 12(d): the three serving mains a user starts, each in a child
+# process on cuda:0, over phase 11's export
+# --------------------------------------------------------------------------
+ENTRY_DIR = os.path.join(ROOT, "build", "smoke_entry")
+# new tokens of every request that part (d) sends or that a demo makes
+ENTRY_NEW = 16
+# The export's config names no attention backend and no MoE mode, so it
+# loads with MixtralConfig's defaults, 'xla' attention and 'dense' MoE, as
+# the JAX loader's config does (vita_tpu/checkpoint.py:120-133): prefill
+# runs the plain attention over every expert, decode B2 over bf16 pages.
+# B2 is the kernel each child must launch; the rest is printed.
+ENTRY_PATH = ("paged_attention",)
+ENTRY_TIMEOUT = 300  # s: the longest a child may live
+ENTRY_SIGINT_S = 60  # s: the longest a server may take to exit after SIGINT
+
+
+class ByteHFTokenizer:
+    """A byte-level stand-in for a checkpoint's tokenizer, with the call
+    surface that ``http_server.load_model`` uses (``tok(s).input_ids``,
+    ``decode(ids, skip_special_tokens=False)``, ``bos_token_id``,
+    ``eos_token_id``): ByteTokenizer's ids, eos -1 (random weights run
+    to their token budget) and letter_decode, so that every token is
+    visible text to the duplex gate."""
+
+    bos_token_id, eos_token_id = 1, -1
+
+    class _Encoding:
+        def __init__(self, ids):
+            self.input_ids = ids
+
+    def __call__(self, text):
+        from vita_tpu_torch.cli import ByteTokenizer
+
+        return self._Encoding(ByteTokenizer().encode(text))
+
+    def decode(self, ids, skip_special_tokens=False):
+        return letter_decode(ids)
+
+
+def _spans(mask):
+    """[start, length] of each run of True in ``mask``."""
+    if mask is None:
+        return []
+    m = np.asarray(mask, bool).astype(np.int8)
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], m, [0]])))
+    return [[int(a), int(b - a)] for a, b in zip(edges[::2], edges[1::2])]
+
+
+def _request_layout(req):
+    """What part (d) checks of an accepted Request: its length and ids'
+    digest, image and audio spans, tiles, token budget and tokens."""
+    import hashlib
+
+    ids = np.asarray(req.input_ids, np.int32)
+    return {"n": len(ids), "ids": hashlib.sha256(ids.tobytes()).hexdigest()[:16],
+            "image": _spans(req.image_mask), "audio": _spans(req.audio_mask),
+            "tiles": 0 if req.images is None else len(req.images),
+            "max_new": int(req.max_new_tokens), "tokens": [int(t) for t in req.tokens],
+            "session": req.session_key}
+
+
+def entry_child(module, argv):
+    """In a child process: ``vita_tpu_torch.serve.<module>.main(argv)`` as a
+    user's command line runs it, after three things: ByteHFTokenizer in
+    place of the checkpoint's tokenizer (``cli.load_hf_tokenizer``), every
+    Request an Engine accepts recorded (``Engine.submit`` wrapped), the
+    launch counts zeroed; the checkpoint load and the warm-up are timed.
+    Prints as its last line main's exit code, the launch counts, the
+    accepted requests' layouts, those seconds and the jax / vita_tpu
+    modules loaded (none may be). Returns main's exit code."""
+    import importlib
+
+    from vita_tpu_torch import checkpoint, cli, kernels
+    from vita_tpu_torch.serve import engine as engine_mod
+
+    accepted, seconds = [], {}
+    submit = engine_mod.Engine.submit
+
+    def recording_submit(self, req):
+        out = submit(self, req)
+        accepted.append(req)
+        return out
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.time() - t0
+        return run
+
+    cli.load_hf_tokenizer = lambda path: ByteHFTokenizer()
+    engine_mod.Engine.submit = recording_submit
+    checkpoint.load_vita_checkpoint = timed("load_s", checkpoint.load_vita_checkpoint)
+    engine_mod.Engine.warmup = timed("warmup_s", engine_mod.Engine.warmup)
+    mod = importlib.import_module(f"vita_tpu_torch.serve.{module}")
+    if module == "duplex_http":
+        mod.DuplexWebApp._warmup = timed("warmup_s", mod.DuplexWebApp._warmup)
+    kernels.reset_launches()
+    rc = mod.main(argv)
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vita_tpu"))
+    print(json.dumps({"entry": module, "rc": rc,
+                      "launches": {k: n for k, n in kernels.launches.items() if n},
+                      "requests": [_request_layout(r) for r in accepted], **seconds,
+                      "foreign": foreign}), flush=True)
+    return rc
+
+
+def _free_ports(n):
+    """``n`` distinct free TCP ports on 127.0.0.1."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _entry_start(module, argv):
+    """Starts entry_child(module, argv) in a child process on the card; its
+    output goes to ENTRY_DIR/<module>.out and .err."""
+    out = open(os.path.join(ENTRY_DIR, f"{module}.out"), "w")
+    err = open(os.path.join(ENTRY_DIR, f"{module}.err"), "w")
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.entry_child({module!r}, sys.argv[1:]))"
+    try:
+        proc = subprocess.Popen([sys.executable, "-c", code, *argv], cwd=ROOT, stdout=out,
+                                stderr=err)
+    finally:
+        out.close()
+        err.close()
+    proc.module, proc.started = module, time.time()
+    return proc
+
+
+def _entry_tail(module, n=1500):
+    text = ""
+    for ext in ("out", "err"):
+        with open(os.path.join(ENTRY_DIR, f"{module}.{ext}")) as f:
+            text += f"\n  [{ext}] ...{f.read()[-n:]}"
+    return text
+
+
+def _entry_end(proc, timeout):
+    """Waits for the child: (its last line's JSON, its stdout, its wall s).
+    Raises if it does not exit 0 in ``timeout`` s, prints no result line,
+    loaded a jax or vita_tpu module or never launched a kernel of
+    ENTRY_PATH."""
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{proc.module}: still running after {timeout} s"
+                             + _entry_tail(proc.module))
+    wall = time.time() - proc.started
+    with open(os.path.join(ENTRY_DIR, f"{proc.module}.out")) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith('{"entry"')]
+    if rc != 0 or not lines:
+        raise AssertionError(f"{proc.module} exited with {rc}" + _entry_tail(proc.module))
+    res = json.loads(lines[-1])
+    if res["foreign"]:
+        raise AssertionError(f"{proc.module} loaded {res['foreign']}")
+    missing = [k for k in ENTRY_PATH if not res["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"{proc.module} never launched {missing}: {res['launches']}")
+    return res, text, wall
+
+
+def _entry_http(proc, url, body=None, timeout=120):
+    """GET (``body`` None) or POST JSON to the child's ``url``: (content
+    type, body bytes). Raises with the child's output if it has exited."""
+    import urllib.request
+
+    if proc.poll() is not None:
+        raise AssertionError(f"{proc.module} exited with {proc.returncode}"
+                             + _entry_tail(proc.module))
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.headers.get("Content-Type"), r.read()
+
+
+def _entry_ready(proc, url, timeout=ENTRY_TIMEOUT):
+    """Polls ``url`` until the child's server answers: (its JSON, the
+    seconds since the child started)."""
+    deadline = proc.started + timeout
+    while time.time() < deadline:
+        try:
+            return json.loads(_entry_http(proc, url, timeout=5)[1]), time.time() - proc.started
+        except OSError:
+            time.sleep(0.25)
+    raise AssertionError(f"{proc.module}: no answer on {url} in {timeout} s"
+                         + _entry_tail(proc.module))
+
+
+def _interrupt(proc):
+    """SIGINT, as a user's Ctrl-C: the server must exit in ENTRY_SIGINT_S."""
+    import signal
+
+    t0 = time.time()
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(ENTRY_SIGINT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{proc.module} still running {ENTRY_SIGINT_S} s after SIGINT")
+    return time.time() - t0
+
+
+def _speech_pcm(seconds, seed):
+    """int16 PCM of ``seconds`` of the VAD model's synthetic speech."""
+    from vita_tpu_torch.serve.vad import CHUNK_SAMPLES, SAMPLE_RATE
+    from vita_tpu_torch.serve.vad_model import synth_speech
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SAMPLE_RATE)
+    wav = np.concatenate([synth_speech(rng, CHUNK_SAMPLES)
+                          for _ in range(n // CHUNK_SAMPLES + 1)])[:n]
+    return (np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes()
+
+
+def entry_http_requests():
+    """(d1)'s requests: an audio turn and a text turn of one session, then
+    a streamed chat completion."""
+    import base64
+
+    turns = [{"audio_b64": base64.b64encode(_speech_pcm(3.0, SEED + 30)).decode(),
+              "session_id": "d1", "max_tokens": ENTRY_NEW},
+             {"prompt": "And what did you hear?", "session_id": "d1", "max_tokens": ENTRY_NEW}]
+    chat = {"messages": [{"role": "user", "content": "Say something about the sea."}],
+            "max_tokens": ENTRY_NEW, "stream": True}
+    return turns, chat
+
+
+def entry_http_reference(ckpt_dir, device, turns, chat):
+    """(d1)'s reference in this process: ServingApp(history_mode=
+    'interactive') over an Engine built with http_server.main's arguments
+    for --slots 4 --max-len 2048 on the export, with ByteHFTokenizer, the
+    same requests one at a time. Returns (cfg, [(layout, top2,
+    request_id)]), top2 keyed (request_id, step) as _first_split reads it."""
+    import threading
+
+    import torch
+
+    from vita_tpu_torch.checkpoint import load_vita_checkpoint
+    from vita_tpu_torch.serve.engine import Engine
+    from vita_tpu_torch.serve.http_server import ServingApp
+
+    cfg, params = load_vita_checkpoint(ckpt_dir, device)
+    engine = Engine(params, cfg, n_slots=4, max_len=2048, decode_ticks=4, kv_int8=False,
+                    page_size=64, mesh=None, sharded=False, device=device)
+    del params
+    tok = ByteHFTokenizer()
+    app = ServingApp(engine, cfg, lambda s: tok(s).input_ids, tok.decode, tok.bos_token_id,
+                     tok.eos_token_id, image_size=cfg.vision.image_size,
+                     history_mode="interactive")
+    out = []
+    try:
+        for payload in turns + [chat]:
+            if payload is chat:
+                req, record, release = app.build_openai_request(chat), None, lambda: None
+            else:
+                req, record, release = app.build_request(payload)
+            done = threading.Event()
+            req.on_finish = lambda toks, reason, done=done: done.set()
+            top2, first = {}, []
+            try:
+                with _recording_top2(engine, top2), _recording_first_top2(first):
+                    app.submit(req)
+                    if not done.wait(ENTRY_TIMEOUT):
+                        raise AssertionError("(d1) reference: a request did not finish")
+                if record is not None:
+                    record(tok.decode(req.tokens).replace("</s>", ""))
+            finally:
+                release()
+            top2[(req.request_id, 0)] = first[-1]
+            out.append((_request_layout(req), top2, req.request_id))
+    finally:
+        app.thread.stop()
+        app.thread.join(timeout=60)
+    del app, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def entry_http_run(card, proc, port, turns, chat, ref):
+    """(d1): /health, the two session turns and the streamed chat on the
+    child's http_server.main, /stats (reused rows), SIGINT; then its
+    recorded requests against the in-process reference: the same prompt
+    ids while the streams agree, the same greedy tokens but at a NEAR_TIE
+    split, and each body the tokens' letters. Returns the child's result."""
+    base = f"http://127.0.0.1:{port}"
+    health, ready_s = _entry_ready(proc, base + "/health")
+    if health != {"status": "ok", "active": 0}:
+        raise AssertionError(f"(d1) /health: {health}")
+    bodies, walls = [], []
+    for payload in turns:
+        t0 = time.time()
+        bodies.append(_entry_http(proc, base + "/v1/generate", payload)[1].decode())
+        walls.append((time.time() - t0) * 1e3)
+    t0 = time.time()
+    ctype, raw = _entry_http(proc, base + "/v1/chat/completions", chat)
+    walls.append((time.time() - t0) * 1e3)
+    events = [e for e in raw.decode().split("\n\n") if e.startswith("data: ")]
+    stats = json.loads(_entry_http(proc, base + "/stats")[1])
+    sigint_s = _interrupt(proc)
+    res, _, wall = _entry_end(proc, ENTRY_SIGINT_S)
+    chunks = [json.loads(e[6:]) for e in events[:-1]]
+    streamed = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    bodies.append(streamed)
+    if (ctype != "text/event-stream" or events[-1] != "data: [DONE]"
+            or chunks[-1]["choices"][0]["finish_reason"] != "length"):
+        raise AssertionError(f"(d1) chat stream: {ctype}, {events[-2:]}")
+    if stats["reused_prefix_rows"] <= 0:
+        raise AssertionError(f"(d1) /stats shows no reused prefix rows: {stats}")
+    got = [r for r in res["requests"] if r["max_new"] == ENTRY_NEW]
+    if len(got) != len(ref):
+        raise AssertionError(f"(d1) the Engine accepted {len(got)} requests, expected {len(ref)}")
+    split = None
+    for k, (g, (want, top2, rid), body) in enumerate(zip(got, ref, bodies)):
+        if body != letter_decode(g["tokens"]) or len(g["tokens"]) != ENTRY_NEW:
+            raise AssertionError(f"(d1) request {k}: body {body!r} is not its "
+                                 f"{len(g['tokens'])} tokens' letters")
+        if split is not None and k < len(turns):
+            print(f"    request {k}: not compared (its prompt holds the answer that split)",
+                  flush=True)
+            continue
+        if (g["ids"], g["image"], g["audio"]) != (want["ids"], want["image"], want["audio"]):
+            raise AssertionError(f"(d1) request {k}: prompt {g['n']} ids {g['ids']} audio "
+                                 f"{g['audio']}, reference {want['n']} {want['ids']} "
+                                 f"{want['audio']}")
+        at = _first_split(g["tokens"], want["tokens"], top2, rid, NEAR_TIE)
+        if at is not None and k < len(turns):
+            split = k
+    print(f"  (d1) http_server.main --history-mode interactive: ready {ready_s:.1f} s after "
+          f"start (load {res.get('load_s', float('nan')):.1f} s, default media warm-up "
+          f"{res.get('warmup_s', float('nan')):.1f} s); audio turn {walls[0]:.1f} ms, text "
+          f"turn {walls[1]:.1f} ms, streamed chat {walls[2]:.1f} ms; reused_prefix_rows "
+          f"{stats['reused_prefix_rows']:.0f}; exit 0 {sigint_s:.2f} s after SIGINT; child "
+          f"wall {wall:.1f} s; streams equal the in-process reference"
+          f"{'' if split is None else ' up to a near tie'}  [{card}]", flush=True)
+    for k, g in enumerate(got):
+        print(f"    request {k}: {g['n']} ids, audio spans {g['audio']}, session "
+              f"{g['session']}", flush=True)
+    return res
+
+
+def entry_duplex_http_run(card, proc, port):
+    """(d2): the synthetic mic session POSTed as int16 chunks to the
+    child's duplex_http.main while /events is read; waits for the second
+    answer's turn; /stats; SIGINT. Requires 2 utterances (the noise is
+    none), vad, utterance, text and interrupt events, tts events whose
+    wavs start with RIFF, and exit 0. Returns the child's result."""
+    import base64
+    import threading
+    import urllib.request
+
+    from vita_tpu_torch.serve.duplex_demo import synth_session
+    from vita_tpu_torch.serve.vad import CHUNK_SAMPLES
+
+    base = f"http://127.0.0.1:{port}"
+    _, ready_s = _entry_ready(proc, base + "/stats")
+    events, stop = [], threading.Event()
+    resp = urllib.request.urlopen(base + "/events", timeout=ENTRY_TIMEOUT)
+
+    def reader():
+        try:
+            while not stop.is_set():
+                line = resp.readline()
+                if not line:
+                    return
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[6:]))
+        except (OSError, ValueError):
+            return
+
+    threading.Thread(target=reader, daemon=True).start()
+    pcm = (np.clip(np.concatenate(synth_session()), -1, 1) * 32767).astype("<i2")
+    t0 = time.time()
+    for i in range(0, len(pcm), CHUNK_SAMPLES):
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/audio", data=pcm[i:i + CHUNK_SAMPLES].tobytes(), method="POST"),
+            timeout=60).read()
+    posted = time.time() - t0
+    deadline = time.time() + 120
+    while time.time() < deadline and proc.poll() is None:
+        kinds = [e["type"] for e in events]
+        if "interrupt" in kinds and "turn" in kinds[kinds.index("interrupt"):]:
+            break
+        time.sleep(0.05)
+    stats = json.loads(_entry_http(proc, base + "/stats")[1])
+    stop.set()
+    resp.close()
+    sigint_s = _interrupt(proc)
+    res, _, wall = _entry_end(proc, ENTRY_SIGINT_S)
+    kinds = [e["type"] for e in events]
+    if stats["utterances"] != 2:
+        raise AssertionError(f"(d2) {stats['utterances']} utterances, expected 2")
+    lacking = {"vad", "utterance", "text", "interrupt", "tts"} - set(kinds)
+    if lacking:
+        raise AssertionError(f"(d2) no {sorted(lacking)} events: {kinds}")
+    wavs = [base64.b64decode(e["wav_b64"]) for e in events if e["type"] == "tts"]
+    if not all(w[:4] == b"RIFF" and len(w) > 44 for w in wavs):
+        raise AssertionError(f"(d2) tts events without a wav: {[w[:8] for w in wavs]}")
+    # speech end -> first text: an utterance event to the first text event
+    # after it, both on the child's clock
+    firsts = []
+    for e in events:
+        if e["type"] == "utterance":
+            t = next((x["t"] for x in events if x["type"] == "text" and x["t"] >= e["t"]), None)
+            firsts.append(float("nan") if t is None else (t - e["t"]) * 1e3)
+    got = [r for r in res["requests"] if r["max_new"] == ENTRY_NEW]
+    print(f"  (d2) duplex_http.main: ready {ready_s:.1f} s after start (load "
+          f"{res.get('load_s', float('nan')):.1f} s, warm-up "
+          f"{res.get('warmup_s', float('nan')):.1f} s); {len(pcm) / 16000:.1f} s of audio "
+          f"POSTed in {posted:.2f} s; utterances {stats['utterances']}, interrupts "
+          f"{stats['interrupts']}, gate rejections {stats['rejected_noise']}, {len(wavs)} tts "
+          f"wavs; utterance -> first text {[round(x, 1) for x in firsts]} ms (phase 9's duplex "
+          f"app: speech end -> first text {PHASE9_READINGS.get('first_text_ms')}); exit 0 "
+          f"{sigint_s:.2f} s after SIGINT; child wall {wall:.1f} s  [{card}]", flush=True)
+    for k, g in enumerate(got):
+        print(f"    request {k}: {g['n']} ids, audio spans {g['audio']}", flush=True)
+    return res
+
+
+def entry_demo_run(card, cfg, ckpt_dir):
+    """(d3): duplex_demo.main --simulate with the synthetic camera, TTS wavs
+    and a history of one turn, alone on the card. Requires exit 0, '[demo]
+    done: 2 queries', a wav in --tts-dir, and the two queries' requests
+    each with 8 x image_tokens_per_group image positions (8 tiles) before
+    its first audio position, the second with the history's audio span
+    beside its own and no history image. Returns the child's result."""
+    tts_dir = os.path.join(ENTRY_DIR, "tts")
+    proc = _entry_start("duplex_demo", [
+        "--model", ckpt_dir, "--simulate", "--camera", "synthetic", "--tts-dir", tts_dir,
+        "--history-limit", "1", "--max-len", "4096", "--settle-s", "2", "--tts-pace", "0",
+        "--max-new-tokens", str(ENTRY_NEW)])
+    res, text, wall = _entry_end(proc, ENTRY_TIMEOUT)
+    done = [ln for ln in text.splitlines() if ln.startswith("[demo] done:")]
+    warm = [ln for ln in text.splitlines() if ln.startswith("[demo] engines warm in")]
+    if not done or not done[-1].startswith("[demo] done: 2 queries"):
+        raise AssertionError(f"(d3) {done}" + _entry_tail("duplex_demo"))
+    wavs = sorted(f for f in os.listdir(tts_dir) if f.endswith(".wav")) \
+        if os.path.isdir(tts_dir) else []
+    sizes = [os.path.getsize(os.path.join(tts_dir, f)) for f in wavs]
+    if not any(s > 44 for s in sizes):
+        raise AssertionError(f"(d3) no wav with samples in --tts-dir: {list(zip(wavs, sizes))}")
+    n_img = 8 * cfg.image_tokens_per_group
+    got = [r for r in res["requests"] if r["max_new"] == ENTRY_NEW]
+    if len(got) != 2:
+        raise AssertionError(f"(d3) {len(got)} queries accepted, expected 2")
+    for k, g in enumerate(got):
+        images = sum(n for _, n in g["image"])
+        last_image = g["image"][-1][0] + g["image"][-1][1] - 1 if g["image"] else -1
+        if images != n_img or g["tiles"] != 8 or not g["audio"] \
+                or last_image >= g["audio"][0][0]:
+            raise AssertionError(f"(d3) query {k + 1}: {images} image positions in "
+                                 f"{g['image']} ({g['tiles']} tiles), audio {g['audio']}; "
+                                 f"expected {n_img} (8 tiles) before the first audio position")
+    if len(got[1]["audio"]) != 2:
+        raise AssertionError(f"(d3) the second query carries audio spans {got[1]['audio']}, "
+                             "expected the history's and its own")
+    print(f"  (d3) duplex_demo.main --simulate --camera synthetic: load "
+          f"{res.get('load_s', float('nan')):.1f} s, {warm[-1][7:] if warm else 'no warm line'}; "
+          f"{done[-1][7:]}; {len(wavs)} wavs in --tts-dir ({min(sizes)}-{max(sizes)} bytes); "
+          f"queries: image {[g['image'] for g in got]}, audio {[g['audio'] for g in got]} of "
+          f"{[g['n'] for g in got]} ids; child wall {wall:.1f} s  [{card}]", flush=True)
+    return res
+
+
+def entry_points_phase(card, device, ckpt_dir):
+    """Phase 12(d) on phase 11's export: (d1) http_server.main in interactive
+    mode and (d2) duplex_http.main, started together so that their loads
+    and warm-ups overlap (the reference of (d1) runs here meanwhile), then
+    driven one after the other; (d3) duplex_demo.main alone. Each child
+    runs entry_child. Every check runs, and the phase then fails on any
+    that failed. Returns the children's launch counts, summed."""
+    import shutil
+
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    os.makedirs(ENTRY_DIR)
+    total, failed = {}, []
+
+    def add(res):
+        print(f"    launches: {res['launches']}", flush=True)
+        for k, n in res["launches"].items():
+            total[k] = total.get(k, 0) + n
+
+    t_start = time.time()
+    p1, p2 = _free_ports(2)
+    turns, chat = entry_http_requests()
+    d1 = _entry_start("http_server", ["--model", ckpt_dir, "--history-mode", "interactive",
+                                      "--port", str(p1), "--slots", "4", "--max-len", "2048"])
+    d2 = _entry_start("duplex_http", ["--model", ckpt_dir, "--port", str(p2),
+                                      "--max-new-tokens", str(ENTRY_NEW)])
+    cfg = None
+    try:
+        t0 = time.time()
+        try:
+            cfg, ref = entry_http_reference(ckpt_dir, device, turns, chat)
+            print(f"  (d1) the in-process reference served in {time.time() - t0:.1f} s (beside "
+                  f"the children's loads)  [{card}]", flush=True)
+            add(entry_http_run(card, d1, p1, turns, chat, ref))
+        except (AssertionError, OSError) as e:
+            failed.append(f"(d1) {e}")
+        try:
+            add(entry_duplex_http_run(card, d2, p2))
+        except (AssertionError, OSError) as e:
+            failed.append(f"(d2) {e}")
+    finally:
+        for proc in (d1, d2):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if cfg is not None:
+        try:
+            add(entry_demo_run(card, cfg, ckpt_dir))
+        except (AssertionError, OSError) as e:
+            failed.append(f"(d3) {e}")
+    else:
+        failed.append("(d3) not run: the export's config was not loaded")
+    print(f"  (d) wall {time.time() - t_start:.1f} s  [{card}]", flush=True)
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 12(d) failed:\n  " + "\n  ".join(failed))
+    return total
+
+
+# --------------------------------------------------------------------------
 # phase 13: pipeline-parallel serving and one GPipe step, as 4 ranks on
 # cuda:0 over gloo
 # --------------------------------------------------------------------------
@@ -7877,6 +8434,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
+    print("host packages: " + ", ".join(
+        f"{name} {'present' if importlib.util.find_spec(name) else 'absent'}"
+        for name in ("PIL", "cv2", "transformers")), flush=True)
 
     print("phase 1: build the kernels", flush=True)
     t_start = t0 = time.time()
@@ -7977,6 +8537,10 @@ def main() -> int:
               "card)", flush=True)
         t0 = time.time()
         parts.append(seq_duplex_phase(card, dev, os.path.join(MESH_DIR, "ckpt")))
+        print(f"  phase 12(a)-(c) wall {time.time() - t0:.1f} s  [{card}]", flush=True)
+        print("phase 12(d): http_server.main, duplex_http.main and duplex_demo.main in child "
+              "processes on phase 11's export", flush=True)
+        parts.append(entry_points_phase(card, dev, os.path.join(MESH_DIR, "ckpt")))
         print(f"  phase 12 wall {time.time() - t0:.1f} s  [{card}]", flush=True)
         print("phase 13: pipeline-parallel serving and one GPipe step (4 gloo ranks on one "
               "card)", flush=True)
